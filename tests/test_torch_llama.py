@@ -1,0 +1,190 @@
+"""The port's slice as a whole: an MXFP4-weight / MXFP8-activation Llama with
+an fp8 KV cache, held against the JAX package on the same weights.
+
+Weights come from the JAX model (seeded ``nnx.Rngs``) through
+``torchmx_tpu_torch.convert``; both sides quantize them with their own
+``quantize_llm_``.  The port's attention follows the fused kernel (fp32
+scores, online softmax), so its reference is the JAX Pallas path, run in
+interpret mode.  Tolerances:
+
+* logits against the Pallas path: rel <= 2e-2 (max abs difference over max
+  abs logit);
+* logits against the eager jnp path: the JAX package's two paths themselves
+  differ here (bf16 scores and full softmax in the eager path; activation
+  fake-quantization amplifies each ulp into a quantization step), so the
+  port may be at most 2e-2 farther from the eager path than the Pallas path
+  is;
+* greedy tokens equal to JAX greedy decoding on the Pallas path up to the
+  first step where JAX's top-2 logit gap is below 0.1 (a near tie that a
+  1-ulp difference may flip; the test prints the gap).  The JAX decode runs
+  op by op: under ``jit`` (``torchmx_tpu.models.generate``) XLA drops
+  intermediate bf16 roundings, so JAX's jitted ``generate`` differs from its
+  own op-by-op steps by more than a near tie; the port follows the op-by-op
+  arithmetic, which is the one written in the source.
+"""
+
+import contextlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from flax import nnx
+
+from torchmx_tpu import env_variables as jenv
+from torchmx_tpu.config import MXConfig as JMXConfig
+from torchmx_tpu.config import QAttentionConfig as JQAttn
+from torchmx_tpu.config import QLinearConfig as JQLin
+from torchmx_tpu.models.llama import LlamaConfig as JLlamaConfig
+from torchmx_tpu.models.llama import LlamaForCausalLM as JLlama
+from torchmx_tpu.quant_api import quantize_llm_ as jquantize_llm_
+from torchmx_tpu_torch.config import MXConfig, QAttentionConfig, QLinearConfig
+from torchmx_tpu_torch.convert import from_flat_params
+from torchmx_tpu_torch.models.generate import generate
+from torchmx_tpu_torch.models.llama import LlamaConfig
+from torchmx_tpu_torch.quant_api import quantize_llm_
+
+torch.set_num_threads(1)
+
+SMALL = dict(vocab_size=256, hidden_size=512, intermediate_size=1024, num_hidden_layers=2,
+             num_attention_heads=4, num_key_value_heads=2, head_dim=128)
+KV = "float8_e4m3"
+REL_TOL = 2e-2
+TIE_GAP = 0.1
+
+
+def _flat(jmodel) -> dict:
+    _, state = nnx.split(jmodel)
+    return {".".join(map(str, k)): np.asarray(v.get_value()) for k, v in state.flat_state()}
+
+
+def _quantize_pair(jmodel, cfg_kwargs):
+    """(quantized JAX model, quantized port model) from the same bf16 weights."""
+    port = from_flat_params(_flat(jmodel), LlamaConfig(**cfg_kwargs), device="cpu")
+    jq = JQLin(weights_config=JMXConfig("float4_e2m1"), activations_config=JMXConfig("float8_e4m3"))
+    jquantize_llm_(jmodel, JQAttn(projection_config=jq), jq)
+    tq = QLinearConfig(MXConfig("float4_e2m1"), MXConfig("float8_e4m3"))
+    quantize_llm_(port, QAttentionConfig(tq), tq)
+    return jmodel, port
+
+
+@contextlib.contextmanager
+def jax_backend(mode: str):
+    """``eager``: the jnp path (dequantized cache); ``pallas``: the Pallas
+    kernels in interpret mode."""
+    old = jenv.TORCHMX_QUANTIZE_BACKEND, jenv.TORCHMX_FUSED_ATTENTION
+    if mode == "pallas":
+        jenv.TORCHMX_QUANTIZE_BACKEND, jenv.TORCHMX_FUSED_ATTENTION = "pallas", "pallas"
+    else:
+        jenv.TORCHMX_QUANTIZE_BACKEND, jenv.TORCHMX_FUSED_ATTENTION = "jnp", "off"
+    try:
+        yield
+    finally:
+        jenv.TORCHMX_QUANTIZE_BACKEND, jenv.TORCHMX_FUSED_ATTENTION = old
+
+
+def _jax_steps(jmodel, ids: np.ndarray, forced: np.ndarray, max_len: int):
+    """JAX logits (b, 1 + len(forced), V) fp32: prefill, then decode steps
+    teacher-forced on ``forced`` tokens."""
+    b, s = ids.shape
+    caches = jmodel.init_cache(b, max_len, JMXConfig(KV))
+    logits, caches = jmodel(jnp.asarray(ids), attention_mask=None,
+                            position_ids=jnp.arange(s)[None, :], caches=caches, cache_position=0)
+    out = [np.asarray(logits[:, -1], np.float32)]
+    for i in range(forced.shape[1]):
+        logits, caches = jmodel(jnp.asarray(forced[:, i:i + 1]), attention_mask=None,
+                                position_ids=jnp.full((b, 1), s + i, jnp.int32),
+                                caches=caches, cache_position=s + i)
+        out.append(np.asarray(logits[:, -1], np.float32))
+    return np.stack(out, axis=1)
+
+
+def _jax_greedy(jmodel, ids: np.ndarray, n: int, max_len: int = 128):
+    """JAX greedy decoding, op by op: (tokens (b, n), logits (b, n, V))."""
+    b, s = ids.shape
+    caches = jmodel.init_cache(b, max_len, JMXConfig(KV))
+    logits, caches = jmodel(jnp.asarray(ids), attention_mask=None,
+                            position_ids=jnp.arange(s)[None, :], caches=caches, cache_position=0)
+    steps = [np.asarray(logits[:, -1], np.float32)]
+    for i in range(n - 1):
+        tok = jnp.asarray(steps[-1].argmax(-1)[:, None], jnp.int32)
+        logits, caches = jmodel(tok, attention_mask=None,
+                                position_ids=jnp.full((b, 1), s + i, jnp.int32),
+                                caches=caches, cache_position=s + i)
+        steps.append(np.asarray(logits[:, -1], np.float32))
+    logits = np.stack(steps, axis=1)
+    return logits.argmax(-1), logits
+
+
+def _port_steps(port, ids: np.ndarray, forced: np.ndarray, max_len: int):
+    b, s = ids.shape
+    caches = port.init_cache(b, max_len, MXConfig(KV))
+    with torch.inference_mode():
+        out = [port(torch.from_numpy(ids), caches=caches, cache_position=0)[:, -1].float()]
+        for i in range(forced.shape[1]):
+            tok = torch.from_numpy(forced[:, i:i + 1])
+            out.append(port(tok, caches=caches, cache_position=s + i)[:, -1].float())
+    return torch.stack(out, dim=1).numpy()
+
+
+def _rel(a, b) -> float:
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _assert_tokens_match(ref_tokens, got_tokens, ref_logits):
+    """Equal up to the first near tie of the reference (gap < TIE_GAP)."""
+    for row in range(ref_tokens.shape[0]):
+        for i, (r, g) in enumerate(zip(ref_tokens[row], got_tokens[row])):
+            top2 = np.sort(ref_logits[row, i])[-2:]
+            gap = float(top2[1] - top2[0])
+            if r != g:
+                print(f"row {row} step {i}: tokens {r} vs {g}, JAX top-2 gap {gap:.4f}")
+                assert gap < TIE_GAP, f"tokens differ at row {row} step {i} with gap {gap}"
+                break
+
+
+@pytest.fixture(scope="module")
+def small_pair():
+    jmodel = JLlama(JLlamaConfig(**SMALL), rngs=nnx.Rngs(0))
+    return _quantize_pair(jmodel, SMALL)
+
+
+@pytest.fixture(scope="module")
+def small_logits(small_pair):
+    """Prefill + 3 teacher-forced decode steps: (eager, pallas, port) logits."""
+    jmodel, port = small_pair
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, SMALL["vocab_size"], size=(2, 8)).astype(np.int32)
+    forced = rng.integers(0, SMALL["vocab_size"], size=(2, 3)).astype(np.int32)
+    out = {}
+    for mode in ("eager", "pallas"):
+        with jax_backend(mode):
+            out[mode] = _jax_steps(jmodel, ids, forced, 128)
+    out["port"] = _port_steps(port, ids, forced, 128)
+    return out
+
+
+@pytest.mark.parametrize("mode", ["eager", "pallas"])
+def test_prefill_and_decode_logits_match_jax(small_logits, mode):
+    ref, got = small_logits[mode], small_logits["port"]
+    for step in range(ref.shape[1]):
+        rel = _rel(got[:, step], ref[:, step])
+        allowed = REL_TOL
+        if mode == "eager":
+            allowed += _rel(small_logits["pallas"][:, step], ref[:, step])
+        print(f"{mode} step {step}: rel {rel:.3e} (allowed {allowed:.3e})")
+        assert rel <= allowed
+
+
+def test_greedy_generate_matches_jax(small_pair):
+    jmodel, port = small_pair
+    ids = np.random.default_rng(1).integers(0, SMALL["vocab_size"], size=(2, 8)).astype(np.int32)
+    n = 16
+    with jax_backend("pallas"):
+        ref, ref_logits = _jax_greedy(jmodel, ids, n)
+    got, got_logits = generate(port, torch.from_numpy(ids), n, kv_cache_config=MXConfig(KV),
+                               return_logits=True)
+    assert got_logits.shape == (2, n, SMALL["vocab_size"])
+    _assert_tokens_match(ref, got.numpy(), ref_logits)

@@ -1,0 +1,190 @@
+// Shared device code of the MX kernels: element format constants, the
+// per-element hw-exact cast, the fake-quantize "magic number" cast and the
+// code -> bf16 decoders.  Every function here mirrors a plain PyTorch
+// version in torchmx_tpu_torch/ (named in its comment) bit for bit.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mx {
+
+// Element format codes (ELEM_CODES in ops/cuda_lib.py).
+enum ElemCode { kFp8E4M3 = 0, kFp4E2M1 = 1, kFp6E3M2 = 2, kFp6E2M3 = 3, kInt8 = 4 };
+
+template <int E> struct Elem;
+// mb: mantissa bits, eb: exponent bits, max_pow2: largest binade,
+// tmant: fp32 mantissa field of max / 2^max_pow2 (the clamp threshold).
+template <> struct Elem<kFp8E4M3> { static constexpr int mb = 3, eb = 4, bias = 7, max_pow2 = 8, tmant = 0x600000; };
+template <> struct Elem<kFp4E2M1> { static constexpr int mb = 1, eb = 2, bias = 1, max_pow2 = 2, tmant = 0x400000; };
+template <> struct Elem<kFp6E3M2> { static constexpr int mb = 2, eb = 3, bias = 3, max_pow2 = 4, tmant = 0x600000; };
+template <> struct Elem<kFp6E2M3> { static constexpr int mb = 3, eb = 2, bias = 1, max_pow2 = 2, tmant = 0x700000; };
+template <> struct Elem<kInt8>    { static constexpr int mb = 7, eb = 0, bias = 0, max_pow2 = 6, tmant = 0x7E0000; };
+
+__device__ __forceinline__ float f32_from_bits(uint32_t b) { return __uint_as_float(b); }
+__device__ __forceinline__ uint32_t f32_bits(float f) { return __float_as_uint(f); }
+
+// Position of the leading one of a 7-bit mantissa, -1 for 0
+// (mx_quantization.leading_one_position).
+__device__ __forceinline__ int leading_one(int m) { return m ? 31 - __clz(m) : -1; }
+
+// Shared E8M0 exponent from the block's max biased bf16 exponent
+// (mx_quantization.get_e8m0_shared_exponent).
+__device__ __forceinline__ int block_scale(int emax, int max_pow2) {
+  if (emax == 255) return 255;
+  return min(max(emax - max_pow2, 0), 254);
+}
+
+// Drop `shift_in` low bits with round-half-to-even (mx_quantization.round_to_even).
+__device__ __forceinline__ int round_to_even(int m, int shift_in) {
+  int shift = min(max(shift_in, 1), 25);
+  int reduced = m >> shift;
+  int rem = m & ((1 << shift) - 1);
+  int round_bit = rem >> (shift - 1);
+  bool sticky = (rem & ((1 << (shift - 1)) - 1)) != 0;
+  bool up = round_bit > 0 && ((reduced & 1) || sticky);
+  return shift_in <= 0 ? m : reduced + (up ? 1 : 0);
+}
+
+// The hw-exact element cast of one bf16 value against its block's shared
+// exponent; returns the unpacked code
+// (mx_quantization.quantize_mx_with_e8m0_shared_exponent_hw_exact).
+template <int E>
+__device__ __forceinline__ int cast_hw_exact(int bits, int se) {
+  constexpr int mb = Elem<E>::mb, eb = Elem<E>::eb, bias = Elem<E>::bias;
+  int sign = (bits >> 15) & 1;
+  int exponent = (bits >> 7) & 0xFF;
+  int mant = bits & 0x7F;
+  bool nan_scale = se == 255;
+  if (nan_scale) sign = 0;
+  bool zero = exponent == 0 && mant == 0;
+  if (exponent == 0 && !zero) {  // normalise bf16 subnormal inputs
+    int lo = leading_one(mant);
+    mant = (mant << min(max(7 - lo, 0), 8)) & 0x7F;
+    exponent = -(6 - lo);
+  }
+  int ne = exponent - se + bias;
+  int rounded = ne > 0 ? round_to_even(mant, 7 - mb) : 0;
+  bool osub = ne <= 0 && ne >= -mb && !zero;
+  if (osub) {
+    int sticky = (mant & 0xF) != 0;
+    int subz = (1 << 6) | ((mant >> 4) << 3) | (sticky << 2);
+    rounded = round_to_even(subz, 7 - mb - ne);
+  }
+  if (rounded > (1 << mb) - 1) {  // mantissa overflow carries
+    rounded = 0;
+    ne += 1;
+  }
+  osub = ne <= 0 && ne >= -mb && !zero;
+  bool underflow = ne < -mb || nan_scale || zero;
+  bool sat = ne > (1 << eb) - 1;
+  int max_normal = (1 << (mb + eb)) - 1;
+  if (E == kFp8E4M3) {  // S.1111.111 is NaN; 448 is S.1111.110
+    sat = sat || (ne == 15 && rounded == 7);
+    max_normal = 0x7E;
+  }
+  bool normal = !(sat || underflow || osub);
+  int z = osub ? rounded : 0;
+  if (normal) z = (min(max(ne, 1), (1 << eb) - 1) << mb) | rounded;
+  if (sat) z = max_normal;
+  if (underflow) z = 0;
+  return (sign << (mb + eb)) | z;
+}
+
+// int8 codes: x / 2^(se-127), clamp, round half to even, NaN (and NaN-scale
+// blocks) to 0 (mx_quantization.quantize_mx_with_e8m0_shared_exponent_simulated).
+__device__ __forceinline__ int cast_int8(int bits, int se) {
+  if (se == 255) return 0;
+  int sign = (bits >> 15) & 1, e = (bits >> 7) & 0xFF, m = bits & 0x7F;
+  uint32_t b32 = (uint32_t)bits << 16;
+  int prescale = 0;
+  if (e == 0 && m > 0) {  // exact normal view of a subnormal, times 2^64
+    int p = leading_one(m);
+    b32 = ((uint32_t)sign << 31) | ((uint32_t)(p - 133 + 64 + 127) << 23) |
+          ((uint32_t)((m << (7 - p)) & 0x7F) << 16);
+    prescale = 64;
+  }
+  int shift = 127 - se - prescale;
+  float inv1 = f32_from_bits((uint32_t)((shift >> 1) + 127) << 23);
+  float inv2 = f32_from_bits((uint32_t)((shift - (shift >> 1)) + 127) << 23);
+  float v = __fmul_rn(__fmul_rn(f32_from_bits(b32), inv1), inv2);
+  if (isnan(v)) return 0;
+  v = fminf(fmaxf(v, -127.f), 127.f);
+  return (int)rintf(v);
+}
+
+// Fake-quantize one bf16 value against its block's shared exponent: clamp to
+// max * 2^(se-127), then round to the MX grid's quantum 2^qe with the fp32
+// magic-number add (|x| + M) - M, M = 1.5 * 2^(23+qe).  Subnormal operands
+// are honoured (-ftz=false); results below the fp32 normal range flush to a
+// signed zero, as dequantize_mx does (ops.cuda_quantize.mx_fake_quantize_plain).
+// Returns bf16 bits.
+template <int E>
+__device__ __forceinline__ uint16_t fq_magic(int bits, int se) {
+  constexpr int mb = Elem<E>::mb, bias = Elem<E>::bias, max_pow2 = Elem<E>::max_pow2;
+  if (se == 255) return 0x7FC0;  // NaN-scale block
+  int tfield = se + max_pow2;
+  float t = f32_from_bits(tfield >= 255 ? 0x7F800000u : ((uint32_t)tfield << 23) | Elem<E>::tmant);
+  float a = fminf(fabsf(f32_from_bits((uint32_t)bits << 16)), t);
+  int qe;
+  if (E == kInt8) {
+    qe = se - 127;
+  } else {
+    int ex = (bits >> 7) & 0xFF, man = bits & 0x7F;
+    int e_eff = (ex == 0 && man != 0) ? leading_one(man) - 6 : ex;
+    qe = max(e_eff - 127 - mb, se + (1 - bias - mb) - 127);
+  }
+  bool big = qe > 100;  // keep the magic constant fp32-normal
+  int qe_eff = big ? qe - 64 : qe;
+  float mg = f32_from_bits(((uint32_t)(qe_eff + 150) << 23) | 0x400000u);
+  if (big) a = __fmul_rn(a, 0x1p-64f);
+  float r = __fsub_rn(__fadd_rn(a, mg), mg);
+  if (big) r = __fmul_rn(r, 0x1p64f);
+  uint32_t sgn = ((uint32_t)bits & 0x8000u) << 16;
+  if (E == kInt8 && r == 0.f) sgn = 0;  // int8 has no signed zero
+  if (r < 0x1p-126f) r = 0.f;
+  __nv_bfloat16 y = __float2bfloat16_rn(f32_from_bits(f32_bits(r) | sgn));
+  return __bfloat16_as_ushort(y);
+}
+
+// fp4 (e2m1) nibble times 2^(se-127) -> bf16 bits; results below the bf16
+// normal range flush to zero (ops.cuda_matmul.decode_fp4_to_bf16).
+__device__ __forceinline__ uint16_t decode_fp4(int nib, int se) {
+  int c = nib & 7;
+  int b = 0x3EC0 + (c << 6) + ((c >= 2) << 6) + ((se - 127) << 7);
+  if (c == 0 || b < 0x80) b = 0;
+  return (uint16_t)(b | ((nib & 8) << 12));
+}
+
+// Generic fp code times 2^(se-127) -> float, for a dot operand: signed
+// zeros and the fp8 NaN code are not reproduced, sub-bf16-normal results
+// flush to zero (the values of mx_array.dequantize_mx where those are
+// bf16-normal).
+template <int E>
+__device__ __forceinline__ float decode_code_dot(int code, int se) {
+  constexpr int mb = Elem<E>::mb, eb = Elem<E>::eb, bias = Elem<E>::bias;
+  int mag = (code & ((1 << (mb + eb)) - 1)) << (7 - mb);
+  int sub = mag < 0x80;
+  int fshift = (se - bias + sub) << 7;
+  int b = mag + fshift;
+  bool dead = b < 0x80;
+  float f = dead ? 0.f : __uint_as_float((uint32_t)b << 16);
+  float c = (sub && !dead) ? __uint_as_float((uint32_t)fshift << 16) : 0.f;
+  float v = f - c;
+  return ((code >> (mb + eb)) & 1) ? -v : v;
+}
+
+// D += A (16x16 bf16, row) * B (16x8 bf16, col), fp32 accumulators.
+// Fragment layout (g = lane / 4, t = lane % 4): a0 = A[g][2t..2t+1],
+// a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..];
+// b0 = B[2t..2t+1][g], b1 = B[2t+8..][g]; c0,c1 = C[g][2t..], c2,c3 = C[g+8][2t..].
+__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+}  // namespace mx

@@ -1,0 +1,112 @@
+"""Linear layers (``torchmx_tpu/layers/linear.py:26-260``): a bf16 ``Linear``
+with the torch weight layout ``(out, in)`` and ``MXInferenceLinear``, whose
+weight is MX-quantized once and whose activations are quantized per call."""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from .. import dtypes
+from ..config import QLinearConfig
+from ..mx_array import MXTensor
+from ..ops.matmul import mx_dynamic_matmul, mx_matmul
+from ..ops.quantize import mx_fake_quantize
+
+# Rows above which activations shared by several linears are fake-quantized
+# once (shared_activation_fq) instead of inside each matmul's prologue.
+ACT_FQ_FUSE_MAX_M = 64
+
+
+class Linear(nn.Module):
+    """Plain bf16 linear, weight ``(out_features, in_features)``; with a
+    generator the weight is LeCun-normal, else zeros."""
+
+    def __init__(
+        self,
+        in_features: int,
+        out_features: int,
+        *,
+        use_bias: bool = False,
+        device=None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        w = torch.zeros((out_features, in_features), dtype=torch.bfloat16, device=device)
+        if generator is not None:
+            std = 1.0 / math.sqrt(in_features)
+            w = (torch.randn(w.shape, generator=generator, device=device) * std).to(torch.bfloat16)
+        self.weight = nn.Parameter(w, requires_grad=False)
+        self.bias = (
+            nn.Parameter(torch.zeros(out_features, dtype=torch.bfloat16, device=device), requires_grad=False)
+            if use_bias else None
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = (x.to(torch.float32) @ self.weight.to(torch.float32).T).to(x.dtype)
+        return out if self.bias is None else out + self.bias.to(out.dtype)
+
+
+class MXInferenceLinear(nn.Module):
+    """Linear with an MX weight and dynamically MX-quantized activations.
+
+    The weight is stored K-major (``(in, out)``, blocked on the contraction
+    dim); fp4 weights with ``in % 64 == 0`` are repacked into the halves
+    layout that K3 reads (the stored values are unchanged)."""
+
+    def __init__(self, weight_mx: MXTensor, bias: Optional[torch.Tensor], qconfig: QLinearConfig):
+        super().__init__()
+        if weight_mx.block_dim == weight_mx.ndim - 1:
+            weight_mx = weight_mx.T  # to K-major
+        if (
+            weight_mx.elem_dtype == dtypes.float4_e2m1
+            and weight_mx.ndim == 2
+            and weight_mx.padding == 0
+            and weight_mx.shape[0] % 64 == 0
+        ):
+            weight_mx = weight_mx.to_fp4_halves()
+        self.weight = weight_mx
+        self.bias = bias
+        self.qconfig = qconfig
+        self.in_features, self.out_features = weight_mx.shape
+
+    @classmethod
+    def from_float(cls, mod: Linear, qconfig: QLinearConfig) -> "MXInferenceLinear":
+        w = mod.weight.detach().to(torch.bfloat16).contiguous()
+        wc = qconfig.weights_config
+        bias = None if mod.bias is None else mod.bias.detach()
+        return cls(MXTensor.to_mx(w, wc.elem_dtype, wc.block_size), bias, qconfig)
+
+    def _add_bias(self, out: torch.Tensor) -> torch.Tensor:
+        return out if self.bias is None else out + self.bias.to(out.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.qconfig.activations_config
+        out = mx_dynamic_matmul(x.to(torch.bfloat16), self.weight, a.elem_dtype_name, a.block_size)
+        return self._add_bias(out)
+
+    def apply_prequantized(self, x_fq: torch.Tensor) -> torch.Tensor:
+        """Forward on an activation already fake-quantized to this layer's
+        activation grid (bit-identical to ``forward`` on the raw one)."""
+        return self._add_bias(mx_matmul(x_fq, self.weight))
+
+    def extra_repr(self) -> str:
+        return f"in={self.in_features}, out={self.out_features}, qconfig={self.qconfig}"
+
+
+def shared_activation_fq(x: torch.Tensor, *linears) -> Optional[torch.Tensor]:
+    """Fake-quantize ``x`` once for several MX linears that read it under the
+    same activation config, at prefill sizes (rows > ``ACT_FQ_FUSE_MAX_M``);
+    None where sharing does not apply (each linear then fuses its own)."""
+    if not all(isinstance(lin, MXInferenceLinear) for lin in linears):
+        return None
+    cfg = linears[0].qconfig.activations_config
+    if any(lin.qconfig.activations_config != cfg for lin in linears[1:]):
+        return None
+    if x.numel() // x.shape[-1] <= ACT_FQ_FUSE_MAX_M:
+        return None
+    return mx_fake_quantize(x.to(torch.bfloat16).contiguous(), cfg.elem_dtype, cfg.block_size)

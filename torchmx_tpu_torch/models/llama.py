@@ -1,0 +1,274 @@
+"""Llama in PyTorch (``torchmx_tpu/models/llama.py``), bf16 with MX seams.
+
+This port serves one path: generation over an MX KV cache in the seq layout.
+Every attention call writes its K/V into the cache, then attends causally
+over the written prefix through ``cached_attention_any`` (K4 on the card).
+Default RoPE only; no sliding window, ring cache or soft caps yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..layers.linear import Linear
+from ..mx_array import dequantize_mx, quantize_mx
+from ..ops.backend import DeviceLike, resolve_device
+from ..ops.cuda_attention import cached_attention_any
+
+
+@dataclasses.dataclass
+class LlamaConfig:
+    """Architecture hyperparameters (subset of HF ``LlamaConfig``)."""
+
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    head_dim: Optional[int] = None
+    max_position_embeddings: int = 2048
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    rope_scaling: Optional[dict] = None
+    attention_bias: bool = False
+    mlp_bias: bool = False
+    tie_word_embeddings: bool = False
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            self.head_dim = self.hidden_size // self.num_attention_heads
+        if self.rope_scaling:
+            raise NotImplementedError("only default RoPE is ported")
+
+
+# -- rotary position embeddings ------------------------------------------------
+
+
+def rope_inv_freq(config: LlamaConfig, device=None) -> torch.Tensor:
+    d = config.head_dim
+    exponents = torch.arange(0, d, 2, dtype=torch.float32, device=device) / d
+    return 1.0 / (config.rope_theta ** exponents)
+
+
+def rope_cos_sin(inv_freq: torch.Tensor, position_ids: torch.Tensor, dtype=torch.bfloat16):
+    """cos/sin tables ``(*position_ids.shape, head_dim)``."""
+    freqs = position_ids[..., None].to(torch.float32) * inv_freq
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return emb.cos().to(dtype), emb.sin().to(dtype)
+
+
+def rotate_half(x: torch.Tensor) -> torch.Tensor:
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def apply_rotary_pos_emb(q, k, cos, sin) -> Tuple[torch.Tensor, torch.Tensor]:
+    """HF-convention RoPE on (b, h, s, d) with (b, s, d) cos/sin."""
+    cos, sin = cos[:, None], sin[:, None]
+    return (q * cos + rotate_half(q) * sin).to(q.dtype), (k * cos + rotate_half(k) * sin).to(k.dtype)
+
+
+# -- KV cache --------------------------------------------------------------------
+
+
+class MXLayerKVCache:
+    """MX-quantized per-layer KV cache, seq layout: codes ``(b, kv, L, d)``
+    and scales ``(b, kv, L, d/32)``, quantized along head_dim.  ``write``
+    updates the buffers in place (JAX returned a new cache; in place saves a
+    copy of the cache per token)."""
+
+    def __init__(self, k_data, k_scale, v_data, v_scale, elem_dtype_name: str, block_size: int = 32):
+        self.k_data, self.k_scale = k_data, k_scale
+        self.v_data, self.v_scale = v_data, v_scale
+        self.elem_dtype_name = elem_dtype_name
+        self.block_size = block_size
+
+    @staticmethod
+    def create(batch, kv_heads, max_len, head_dim, elem_dtype_name="float8_e4m3",
+               block_size=32, device=None) -> "MXLayerKVCache":
+        if elem_dtype_name == "float4_e2m1":
+            raise NotImplementedError("fp4 KV caches (d-halves packing) are not ported yet")
+        payload = torch.int8 if elem_dtype_name == "int8" else torch.uint8
+        data = (batch, kv_heads, max_len, head_dim)
+        scale = (batch, kv_heads, max_len, head_dim // block_size)
+
+        def z(shape, dt):
+            return torch.zeros(shape, dtype=dt, device=device)
+
+        return MXLayerKVCache(z(data, payload), z(scale, torch.uint8), z(data, payload),
+                              z(scale, torch.uint8), elem_dtype_name, block_size)
+
+    @property
+    def max_len(self) -> int:
+        return self.k_data.shape[2]
+
+    def write(self, k_new: torch.Tensor, v_new: torch.Tensor, pos: int) -> None:
+        """Quantize ``(b, kv, s, d)`` K/V (K1 on the card) and store them at
+        sequence positions ``[pos, pos + s)``."""
+        s = k_new.shape[2]
+        if pos + s > self.max_len:
+            raise ValueError(f"cache of length {self.max_len} cannot take positions up to {pos + s}")
+        for new, data, scale in ((k_new, self.k_data, self.k_scale), (v_new, self.v_data, self.v_scale)):
+            sc, codes = quantize_mx(new.to(torch.bfloat16).contiguous(), self.elem_dtype_name, self.block_size)
+            data[:, :, pos:pos + s] = codes
+            scale[:, :, pos:pos + s] = sc
+
+    def dequantize(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full dequantized (k, v) buffers (plain path and tests)."""
+        return tuple(
+            dequantize_mx(d, s, self.elem_dtype_name, self.block_size, torch.bfloat16, 3)
+            for d, s in ((self.k_data, self.k_scale), (self.v_data, self.v_scale))
+        )
+
+
+# -- modules ---------------------------------------------------------------------
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim, dtype=torch.bfloat16, device=device), requires_grad=False)
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        xf = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + self.eps)
+        return (xf * self.weight.to(torch.float32)).to(x.dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)`` with every step rounded to the input dtype, the
+    reference's bf16 arithmetic (exp, add, divide, multiply each rounded)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, generator=None):
+        super().__init__()
+        h, i, b = config.hidden_size, config.intermediate_size, config.mlp_bias
+        kw = dict(use_bias=b, device=device, generator=generator)
+        self.gate_proj = Linear(h, i, **kw)
+        self.up_proj = Linear(h, i, **kw)
+        self.down_proj = Linear(i, h, **kw)
+
+    def forward(self, x):
+        return self.down_proj(silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaAttention(nn.Module):
+    """GQA attention with RoPE over an MX KV cache."""
+
+    def __init__(self, config: LlamaConfig, layer_idx: int = 0, device=None, generator=None):
+        super().__init__()
+        self.config, self.layer_idx = config, layer_idx
+        self.num_heads = config.num_attention_heads
+        self.num_key_value_heads = config.num_key_value_heads
+        self.head_dim = config.head_dim
+        self.sm_scale = 1.0 / math.sqrt(config.head_dim)
+        h, d, bias = config.hidden_size, config.head_dim, config.attention_bias
+        kw = dict(use_bias=bias, device=device, generator=generator)
+        self.q_proj = Linear(h, self.num_heads * d, **kw)
+        self.k_proj = Linear(h, self.num_key_value_heads * d, **kw)
+        self.v_proj = Linear(h, self.num_key_value_heads * d, **kw)
+        self.o_proj = Linear(self.num_heads * d, h, **kw)
+
+    def _project_qkv(self, x):
+        return self.q_proj(x), self.k_proj(x), self.v_proj(x)
+
+    def forward(self, hidden, *, cos, sin, cache: MXLayerKVCache, cache_position: int):
+        b, s, _ = hidden.shape
+        q, k, v = self._project_qkv(hidden)
+        q = q.view(b, s, self.num_heads, self.head_dim).transpose(1, 2)
+        k = k.view(b, s, self.num_key_value_heads, self.head_dim).transpose(1, 2)
+        v = v.view(b, s, self.num_key_value_heads, self.head_dim).transpose(1, 2)
+        q, k = apply_rotary_pos_emb(q, k, cos, sin)
+        cache.write(k, v, cache_position)
+        out = cached_attention_any(q, cache, cache_position, cache_position + s, self.sm_scale)
+        return self.o_proj(out.transpose(1, 2).reshape(b, s, -1))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config: LlamaConfig, layer_idx: int, device=None, generator=None):
+        super().__init__()
+        self.self_attn = LlamaAttention(config, layer_idx, device, generator)
+        self.mlp = LlamaMLP(config, device, generator)
+        self.input_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps, device)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps, device)
+
+    def forward(self, x, *, cos, sin, cache, cache_position):
+        x = x + self.self_attn(self.input_layernorm(x), cos=cos, sin=sin, cache=cache,
+                               cache_position=cache_position)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, config: LlamaConfig, device=None, generator=None):
+        super().__init__()
+        self.config = config
+        emb = torch.zeros((config.vocab_size, config.hidden_size), dtype=torch.bfloat16, device=device)
+        if generator is not None:
+            emb = (torch.randn(emb.shape, generator=generator, device=device) * 0.02).to(torch.bfloat16)
+        self.embed_tokens = nn.Parameter(emb, requires_grad=False)
+        self.layers = nn.ModuleList(
+            LlamaDecoderLayer(config, i, device, generator) for i in range(config.num_hidden_layers)
+        )
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device)
+        self.register_buffer("inv_freq", rope_inv_freq(config, device), persistent=False)
+
+    def forward(self, input_ids, *, caches: List[MXLayerKVCache], cache_position: int, position_ids=None):
+        b, s = input_ids.shape
+        x = self.embed_tokens[input_ids]
+        if position_ids is None:
+            position_ids = torch.arange(cache_position, cache_position + s, device=x.device)[None].expand(b, s)
+        cos, sin = rope_cos_sin(self.inv_freq, position_ids, x.dtype)
+        for layer, cache in zip(self.layers, caches):
+            x = layer(x, cos=cos, sin=sin, cache=cache, cache_position=cache_position)
+        return self.norm(x)
+
+
+class LlamaForCausalLM(nn.Module):
+    """Entry point.  ``device`` defaults to ``cuda`` (raising when there is
+    none); pass ``device="cpu"`` for the plain PyTorch path, or ``"meta"`` to
+    allocate nothing (layers are then filled in one by one).  With a
+    ``generator`` the weights are seeded random, else zeros."""
+
+    def __init__(self, config: LlamaConfig, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.config = config
+        self.model = LlamaModel(config, device, generator)
+        self.lm_head = None if config.tie_word_embeddings else Linear(
+            config.hidden_size, config.vocab_size, device=device, generator=generator
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.embed_tokens.device
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        if self.lm_head is None:
+            return F.linear(hidden.float(), self.model.embed_tokens.float()).to(hidden.dtype)
+        return self.lm_head(hidden)
+
+    def forward(self, input_ids, *, caches, cache_position: int, position_ids=None, last_only=False):
+        """Logits ``(b, s, vocab)`` bf16 (``last_only``: of the last position)."""
+        hidden = self.model(input_ids, caches=caches, cache_position=cache_position,
+                            position_ids=position_ids)
+        return self.logits(hidden[:, -1:] if last_only else hidden)
+
+    def init_cache(self, batch: int, max_len: int, kv_cache_config) -> List[MXLayerKVCache]:
+        c = self.config
+        return [
+            MXLayerKVCache.create(batch, c.num_key_value_heads, max_len, c.head_dim,
+                                  kv_cache_config.elem_dtype_name, kv_cache_config.block_size,
+                                  device=self.device)
+            for _ in range(c.num_hidden_layers)
+        ]

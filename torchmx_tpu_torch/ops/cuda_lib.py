@@ -1,0 +1,133 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded with ``ctypes``.  The first
+use builds every source at once, one ``nvcc`` process each, into
+``torchmx_tpu_torch/_build/`` (git-ignored); a library whose source, headers
+and flags are unchanged is reused (its file name carries their hash).  Delete
+that directory to force a rebuild.
+
+The kernels are compiled without fast math and with ``-ftz=false``: the
+quantizers' bit-exactness relies on fp32 subnormal operands being honoured.
+
+A build or launch failure raises; nothing falls back to the plain path.
+Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+SOURCES = ("mx_quantize", "mx_matmul", "mx_attention")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-ftz=false", "-prec-div=true", "-prec-sqrt=true", "-lineinfo",
+)
+
+LAUNCHES: "collections.Counter[str]" = collections.Counter()
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+# C signature of every entry point: (argtypes, restype is int = cudaError_t)
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+SIGNATURES = {
+    "mx_quantize": {
+        # x, scale, codes, rows, K, elem_code, stream
+        "mx_quantize_launch": (_P, _P, _P, _L, _I, _I, _P),
+        # x, out, rows, K, elem_code, stream
+        "mx_fake_quantize_launch": (_P, _P, _L, _I, _I, _P),
+    },
+    "mx_matmul": {
+        # x, w, scale, out, workspace, M, N, K, act_fq_code, tile_rows, splits, stream
+        "mx_matmul_fp4_halves_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "mx_attention": {
+        # q, kd, ks, vd, vs, q_off, kv_len, out, b, hq, hkv, sq, L, d,
+        # sm_scale, elem_code, stream
+        "mx_cached_attention_launch": (
+            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P
+        ),
+    },
+}
+
+# Element format codes shared with csrc/mx_common.cuh.
+ELEM_CODES = {"float8_e4m3": 0, "float4_e2m1": 1, "float6_e3m2": 2, "float6_e2m3": 3, "int8": 4}
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES.clear()
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC_DIR.glob("*.cuh")) + [CSRC_DIR / f"{name}.cu"]:
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every kernel source that has no current library, all nvcc
+    processes at once; returns ``{source name: library path}``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {name: _lib_path(name) for name in SOURCES}
+    todo = {n: p for n, p in paths.items() if not p.exists()}
+    procs = {}
+    for name, path in todo.items():
+        tmp = path.with_suffix(f".tmp{os.getpid()}")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp)
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{out.decode(errors='replace')}")
+        else:
+            os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (building all on first use)."""
+    with _lock:
+        if not _libs:
+            for src, path in build_all().items():
+                handle = ctypes.CDLL(str(path))
+                for fn, argtypes in SIGNATURES[src].items():
+                    getattr(handle, fn).argtypes = list(argtypes)
+                    getattr(handle, fn).restype = ctypes.c_int
+                _libs[src] = handle
+        return _libs[name]
+
+
+def launch(src: str, fn: str, *args) -> None:
+    """Call ``fn`` of ``csrc/<src>.cu`` on PyTorch's current stream, raise on
+    a launch error, and count the launch."""
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(lib(src), fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn} failed to launch: cudaError {rc}")
+    LAUNCHES[fn.removesuffix("_launch")] += 1
