@@ -5,33 +5,48 @@ Run from the repository root with one card:  python3 chip_smoke.py
 Phases, each on ``cuda``; any failure raises and the script exits non-zero:
 
 1. device: name, and name + power limit from nvidia-smi;
-2. kernels: builds the four CUDA kernels from ``torchmx_tpu_torch/csrc`` and
+2. kernels: builds the five CUDA kernels from ``torchmx_tpu_torch/csrc`` and
    holds each against its plain PyTorch version on the card (K1/K2
    bit-exact over all 2^16 bf16 patterns in all five formats, and at every
-   main-path shape; K3 rel <= 1e-2 and K4 abs <= 2e-2, each at every
-   main-path shape), then
+   main-path shape; K3 rel <= 1e-2; K4 over fp8 and int8 caches and K5 over
+   int8 caches abs <= 2e-2, each at every main-path shape), then
    times kernel, plain version and, where one exists, the one PyTorch call
    computing the same function (CUDA events, median of 20, L2 flushed
-   before each call);
+   before each call); K3 and RMSNorm must give a row the same bytes
+   whatever the number of rows in the call;
 3. model check: a 2-layer model at Llama-3-8B width, seeded random weights,
-   b=2, 16 greedy tokens; at every step, from the same tokens and cache,
-   kernel path against plain path on the same card: each decoder layer's
-   update and lm_head's logits teacher-forced from the plain path's hidden
-   state, the end-to-end logits (L2 rel, gates in GATES), and the tokens
-   wherever the plain top-2 gap exceeds 0.1.  The plain path with float64
-   attention must pass the same gates, and each of three planted kernel
-   faults must fail one;
-4. the slice: Llama-3-8B (32 layers) with MXFP4 weights, MXFP8 activations
-   and an fp8 KV cache, built layer by layer from a seed, greedy generation
-   of 128 tokens after a 64-token prompt at batch 1 and 32.  The launch
-   counts are set to 0 just before each timed ``generate`` and read just
-   after (prefill and per decode step from the same run); each kernel must
-   have launched.  Then, outside that run: time to first token, the
-   synchronised gap between tokens, and a torch.profiler window giving
-   device time per decode step by kernel and the device's idle share.
+   b=2, 16 greedy tokens, with the fp8 and with the int8 cache; at every
+   step, from the same tokens and cache, kernel path against plain path on
+   the same card: each decoder layer's update and lm_head's logits
+   teacher-forced from the plain path's hidden state, the end-to-end logits
+   (L2 rel, gates in GATES), and the tokens wherever the plain top-2 gap
+   exceeds the cache format's tie gap.  The plain path with float64 attention must pass the same
+   gates, and each of three planted kernel faults per cache must fail one;
+4. the ``generate`` path: Llama-3-8B (32 layers) with MXFP4 weights, MXFP8
+   activations and an fp8 KV cache, built layer by layer from a seed,
+   greedy generation of 128 tokens after a 64-token prompt at batch 1 and
+   32.  The launch counts are set to 0 just before each timed ``generate``
+   and read just after (prefill and per decode step from the same run).
+   Then, outside that run: time to first token, the synchronised gap
+   between tokens, and a torch.profiler window giving device time per
+   decode step by kernel and the device's idle share;
+5. the engine path: the same model served by ``DecodeEngine`` over an int8
+   KV cache, 32 slots of 1024 positions, a seeded stream of 48 requests
+   (prompts of 32-512 tokens, 64-128 new tokens, a shared 128-token prefix
+   cached).  A request's tokens and log-probabilities must be the same bit
+   for bit alone and among 31 others, admitted whole, in chunks of 128 or
+   over the cached prefix; EOS, a stop sequence and a full cache must each
+   end a request with the right reason; every decode step must launch K3,
+   K1 and K5 as often as the depth says and K4 and K2 never.  On a 4-layer
+   model the engine's streams must equal the plain path's at every decisive
+   step.  Reports tok/s over the stream, the gap between ``step()``
+   returns, admission latency, device time per step by kernel, the idle
+   share and peak memory.
 
-The line before last is a JSON object describing every kernel; the last is
-``{"ok": true, "device": {...}}``.  ``--layers N`` cuts the slice's depth.
+Every kernel must have launched on each main path that runs it.  The line
+before last is a JSON object describing every kernel; the last is
+``{"ok": true, "device": {...}}``.  ``--layers N`` cuts the depth of the
+model of phases 4 and 5.
 """
 
 from __future__ import annotations
@@ -128,7 +143,10 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
 # shared activation fake-quantize at batch-32 prefill and its warm-up).
 K1_MAIN_SHAPES = {"float8_e4m3": [(1, 8, 64, 128), (32, 8, 64, 128), (32, 8, 1, 128)],
                   "float4_e2m1": [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336),
-                                  (128256, 4096)]}
+                                  (128256, 4096)],
+                  # the engine's int8 cache: the decode step's write, a whole
+                  # admission's and a chunk's
+                  "int8": [(32, 8, 1, 128), (1, 8, 384, 128), (1, 8, 128, 128)]}
 K2_MAIN_SHAPES = [(2048, 4096), (256, 4096)]
 
 
@@ -167,7 +185,8 @@ def check_quantize_kernels(dev, timer, gen):
     for name in ("float8_e4m3", "float4_e2m1"):
         e1, e2 = compare(name, "random 4096x4096", x_rand, True)
         worst1, worst2 = max(worst1, e1), max(worst2, e2)
-        for shape in K1_MAIN_SHAPES[name]:
+    for name, shapes in K1_MAIN_SHAPES.items():
+        for shape in shapes:
             worst1 = max(worst1, compare(name, f"main-path {shape}", randn(shape), False)[0])
     for shape in K2_MAIN_SHAPES:
         x = randn(shape)
@@ -181,6 +200,13 @@ def check_quantize_kernels(dev, timer, gen):
     k = torch.randn(32, 8, 64, 128, generator=gen, device=dev).to(torch.bfloat16)
     a = torch.randn(2048, 4096, generator=gen, device=dev).to(torch.bfloat16)
     out = []
+    # The engine's decode step writes one int8 position per slot.
+    k1 = torch.randn(32, 8, 1, 128, generator=gen, device=dev).to(torch.bfloat16)
+    n1 = k1.numel()
+    int8_write = dict(shape="int8 (32, 8, 1, 128)", ms=timer(lambda: cq.mx_quantize(k1, "int8")),
+                      plain_ms=timer(lambda: cq.mx_quantize_plain(k1, "int8"), reps=5),
+                      bound_ms=bound(2 * n1 + n1 + n1 / 32)[0], bound_by="bytes", library_ms=None)
+    log("K1 timing", json.dumps(int8_write))
     n = k.numel()
     t_b, by = bound(2 * n + n + n / 32)
     out.append(dict(name="mx_quantize", route="cuda", source="torchmx_tpu_torch/csrc/mx_quantize.cu",
@@ -188,7 +214,7 @@ def check_quantize_kernels(dev, timer, gen):
                     shape="fp8 (32, 8, 64, 128)", max_abs_err=worst1,
                     ms=timer(lambda: cq.mx_quantize(k, "float8_e4m3")),
                     plain_ms=timer(lambda: cq.mx_quantize_plain(k, "float8_e4m3"), reps=5),
-                    bound_ms=t_b, bound_by=by, library_ms=None))
+                    bound_ms=t_b, bound_by=by, library_ms=None, int8_decode_write=int8_write))
     n = a.numel()
     t_b, by = bound(4 * n)
     out.append(dict(name="mx_fake_quantize", route="cuda", source="torchmx_tpu_torch/csrc/mx_quantize.cu",
@@ -274,16 +300,22 @@ def check_matmul_kernel(dev, timer, gen):
                 bound_by=pick["bound_by"], library_ms=pick["library_ms"]), rows
 
 
-def _attn_case(dev, gen, b, hq, hkv, d, L, sq, kv_len):
+def _attn_case(dev, gen, b, hq, hkv, d, L, sq, kv_len, elem="float8_e4m3", never_written=False):
+    """Arguments of K4 for a random cache: row i's queries are the last
+    ``sq`` of its ``kv_len[i]`` visible positions.  With ``never_written`` the
+    codes and scales past each row's prefix are 0, as in a fresh cache."""
     from torchmx_tpu_torch.ops import cuda_quantize as cq
 
     k = torch.randn(b, hkv, L, d, generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn(b, hkv, L, d, generator=gen, device=dev).to(torch.bfloat16)
-    ks, kd = cq.mx_quantize(k, "float8_e4m3")
-    vs, vd = cq.mx_quantize(v, "float8_e4m3")
+    ks, kd = cq.mx_quantize(k, elem)
+    vs, vd = cq.mx_quantize(v, elem)
     q = torch.randn(b, hq, sq, d, generator=gen, device=dev).to(torch.bfloat16)
     kv = torch.tensor(kv_len, dtype=torch.int32, device=dev)
-    return (q, kd, ks, vd, vs, kv - sq, kv, d ** -0.5, "float8_e4m3")
+    if never_written:
+        fresh = (torch.arange(L, device=dev) >= kv[:, None])[:, None, :, None]
+        kd, ks, vd, vs = (t.masked_fill(fresh, 0) for t in (kd, ks, vd, vs))
+    return (q, kd, ks, vd, vs, (kv - sq).clamp(min=0), kv, d ** -0.5, elem)
 
 
 def _attn_work(args):
@@ -298,16 +330,29 @@ def _attn_work(args):
     nbytes = 2 * 2 * q.numel()
     ops = 0
     for i in range(b):
-        nbytes += 2 * hkv * kv_len[i] * (d + d // 32)
+        nbytes += 2 * hkv * min(kv_len[i], q_off[i] + sq) * (d + d // 32)
         visible = sum(min(q_off[i] + j + 1, kv_len[i]) for j in range(sq))
         ops += 4 * hq * d * visible
     return nbytes, ops
 
 
+def _sdpa_inputs(args):
+    """The dequantized cache and the boolean mask for the one PyTorch call
+    that computes the same attention (the library yardstick)."""
+    from torchmx_tpu_torch.mx_array import dequantize_mx
+
+    q, kd, ks, vd, vs, q_off, kv_len, _, elem = args
+    k = dequantize_mx(kd, ks, elem, 32, torch.bfloat16, 3)
+    v = dequantize_mx(vd, vs, elem, 32, torch.bfloat16, 3)
+    pos = q_off[:, None] + torch.arange(q.shape[2], device=q.device)[None]
+    j = torch.arange(kd.shape[2], device=q.device)
+    mask = ((j <= pos[..., None]) & (j < kv_len[:, None, None]))[:, None]
+    return k, v, mask
+
+
 def check_attention_kernel(dev, timer, gen):
     import torch.nn.functional as F
 
-    from torchmx_tpu_torch.mx_array import dequantize_mx
     from torchmx_tpu_torch.ops import cuda_attention as ca
 
     worst = 0.0
@@ -323,17 +368,13 @@ def check_attention_kernel(dev, timer, gen):
              ("prefill b=1 L=256 sq=64", 1, 256, 64, [64])]
     for label, b, L, sq, kv in cases:
         args = _attn_case(dev, gen, b, 32, 8, 128, L, sq, kv)
-        q, kd, ks, vd, vs, q_off, kv_len, scale, _ = args
+        q, scale = args[0], args[7]
         err = (ca.mx_cached_attention(*args).float() - ca.mx_cached_attention_plain(*args).float()).abs().max().item()
         worst = max(worst, err)
         log(f"K4 mx_cached_attention {label}: max abs err {err:.3e}")
         if not err <= 2e-2:
             raise AssertionError(f"K4 {label}: abs err {err}")
-        k = dequantize_mx(kd, ks, "float8_e4m3", 32, torch.bfloat16, 3)
-        v = dequantize_mx(vd, vs, "float8_e4m3", 32, torch.bfloat16, 3)
-        pos = q_off[:, None] + torch.arange(sq, device=dev)[None]
-        j = torch.arange(L, device=dev)
-        mask = ((j <= pos[..., None]) & (j < kv_len[:, None, None]))[:, None]
+        k, v, mask = _sdpa_inputs(args)
         nbytes, ops = _attn_work(args)
         t_b, by = bound(nbytes, ops)
         row = dict(case=label, ms=timer(lambda: ca.mx_cached_attention(*args)),
@@ -351,36 +392,188 @@ def check_attention_kernel(dev, timer, gen):
                 bound_by=pick["bound_by"], library_ms=pick["library_ms"]), rows
 
 
+def check_int8_attention_kernels(dev, timer, gen):
+    """K4 over an int8 cache at the engine's prefill and chunk shapes, and K5
+    at its decode shapes, each against its plain version (abs <= 2e-2); K5
+    against K4-int8 on the same inputs is printed (the same function up to
+    summation order).  Returns (K5's entry, the timing rows, K4-int8's worst
+    error)."""
+    import torch.nn.functional as F
+
+    from torchmx_tpu_torch.ops import cuda_attention as ca
+
+    rows, worst4, worst5 = [], 0.0, 0.0
+    # K4-int8: a whole 384-token admission, a 128-token chunk at offset 256, a
+    # 64-token remainder after a 128-token prefix (all b=1 over the slot's
+    # 1024 positions), and a batch-32 prefill of 64.
+    k4_cases = [("int8 whole b=1 L=1024 sq=384", 1, 1024, 384, [384]),
+                ("int8 chunk b=1 L=1024 sq=128 q_off=256", 1, 1024, 128, [384]),
+                ("int8 remainder b=1 L=1024 sq=64 q_off=128", 1, 1024, 64, [192]),
+                ("int8 prefill b=32 L=256 sq=64", 32, 256, 64, [64] * 32)]
+    for label, b, L, sq, kv in k4_cases:
+        args = _attn_case(dev, gen, b, 32, 8, 128, L, sq, kv, "int8")
+        err = (ca.mx_cached_attention(*args).float() - ca.mx_cached_attention_plain(*args).float()).abs().max().item()
+        worst4 = max(worst4, err)
+        log(f"K4 mx_cached_attention {label}: max abs err {err:.3e}")
+        if not err <= 2e-2:
+            raise AssertionError(f"K4 {label}: abs err {err}")
+        k, v, mask = _sdpa_inputs(args)
+        nbytes, ops = _attn_work(args)
+        t_b, by = bound(nbytes, ops)
+        row = dict(case=label, kernel="mx_cached_attention", ms=timer(lambda: ca.mx_cached_attention(*args)),
+                   plain_ms=timer(lambda: ca.mx_cached_attention_plain(*args), reps=5),
+                   library_ms=timer(lambda: F.scaled_dot_product_attention(
+                       args[0], k, v, attn_mask=mask, scale=args[7], enable_gqa=True)),
+                   bound_ms=t_b, bound_by=by)
+        log("K4 timing", json.dumps(row))
+        rows.append(row)
+    # K5: the engine's decode step (b=32 over 1024 positions, every row at its
+    # own length, one row with no visible key, the positions past each prefix
+    # never written), one row alone, and a long cache.
+    ragged = [0] + [1 + (1023 * i) // 30 for i in range(31)]
+    k5_cases = [("decode b=32 L=1024 kv_len 0..1024 ragged", 32, 1024, ragged),
+                ("decode b=1 L=1024 kv_len=700", 1, 1024, [700]),
+                ("decode b=4 L=8192 kv_len=8192", 4, 8192, [8192] * 4)]
+    for label, b, L, kv in k5_cases:
+        args = _attn_case(dev, gen, b, 32, 8, 128, L, 1, kv, "int8", never_written=True)
+        a5 = args[:8]
+        out = ca.mx_cached_attention_chunkdot(*a5)
+        torch.cuda.synchronize()
+        ref = ca.mx_cached_attention_chunkdot_plain(*a5)
+        err = (out.float() - ref.float()).abs().max().item()
+        vs_k4 = (out.float() - ca.mx_cached_attention(*args).float()).abs().max().item()
+        worst5 = max(worst5, err)
+        empty = [i for i, n in enumerate(kv) if n == 0]
+        log(f"K5 mx_cached_attention_chunkdot {label}: max abs err {err:.3e} vs plain, {vs_k4:.3e} vs K4-int8")
+        if not err <= 2e-2 or not torch.isfinite(out.float()).all():
+            raise AssertionError(f"K5 {label}: abs err {err}")
+        if empty and out[empty].float().abs().max().item() != 0.0:
+            raise AssertionError(f"K5 {label}: a row with no visible key must output 0")
+        k, v, mask = _sdpa_inputs(args)
+        nbytes, ops = _attn_work(args)
+        t_b, by = bound(nbytes, ops)
+        row = dict(case=label, kernel="mx_cached_attention_chunkdot",
+                   ms=timer(lambda: ca.mx_cached_attention_chunkdot(*a5)),
+                   k4_int8_ms=timer(lambda: ca.mx_cached_attention(*args)),
+                   plain_ms=timer(lambda: ca.mx_cached_attention_chunkdot_plain(*a5), reps=5),
+                   library_ms=timer(lambda: F.scaled_dot_product_attention(
+                       args[0], k, v, attn_mask=mask, scale=args[7], enable_gqa=True)),
+                   bound_ms=t_b, bound_by=by, max_abs_err=err, max_abs_vs_k4_int8=vs_k4)
+        log("K5 timing", json.dumps(row))
+        rows.append(row)
+        del k, v, mask
+    pick = next(r for r in rows if r["case"].startswith("decode b=32"))
+    k5 = dict(name="mx_cached_attention_chunkdot", route="cuda",
+              source="torchmx_tpu_torch/csrc/mx_attention_chunkdot.cu",
+              replaces="torchmx_tpu/ops/pallas_attention.py:307",
+              shape="decode b=32 hq=32 hkv=8 d=128 L=1024 kv_len 0..1024 ragged int8 cache",
+              max_abs_err=worst5, ms=pick["ms"], plain_ms=pick["plain_ms"], bound_ms=pick["bound_ms"],
+              bound_by=pick["bound_by"], library_ms=pick["library_ms"])
+    return k5, rows, worst4
+
+
+def check_row_invariance(dev, gen) -> None:
+    """A row's result must not depend on how many rows share the call: the
+    engine's whole = chunked = prefixed identity rests on it.  K3 (whose K
+    splits follow N and K alone) and RMSNorm (a PyTorch reduction) on the
+    first k rows of a 512-row input against the same rows of the full call,
+    bit for bit."""
+    from torchmx_tpu_torch.models.llama import RMSNorm
+    from torchmx_tpu_torch.mx_array import MXTensor
+    from torchmx_tpu_torch.ops import cuda_matmul as cm
+
+    counts = (1, 2, 5, 15, 16, 17, 33, 64, 65, 128, 129, 300, 511)
+    x = torch.randn(512, 4096, generator=gen, device=dev).to(torch.bfloat16)
+    norm = RMSNorm(4096, 1e-5, dev)
+    norm.weight.copy_((1 + 0.1 * torch.randn(4096, generator=gen, device=dev)).to(torch.bfloat16))
+    full = norm(x)
+    bad = [f"RMSNorm rows={k}" for k in counts if not torch.equal(norm(x[:k]), full[:k])]
+    for label in ("q_proj/o_proj", "k_proj/v_proj", "gate_proj/up_proj", "down_proj"):
+        K, N = K3_MAIN_LINEARS[label]
+        w = (torch.randn(N, K, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+        w = MXTensor.to_mx(w, "float4_e2m1").T.to_fp4_halves()
+        xk = torch.randn(512, K, generator=gen, device=dev).to(torch.bfloat16)
+        full = cm.mx_matmul_fp4_halves(xk, w.data, w.scale_e8m0, "float8_e4m3")
+        bad += [f"K3 {label} rows={k}" for k in counts
+                if not torch.equal(cm.mx_matmul_fp4_halves(xk[:k].contiguous(), w.data, w.scale_e8m0,
+                                                           "float8_e4m3"), full[:k])]
+    if bad:
+        raise AssertionError(f"a row's result depends on the number of rows: {bad}")
+    log(f"row invariance: RMSNorm and K3 (4 linears) give the same bytes at {counts} of 512 rows")
+
+
+def attention_accuracy(dev, gen) -> dict:
+    """L2 rel error of every int8 decode-attention version against exact
+    attention (float64, p not rounded) on the same cache: the kernels, their
+    plain versions, K5's plain version over one whole-prefix tile, and the
+    bf16 rounding of the exact result alone.  They should err alike: the
+    versions differ in where p is rounded, not in accuracy."""
+    from torchmx_tpu_torch.ops import cuda_attention as ca
+
+    args = _attn_case(dev, gen, 2, 32, 8, 128, 1024, 1, [70, 80], "int8", never_written=True)
+    q, sm_scale, a5 = args[0], args[7], args[:8]
+    k, v, mask = _sdpa_inputs(args)
+    s = (q.double() @ k.double().repeat_interleave(4, 1).transpose(-1, -2)) * sm_scale
+    exact = torch.softmax(s.masked_fill(~mask, float("-inf")), -1) @ v.double().repeat_interleave(4, 1)
+
+    def rel(x):
+        return ((x.double() - exact).norm() / exact.norm()).item()
+
+    out = dict(k5=rel(ca.mx_cached_attention_chunkdot(*a5)), k5_plain=rel(ca.mx_cached_attention_chunkdot_plain(*a5)),
+               k4_int8=rel(ca.mx_cached_attention(*args)), k4_int8_plain=rel(ca.mx_cached_attention_plain(*args)),
+               bf16_of_exact=rel(exact.to(torch.bfloat16)))
+    with f64_plain_attention():
+        out["k5_plain_float64_one_tile"] = rel(ca.mx_cached_attention_chunkdot_plain(*a5))
+    log(f"int8 decode attention against exact attention, b=2 kv_len 70 and 80 (L2 rel): {json.dumps(out)}")
+    if max(out.values()) > 2 * out["bf16_of_exact"]:
+        raise AssertionError("an attention version errs more than twice the bf16 rounding of the exact result")
+    return out
+
+
 # -- phase 3 and 4: the model ----------------------------------------------------
 
 
-def quant_configs():
+def quant_configs(kv: str = "float8_e4m3"):
+    """(attention config, MLP config, KV-cache config): fp4 weights, fp8
+    activations, and an fp8 (the ``generate`` path) or int8 (the engine's) cache."""
     from torchmx_tpu_torch.config import MXConfig, QAttentionConfig, QLinearConfig
 
     q = QLinearConfig(MXConfig("float4_e2m1"), MXConfig("float8_e4m3"))
-    return QAttentionConfig(q), q, MXConfig("float8_e4m3")
+    return QAttentionConfig(q), q, MXConfig(kv)
 
 
 @contextlib.contextmanager
 def f64_plain_attention():
-    """The plain K4 computed in float64: the same function with another
-    rounding, to measure how far the model alone carries such a difference."""
+    """The plain K4 and K5 computed with another rounding, to measure how far
+    the model alone carries such a difference: both in float64, and K5 over
+    one tile spanning the whole prefix (as the TPU kernel takes it), so that
+    p is rounded to bf16 against the global maximum and not a running one.
+    The CUDA K5 differs from its plain version in just that way: its warps
+    take the tiles in another order."""
     import functools
 
     from torchmx_tpu_torch.ops import cuda_attention as ca
 
-    plain = ca.mx_cached_attention_plain
-    ca.mx_cached_attention_plain = functools.partial(plain, compute_dtype=torch.float64)
+    names = ("mx_cached_attention_plain", "mx_cached_attention_chunkdot_plain")
+    plain, tile = {n: getattr(ca, n) for n in names}, ca.CHUNKDOT_TILE
+    for n in names:
+        setattr(ca, n, functools.partial(plain[n], compute_dtype=torch.float64))
+    ca.CHUNKDOT_TILE = 1 << 20
     try:
         yield
     finally:
-        ca.mx_cached_attention_plain = plain
+        ca.CHUNKDOT_TILE = tile
+        for n in names:
+            setattr(ca, n, plain[n])
 
 
 # Wrong kernels the model check must catch, each emulated at its wrapper on
 # the kernel path only (under plain_path() the wrapper is left alone).
 PLANTED_FAULTS = ("K4 causal mask one position late", "K4 kv_len one short",
                   "K3 fused activation fq skipped")
+# The same for the int8 cache, whose decode steps run K5.
+PLANTED_FAULTS_INT8 = ("K5 kv_len one short", "K5 V scale of chunk c taken from chunk c+1",
+                       "K4 kv_len one short")
 
 
 @contextlib.contextmanager
@@ -389,7 +582,18 @@ def planted_fault(name):
     from torchmx_tpu_torch.ops import matmul as mm
     from torchmx_tpu_torch.ops.backend import on_cuda
 
-    if name.startswith("K4"):
+    if name.startswith("K5"):
+        mod, attr = ca, "mx_cached_attention_chunkdot"
+        orig = ca.mx_cached_attention_chunkdot
+
+        def faulty(q, kd, ks, vd, vs, q_off, kv_len, sm_scale):
+            if on_cuda(q):
+                if "kv_len" in name:
+                    kv_len = kv_len - 1
+                else:
+                    vs = vs.roll(-1, dims=-1)
+            return orig(q, kd, ks, vd, vs, q_off, kv_len, sm_scale)
+    elif name.startswith("K4"):
         mod, attr = ca, "mx_cached_attention"
         orig = ca.mx_cached_attention
 
@@ -472,8 +676,9 @@ def model_readings(model, prompt, n, kv, floor: bool) -> dict:
 
     tokens = generate(model, prompt, n, kv_cache_config=kv)
     caches = model.init_cache(prompt.shape[0], 128, kv)
+    tie_gap = GATES[kv.elem_dtype_name]["tie_gap"]
     r = dict(logits=0.0, layer=0.0, lm_head=0.0, floor_logits=None, floor_layer=None,
-             near_ties=0, decisive_flips=0,
+             near_ties=0, decisive_flips=0, max_flipped_gap=0.0,
              generate_mismatch=0, finite=True)
     step_in, pos = prompt, 0
     with torch.inference_mode():
@@ -490,9 +695,11 @@ def model_readings(model, prompt, n, kv, floor: bool) -> dict:
                 r["floor_logits"] = max(r["floor_logits"] or 0.0, _rel(ref64, ref))
                 r["floor_layer"] = max(r["floor_layer"] or 0.0, layer_floor)
             top2 = ref.topk(2, dim=-1).values
-            decisive = (top2[:, 0] - top2[:, 1]) > 0.1
+            gap = top2[:, 0] - top2[:, 1]
+            decisive, flipped = gap > tie_gap, got.argmax(-1) != ref.argmax(-1)
             r["near_ties"] += int((~decisive).sum())
-            r["decisive_flips"] += int(((got.argmax(-1) != ref.argmax(-1)) & decisive).sum())
+            r["decisive_flips"] += int((flipped & decisive).sum())
+            r["max_flipped_gap"] = max(r["max_flipped_gap"], float((gap * flipped).max()))
             r["generate_mismatch"] += int((got.argmax(-1) != tokens[:, i]).sum())
             r["finite"] &= bool(torch.isfinite(got).all())
             pos += step_in.shape[1]
@@ -501,18 +708,27 @@ def model_readings(model, prompt, n, kv, floor: bool) -> dict:
 
 
 # Gates of the model check (L2 rel), each between the readings of sound
-# code and the smallest reading of a planted fault (PERF.md, PR 1 on the
-# H100): a teacher-forced decoder layer's update, sound 1.84e-2 (kernels)
-# and 3.17e-2 (plain path with float64 attention), faults >= 8.08e-2;
-# lm_head, sound 2e-6, faults >= 3.02e-2; end-to-end logits, which carry
-# the fp8 amplification of every rounding difference through both layers,
-# sound 4.38e-2 and 6.56e-2, faults >= 9.44e-2.
-GATES = {"layer": 5e-2, "lm_head": 2e-2, "logits": 8e-2}
+# code and the smallest reading of a planted fault (PERF.md, on the H100).
+# fp8 cache: a teacher-forced decoder layer's update, sound 1.84e-2
+# (kernels) and 3.17e-2 (plain path with float64 attention), faults >=
+# 8.08e-2; lm_head, sound 2e-6, faults >= 3.02e-2; end-to-end logits, which
+# carry the fp8 amplification of every rounding difference through both
+# layers, sound 4.38e-2 and 6.56e-2, faults >= 9.44e-2.
+# int8 cache: K5's warps take the KV tiles in another order than its
+# plain version, so p is rounded to bf16 against other running maxima: a
+# difference in every term, not in rare ties.  Layer update, sound 4.76e-2
+# (kernels) and 4.67e-2 (plain path with float64 attention over one tile),
+# K5 faults >= 3.57e-1; logits, sound 7.60e-2 and 7.67e-2, faults >= 1.91e-1.
+# tie_gap: a step counts as decisive when the plain path's top-2 logit gap
+# exceeds it; the int8 path flips a gap of 0.125 with sound kernels.
+GATES = {"float8_e4m3": {"layer": 5e-2, "lm_head": 2e-2, "logits": 8e-2, "tie_gap": 0.1},
+         "int8": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3}}
 
 
-def gate_failures(r: dict) -> list:
+def gate_failures(r: dict, gates: dict) -> list:
     out = [] if r["finite"] else ["non-finite logits"]
-    out += [f"{key} rel {r[key]:.3e} > {gate:g}" for key, gate in GATES.items() if not r[key] <= gate]
+    out += [f"{key} rel {r[key]:.3e} > {gates[key]:g}" for key in ("layer", "lm_head", "logits")
+            if not r[key] <= gates[key]]
     if r["decisive_flips"]:
         out.append(f"{r['decisive_flips']} tokens differ at decisive steps")
     if r["generate_mismatch"] and not out:
@@ -522,58 +738,79 @@ def gate_failures(r: dict) -> list:
 
 def model_check(dev, card) -> dict:
     """Kernel path vs plain path on the same card, 2 layers at 8B width, b=2,
-    16 greedy tokens; then again with each planted fault, which must fail a
-    gate.  Every reading is printed before any gate is applied."""
+    16 greedy tokens, once with the fp8 cache (K4 throughout) and once with
+    the int8 cache (K4 at prefill, K5 at every decode step); then again with
+    each planted fault, which must fail a gate.  Every reading is printed
+    before any gate is applied."""
     from torchmx_tpu_torch.models.llama import LlamaConfig
     from torchmx_tpu_torch.quant_api import build_quantized_llama
 
-    qa, qm, kv = quant_configs()
+    qa, qm, _ = quant_configs()
     cfg = LlamaConfig(**{**LLAMA3_8B, "num_hidden_layers": 2})
     model = build_quantized_llama(cfg, qa, qm, dev, torch.Generator(dev).manual_seed(1))
     prompt = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator(dev).manual_seed(2), device=dev)
-    readings = {"sound": model_readings(model, prompt, 16, kv, floor=True)}
-    for fault in PLANTED_FAULTS:
-        with planted_fault(fault):
-            readings[fault] = model_readings(model, prompt, 16, kv, floor=False)
+    all_readings = {}
+    for cache, faults in (("float8_e4m3", PLANTED_FAULTS), ("int8", PLANTED_FAULTS_INT8)):
+        kv = quant_configs(cache)[2]
+        readings = {"sound": model_readings(model, prompt, 16, kv, floor=True)}
+        for fault in faults:
+            with planted_fault(fault):
+                readings[fault] = model_readings(model, prompt, 16, kv, floor=False)
+        for name, r in readings.items():
+            log(f"model check {cache} cache [{name}]: 2 layers at 8B width, b=2, 16 greedy tokens: "
+                f"{json.dumps(r)} [{card}]")
+        all_readings[cache] = readings
     del model
-    for name, r in readings.items():
-        log(f"model check [{name}]: 2 layers at 8B width, b=2, 16 greedy tokens: {json.dumps(r)} [{card}]")
-    sound = readings["sound"]
-    bad = gate_failures(sound)
-    if bad:
-        raise AssertionError(f"model check: {'; '.join(bad)}")
-    for key in ("layer", "logits"):  # another rounding of correct code passes too
-        if not sound[f"floor_{key}"] <= GATES[key]:
-            raise AssertionError(f"model check: the plain path with float64 attention fails the {key} gate "
-                                 f"({sound[f'floor_{key}']:.3e} > {GATES[key]:g})")
-    for fault in PLANTED_FAULTS:
-        caught = gate_failures(readings[fault])
-        if not caught:
-            raise AssertionError(f"model check: planted fault '{fault}' passes every gate")
-        log(f"model check: planted fault '{fault}' caught: {'; '.join(caught)}")
+    for cache, readings in all_readings.items():
+        sound, gates = readings["sound"], GATES[cache]
+        bad = gate_failures(sound, gates)
+        if bad:
+            raise AssertionError(f"model check, {cache} cache: {'; '.join(bad)}")
+        for key in ("layer", "logits"):  # another rounding of correct code passes too
+            if not sound[f"floor_{key}"] <= gates[key]:
+                raise AssertionError(f"model check, {cache} cache: the plain path with float64 attention fails "
+                                     f"the {key} gate ({sound[f'floor_{key}']:.3e} > {gates[key]:g})")
+        for fault in readings:
+            if fault == "sound":
+                continue
+            caught = gate_failures(readings[fault], gates)
+            if not caught:
+                raise AssertionError(f"model check, {cache} cache: planted fault '{fault}' passes every gate")
+            log(f"model check, {cache} cache: planted fault '{fault}' caught: {'; '.join(caught)}")
     log(f"model check passed: gates {json.dumps(GATES)} [{card}]")
-    return readings
+    return all_readings
 
 
-def run_slice(dev, card, layers: int):
-    from torchmx_tpu_torch.models.generate import generate
+def build_model(dev, card, layers: int, seed: int = 0):
+    """Llama-3-8B at full width, ``layers`` deep: seeded random bf16 weights
+    made on the card and quantized (fp4 weights, fp8 activations) layer by
+    layer."""
     from torchmx_tpu_torch.models.llama import LlamaConfig
     from torchmx_tpu_torch.ops import cuda_lib
     from torchmx_tpu_torch.quant_api import build_quantized_llama
 
-    qa, qm, kv = quant_configs()
+    qa, qm, _ = quant_configs()
     cfg = LlamaConfig(**{**LLAMA3_8B, "num_hidden_layers": layers})
-    if layers != LLAMA3_8B["num_hidden_layers"]:
-        log(f"slice: depth cut to {layers} of 32 layers")
-    torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launch_counts()
     t0 = time.perf_counter()
-    model = build_quantized_llama(cfg, qa, qm, dev, torch.Generator(dev).manual_seed(0))
+    model = build_quantized_llama(cfg, qa, qm, dev, torch.Generator(dev).manual_seed(seed))
     torch.cuda.synchronize()
-    log(f"slice: built and quantized Llama-3-8B ({layers} layers) in {time.perf_counter() - t0:.1f} s, "
+    log(f"model: built and quantized Llama-3-8B ({layers} layers) in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card [{card}]")
-    log(f"slice: launches while building (weight quantization, not the main path): "
+    log(f"model: launches while building (weight quantization, not a main path): "
         f"{json.dumps(dict(cuda_lib.LAUNCHES))}")
+    return model
+
+
+def run_slice(model, dev, card):
+    """The ``generate`` path (fp8 cache) at batch 1 and 32."""
+    from torchmx_tpu_torch.models.generate import generate
+    from torchmx_tpu_torch.ops import cuda_lib
+
+    kv = quant_configs()[2]
+    cfg = model.config
+    if cfg.num_hidden_layers != LLAMA3_8B["num_hidden_layers"]:
+        log(f"slice: depth cut to {cfg.num_hidden_layers} of 32 layers (--layers)")
     # The counts at the start of every forward of the timed run: the first
     # is the prefill, the rest are decode steps.
     at_forward = []
@@ -615,6 +852,8 @@ def run_slice(dev, card, layers: int):
 
 
 KERNEL_OF_DEVICE_NAME = (  # substring of the CUDA function name -> kernel
+    ("chunkdot_kernel", "mx_cached_attention_chunkdot"),
+    ("chunkdot_merge_kernel", "mx_cached_attention_chunkdot"),
     ("matmul_fp4_halves_kernel", "mx_matmul_fp4_halves"),
     ("reduce_splits_kernel", "mx_matmul_fp4_halves"),
     ("fake_quantize_kernel", "mx_fake_quantize"),
@@ -690,6 +929,361 @@ def latency_and_device_time(model, cfg, kv, dev, b: int, generate_seconds: float
     return out
 
 
+# -- phase 5: the engine -----------------------------------------------------------
+
+ENGINE_BATCH, ENGINE_LEN, ENGINE_CHUNK, PREFIX_LEN = 32, 1024, 128, 128
+PLAIN_LAYERS = 4  # depth of the model the engine's plain-path comparison runs at
+
+
+def make_requests(vocab: int, seed: int, n: int = 48):
+    """(the shared prefix, n requests): prompt lengths drawn from 32-512, 64-128
+    new tokens each; every fourth request's prompt extends the 128-token
+    prefix (by at least 32 tokens)."""
+    import random
+
+    rnd = random.Random(seed)
+    gen = torch.Generator().manual_seed(seed)
+
+    def toks(k):
+        return torch.randint(0, vocab, (k,), generator=gen).tolist()
+
+    prefix = toks(PREFIX_LEN)
+    requests = []
+    for i in range(n):
+        length, n_new = rnd.randint(32, 512), rnd.randint(64, 128)
+        if i % 4 == 1:
+            length = max(length, PREFIX_LEN + 32)
+            prompt = prefix + toks(length - PREFIX_LEN)
+        else:
+            prompt = toks(length)
+        requests.append(dict(id=i, prompt=prompt, n_new=n_new, prefixed=i % 4 == 1))
+    return prefix, requests
+
+
+def drive(eng, requests, follow=None) -> dict:
+    """Serve ``requests`` in order, admitting one whenever a slot is free and
+    releasing a request once it has its ``n_new`` tokens.  Returns, per
+    request id, its tokens, their log-probabilities, why it ended (None: it
+    got its tokens) and admission times; and per ``step()`` its duration, the
+    time of its return, the launches it made and whether it advanced an
+    admission chunk.
+
+    With ``follow`` (request id -> tokens of an earlier run) the engine is
+    teacher-forced: it goes on from the earlier run's token wherever it would
+    pick one, and what it would have picked itself is returned under
+    ``own_picks`` as (request id, token index, own token, top-2 logit gap)."""
+    from torchmx_tpu_torch.ops import cuda_lib
+
+    res = {r["id"]: dict(tokens=[], reason=None, n_prompt=len(r["prompt"])) for r in requests}
+    queue, slot_req, steps, own_picks = list(requests), {}, [], []
+    admitting_req = [None]  # the request whose first token the next one-row pick chooses
+
+    def following_pick(logits):
+        top2 = logits.float().topk(2, dim=-1)
+        own, gap = top2.indices[:, 0], top2.values[:, 0] - top2.values[:, 1]
+        if logits.shape[0] == 1:
+            targets = [(0, admitting_req[0]["id"], 0)]
+        else:  # a decode step picks the token after each decoding slot's pending one
+            targets = [(slot, r["id"], len(res[r["id"]]["tokens"]) + 1)
+                       for slot, r in slot_req.items() if slot not in eng._pending]
+        own_picks.append((targets, own, gap))
+        forced = [(row, follow[rid][idx]) for row, rid, idx in targets if idx < len(follow[rid])]
+        tok = own.clone()
+        if forced:
+            rows, vals = zip(*forced)
+            tok[torch.tensor(rows, device=tok.device)] = torch.tensor(vals, device=tok.device)
+        return tok, None
+
+    if follow is not None:
+        eng._pick = following_pick
+    t_start = time.perf_counter()
+
+    def finish(slot, reason):
+        r = slot_req.pop(slot)
+        res[r["id"]]["reason"] = reason
+        res[r["id"]]["logprobs"] = list(eng.logprobs.get(slot, []))
+
+    while queue or slot_req:
+        while queue and eng.free_slots():
+            r = admitting_req[0] = queue.pop(0)
+            t0 = time.perf_counter()
+            slot = eng.add(r["prompt"])
+            res[r["id"]].update(add_ms=(time.perf_counter() - t0) * 1e3, t_add=t0)
+            slot_req[slot] = r
+            if not eng.is_active(slot):  # its first continuation was EOS
+                finish(slot, eng.finished_reason[slot])
+        chunk_slot = next(iter(eng._pending), None)
+        admitting_req[0] = slot_req.get(chunk_slot)
+        before = collections.Counter(cuda_lib.LAUNCHES)
+        t0 = time.perf_counter()
+        out = eng.step()
+        t1 = time.perf_counter()
+        steps.append(dict(ms=(t1 - t0) * 1e3, t=t1, rows=len(out), chunk=chunk_slot is not None,
+                          launches=dict(collections.Counter(cuda_lib.LAUNCHES) - before)))
+        for slot, tok in out.items():
+            rec = res[slot_req[slot]["id"]]
+            rec.setdefault("first_token_ms", (t1 - rec["t_add"]) * 1e3)
+            rec["tokens"].append(int(tok))
+        for slot in list(slot_req):
+            if not eng.is_active(slot):
+                finish(slot, eng.finished_reason[slot])
+            elif len(res[slot_req[slot]["id"]]["tokens"]) >= slot_req[slot]["n_new"]:
+                finish(slot, None)
+                eng.release(slot)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t_start
+    flat = [(rid, idx, int(own[row]), float(gap[row]))
+            for targets, own, gap in ((t, o.cpu(), g.cpu()) for t, o, g in own_picks) for row, rid, idx in targets]
+    return dict(requests=res, steps=steps, seconds=seconds, own_picks=flat,
+                tokens=sum(len(r["tokens"]) for r in res.values()))
+
+
+def expected_stream(free_tokens, n_new, eos, stops):
+    """What the engine must emit, and why it ends, for a request whose
+    unconstrained greedy stream is ``free_tokens`` (at least n_new + 1 of
+    them): the EOS token is never emitted and ends the request at the step
+    before it; a stop sequence ends it once emitted."""
+    if free_tokens[0] == eos:
+        return [], "eos"
+    out = []
+    for k in range(n_new):
+        out.append(free_tokens[k])
+        if free_tokens[k + 1] == eos:
+            return out, "eos"
+        if any(tuple(out[-len(s):]) == s for s in stops):
+            return out, "stop"
+    return out, None
+
+
+def first_novel(tokens, lo, hi, width=1):
+    """The first index in [lo, hi) whose ``width`` tokens occur nowhere
+    earlier in the stream."""
+    for i in range(lo, hi):
+        if tuple(tokens[i:i + width]) not in [tuple(tokens[j:j + width]) for j in range(i)]:
+            return i
+    raise AssertionError(f"the greedy stream repeats itself too much to place an end in [{lo}, {hi})")
+
+
+def same_stream(a: dict, b: dict, what: str) -> None:
+    """Tokens and log-probabilities equal bit for bit, and the same ending."""
+    if a["tokens"] != b["tokens"] or a["logprobs"] != b["logprobs"] or a["reason"] != b["reason"]:
+        k = next((i for i, (x, y) in enumerate(zip(a["tokens"], b["tokens"])) if x != y), None)
+        raise AssertionError(f"engine: {what}: streams differ (first token mismatch at {k}; lengths "
+                             f"{len(a['tokens'])} / {len(b['tokens'])}; endings {a['reason']} / {b['reason']})")
+
+
+def percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def engine_profile(model, kv, requests, prefix, step_ms: float) -> dict:
+    """Device time per ``step()`` by kernel from a torch.profiler window of 8
+    steady steps with every slot decoding, and the device's idle share of a
+    full-batch step of the unprofiled stream (``step_ms``; the profiler slows
+    the host, so the window's own step time is reported but not used)."""
+    from torchmx_tpu_torch.models.serve import DecodeEngine
+
+    eng = DecodeEngine(model, ENGINE_BATCH, ENGINE_LEN, kv_cache_config=kv)
+    eng.cache_prefix(prefix)
+    for r in requests[:ENGINE_BATCH]:
+        eng.add(r["prompt"])
+    for _ in range(4):
+        eng.step()
+    steps = 8
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    dev_ms = device_time_by_kernel(prof)
+    out = dict(profiled_step_ms=wall_ms)
+    if dev_ms["busy"] > 0:
+        out["device_ms_per_step"] = {k: v / steps for k, v in dev_ms.items()}
+        out["device_idle_share"] = 1.0 - out["device_ms_per_step"]["busy"] / step_ms
+    else:
+        out["device_ms_per_step"] = "not measured (the profiler recorded no device events)"
+    return out
+
+
+def compare_with_plain_path(dev, card) -> dict:
+    """The engine on the kernel path against the same engine under
+    ``plain_path()``, on a model of PLAIN_LAYERS layers at full width (the
+    plain path at 32 layers takes over a second per step): a mini stream runs
+    on the kernel path, then again on the plain path, teacher-forced on the
+    kernel path's tokens so that both see the same state at every step (a
+    random model's logits are flat, and free-running streams part ways at
+    the first near tie).  Wherever the plain path's top-2 gap exceeds the
+    int8 tie gap, its own pick must be the kernel path's token."""
+    from torchmx_tpu_torch.models.serve import DecodeEngine
+    from torchmx_tpu_torch.ops.backend import plain_path
+
+    model = build_model(dev, card, PLAIN_LAYERS, seed=5)
+    kv = quant_configs("int8")[2]
+    prefix, requests = make_requests(model.config.vocab_size, seed=11, n=8)
+    for r in requests:
+        r["n_new"] = 24
+
+    def run(follow=None):
+        eng = DecodeEngine(model, ENGINE_BATCH, ENGINE_LEN, kv_cache_config=kv, prefill_chunk=ENGINE_CHUNK)
+        eng.cache_prefix(prefix)
+        return drive(eng, requests, follow)
+
+    got = run()
+    tokens = {rid: rec["tokens"] for rid, rec in got["requests"].items()}
+    with plain_path():
+        ref = run(follow=tokens)
+    tie_gap = GATES["int8"]["tie_gap"]
+    decisive = near_ties = 0
+    other, worst = [], 0.0  # picks where the plain path would have gone another way
+    for rid, idx, own, gap in ref["own_picks"]:
+        if idx >= len(tokens[rid]):
+            continue
+        decisive += gap > tie_gap
+        near_ties += gap <= tie_gap
+        if own != tokens[rid][idx]:
+            other.append((rid, idx, round(gap, 4)))
+            worst = max(worst, gap)
+    out = dict(layers=PLAIN_LAYERS, requests=len(requests), steps_compared=decisive + near_ties,
+               decisive_steps=decisive, near_ties=near_ties, other_picks=len(other), largest_gap_of_another_pick=worst,
+               tie_gap=tie_gap, kernel_seconds=got["seconds"], plain_seconds=ref["seconds"])
+    log(f"engine vs plain path at {PLAIN_LAYERS} layers (full width, chunked admission, prefix, teacher-forced): "
+        f"{json.dumps(out)} [{card}]")
+    if worst > tie_gap:
+        raise AssertionError(f"engine vs plain path: the plain path picks another token at decisive steps: "
+                             f"{[o for o in other if o[2] > tie_gap]}")
+    if decisive < 30:
+        raise AssertionError(f"engine vs plain path: only {decisive} decisive steps were compared")
+    return out
+
+
+def run_engine(model, dev, card) -> dict:
+    """The serving path: ``DecodeEngine`` over an int8 MX KV cache, 32 slots
+    of 1024 positions, a seeded stream of 48 requests.  Checks that a
+    request's stream (tokens and log-probabilities, bit for bit) is the same
+    alone and in company, admitted whole, in chunks or over the cached
+    prefix; that EOS, a stop sequence and a full cache each end a request
+    with the right reason; and that every decode step launched K3, K1 and K5
+    as often as the model's depth says, and K4 and K2 never."""
+    from torchmx_tpu_torch.models.serve import DecodeEngine
+    from torchmx_tpu_torch.ops import cuda_lib
+
+    kv = quant_configs("int8")[2]
+    layers = model.config.num_hidden_layers
+    prefix, requests = make_requests(model.config.vocab_size, seed=7)
+
+    def engine(max_len=ENGINE_LEN, chunk=None, with_prefix=True, **kw):
+        eng = DecodeEngine(model, ENGINE_BATCH, max_len, kv_cache_config=kv, prefill_chunk=chunk,
+                           return_logprobs=True, **kw)
+        if with_prefix:
+            eng.cache_prefix(prefix)
+        return eng
+
+    def alone(r, **kw):
+        """The request's unconstrained stream (one token more than it asks
+        for), decoding alone: the other 31 slots idle."""
+        return drive(engine(**kw), [dict(r, n_new=r["n_new"] + 1)])["requests"][r["id"]]
+
+    # 1. Four requests alone; an EOS token and a stop sequence chosen from
+    # their streams so that each ends one of them early.
+    checked = [requests[i] for i in (0, 1, 2, 3)]  # 1 extends the prefix
+    drive(engine(), [dict(requests[4], n_new=4)])  # warm-up
+    free = {r["id"]: alone(r) for r in checked}
+    x, y = free[0]["tokens"], free[2]["tokens"]
+    eos = x[first_novel(x, 16, 48)]
+    j = first_novel(y, 16, 48, width=2)
+    stops = [tuple(y[j:j + 2])]
+    if eos in y[:j + 3]:
+        raise AssertionError("engine: the EOS token ends request 2 before its stop sequence")
+    log(f"engine: EOS token {eos} (request 0 ends before its token {x.index(eos)}), "
+        f"stop sequence {stops[0]} (request 2 ends after its token {j + 1})")
+    rules = dict(eos_token_id=eos, stop_sequences=stops)
+
+    # 2. The stream of 48, whole admissions over the cached prefix.  Counts
+    # are set to 0 just before and read just after.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = engine(**rules)
+    cuda_lib.reset_launch_counts()
+    run = drive(eng, requests)
+    launches = dict(cuda_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hits = eng.prefix_hit_tokens
+    del eng
+    for r in checked:
+        want, reason = expected_stream(free[r["id"]]["tokens"], r["n_new"], eos, stops)
+        same_stream(dict(tokens=want, logprobs=free[r["id"]]["logprobs"][:len(want)], reason=reason),
+                    run["requests"][r["id"]], f"request {r['id']} alone vs among {ENGINE_BATCH}")
+    if run["requests"][0]["reason"] != "eos" or run["requests"][2]["reason"] != "stop":
+        raise AssertionError("engine: the EOS token and the stop sequence did not end requests 0 and 2")
+    if hits != PREFIX_LEN * sum(r["prefixed"] for r in requests):
+        raise AssertionError(f"engine: {hits} prompt tokens reused from the prefix cache")
+    for rec in run["requests"].values():
+        n = len(rec["tokens"])
+        if not all(0 <= t < model.config.vocab_size for t in rec["tokens"]) or n != len(rec["logprobs"]):
+            raise AssertionError("engine: a stream holds bad tokens")
+        if not all(lp == lp and lp <= 0 for lp in rec["logprobs"]):
+            raise AssertionError("engine: a stream holds bad log-probabilities")
+    want = {"mx_matmul_fp4_halves": 7 * layers + 1, "mx_quantize": 2 * layers,
+            "mx_cached_attention_chunkdot": layers}
+    for st in run["steps"]:
+        if st["rows"] and st["launches"] != want:
+            raise AssertionError(f"engine: a decode step launched {st['launches']}, expected {want}")
+    log(f"engine: every one of {len(run['steps'])} decode steps launched {json.dumps(want)}: K5, not K4, "
+        f"served each of them; the whole stream launched {json.dumps(launches)}")
+
+    # 3. Admitted whole without the prefix cache, and in chunks among others.
+    same_stream(free[1], alone(requests[1], with_prefix=False), "request 1 over the prefix vs whole")
+    chunked = drive(engine(chunk=ENGINE_CHUNK, **rules), requests[:16])
+    if not any(st["chunk"] for st in chunked["steps"]):
+        raise AssertionError("engine: no admission went through chunks")
+    for r in requests[:16]:
+        same_stream(run["requests"][r["id"]], chunked["requests"][r["id"]],
+                    f"request {r['id']} admitted whole vs in chunks of {ENGINE_CHUNK}")
+    log(f"engine: streams bit-identical (tokens and log-probabilities): requests 0-3 alone vs among "
+        f"{ENGINE_BATCH}; request 1 over the cached prefix vs whole; requests 0-15 whole vs in chunks of "
+        f"{ENGINE_CHUNK} (prefix reuse rounded to the chunk grid)")
+
+    # 4. A slot run to the end of its cache (256 positions): its last write
+    # is clamped; alone and among 8 others.
+    _, extra = make_requests(model.config.vocab_size, seed=9, n=9)
+    long_r = dict(extra[0], prompt=(extra[0]["prompt"] * 8)[:200], n_new=10**6)
+    others = [dict(r, prompt=r["prompt"][:48], n_new=40) for r in extra[1:]]
+    a = drive(engine(max_len=256, with_prefix=False), [long_r])["requests"][long_r["id"]]
+    b = drive(engine(max_len=256, with_prefix=False), [long_r] + others)["requests"][long_r["id"]]
+    same_stream(a, b, "the request run to cache_full, alone vs among 8")
+    if a["reason"] != "cache_full" or len(a["tokens"]) != 256 - 200 + 1:
+        raise AssertionError(f"engine: cache_full after {len(a['tokens'])} tokens, reason {a['reason']}")
+    reasons = collections.Counter(str(r["reason"]) for r in run["requests"].values())
+    reasons["cache_full"] += 1
+    log(f"engine: endings over the stream of {len(requests)} (None = got its tokens) plus the drained slot: "
+        f"{json.dumps(dict(reasons))}")
+
+    # 5. Numbers.
+    gaps = [b_["t"] - a_["t"] for a_, b_ in zip(run["steps"], run["steps"][1:])]
+    full = [st["ms"] for st in run["steps"] if st["rows"] == ENGINE_BATCH]
+    admissions = sorted((r["n_prompt"], round(r["add_ms"], 1)) for r in run["requests"].values())
+    out = dict(requests=len(requests), tokens=run["tokens"], seconds=run["seconds"],
+               tokens_per_s=run["tokens"] / run["seconds"], steps=len(run["steps"]),
+               step_gap_ms_median=statistics.median(gaps) * 1e3, step_gap_ms_p90=percentile(gaps, 0.9) * 1e3,
+               full_batch_step_ms_median=statistics.median(full) if full else None,
+               full_batch_steps=len(full), admission_ms_by_prompt_length=admissions,
+               chunked_first_token_ms=sorted((r["n_prompt"], round(r["first_token_ms"], 1))
+                                             for r in chunked["requests"].values() if "first_token_ms" in r),
+               chunked_step_ms_median=statistics.median(st["ms"] for st in chunked["steps"] if st["chunk"]),
+               peak_gib=peak, prefix_hit_tokens=hits, launches=launches, launches_per_decode_step=want,
+               endings=dict(reasons), layers=layers)
+    if not full:
+        raise AssertionError("engine: the stream never had every slot decoding")
+    out.update(engine_profile(model, kv, requests, prefix, out["full_batch_step_ms_median"]))
+    log(f"engine: {json.dumps(out)} [{card}]")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32, help="depth of the slice's model (default 32)")
@@ -714,19 +1308,38 @@ def main() -> int:
     kernels = check_quantize_kernels(dev, timer, gen)
     k3, k3_rows = check_matmul_kernel(dev, timer, gen)
     k4, k4_rows = check_attention_kernel(dev, timer, gen)
-    kernels += [k3, k4]
+    k5, int8_rows, k4_int8_err = check_int8_attention_kernels(dev, timer, gen)
+    k4["max_abs_err"] = max(k4["max_abs_err"], k4_int8_err)
+    kernels += [k3, k4, k5]
+    check_row_invariance(dev, gen)
+    accuracy = attention_accuracy(dev, gen)
     check_readings = model_check(dev, card)
-    launches, slice_results = run_slice(dev, card, args.layers)
+    model = build_model(dev, card, args.layers)
+    # Each main path is driven with the counts set to 0 just before it and
+    # read just after: generate() over the fp8 cache, then the engine over
+    # the int8 cache.
+    paths = {}
+    paths["generate"], slice_results = run_slice(model, dev, card)
+    engine_results = run_engine(model, dev, card)
+    paths["engine"] = engine_results["launches"]
+    del model
+    plain_results = compare_with_plain_path(dev, card)
+    on_path = {"generate": {"mx_quantize", "mx_fake_quantize", "mx_matmul_fp4_halves", "mx_cached_attention"},
+               "engine": {k["name"] for k in kernels}}
     for k in kernels:
-        k["launches"] = launches.get(k["name"], 0)
+        k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in paths.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
         k["launches_per_decode_step"] = {
             f"b{b}": r["launches_per_decode_step"].get(k["name"], 0) for b, r in slice_results.items()}
-        if k["launches"] <= 0:
-            raise AssertionError(f"{k['name']} was never launched on the main path")
+        k["launches_per_decode_step"]["engine"] = engine_results["launches_per_decode_step"].get(k["name"], 0)
+        for path, names in on_path.items():
+            if k["name"] in names and k["launches_by_path"][path] <= 0:
+                raise AssertionError(f"{k['name']} was never launched on the {path} path")
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, kernels=kernels, matmul=k3_rows, attention=k4_rows,
-                       model_check=check_readings, slice=slice_results), f, indent=1)
+        json.dump(dict(card=card, kernels=kernels, matmul=k3_rows, attention=k4_rows, attention_int8=int8_rows,
+                       attention_accuracy=accuracy, model_check=check_readings, slice=slice_results, engine=engine_results,
+                       engine_vs_plain=plain_results), f, indent=1)
     log("kernels: " + ", ".join(f"{k['name']} ok ({k['launches']} launches)" for k in kernels) + f" [{card}]")
     log(card)
     log(json.dumps({"kernels": kernels}))

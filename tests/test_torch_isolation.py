@@ -33,7 +33,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
     """With no card, building without ``device="cpu"`` raises instead of
     running on the CPU."""
     from torchmx_tpu_torch.convert import from_flat_params
+    from torchmx_tpu_torch.config import MXConfig
     from torchmx_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from torchmx_tpu_torch.models.serve import DecodeEngine
     from torchmx_tpu_torch.ops.backend import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -45,4 +47,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
         LlamaForCausalLM(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         from_flat_params({}, cfg)
-    assert LlamaForCausalLM(cfg, device="cpu").device.type == "cpu"
+    model = LlamaForCausalLM(cfg, device="cpu")
+    assert model.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DecodeEngine(model, 1, 128, kv_cache_config=MXConfig("int8"))
+    assert DecodeEngine(model, 1, 128, kv_cache_config=MXConfig("int8"), device="cpu").device.type == "cpu"

@@ -1,4 +1,4 @@
-"""The plain PyTorch versions of the port's four kernels held against the JAX
+"""The plain PyTorch versions of the port's five kernels held against the JAX
 Pallas kernels they replace (interpret mode, small shapes), and, on a
 machine with a card, the CUDA kernels against their plain versions.
 
@@ -113,22 +113,26 @@ def test_unfused_activation_formats_take_two_passes():
     assert err <= 1e-2, err
 
 
-def _fp8_cache(seed, b, hkv, L, d):
+def _mx_cache(seed, b, hkv, L, d, elem="float8_e4m3"):
     rng = np.random.default_rng(seed)
     k = np.asarray(jnp.asarray(rng.standard_normal((b, hkv, L, d)), jnp.bfloat16))
     v = np.asarray(jnp.asarray(rng.standard_normal((b, hkv, L, d)), jnp.bfloat16))
-    ks, kd = jquantize_mx(jnp.asarray(k), "float8_e4m3", 32)
-    vs, vd = jquantize_mx(jnp.asarray(v), "float8_e4m3", 32)
+    ks, kd = jquantize_mx(jnp.asarray(k), elem, 32)
+    vs, vd = jquantize_mx(jnp.asarray(v), elem, 32)
     return types.SimpleNamespace(
-        k_data=kd, k_scale=ks, v_data=vd, v_scale=vs, elem_dtype_name="float8_e4m3",
+        k_data=kd, k_scale=ks, v_data=vd, v_scale=vs, elem_dtype_name=elem,
         block_size=32, layout="seq",
     )
+
+
+def _cache_tensors(cache):
+    return [torch.from_numpy(np.array(getattr(cache, k))) for k in ("k_data", "k_scale", "v_data", "v_scale")]
 
 
 @pytest.mark.parametrize("sq", [1, 16])
 def test_mx_cached_attention_plain_matches_pallas_kernel(pallas_env, sq):
     b, hq, hkv, d, L = 2, 4, 2, 128, 256
-    cache = _fp8_cache(6, b, hkv, L, d)
+    cache = _mx_cache(6, b, hkv, L, d)
     q = rand_bf16(7, (b, hq, sq, d), spread=0.5)
     q_off = np.array([3, 200 - sq], np.int32)  # ragged rows
     kv_len = q_off + sq
@@ -142,6 +146,85 @@ def test_mx_cached_attention_plain_matches_pallas_kernel(pallas_env, sq):
     )
     err = np.abs(got.float().numpy() - np.asarray(ref, np.float32)).max()
     assert err <= 2e-2, err
+
+
+@pytest.mark.parametrize("hq,hkv", [(32, 8), (4, 2)])
+def test_chunkdot_attention_plain_matches_pallas_kernel(pallas_env, hq, hkv):
+    """K5's plain version against the JAX chunk-dot kernel (int8 cache, one
+    query position): rows at their own positions, one of them seeing less
+    than the written prefix (``kv_len`` below ``q_off + 1``)."""
+    b, d, L = 3, 128, 256
+    cache = _mx_cache(11, b, hkv, L, d, "int8")
+    q = rand_bf16(12, (b, hq, 1, d), spread=0.5)
+    q_off = np.array([0, 130, 255], np.int32)
+    kv_len = np.array([1, 100, 256], np.int32)
+    assert jpa.use_chunkdot("int8", 1, d)
+    ref = jpa.cached_attention_any(jnp.asarray(q, jnp.bfloat16), cache, jnp.asarray(q_off),
+                                   jnp.asarray(kv_len), d ** -0.5)
+    got = cuda_attention.mx_cached_attention_chunkdot_plain(
+        to_torch(q), *_cache_tensors(cache), torch.from_numpy(q_off), torch.from_numpy(kv_len), d ** -0.5)
+    assert got.shape == (b, hq, 1, d) and got.dtype == torch.bfloat16
+    err = np.abs(got.float().numpy() - np.asarray(ref, np.float32)).max()
+    assert err <= 2e-2, err
+    # The dispatch reaches it, and the general kernel's plain version agrees.
+    port_cache = types.SimpleNamespace(**dict(zip(("k_data", "k_scale", "v_data", "v_scale"), _cache_tensors(cache))),
+                                       elem_dtype_name="int8", block_size=32)
+    via = cuda_attention.cached_attention_any(to_torch(q), port_cache, torch.from_numpy(q_off),
+                                              torch.from_numpy(kv_len), d ** -0.5)
+    assert torch.equal(via, got)
+    k4 = cuda_attention.mx_cached_attention_plain(
+        to_torch(q), *_cache_tensors(cache), torch.from_numpy(q_off), torch.from_numpy(kv_len), d ** -0.5, "int8")
+    assert (k4.float() - got.float()).abs().max().item() <= 2e-2
+
+
+def test_chunkdot_attention_plain_edge_rows():
+    """A row with no visible key outputs 0; never-written slots (code 0,
+    scale 0) and a stale NaN-scale slot past the prefix change nothing."""
+    b, hq, hkv, d, L = 2, 4, 2, 128, 64
+    kd, ks, vd, vs = _cache_tensors(_mx_cache(13, b, hkv, L, d, "int8"))
+    q = to_torch(rand_bf16(14, (b, hq, 1, d), spread=0.5))
+    q_off, kv_len = torch.tensor([0, 40]), torch.tensor([0, 41])
+    ref = cuda_attention.mx_cached_attention_chunkdot_plain(q, kd, ks, vd, vs, q_off, kv_len, d ** -0.5)
+    assert ref[0].abs().max() == 0 and ref[1].abs().max() > 0
+    for t in (kd, ks, vd, vs):
+        t[:, :, 41:] = 0
+    ks[:, :, 50], vs[:, :, 50] = 255, 255
+    got = cuda_attention.mx_cached_attention_chunkdot_plain(q, kd, ks, vd, vs, q_off, kv_len, d ** -0.5)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("sq", [8, 64])
+def test_mx_cached_attention_plain_int8_matches_pallas_kernel(pallas_env, sq):
+    """K4's plain version over an int8 cache (prefill, chunks) against the
+    JAX kernel's int8 branch."""
+    b, hq, hkv, d, L = 2, 4, 2, 128, 256
+    cache = _mx_cache(15, b, hkv, L, d, "int8")
+    q = rand_bf16(16, (b, hq, sq, d), spread=0.5)
+    q_off = np.array([0, 128], np.int32)  # a prefill and a chunk at an offset
+    kv_len = q_off + sq
+    ref = jpa.cached_attention_any(jnp.asarray(q, jnp.bfloat16), cache, jnp.asarray(q_off),
+                                   jnp.asarray(kv_len), d ** -0.5)
+    got = cuda_attention.mx_cached_attention_plain(
+        to_torch(q), *_cache_tensors(cache), torch.from_numpy(q_off), torch.from_numpy(kv_len), d ** -0.5, "int8")
+    err = np.abs(got.float().numpy() - np.asarray(ref, np.float32)).max()
+    assert err <= 2e-2, err
+
+
+@pytest.mark.parametrize("elem", ["int8", "float8_e4m3", "float6_e3m2"])
+@pytest.mark.parametrize("sq", [1, 2, 64])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_chunkdot_dispatch_rule_matches_jax(elem, sq, d):
+    assert cuda_attention.use_chunkdot(elem, sq, d) == jpa.use_chunkdot(elem, sq, d)
+
+
+def test_attention_wrappers_reject_what_the_kernels_do_not_take():
+    q = torch.zeros(1, 4, 2, 128, dtype=torch.bfloat16)
+    kd = torch.zeros(1, 2, 64, 128, dtype=torch.int8)
+    ks = torch.zeros(1, 2, 64, 4, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="sq == 1"):
+        cuda_attention.mx_cached_attention_chunkdot(q, kd, ks, kd, ks, 0, 2, 1.0)
+    with pytest.raises(ValueError, match="int8 cache"):
+        cuda_attention.mx_cached_attention_chunkdot(q[:, :, :1], kd.view(torch.uint8), ks, kd.view(torch.uint8), ks, 0, 1, 1.0)
 
 
 def test_wrappers_take_the_plain_path_on_cpu():
@@ -208,3 +291,40 @@ def test_cuda_attention_kernel_matches_plain(cuda_device, sq):
     out = cuda_attention.mx_cached_attention(*args)
     ref = cuda_attention.mx_cached_attention_plain(*args)
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq", [8, 64, 128])
+def test_cuda_attention_kernel_int8_matches_plain(cuda_device, sq):
+    b, hq, hkv, d, L = 2, 8, 2, 128, 256
+    g = torch.Generator().manual_seed(2)
+    k = torch.randn(b, hkv, L, d, generator=g).to(torch.bfloat16).to(cuda_device)
+    v = torch.randn(b, hkv, L, d, generator=g).to(torch.bfloat16).to(cuda_device)
+    ks, kd = cuda_quantize.mx_quantize(k, "int8")
+    vs, vd = cuda_quantize.mx_quantize(v, "int8")
+    q = torch.randn(b, hq, sq, d, generator=g).to(torch.bfloat16).to(cuda_device)
+    q_off = torch.tensor([0, 128], dtype=torch.int32, device=cuda_device)
+    args = (q, kd, ks, vd, vs, q_off, q_off + sq, d ** -0.5, "int8")
+    out = cuda_attention.mx_cached_attention(*args)
+    ref = cuda_attention.mx_cached_attention_plain(*args)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv,L", [(32, 8, 1024), (4, 2, 256), (8, 1, 8192), (2, 2, 64)])
+def test_cuda_chunkdot_kernel_matches_plain(cuda_device, hq, hkv, L):
+    b, d = 5, 128
+    g = torch.Generator().manual_seed(3)
+    k = torch.randn(b, hkv, L, d, generator=g).to(torch.bfloat16).to(cuda_device)
+    v = torch.randn(b, hkv, L, d, generator=g).to(torch.bfloat16).to(cuda_device)
+    ks, kd = cuda_quantize.mx_quantize(k, "int8")
+    vs, vd = cuda_quantize.mx_quantize(v, "int8")
+    q = torch.randn(b, hq, 1, d, generator=g).to(torch.bfloat16).to(cuda_device)
+    q_off = torch.tensor([0, 0, L // 2, L - 1, L], dtype=torch.int32, device=cuda_device)
+    kv_len = torch.tensor([0, 1, L // 3, L, L + 1], dtype=torch.int32, device=cuda_device)
+    args = (q, kd, ks, vd, vs, q_off, kv_len, d ** -0.5)
+    out = cuda_attention.mx_cached_attention_chunkdot(*args)
+    ref = cuda_attention.mx_cached_attention_chunkdot_plain(*args)
+    assert out[0].abs().max().item() == 0
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert torch.equal(out, cuda_attention.mx_cached_attention_chunkdot(*args))  # deterministic

@@ -1,5 +1,5 @@
 """The port's slice as a whole: an MXFP4-weight / MXFP8-activation Llama with
-an fp8 KV cache, held against the JAX package on the same weights.
+an fp8 or int8 KV cache, held against the JAX package on the same weights.
 
 Weights come from the JAX model (seeded ``nnx.Rngs``) through
 ``torchmx_tpu_torch.convert``; both sides quantize them with their own
@@ -85,26 +85,31 @@ def jax_backend(mode: str):
         jenv.TORCHMX_QUANTIZE_BACKEND, jenv.TORCHMX_FUSED_ATTENTION = old
 
 
-def _jax_steps(jmodel, ids: np.ndarray, forced: np.ndarray, max_len: int):
+def _jax_steps(jmodel, ids: np.ndarray, forced: np.ndarray, max_len: int, kv: str = KV, row_pos=None):
     """JAX logits (b, 1 + len(forced), V) fp32: prefill, then decode steps
-    teacher-forced on ``forced`` tokens."""
+    teacher-forced on ``forced`` tokens.  ``row_pos`` (b,) starts each row's
+    decode at its own position (per-row ``cache_position``)."""
     b, s = ids.shape
-    caches = jmodel.init_cache(b, max_len, JMXConfig(KV))
+    caches = jmodel.init_cache(b, max_len, JMXConfig(kv))
     logits, caches = jmodel(jnp.asarray(ids), attention_mask=None,
                             position_ids=jnp.arange(s)[None, :], caches=caches, cache_position=0)
     out = [np.asarray(logits[:, -1], np.float32)]
     for i in range(forced.shape[1]):
+        if row_pos is None:
+            position_ids, pos = jnp.full((b, 1), s + i, jnp.int32), s + i
+        else:
+            pos = jnp.asarray(row_pos + i, jnp.int32)
+            position_ids = pos[:, None]
         logits, caches = jmodel(jnp.asarray(forced[:, i:i + 1]), attention_mask=None,
-                                position_ids=jnp.full((b, 1), s + i, jnp.int32),
-                                caches=caches, cache_position=s + i)
+                                position_ids=position_ids, caches=caches, cache_position=pos)
         out.append(np.asarray(logits[:, -1], np.float32))
     return np.stack(out, axis=1)
 
 
-def _jax_greedy(jmodel, ids: np.ndarray, n: int, max_len: int = 128):
+def _jax_greedy(jmodel, ids: np.ndarray, n: int, max_len: int = 128, kv: str = KV):
     """JAX greedy decoding, op by op: (tokens (b, n), logits (b, n, V))."""
     b, s = ids.shape
-    caches = jmodel.init_cache(b, max_len, JMXConfig(KV))
+    caches = jmodel.init_cache(b, max_len, JMXConfig(kv))
     logits, caches = jmodel(jnp.asarray(ids), attention_mask=None,
                             position_ids=jnp.arange(s)[None, :], caches=caches, cache_position=0)
     steps = [np.asarray(logits[:, -1], np.float32)]
@@ -118,14 +123,15 @@ def _jax_greedy(jmodel, ids: np.ndarray, n: int, max_len: int = 128):
     return logits.argmax(-1), logits
 
 
-def _port_steps(port, ids: np.ndarray, forced: np.ndarray, max_len: int):
+def _port_steps(port, ids: np.ndarray, forced: np.ndarray, max_len: int, kv: str = KV, row_pos=None):
     b, s = ids.shape
-    caches = port.init_cache(b, max_len, MXConfig(KV))
+    caches = port.init_cache(b, max_len, MXConfig(kv))
     with torch.inference_mode():
         out = [port(torch.from_numpy(ids), caches=caches, cache_position=0)[:, -1].float()]
         for i in range(forced.shape[1]):
             tok = torch.from_numpy(forced[:, i:i + 1])
-            out.append(port(tok, caches=caches, cache_position=s + i)[:, -1].float())
+            pos = s + i if row_pos is None else torch.from_numpy(row_pos + i)
+            out.append(port(tok, caches=caches, cache_position=pos)[:, -1].float())
     return torch.stack(out, dim=1).numpy()
 
 
@@ -188,3 +194,90 @@ def test_greedy_generate_matches_jax(small_pair):
                                return_logits=True)
     assert got_logits.shape == (2, n, SMALL["vocab_size"])
     _assert_tokens_match(ref, got.numpy(), ref_logits)
+
+
+# -- per-row cache positions and the int8 cache ----------------------------------
+
+
+@pytest.mark.parametrize("kv", ["int8", "float8_e4m3"])
+def test_per_row_cache_write_matches_jax_bit_for_bit(kv):
+    """``MXLayerKVCache.write`` with (b,) positions against the JAX cache's:
+    codes and scales bit-exact, including a start that runs past the buffer
+    and is clamped (row 2 writes 3 positions at 30 into a cache of 32, row 3
+    one position at ``max_len``)."""
+    from torchmx_tpu.models.llama import MXLayerKVCache as JCache
+    from torchmx_tpu_torch.models.llama import MXLayerKVCache
+
+    b, h, L, d = 4, 2, 32, 64
+    rng = np.random.default_rng(7)
+    jc, tc = JCache.create(b, h, L, d, kv, 32, layout="seq"), MXLayerKVCache.create(b, h, L, d, kv, device="cpu")
+    for s_len, pos in ((5, [0, 3, 27, 11]), (3, [5, 0, 30, 29]), (1, [8, 31, 4, 32]), (1, [9, 2, 40, 0])):
+        k = np.asarray(jnp.asarray(rng.standard_normal((b, h, s_len, d)), jnp.bfloat16), np.float32)
+        v = np.asarray(jnp.asarray(rng.standard_normal((b, h, s_len, d)) * 8, jnp.bfloat16), np.float32)
+        jc = jc.write(jnp.asarray(k, jnp.bfloat16), jnp.asarray(v, jnp.bfloat16), jnp.asarray(pos, jnp.int32))
+        tc.write(torch.from_numpy(k).to(torch.bfloat16), torch.from_numpy(v).to(torch.bfloat16),
+                 torch.tensor(pos, dtype=torch.int32))
+        for name in ("k_data", "k_scale", "v_data", "v_scale"):
+            np.testing.assert_array_equal(getattr(tc, name).numpy().view(np.uint8),
+                                          np.asarray(getattr(jc, name)).view(np.uint8), err_msg=name)
+    with pytest.raises(ValueError, match="per-row positions"):
+        tc.write(torch.zeros(b, h, 1, d), torch.zeros(b, h, 1, d), torch.zeros(b + 1, dtype=torch.int32))
+
+
+def test_int_and_per_row_positions_agree(small_pair):
+    """A (b,) position tensor with equal entries computes what the int does."""
+    _, port = small_pair
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, SMALL["vocab_size"], size=(2, 8)).astype(np.int32)
+    forced = rng.integers(0, SMALL["vocab_size"], size=(2, 2)).astype(np.int32)
+    for kv in ("int8", KV):
+        a = _port_steps(port, ids, forced, 128, kv)
+        b = _port_steps(port, ids, forced, 128, kv, row_pos=np.array([8, 8], np.int32))
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def small_logits_int8(small_pair):
+    """int8 cache: prefill of 8 tokens, then 3 teacher-forced decode steps
+    with the rows at their own positions (row 0 goes on at 8, row 1 rewinds
+    to 5 and overwrites from there): (pallas, port) logits."""
+    jmodel, port = small_pair
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, SMALL["vocab_size"], size=(2, 8)).astype(np.int32)
+    forced = rng.integers(0, SMALL["vocab_size"], size=(2, 3)).astype(np.int32)
+    row_pos = np.array([8, 5], np.int32)
+    with jax_backend("pallas"):
+        ref = _jax_steps(jmodel, ids, forced, 128, "int8", row_pos)
+    return ref, _port_steps(port, ids, forced, 128, "int8", row_pos)
+
+
+@pytest.mark.parametrize("step", [0, 1, 2, 3], ids=["prefill", "decode1", "decode2", "decode3"])
+def test_int8_cache_logits_match_jax_with_per_row_positions(small_logits_int8, step):
+    ref, got = small_logits_int8
+    rel = _rel(got[:, step], ref[:, step])
+    print(f"int8 step {step}: rel {rel:.3e}")
+    assert rel <= REL_TOL
+
+
+def test_int8_greedy_generate_matches_jax(small_pair):
+    jmodel, port = small_pair
+    ids = np.random.default_rng(5).integers(0, SMALL["vocab_size"], size=(2, 8)).astype(np.int32)
+    n = 12
+    with jax_backend("pallas"):
+        ref, ref_logits = _jax_greedy(jmodel, ids, n, kv="int8")
+    got = generate(port, torch.from_numpy(ids), n, kv_cache_config=MXConfig("int8"))
+    _assert_tokens_match(ref, got.numpy(), ref_logits)
+
+
+def test_generate_sampling_is_seeded(small_pair):
+    """Greedy is the default; a temperature samples reproducibly from the
+    seed, inside the top-k set of each step's logits."""
+    _, port = small_pair
+    ids = torch.from_numpy(np.random.default_rng(6).integers(0, SMALL["vocab_size"], size=(2, 8)))
+    kw = dict(kv_cache_config=MXConfig("int8"), temperature=0.9, top_k=5)
+    a, logits = generate(port, ids, 6, seed=3, return_logits=True, **kw)
+    b = generate(port, ids, 6, seed=3, **kw)
+    c = generate(port, ids, 6, seed=4, **kw)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    top5 = logits.topk(5, dim=-1).indices
+    assert (top5 == a[..., None]).any(-1).all()

@@ -4,8 +4,9 @@
 // Replaces torchmx_tpu/ops/pallas_attention.py::_attn_kernel (:115),
 // launched by _mx_cached_attention (:279).
 //
-// Inputs: q (b, hq, sq, d) bf16; K/V codes (b, hkv, L, d) uint8 and scales
-// (b, hkv, L, d/32) uint8; q_off, kv_len (b,) int32.  Output (b, hq, sq, d)
+// Inputs: q (b, hq, sq, d) bf16; K/V codes (b, hkv, L, d), one byte each
+// (fp8 e4m3 or int8), and scales (b, hkv, L, d/32) uint8; q_off, kv_len (b,)
+// int32.  Output (b, hq, sq, d)
 // bf16.  GQA is folded: the rows of one KV head are ordered (query
 // position, head in group), row r sees positions <= q_off + r / G and
 // < kv_len.
@@ -94,7 +95,7 @@ attention_kernel(const uint16_t* __restrict__ q, const uint8_t* __restrict__ kd,
 
   // Highest query position of the CTA: tiles above it, or at/after kv_len, are dead.
   const int q_hi = q_off + (min(rows_total, row_base + kRows) - 1) / G;
-  const int kv_end = min(kv_len, q_hi + 1);
+  const int kv_end = min(min(kv_len, q_hi + 1), L);
 
   for (int kt0 = 0; kt0 < kv_end; kt0 += kL) {
     // Decode K and V tiles: 64 positions x 128 codes, 16 codes per step.
@@ -217,10 +218,12 @@ extern "C" int mx_cached_attention_launch(const void* q, const void* kd, const v
                                           const void* kv_len, void* out, int b, int hq, int hkv,
                                           int sq, int L, int d, float sm_scale, int elem,
                                           void* stream) {
-  if (d != kD || hq % hkv || L % kL || elem != mx::kFp8E4M3) return (int)cudaErrorInvalidValue;
+  if (d != kD || hq % hkv || L % kL) return (int)cudaErrorInvalidValue;
+  if (elem != mx::kFp8E4M3 && elem != mx::kInt8) return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return 0;
   dim3 grid((sq * (hq / hkv) + kRows - 1) / kRows, hkv, b);
-  attention_kernel<mx::kFp8E4M3><<<grid, 128, 0, (cudaStream_t)stream>>>(
+  auto kernel = elem == mx::kInt8 ? attention_kernel<mx::kInt8> : attention_kernel<mx::kFp8E4M3>;
+  kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
       (const uint16_t*)q, (const uint8_t*)kd, (const uint8_t*)ks, (const uint8_t*)vd,
       (const uint8_t*)vs, (const int*)q_off, (const int*)kv_len, (uint16_t*)out, hq, hkv, sq, L,
       sm_scale);

@@ -175,6 +175,15 @@ __device__ __forceinline__ float decode_code_dot(int code, int se) {
   return ((code >> (mb + eb)) & 1) ? -v : v;
 }
 
+// int8 code times 2^(se-127) -> float, exact (|code| <= 127); the scale is
+// the float whose bits are se << 23, so se == 0 (a never-written slot) gives
+// +0.0 (torchmx_tpu/ops/pallas_matmul.py::decode_int8_to_bf16 for every
+// value the quantizer can write).
+template <>
+__device__ __forceinline__ float decode_code_dot<kInt8>(int code, int se) {
+  return (float)(int8_t)code * __uint_as_float((uint32_t)se << 23);
+}
+
 // D += A (16x16 bf16, row) * B (16x8 bf16, col), fp32 accumulators.
 // Fragment layout (g = lane / 4, t = lane % 4): a0 = A[g][2t..2t+1],
 // a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..];

@@ -2,7 +2,11 @@
 
 This port serves one path: generation over an MX KV cache in the seq layout.
 Every attention call writes its K/V into the cache, then attends causally
-over the written prefix through ``cached_attention_any`` (K4 on the card).
+over the written prefix through ``cached_attention_any`` (on the card K5 for
+an int8 cache at one query position, K4 otherwise).  ``cache_position`` is
+an int (all rows at one position) or a ``(b,)`` int tensor on the model's
+device (continuous batching: every row at its own position); a tensor is
+never read back on the host.
 Default RoPE only; no sliding window, ring cache or soft caps yet.
 """
 
@@ -10,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +24,8 @@ from ..layers.linear import Linear
 from ..mx_array import dequantize_mx, quantize_mx
 from ..ops.backend import DeviceLike, resolve_device
 from ..ops.cuda_attention import cached_attention_any
+
+CachePosition = Union[int, torch.Tensor]
 
 
 @dataclasses.dataclass
@@ -109,16 +115,38 @@ class MXLayerKVCache:
     def max_len(self) -> int:
         return self.k_data.shape[2]
 
-    def write(self, k_new: torch.Tensor, v_new: torch.Tensor, pos: int) -> None:
+    def write(self, k_new: torch.Tensor, v_new: torch.Tensor, pos: CachePosition) -> None:
         """Quantize ``(b, kv, s, d)`` K/V (K1 on the card) and store them at
-        sequence positions ``[pos, pos + s)``."""
-        s = k_new.shape[2]
-        if pos + s > self.max_len:
+        sequence positions ``[pos, pos + s)``: ``pos`` is an int, or a ``(b,)``
+        int tensor on the cache's device with one start per row.
+
+        A per-row start that would run past the buffer is clamped to
+        ``max_len - s``, as XLA clamps ``dynamic_update_slice`` in the
+        reference (the engine's draining slots write at ``pos == max_len``);
+        an index past the end would be a device-side assert on the card.
+        The rows go in with one indexed store per buffer, the indices built
+        on the device."""
+        b, _, s, _ = k_new.shape
+        per_row = isinstance(pos, torch.Tensor)
+        if per_row:
+            if pos.shape != (b,) or pos.device != self.k_data.device:
+                raise ValueError(f"per-row positions must be a ({b},) tensor on {self.k_data.device}, "
+                                 f"got {tuple(pos.shape)} on {pos.device}")
+            if s > self.max_len:
+                raise ValueError(f"cache of length {self.max_len} cannot take {s} positions")
+            dev = pos.device
+            rows = torch.arange(b, device=dev)[:, None]
+            cols = pos.long().clamp(0, self.max_len - s)[:, None] + torch.arange(s, device=dev)
+        elif pos + s > self.max_len:
             raise ValueError(f"cache of length {self.max_len} cannot take positions up to {pos + s}")
         for new, data, scale in ((k_new, self.k_data, self.k_scale), (v_new, self.v_data, self.v_scale)):
             sc, codes = quantize_mx(new.to(torch.bfloat16).contiguous(), self.elem_dtype_name, self.block_size)
-            data[:, :, pos:pos + s] = codes
-            scale[:, :, pos:pos + s] = sc
+            if per_row:  # data[rows, :, cols] is (b, s, kv, x)
+                data[rows, :, cols] = codes.transpose(1, 2)
+                scale[rows, :, cols] = sc.transpose(1, 2)
+            else:
+                data[:, :, pos:pos + s] = codes
+                scale[:, :, pos:pos + s] = sc
 
     def dequantize(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full dequantized (k, v) buffers (plain path and tests)."""
@@ -182,7 +210,7 @@ class LlamaAttention(nn.Module):
     def _project_qkv(self, x):
         return self.q_proj(x), self.k_proj(x), self.v_proj(x)
 
-    def forward(self, hidden, *, cos, sin, cache: MXLayerKVCache, cache_position: int):
+    def forward(self, hidden, *, cos, sin, cache: MXLayerKVCache, cache_position: CachePosition):
         b, s, _ = hidden.shape
         q, k, v = self._project_qkv(hidden)
         q = q.view(b, s, self.num_heads, self.head_dim).transpose(1, 2)
@@ -222,10 +250,13 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device)
         self.register_buffer("inv_freq", rope_inv_freq(config, device), persistent=False)
 
-    def forward(self, input_ids, *, caches: List[MXLayerKVCache], cache_position: int, position_ids=None):
+    def forward(self, input_ids, *, caches: List[MXLayerKVCache], cache_position: CachePosition,
+                position_ids=None):
         b, s = input_ids.shape
         x = self.embed_tokens[input_ids]
-        if position_ids is None:
+        if position_ids is None and isinstance(cache_position, torch.Tensor):
+            position_ids = cache_position[:, None] + torch.arange(s, device=x.device)
+        elif position_ids is None:
             position_ids = torch.arange(cache_position, cache_position + s, device=x.device)[None].expand(b, s)
         cos, sin = rope_cos_sin(self.inv_freq, position_ids, x.dtype)
         for layer, cache in zip(self.layers, caches):
@@ -258,7 +289,8 @@ class LlamaForCausalLM(nn.Module):
             return F.linear(hidden.float(), self.model.embed_tokens.float()).to(hidden.dtype)
         return self.lm_head(hidden)
 
-    def forward(self, input_ids, *, caches, cache_position: int, position_ids=None, last_only=False):
+    def forward(self, input_ids, *, caches, cache_position: CachePosition, position_ids=None,
+                last_only=False):
         """Logits ``(b, s, vocab)`` bf16 (``last_only``: of the last position)."""
         hidden = self.model(input_ids, caches=caches, cache_position=cache_position,
                             position_ids=position_ids)

@@ -1,14 +1,21 @@
-"""K4 ``mx_cached_attention``: the CUDA kernel (``csrc/mx_attention.cu``), its
-plain PyTorch version, and ``cached_attention_any``, the dispatch the Llama
-attention calls (``torchmx_tpu/ops/pallas_attention.py:906-1019``, seq
-layout, no window, ring or softcap in this port).
+"""K4 ``mx_cached_attention`` (``csrc/mx_attention.cu``) and K5
+``mx_cached_attention_chunkdot`` (``csrc/mx_attention_chunkdot.cu``): the CUDA
+kernels, their plain PyTorch versions, and ``cached_attention_any``, the
+dispatch the Llama attention calls
+(``torchmx_tpu/ops/pallas_attention.py:906-1019``, seq layout, no window,
+ring or softcap in this port): an int8 cache at one query position goes to
+K5, everything else to K4.
 
-Semantics of both versions: scores ``s = (q . k) * sm_scale`` in fp32 over
+Semantics of both versions of K4: scores ``s = (q . k) * sm_scale`` in fp32 over
 the dequantized cache; query row ``i`` of batch row ``b`` sees key positions
 ``<= q_off[b] + i`` and ``< kv_len[b]``; masked scores are ``-1e30``;
 softmax in fp32 with ``p`` rounded to bf16 before the P.V product; a row
 with no visible key outputs 0.  Both versions are the online (flash) form
 over tiles of 64 positions; they differ only in fp32 summation order.
+
+K5 computes the same attention for ``sq == 1`` over an int8 cache with the
+block scales factored out of the dots (``mx_cached_attention_chunkdot_plain``
+states the formula and its rounding points).
 """
 
 from __future__ import annotations
@@ -23,6 +30,9 @@ from .backend import on_cuda
 
 NEG_INF = -1e30
 KV_TILE = 64  # KV positions per online-softmax step (kL in csrc/mx_attention.cu)
+CHUNKDOT_TILE = 32  # the same for K5 (kTile in csrc/mx_attention_chunkdot.cu)
+CHUNKDOT_WARPS = 8  # warps per CTA of K5 (kWarps)
+BLOCK = 32
 IntOrTensor = Union[int, torch.Tensor]
 
 
@@ -32,6 +42,15 @@ def _per_row(v: IntOrTensor, b: int, device) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
         return v.to(device=device, dtype=torch.int32).expand(b).contiguous()
     return torch.full((b,), int(v), dtype=torch.int32, device=device)
+
+
+K4_FORMATS = {"float8_e4m3": torch.uint8, "int8": torch.int8}  # format -> codes dtype
+
+
+def _check_cache_tensors(k_data, k_scale, v_data, v_scale, codes_dtype) -> None:
+    for t, dt in ((k_data, codes_dtype), (v_data, codes_dtype), (k_scale, torch.uint8), (v_scale, torch.uint8)):
+        if not t.is_contiguous() or t.dtype != dt:
+            raise ValueError(f"cache codes must be contiguous {codes_dtype} and scales contiguous uint8")
 
 
 def mx_cached_attention_plain(
@@ -67,7 +86,7 @@ def mx_cached_attention_plain(
         s = torch.where(valid, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new)
+        p = torch.where(valid, torch.exp(s - m_new), 0.0)  # 0 too where a row sees no key at all
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + p.to(torch.bfloat16).to(f) @ v[:, :, t0:t0 + KV_TILE]
         m = m_new
@@ -78,22 +97,21 @@ def mx_cached_attention(
     q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float, elem_dtype_name: str
 ) -> torch.Tensor:
     """K4: ``q (b, hq, sq, d)`` bf16 over the seq-layout MX cache
-    ``(b, hkv, L, d)`` codes + ``(b, hkv, L, d/32)`` scales.  CUDA tensors
-    launch the kernel (fp8 cache, d = 128, L % 64 == 0; other shapes raise)."""
+    ``(b, hkv, L, d)`` codes (uint8; int8 for the int8 format) +
+    ``(b, hkv, L, d/32)`` scales.  CUDA tensors launch the kernel (fp8 or
+    int8 cache, d = 128, L % 64 == 0; other shapes raise)."""
     if not on_cuda(q, k_data, k_scale, v_data, v_scale):
         return mx_cached_attention_plain(
             q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale, elem_dtype_name
         )
     b, hq, sq, d = q.shape
     _, hkv, L, dp = k_data.shape
-    if elem_dtype_name != "float8_e4m3" or d != 128 or dp != d or L % 64 or hq % hkv:
+    if elem_dtype_name not in K4_FORMATS or d != 128 or dp != d or L % 64 or hq % hkv:
         raise ValueError(
-            f"the attention kernel takes an fp8 cache with d=128 and L % 64 == 0, "
+            f"the attention kernel takes an fp8 or int8 cache with d=128 and L % 64 == 0, "
             f"got {elem_dtype_name} q{tuple(q.shape)} cache{tuple(k_data.shape)}"
         )
-    for t in (k_data, k_scale, v_data, v_scale):
-        if not t.is_contiguous() or t.dtype != torch.uint8:
-            raise ValueError("cache codes and scales must be contiguous uint8")
+    _check_cache_tensors(k_data, k_scale, v_data, v_scale, K4_FORMATS[elem_dtype_name])
     q = q.to(torch.bfloat16).contiguous()
     q_off = _per_row(q_off, b, q.device)
     kv_len = _per_row(kv_len, b, q.device)
@@ -107,6 +125,120 @@ def mx_cached_attention(
     return out
 
 
+def _pow2_scale(se: torch.Tensor) -> torch.Tensor:
+    """E8M0 exponents -> the fp32 whose bits are ``se << 23``: ``2^(se-127)``,
+    and +0.0 for ``se == 0`` (a never-written slot)."""
+    return (se.to(torch.int32) << 23).view(torch.float32)
+
+
+def mx_cached_attention_chunkdot_plain(
+    q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Plain version of K5, tile by tile (``CHUNKDOT_TILE`` positions), for
+    the ``g = hq / hkv`` query rows of each KV head and the ``d/32`` chunks c:
+
+    * ``s[r, j] = sm_scale * sum_c 2^(se_k[j,c]-127) * (q_c[r] . k_c[j])`` with
+      ``k`` the bare int8 code and each chunk's partial sum in fp32;
+    * position j is visible when ``j <= q_off`` and ``j < kv_len``; masked
+      scores are ``-1e30``; online softmax in fp32;
+    * ``out_c[r] = sum_j bf16(p[r, j] * 2^(se_v[j,c]-127)) . v_c[j]``: the V
+      scale folds into p, and the product is rounded to bf16 before the dot;
+    * a row with no visible key outputs 0.
+
+    Only fp32 summation orders (and the running maxima p is rounded against)
+    differ from the kernel.  ``compute_dtype=torch.float64`` computes the same
+    function with another rounding, to measure sensitivity to it."""
+    b, hq, sq, d = q.shape
+    hkv, L = k_data.shape[1], k_data.shape[2]
+    if sq != 1 or d % BLOCK or hq % hkv or k_data.dtype != torch.int8 or v_data.dtype != torch.int8:
+        raise ValueError(f"chunk-dot attention takes sq == 1 over an int8 cache, got q{tuple(q.shape)} "
+                         f"codes {k_data.dtype}")
+    G, nc, f, dev = hq // hkv, d // BLOCK, compute_dtype, q.device
+    qc = q.to(torch.bfloat16).to(f).reshape(b, hkv, G, nc, BLOCK)
+    q_off = _per_row(q_off, b, dev)
+    kv_len = _per_row(kv_len, b, dev)
+    visible = torch.minimum(kv_len, q_off + 1).clamp(max=L)  # (b,) visible prefix
+    m = torch.full((b, hkv, G, 1), NEG_INF, dtype=f, device=dev)
+    l = torch.zeros((b, hkv, G, 1), dtype=f, device=dev)
+    acc = torch.zeros((b, hkv, G, nc, BLOCK), dtype=f, device=dev)
+
+    def tile(data, scale, t0):
+        codes = data[:, :, t0:t0 + CHUNKDOT_TILE].to(f)  # bare: int8 -> float is exact
+        sc = _pow2_scale(scale[:, :, t0:t0 + CHUNKDOT_TILE]).to(f)
+        # (b, hkv, T, nc, 32) codes and (b, hkv, 1, nc, T) scales
+        return codes.reshape(b, hkv, -1, nc, BLOCK), sc.transpose(-1, -2)[:, :, None]
+
+    for t0 in range(0, int(visible.max()), CHUNKDOT_TILE):
+        kc, ksc = tile(k_data, k_scale, t0)
+        T = kc.shape[2]
+        valid = (torch.arange(t0, t0 + T, device=dev) < visible[:, None])[:, None, None, :]
+        dots = torch.einsum("bhgcd,bhjcd->bhgcj", qc, kc)  # chunk partial sums
+        s = (dots * ksc).sum(dim=3) * sm_scale
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(s - m_new), 0.0)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        vc, vsc = tile(v_data, v_scale, t0)
+        # A hidden position contributes nothing, whatever its stale scale holds.
+        p3 = torch.where(valid[:, :, :, None], (p[:, :, :, None] * vsc).to(torch.bfloat16).to(f), 0.0)
+        acc = acc * alpha[..., None] + torch.einsum("bhgcj,bhjcd->bhgcd", p3, vc)
+        m = m_new
+    out = acc / torch.where(l == 0, 1.0, l)[..., None]
+    return out.reshape(b, hq, 1, d).to(torch.bfloat16)
+
+
+def _chunkdot_splits(b: int, hkv: int, L: int, device: torch.device) -> int:
+    """CTAs per (batch row, KV head) pair: one when the pairs alone fill the
+    SMs, else enough to put two CTAs on each SM, at most one per
+    ``CHUNKDOT_WARPS`` tiles of the cache.  It depends on shapes only, never on
+    the positions (they stay on the device)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if b * hkv >= sms:
+        return 1
+    return max(1, min(-(-2 * sms // (b * hkv)), L // (CHUNKDOT_TILE * CHUNKDOT_WARPS)))
+
+
+def mx_cached_attention_chunkdot(
+    q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float
+) -> torch.Tensor:
+    """K5: ``q (b, hq, 1, d)`` bf16 over the seq-layout int8 MX cache.  CUDA
+    tensors launch the kernel (d = 128, hq / hkv in 1, 2, 4, 8; other shapes
+    raise)."""
+    if not on_cuda(q, k_data, k_scale, v_data, v_scale):
+        return mx_cached_attention_chunkdot_plain(
+            q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale
+        )
+    b, hq, sq, d = q.shape
+    _, hkv, L, dp = k_data.shape
+    if sq != 1 or d != 128 or dp != d or hq % hkv or hq // hkv not in (1, 2, 4, 8):
+        raise ValueError(
+            f"the chunk-dot attention kernel takes sq=1, d=128 and hq/hkv in (1, 2, 4, 8), "
+            f"got q{tuple(q.shape)} cache{tuple(k_data.shape)}"
+        )
+    _check_cache_tensors(k_data, k_scale, v_data, v_scale, torch.int8)
+    q = q.to(torch.bfloat16).contiguous()
+    q_off = _per_row(q_off, b, q.device)
+    kv_len = _per_row(kv_len, b, q.device)
+    out = torch.empty_like(q)
+    splits = _chunkdot_splits(b, hkv, L, q.device)
+    ws = torch.empty((b * hq * splits * (d + 2)) if splits > 1 else 1, dtype=torch.float32, device=q.device)
+    cuda_lib.launch(
+        "mx_attention_chunkdot", "mx_cached_attention_chunkdot_launch",
+        q.data_ptr(), k_data.data_ptr(), k_scale.data_ptr(), v_data.data_ptr(),
+        v_scale.data_ptr(), q_off.data_ptr(), kv_len.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        b, hq, hkv, L, d, float(sm_scale), splits,
+    )
+    return out
+
+
+def use_chunkdot(elem_dtype_name: str, sq: int, d: int) -> bool:
+    """True when K5 serves the call: int8 cache, one query position, head_dim
+    a multiple of 128 (``use_chunkdot`` of the reference)."""
+    return elem_dtype_name == "int8" and sq == 1 and d % 128 == 0
+
+
 def cached_attention_any(q, cache, q_off: IntOrTensor, kv_len: IntOrTensor, sm_scale: float):
     """Causal attention of ``q (b, hq, sq, d)`` (RoPE applied) over an
     ``MXLayerKVCache`` holding the cache after the current tokens were
@@ -114,7 +246,7 @@ def cached_attention_any(q, cache, q_off: IntOrTensor, kv_len: IntOrTensor, sm_s
     visible prefix, each an int or a (b,) tensor."""
     if cache.block_size != 32:
         raise ValueError("MX KV caches use block size 32")
-    return mx_cached_attention(
-        q, cache.k_data, cache.k_scale, cache.v_data, cache.v_scale,
-        q_off, kv_len, sm_scale, cache.elem_dtype_name,
-    )
+    tensors = (cache.k_data, cache.k_scale, cache.v_data, cache.v_scale)
+    if use_chunkdot(cache.elem_dtype_name, q.shape[2], q.shape[3]):
+        return mx_cached_attention_chunkdot(q, *tensors, q_off, kv_len, sm_scale)
+    return mx_cached_attention(q, *tensors, q_off, kv_len, sm_scale, cache.elem_dtype_name)

@@ -56,14 +56,15 @@ def mx_matmul_fp4_halves_plain(
 
 
 def _plan(M: int, N: int, K: int, device: torch.device):
-    """(rows per tile, K splits) for the kernel: tiles by M; split K while the
-    output tiles alone would leave SMs idle."""
+    """(rows per tile, K splits) for the kernel.  The tile follows M.  The
+    splits follow N and K alone: enough that a single row tile (decode) keeps
+    the SMs busy.  An output element's fp32 sum order is fixed by the splits,
+    so a row's result does not depend on how many other rows share the call:
+    a prompt admitted whole, in chunks or after a cached prefix gets the same
+    bytes.  (At large M the extra splits cost a pass over the fp32 partials.)"""
     bm = 16 if M <= 16 else (64 if M <= 64 or N % 128 else 128)
-    bn = 128 if bm == 128 else 64
-    tiles = (N // bn) * -(-M // bm)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    iters = K // 64
-    splits = max(1, min(iters, 16, -(-2 * sms // tiles)))
+    splits = max(1, min(K // 64, 16, -(-2 * sms // (N // 64))))
     return bm, splits
 
 
