@@ -5,23 +5,27 @@ Run from the repository root with one card:  python3 chip_smoke.py
 Phases, each on ``cuda``; any failure raises and the script exits non-zero:
 
 1. device: name, and name + power limit from nvidia-smi;
-2. kernels: builds the five CUDA kernels from ``torchmx_tpu_torch/csrc`` and
+2. kernels: builds the seven CUDA kernels from ``torchmx_tpu_torch/csrc`` and
    holds each against its plain PyTorch version on the card (K1/K2
    bit-exact over all 2^16 bf16 patterns in all five formats, and at every
-   main-path shape; K3 rel <= 1e-2; K4 over fp8 and int8 caches and K5 over
-   int8 caches abs <= 2e-2, each at every main-path shape), then
+   main-path shape; K3 rel <= 1e-2; K4 over fp8 and int8 caches, K5 over
+   int8 caches, K6 over d-major fp8, int8, fp4 and fp6 caches and K7 over
+   int8 d-major caches abs <= 2e-2, each at every main-path shape; K6 against
+   K4 on the same cache content; K7's SQNR against exact attention above
+   30 dB), then
    times kernel, plain version and, where one exists, the one PyTorch call
    computing the same function (CUDA events, median of 20, L2 flushed
    before each call); K3 and RMSNorm must give a row the same bytes
    whatever the number of rows in the call;
 3. model check: a 2-layer model at Llama-3-8B width, seeded random weights,
-   b=2, 16 greedy tokens, with the fp8 and with the int8 cache; at every
-   step, from the same tokens and cache, kernel path against plain path on
+   b=2, 16 greedy tokens, with the fp8 cache, the int8 cache and the int8
+   d-major cache with the all-int8 decode flag (K6 and K7); at every step, from the same tokens and cache, kernel path against plain path on
    the same card: each decoder layer's update and lm_head's logits
    teacher-forced from the plain path's hidden state, the end-to-end logits
    (L2 rel, gates in GATES), and the tokens wherever the plain top-2 gap
-   exceeds the cache format's tie gap.  The plain path with float64 attention must pass the same
-   gates, and each of three planted kernel faults per cache must fail one;
+   exceeds the cache's tie gap.  The plain path with another rounding
+   (float64 attention, other tiles) must pass the same gates, and each of
+   three or four planted kernel faults per cache must fail one;
 4. the ``generate`` path: Llama-3-8B (32 layers) with MXFP4 weights, MXFP8
    activations and an fp8 KV cache, built layer by layer from a seed,
    greedy generation of 128 tokens after a 64-token prompt at batch 1 and
@@ -41,7 +45,12 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    model the engine's streams must equal the plain path's at every decisive
    step.  Reports tok/s over the stream, the gap between ``step()``
    returns, admission latency, device time per step by kernel, the idle
-   share and peak memory.
+   share and peak memory;
+6. the d-major paths (``TORCHMX_KV_LAYOUT=dmajor``): the same engine stream
+   and checks over the int8 d-major cache with ``TORCHMX_ATTN_INT8_DOT=1``
+   (K6 serves admissions, K7 every decode step, with one more K1 launch per
+   layer for q), and ``generate`` at batch 32 over an fp4 d-major cache (K6
+   at prefill and decode).
 
 Every kernel must have launched on each main path that runs it.  The line
 before last is a JSON object describing every kernel; the last is
@@ -329,8 +338,9 @@ def _attn_work(args):
     q_off = args[5].tolist()
     nbytes = 2 * 2 * q.numel()
     ops = 0
+    code_bytes = d // 2 if args[8] == "float4_e2m1" else d
     for i in range(b):
-        nbytes += 2 * hkv * min(kv_len[i], q_off[i] + sq) * (d + d // 32)
+        nbytes += 2 * hkv * min(kv_len[i], q_off[i] + sq) * (code_bytes + d // 32)
         visible = sum(min(q_off[i] + j + 1, kv_len[i]) for j in range(sq))
         ops += 4 * hq * d * visible
     return nbytes, ops
@@ -472,22 +482,222 @@ def check_int8_attention_kernels(dev, timer, gen):
     return k5, rows, worst4
 
 
-def check_row_invariance(dev, gen) -> None:
+def _to_dmajor(args):
+    """K4's arguments over a seq-layout cache (fp4 codes pair-packed, as K1
+    writes them) as K6's over the d-major cache of the same content."""
+    from torchmx_tpu_torch.packing import fp4_pairs_to_halves
+
+    q, kd, ks, vd, vs, *rest = args
+    if rest[-1] == "float4_e2m1":
+        kd, vd = fp4_pairs_to_halves(kd), fp4_pairs_to_halves(vd)
+    return (q, *(t.transpose(2, 3).contiguous() for t in (kd, ks, vd, vs)), *rest)
+
+
+def sqnr_db(x, exact) -> float:
+    """Signal to noise of x against the exact result, over the rows that see a key."""
+    keep = torch.isfinite(exact).all(-1)
+    x, exact = x.double()[keep], exact[keep]
+    return (10 * torch.log10(exact.square().sum() / (x - exact).square().sum())).item()
+
+
+def _exact_attention(args):
+    """Attention in float64 over the dequantized cache, p not rounded; rows
+    that see no key are NaN."""
+    q, sm_scale = args[0], args[7]
+    k, v, mask = _sdpa_inputs(args)
+    G = q.shape[1] // k.shape[1]
+    s = (q.double() @ k.double().repeat_interleave(G, 1).transpose(-1, -2)) * sm_scale
+    return torch.softmax(s.masked_fill(~mask, float("-inf")), -1) @ v.double().repeat_interleave(G, 1)
+
+
+def check_dmajor_attention_kernels(dev, timer, gen):
+    """K6 over d-major fp8, int8 and fp4 caches at the main path's shapes (and
+    fp6 at two of them), against its plain version (abs <= 2e-2) and, printed,
+    against K4 over the seq cache of the same content; K7 at the engine's
+    decode shapes against its plain version at K7's tile (abs <= 2e-2) and
+    against exact float64 attention (SQNR > 30 dB), with K6's and K5's SQNR on
+    the same inputs beside it.  Returns (K6's entry, K7's entry, timing rows)."""
+    import torch.nn.functional as F
+
+    from torchmx_tpu_torch.ops import cuda_attention as ca
+
+    ragged = [0] + [1 + (1023 * i) // 30 for i in range(31)]
+    # label, b, L, sq, kv_len, never written past the prefix
+    k6_cases = [("decode b=32 L=1024 kv_len 0..1024 ragged", 32, 1024, 1, ragged, True),
+                ("decode b=1 L=1024 kv_len=700", 1, 1024, 1, [700], True),
+                ("decode b=32 L=256 kv_len=192", 32, 256, 1, [192] * 32, False),
+                ("prefill b=32 L=256 sq=64", 32, 256, 64, [64] * 32, False),
+                ("whole b=1 L=1024 sq=384", 1, 1024, 384, [384], False),
+                ("chunk b=1 L=1024 sq=128 q_off=256", 1, 1024, 128, [384], False)]
+    rows, worst6, worst7 = [], 0.0, 0.0
+    for elem in ("float8_e4m3", "int8", "float4_e2m1", "float6_e3m2", "float6_e2m3"):
+        fp6 = elem.startswith("float6")
+        for label, b, L, sq, kv, fresh in (k6_cases[:1] + k6_cases[3:4] if fp6 else k6_cases):
+            seq = _attn_case(dev, gen, b, 32, 8, 128, L, sq, kv, elem, never_written=fresh)
+            args = _to_dmajor(seq)
+            out = ca.mx_cached_attention_dmajor(*args)
+            torch.cuda.synchronize()
+            err = (out.float() - ca.mx_cached_attention_dmajor_plain(*args).float()).abs().max().item()
+            worst6 = max(worst6, err)
+            vs_k4 = None
+            if elem in ca.K4_FORMATS:
+                vs_k4 = (out.float() - ca.mx_cached_attention(*seq).float()).abs().max().item()
+            log(f"K6 mx_cached_attention_dmajor {elem} {label}: max abs err {err:.3e} vs plain, "
+                f"{'no K4 for this format' if vs_k4 is None else f'{vs_k4:.3e} vs K4 over the seq cache'}")
+            if not err <= 2e-2 or not torch.isfinite(out.float()).all():
+                raise AssertionError(f"K6 {elem} {label}: abs err {err}")
+            empty = [i for i, n in enumerate(kv) if n == 0]
+            if empty and out[empty].float().abs().max().item() != 0.0:
+                raise AssertionError(f"K6 {elem} {label}: a row with no visible key must output 0")
+            if fp6:
+                continue
+            k, v, mask = _sdpa_inputs(seq)
+            nbytes, ops = _attn_work(seq)
+            t_b, by = bound(nbytes, ops)
+            row = dict(case=f"{elem} {label}", kernel="mx_cached_attention_dmajor",
+                       ms=timer(lambda: ca.mx_cached_attention_dmajor(*args)),
+                       plain_ms=timer(lambda: ca.mx_cached_attention_dmajor_plain(*args), reps=5),
+                       library_ms=timer(lambda: F.scaled_dot_product_attention(
+                           args[0], k, v, attn_mask=mask, scale=args[7], enable_gqa=True)),
+                       bound_ms=t_b, bound_by=by, max_abs_err=err, max_abs_vs_k4=vs_k4)
+            if vs_k4 is not None:
+                row["k4_seq_ms"] = timer(lambda: ca.mx_cached_attention(*seq))
+            log("K6 timing", json.dumps(row))
+            rows.append(row)
+            del k, v, mask
+        # A cache nobody wrote to (codes and scales 0): every visible key is 0.
+        blank = _to_dmajor(_attn_case(dev, gen, 2, 32, 8, 128, 256, 1, [0, 0], elem, never_written=True))
+        out = ca.mx_cached_attention_dmajor(*blank[:5], torch.tensor([63, 0], dtype=torch.int32, device=dev),
+                                            torch.tensor([64, 1], dtype=torch.int32, device=dev), *blank[7:])
+        if out.float().abs().max().item() != 0.0:
+            raise AssertionError(f"K6 {elem}: a never-written cache must give 0")
+    k7_cases = [("decode b=32 L=1024 kv_len 0..1024 ragged", 32, 1024, ragged),
+                ("decode b=1 L=1024 kv_len=700", 1, 1024, [700]),
+                ("decode b=4 L=8192 kv_len=8192", 4, 8192, [8192] * 4)]
+    for label, b, L, kv in k7_cases:
+        seq = _attn_case(dev, gen, b, 32, 8, 128, L, 1, kv, "int8", never_written=True)
+        args = _to_dmajor(seq)
+        a7 = args[:8]
+        out = ca.mx_cached_attention_int8dot(*a7)
+        torch.cuda.synchronize()
+        ref = ca.mx_cached_attention_int8dot_plain(*a7)
+        err = (out.float() - ref.float()).abs().max().item()
+        worst7 = max(worst7, err)
+        exact = _exact_attention(seq)
+        sqnr = dict(k7=sqnr_db(out, exact), k7_plain=sqnr_db(ref, exact),
+                    k6=sqnr_db(ca.mx_cached_attention_dmajor(*args), exact),
+                    k5=sqnr_db(ca.mx_cached_attention_chunkdot(*seq[:8]), exact))
+        log(f"K7 mx_cached_attention_int8dot {label}: max abs err {err:.3e} vs plain at tile {ca.INT8DOT_TILE}; "
+            f"SQNR against exact attention (dB): {json.dumps(sqnr)}")
+        if not err <= 2e-2 or not torch.isfinite(out.float()).all():
+            raise AssertionError(f"K7 {label}: abs err {err}")
+        if not sqnr["k7"] > 30:
+            raise AssertionError(f"K7 {label}: SQNR {sqnr['k7']:.1f} dB against exact attention")
+        empty = [i for i, n in enumerate(kv) if n == 0]
+        if empty and out[empty].float().abs().max().item() != 0.0:
+            raise AssertionError(f"K7 {label}: a row with no visible key must output 0")
+        if not torch.equal(out, ca.mx_cached_attention_int8dot(*a7)):
+            raise AssertionError(f"K7 {label}: two launches on the same inputs differ")
+        del exact
+        k, v, mask = _sdpa_inputs(seq)
+        nbytes, ops = _attn_work(seq)
+        t_b, by = bound(nbytes, ops)
+        qs, qd = ca.quantize_q_int8(args[0], 8)
+        row = dict(case=f"int8 {label}", kernel="mx_cached_attention_int8dot",
+                   ms=timer(lambda: ca.mx_cached_attention_int8dot(*a7)),
+                   q_quantize_ms=timer(lambda: ca.quantize_q_int8(args[0], 8)),
+                   k6_ms=timer(lambda: ca.mx_cached_attention_dmajor(*args)),
+                   k5_seq_ms=timer(lambda: ca.mx_cached_attention_chunkdot(*seq[:8])),
+                   plain_ms=timer(lambda: ca.mx_cached_attention_int8dot_plain(*a7), reps=5),
+                   library_ms=timer(lambda: F.scaled_dot_product_attention(
+                       args[0], k, v, attn_mask=mask, scale=args[7], enable_gqa=True)),
+                   bound_ms=t_b, bound_by=by, max_abs_err=err, sqnr_db=sqnr)
+        log("K7 timing", json.dumps(row))
+        rows.append(row)
+        del k, v, mask
+    pick6 = next(r for r in rows if r["case"] == "float4_e2m1 decode b=32 L=256 kv_len=192")
+    pick7 = next(r for r in rows if r["case"].startswith("int8 decode b=32") and r["kernel"].endswith("int8dot"))
+    k6 = dict(name="mx_cached_attention_dmajor", route="cuda",
+              source="torchmx_tpu_torch/csrc/mx_attention_dmajor.cu",
+              replaces="torchmx_tpu/ops/pallas_attention.py:490",
+              shape="decode b=32 hq=32 hkv=8 d=128 L=256 kv_len=192 fp4 d-major cache", max_abs_err=worst6,
+              **{key: pick6[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    k7 = dict(name="mx_cached_attention_int8dot", route="cuda",
+              source="torchmx_tpu_torch/csrc/mx_attention_int8dot.cu",
+              replaces="torchmx_tpu/ops/pallas_attention.py:638",
+              shape="decode b=32 hq=32 hkv=8 d=128 L=1024 kv_len 0..1024 ragged int8 d-major cache (q quantized by K1 "
+                    "inside the timed call)", max_abs_err=worst7,
+              **{key: pick7[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    return k6, k7, rows
+
+
+def check_cache_write(dev, timer, gen) -> dict:
+    """``MXLayerKVCache.write`` on the card against the plain path's, bit for
+    bit, in both layouts (a prompt at an int position, then the engine's
+    decode write: 32 rows, one token each at its own position, one of them
+    clamped at the end), for int8 and for fp4 in its d-halves packing; and
+    what the decode write costs in each layout: device ms of its kernels
+    (K1 twice, the index arithmetic, four indexed stores; in the d-major
+    layout a token's codes land ``max_len`` bytes apart) and host us per call."""
+    from torchmx_tpu_torch.models.llama import MXLayerKVCache
+    from torchmx_tpu_torch.ops.backend import plain_path
+
+    b, kv, L, d = 32, 8, 1024, 128
+    k0, v0 = (torch.randn(b, kv, 64, d, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    k1, v1 = (torch.randn(b, kv, 1, d, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    pos = torch.randint(64, L, (b,), generator=gen, device=dev).int()
+    pos[0] = L  # a draining slot: its start is clamped to L - 1
+    out = {}
+    for elem, layout in (("int8", "seq"), ("int8", "dmajor"), ("float4_e2m1", "dmajor")):
+        got = MXLayerKVCache.create(b, kv, L, d, elem, device=dev, layout=layout)
+        ref = MXLayerKVCache.create(b, kv, L, d, elem, device=dev, layout=layout)
+        for k, v, at in ((k0, v0, 0), (k1, v1, pos)):
+            got.write(k, v, at)
+            with plain_path():
+                ref.write(k, v, at)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got.buffers, ref.buffers)):
+            raise AssertionError(f"cache write, {elem} {layout}: the buffers differ from the plain path's")
+        if not all(torch.equal(x, y) for x, y in zip(got.dequantize(), ref.dequantize())):
+            raise AssertionError(f"cache write, {elem} {layout}: dequantize() differs")
+        n = 200
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            got.write(k1, v1, pos)
+        host_us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        out[f"{elem} {layout}"] = dict(device_ms=timer(lambda: got.write(k1, v1, pos)), host_us_per_call=host_us)
+    log(f"cache write (b=32, one token per row at per-row positions, L=1024): equal to the plain path's in both "
+        f"layouts, int8 and fp4; cost per call {json.dumps(out)}")
+    return out
+
+
+def check_row_invariance(dev) -> dict:
     """A row's result must not depend on how many rows share the call: the
     engine's whole = chunked = prefixed identity rests on it.  K3 (whose K
     splits follow N and K alone) and RMSNorm (a PyTorch reduction) on the
     first k rows of a 512-row input against the same rows of the full call,
-    bit for bit."""
+    bit for bit, on inputs from a generator of its own.  K3 must hold at every
+    count.  PyTorch's fp32 sum over 4096 takes another order at 3 to 15 rows
+    than at 1, 2 and 16 or more, and now and then that moves a bf16 result:
+    RMSNorm must hold from 16 rows on (every admission, chunk and decode step
+    of the engine phases has at least 32), and the counts below 16 at which it
+    does not are reported."""
     from torchmx_tpu_torch.models.llama import RMSNorm
     from torchmx_tpu_torch.mx_array import MXTensor
     from torchmx_tpu_torch.ops import cuda_matmul as cm
 
+    gen = torch.Generator(dev).manual_seed(4321)
     counts = (1, 2, 5, 15, 16, 17, 33, 64, 65, 128, 129, 300, 511)
-    x = torch.randn(512, 4096, generator=gen, device=dev).to(torch.bfloat16)
     norm = RMSNorm(4096, 1e-5, dev)
     norm.weight.copy_((1 + 0.1 * torch.randn(4096, generator=gen, device=dev)).to(torch.bfloat16))
-    full = norm(x)
-    bad = [f"RMSNorm rows={k}" for k in counts if not torch.equal(norm(x[:k]), full[:k])]
+    draws, differs = 16, collections.Counter()
+    for _ in range(draws):
+        x = torch.randn(512, 4096, generator=gen, device=dev).to(torch.bfloat16)
+        full = norm(x)
+        differs.update(k for k in counts if not torch.equal(norm(x[:k]), full[:k]))
+    bad = [f"RMSNorm rows={k}" for k in differs if k >= 16]
     for label in ("q_proj/o_proj", "k_proj/v_proj", "gate_proj/up_proj", "down_proj"):
         K, N = K3_MAIN_LINEARS[label]
         w = (torch.randn(N, K, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
@@ -499,7 +709,10 @@ def check_row_invariance(dev, gen) -> None:
                                                            "float8_e4m3"), full[:k])]
     if bad:
         raise AssertionError(f"a row's result depends on the number of rows: {bad}")
-    log(f"row invariance: RMSNorm and K3 (4 linears) give the same bytes at {counts} of 512 rows")
+    small = {k: n for k, n in sorted(differs.items())}
+    log(f"row invariance: K3 (4 linears) gives the same bytes at {counts} of 512 rows; RMSNorm too from 16 rows "
+        f"on, in {draws} draws; below 16 rows it differed at (rows: draws) {json.dumps(small)}")
+    return dict(counts=counts, draws=draws, rmsnorm_differs_below_16_rows=small)
 
 
 def attention_accuracy(dev, gen) -> dict:
@@ -511,10 +724,7 @@ def attention_accuracy(dev, gen) -> dict:
     from torchmx_tpu_torch.ops import cuda_attention as ca
 
     args = _attn_case(dev, gen, 2, 32, 8, 128, 1024, 1, [70, 80], "int8", never_written=True)
-    q, sm_scale, a5 = args[0], args[7], args[:8]
-    k, v, mask = _sdpa_inputs(args)
-    s = (q.double() @ k.double().repeat_interleave(4, 1).transpose(-1, -2)) * sm_scale
-    exact = torch.softmax(s.masked_fill(~mask, float("-inf")), -1) @ v.double().repeat_interleave(4, 1)
+    a5, exact = args[:8], _exact_attention(args)
 
     def rel(x):
         return ((x.double() - exact).norm() / exact.norm()).item()
@@ -543,28 +753,51 @@ def quant_configs(kv: str = "float8_e4m3"):
 
 
 @contextlib.contextmanager
+def kv_env(layout: str = "seq", int8dot: bool = False):
+    """The cache layout new caches take and the all-int8 decode flag, set on
+    the port's env module as a user's environment would set them."""
+    from torchmx_tpu_torch import env_variables as env
+
+    old = env.TORCHMX_KV_LAYOUT, env.TORCHMX_ATTN_INT8_DOT
+    env.TORCHMX_KV_LAYOUT, env.TORCHMX_ATTN_INT8_DOT = layout, "1" if int8dot else "0"
+    try:
+        yield
+    finally:
+        env.TORCHMX_KV_LAYOUT, env.TORCHMX_ATTN_INT8_DOT = old
+
+
+# The caches the model check and the main paths run over: name -> (format,
+# layout, all-int8 decode flag).
+CACHES = {"float8_e4m3": ("float8_e4m3", "seq", False), "int8": ("int8", "seq", False),
+          "int8 d-major int8dot": ("int8", "dmajor", True),
+          "float4_e2m1 d-major": ("float4_e2m1", "dmajor", False)}
+
+
+@contextlib.contextmanager
 def f64_plain_attention():
-    """The plain K4 and K5 computed with another rounding, to measure how far
-    the model alone carries such a difference: both in float64, and K5 over
-    one tile spanning the whole prefix (as the TPU kernel takes it), so that
-    p is rounded to bf16 against the global maximum and not a running one.
-    The CUDA K5 differs from its plain version in just that way: its warps
-    take the tiles in another order."""
+    """The plain attention versions computed with another rounding, to measure
+    how far the model alone carries such a difference: K4, K5 and K6 in
+    float64; K5 over one tile spanning the whole prefix (as the TPU kernel
+    takes it), so that p is rounded to bf16 against the global maximum and not
+    a running one (the CUDA K5 differs from its plain version in just that
+    way: its warps take the tiles in another order); K7 over tiles of 32
+    positions, so that p is requantized in other groups."""
     import functools
 
     from torchmx_tpu_torch.ops import cuda_attention as ca
 
-    names = ("mx_cached_attention_plain", "mx_cached_attention_chunkdot_plain")
-    plain, tile = {n: getattr(ca, n) for n in names}, ca.CHUNKDOT_TILE
+    names = ("mx_cached_attention_plain", "mx_cached_attention_chunkdot_plain", "mx_cached_attention_dmajor_plain")
+    plain, tile = {n: getattr(ca, n) for n in names + ("mx_cached_attention_int8dot_plain",)}, ca.CHUNKDOT_TILE
     for n in names:
         setattr(ca, n, functools.partial(plain[n], compute_dtype=torch.float64))
+    ca.mx_cached_attention_int8dot_plain = functools.partial(plain["mx_cached_attention_int8dot_plain"], tile=32)
     ca.CHUNKDOT_TILE = 1 << 20
     try:
         yield
     finally:
         ca.CHUNKDOT_TILE = tile
-        for n in names:
-            setattr(ca, n, plain[n])
+        for n, fn in plain.items():
+            setattr(ca, n, fn)
 
 
 # Wrong kernels the model check must catch, each emulated at its wrapper on
@@ -574,6 +807,10 @@ PLANTED_FAULTS = ("K4 causal mask one position late", "K4 kv_len one short",
 # The same for the int8 cache, whose decode steps run K5.
 PLANTED_FAULTS_INT8 = ("K5 kv_len one short", "K5 V scale of chunk c taken from chunk c+1",
                        "K4 kv_len one short")
+# The same for the int8 d-major cache with the all-int8 flag: K7 at every
+# decode step, K6 at prefill.
+PLANTED_FAULTS_DMAJOR = ("K7 kv_len one short", "K7 V scale of chunk c taken from chunk c+1",
+                         "K7 q scale of chunk c taken from chunk c+1", "K6 kv_len one short")
 
 
 @contextlib.contextmanager
@@ -582,20 +819,28 @@ def planted_fault(name):
     from torchmx_tpu_torch.ops import matmul as mm
     from torchmx_tpu_torch.ops.backend import on_cuda
 
-    if name.startswith("K5"):
-        mod, attr = ca, "mx_cached_attention_chunkdot"
-        orig = ca.mx_cached_attention_chunkdot
+    if name.startswith("K7 q scale"):
+        mod, attr = ca, "quantize_q_int8"
+        orig = ca.quantize_q_int8
+
+        def faulty(q, hkv):
+            qs, qd = orig(q, hkv)
+            return (qs.roll(-1, dims=-1) if on_cuda(q) else qs), qd
+    elif name.startswith(("K5", "K7")):
+        k7 = name.startswith("K7")
+        mod, attr = ca, "mx_cached_attention_int8dot" if k7 else "mx_cached_attention_chunkdot"
+        orig = getattr(mod, attr)
 
         def faulty(q, kd, ks, vd, vs, q_off, kv_len, sm_scale):
             if on_cuda(q):
                 if "kv_len" in name:
                     kv_len = kv_len - 1
-                else:
-                    vs = vs.roll(-1, dims=-1)
+                else:  # the chunks are the last axis in the seq layout, axis 2 in the d-major
+                    vs = vs.roll(-1, dims=2 if k7 else -1)
             return orig(q, kd, ks, vd, vs, q_off, kv_len, sm_scale)
-    elif name.startswith("K4"):
-        mod, attr = ca, "mx_cached_attention"
-        orig = ca.mx_cached_attention
+    elif name.startswith(("K4", "K6")):
+        mod, attr = ca, "mx_cached_attention" if name.startswith("K4") else "mx_cached_attention_dmajor"
+        orig = getattr(mod, attr)
 
         def faulty(q, kd, ks, vd, vs, q_off, kv_len, *rest):
             if on_cuda(q):
@@ -621,13 +866,6 @@ def _rel(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def _copy_cache(c):
-    from torchmx_tpu_torch.models.llama import MXLayerKVCache
-
-    return MXLayerKVCache(c.k_data.clone(), c.k_scale.clone(), c.v_data.clone(),
-                          c.v_scale.clone(), c.elem_dtype_name, c.block_size)
-
-
 def teacher_forced(model, ids, caches, pos, floor: bool):
     """One step, layer by layer from the plain path's hidden state: each
     decoder layer's update (output minus input) on the kernel path, from a
@@ -647,11 +885,11 @@ def teacher_forced(model, ids, caches, pos, floor: bool):
     worst, worst_floor = 0.0, None
     for layer, cache in zip(m.layers, caches):
         kw = dict(cos=cos, sin=sin, cache_position=pos)
-        got = layer(x, cache=_copy_cache(cache), **kw)
+        got = layer(x, cache=cache.clone(), **kw)
         with plain_path():
             if floor:
                 with f64_plain_attention():
-                    ref64 = layer(x, cache=_copy_cache(cache), **kw)
+                    ref64 = layer(x, cache=cache.clone(), **kw)
             ref = layer(x, cache=cache, **kw)
         update = ref.float() - x.float()
         worst = max(worst, _rel(got.float() - x.float(), update))
@@ -665,7 +903,7 @@ def teacher_forced(model, ids, caches, pos, floor: bool):
     return worst, _rel(got, ref), worst_floor, ref.float()
 
 
-def model_readings(model, prompt, n, kv, floor: bool) -> dict:
+def model_readings(model, prompt, n, kv, floor: bool, tie_gap: float) -> dict:
     """Greedy n tokens on the kernel path, then every step again from the
     same tokens and the same cache (the kernel path's, copied): end-to-end
     logits (L2 rel) kernel vs plain, the teacher-forced per-layer and lm_head
@@ -676,15 +914,14 @@ def model_readings(model, prompt, n, kv, floor: bool) -> dict:
 
     tokens = generate(model, prompt, n, kv_cache_config=kv)
     caches = model.init_cache(prompt.shape[0], 128, kv)
-    tie_gap = GATES[kv.elem_dtype_name]["tie_gap"]
     r = dict(logits=0.0, layer=0.0, lm_head=0.0, floor_logits=None, floor_layer=None,
              near_ties=0, decisive_flips=0, max_flipped_gap=0.0,
              generate_mismatch=0, finite=True)
     step_in, pos = prompt, 0
     with torch.inference_mode():
         for i in range(n):
-            snap = [_copy_cache(c) for c in caches]
-            snap64 = [_copy_cache(c) for c in caches] if floor else None
+            snap = [c.clone() for c in caches]
+            snap64 = [c.clone() for c in caches] if floor else None
             got = model(step_in, caches=caches, cache_position=pos, last_only=True)[:, -1].float()
             layer, head, layer_floor, ref = teacher_forced(model, step_in, snap, pos, floor)
             r["logits"] = max(r["logits"], _rel(got, ref))
@@ -719,10 +956,16 @@ def model_readings(model, prompt, n, kv, floor: bool) -> dict:
 # difference in every term, not in rare ties.  Layer update, sound 4.76e-2
 # (kernels) and 4.67e-2 (plain path with float64 attention over one tile),
 # K5 faults >= 3.57e-1; logits, sound 7.60e-2 and 7.67e-2, faults >= 1.91e-1.
+# int8 d-major cache with the all-int8 flag: K7's integer dots are exact and
+# K6 takes its plain version's tiles in its order, so the kernels read 6.3e-5
+# (layer) and 2.63e-2 (logits); the plain path with float64 K6 and K7 over
+# tiles of 32 against itself 7.11e-2 and 9.67e-2; K7 faults >= 2.49e-1 (layer),
+# the K6 fault 1.91e-1 (logits).
 # tie_gap: a step counts as decisive when the plain path's top-2 logit gap
 # exceeds it; the int8 path flips a gap of 0.125 with sound kernels.
 GATES = {"float8_e4m3": {"layer": 5e-2, "lm_head": 2e-2, "logits": 8e-2, "tie_gap": 0.1},
-         "int8": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3}}
+         "int8": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3},
+         "int8 d-major int8dot": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3}}
 
 
 def gate_failures(r: dict, gates: dict) -> list:
@@ -736,10 +979,11 @@ def gate_failures(r: dict, gates: dict) -> list:
     return out
 
 
-def model_check(dev, card) -> dict:
+def model_check(dev, card, caches=("float8_e4m3", "int8", "int8 d-major int8dot")) -> dict:
     """Kernel path vs plain path on the same card, 2 layers at 8B width, b=2,
-    16 greedy tokens, once with the fp8 cache (K4 throughout) and once with
-    the int8 cache (K4 at prefill, K5 at every decode step); then again with
+    16 greedy tokens, with the fp8 cache (K4 throughout), the int8 cache (K4
+    at prefill, K5 at every decode step) and the int8 d-major cache with the
+    all-int8 flag (K6 at prefill, K7 at every decode step); then again with
     each planted fault, which must fail a gate.  Every reading is printed
     before any gate is applied."""
     from torchmx_tpu_torch.models.llama import LlamaConfig
@@ -750,12 +994,16 @@ def model_check(dev, card) -> dict:
     model = build_quantized_llama(cfg, qa, qm, dev, torch.Generator(dev).manual_seed(1))
     prompt = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator(dev).manual_seed(2), device=dev)
     all_readings = {}
-    for cache, faults in (("float8_e4m3", PLANTED_FAULTS), ("int8", PLANTED_FAULTS_INT8)):
-        kv = quant_configs(cache)[2]
-        readings = {"sound": model_readings(model, prompt, 16, kv, floor=True)}
-        for fault in faults:
-            with planted_fault(fault):
-                readings[fault] = model_readings(model, prompt, 16, kv, floor=False)
+    faults_of = {"float8_e4m3": PLANTED_FAULTS, "int8": PLANTED_FAULTS_INT8,
+                 "int8 d-major int8dot": PLANTED_FAULTS_DMAJOR}
+    for cache in caches:
+        elem, layout, int8dot = CACHES[cache]
+        kv, tie_gap = quant_configs(elem)[2], GATES[cache]["tie_gap"]
+        with kv_env(layout, int8dot):
+            readings = {"sound": model_readings(model, prompt, 16, kv, True, tie_gap)}
+            for fault in faults_of[cache]:
+                with planted_fault(fault):
+                    readings[fault] = model_readings(model, prompt, 16, kv, False, tie_gap)
         for name, r in readings.items():
             log(f"model check {cache} cache [{name}]: 2 layers at 8B width, b=2, 16 greedy tokens: "
                 f"{json.dumps(r)} [{card}]")
@@ -768,7 +1016,7 @@ def model_check(dev, card) -> dict:
             raise AssertionError(f"model check, {cache} cache: {'; '.join(bad)}")
         for key in ("layer", "logits"):  # another rounding of correct code passes too
             if not sound[f"floor_{key}"] <= gates[key]:
-                raise AssertionError(f"model check, {cache} cache: the plain path with float64 attention fails "
+                raise AssertionError(f"model check, {cache} cache: the plain path with its other rounding fails "
                                      f"the {key} gate ({sound[f'floor_{key}']:.3e} > {gates[key]:g})")
         for fault in readings:
             if fault == "sound":
@@ -802,12 +1050,13 @@ def build_model(dev, card, layers: int, seed: int = 0):
     return model
 
 
-def run_slice(model, dev, card):
-    """The ``generate`` path (fp8 cache) at batch 1 and 32."""
+def run_slice(model, dev, card, cache="float8_e4m3", batches=(1, 32)):
+    """The ``generate`` path over ``cache`` (a key of CACHES; call it inside
+    the cache's ``kv_env``) at the given batch sizes."""
     from torchmx_tpu_torch.models.generate import generate
     from torchmx_tpu_torch.ops import cuda_lib
 
-    kv = quant_configs()[2]
+    kv = quant_configs(CACHES[cache][0])[2]
     cfg = model.config
     if cfg.num_hidden_layers != LLAMA3_8B["num_hidden_layers"]:
         log(f"slice: depth cut to {cfg.num_hidden_layers} of 32 layers (--layers)")
@@ -817,7 +1066,7 @@ def run_slice(model, dev, card):
     hook = model.register_forward_pre_hook(
         lambda *_: at_forward.append(collections.Counter(cuda_lib.LAUNCHES)))
     results, launches = {}, collections.Counter()
-    for b in (1, 32):
+    for b in batches:
         prompt = torch.randint(0, cfg.vocab_size, (b, 64), generator=torch.Generator(dev).manual_seed(b), device=dev)
         generate(model, prompt[:, :8], 4, kv_cache_config=kv)  # warm-up
         torch.cuda.synchronize()
@@ -840,20 +1089,22 @@ def run_slice(model, dev, card):
         results[b] = dict(batch=b, seconds=dt, tokens_per_s=tps, peak_gib=peak, launches=dict(run),
                           launches_prefill=dict(at_forward[1] - at_forward[0]),
                           launches_per_decode_step={k: v / steps for k, v in (run - at_forward[1]).items()})
-        log(f"slice: b={b} prompt 64 + 128 new tokens in {dt:.3f} s = {tps:.1f} tok/s, "
+        log(f"slice, {cache} cache: b={b} prompt 64 + 128 new tokens in {dt:.3f} s = {tps:.1f} tok/s, "
             f"peak {peak:.2f} GiB; launches {json.dumps(results[b]['launches'])}, of which prefill "
             f"{json.dumps(results[b]['launches_prefill'])}, per decode step "
             f"{json.dumps(results[b]['launches_per_decode_step'])} [{card}]")
     hook.remove()
-    for b in (1, 32):
+    for b in batches:
         results[b].update(latency_and_device_time(model, cfg, kv, dev, b, results[b]["seconds"]))
-        log(f"slice breakdown b={b}: {json.dumps(results[b])} [{card}]")
+        log(f"slice breakdown, {cache} cache, b={b}: {json.dumps(results[b])} [{card}]")
     return dict(launches), results
 
 
 KERNEL_OF_DEVICE_NAME = (  # substring of the CUDA function name -> kernel
     ("chunkdot_kernel", "mx_cached_attention_chunkdot"),
-    ("chunkdot_merge_kernel", "mx_cached_attention_chunkdot"),
+    ("int8dot_kernel", "mx_cached_attention_int8dot"),
+    ("merge_splits_kernel", "split-KV merge of K5 or K7"),
+    ("attention_dmajor_kernel", "mx_cached_attention_dmajor"),
     ("matmul_fp4_halves_kernel", "mx_matmul_fp4_halves"),
     ("reduce_splits_kernel", "mx_matmul_fp4_halves"),
     ("fake_quantize_kernel", "mx_fake_quantize"),
@@ -1161,18 +1412,22 @@ def compare_with_plain_path(dev, card) -> dict:
     return out
 
 
-def run_engine(model, dev, card) -> dict:
-    """The serving path: ``DecodeEngine`` over an int8 MX KV cache, 32 slots
-    of 1024 positions, a seeded stream of 48 requests.  Checks that a
-    request's stream (tokens and log-probabilities, bit for bit) is the same
-    alone and in company, admitted whole, in chunks or over the cached
-    prefix; that EOS, a stop sequence and a full cache each end a request
-    with the right reason; and that every decode step launched K3, K1 and K5
-    as often as the model's depth says, and K4 and K2 never."""
+def run_engine(model, dev, card, cache="int8") -> dict:
+    """The serving path: ``DecodeEngine`` over an int8 MX KV cache (``cache``
+    is a key of CACHES; call it inside the cache's ``kv_env``), 32 slots of
+    1024 positions, a seeded stream of 48 requests.  Checks that a request's
+    stream (tokens and log-probabilities, bit for bit) is the same alone and
+    in company, admitted whole, in chunks or over the cached prefix; that
+    EOS, a stop sequence and a full cache each end a request with the right
+    reason; and that every decode step launched K3, K1 and its decode
+    attention kernel (K5 in the seq layout; K7, with one more K1 per layer for
+    q, in the d-major layout with the all-int8 flag) as often as the model's
+    depth says, and no other kernel."""
     from torchmx_tpu_torch.models.serve import DecodeEngine
     from torchmx_tpu_torch.ops import cuda_lib
 
-    kv = quant_configs("int8")[2]
+    kv = quant_configs(CACHES[cache][0])[2]
+    k7 = CACHES[cache][1:] == ("dmajor", True)
     layers = model.config.num_hidden_layers
     prefix, requests = make_requests(model.config.vocab_size, seed=7)
 
@@ -1199,7 +1454,7 @@ def run_engine(model, dev, card) -> dict:
     stops = [tuple(y[j:j + 2])]
     if eos in y[:j + 3]:
         raise AssertionError("engine: the EOS token ends request 2 before its stop sequence")
-    log(f"engine: EOS token {eos} (request 0 ends before its token {x.index(eos)}), "
+    log(f"engine, {cache} cache: EOS token {eos} (request 0 ends before its token {x.index(eos)}), "
         f"stop sequence {stops[0]} (request 2 ends after its token {j + 1})")
     rules = dict(eos_token_id=eos, stop_sequences=stops)
 
@@ -1228,13 +1483,13 @@ def run_engine(model, dev, card) -> dict:
             raise AssertionError("engine: a stream holds bad tokens")
         if not all(lp == lp and lp <= 0 for lp in rec["logprobs"]):
             raise AssertionError("engine: a stream holds bad log-probabilities")
-    want = {"mx_matmul_fp4_halves": 7 * layers + 1, "mx_quantize": 2 * layers,
-            "mx_cached_attention_chunkdot": layers}
+    want = {"mx_matmul_fp4_halves": 7 * layers + 1, "mx_quantize": (3 if k7 else 2) * layers,
+            "mx_cached_attention_int8dot" if k7 else "mx_cached_attention_chunkdot": layers}
     for st in run["steps"]:
         if st["rows"] and st["launches"] != want:
             raise AssertionError(f"engine: a decode step launched {st['launches']}, expected {want}")
-    log(f"engine: every one of {len(run['steps'])} decode steps launched {json.dumps(want)}: K5, not K4, "
-        f"served each of them; the whole stream launched {json.dumps(launches)}")
+    log(f"engine, {cache} cache: every one of {len(run['steps'])} decode steps launched {json.dumps(want)}: "
+        f"{'K7, not K6' if k7 else 'K5, not K4'}, served each of them; the whole stream launched {json.dumps(launches)}")
 
     # 3. Admitted whole without the prefix cache, and in chunks among others.
     same_stream(free[1], alone(requests[1], with_prefix=False), "request 1 over the prefix vs whole")
@@ -1244,7 +1499,7 @@ def run_engine(model, dev, card) -> dict:
     for r in requests[:16]:
         same_stream(run["requests"][r["id"]], chunked["requests"][r["id"]],
                     f"request {r['id']} admitted whole vs in chunks of {ENGINE_CHUNK}")
-    log(f"engine: streams bit-identical (tokens and log-probabilities): requests 0-3 alone vs among "
+    log(f"engine, {cache} cache: streams bit-identical (tokens and log-probabilities): requests 0-3 alone vs among "
         f"{ENGINE_BATCH}; request 1 over the cached prefix vs whole; requests 0-15 whole vs in chunks of "
         f"{ENGINE_CHUNK} (prefix reuse rounded to the chunk grid)")
 
@@ -1260,14 +1515,14 @@ def run_engine(model, dev, card) -> dict:
         raise AssertionError(f"engine: cache_full after {len(a['tokens'])} tokens, reason {a['reason']}")
     reasons = collections.Counter(str(r["reason"]) for r in run["requests"].values())
     reasons["cache_full"] += 1
-    log(f"engine: endings over the stream of {len(requests)} (None = got its tokens) plus the drained slot: "
+    log(f"engine, {cache} cache: endings over the stream of {len(requests)} (None = got its tokens) plus the drained slot: "
         f"{json.dumps(dict(reasons))}")
 
     # 5. Numbers.
     gaps = [b_["t"] - a_["t"] for a_, b_ in zip(run["steps"], run["steps"][1:])]
     full = [st["ms"] for st in run["steps"] if st["rows"] == ENGINE_BATCH]
     admissions = sorted((r["n_prompt"], round(r["add_ms"], 1)) for r in run["requests"].values())
-    out = dict(requests=len(requests), tokens=run["tokens"], seconds=run["seconds"],
+    out = dict(cache=cache, requests=len(requests), tokens=run["tokens"], seconds=run["seconds"],
                tokens_per_s=run["tokens"] / run["seconds"], steps=len(run["steps"]),
                step_gap_ms_median=statistics.median(gaps) * 1e3, step_gap_ms_p90=percentile(gaps, 0.9) * 1e3,
                full_batch_step_ms_median=statistics.median(full) if full else None,
@@ -1280,7 +1535,7 @@ def run_engine(model, dev, card) -> dict:
     if not full:
         raise AssertionError("engine: the stream never had every slot decoding")
     out.update(engine_profile(model, kv, requests, prefix, out["full_batch_step_ms_median"]))
-    log(f"engine: {json.dumps(out)} [{card}]")
+    log(f"engine, {cache} cache: {json.dumps(out)} [{card}]")
     return out
 
 
@@ -1310,36 +1565,50 @@ def main() -> int:
     k4, k4_rows = check_attention_kernel(dev, timer, gen)
     k5, int8_rows, k4_int8_err = check_int8_attention_kernels(dev, timer, gen)
     k4["max_abs_err"] = max(k4["max_abs_err"], k4_int8_err)
-    kernels += [k3, k4, k5]
-    check_row_invariance(dev, gen)
+    k6, k7, dmajor_rows = check_dmajor_attention_kernels(dev, timer, gen)
+    kernels += [k3, k4, k5, k6, k7]
+    cache_write = check_cache_write(dev, timer, gen)
+    row_invariance = check_row_invariance(dev)
     accuracy = attention_accuracy(dev, gen)
     check_readings = model_check(dev, card)
     model = build_model(dev, card, args.layers)
     # Each main path is driven with the counts set to 0 just before it and
-    # read just after: generate() over the fp8 cache, then the engine over
-    # the int8 cache.
-    paths = {}
+    # read just after: generate() over the fp8 cache, the engine over the int8
+    # cache, the engine over the int8 d-major cache with the all-int8 flag,
+    # generate() over the fp4 d-major cache.
+    paths, per_step = {}, {}
     paths["generate"], slice_results = run_slice(model, dev, card)
     engine_results = run_engine(model, dev, card)
     paths["engine"] = engine_results["launches"]
+    with kv_env(*CACHES["int8 d-major int8dot"][1:]):
+        engine_dmajor = run_engine(model, dev, card, "int8 d-major int8dot")
+    paths["engine_dmajor"] = engine_dmajor["launches"]
+    with kv_env(*CACHES["float4_e2m1 d-major"][1:]):
+        paths["generate_fp4_dmajor"], slice_fp4 = run_slice(model, dev, card, "float4_e2m1 d-major", batches=(32,))
     del model
     plain_results = compare_with_plain_path(dev, card)
-    on_path = {"generate": {"mx_quantize", "mx_fake_quantize", "mx_matmul_fp4_halves", "mx_cached_attention"},
-               "engine": {k["name"] for k in kernels}}
+    for b, r in slice_results.items():
+        per_step[f"b{b}"] = r["launches_per_decode_step"]
+    per_step["engine"] = engine_results["launches_per_decode_step"]
+    per_step["engine_dmajor"] = engine_dmajor["launches_per_decode_step"]
+    per_step["generate_fp4_dmajor_b32"] = slice_fp4[32]["launches_per_decode_step"]
+    seq = {"mx_quantize", "mx_fake_quantize", "mx_matmul_fp4_halves", "mx_cached_attention"}
+    dmajor = (seq - {"mx_cached_attention"}) | {"mx_cached_attention_dmajor"}
+    on_path = {"generate": seq, "engine": seq | {"mx_cached_attention_chunkdot"},
+               "engine_dmajor": dmajor | {"mx_cached_attention_int8dot"}, "generate_fp4_dmajor": dmajor}
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
-        k["launches_per_decode_step"] = {
-            f"b{b}": r["launches_per_decode_step"].get(k["name"], 0) for b, r in slice_results.items()}
-        k["launches_per_decode_step"]["engine"] = engine_results["launches_per_decode_step"].get(k["name"], 0)
+        k["launches_per_decode_step"] = {path: counts.get(k["name"], 0) for path, counts in per_step.items()}
         for path, names in on_path.items():
             if k["name"] in names and k["launches_by_path"][path] <= 0:
                 raise AssertionError(f"{k['name']} was never launched on the {path} path")
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(dict(card=card, kernels=kernels, matmul=k3_rows, attention=k4_rows, attention_int8=int8_rows,
-                       attention_accuracy=accuracy, model_check=check_readings, slice=slice_results, engine=engine_results,
-                       engine_vs_plain=plain_results), f, indent=1)
+                       attention_dmajor=dmajor_rows, cache_write=cache_write, row_invariance=row_invariance, attention_accuracy=accuracy, model_check=check_readings,
+                       slice=slice_results, engine=engine_results, engine_dmajor=engine_dmajor,
+                       slice_fp4_dmajor=slice_fp4, engine_vs_plain=plain_results), f, indent=1)
     log("kernels: " + ", ".join(f"{k['name']} ok ({k['launches']} launches)" for k in kernels) + f" [{card}]")
     log(card)
     log(json.dumps({"kernels": kernels}))

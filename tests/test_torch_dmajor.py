@@ -1,0 +1,309 @@
+"""The d-major MX KV cache of the port and its two attention kernels' plain
+versions, held against the JAX package on the CPU (Pallas kernels in
+interpret mode, small shapes; inputs from a numpy seed, fed to both sides).
+
+Tolerances: cache buffers bit-equal; plain K6 (``mx_cached_attention_dmajor``)
+against the JAX d-major kernel abs <= 2e-2 (the JAX kernel takes one tile of
+256 positions at L = 256, the port tiles of 64: p rounds to bf16 against other
+running maxima); plain K7 (``mx_cached_attention_int8dot``) at the JAX
+kernel's own tile abs <= 2e-2 (it is the same arithmetic; only fp32 summation
+order may differ), its q codes and scales bit-equal, and at the CUDA kernel's
+tile an SQNR above 30 dB against exact attention, the JAX package's own bound
+for this path.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from torchmx_tpu import env_variables as jenv
+from torchmx_tpu.models.llama import MXLayerKVCache as JCache
+from torchmx_tpu.mx_array import quantize_mx as jquantize_mx
+from torchmx_tpu.ops import pallas_attention as jpa
+from torchmx_tpu_torch import env_variables as env
+from torchmx_tpu_torch.convert import cache_from_buffers
+from torchmx_tpu_torch.models.llama import MXLayerKVCache
+from torchmx_tpu_torch.ops import cuda_attention as ca
+
+torch.set_num_threads(1)
+
+FORMATS = ["float8_e4m3", "int8", "float4_e2m1"]
+NAMES = ("k_data", "k_scale", "v_data", "v_scale")
+
+
+def bf16(x) -> np.ndarray:
+    """float32 array holding bf16-representable values."""
+    return np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
+
+
+def to_torch(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+@pytest.fixture
+def flags():
+    """Sets ``TORCHMX_ATTN_INT8_DOT`` on both packages' env modules, with the
+    JAX package on its Pallas path; restores all of it afterwards."""
+    old = jenv.TORCHMX_FUSED_ATTENTION, jenv.TORCHMX_ATTN_INT8_DOT, env.TORCHMX_ATTN_INT8_DOT
+    jenv.TORCHMX_FUSED_ATTENTION = "pallas"
+
+    def set_flag(value: str):
+        jenv.TORCHMX_ATTN_INT8_DOT = env.TORCHMX_ATTN_INT8_DOT = value
+
+    yield set_flag
+    jenv.TORCHMX_FUSED_ATTENTION, jenv.TORCHMX_ATTN_INT8_DOT, env.TORCHMX_ATTN_INT8_DOT = old
+
+
+def filled_caches(seed, b, hkv, L, d, elem):
+    """(JAX cache, port cache) in the d-major layout, every position written
+    from the same random K/V."""
+    rng = np.random.default_rng(seed)
+    k, v = bf16(rng.standard_normal((b, hkv, L, d))), bf16(rng.standard_normal((b, hkv, L, d)))
+    jc = JCache.create(b, hkv, L, d, elem, 32, layout="dmajor").write(
+        jnp.asarray(k, jnp.bfloat16), jnp.asarray(v, jnp.bfloat16), 0)
+    tc = cache_from_buffers(*(np.asarray(getattr(jc, n)) for n in NAMES), elem, "dmajor", device="cpu")
+    return jc, tc
+
+
+# -- (a) the cache ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("elem", FORMATS)
+def test_dmajor_cache_write_matches_jax_bit_for_bit(elem):
+    """Codes and scales after a series of writes: an int position, (b,)
+    positions, and starts that run past the buffer and are clamped (row 2
+    writes 3 positions at 30 into a cache of 32, row 3 one at ``max_len``)."""
+    b, h, L, d = 4, 2, 32, 64
+    rng = np.random.default_rng(7)
+    jc = JCache.create(b, h, L, d, elem, 32, layout="dmajor")
+    tc = MXLayerKVCache.create(b, h, L, d, elem, device="cpu", layout="dmajor")
+    assert tc.layout == "dmajor" and tc.max_len == jc.max_len == L
+    assert tuple(tc.k_data.shape) == tuple(jc.k_data.shape) and tuple(tc.k_scale.shape) == tuple(jc.k_scale.shape)
+    writes = ((6, 2), (5, [0, 3, 27, 11]), (3, [5, 0, 30, 29]), (1, [8, 31, 4, 32]), (1, 31), (1, [9, 2, 40, 0]))
+    for s_len, pos in writes:
+        k = bf16(rng.standard_normal((b, h, s_len, d)))
+        v = bf16(rng.standard_normal((b, h, s_len, d)) * 8)
+        per_row = not isinstance(pos, int)
+        jc = jc.write(jnp.asarray(k, jnp.bfloat16), jnp.asarray(v, jnp.bfloat16),
+                      jnp.asarray(pos, jnp.int32) if per_row else pos)
+        tc.write(to_torch(k), to_torch(v), torch.tensor(pos, dtype=torch.int32) if per_row else pos)
+        for name in NAMES:
+            np.testing.assert_array_equal(getattr(tc, name).numpy().view(np.uint8),
+                                          np.asarray(getattr(jc, name)).view(np.uint8), err_msg=f"{name} {pos}")
+    for got, ref in zip(tc.dequantize(), jc.dequantize()):
+        assert tuple(got.shape) == (b, h, L, d)
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref, np.float32))
+    with pytest.raises(ValueError, match="cannot take positions"):
+        tc.write(torch.zeros(b, h, 2, d), torch.zeros(b, h, 2, d), 31)
+
+
+@pytest.mark.parametrize("elem", ["float8_e4m3", "int8"])
+def test_both_layouts_hold_the_same_values(elem):
+    """The same writes into a seq and a d-major cache dequantize alike, the
+    buffers differ by a swap of the last two axes, ``clone`` keeps the
+    layout, and ``cache_from_buffers`` converts between them."""
+    b, h, L, d = 2, 2, 16, 64
+    rng = np.random.default_rng(8)
+    seq = MXLayerKVCache.create(b, h, L, d, elem, device="cpu", layout="seq")
+    dm = MXLayerKVCache.create(b, h, L, d, elem, device="cpu", layout="dmajor")
+    for pos in (0, torch.tensor([5, 9], dtype=torch.int32)):
+        k, v = to_torch(bf16(rng.standard_normal((b, h, 4, d)))), to_torch(bf16(rng.standard_normal((b, h, 4, d))))
+        seq.write(k, v, pos)
+        dm.write(k, v, pos)
+    for a, c in zip(seq.dequantize(), dm.dequantize()):
+        assert torch.equal(a, c)
+    for a, c in zip(seq.buffers, dm.clone().buffers):
+        assert torch.equal(a, c.transpose(2, 3))
+    assert dm.clone().layout == "dmajor"
+    back = cache_from_buffers(*(t.numpy() for t in dm.buffers), elem, "dmajor", to_layout="seq", device="cpu")
+    assert back.layout == "seq" and all(torch.equal(a, c) for a, c in zip(seq.buffers, back.buffers))
+
+
+def test_layout_defaults_to_the_env_flag_and_fp4_needs_dmajor(monkeypatch):
+    assert env.TORCHMX_KV_LAYOUT == "seq" and env.TORCHMX_ATTN_INT8_DOT == "0"  # the defaults
+    assert MXLayerKVCache.create(1, 1, 8, 64, "int8", device="cpu").layout == "seq"
+    monkeypatch.setattr(env, "TORCHMX_KV_LAYOUT", "dmajor")
+    c = MXLayerKVCache.create(1, 2, 8, 64, "float4_e2m1", device="cpu")
+    assert c.layout == "dmajor" and tuple(c.k_data.shape) == (1, 2, 32, 8) and tuple(c.k_scale.shape) == (1, 2, 2, 8)
+    with pytest.raises(NotImplementedError, match="d-major layout only"):
+        MXLayerKVCache.create(1, 1, 8, 64, "float4_e2m1", device="cpu", layout="seq")
+    with pytest.raises(ValueError, match="unknown KV cache layout"):
+        MXLayerKVCache.create(1, 1, 8, 64, "int8", device="cpu", layout="rows")
+
+
+# -- (b) plain K6 against the JAX d-major kernel ---------------------------------------
+
+
+@pytest.mark.parametrize("elem", FORMATS)
+@pytest.mark.parametrize("sq", [1, 4, 64])
+def test_dmajor_attention_plain_matches_pallas_kernel(flags, elem, sq):
+    flags("0")
+    b, hq, hkv, d, L = 2, 4, 2, 128, 256
+    jc, tc = filled_caches(21, b, hkv, L, d, elem)
+    q = bf16(np.random.default_rng(22).standard_normal((b, hq, sq, d)) * 0.5)
+    q_off = np.array([3, 200 - sq], np.int32)  # ragged rows
+    kv_len = q_off + sq
+    ref = jpa.cached_attention_any(jnp.asarray(q, jnp.bfloat16), jc, jnp.asarray(q_off), jnp.asarray(kv_len), d ** -0.5)
+    got = ca.mx_cached_attention_dmajor_plain(to_torch(q), *tc.buffers, torch.from_numpy(q_off),
+                                              torch.from_numpy(kv_len), d ** -0.5, elem)
+    assert got.shape == (b, hq, sq, d) and got.dtype == torch.bfloat16
+    err = np.abs(got.float().numpy() - np.asarray(ref, np.float32)).max()
+    assert err <= 2e-2, err
+    # The dispatch and the wrapper reach it on CPU tensors.
+    via = ca.cached_attention_any(to_torch(q), tc, torch.from_numpy(q_off), torch.from_numpy(kv_len), d ** -0.5)
+    assert torch.equal(via, got)
+
+
+@pytest.mark.parametrize("elem", ["float8_e4m3", "int8"])
+def test_dmajor_attention_plain_equals_the_seq_version(elem):
+    """On the same cache content plain K6 and plain K4 are one computation."""
+    b, hq, hkv, d, L, sq = 2, 4, 2, 128, 128, 8
+    _, tc = filled_caches(23, b, hkv, L, d, elem)
+    q = to_torch(bf16(np.random.default_rng(24).standard_normal((b, hq, sq, d)) * 0.5))
+    q_off = torch.tensor([0, 100], dtype=torch.int32)
+    got = ca.mx_cached_attention_dmajor_plain(q, *tc.buffers, q_off, q_off + sq, d ** -0.5, elem)
+    seq = [t.transpose(2, 3).contiguous() for t in tc.buffers]
+    assert torch.equal(got, ca.mx_cached_attention_plain(q, *seq, q_off, q_off + sq, d ** -0.5, elem))
+
+
+# -- (c) plain K7 against the JAX all-int8 kernel --------------------------------------
+
+
+def test_int8dot_attention_plain_matches_pallas_kernel(flags):
+    """At the JAX kernel's own tile (512 at L = 1024: two tiles, so the
+    per-tile requantization of p is exercised) and at per-row positions, one
+    row seeing less than the written prefix."""
+    flags("1")
+    b, hq, hkv, d, L = 3, 8, 2, 128, 1024
+    jc, tc = filled_caches(31, b, hkv, L, d, "int8")
+    q = bf16(np.random.default_rng(32).standard_normal((b, hq, 1, d)) * 0.5)
+    q_off, kv_len = np.array([0, 900, 1023], np.int32), np.array([1, 700, 1024], np.int32)
+    assert jpa.use_int8dot(jc, 1, d) and ca.use_int8dot(tc, 1, d)
+    ref = jpa.cached_attention_any(jnp.asarray(q, jnp.bfloat16), jc, jnp.asarray(q_off), jnp.asarray(kv_len), d ** -0.5)
+    args = (to_torch(q), *tc.buffers, torch.from_numpy(q_off), torch.from_numpy(kv_len), d ** -0.5)
+    got = ca.mx_cached_attention_int8dot_plain(*args, tile=jpa._pick_lt(L))
+    assert got.shape == (b, hq, 1, d) and got.dtype == torch.bfloat16
+    err = np.abs(got.float().numpy() - np.asarray(ref, np.float32)).max()
+    assert err <= 2e-2, err
+    # q's codes and scales are the JAX wrapper's, bit for bit.
+    js, jd = jquantize_mx(jnp.asarray(q, jnp.bfloat16).reshape(b, hkv, hq // hkv, d), "int8", 32)
+    ts, td = ca.quantize_q_int8(to_torch(q), hkv)
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    # At the CUDA kernel's tile: through the dispatch, and accurate enough.
+    via = ca.cached_attention_any(to_torch(q), tc, torch.from_numpy(q_off), torch.from_numpy(kv_len), d ** -0.5)
+    assert torch.equal(via, ca.mx_cached_attention_int8dot_plain(*args, tile=ca.INT8DOT_TILE))
+    k, v = (t.double().repeat_interleave(hq // hkv, 1) for t in tc.dequantize())
+    s = (torch.from_numpy(q).double() @ k.transpose(-1, -2)) * d ** -0.5
+    visible = torch.arange(L)[None] < torch.from_numpy(np.minimum(kv_len, q_off + 1))[:, None]
+    exact = torch.softmax(s.masked_fill(~visible[:, None, None], float("-inf")), -1) @ v
+    sqnr = 10 * torch.log10(exact.square().sum() / (via.double() - exact).square().sum())
+    assert sqnr > 30, float(sqnr)
+
+
+# -- (d) the dispatch rule ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("flag", ["0", "1"])
+@pytest.mark.parametrize("layout", ["seq", "dmajor"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("sq", [1, 2, 64])
+@pytest.mark.parametrize("elem", ["int8", "float8_e4m3", "float4_e2m1"])
+def test_int8dot_rule_matches_jax(flags, elem, sq, d, layout, flag):
+    flags(flag)
+    cache = types.SimpleNamespace(elem_dtype_name=elem, layout=layout)
+    assert ca.use_int8dot(cache, sq, d) == jpa.use_int8dot(cache, sq, d)
+
+
+@pytest.mark.parametrize("flag", ["0", "1"])
+@pytest.mark.parametrize("layout", ["seq", "dmajor"])
+@pytest.mark.parametrize("sq", [1, 4])
+@pytest.mark.parametrize("elem", ["int8", "float8_e4m3"])
+def test_dispatch_picks_the_kernel_jax_picks(flags, monkeypatch, elem, sq, layout, flag):
+    """Which of the four attention paths ``cached_attention_any`` takes, in
+    both packages, over a grid of format, query length, layout and flag."""
+    flags(flag)
+    b, hq, hkv, d, L = 1, 4, 2, 128, 128
+    calls = []
+    for name, kernel in (("_int8dot_attention", "int8dot"), ("_mx_cached_attention_dmajor", "dmajor"),
+                         ("_chunkdot_attention", "chunkdot"), ("_mx_cached_attention", "seq")):
+        def fake(q, *a, _kernel=kernel, **kw):
+            calls.append(("jax", _kernel))
+            return jnp.zeros(q.shape, jnp.bfloat16)  # (b, hq, 1, d), or q4 (b, hkv, sq * g, d)
+        monkeypatch.setattr(jpa, name, fake)
+    for name, kernel in (("mx_cached_attention_int8dot", "int8dot"), ("mx_cached_attention_dmajor", "dmajor"),
+                         ("mx_cached_attention_chunkdot", "chunkdot"), ("mx_cached_attention", "seq")):
+        monkeypatch.setattr(ca, name, lambda q, *a, _kernel=kernel, **kw: calls.append(("port", _kernel)))
+    jc = JCache.create(b, hkv, L, d, elem, 32, layout=layout)
+    tc = MXLayerKVCache.create(b, hkv, L, d, elem, device="cpu", layout=layout)
+    jpa.cached_attention_any(jnp.zeros((b, hq, sq, d), jnp.bfloat16), jc, 0, sq, 1.0)
+    ca.cached_attention_any(torch.zeros(b, hq, sq, d, dtype=torch.bfloat16), tc, 0, sq, 1.0)
+    assert len(calls) == 2 and calls[0][1] == calls[1][1], calls
+    want = {"seq": "chunkdot" if elem == "int8" and sq == 1 else "seq",
+            "dmajor": "int8dot" if elem == "int8" and sq == 1 and flag == "1" else "dmajor"}[layout]
+    assert calls[1] == ("port", want)
+
+
+# -- (e) edge rows -------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kernel", ["dmajor", "int8dot"])
+def test_dmajor_plain_edge_rows(kernel):
+    """A row with no visible key outputs 0; never-written slots (code 0,
+    scale 0) and a stale slot with scale 255 past the prefix change nothing."""
+    b, hq, hkv, d, L = 2, 4, 2, 128, 256
+    _, tc = filled_caches(41, b, hkv, L, d, "int8")
+    q = to_torch(bf16(np.random.default_rng(42).standard_normal((b, hq, 1, d)) * 0.5))
+    q_off, kv_len = torch.tensor([0, 140]), torch.tensor([0, 141])
+
+    def run(buffers):
+        if kernel == "int8dot":
+            return ca.mx_cached_attention_int8dot_plain(q, *buffers, q_off, kv_len, d ** -0.5)
+        return ca.mx_cached_attention_dmajor_plain(q, *buffers, q_off, kv_len, d ** -0.5, "int8")
+
+    ref = run(tc.buffers)
+    assert ref[0].abs().max() == 0 and ref[1].abs().max() > 0 and torch.isfinite(ref.float()).all()
+    stale = [t.clone() for t in tc.buffers]
+    for t in stale:
+        t[..., 141:] = 0
+    stale[1][..., 150], stale[3][..., 150] = 255, 255  # in the last visible position's tile
+    stale[1][..., 200], stale[3][..., 200] = 255, 255
+    assert torch.equal(run(stale), ref)
+
+
+# -- (f) what the wrappers refuse ------------------------------------------------------------
+
+
+def test_dmajor_wrappers_reject_what_the_kernels_do_not_take(monkeypatch):
+    d, L = 128, 128
+    cache = MXLayerKVCache.create(1, 2, L, d, "int8", device="cpu", layout="dmajor")
+    q = torch.zeros(1, 4, 1, d, dtype=torch.bfloat16)
+    for kw in (dict(window=16), dict(ring=True), dict(softcap=30.0)):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            ca.cached_attention_any(q, cache, 0, 1, 1.0, **kw)
+    with pytest.raises(ValueError, match="sq == 1"):
+        ca.mx_cached_attention_int8dot(torch.zeros(1, 4, 2, d, dtype=torch.bfloat16), *cache.buffers, 0, 2, 1.0)
+    fp8 = MXLayerKVCache.create(1, 2, L, d, "float8_e4m3", device="cpu", layout="dmajor")
+    with pytest.raises(ValueError, match="int8 d-major cache"):
+        ca.mx_cached_attention_int8dot(q, *fp8.buffers, 0, 1, 1.0)
+    # What only the CUDA kernels refuse, checked before anything is launched.
+    monkeypatch.setattr(ca, "on_cuda", lambda *t: True)
+    wide = MXLayerKVCache.create(1, 2, L, 256, "int8", device="cpu", layout="dmajor")
+    q256 = torch.zeros(1, 4, 1, 256, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="d=128"):
+        ca.mx_cached_attention_dmajor(q256, *wide.buffers, 0, 1, 1.0, "int8")
+    with pytest.raises(ValueError, match="d=128"):
+        ca.mx_cached_attention_int8dot(q256, *wide.buffers, 0, 1, 1.0)
+    short = MXLayerKVCache.create(1, 2, 96, d, "int8", device="cpu", layout="dmajor")
+    with pytest.raises(ValueError, match="L % 64"):
+        ca.mx_cached_attention_dmajor(q, *short.buffers, 0, 1, 1.0, "int8")
+    with pytest.raises(ValueError, match="L % 128"):
+        ca.mx_cached_attention_int8dot(q, *short.buffers, 0, 1, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ca.mx_cached_attention_dmajor(q, *(t.transpose(2, 3) for t in
+                                           MXLayerKVCache.create(1, 2, d, L, "int8", device="cpu").buffers),
+                                      0, 1, 1.0, "int8")

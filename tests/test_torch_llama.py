@@ -34,6 +34,7 @@ import jax.numpy as jnp
 from flax import nnx
 
 from torchmx_tpu import env_variables as jenv
+from torchmx_tpu_torch import env_variables as tenv
 from torchmx_tpu.config import MXConfig as JMXConfig
 from torchmx_tpu.config import QAttentionConfig as JQAttn
 from torchmx_tpu.config import QLinearConfig as JQLin
@@ -83,6 +84,19 @@ def jax_backend(mode: str):
         yield
     finally:
         jenv.TORCHMX_QUANTIZE_BACKEND, jenv.TORCHMX_FUSED_ATTENTION = old
+
+
+@contextlib.contextmanager
+def kv_layout(layout: str, int8dot: str = "0"):
+    """The KV-cache layout and the all-int8 decode flag, set on both
+    packages' env modules."""
+    old = jenv.TORCHMX_KV_LAYOUT, jenv.TORCHMX_ATTN_INT8_DOT, tenv.TORCHMX_KV_LAYOUT, tenv.TORCHMX_ATTN_INT8_DOT
+    jenv.TORCHMX_KV_LAYOUT = tenv.TORCHMX_KV_LAYOUT = layout
+    jenv.TORCHMX_ATTN_INT8_DOT = tenv.TORCHMX_ATTN_INT8_DOT = int8dot
+    try:
+        yield
+    finally:
+        jenv.TORCHMX_KV_LAYOUT, jenv.TORCHMX_ATTN_INT8_DOT, tenv.TORCHMX_KV_LAYOUT, tenv.TORCHMX_ATTN_INT8_DOT = old
 
 
 def _jax_steps(jmodel, ids: np.ndarray, forced: np.ndarray, max_len: int, kv: str = KV, row_pos=None):
@@ -240,23 +254,53 @@ def test_int_and_per_row_positions_agree(small_pair):
 def small_logits_int8(small_pair):
     """int8 cache: prefill of 8 tokens, then 3 teacher-forced decode steps
     with the rows at their own positions (row 0 goes on at 8, row 1 rewinds
-    to 5 and overwrites from there): (pallas, port) logits."""
+    to 5 and overwrites from there): a function of (layout, all-int8 flag)
+    giving (pallas, port) logits, each pair computed once."""
     jmodel, port = small_pair
     rng = np.random.default_rng(4)
     ids = rng.integers(0, SMALL["vocab_size"], size=(2, 8)).astype(np.int32)
     forced = rng.integers(0, SMALL["vocab_size"], size=(2, 3)).astype(np.int32)
     row_pos = np.array([8, 5], np.int32)
-    with jax_backend("pallas"):
-        ref = _jax_steps(jmodel, ids, forced, 128, "int8", row_pos)
-    return ref, _port_steps(port, ids, forced, 128, "int8", row_pos)
+    done = {}
+
+    def logits(layout, int8dot):
+        if (layout, int8dot) not in done:
+            with kv_layout(layout, int8dot), jax_backend("pallas"):
+                ref = _jax_steps(jmodel, ids, forced, 128, "int8", row_pos)
+                done[layout, int8dot] = ref, _port_steps(port, ids, forced, 128, "int8", row_pos)
+        return done[layout, int8dot]
+
+    return logits
 
 
-@pytest.mark.parametrize("step", [0, 1, 2, 3], ids=["prefill", "decode1", "decode2", "decode3"])
-def test_int8_cache_logits_match_jax_with_per_row_positions(small_logits_int8, step):
-    ref, got = small_logits_int8
+# The d-major cache with the flag off computes what the seq cache computes
+# (the int8 seq tolerance holds).  With the flag on, decode goes through the
+# all-int8 kernel in both packages; at max_len 128 both take the cache as one
+# tile of 128 positions, so the port's plain version repeats the JAX kernel's
+# arithmetic and the same tolerance holds there too.
+INT8_STEPS = ["prefill", "decode1", "decode2", "decode3"]
+INT8_CASES = [pytest.param(layout, flag, step, id=prefix + name)
+              for layout, flag, prefix in (("seq", "0", ""), ("dmajor", "0", "dmajor-"), ("dmajor", "1", "dmajor-int8dot-"))
+              for step, name in enumerate(INT8_STEPS)]
+
+
+@pytest.mark.parametrize("layout,int8dot,step", INT8_CASES)
+def test_int8_cache_logits_match_jax_with_per_row_positions(small_logits_int8, layout, int8dot, step):
+    ref, got = small_logits_int8(layout, int8dot)
     rel = _rel(got[:, step], ref[:, step])
-    print(f"int8 step {step}: rel {rel:.3e}")
+    print(f"int8 {layout} int8dot={int8dot} step {step}: rel {rel:.3e}")
     assert rel <= REL_TOL
+
+
+def test_dmajor_prefill_equals_the_seq_cache(small_logits_int8):
+    """In the port the two layouts hold the same values, and at prefill their
+    plain attention versions (K4's and K6's) are one computation: equal
+    logits, bit for bit.  (At decode the seq int8 cache goes through K5's.)
+    The all-int8 flag changes decode only."""
+    seq, dmajor, int8dot = (small_logits_int8(*key)[1] for key in (("seq", "0"), ("dmajor", "0"), ("dmajor", "1")))
+    np.testing.assert_array_equal(seq[:, 0], dmajor[:, 0])
+    np.testing.assert_array_equal(dmajor[:, 0], int8dot[:, 0])
+    assert not np.array_equal(dmajor[:, 1:], int8dot[:, 1:])
 
 
 def test_int8_greedy_generate_matches_jax(small_pair):
@@ -266,6 +310,22 @@ def test_int8_greedy_generate_matches_jax(small_pair):
     with jax_backend("pallas"):
         ref, ref_logits = _jax_greedy(jmodel, ids, n, kv="int8")
     got = generate(port, torch.from_numpy(ids), n, kv_cache_config=MXConfig("int8"))
+    _assert_tokens_match(ref, got.numpy(), ref_logits)
+
+
+@pytest.mark.parametrize("kv,int8dot", [("int8", "0"), ("int8", "1"), ("float4_e2m1", "0")],
+                         ids=["int8", "int8-int8dot", "fp4"])
+def test_dmajor_greedy_generate_matches_jax(small_pair, kv, int8dot):
+    """Greedy tokens over a d-major cache against JAX op by op, up to the
+    first near tie: the int8 cache through K6's plain version, then with the
+    all-int8 flag through K7's at decode, and the fp4 cache, which exists in
+    this layout only."""
+    jmodel, port = small_pair
+    ids = np.random.default_rng(5).integers(0, SMALL["vocab_size"], size=(2, 8)).astype(np.int32)
+    n = 12
+    with kv_layout("dmajor", int8dot), jax_backend("pallas"):
+        ref, ref_logits = _jax_greedy(jmodel, ids, n, kv=kv)
+        got = generate(port, torch.from_numpy(ids), n, kv_cache_config=MXConfig(kv))
     _assert_tokens_match(ref, got.numpy(), ref_logits)
 
 

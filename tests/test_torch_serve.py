@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from torchmx_tpu_torch import env_variables as env
 from torchmx_tpu_torch.config import MXConfig, QAttentionConfig, QLinearConfig
 from torchmx_tpu_torch.models.generate import generate
 from torchmx_tpu_torch.models.llama import LlamaConfig
@@ -247,6 +248,32 @@ def test_prefix_cache_near_full(model):
     eng.release(s)
     with pytest.raises(ValueError, match="prompt length"):
         eng.add(list(range(129)))
+
+
+@pytest.mark.parametrize("kv,int8dot", [(INT8, "0"), (INT8, "1"), (MXConfig("float4_e2m1"), "0")],
+                         ids=["int8", "int8-int8dot", "fp4"])
+def test_dmajor_engine_streams_whole_chunked_prefixed(model, monkeypatch, kv, int8dot):
+    """Over a d-major cache (the layout comes from the env flag, as in the
+    reference) a request's stream is the same admitted whole, in chunks and
+    over a cached prefix, among other requests, and it is the one
+    ``generate`` gives over the same cache."""
+    system, user, other = prompt_of(40, 24), prompt_of(41, 9), prompt_of(42, 13)
+    monkeypatch.setattr(env, "TORCHMX_KV_LAYOUT", "dmajor")
+    monkeypatch.setattr(env, "TORCHMX_ATTN_INT8_DOT", int8dot)
+
+    whole = engine(model, 2, kv=kv)
+    assert whole._caches[0].layout == "dmajor" and whole._caches[0].max_len == 128
+    collect(whole, whole.add(other), 2)  # the other request decodes meanwhile
+    want = collect(whole, whole.add(system + user), 8)
+    chunked = engine(model, 2, kv=kv, prefill_chunk=8)
+    chunked.add(other)
+    got_chunked = collect(chunked, chunked.add(system + user), 8)
+    prefixed = engine(model, 2, kv=kv)
+    prefixed.cache_prefix(system)
+    got_prefixed = collect(prefixed, prefixed.add(system + user), 8)
+    assert prefixed.prefix_hit_tokens == len(system)
+    assert want == got_chunked == got_prefixed
+    assert want == ref_tokens(model, system + user, 8, kv)
 
 
 def test_engine_stop_sequences(model):

@@ -1,20 +1,24 @@
-"""Weight bridge from the JAX package's Llama parameters.
+"""Bridge from the JAX package: Llama parameters and MX KV caches.
 
 ``from_flat_params`` takes the JAX model's parameters as a flat
 ``{dotted path: numpy array}`` dict (paths as ``nnx`` flattens the model
 state, e.g. ``model.layers.0.self_attn.q_proj.weight``; bf16 arrays as
 ``ml_dtypes.bfloat16``) and returns this package's bf16
 ``LlamaForCausalLM`` computing the same function.  Quantize it afterwards
-with ``quant_api.quantize_llm_``, from the same bf16 weights."""
+with ``quant_api.quantize_llm_``, from the same bf16 weights.
+
+``cache_from_buffers`` takes the four buffers of a JAX ``MXLayerKVCache`` (as
+numpy arrays) and returns this package's cache over the same bytes, in the
+same or the other storage layout."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from .models.llama import LlamaConfig, LlamaForCausalLM
+from .models.llama import LlamaConfig, LlamaForCausalLM, MXLayerKVCache
 from .ops.backend import DeviceLike, resolve_device
 
 
@@ -43,3 +47,20 @@ def from_flat_params(
                 raise ValueError(f"{name}: JAX {tuple(src.shape)} vs port {tuple(dst.shape)}")
             dst.copy_(src.to(dst.dtype))
     return model
+
+
+def cache_from_buffers(
+    k_data: np.ndarray, k_scale: np.ndarray, v_data: np.ndarray, v_scale: np.ndarray,
+    elem_dtype_name: str, layout: str, to_layout: Optional[str] = None, block_size: int = 32,
+    device: DeviceLike = None,
+) -> MXLayerKVCache:
+    """The port's cache holding a JAX ``MXLayerKVCache``'s buffers, given in
+    ``layout`` (``"seq"`` or ``"dmajor"``), stored in ``to_layout`` (default:
+    as given).  The two layouts differ by a swap of the last two axes; fp4
+    bytes pack d-halves in both."""
+    to_layout = layout if to_layout is None else to_layout
+    device = resolve_device(device)
+    buffers = [_to_torch(a) for a in (k_data, k_scale, v_data, v_scale)]
+    if to_layout != layout:
+        buffers = [t.transpose(2, 3).contiguous() for t in buffers]
+    return MXLayerKVCache(*(t.to(device) for t in buffers), elem_dtype_name, block_size, to_layout)

@@ -45,22 +45,13 @@ constexpr int kWarps = 8;    // warps per CTA
 constexpr int kPart = kD + 2;  // a partial: d outputs, running max, running sum
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float pow2_scale(int se) { return __uint_as_float((uint32_t)se << 23); }
+using mx::halve;
+using mx::pow2_scale;
+using mx::warp_max;
+using mx::warp_sum;
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // The four int8 codes of one 4-byte word, as floats.
@@ -69,19 +60,6 @@ __device__ __forceinline__ void unpack_codes(int w, float* c) {
   c[1] = (float)(int8_t)((w >> 8) & 0xFF);
   c[2] = (float)(int8_t)((w >> 16) & 0xFF);
   c[3] = (float)(w >> 24);
-}
-
-// One step of the joint reduction of N rows over a pair of lanes: the lane
-// with `up` keeps the upper half of the rows and hands over the lower half,
-// its partner the other way round.  Afterwards v[0 .. N/2) hold the kept rows.
-template <int N>
-__device__ __forceinline__ void halve(float* v, bool up, int mask) {
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) {
-    const float keep = up ? v[i + N / 2] : v[i];
-    const float send = up ? v[i] : v[i + N / 2];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
-  }
 }
 
 // Sum each of the G values of v over the 8 lanes of a chunk group; returns
@@ -242,51 +220,8 @@ chunkdot_kernel(const uint16_t* __restrict__ q, const int8_t* __restrict__ kd,
     }
   }
   __syncthreads();
-  const int e = threadIdx.x % kD;
-  for (int r = threadIdx.x / kD; r < G; r += kWarps * 32 / kD) {
-    float m = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, part[w][r][kD]);
-    float l = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(part[w][r][kD] - m);
-      l += part[w][r][kD + 1] * f;
-      a += part[w][r][e] * f;
-    }
-    if (splits == 1) {
-      const float inv = 1.f / (l == 0.f ? 1.f : l);
-      out[q_row0 + r * kD + e] = __bfloat16_as_ushort(__float2bfloat16_rn(a * inv));
-    } else {
-      float* dst = ws + ((kv_head * splits + sp) * G + r) * kPart;
-      dst[e] = a;
-      if (e == 0) {
-        dst[kD] = m;
-        dst[kD + 1] = l;
-      }
-    }
-  }
-}
-
-// Merge the partials of a (batch row, KV head) pair's CTAs in CTA order.
-__global__ void __launch_bounds__(kD)
-chunkdot_merge_kernel(const float* __restrict__ ws, uint16_t* __restrict__ out, int G, int splits) {
-  const long long kv_head = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-  const int e = threadIdx.x;
-  for (int r = 0; r < G; ++r) {
-    const float* src = ws + (kv_head * splits * G + r) * kPart;
-    const long long stride = (long long)G * kPart;
-    float m = kNegInf;
-    for (int sp = 0; sp < splits; ++sp) m = fmaxf(m, src[sp * stride + kD]);
-    float l = 0.f, a = 0.f;
-    for (int sp = 0; sp < splits; ++sp) {
-      const float f = expf(src[sp * stride + kD] - m);
-      l += src[sp * stride + kD + 1] * f;
-      a += src[sp * stride + e] * f;
-    }
-    const float inv = 1.f / (l == 0.f ? 1.f : l);
-    out[(kv_head * G + r) * kD + e] = __bfloat16_as_ushort(__float2bfloat16_rn(a * inv));
-  }
+  mx::merge_warps<G, kWarps, kD>(part, out + q_row0,
+                                 splits == 1 ? nullptr : ws + (kv_head * splits + sp) * G * kPart);
 }
 
 template <int G>
@@ -299,8 +234,8 @@ cudaError_t run(const void* q, const void* kd, const void* ks, const void* vd, c
       L, sm_scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
-  chunkdot_merge_kernel<<<dim3(hkv, b), kD, 0, stream>>>((const float*)ws, (uint16_t*)out, G,
-                                                        splits);
+  mx::merge_splits_kernel<kD><<<dim3(hkv, b), kD, 0, stream>>>((const float*)ws, (uint16_t*)out, G,
+                                                              splits);
   return cudaGetLastError();
 }
 

@@ -1,7 +1,9 @@
 // Shared device code of the MX kernels: element format constants, the
 // per-element hw-exact cast, the fake-quantize "magic number" cast and the
-// code -> bf16 decoders.  Every function here mirrors a plain PyTorch
-// version in torchmx_tpu_torch/ (named in its comment) bit for bit.
+// code -> bf16 decoders (each mirrors a plain PyTorch version in
+// torchmx_tpu_torch/, named in its comment, bit for bit); then what the
+// attention kernels share: the mma and ldmatrix wrappers, the 4x4 byte
+// transpose, warp reductions, and the fixed-order merge of split-KV partials.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -194,6 +196,118 @@ __device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, cons
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The two B fragments (k16 x n8) of mma_bf16_16816 from a [k][n] row-major
+// bf16 tile in shared memory: lane l (0..15) passes the address of row k = l
+// (8 elements, 16 bytes, 16-byte aligned); lanes 16..31 pass any valid row.
+// .trans hands lane (g, t) the elements [k = 2t, 2t+1][n = g] of each 8x8
+// block: b0 from rows 0..7, b1 from rows 8..15.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* b, const void* smem_row) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(smem_row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(b[0]), "=r"(b[1])
+               : "r"(addr));
+}
+
+// 4x4 byte transpose: byte j of w[i] becomes byte i of w[j].
+__device__ __forceinline__ void transpose_4x4_bytes(uint32_t* w) {
+  const uint32_t a = __byte_perm(w[0], w[1], 0x5140);  // w0.b0 w1.b0 w0.b1 w1.b1
+  const uint32_t b = __byte_perm(w[0], w[1], 0x7362);  // w0.b2 w1.b2 w0.b3 w1.b3
+  const uint32_t c = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t d = __byte_perm(w[2], w[3], 0x7362);
+  w[0] = __byte_perm(a, c, 0x5410);
+  w[1] = __byte_perm(a, c, 0x7632);
+  w[2] = __byte_perm(b, d, 0x5410);
+  w[3] = __byte_perm(b, d, 0x7632);
+}
+
+// E8M0 exponent -> the fp32 whose bits are se << 23: 2^(se-127), +0.0 for
+// se == 0 (a never-written slot), +inf for 255 (ops.cuda_attention._pow2_scale).
+__device__ __forceinline__ float pow2_scale(int se) { return __uint_as_float((uint32_t)se << 23); }
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// One step of the joint reduction of N values over a pair of lanes: the lane
+// with `up` keeps the upper half of the values and hands over the lower half,
+// its partner the other way round.  Afterwards v[0 .. N/2) hold the kept
+// values, each summed over the pair.
+template <int N, typename T>
+__device__ __forceinline__ void halve(T* v, bool up, int mask) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const T keep = up ? v[i + N / 2] : v[i];
+    const T send = up ? v[i] : v[i + N / 2];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+  }
+}
+
+// Split-KV decode attention (K5, K7): every warp of a CTA leaves its running
+// (output[D], max, sum) of each of the G query rows in part[warp][row]; the
+// CTA merges them in warp order.  With ws_cta == nullptr the result is
+// normalised and written to out_rows (G rows of D bf16); else the CTA's
+// partial goes to ws_cta (G x (D + 2) floats) for merge_splits_kernel.  No
+// atomics: the result is deterministic.  Call after __syncthreads().
+template <int G, int W, int D>
+__device__ __forceinline__ void merge_warps(const float (&part)[W][G][D + 2], uint16_t* out_rows,
+                                            float* ws_cta) {
+  const int e = threadIdx.x % D;
+  for (int r = threadIdx.x / D; r < G; r += W * 32 / D) {
+    float m = -1e30f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) m = fmaxf(m, part[w][r][D]);
+    float l = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const float f = expf(part[w][r][D] - m);
+      l += part[w][r][D + 1] * f;
+      a += part[w][r][e] * f;
+    }
+    if (ws_cta == nullptr) {
+      const float inv = 1.f / (l == 0.f ? 1.f : l);
+      out_rows[r * D + e] = __bfloat16_as_ushort(__float2bfloat16_rn(a * inv));
+    } else {
+      float* dst = ws_cta + r * (D + 2);
+      dst[e] = a;
+      if (e == 0) {
+        dst[D] = m;
+        dst[D + 1] = l;
+      }
+    }
+  }
+}
+
+// Merge the partials of a (batch row, KV head) pair's CTAs in CTA order.
+// Grid (hkv, b), D threads; ws holds splits x G x (D + 2) floats per pair.
+template <int D>
+__global__ void __launch_bounds__(D)
+merge_splits_kernel(const float* __restrict__ ws, uint16_t* __restrict__ out, int G, int splits) {
+  const long long kv_head = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+  const int e = threadIdx.x;
+  for (int r = 0; r < G; ++r) {
+    const float* src = ws + (kv_head * splits * G + r) * (D + 2);
+    const long long stride = (long long)G * (D + 2);
+    float m = -1e30f;
+    for (int sp = 0; sp < splits; ++sp) m = fmaxf(m, src[sp * stride + D]);
+    float l = 0.f, a = 0.f;
+    for (int sp = 0; sp < splits; ++sp) {
+      const float f = expf(src[sp * stride + D] - m);
+      l += src[sp * stride + D + 1] * f;
+      a += src[sp * stride + e] * f;
+    }
+    const float inv = 1.f / (l == 0.f ? 1.f : l);
+    out[(kv_head * G + r) * D + e] = __bfloat16_as_ushort(__float2bfloat16_rn(a * inv));
+  }
 }
 
 }  // namespace mx

@@ -1,10 +1,10 @@
 """Llama in PyTorch (``torchmx_tpu/models/llama.py``), bf16 with MX seams.
 
-This port serves one path: generation over an MX KV cache in the seq layout.
-Every attention call writes its K/V into the cache, then attends causally
-over the written prefix through ``cached_attention_any`` (on the card K5 for
-an int8 cache at one query position, K4 otherwise).  ``cache_position`` is
-an int (all rows at one position) or a ``(b,)`` int tensor on the model's
+This port serves one path: generation over an MX KV cache, in the seq or the
+d-major layout.  Every attention call writes its K/V into the cache, then
+attends causally over the written prefix through ``cached_attention_any``
+(which names the kernel each layout, format and query length goes to).
+``cache_position`` is an int (all rows at one position) or a ``(b,)`` int tensor on the model's
 device (continuous batching: every row at its own position); a tensor is
 never read back on the host.
 Default RoPE only; no sliding window, ring cache or soft caps yet.
@@ -20,10 +20,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import env_variables as env
 from ..layers.linear import Linear
-from ..mx_array import dequantize_mx, quantize_mx
+from ..mx_array import quantize_mx
+from ..packing import fp4_pairs_to_halves
 from ..ops.backend import DeviceLike, resolve_device
-from ..ops.cuda_attention import cached_attention_any
+from ..ops.cuda_attention import cached_attention_any, dequantize_cache
 
 CachePosition = Union[int, torch.Tensor]
 
@@ -85,35 +87,62 @@ def apply_rotary_pos_emb(q, k, cos, sin) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 class MXLayerKVCache:
-    """MX-quantized per-layer KV cache, seq layout: codes ``(b, kv, L, d)``
-    and scales ``(b, kv, L, d/32)``, quantized along head_dim.  ``write``
-    updates the buffers in place (JAX returned a new cache; in place saves a
-    copy of the cache per token)."""
+    """MX-quantized per-layer KV cache, quantized along head_dim, in one of
+    two storage layouts (``layout``; default ``env.TORCHMX_KV_LAYOUT``):
 
-    def __init__(self, k_data, k_scale, v_data, v_scale, elem_dtype_name: str, block_size: int = 32):
+    * ``"seq"``: codes ``(b, kv, L, d)`` and scales ``(b, kv, L, d/32)``;
+    * ``"dmajor"``: codes ``(b, kv, dp, L)`` and scales ``(b, kv, d/32, L)``,
+      the sequence on the last, contiguous axis.  ``dp`` is ``d``, or ``d/2``
+      for fp4, whose bytes pack d-halves: byte ``p`` holds element ``p`` in
+      its high nibble and element ``p + d/2`` in its low nibble.
+
+    fp4 caches exist in the d-major layout only.  ``write`` updates the
+    buffers in place (JAX returned a new cache; in place saves a copy of the
+    cache per token)."""
+
+    def __init__(self, k_data, k_scale, v_data, v_scale, elem_dtype_name: str, block_size: int = 32,
+                 layout: str = "seq"):
+        if layout not in ("seq", "dmajor"):
+            raise ValueError(f"unknown KV cache layout {layout!r}")
         self.k_data, self.k_scale = k_data, k_scale
         self.v_data, self.v_scale = v_data, v_scale
         self.elem_dtype_name = elem_dtype_name
         self.block_size = block_size
+        self.layout = layout
 
     @staticmethod
     def create(batch, kv_heads, max_len, head_dim, elem_dtype_name="float8_e4m3",
-               block_size=32, device=None) -> "MXLayerKVCache":
-        if elem_dtype_name == "float4_e2m1":
-            raise NotImplementedError("fp4 KV caches (d-halves packing) are not ported yet")
+               block_size=32, device=None, layout: Optional[str] = None) -> "MXLayerKVCache":
+        if layout is None:
+            layout = env.TORCHMX_KV_LAYOUT
+        fp4 = elem_dtype_name == "float4_e2m1"
+        if fp4 and layout == "seq":
+            raise NotImplementedError("fp4 KV caches are ported in the d-major layout only")
         payload = torch.int8 if elem_dtype_name == "int8" else torch.uint8
-        data = (batch, kv_heads, max_len, head_dim)
-        scale = (batch, kv_heads, max_len, head_dim // block_size)
+        dp, nb = (head_dim // 2 if fp4 else head_dim), head_dim // block_size
+        if layout == "dmajor":
+            data, scale = (batch, kv_heads, dp, max_len), (batch, kv_heads, nb, max_len)
+        else:
+            data, scale = (batch, kv_heads, max_len, dp), (batch, kv_heads, max_len, nb)
 
         def z(shape, dt):
             return torch.zeros(shape, dtype=dt, device=device)
 
         return MXLayerKVCache(z(data, payload), z(scale, torch.uint8), z(data, payload),
-                              z(scale, torch.uint8), elem_dtype_name, block_size)
+                              z(scale, torch.uint8), elem_dtype_name, block_size, layout)
+
+    @property
+    def buffers(self) -> Tuple[torch.Tensor, ...]:
+        return self.k_data, self.k_scale, self.v_data, self.v_scale
+
+    def clone(self) -> "MXLayerKVCache":
+        return MXLayerKVCache(*(t.clone() for t in self.buffers), self.elem_dtype_name,
+                              self.block_size, self.layout)
 
     @property
     def max_len(self) -> int:
-        return self.k_data.shape[2]
+        """Sequence capacity, whatever the layout."""
+        return self.k_data.shape[3 if self.layout == "dmajor" else 2]
 
     def write(self, k_new: torch.Tensor, v_new: torch.Tensor, pos: CachePosition) -> None:
         """Quantize ``(b, kv, s, d)`` K/V (K1 on the card) and store them at
@@ -125,9 +154,10 @@ class MXLayerKVCache:
         reference (the engine's draining slots write at ``pos == max_len``);
         an index past the end would be a device-side assert on the card.
         The rows go in with one indexed store per buffer, the indices built
-        on the device."""
+        on the device.  In the d-major layout the sequence is the last axis,
+        so a token's codes land ``max_len`` bytes apart."""
         b, _, s, _ = k_new.shape
-        per_row = isinstance(pos, torch.Tensor)
+        per_row, dmajor = isinstance(pos, torch.Tensor), self.layout == "dmajor"
         if per_row:
             if pos.shape != (b,) or pos.device != self.k_data.device:
                 raise ValueError(f"per-row positions must be a ({b},) tensor on {self.k_data.device}, "
@@ -141,6 +171,10 @@ class MXLayerKVCache:
             raise ValueError(f"cache of length {self.max_len} cannot take positions up to {pos + s}")
         for new, data, scale in ((k_new, self.k_data, self.k_scale), (v_new, self.v_data, self.v_scale)):
             sc, codes = quantize_mx(new.to(torch.bfloat16).contiguous(), self.elem_dtype_name, self.block_size)
+            if self.elem_dtype_name == "float4_e2m1":
+                codes = fp4_pairs_to_halves(codes)
+            if dmajor:  # views with the sequence on dim 2: the stores below write through them
+                data, scale = data.transpose(2, 3), scale.transpose(2, 3)
             if per_row:  # data[rows, :, cols] is (b, s, kv, x)
                 data[rows, :, cols] = codes.transpose(1, 2)
                 scale[rows, :, cols] = sc.transpose(1, 2)
@@ -149,11 +183,10 @@ class MXLayerKVCache:
                 scale[:, :, pos:pos + s] = sc
 
     def dequantize(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full dequantized (k, v) buffers (plain path and tests)."""
-        return tuple(
-            dequantize_mx(d, s, self.elem_dtype_name, self.block_size, torch.bfloat16, 3)
-            for d, s in ((self.k_data, self.k_scale), (self.v_data, self.v_scale))
-        )
+        """Full dequantized (k, v) buffers ``(b, kv, L, d)`` in either layout
+        (plain path and tests)."""
+        return tuple(dequantize_cache(d, s, self.elem_dtype_name, self.layout)
+                     for d, s in ((self.k_data, self.k_scale), (self.v_data, self.v_scale)))
 
 
 # -- modules ---------------------------------------------------------------------

@@ -47,7 +47,7 @@ Where this differs from the reference, which jits its steps:
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -59,10 +59,6 @@ from .sampling import sample_logits
 SlotCaches = List[MXLayerKVCache]
 
 
-def _cache_buffers(cache: MXLayerKVCache) -> Tuple[torch.Tensor, ...]:
-    return cache.k_data, cache.k_scale, cache.v_data, cache.v_scale
-
-
 class DecodeEngine:
     """Static-slot continuous batching around a causal LM of this package.
 
@@ -71,7 +67,9 @@ class DecodeEngine:
         max_batch: number of request slots (the decode batch size).
         max_len: per-slot KV-cache capacity in tokens, rounded up to a
             multiple of 128 (the attention kernels' tile multiple).
-        kv_cache_config: the ``MXConfig`` of the MX KV cache (required).
+        kv_cache_config: the ``MXConfig`` of the MX KV cache (required).  Its
+            storage layout is ``env_variables.TORCHMX_KV_LAYOUT`` at the time
+            the engine is built, as in the reference.
         eos_token_id: token id(s) that release a slot when *generated* (the
             EOS token itself is not emitted).
         prefill_chunk: chunked admissions: ``add()`` only queues the prompt,
@@ -188,8 +186,7 @@ class DecodeEngine:
         return self.model.init_cache(1, self.max_len, self._kv_cache_config)
 
     def _copy_slot_caches(self, caches: SlotCaches) -> SlotCaches:
-        return [MXLayerKVCache(*(t.clone() for t in _cache_buffers(c)), c.elem_dtype_name, c.block_size)
-                for c in caches]
+        return [c.clone() for c in caches]
 
     @torch.inference_mode()
     def _prefill(self, caches: SlotCaches, ids: np.ndarray, start: int, last_idx: Optional[int]):
@@ -208,7 +205,7 @@ class DecodeEngine:
         """Copy an admission's single-slot caches into ``slot`` and start it
         decoding after its ``n`` prompt tokens, ``token`` pending."""
         for big, small in zip(self._caches, caches):
-            for dst, src in zip(_cache_buffers(big), _cache_buffers(small)):
+            for dst, src in zip(big.buffers, small.buffers):  # the slot is dim 0 in either layout
                 dst[slot].copy_(src[0])
         self._next_token[slot] = token
         self._next_lp[slot] = 0.0 if lp is None else lp

@@ -1,21 +1,30 @@
-"""K4 ``mx_cached_attention`` (``csrc/mx_attention.cu``) and K5
-``mx_cached_attention_chunkdot`` (``csrc/mx_attention_chunkdot.cu``): the CUDA
-kernels, their plain PyTorch versions, and ``cached_attention_any``, the
-dispatch the Llama attention calls
-(``torchmx_tpu/ops/pallas_attention.py:906-1019``, seq layout, no window,
-ring or softcap in this port): an int8 cache at one query position goes to
-K5, everything else to K4.
+"""The attention kernels over an MX KV cache, their plain PyTorch versions,
+and ``cached_attention_any``, the dispatch the Llama attention calls
+(``torchmx_tpu/ops/pallas_attention.py:906-1019``; no window, ring or softcap
+in this port):
 
-Semantics of both versions of K4: scores ``s = (q . k) * sm_scale`` in fp32 over
-the dequantized cache; query row ``i`` of batch row ``b`` sees key positions
-``<= q_off[b] + i`` and ``< kv_len[b]``; masked scores are ``-1e30``;
-softmax in fp32 with ``p`` rounded to bf16 before the P.V product; a row
-with no visible key outputs 0.  Both versions are the online (flash) form
-over tiles of 64 positions; they differ only in fp32 summation order.
+* seq layout: K5 ``mx_cached_attention_chunkdot``
+  (``csrc/mx_attention_chunkdot.cu``) for an int8 cache at one query
+  position, K4 ``mx_cached_attention`` (``csrc/mx_attention.cu``) otherwise;
+* d-major layout: K7 ``mx_cached_attention_int8dot``
+  (``csrc/mx_attention_int8dot.cu``) for an int8 cache at one query position
+  when ``TORCHMX_ATTN_INT8_DOT`` is ``"1"``, K6 ``mx_cached_attention_dmajor``
+  (``csrc/mx_attention_dmajor.cu``) otherwise.
+
+Semantics of K4 and K6, kernel and plain version alike: scores
+``s = (q . k) * sm_scale`` in fp32 over the dequantized cache; query row ``i``
+of batch row ``b`` sees key positions ``<= q_off[b] + i`` and ``< kv_len[b]``;
+masked scores are ``-1e30``; softmax in fp32 with ``p`` rounded to bf16 before
+the P.V product; a row with no visible key outputs 0.  Both versions are the
+online (flash) form over tiles of 64 positions; they differ only in fp32
+summation order.  K6 reads the d-major cache (fp8, fp6, int8, and fp4 in the
+d-halves packing); on the same cache content it computes what K4 computes.
 
 K5 computes the same attention for ``sq == 1`` over an int8 cache with the
 block scales factored out of the dots (``mx_cached_attention_chunkdot_plain``
-states the formula and its rounding points).
+states the formula and its rounding points).  K7 goes further: q and p are
+quantized to int8 too and both dots are exact integer sums
+(``mx_cached_attention_int8dot_plain``).
 """
 
 from __future__ import annotations
@@ -24,7 +33,9 @@ from typing import Union
 
 import torch
 
-from ..mx_array import dequantize_mx
+from .. import env_variables as env
+from ..mx_array import dequantize_mx, quantize_mx
+from ..packing import fp4_halves_to_pairs
 from . import cuda_lib
 from .backend import on_cuda
 
@@ -32,6 +43,8 @@ NEG_INF = -1e30
 KV_TILE = 64  # KV positions per online-softmax step (kL in csrc/mx_attention.cu)
 CHUNKDOT_TILE = 32  # the same for K5 (kTile in csrc/mx_attention_chunkdot.cu)
 CHUNKDOT_WARPS = 8  # warps per CTA of K5 (kWarps)
+INT8DOT_TILE = 128  # KV positions per requantization of p in K7 (kTile in csrc/mx_attention_int8dot.cu)
+INT8DOT_WARPS = 8  # warps per CTA of K7 (kWarps)
 BLOCK = 32
 IntOrTensor = Union[int, torch.Tensor]
 
@@ -53,28 +66,31 @@ def _check_cache_tensors(k_data, k_scale, v_data, v_scale, codes_dtype) -> None:
             raise ValueError(f"cache codes must be contiguous {codes_dtype} and scales contiguous uint8")
 
 
-def mx_cached_attention_plain(
-    q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float, elem_dtype_name: str,
-    compute_dtype: torch.dtype = torch.float32,
-) -> torch.Tensor:
-    """Plain version of K4: the same online softmax over the dequantized
-    cache, tile by tile (``KV_TILE`` positions), with ``p`` rounded to bf16
-    against the running max as the kernel does; only fp32 summation orders
-    differ from the kernel.  ``compute_dtype=torch.float64`` computes the
-    same function with another rounding, to measure sensitivity to it."""
-    if elem_dtype_name == "float4_e2m1":
-        raise NotImplementedError("fp4 KV caches (d-halves packing) are not ported yet")
+def dequantize_cache(data, scale, elem_dtype_name: str, layout: str = "seq") -> torch.Tensor:
+    """One cache buffer pair, in either layout, to bf16 ``(b, kv, L, d)``."""
+    if layout == "dmajor":
+        data, scale = data.transpose(2, 3), scale.transpose(2, 3)
+    if elem_dtype_name == "float4_e2m1":  # d-halves bytes -> the pair packing dequantize_mx reads
+        data = fp4_halves_to_pairs(data)
+    return dequantize_mx(data, scale, elem_dtype_name, 32, torch.bfloat16, 3)
+
+
+def _online_attention(q, k, v, q_off, kv_len, sm_scale: float, compute_dtype: torch.dtype) -> torch.Tensor:
+    """The online softmax of K4 and K6 over a dequantized cache ``k, v (b, hkv,
+    L, d)`` bf16, tile by tile (``KV_TILE`` positions), with ``p`` rounded to
+    bf16 against the running max as the kernels do."""
     b, hq, sq, d = q.shape
-    hkv, L = k_data.shape[1], k_data.shape[2]
+    hkv, L = k.shape[1], k.shape[2]
     G = hq // hkv
-    k = dequantize_mx(k_data, k_scale, elem_dtype_name, 32, torch.bfloat16, 3)
-    v = dequantize_mx(v_data, v_scale, elem_dtype_name, 32, torch.bfloat16, 3)
     f = compute_dtype
-    k = k.to(f).repeat_interleave(G, dim=1)
-    v = v.to(f).repeat_interleave(G, dim=1)
-    qf = q.to(f)
     q_off = _per_row(q_off, b, q.device)
     kv_len = _per_row(kv_len, b, q.device)
+    # Positions at or past kv_len decode to 0, as in the kernels: a stale NaN
+    # scale there must not reach the dots.
+    live = (torch.arange(L, device=q.device) < kv_len[:, None])[:, None, :, None]
+    k = torch.where(live, k, 0).to(f).repeat_interleave(G, dim=1)
+    v = torch.where(live, v, 0).to(f).repeat_interleave(G, dim=1)
+    qf = q.to(f)
     q_pos = (q_off[:, None] + torch.arange(sq, device=q.device)[None, :])[:, None, :, None]
     m = torch.full((b, hq, sq, 1), NEG_INF, dtype=f, device=q.device)
     l = torch.zeros((b, hq, sq, 1), dtype=f, device=q.device)
@@ -91,6 +107,21 @@ def mx_cached_attention_plain(
         acc = acc * alpha + p.to(torch.bfloat16).to(f) @ v[:, :, t0:t0 + KV_TILE]
         m = m_new
     return (acc / torch.where(l == 0, 1.0, l)).to(torch.bfloat16)
+
+
+def mx_cached_attention_plain(
+    q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float, elem_dtype_name: str,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Plain version of K4: the online softmax over the dequantized seq-layout
+    cache (``_online_attention``); only fp32 summation orders differ from the
+    kernel.  ``compute_dtype=torch.float64`` computes the same function with
+    another rounding, to measure sensitivity to it."""
+    if elem_dtype_name == "float4_e2m1":
+        raise NotImplementedError("fp4 KV caches are ported in the d-major layout only")
+    k = dequantize_cache(k_data, k_scale, elem_dtype_name)
+    v = dequantize_cache(v_data, v_scale, elem_dtype_name)
+    return _online_attention(q, k, v, q_off, kv_len, sm_scale, compute_dtype)
 
 
 def mx_cached_attention(
@@ -189,15 +220,16 @@ def mx_cached_attention_chunkdot_plain(
     return out.reshape(b, hq, 1, d).to(torch.bfloat16)
 
 
-def _chunkdot_splits(b: int, hkv: int, L: int, device: torch.device) -> int:
-    """CTAs per (batch row, KV head) pair: one when the pairs alone fill the
-    SMs, else enough to put two CTAs on each SM, at most one per
-    ``CHUNKDOT_WARPS`` tiles of the cache.  It depends on shapes only, never on
-    the positions (they stay on the device)."""
+def _kv_splits(b: int, hkv: int, L: int, positions_per_cta: int, device: torch.device) -> int:
+    """CTAs per (batch row, KV head) pair of a decode kernel that splits the
+    KV length (K5, K7): one when the pairs alone fill the SMs, else enough to
+    put two CTAs on each SM, at most one per ``positions_per_cta`` of the
+    cache (one tile for each of a CTA's warps).  It depends on shapes only,
+    never on the positions (they stay on the device)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     if b * hkv >= sms:
         return 1
-    return max(1, min(-(-2 * sms // (b * hkv)), L // (CHUNKDOT_TILE * CHUNKDOT_WARPS)))
+    return max(1, min(-(-2 * sms // (b * hkv)), L // positions_per_cta))
 
 
 def mx_cached_attention_chunkdot(
@@ -222,7 +254,7 @@ def mx_cached_attention_chunkdot(
     q_off = _per_row(q_off, b, q.device)
     kv_len = _per_row(kv_len, b, q.device)
     out = torch.empty_like(q)
-    splits = _chunkdot_splits(b, hkv, L, q.device)
+    splits = _kv_splits(b, hkv, L, CHUNKDOT_TILE * CHUNKDOT_WARPS, q.device)
     ws = torch.empty((b * hq * splits * (d + 2)) if splits > 1 else 1, dtype=torch.float32, device=q.device)
     cuda_lib.launch(
         "mx_attention_chunkdot", "mx_cached_attention_chunkdot_launch",
@@ -233,20 +265,198 @@ def mx_cached_attention_chunkdot(
     return out
 
 
+K6_FORMATS = {"float8_e4m3": torch.uint8, "int8": torch.int8, "float4_e2m1": torch.uint8,
+              "float6_e3m2": torch.uint8, "float6_e2m3": torch.uint8}  # format -> codes dtype
+
+
+def mx_cached_attention_dmajor_plain(
+    q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float, elem_dtype_name: str,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Plain version of K6: the online softmax of K4 (``_online_attention``)
+    over the dequantized d-major cache."""
+    k = dequantize_cache(k_data, k_scale, elem_dtype_name, "dmajor")
+    v = dequantize_cache(v_data, v_scale, elem_dtype_name, "dmajor")
+    return _online_attention(q, k, v, q_off, kv_len, sm_scale, compute_dtype)
+
+
+def mx_cached_attention_dmajor(
+    q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float, elem_dtype_name: str
+) -> torch.Tensor:
+    """K6: ``q (b, hq, sq, d)`` bf16 over the d-major MX cache ``(b, hkv, dp,
+    L)`` codes (``dp = d``, or ``d/2`` for fp4 in the d-halves packing; int8
+    for the int8 format, else uint8) + ``(b, hkv, d/32, L)`` scales.  CUDA
+    tensors launch the kernel (d = 128, L % 64 == 0; other shapes raise)."""
+    if not on_cuda(q, k_data, k_scale, v_data, v_scale):
+        return mx_cached_attention_dmajor_plain(
+            q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale, elem_dtype_name
+        )
+    b, hq, sq, d = q.shape
+    _, hkv, dp, L = k_data.shape
+    want_dp = d // 2 if elem_dtype_name == "float4_e2m1" else d
+    if elem_dtype_name not in K6_FORMATS or d != 128 or dp != want_dp or L % 64 or hq % hkv:
+        raise ValueError(
+            f"the d-major attention kernel takes an fp8, fp6, fp4 or int8 cache with d=128 and "
+            f"L % 64 == 0, got {elem_dtype_name} q{tuple(q.shape)} cache{tuple(k_data.shape)}"
+        )
+    _check_cache_tensors(k_data, k_scale, v_data, v_scale, K6_FORMATS[elem_dtype_name])
+    q = q.to(torch.bfloat16).contiguous()
+    q_off = _per_row(q_off, b, q.device)
+    kv_len = _per_row(kv_len, b, q.device)
+    out = torch.empty_like(q)
+    cuda_lib.launch(
+        "mx_attention_dmajor", "mx_cached_attention_dmajor_launch",
+        q.data_ptr(), k_data.data_ptr(), k_scale.data_ptr(), v_data.data_ptr(),
+        v_scale.data_ptr(), q_off.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+        b, hq, hkv, sq, L, d, float(sm_scale), cuda_lib.ELEM_CODES[elem_dtype_name],
+    )
+    return out
+
+
+def _int8dot_check(q, k_data, v_data) -> None:
+    b, hq, sq, d = q.shape
+    if (sq != 1 or d % BLOCK or hq % k_data.shape[1] or k_data.shape[2] != d
+            or k_data.dtype != torch.int8 or v_data.dtype != torch.int8):
+        raise ValueError(f"int8-dot attention takes sq == 1 over an int8 d-major cache, got q{tuple(q.shape)} "
+                         f"cache{tuple(k_data.shape)} codes {k_data.dtype}")
+
+
+def quantize_q_int8(q: torch.Tensor, hkv: int):
+    """K7's query: ``q (b, hq, 1, d)`` MXINT8-quantized per 32-block of
+    head_dim (K1 on the card), as ``(scales (b, hkv, g, d/32) uint8, codes
+    (b, hkv, g, d) int8)``."""
+    b, hq, _, d = q.shape
+    return quantize_mx(q.to(torch.bfloat16).reshape(b, hkv, hq // hkv, d).contiguous(), "int8", BLOCK)
+
+
+def mx_cached_attention_int8dot_plain(
+    q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float, tile: int = INT8DOT_TILE
+) -> torch.Tensor:
+    """Plain version of K7, KV tile by KV tile (``tile`` positions; the
+    result depends on it), for the ``g = hq / hkv`` query rows r of each KV
+    head, the ``d/32`` chunks c and position j:
+
+    * q is MXINT8-quantized per chunk (``quantize_q_int8``);
+    * ``dots[c, r, j] = q_c[r] . k_c[j]``, an exact integer sum of int8
+      products; ``s[r, j] = sm_scale * sum_c dots * 2^(eq[c,r]-127) *
+      2^(ek[c,j]-127)``, each scale the fp32 whose bits are ``e << 23`` (0
+      gives +0.0, 255 +inf);
+    * j is visible when ``j <= q_off`` and ``j < kv_len``; masked scores are
+      ``-1e30``; online softmax in fp32;
+    * ``p3[c, r, j] = p[r, j] * 2^(ev[c,j]-127)``; per (chunk, row) and per
+      tile ``mx = max_j p3`` (1 where 0) and ``pq = round_half_even(p3 *
+      (127 / mx))`` as int8; ``pv[c, r] = pq . v_c``, exact; ``acc = acc *
+      alpha + pv * (mx * (1 / 127))``;
+    * a hidden position contributes nothing, whatever its stale scale holds;
+      a row with no visible key outputs 0.
+
+    The kernel takes its tiles (of ``INT8DOT_TILE``) in another order, so it
+    differs in fp32 summation order and in rounding ties of ``pq``.  The
+    integer dots run in float64, where they are exact."""
+    _int8dot_check(q, k_data, v_data)
+    b, hq, _, d = q.shape
+    hkv, L = k_data.shape[1], k_data.shape[3]
+    G, nc, dev, f64 = hq // hkv, d // BLOCK, q.device, torch.float64
+    qs, qd = quantize_q_int8(q, hkv)
+    qc = qd.reshape(b, hkv, G, nc, BLOCK).to(f64)
+    q_scale = _pow2_scale(qs)[..., None]  # (b, hkv, G, nc, 1)
+    q_off = _per_row(q_off, b, dev)
+    kv_len = _per_row(kv_len, b, dev)
+    visible = torch.minimum(kv_len, q_off + 1).clamp(max=L)  # (b,) visible prefix
+    m = torch.full((b, hkv, G, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, hkv, G, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hkv, G, nc, BLOCK), dtype=torch.float32, device=dev)
+    for t0 in range(0, int(visible.max()), tile):
+        kc = k_data[..., t0:t0 + tile].reshape(b, hkv, nc, BLOCK, -1).to(f64)
+        T = kc.shape[-1]
+        valid = (torch.arange(t0, t0 + T, device=dev) < visible[:, None])[:, None, None, :]  # (b, 1, 1, T)
+        dots = torch.einsum("bhgcd,bhcdj->bhgcj", qc, kc).to(torch.float32)
+        k_sc = _pow2_scale(k_scale[..., t0:t0 + tile])[:, :, None]  # (b, hkv, 1, nc, T)
+        s = (dots * q_scale * k_sc).sum(dim=3) * sm_scale
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(s - m_new), 0.0)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        v_sc = _pow2_scale(v_scale[..., t0:t0 + tile])[:, :, None]
+        p3 = torch.where(valid[:, :, :, None], p[:, :, :, None] * v_sc, 0.0)  # (b, hkv, G, nc, T)
+        mx = p3.amax(dim=-1, keepdim=True)
+        mx = torch.where(mx == 0, 1.0, mx)
+        pq = torch.round(p3 * (127.0 / mx))
+        vc = v_data[..., t0:t0 + tile].reshape(b, hkv, nc, BLOCK, -1).to(f64)
+        pv = torch.einsum("bhgcj,bhcdj->bhgcd", pq.to(f64), vc).to(torch.float32)
+        acc = acc * alpha[..., None] + pv * (mx * (1.0 / 127.0))
+        m = m_new
+    out = acc / torch.where(l == 0, 1.0, l)[..., None]
+    return out.reshape(b, hq, 1, d).to(torch.bfloat16)
+
+
+def mx_cached_attention_int8dot(
+    q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float
+) -> torch.Tensor:
+    """K7: ``q (b, hq, 1, d)`` bf16 over the d-major int8 MX cache, both dots
+    in int8.  CUDA tensors quantize q with K1 and launch the kernel (d = 128,
+    hq / hkv in 1, 2, 4, 8, L a multiple of ``INT8DOT_TILE``; other shapes
+    raise)."""
+    if not on_cuda(q, k_data, k_scale, v_data, v_scale):
+        return mx_cached_attention_int8dot_plain(
+            q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale
+        )
+    _int8dot_check(q, k_data, v_data)
+    b, hq, _, d = q.shape
+    hkv, L = k_data.shape[1], k_data.shape[3]
+    if d != 128 or hq // hkv not in (1, 2, 4, 8) or L % INT8DOT_TILE:
+        raise ValueError(
+            f"the int8-dot attention kernel takes d=128, hq/hkv in (1, 2, 4, 8) and L % {INT8DOT_TILE} == 0, "
+            f"got q{tuple(q.shape)} cache{tuple(k_data.shape)}"
+        )
+    _check_cache_tensors(k_data, k_scale, v_data, v_scale, torch.int8)
+    qs, qd = quantize_q_int8(q, hkv)
+    q_off = _per_row(q_off, b, q.device)
+    kv_len = _per_row(kv_len, b, q.device)
+    out = torch.empty((b, hq, 1, d), dtype=torch.bfloat16, device=q.device)
+    splits = _kv_splits(b, hkv, L, INT8DOT_TILE * INT8DOT_WARPS, q.device)
+    ws = torch.empty((b * hq * splits * (d + 2)) if splits > 1 else 1, dtype=torch.float32, device=q.device)
+    cuda_lib.launch(
+        "mx_attention_int8dot", "mx_cached_attention_int8dot_launch",
+        qd.data_ptr(), qs.data_ptr(), k_data.data_ptr(), k_scale.data_ptr(), v_data.data_ptr(),
+        v_scale.data_ptr(), q_off.data_ptr(), kv_len.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        b, hq, hkv, L, d, float(sm_scale), splits,
+    )
+    return out
+
+
 def use_chunkdot(elem_dtype_name: str, sq: int, d: int) -> bool:
-    """True when K5 serves the call: int8 cache, one query position, head_dim
-    a multiple of 128 (``use_chunkdot`` of the reference)."""
+    """True when K5 serves the call in the seq layout: int8 cache, one query
+    position, head_dim a multiple of 128 (``use_chunkdot`` of the reference)."""
     return elem_dtype_name == "int8" and sq == 1 and d % 128 == 0
 
 
-def cached_attention_any(q, cache, q_off: IntOrTensor, kv_len: IntOrTensor, sm_scale: float):
+def use_int8dot(cache, sq: int, d: int) -> bool:
+    """True when K7 serves the call: the opt-in flag, an int8 d-major cache,
+    one query position, head_dim a multiple of 128 (``use_int8dot`` of the
+    reference)."""
+    return (env.TORCHMX_ATTN_INT8_DOT == "1" and getattr(cache, "layout", "seq") == "dmajor"
+            and cache.elem_dtype_name == "int8" and sq == 1 and d % 128 == 0)
+
+
+def cached_attention_any(q, cache, q_off: IntOrTensor, kv_len: IntOrTensor, sm_scale: float,
+                         window=None, ring: bool = False, softcap=None):
     """Causal attention of ``q (b, hq, sq, d)`` (RoPE applied) over an
     ``MXLayerKVCache`` holding the cache after the current tokens were
     written; ``q_off`` is the first query position and ``kv_len`` the
-    visible prefix, each an int or a (b,) tensor."""
+    visible prefix, each an int or a (b,) tensor.  ``window``, ``ring`` and
+    ``softcap`` are the reference's arguments; no kernel of the port takes
+    them yet."""
+    if window is not None or ring or softcap is not None:
+        raise NotImplementedError("sliding windows, ring caches and soft caps are not ported yet")
     if cache.block_size != 32:
         raise ValueError("MX KV caches use block size 32")
     tensors = (cache.k_data, cache.k_scale, cache.v_data, cache.v_scale)
+    if getattr(cache, "layout", "seq") == "dmajor":
+        if use_int8dot(cache, q.shape[2], q.shape[3]):
+            return mx_cached_attention_int8dot(q, *tensors, q_off, kv_len, sm_scale)
+        return mx_cached_attention_dmajor(q, *tensors, q_off, kv_len, sm_scale, cache.elem_dtype_name)
     if use_chunkdot(cache.elem_dtype_name, q.shape[2], q.shape[3]):
         return mx_cached_attention_chunkdot(q, *tensors, q_off, kv_len, sm_scale)
     return mx_cached_attention(q, *tensors, q_off, kv_len, sm_scale, cache.elem_dtype_name)

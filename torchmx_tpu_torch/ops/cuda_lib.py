@@ -31,7 +31,8 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("mx_quantize", "mx_matmul", "mx_attention", "mx_attention_chunkdot")
+SOURCES = ("mx_quantize", "mx_matmul", "mx_attention", "mx_attention_chunkdot",
+           "mx_attention_dmajor", "mx_attention_int8dot")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -68,6 +69,19 @@ SIGNATURES = {
         # sm_scale, splits, stream
         "mx_cached_attention_chunkdot_launch": (
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P
+        ),
+    },
+    "mx_attention_dmajor": {
+        # as mx_cached_attention_launch, over the d-major cache
+        "mx_cached_attention_dmajor_launch": (
+            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P
+        ),
+    },
+    "mx_attention_int8dot": {
+        # q codes, q scales, kd, ks, vd, vs, q_off, kv_len, out, workspace, b, hq,
+        # hkv, L, d, sm_scale, splits, stream
+        "mx_cached_attention_int8dot_launch": (
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P
         ),
     },
 }
