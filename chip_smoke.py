@@ -5,27 +5,34 @@ Run from the repository root with one card:  python3 chip_smoke.py
 Phases, each on ``cuda``; any failure raises and the script exits non-zero:
 
 1. device: name, and name + power limit from nvidia-smi;
-2. kernels: builds the seven CUDA kernels from ``torchmx_tpu_torch/csrc`` and
-   holds each against its plain PyTorch version on the card (K1/K2
+2. kernels: builds the twelve CUDA sources from ``torchmx_tpu_torch/csrc``
+   and holds each kernel against its plain PyTorch version on the card (K1/K2
    bit-exact over all 2^16 bf16 patterns in all five formats, and at every
    main-path shape; K3 rel <= 1e-2; K4 over fp8 and int8 caches, K5 over
    int8 caches, K6 over d-major fp8, int8, fp4 and fp6 caches and K7 over
    int8 d-major caches abs <= 2e-2, each at every main-path shape; K6 against
    K4 on the same cache content; K7's SQNR against exact attention above
-   30 dB), then
+   30 dB; this slice's B6 over four code formats and three act_fq values, B8
+   over both fp6 formats and K3 over fp8 halves rel <= 1e-2, B9 over int8,
+   int8-domain fp4 / e2m3 and e4m3 weights within one bf16 step, each at the
+   five Llama-3-8B linears at every main-path M, and B9 giving B6's bytes on
+   int8; the RMSNorm kernel within one bf16 step), then
    times kernel, plain version and, where one exists, the one PyTorch call
    computing the same function (CUDA events, median of 20, L2 flushed
-   before each call); K3 and RMSNorm must give a row the same bytes
-   whatever the number of rows in the call;
+   before each call); every matmul kernel and the RMSNorm kernel must give a
+   row the same bytes whatever the number of rows in the call, and B9 and
+   B6 the same bytes for an int8 row;
 3. model check: a 2-layer model at Llama-3-8B width, seeded random weights,
    b=2, 16 greedy tokens, with the fp8 cache, the int8 cache and the int8
-   d-major cache with the all-int8 decode flag (K6 and K7); at every step, from the same tokens and cache, kernel path against plain path on
+   d-major cache with the all-int8 decode flag (K6 and K7); then this slice's
+   weight formats on models of their own: W8A8 over the int8 cache, MXFP6
+   e3m2 and MXFP8 weights over the fp8 cache.  At every step, from the same tokens and cache, kernel path against plain path on
    the same card: each decoder layer's update and lm_head's logits
    teacher-forced from the plain path's hidden state, the end-to-end logits
    (L2 rel, gates in GATES), and the tokens wherever the plain top-2 gap
    exceeds the cache's tie gap.  The plain path with another rounding
-   (float64 attention, other tiles) must pass the same gates, and each of
-   three or four planted kernel faults per cache must fail one;
+   (float64 attention, other tiles) must pass the same gates, and each
+   planted kernel fault must fail one;
 4. the ``generate`` path: Llama-3-8B (32 layers) with MXFP4 weights, MXFP8
    activations and an fp8 KV cache, built layer by layer from a seed,
    greedy generation of 128 tokens after a 64-token prompt at batch 1 and
@@ -41,7 +48,8 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    for bit alone and among 31 others, admitted whole, in chunks of 128 or
    over the cached prefix; EOS, a stop sequence and a full cache must each
    end a request with the right reason; every decode step must launch K3,
-   K1 and K5 as often as the depth says and K4 and K2 never.  On a 4-layer
+   K1, K5 and the RMSNorm kernel as often as the depth says and K4 and K2
+   never.  On a 4-layer
    model the engine's streams must equal the plain path's at every decisive
    step.  Reports tok/s over the stream, the gap between ``step()``
    returns, admission latency, device time per step by kernel, the idle
@@ -50,12 +58,20 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    and checks over the int8 d-major cache with ``TORCHMX_ATTN_INT8_DOT=1``
    (K6 serves admissions, K7 every decode step, with one more K1 launch per
    layer for q), and ``generate`` at batch 32 over an fp4 d-major cache (K6
-   at prefill and decode).
+   at prefill and decode);
+7. this slice's formats, each on a Llama-3-8B of its own: the engine stream
+   and all its checks with MXINT8 weights and activations (W8A8) over the
+   int8 cache (B9 at every decode step and at admissions of up to 256
+   rows for o/down, B6 above: admissions cross 64 and 256 rows, and a row
+   must keep its bytes), then ``generate`` at batch 32 over the fp8 cache
+   with MXFP6 e3m2 weights (B8 throughout), MXFP8 weights (K3 over fp8
+   halves) and MXFP8 weights under ``TORCHMX_FP8_DOT=1`` (B9-fp8 at decode,
+   B6 at prefill).
 
 Every kernel must have launched on each main path that runs it.  The line
 before last is a JSON object describing every kernel; the last is
 ``{"ok": true, "device": {...}}``.  ``--layers N`` cuts the depth of the
-model of phases 4 and 5.
+models of phases 4-7.
 """
 
 from __future__ import annotations
@@ -125,8 +141,8 @@ class Timer:
         return statistics.median(times)
 
 
-def bound(bytes_: float, ops: float = 0.0):
-    t_b, t_o = bytes_ / HBM_BYTES_PER_S * 1e3, ops / BF16_FLOPS * 1e3
+def bound(bytes_: float, ops: float = 0.0, peak: float = BF16_FLOPS):
+    t_b, t_o = bytes_ / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -307,6 +323,221 @@ def check_matmul_kernel(dev, timer, gen):
                 shape="M=32 N=14336 K=4096 act_fq=float8_e4m3", max_abs_err=worst,
                 ms=pick["ms"], plain_ms=pick["plain_ms"], bound_ms=pick["bound_ms"],
                 bound_by=pick["bound_by"], library_ms=pick["library_ms"]), rows
+
+
+# The weight-format kernels (B6, B8, B9 and K3-fp8, as ROADMAP.md names them) at
+# the main-path shapes: the five linears at M in (1, 32, 64, 2048), lm_head
+# at 1 and 32; B9 at M in (1, 32, 64, 256) (it takes M <= 256).
+FORMAT_MS = (1, 32, 64, 2048)
+B9_MS = (1, 32, 64, 256)
+ONE_BF16_STEP = "every element within one bf16 step of the plain version's"
+
+
+def bf16_steps(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b| in units of b's bf16 step (of the smallest
+    normal's near 0): 1 is one rounding apart."""
+    a, b = a.float(), b.float()
+    ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp(min=2.0 ** -126))) - 7)
+    return ((a - b).abs() / ulp).max().item()
+
+
+def _rel_max(o, r) -> float:
+    return (o.float() - r.float()).abs().max().item() / r.float().abs().max().item()
+
+
+def _path_act(label, M, act):
+    """The activation format a linear's kernel fuses on the main path: at
+    prefill (M > 64) q/k/v and gate/up read an activation fake-quantized
+    once by K2, so their kernel runs without act_fq."""
+    return None if (M > 64 and label in K3_PREFILL_SHARED_FQ) else act
+
+
+def check_format_kernels(dev, timer, gen):
+    """B6 over its four code formats and three act_fq values, B8 over both fp6
+    formats, B9 over int8, int8-domain fp4 and e2m3, and e4m3 weights, and K3
+    over fp8 halves, each against its plain version at every main-path
+    shape (B6, B8, K3-fp8 rel <= 1e-2; B9 within one bf16 step), then timed
+    at the paths' calls: kernel, plain version, ``torch.matmul`` on the
+    bf16-dequantized weight, and the bound (B9's operations at 1979 TOP/s
+    dense int8 / fp8).  Returns (entries, timing rows)."""
+    from torchmx_tpu_torch.mx_array import MXTensor
+    from torchmx_tpu_torch.ops import cuda_matmul as cm
+    from torchmx_tpu_torch.ops import cuda_matmul_formats as kf
+    from torchmx_tpu_torch.ops.cuda_quantize import mx_quantize
+
+    worst = collections.defaultdict(float)  # max abs error by kernel
+    rows = []
+
+    def xs(M, K):
+        return torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+
+    def check(name, label, M, what, out, ref, b9=False):
+        err = bf16_steps(out, ref) if b9 else _rel_max(out, ref)
+        worst[name] = max(worst[name], (out.float() - ref.float()).abs().max().item())
+        log(f"{name} {label} M={M} {what}: {'bf16 steps' if b9 else 'rel err'} {err:.3e}")
+        if not (err <= 1.0 if b9 else err <= 1e-2):
+            raise AssertionError(f"{name} {label} M={M} {what}: {err}")
+
+    def time_row(name, label, M, what, fn, plain, w_bf16, nbytes, ops, peak=BF16_FLOPS):
+        t_b, by = bound(nbytes, ops, peak)
+        row = dict(kernel=name, linear=label, M=M, K=w_bf16.shape[0], N=w_bf16.shape[1], case=what,
+                   ms=timer(fn), plain_ms=timer(plain, reps=5), bound_ms=t_b, bound_by=by)
+        x = xs(M, w_bf16.shape[0])
+        row["library_ms"] = timer(lambda: torch.matmul(x, w_bf16))
+        log(f"{name} timing", json.dumps(row))
+        rows.append(row)
+
+    for label, (K, N) in K3_MAIN_LINEARS.items():
+        w = (torch.randn(N, K, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+        flat = {e: MXTensor.to_mx(w, e).T for e in kf.CODE_FORMATS_1BYTE}
+        quarters = {e: MXTensor.to_mx(w, e).T.to_fp6_quarters() for e in kf.FP6_FORMATS}
+        halves = flat["float8_e4m3"].to_fp8_halves()
+        int8dom = {"int8": flat["int8"], "float4_e2m1": MXTensor.to_mx(w, "float4_e2m1").T.to_int8_domain(),
+                   "float6_e2m3": flat["float6_e2m3"].to_int8_domain()}
+        del w
+        ms = (1, 32) if label == "lm_head" else FORMAT_MS
+        for M in ms:
+            x = xs(M, K)
+            for e, t in flat.items():
+                for act in kf.ACT_FQ_1BYTE:
+                    check("mx_matmul_1byte", label, M, f"{e} act_fq={act}",
+                          kf.mx_matmul_1byte(x, t.data, t.scale_e8m0, e, act),
+                          kf.mx_matmul_1byte_plain(x, t.data, t.scale_e8m0, e, act))
+            for e, t in quarters.items():
+                for act in kf.ACT_FQ_FP6Q:
+                    check("mx_matmul_fp6q", label, M, f"{e} act_fq={act}",
+                          kf.mx_matmul_fp6q(x, t.data, t.scale_e8m0, e, act),
+                          kf.mx_matmul_fp6q_plain(x, t.data, t.scale_e8m0, e, act))
+            for act in cm.ACT_FQ_FORMATS:
+                check("mx_matmul_fp8_halves", label, M, f"act_fq={act}",
+                      cm.mx_matmul_fp8_halves(x, halves.data, halves.scale_e8m0, act),
+                      cm.mx_matmul_fp8_halves_plain(x, halves.data, halves.scale_e8m0, act))
+        for M in ((1, 32) if label == "lm_head" else B9_MS):
+            x = xs(M, K)
+            for src, t in int8dom.items():
+                sx, xc = mx_quantize(x, "int8")
+                out = kf.mx_matmul_int8dot(x, t.data, t.scale_e8m0)
+                check("mx_matmul_int8dot", label, M, f"{src} weights", out,
+                      kf.mx_matmul_int8dot_plain(xc, sx, t.data, t.scale_e8m0), b9=True)
+                if not torch.equal(out, kf.mx_matmul_1byte(x, t.data, t.scale_e8m0, "int8", "int8")):
+                    raise AssertionError(f"B9 {label} M={M} {src}: not the bytes of B6 with int8 act_fq")
+            t = flat["float8_e4m3"]
+            sx, xc = mx_quantize(x, "float8_e4m3")
+            out = kf.mx_matmul_int8dot(x, t.data, t.scale_e8m0, True)
+            ref = kf.mx_matmul_int8dot_plain(xc, sx, t.data, t.scale_e8m0, True)
+            log(f"mx_matmul_fp8dot {label} M={M}: {bf16_steps(out, ref):.3e} bf16 steps")
+            check("mx_matmul_fp8dot", label, M, "e4m3 weights", out, ref)
+        # Timing at the paths' calls.
+        w_bf16 = flat["int8"].to_dtype(torch.bfloat16)
+        kn = K * N
+        for M in ms:
+            x = xs(M, K)
+            act = _path_act(label, M, "int8")
+            t = flat["int8"]
+            if M > 64:  # the W8A8 prefill: B6 on int8 codes
+                time_row("mx_matmul_1byte", label, M, f"int8 act_fq={act}",
+                         lambda: kf.mx_matmul_1byte(x, t.data, t.scale_e8m0, "int8", act),
+                         lambda: kf.mx_matmul_1byte_plain(x, t.data, t.scale_e8m0, "int8", act),
+                         w_bf16, 2 * M * K + kn + kn / 32 + 2 * M * N, 2 * M * N * K)
+                a8 = _path_act(label, M, "float8_e4m3")
+                t8 = flat["float8_e4m3"]
+                time_row("mx_matmul_1byte", label, M, f"float8_e4m3 act_fq={a8}",
+                         lambda: kf.mx_matmul_1byte(x, t8.data, t8.scale_e8m0, "float8_e4m3", a8),
+                         lambda: kf.mx_matmul_1byte_plain(x, t8.data, t8.scale_e8m0, "float8_e4m3", a8),
+                         w_bf16, 2 * M * K + kn + kn / 32 + 2 * M * N, 2 * M * N * K)
+            a8 = _path_act(label, M, "float8_e4m3")
+            q = quarters["float6_e3m2"]
+            time_row("mx_matmul_fp6q", label, M, f"float6_e3m2 act_fq={a8}",
+                     lambda: kf.mx_matmul_fp6q(x, q.data, q.scale_e8m0, "float6_e3m2", a8),
+                     lambda: kf.mx_matmul_fp6q_plain(x, q.data, q.scale_e8m0, "float6_e3m2", a8),
+                     w_bf16, 2 * M * K + 0.75 * kn + kn / 32 + 2 * M * N, 2 * M * N * K)
+            time_row("mx_matmul_fp8_halves", label, M, f"act_fq={a8}",
+                     lambda: cm.mx_matmul_fp8_halves(x, halves.data, halves.scale_e8m0, a8),
+                     lambda: cm.mx_matmul_fp8_halves_plain(x, halves.data, halves.scale_e8m0, a8),
+                     w_bf16, 2 * M * K + kn + kn / 32 + 2 * M * N, 2 * M * N * K)
+        for M in ((1, 32) if label == "lm_head" else B9_MS):
+            x = xs(M, K)
+            t, t8 = flat["int8"], flat["float8_e4m3"]
+            nbytes = 2 * M * K + kn + kn / 32 + 2 * M * N
+            time_row("mx_matmul_int8dot", label, M, "int8, x quantized by K1 inside the call",
+                     lambda: kf.mx_matmul_int8dot(x, t.data, t.scale_e8m0),
+                     lambda: _plain_int8dot(x, t, False), w_bf16, nbytes, 2 * M * N * K, INT8_OPS)
+            if M in (1, 32):
+                time_row("mx_matmul_fp8dot", label, M, "e4m3, x quantized by K1 inside the call",
+                         lambda: kf.mx_matmul_int8dot(x, t8.data, t8.scale_e8m0, True),
+                         lambda: _plain_int8dot(x, t8, True), w_bf16, nbytes, 2 * M * N * K, INT8_OPS)
+        del flat, quarters, halves, int8dom, w_bf16
+        torch.cuda.empty_cache()
+
+    def entry(name, source, replaces, pick):
+        r = next(r for r in rows if r["kernel"] == name and pick(r))
+        return dict(name=name, route="cuda", source=f"torchmx_tpu_torch/csrc/{source}", replaces=replaces,
+                    shape=f"{r['linear']} M={r['M']} N={r['N']} K={r['K']} {r['case']}",
+                    max_abs_err=worst[name],
+                    tolerance=ONE_BF16_STEP if name == "mx_matmul_int8dot" else "rel <= 1e-2 (max abs over max abs)",
+                    **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+
+    decode_gate_up = lambda r: r["linear"] == "gate_proj/up_proj" and r["M"] == 32  # noqa: E731
+    entries = [
+        entry("mx_matmul_fp8_halves", "mx_matmul.cu", "torchmx_tpu/ops/pallas_matmul.py:504", decode_gate_up),
+        entry("mx_matmul_1byte", "mx_matmul_1byte.cu", "torchmx_tpu/ops/pallas_matmul.py:419",
+              lambda r: r["linear"] == "gate_proj/up_proj" and r["M"] == FORMAT_MS[-1] and r["case"].startswith("int8")),
+        entry("mx_matmul_fp6q", "mx_matmul_fp6q.cu", "torchmx_tpu/ops/pallas_matmul.py:568", decode_gate_up),
+        entry("mx_matmul_int8dot", "mx_matmul_int8dot.cu", "torchmx_tpu/ops/pallas_matmul.py:728", decode_gate_up),
+        entry("mx_matmul_fp8dot", "mx_matmul_int8dot.cu", "torchmx_tpu/ops/pallas_matmul.py:728", decode_gate_up),
+    ]
+    return entries, rows
+
+
+INT8_OPS = 1979e12  # dense int8 / fp8 tensor-core peak, data sheet
+
+
+def _plain_int8dot(x, t, fp8):
+    from torchmx_tpu_torch.ops import cuda_matmul_formats as kf
+    from torchmx_tpu_torch.ops.cuda_quantize import mx_quantize_plain
+
+    sx, xc = mx_quantize_plain(x, "float8_e4m3" if fp8 else "int8")
+    return kf.mx_matmul_int8dot_plain(xc, sx, t.data, t.scale_e8m0, fp8)
+
+
+RMSNORM_SHAPES = ((1, 4096), (32, 4096), (2048, 4096))  # decode b=1, b=32, prefill b=32
+
+
+def check_rmsnorm_kernel(dev, timer, gen):
+    """The RMSNorm kernel against its plain version (at most one bf16 step:
+    the fp32 sum of squares is taken in another order) at the main path's
+    shapes, timed beside ``torch.nn.functional.rms_norm``."""
+    import torch.nn.functional as F
+
+    from torchmx_tpu_torch.ops import cuda_norm
+
+    w = (1 + 0.1 * torch.randn(4096, generator=gen, device=dev)).to(torch.bfloat16)
+    worst, worst_abs, rows = 0.0, 0.0, []
+    for shape in RMSNORM_SHAPES:
+        x = torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+        out, ref = cuda_norm.rms_norm(x, w, 1e-5), cuda_norm.rms_norm_plain(x, w, 1e-5)
+        steps = bf16_steps(out, ref)
+        differ = int((out != ref).sum())
+        worst, worst_abs = max(worst, steps), max(worst_abs, max_abs_diff(out, ref))
+        log(f"mx_rmsnorm {shape}: {differ} of {out.numel()} values differ from the plain version's, "
+            f"at most {steps:.3g} bf16 steps")
+        if steps > 1.0:
+            raise AssertionError(f"mx_rmsnorm {shape}: {steps} bf16 steps from the plain version")
+        n = x.numel()
+        t_b, by = bound(2 * n + 2 * n + 2 * 4096, 3 * n)
+        row = dict(shape=shape, ms=timer(lambda: cuda_norm.rms_norm(x, w, 1e-5)),
+                   plain_ms=timer(lambda: cuda_norm.rms_norm_plain(x, w, 1e-5), reps=5),
+                   library_ms=timer(lambda: F.rms_norm(x, (4096,), w, 1e-5)), bound_ms=t_b, bound_by=by,
+                   values_differing=differ, bf16_steps=steps)
+        log("mx_rmsnorm timing", json.dumps(row))
+        rows.append(row)
+    pick = rows[1]
+    return dict(name="mx_rmsnorm", route="cuda", source="torchmx_tpu_torch/csrc/mx_rmsnorm.cu",
+                replaces="torchmx_tpu/models/llama.py:521",
+                repair="no TPU kernel: the JAX RMSNorm is plain jnp; this kernel repairs the port's row "
+                       "invariance (PyTorch's fp32 mean sums 3-15 rows in another order)",
+                shape="(32, 4096) decode b=32", max_abs_err=worst_abs, bf16_steps=worst, tolerance="one bf16 step",
+                **{k: pick[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}), rows
 
 
 def _attn_case(dev, gen, b, hq, hkv, d, L, sq, kv_len, elem="float8_e4m3", never_written=False):
@@ -606,6 +837,8 @@ def check_dmajor_attention_kernels(dev, timer, gen):
         row = dict(case=f"int8 {label}", kernel="mx_cached_attention_int8dot",
                    ms=timer(lambda: ca.mx_cached_attention_int8dot(*a7)),
                    q_quantize_ms=timer(lambda: ca.quantize_q_int8(args[0], 8)),
+                   # K1 on q: bf16 in, int8 codes and E8M0 scales out
+                   q_quantize_bound_ms=bound(3 * args[0].numel() + args[0].numel() / 32)[0],
                    k6_ms=timer(lambda: ca.mx_cached_attention_dmajor(*args)),
                    k5_seq_ms=timer(lambda: ca.mx_cached_attention_chunkdot(*seq[:8])),
                    plain_ms=timer(lambda: ca.mx_cached_attention_int8dot_plain(*a7), reps=5),
@@ -675,44 +908,72 @@ def check_cache_write(dev, timer, gen) -> dict:
 
 def check_row_invariance(dev) -> dict:
     """A row's result must not depend on how many rows share the call: the
-    engine's whole = chunked = prefixed identity rests on it.  K3 (whose K
-    splits follow N and K alone) and RMSNorm (a PyTorch reduction) on the
-    first k rows of a 512-row input against the same rows of the full call,
-    bit for bit, on inputs from a generator of its own.  K3 must hold at every
-    count.  PyTorch's fp32 sum over 4096 takes another order at 3 to 15 rows
-    than at 1, 2 and 16 or more, and now and then that moves a bf16 result:
-    RMSNorm must hold from 16 rows on (every admission, chunk and decode step
-    of the engine phases has at least 32), and the counts below 16 at which it
-    does not are reported."""
+    engine's whole = chunked = prefixed identity rests on it.  On the first k
+    rows of a 512-row input against the same rows of the full call, bit for
+    bit, on inputs from a generator of its own, at every count drawn: the
+    RMSNorm kernel (16 draws), and at the four decoder linears K3 over fp4
+    and fp8 halves, B6 over int8 (int8 act_fq) and fp8 codes, B8, and B9 int8
+    and e4m3 up to 256 rows.  Then B9 against B6 with int8 act_fq and against
+    B6 on the K2-quantized x (the W8A8 engine's two-pass prefill): the same
+    bytes at every count up to 256, which is what lets a W8A8 row keep its
+    bits whichever kernel its admission's size picks.  The plain RMSNorm's
+    counts that differ (the fault the kernel repairs) are reported."""
     from torchmx_tpu_torch.models.llama import RMSNorm
     from torchmx_tpu_torch.mx_array import MXTensor
     from torchmx_tpu_torch.ops import cuda_matmul as cm
+    from torchmx_tpu_torch.ops import cuda_matmul_formats as kf
+    from torchmx_tpu_torch.ops.backend import plain_path
+    from torchmx_tpu_torch.ops.quantize import mx_fake_quantize
 
     gen = torch.Generator(dev).manual_seed(4321)
-    counts = (1, 2, 5, 15, 16, 17, 33, 64, 65, 128, 129, 300, 511)
+    counts = (1, 2, 3, 5, 8, 15, 16, 17, 33, 64, 65, 128, 129, 255, 256, 257, 300, 511)
     norm = RMSNorm(4096, 1e-5, dev)
     norm.weight.copy_((1 + 0.1 * torch.randn(4096, generator=gen, device=dev)).to(torch.bfloat16))
-    draws, differs = 16, collections.Counter()
+    draws, plain_differs, bad = 16, collections.Counter(), []
     for _ in range(draws):
         x = torch.randn(512, 4096, generator=gen, device=dev).to(torch.bfloat16)
         full = norm(x)
-        differs.update(k for k in counts if not torch.equal(norm(x[:k]), full[:k]))
-    bad = [f"RMSNorm rows={k}" for k in differs if k >= 16]
+        bad += [f"RMSNorm rows={k}" for k in counts if not torch.equal(norm(x[:k]), full[:k])]
+        with plain_path():
+            full = norm(x)
+            plain_differs.update(k for k in counts if not torch.equal(norm(x[:k]), full[:k]))
+    fp8 = "float8_e4m3"
     for label in ("q_proj/o_proj", "k_proj/v_proj", "gate_proj/up_proj", "down_proj"):
         K, N = K3_MAIN_LINEARS[label]
         w = (torch.randn(N, K, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
-        w = MXTensor.to_mx(w, "float4_e2m1").T.to_fp4_halves()
+        w4 = MXTensor.to_mx(w, "float4_e2m1").T.to_fp4_halves()
+        w8 = MXTensor.to_mx(w, fp8).T
+        w8h, wi = w8.to_fp8_halves(), MXTensor.to_mx(w, "int8").T
+        wq = MXTensor.to_mx(w, "float6_e3m2").T.to_fp6_quarters()
+        kernels = {
+            "K3 fp4": lambda x: cm.mx_matmul_fp4_halves(x, w4.data, w4.scale_e8m0, fp8),
+            "K3 fp8": lambda x: cm.mx_matmul_fp8_halves(x, w8h.data, w8h.scale_e8m0, fp8),
+            "B6 int8": lambda x: kf.mx_matmul_1byte(x, wi.data, wi.scale_e8m0, "int8", "int8"),
+            "B6 fp8": lambda x: kf.mx_matmul_1byte(x, w8.data, w8.scale_e8m0, fp8, fp8),
+            "B8": lambda x: kf.mx_matmul_fp6q(x, wq.data, wq.scale_e8m0, "float6_e3m2", fp8),
+            "B9 int8": lambda x: kf.mx_matmul_int8dot(x, wi.data, wi.scale_e8m0),
+            "B9 e4m3": lambda x: kf.mx_matmul_int8dot(x, w8.data, w8.scale_e8m0, True),
+        }
         xk = torch.randn(512, K, generator=gen, device=dev).to(torch.bfloat16)
-        full = cm.mx_matmul_fp4_halves(xk, w.data, w.scale_e8m0, "float8_e4m3")
-        bad += [f"K3 {label} rows={k}" for k in counts
-                if not torch.equal(cm.mx_matmul_fp4_halves(xk[:k].contiguous(), w.data, w.scale_e8m0,
-                                                           "float8_e4m3"), full[:k])]
+        for name, fn in kernels.items():
+            rows = 256 if name.startswith("B9") else 512
+            full = fn(xk[:rows])
+            bad += [f"{name} {label} rows={k}" for k in counts
+                    if k <= rows and not torch.equal(fn(xk[:k].contiguous()), full[:k])]
+        b6 = kernels["B6 int8"](xk)
+        two_pass = kf.mx_matmul_1byte(mx_fake_quantize(xk, "int8"), wi.data, wi.scale_e8m0, "int8", None)
+        if not torch.equal(two_pass, b6):
+            bad.append(f"B6 int8 {label}: fused act_fq and the K2 two-pass form differ")
+        bad += [f"B9 vs B6 int8 {label} rows={k}" for k in counts
+                if k <= 256 and not torch.equal(kernels["B9 int8"](xk[:k].contiguous()), b6[:k])]
     if bad:
-        raise AssertionError(f"a row's result depends on the number of rows: {bad}")
-    small = {k: n for k, n in sorted(differs.items())}
-    log(f"row invariance: K3 (4 linears) gives the same bytes at {counts} of 512 rows; RMSNorm too from 16 rows "
-        f"on, in {draws} draws; below 16 rows it differed at (rows: draws) {json.dumps(small)}")
-    return dict(counts=counts, draws=draws, rmsnorm_differs_below_16_rows=small)
+        raise AssertionError(f"a row's result depends on the number of rows or the kernel: {bad}")
+    small = {k: n for k, n in sorted(plain_differs.items())}
+    log(f"row invariance: the RMSNorm kernel ({draws} draws), K3 fp4 and fp8, B6 int8 and fp8, B8 (4 linears, "
+        f"up to 511 rows) and B9 int8 and e4m3 (up to 256) give a row the same bytes at {counts}; B9 gives B6's "
+        f"bytes (int8 act_fq and the K2 two-pass form) at every count up to 256; the plain RMSNorm differed at "
+        f"(rows: draws) {json.dumps(small)}")
+    return dict(counts=counts, draws=draws, plain_rmsnorm_differs=small)
 
 
 def attention_accuracy(dev, gen) -> dict:
@@ -743,27 +1004,45 @@ def attention_accuracy(dev, gen) -> dict:
 # -- phase 3 and 4: the model ----------------------------------------------------
 
 
-def quant_configs(kv: str = "float8_e4m3"):
-    """(attention config, MLP config, KV-cache config): fp4 weights, fp8
-    activations, and an fp8 (the ``generate`` path) or int8 (the engine's) cache."""
+def quant_configs(kv: str = "float8_e4m3", weights: str = "float4_e2m1", acts: str = "float8_e4m3"):
+    """(attention config, MLP config, KV-cache config): fp4 weights and fp8
+    activations unless told otherwise, and an fp8 (the ``generate`` path) or
+    int8 (the engine's) cache."""
     from torchmx_tpu_torch.config import MXConfig, QAttentionConfig, QLinearConfig
 
-    q = QLinearConfig(MXConfig("float4_e2m1"), MXConfig("float8_e4m3"))
+    q = QLinearConfig(MXConfig(weights), MXConfig(acts))
     return QAttentionConfig(q), q, MXConfig(kv)
 
 
 @contextlib.contextmanager
-def kv_env(layout: str = "seq", int8dot: bool = False):
-    """The cache layout new caches take and the all-int8 decode flag, set on
-    the port's env module as a user's environment would set them."""
+def env_knobs(**knobs):
+    """Knobs of the port (``TORCHMX_FP8_DOT`` ...), set on its env module as a
+    user's environment would set them; a weight-layout knob must be set while
+    the model is built."""
     from torchmx_tpu_torch import env_variables as env
 
-    old = env.TORCHMX_KV_LAYOUT, env.TORCHMX_ATTN_INT8_DOT
-    env.TORCHMX_KV_LAYOUT, env.TORCHMX_ATTN_INT8_DOT = layout, "1" if int8dot else "0"
+    old = {k: getattr(env, k) for k in knobs}
+    for k, v in knobs.items():
+        setattr(env, k, v)
     try:
         yield
     finally:
-        env.TORCHMX_KV_LAYOUT, env.TORCHMX_ATTN_INT8_DOT = old
+        for k, v in old.items():
+            setattr(env, k, v)
+
+
+# The weight configurations of this slice: name -> (weights, activations,
+# KV cache, knobs).  The model check runs the first three; `generate` at
+# b=32 the last three; the W8A8 engine the first.
+FORMATS = {"W8A8 int8 cache": ("int8", "int8", "int8", {}),
+           "MXFP6 e3m2 fp8 cache": ("float6_e3m2", "float8_e4m3", "float8_e4m3", {}),
+           "MXFP8 fp8 cache": ("float8_e4m3", "float8_e4m3", "float8_e4m3", {}),
+           "MXFP8 FP8_DOT fp8 cache": ("float8_e4m3", "float8_e4m3", "float8_e4m3", {"TORCHMX_FP8_DOT": "1"})}
+
+
+def kv_env(layout: str = "seq", int8dot: bool = False):
+    """The cache layout new caches take and the all-int8 decode flag."""
+    return env_knobs(TORCHMX_KV_LAYOUT=layout, TORCHMX_ATTN_INT8_DOT="1" if int8dot else "0")
 
 
 # The caches the model check and the main paths run over: name -> (format,
@@ -813,13 +1092,54 @@ PLANTED_FAULTS_DMAJOR = ("K7 kv_len one short", "K7 V scale of chunk c taken fro
                          "K7 q scale of chunk c taken from chunk c+1", "K6 kv_len one short")
 
 
+# The same for this slice's weight formats, one or two per new kernel.
+PLANTED_FAULTS_FORMATS = {
+    "W8A8 int8 cache": ("B9 weight scale of block b taken from block b+1", "B6 int8 weight scale one binade high"),
+    "MXFP6 e3m2 fp8 cache": ("B8 planes P1 and P2 swapped",),
+    "MXFP8 fp8 cache": ("K3-fp8 halves swapped",),
+}
+
+
 @contextlib.contextmanager
 def planted_fault(name):
     from torchmx_tpu_torch.ops import cuda_attention as ca
-    from torchmx_tpu_torch.ops import matmul as mm
+    from torchmx_tpu_torch.ops import cuda_matmul as cm
+    from torchmx_tpu_torch.ops import cuda_matmul_formats as kf
     from torchmx_tpu_torch.ops.backend import on_cuda
 
-    if name.startswith("K7 q scale"):
+    if name.startswith("B9"):
+        mod, attr = kf, "mx_matmul_int8dot"
+        orig = kf.mx_matmul_int8dot
+
+        def faulty(x, w, sw, fp8=False):
+            return orig(x, w, sw.roll(-1, dims=0) if on_cuda(x) else sw, fp8)
+    elif name.startswith("B6"):
+        mod, attr = kf, "mx_matmul_1byte"
+        orig = kf.mx_matmul_1byte
+
+        def faulty(x, w, sw, elem, act_fq=None):
+            if on_cuda(x) and elem == "int8":
+                sw = sw + 1
+            return orig(x, w, sw, elem, act_fq)
+    elif name.startswith("B8"):
+        mod, attr = kf, "mx_matmul_fp6q"
+        orig = kf.mx_matmul_fp6q
+
+        def faulty(x, planes, sw, elem, act_fq=None):
+            if on_cuda(x):
+                q = planes.shape[0] // 3
+                planes = torch.cat([planes[:q], planes[2 * q:], planes[q:2 * q]])
+            return orig(x, planes, sw, elem, act_fq)
+    elif name.startswith("K3-fp8"):
+        mod, attr = cm, "mx_matmul_fp8_halves"
+        orig = cm.mx_matmul_fp8_halves
+
+        def faulty(x, w, sw, act_fq=None):
+            if on_cuda(x):
+                wi = w.view(torch.int16).to(torch.int32) & 0xFFFF
+                w = (((wi & 0xFF) << 8) | (wi >> 8)).to(torch.int16).view(torch.uint16)
+            return orig(x, w, sw, act_fq)
+    elif name.startswith("K7 q scale"):
         mod, attr = ca, "quantize_q_int8"
         orig = ca.quantize_q_int8
 
@@ -850,8 +1170,8 @@ def planted_fault(name):
                     kv_len = kv_len - 1
             return orig(q, kd, ks, vd, vs, q_off, kv_len, *rest)
     else:
-        mod, attr = mm, "mx_matmul_fp4_halves"
-        orig = mm.mx_matmul_fp4_halves
+        mod, attr = cm, "mx_matmul_fp4_halves"
+        orig = cm.mx_matmul_fp4_halves
 
         def faulty(x, w_data, w_scale, act_fq=None):
             return orig(x, w_data, w_scale, None if on_cuda(x) else act_fq)
@@ -965,7 +1285,16 @@ def model_readings(model, prompt, n, kv, floor: bool, tie_gap: float) -> dict:
 # exceeds it; the int8 path flips a gap of 0.125 with sound kernels.
 GATES = {"float8_e4m3": {"layer": 5e-2, "lm_head": 2e-2, "logits": 8e-2, "tie_gap": 0.1},
          "int8": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3},
-         "int8 d-major int8dot": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3}}
+         "int8 d-major int8dot": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3},
+         # The weight formats keep their cache's gates.  On an H100 80GB HBM3
+         # (700 W), layer / logits: W8A8 sound 2.06e-2 / 3.02e-2 (B9's and B6's
+         # int8 dots are exact), plain with float64 attention 2.01e-2 / 3.04e-2,
+         # faults >= 1.16 / 1.06; MXFP6 2.17e-2 / 5.27e-2, 2.17e-2 / 4.82e-2,
+         # fault 1.65 / 1.48; MXFP8 1.29e-2 / 4.99e-2, 2.32e-2 / 6.10e-2, fault
+         # 1.73 / 1.52.
+         "W8A8 int8 cache": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3},
+         "MXFP6 e3m2 fp8 cache": {"layer": 5e-2, "lm_head": 2e-2, "logits": 8e-2, "tie_gap": 0.1},
+         "MXFP8 fp8 cache": {"layer": 5e-2, "lm_head": 2e-2, "logits": 8e-2, "tie_gap": 0.1}}
 
 
 def gate_failures(r: dict, gates: dict) -> list:
@@ -977,6 +1306,28 @@ def gate_failures(r: dict, gates: dict) -> list:
     if r["generate_mismatch"] and not out:
         out.append(f"generate() picked {r['generate_mismatch']} other tokens")
     return out
+
+
+def apply_gates(all_readings: dict, gates_of: dict, card) -> None:
+    """Fail unless every sound reading passes its gates, the plain path with
+    its other rounding does too, and every planted fault fails one."""
+    for cache, readings in all_readings.items():
+        sound, gates = readings["sound"], gates_of[cache]
+        bad = gate_failures(sound, gates)
+        if bad:
+            raise AssertionError(f"model check, {cache}: {'; '.join(bad)}")
+        for key in ("layer", "logits"):  # another rounding of correct code passes too
+            if not sound[f"floor_{key}"] <= gates[key]:
+                raise AssertionError(f"model check, {cache}: the plain path with its other rounding fails "
+                                     f"the {key} gate ({sound[f'floor_{key}']:.3e} > {gates[key]:g})")
+        for fault in readings:
+            if fault == "sound":
+                continue
+            caught = gate_failures(readings[fault], gates)
+            if not caught:
+                raise AssertionError(f"model check, {cache}: planted fault '{fault}' passes every gate")
+            log(f"model check, {cache}: planted fault '{fault}' caught: {'; '.join(caught)}")
+    log(f"model check passed: gates {json.dumps({c: gates_of[c] for c in all_readings})} [{card}]")
 
 
 def model_check(dev, card, caches=("float8_e4m3", "int8", "int8 d-major int8dot")) -> dict:
@@ -1007,52 +1358,73 @@ def model_check(dev, card, caches=("float8_e4m3", "int8", "int8 d-major int8dot"
         for name, r in readings.items():
             log(f"model check {cache} cache [{name}]: 2 layers at 8B width, b=2, 16 greedy tokens: "
                 f"{json.dumps(r)} [{card}]")
-        all_readings[cache] = readings
+        all_readings[f"{cache} cache"] = readings
     del model
-    for cache, readings in all_readings.items():
-        sound, gates = readings["sound"], GATES[cache]
-        bad = gate_failures(sound, gates)
-        if bad:
-            raise AssertionError(f"model check, {cache} cache: {'; '.join(bad)}")
-        for key in ("layer", "logits"):  # another rounding of correct code passes too
-            if not sound[f"floor_{key}"] <= gates[key]:
-                raise AssertionError(f"model check, {cache} cache: the plain path with its other rounding fails "
-                                     f"the {key} gate ({sound[f'floor_{key}']:.3e} > {gates[key]:g})")
-        for fault in readings:
-            if fault == "sound":
-                continue
-            caught = gate_failures(readings[fault], gates)
-            if not caught:
-                raise AssertionError(f"model check, {cache} cache: planted fault '{fault}' passes every gate")
-            log(f"model check, {cache} cache: planted fault '{fault}' caught: {'; '.join(caught)}")
-    log(f"model check passed: gates {json.dumps(GATES)} [{card}]")
+    apply_gates(all_readings, {f"{c} cache": GATES[c] for c in caches}, card)
     return all_readings
 
 
-def build_model(dev, card, layers: int, seed: int = 0):
+def model_check_formats(dev, card) -> dict:
+    """The same check for this slice's weight formats, each on its own
+    2-layer model at 8B width from the same seed: W8A8 over the int8 seq
+    cache (B9 at decode and at prefill's o/down, B6 at prefill's q/k/v and
+    gate/up, K5 at decode), MXFP6 e3m2 weights with fp8 activations over the
+    fp8 cache (B8 throughout) and MXFP8 weights over the fp8 cache (K3-fp8
+    throughout); the planted faults of PLANTED_FAULTS_FORMATS must each fail
+    a gate."""
+    from torchmx_tpu_torch.models.llama import LlamaConfig
+    from torchmx_tpu_torch.quant_api import build_quantized_llama
+
+    cfg = LlamaConfig(**{**LLAMA3_8B, "num_hidden_layers": 2})
+    prompt = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator(dev).manual_seed(2), device=dev)
+    all_readings = {}
+    for name, faults in PLANTED_FAULTS_FORMATS.items():
+        weights, acts, cache, knobs = FORMATS[name]
+        qa, qm, kv = quant_configs(cache, weights, acts)
+        with env_knobs(**knobs):
+            model = build_quantized_llama(cfg, qa, qm, dev, torch.Generator(dev).manual_seed(1))
+            readings = {"sound": model_readings(model, prompt, 16, kv, True, GATES[name]["tie_gap"])}
+            for fault in faults:
+                with planted_fault(fault):
+                    readings[fault] = model_readings(model, prompt, 16, kv, False, GATES[name]["tie_gap"])
+        del model
+        for fault, r in readings.items():
+            log(f"model check {name} [{fault}]: 2 layers at 8B width, b=2, 16 greedy tokens: "
+                f"{json.dumps(r)} [{card}]")
+        all_readings[name] = readings
+    apply_gates(all_readings, GATES, card)
+    return all_readings
+
+
+def build_model(dev, card, layers: int, seed: int = 0, weights="float4_e2m1", acts="float8_e4m3"):
     """Llama-3-8B at full width, ``layers`` deep: seeded random bf16 weights
-    made on the card and quantized (fp4 weights, fp8 activations) layer by
-    layer."""
+    made on the card and quantized (fp4 weights and fp8 activations unless
+    told otherwise, in the layout the knobs in force choose) layer by layer."""
     from torchmx_tpu_torch.models.llama import LlamaConfig
     from torchmx_tpu_torch.ops import cuda_lib
     from torchmx_tpu_torch.quant_api import build_quantized_llama
 
-    qa, qm, _ = quant_configs()
+    qa, qm, _ = quant_configs(weights=weights, acts=acts)
     cfg = LlamaConfig(**{**LLAMA3_8B, "num_hidden_layers": layers})
     cuda_lib.reset_launch_counts()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     model = build_quantized_llama(cfg, qa, qm, dev, torch.Generator(dev).manual_seed(seed))
     torch.cuda.synchronize()
-    log(f"model: built and quantized Llama-3-8B ({layers} layers) in {time.perf_counter() - t0:.1f} s, "
+    layouts = sorted({(m.weight.elem_dtype.name, m.weight.fp4_pack) for m in model.modules() if hasattr(m, "qconfig")
+                      and hasattr(m, "weight")})
+    log(f"model: built and quantized Llama-3-8B ({layers} layers), {weights} weights / {acts} activations "
+        f"(layouts {layouts}), in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card [{card}]")
     log(f"model: launches while building (weight quantization, not a main path): "
         f"{json.dumps(dict(cuda_lib.LAUNCHES))}")
     return model
 
 
-def run_slice(model, dev, card, cache="float8_e4m3", batches=(1, 32)):
+def run_slice(model, dev, card, cache="float8_e4m3", batches=(1, 32), weights="fp4"):
     """The ``generate`` path over ``cache`` (a key of CACHES; call it inside
-    the cache's ``kv_env``) at the given batch sizes."""
+    the cache's ``kv_env``) at the given batch sizes; ``weights`` names the
+    model's weight format in the log."""
     from torchmx_tpu_torch.models.generate import generate
     from torchmx_tpu_torch.ops import cuda_lib
 
@@ -1089,18 +1461,29 @@ def run_slice(model, dev, card, cache="float8_e4m3", batches=(1, 32)):
         results[b] = dict(batch=b, seconds=dt, tokens_per_s=tps, peak_gib=peak, launches=dict(run),
                           launches_prefill=dict(at_forward[1] - at_forward[0]),
                           launches_per_decode_step={k: v / steps for k, v in (run - at_forward[1]).items()})
-        log(f"slice, {cache} cache: b={b} prompt 64 + 128 new tokens in {dt:.3f} s = {tps:.1f} tok/s, "
+        log(f"slice, {weights} weights, {cache} cache: b={b} prompt 64 + 128 new tokens in {dt:.3f} s = {tps:.1f} tok/s, "
             f"peak {peak:.2f} GiB; launches {json.dumps(results[b]['launches'])}, of which prefill "
             f"{json.dumps(results[b]['launches_prefill'])}, per decode step "
             f"{json.dumps(results[b]['launches_per_decode_step'])} [{card}]")
     hook.remove()
     for b in batches:
         results[b].update(latency_and_device_time(model, cfg, kv, dev, b, results[b]["seconds"]))
-        log(f"slice breakdown, {cache} cache, b={b}: {json.dumps(results[b])} [{card}]")
+        log(f"slice breakdown, {weights} weights, {cache} cache, b={b}: {json.dumps(results[b])} [{card}]")
     return dict(launches), results
 
 
 KERNEL_OF_DEVICE_NAME = (  # substring of the CUDA function name -> kernel
+    ("matmul_int8dot_kernel<16, 1, 4, true>", "mx_matmul_fp8dot"),
+    ("matmul_int8dot_kernel<64, 2, 2, true>", "mx_matmul_fp8dot"),
+    ("matmul_int8dot_kernel", "mx_matmul_int8dot"),
+    ("reduce_splits_int8dot_kernel", "split-K reduce of B9"),
+    ("matmul_1byte_kernel", "mx_matmul_1byte"),
+    ("reduce_splits_1byte_kernel", "split-K reduce of B6"),
+    ("matmul_fp6q_kernel", "mx_matmul_fp6q"),
+    ("reduce_splits_fp6q_kernel", "split-K reduce of B8"),
+    ("matmul_fp8_halves_kernel", "mx_matmul_fp8_halves"),
+    ("reduce_splits_fp8h_kernel", "split-K reduce of K3-fp8"),
+    ("rmsnorm_kernel", "mx_rmsnorm"),
     ("chunkdot_kernel", "mx_cached_attention_chunkdot"),
     ("int8dot_kernel", "mx_cached_attention_int8dot"),
     ("merge_splits_kernel", "split-KV merge of K5 or K7"),
@@ -1412,7 +1795,7 @@ def compare_with_plain_path(dev, card) -> dict:
     return out
 
 
-def run_engine(model, dev, card, cache="int8") -> dict:
+def run_engine(model, dev, card, cache="int8", weights="fp4") -> dict:
     """The serving path: ``DecodeEngine`` over an int8 MX KV cache (``cache``
     is a key of CACHES; call it inside the cache's ``kv_env``), 32 slots of
     1024 positions, a seeded stream of 48 requests.  Checks that a request's
@@ -1483,12 +1866,17 @@ def run_engine(model, dev, card, cache="int8") -> dict:
             raise AssertionError("engine: a stream holds bad tokens")
         if not all(lp == lp and lp <= 0 for lp in rec["logprobs"]):
             raise AssertionError("engine: a stream holds bad log-probabilities")
-    want = {"mx_matmul_fp4_halves": 7 * layers + 1, "mx_quantize": (3 if k7 else 2) * layers,
+    linears = 7 * layers + 1
+    want = {"mx_rmsnorm": 2 * layers + 1,
             "mx_cached_attention_int8dot" if k7 else "mx_cached_attention_chunkdot": layers}
+    if weights == "w8a8":  # B9 takes every linear; K1 quantizes its x and writes K and V
+        want.update(mx_matmul_int8dot=linears, mx_quantize=linears + 2 * layers)
+    else:
+        want.update(mx_matmul_fp4_halves=linears, mx_quantize=(3 if k7 else 2) * layers)
     for st in run["steps"]:
         if st["rows"] and st["launches"] != want:
             raise AssertionError(f"engine: a decode step launched {st['launches']}, expected {want}")
-    log(f"engine, {cache} cache: every one of {len(run['steps'])} decode steps launched {json.dumps(want)}: "
+    log(f"engine, {weights} {cache} cache: every one of {len(run['steps'])} decode steps launched {json.dumps(want)}: "
         f"{'K7, not K6' if k7 else 'K5, not K4'}, served each of them; the whole stream launched {json.dumps(launches)}")
 
     # 3. Admitted whole without the prefix cache, and in chunks among others.
@@ -1522,7 +1910,7 @@ def run_engine(model, dev, card, cache="int8") -> dict:
     gaps = [b_["t"] - a_["t"] for a_, b_ in zip(run["steps"], run["steps"][1:])]
     full = [st["ms"] for st in run["steps"] if st["rows"] == ENGINE_BATCH]
     admissions = sorted((r["n_prompt"], round(r["add_ms"], 1)) for r in run["requests"].values())
-    out = dict(cache=cache, requests=len(requests), tokens=run["tokens"], seconds=run["seconds"],
+    out = dict(cache=cache, weights=weights, requests=len(requests), tokens=run["tokens"], seconds=run["seconds"],
                tokens_per_s=run["tokens"] / run["seconds"], steps=len(run["steps"]),
                step_gap_ms_median=statistics.median(gaps) * 1e3, step_gap_ms_p90=percentile(gaps, 0.9) * 1e3,
                full_batch_step_ms_median=statistics.median(full) if full else None,
@@ -1539,9 +1927,35 @@ def run_engine(model, dev, card, cache="int8") -> dict:
     return out
 
 
+def run_formats(dev, card, layers: int):
+    """This slice's main paths at Llama-3-8B width, each model built, driven
+    with the counts set to 0 just before and read just after, and dropped:
+    the W8A8 engine over the int8 seq cache, then ``generate`` at b=32 over
+    the fp8 cache with MXFP6 e3m2, MXFP8 (halves) and MXFP8 under
+    ``TORCHMX_FP8_DOT=1`` (flat) weights.  Returns (launches by path,
+    launches per decode step by path, results)."""
+    paths, per_step, results = {}, {}, {}
+    weights, acts, _, _ = FORMATS["W8A8 int8 cache"]
+    model = build_model(dev, card, layers, weights=weights, acts=acts)
+    results["engine_w8a8"] = run_engine(model, dev, card, "int8", weights="w8a8")
+    paths["engine_w8a8"] = results["engine_w8a8"]["launches"]
+    per_step["engine_w8a8"] = results["engine_w8a8"]["launches_per_decode_step"]
+    del model
+    for path, name in (("generate_fp6", "MXFP6 e3m2 fp8 cache"), ("generate_fp8", "MXFP8 fp8 cache"),
+                       ("generate_fp8dot", "MXFP8 FP8_DOT fp8 cache")):
+        weights, acts, cache, knobs = FORMATS[name]
+        with env_knobs(**knobs):
+            model = build_model(dev, card, layers, weights=weights, acts=acts)
+            paths[path], res = run_slice(model, dev, card, cache, batches=(32,), weights=name)
+        del model
+        results[path] = res[32]
+        per_step[f"{path}_b32"] = res[32]["launches_per_decode_step"]
+    return paths, per_step, results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=32, help="depth of the slice's model (default 32)")
+    ap.add_argument("--layers", type=int, default=32, help="depth of the 8B models (default 32)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1555,27 +1969,32 @@ def main() -> int:
     card = card_line()
     log(f"device: {kind}; torch {torch.__version__} cuda {torch.version.cuda}; nvidia-smi: {card}")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     cuda_lib.build_all()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s into {cuda_lib.BUILD_DIR}")
     timer = Timer(dev)
     gen = torch.Generator(dev).manual_seed(1234)
     kernels = check_quantize_kernels(dev, timer, gen)
     k3, k3_rows = check_matmul_kernel(dev, timer, gen)
+    format_entries, format_rows = check_format_kernels(dev, timer, gen)
+    rmsnorm, rmsnorm_rows = check_rmsnorm_kernel(dev, timer, gen)
     k4, k4_rows = check_attention_kernel(dev, timer, gen)
     k5, int8_rows, k4_int8_err = check_int8_attention_kernels(dev, timer, gen)
     k4["max_abs_err"] = max(k4["max_abs_err"], k4_int8_err)
     k6, k7, dmajor_rows = check_dmajor_attention_kernels(dev, timer, gen)
-    kernels += [k3, k4, k5, k6, k7]
+    kernels += [k3, k4, k5, k6, k7, *format_entries, rmsnorm]
     cache_write = check_cache_write(dev, timer, gen)
     row_invariance = check_row_invariance(dev)
     accuracy = attention_accuracy(dev, gen)
+    log(f"phase 2 (kernels) done at {time.perf_counter() - t_start:.0f} s")
     check_readings = model_check(dev, card)
+    check_readings.update(model_check_formats(dev, card))
+    log(f"phase 3 (model checks) done at {time.perf_counter() - t_start:.0f} s")
     model = build_model(dev, card, args.layers)
     # Each main path is driven with the counts set to 0 just before it and
     # read just after: generate() over the fp8 cache, the engine over the int8
     # cache, the engine over the int8 d-major cache with the all-int8 flag,
-    # generate() over the fp4 d-major cache.
+    # generate() over the fp4 d-major cache; then this slice's formats.
     paths, per_step = {}, {}
     paths["generate"], slice_results = run_slice(model, dev, card)
     engine_results = run_engine(model, dev, card)
@@ -1586,16 +2005,25 @@ def main() -> int:
     with kv_env(*CACHES["float4_e2m1 d-major"][1:]):
         paths["generate_fp4_dmajor"], slice_fp4 = run_slice(model, dev, card, "float4_e2m1 d-major", batches=(32,))
     del model
+    log(f"phases 4-6 (fp4 paths) done at {time.perf_counter() - t_start:.0f} s")
+    format_paths, format_per_step, format_results = run_formats(dev, card, args.layers)
+    paths.update(format_paths)
+    log(f"phase 7 (this slice's formats) done at {time.perf_counter() - t_start:.0f} s")
     plain_results = compare_with_plain_path(dev, card)
     for b, r in slice_results.items():
         per_step[f"b{b}"] = r["launches_per_decode_step"]
     per_step["engine"] = engine_results["launches_per_decode_step"]
     per_step["engine_dmajor"] = engine_dmajor["launches_per_decode_step"]
     per_step["generate_fp4_dmajor_b32"] = slice_fp4[32]["launches_per_decode_step"]
-    seq = {"mx_quantize", "mx_fake_quantize", "mx_matmul_fp4_halves", "mx_cached_attention"}
+    per_step.update(format_per_step)
+    seq = {"mx_quantize", "mx_fake_quantize", "mx_matmul_fp4_halves", "mx_cached_attention", "mx_rmsnorm"}
     dmajor = (seq - {"mx_cached_attention"}) | {"mx_cached_attention_dmajor"}
+    fmt = seq - {"mx_matmul_fp4_halves"}
     on_path = {"generate": seq, "engine": seq | {"mx_cached_attention_chunkdot"},
-               "engine_dmajor": dmajor | {"mx_cached_attention_int8dot"}, "generate_fp4_dmajor": dmajor}
+               "engine_dmajor": dmajor | {"mx_cached_attention_int8dot"}, "generate_fp4_dmajor": dmajor,
+               "engine_w8a8": fmt | {"mx_matmul_int8dot", "mx_matmul_1byte", "mx_cached_attention_chunkdot"},
+               "generate_fp6": fmt | {"mx_matmul_fp6q"}, "generate_fp8": fmt | {"mx_matmul_fp8_halves"},
+               "generate_fp8dot": fmt | {"mx_matmul_fp8dot", "mx_matmul_1byte"}}
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -1605,11 +2033,15 @@ def main() -> int:
                 raise AssertionError(f"{k['name']} was never launched on the {path} path")
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=card, kernels=kernels, matmul=k3_rows, attention=k4_rows, attention_int8=int8_rows,
-                       attention_dmajor=dmajor_rows, cache_write=cache_write, row_invariance=row_invariance, attention_accuracy=accuracy, model_check=check_readings,
+        json.dump(dict(card=card, kernels=kernels, matmul=k3_rows, matmul_formats=format_rows,
+                       rmsnorm=rmsnorm_rows, attention=k4_rows, attention_int8=int8_rows,
+                       attention_dmajor=dmajor_rows, cache_write=cache_write, row_invariance=row_invariance,
+                       attention_accuracy=accuracy, model_check=check_readings,
                        slice=slice_results, engine=engine_results, engine_dmajor=engine_dmajor,
-                       slice_fp4_dmajor=slice_fp4, engine_vs_plain=plain_results), f, indent=1)
+                       slice_fp4_dmajor=slice_fp4, formats=format_results, engine_vs_plain=plain_results,
+                       seconds=time.perf_counter() - t_start), f, indent=1)
     log("kernels: " + ", ".join(f"{k['name']} ok ({k['launches']} launches)" for k in kernels) + f" [{card}]")
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -9,7 +9,11 @@ with ``quant_api.quantize_llm_``, from the same bf16 weights.
 
 ``cache_from_buffers`` takes the four buffers of a JAX ``MXLayerKVCache`` (as
 numpy arrays) and returns this package's cache over the same bytes, in the
-same or the other storage layout."""
+same or the other storage layout.
+
+``mx_tensor_from_buffers`` takes a JAX ``MXArray``'s payload and scale (as
+numpy arrays: a quantized linear's weight in any of its layouts) and its
+metadata, and returns the :class:`MXTensor` over the same bytes."""
 
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from .models.llama import LlamaConfig, LlamaForCausalLM, MXLayerKVCache
+from .mx_array import MXTensor
 from .ops.backend import DeviceLike, resolve_device
 
 
@@ -64,3 +69,16 @@ def cache_from_buffers(
     if to_layout != layout:
         buffers = [t.transpose(2, 3).contiguous() for t in buffers]
     return MXLayerKVCache(*(t.to(device) for t in buffers), elem_dtype_name, block_size, to_layout)
+
+
+def mx_tensor_from_buffers(
+    data: np.ndarray, scale: np.ndarray, elem_dtype_name: str, fp4_pack: str = "pair",
+    block_size: int = 32, block_dim: Optional[int] = None, padding: int = 0,
+    device: DeviceLike = None,
+) -> MXTensor:
+    """The port's ``MXTensor`` over a JAX ``MXArray``'s bytes (``data``:
+    uint8, int8 or, for fp8 halves, uint16; ``scale``: uint8), with the same
+    element format, layout (``fp4_pack``), block dim and padding."""
+    device = resolve_device(device)
+    return MXTensor(_to_torch(scale).to(device), _to_torch(data).to(device), elem_dtype_name, block_size,
+                    padding=padding, block_dim=block_dim, fp4_pack=fp4_pack)

@@ -198,6 +198,47 @@ __device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a, cons
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// D = A (16x32 8-bit, row) * B (32x8 8-bit, col) from a zero accumulator:
+// one 32-element MX block.  Fragments (g = lane / 4, t = lane % 4): a0 =
+// A[g][4t..4t+3], a1 = A[g+8][4t..], a2 = A[g][16+4t..], a3 = A[g+8][16+4t..]
+// (lowest byte first); b0 = B[4t..4t+3][g], b1 = B[16+4t..][g]; c as in
+// mma_bf16_16816.  s8: exact int32 sums.  e4m3: f32 sums of exact products.
+__device__ __forceinline__ void mma_s8_16832(int* c, const uint32_t* a, const uint32_t* b) {
+  c[0] = c[1] = c[2] = c[3] = 0;
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_e4m3_16832(float* c, const uint32_t* a, const uint32_t* b) {
+  c[0] = c[1] = c[2] = c[3] = 0.f;
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A decoded dot operand as bf16 bits (exact: every decoded value is
+// bf16-representable).
+template <int E>
+__device__ __forceinline__ uint16_t decode_bf16_bits(int code, int se) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(decode_code_dot<E>(code, se)));
+}
+
+// Sum the split-K partials of element i in split order and round once to
+// bf16 (the matmul kernels' second pass; the same arithmetic for all of
+// them, so that kernels with the same splits give the same bytes).
+__device__ __forceinline__ void reduce_splits(const float* __restrict__ ws, uint16_t* __restrict__ out,
+                                              long long mn, int splits, long long i) {
+  if (i >= mn) return;
+  float s = 0.f;
+  for (int k = 0; k < splits; ++k) s += ws[k * mn + i];
+  out[i] = __bfloat16_as_ushort(__float2bfloat16_rn(s));
+}
+
 // The two B fragments (k16 x n8) of mma_bf16_16816 from a [k][n] row-major
 // bf16 tile in shared memory: lane l (0..15) passes the address of row k = l
 // (8 elements, 16 bytes, 16-byte aligned); lanes 16..31 pass any valid row.

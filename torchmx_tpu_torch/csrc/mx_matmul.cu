@@ -1,10 +1,15 @@
 // K3 mx_matmul_fp4_halves: out (M, N) bf16 = fq(x) (M, K) @ W (K, N) with W
 // MXFP4 in the K-major "halves" layout: byte p of column n holds element p
 // (high nibble) and element p + K/2 (low nibble); scale rows [0, K/64) cover
-// the first half, [K/64, K/32) the second.
+// the first half, [K/64, K/32) the second.  mx_matmul_fp8_halves is the same
+// kernel over MXFP8 halves: uint16 word p of column n holds the code of
+// element p (high byte) and of element p + K/2 (low byte), decoded as a dot
+// operand (mx::decode_code_dot<kFp8E4M3>); same bytes per element as the
+// flat layout, read as two contiguous halves of x like the fp4 layout.
 //
 // Replaces torchmx_tpu/ops/pallas_matmul.py::_linear_kernel_fp4_halves
-// (:504), launched by _pallas_matmul_fp4_halves (:1110).
+// (:504), launched by _pallas_matmul_fp4_halves (:1110), with
+// elem_name "float4_e2m1" and "float8_e4m3".
 //
 // What bounds it on an H100: at decode (M = batch, up to 32) the weight
 // bytes (K*N/2 + K*N/32); at prefill (M in the thousands) the tensor-core
@@ -26,11 +31,11 @@ namespace {
 constexpr int kKTile = 64;           // K elements per iteration (32 per half)
 constexpr int kPad = kKTile + 8;     // smem row stride in bf16: conflict-free fragment loads
 
-template <int BM, int BN, int WM, int WN, int ACT>
-__global__ void __launch_bounds__(WM * WN * 32)
-matmul_fp4_halves_kernel(const uint16_t* __restrict__ x, const uint8_t* __restrict__ w,
-                         const uint8_t* __restrict__ scale, uint16_t* __restrict__ out,
-                         float* __restrict__ ws, int M, int N, int K, int splits) {
+// E: the weight's element format (mx::kFp4E2M1 bytes or mx::kFp8E4M3 words).
+template <int E, int BM, int BN, int WM, int WN, int ACT>
+__device__ __forceinline__ void halves_body(const uint16_t* __restrict__ x, const void* __restrict__ wv,
+                                            const uint8_t* __restrict__ scale, uint16_t* __restrict__ out,
+                                            float* __restrict__ ws, int M, int N, int K, int splits) {
   constexpr int kThreads = WM * WN * 32;
   constexpr int kWarps = WM * WN;
   constexpr int WTM = BM / WM, WTN = BN / WN;  // warp tile
@@ -70,20 +75,41 @@ matmul_fp4_halves_kernel(const uint16_t* __restrict__ x, const uint8_t* __restri
       }
       Xs[row][hb * 32 + lane] = (uint16_t)bits;
     }
-    // W: 32 packed rows x BN columns, 16 bytes per thread per step.
-    for (int c = tid; c < 32 * BN / 16; c += kThreads) {
-      int r = c / (BN / 16), n0 = (c % (BN / 16)) * 16;
-      int n = n_base + n0;
-      uint4 wb = *reinterpret_cast<const uint4*>(w + (long long)(p0 + r) * N + n);
-      uint4 sa = *reinterpret_cast<const uint4*>(scale + (long long)(p0 / 32) * N + n);
-      uint4 sb = *reinterpret_cast<const uint4*>(scale + (long long)(half / 32 + p0 / 32) * N + n);
-      const uint8_t* wbb = reinterpret_cast<const uint8_t*>(&wb);
-      const uint8_t* sab = reinterpret_cast<const uint8_t*>(&sa);
-      const uint8_t* sbb = reinterpret_cast<const uint8_t*>(&sb);
+    if constexpr (E == mx::kFp4E2M1) {
+      // W: 32 packed rows x BN columns, 16 bytes per thread per step.
+      const uint8_t* w = static_cast<const uint8_t*>(wv);
+      for (int c = tid; c < 32 * BN / 16; c += kThreads) {
+        int r = c / (BN / 16), n0 = (c % (BN / 16)) * 16;
+        int n = n_base + n0;
+        uint4 wb = *reinterpret_cast<const uint4*>(w + (long long)(p0 + r) * N + n);
+        uint4 sa = *reinterpret_cast<const uint4*>(scale + (long long)(p0 / 32) * N + n);
+        uint4 sb = *reinterpret_cast<const uint4*>(scale + (long long)(half / 32 + p0 / 32) * N + n);
+        const uint8_t* wbb = reinterpret_cast<const uint8_t*>(&wb);
+        const uint8_t* sab = reinterpret_cast<const uint8_t*>(&sa);
+        const uint8_t* sbb = reinterpret_cast<const uint8_t*>(&sb);
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        Ws[n0 + j][r] = mx::decode_fp4(wbb[j] >> 4, sab[j]);
-        Ws[n0 + j][32 + r] = mx::decode_fp4(wbb[j] & 0xF, sbb[j]);
+        for (int j = 0; j < 16; ++j) {
+          Ws[n0 + j][r] = mx::decode_fp4(wbb[j] >> 4, sab[j]);
+          Ws[n0 + j][32 + r] = mx::decode_fp4(wbb[j] & 0xF, sbb[j]);
+        }
+      }
+    } else {
+      // W: 32 rows of u16 words x BN columns, 8 words (16 bytes) per thread per step.
+      const uint16_t* w = static_cast<const uint16_t*>(wv);
+      for (int c = tid; c < 32 * BN / 8; c += kThreads) {
+        int r = c / (BN / 8), n0 = (c % (BN / 8)) * 8;
+        int n = n_base + n0;
+        uint4 wb = *reinterpret_cast<const uint4*>(w + (long long)(p0 + r) * N + n);
+        uint2 sa = *reinterpret_cast<const uint2*>(scale + (long long)(p0 / 32) * N + n);
+        uint2 sb = *reinterpret_cast<const uint2*>(scale + (long long)(half / 32 + p0 / 32) * N + n);
+        const uint16_t* wbw = reinterpret_cast<const uint16_t*>(&wb);
+        const uint8_t* sab = reinterpret_cast<const uint8_t*>(&sa);
+        const uint8_t* sbb = reinterpret_cast<const uint8_t*>(&sb);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          Ws[n0 + j][r] = mx::decode_bf16_bits<mx::kFp8E4M3>(wbw[j] >> 8, sab[j]);
+          Ws[n0 + j][32 + r] = mx::decode_bf16_bits<mx::kFp8E4M3>(wbw[j] & 0xFF, sbb[j]);
+        }
       }
     }
     __syncthreads();
@@ -132,40 +158,71 @@ matmul_fp4_halves_kernel(const uint16_t* __restrict__ x, const uint8_t* __restri
       }
 }
 
-// Sum the split-K partials in split order and round once to bf16.
-__global__ void reduce_splits_kernel(const float* __restrict__ ws, uint16_t* __restrict__ out,
-                                     long long mn, int splits) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += ws[k * mn + i];
-  out[i] = __bfloat16_as_ushort(__float2bfloat16_rn(s));
+// Distinct kernel names per weight format, so that a profile tells them apart.
+template <int BM, int BN, int WM, int WN, int ACT>
+__global__ void __launch_bounds__(WM * WN * 32)
+matmul_fp4_halves_kernel(const uint16_t* __restrict__ x, const void* __restrict__ w,
+                         const uint8_t* __restrict__ scale, uint16_t* __restrict__ out,
+                         float* __restrict__ ws, int M, int N, int K, int splits) {
+  halves_body<mx::kFp4E2M1, BM, BN, WM, WN, ACT>(x, w, scale, out, ws, M, N, K, splits);
 }
 
 template <int BM, int BN, int WM, int WN, int ACT>
+__global__ void __launch_bounds__(WM * WN * 32)
+matmul_fp8_halves_kernel(const uint16_t* __restrict__ x, const void* __restrict__ w,
+                         const uint8_t* __restrict__ scale, uint16_t* __restrict__ out,
+                         float* __restrict__ ws, int M, int N, int K, int splits) {
+  halves_body<mx::kFp8E4M3, BM, BN, WM, WN, ACT>(x, w, scale, out, ws, M, N, K, splits);
+}
+
+// Sum the split-K partials in split order and round once to bf16.
+__global__ void reduce_splits_kernel(const float* __restrict__ ws, uint16_t* __restrict__ out,
+                                     long long mn, int splits) {
+  mx::reduce_splits(ws, out, mn, splits, (long long)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+__global__ void reduce_splits_fp8h_kernel(const float* __restrict__ ws, uint16_t* __restrict__ out,
+                                          long long mn, int splits) {
+  mx::reduce_splits(ws, out, mn, splits, (long long)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+template <int E, int BM, int BN, int WM, int WN, int ACT>
 cudaError_t run(const void* x, const void* w, const void* scale, void* out, void* ws, int M,
                 int N, int K, int splits, cudaStream_t stream) {
   dim3 grid(N / BN, (M + BM - 1) / BM, splits);
-  matmul_fp4_halves_kernel<BM, BN, WM, WN, ACT><<<grid, WM * WN * 32, 0, stream>>>(
-      (const uint16_t*)x, (const uint8_t*)w, (const uint8_t*)scale, (uint16_t*)out, (float*)ws,
-      M, N, K, splits);
+  auto kernel = E == mx::kFp4E2M1 ? matmul_fp4_halves_kernel<BM, BN, WM, WN, ACT>
+                                  : matmul_fp8_halves_kernel<BM, BN, WM, WN, ACT>;
+  kernel<<<grid, WM * WN * 32, 0, stream>>>((const uint16_t*)x, w, (const uint8_t*)scale,
+                                            (uint16_t*)out, (float*)ws, M, N, K, splits);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   long long mn = (long long)M * N;
-  reduce_splits_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>((const float*)ws,
-                                                                        (uint16_t*)out, mn, splits);
+  auto reduce = E == mx::kFp4E2M1 ? reduce_splits_kernel : reduce_splits_fp8h_kernel;
+  reduce<<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>((const float*)ws, (uint16_t*)out, mn, splits);
   return cudaGetLastError();
 }
 
-template <int ACT>
+template <int E, int ACT>
 cudaError_t dispatch_tile(const void* x, const void* w, const void* scale, void* out, void* ws,
                           int M, int N, int K, int bm, int splits, cudaStream_t s) {
   switch (bm) {
-    case 16: return run<16, 64, 1, 4, ACT>(x, w, scale, out, ws, M, N, K, splits, s);
-    case 64: return run<64, 64, 2, 2, ACT>(x, w, scale, out, ws, M, N, K, splits, s);
-    case 128: return run<128, 128, 2, 4, ACT>(x, w, scale, out, ws, M, N, K, splits, s);
+    case 16: return run<E, 16, 64, 1, 4, ACT>(x, w, scale, out, ws, M, N, K, splits, s);
+    case 64: return run<E, 64, 64, 2, 2, ACT>(x, w, scale, out, ws, M, N, K, splits, s);
+    case 128: return run<E, 128, 128, 2, 4, ACT>(x, w, scale, out, ws, M, N, K, splits, s);
   }
   return cudaErrorInvalidValue;
+}
+
+template <int E>
+int launch(const void* x, const void* w, const void* scale, void* out, void* ws, int M, int N,
+           int K, int act_fq, int bm, int splits, void* stream) {
+  if (M == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (act_fq) {
+    case -1: return dispatch_tile<E, -1>(x, w, scale, out, ws, M, N, K, bm, splits, s);
+    case mx::kFp8E4M3: return dispatch_tile<E, mx::kFp8E4M3>(x, w, scale, out, ws, M, N, K, bm, splits, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -176,11 +233,12 @@ cudaError_t dispatch_tile(const void* x, const void* w, const void* scale, void*
 extern "C" int mx_matmul_fp4_halves_launch(const void* x, const void* w, const void* scale,
                                            void* out, void* ws, int M, int N, int K, int act_fq,
                                            int bm, int splits, void* stream) {
-  if (M == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (act_fq) {
-    case -1: return dispatch_tile<-1>(x, w, scale, out, ws, M, N, K, bm, splits, s);
-    case mx::kFp8E4M3: return dispatch_tile<mx::kFp8E4M3>(x, w, scale, out, ws, M, N, K, bm, splits, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return launch<mx::kFp4E2M1>(x, w, scale, out, ws, M, N, K, act_fq, bm, splits, stream);
+}
+
+// The same over fp8 halves: w is (K/2, N) uint16 words.
+extern "C" int mx_matmul_fp8_halves_launch(const void* x, const void* w, const void* scale,
+                                           void* out, void* ws, int M, int N, int K, int act_fq,
+                                           int bm, int splits, void* stream) {
+  return launch<mx::kFp8E4M3>(x, w, scale, out, ws, M, N, K, act_fq, bm, splits, stream);
 }

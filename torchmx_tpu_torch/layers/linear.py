@@ -10,7 +10,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .. import dtypes
+from .. import env_variables as env
 from ..config import QLinearConfig
 from ..mx_array import MXTensor
 from ..ops.matmul import mx_dynamic_matmul, mx_matmul
@@ -51,25 +51,48 @@ class Linear(nn.Module):
         return out if self.bias is None else out + self.bias.to(out.dtype)
 
 
+def kernel_layout(w: MXTensor) -> MXTensor:
+    """The K-major weight ``w`` in the layout its kernel reads (see
+    :class:`MXInferenceLinear`).  The fp8 scale bound is checked once, here
+    (``_concrete_min_ge`` in the JAX package): a device synchronisation."""
+    if not (w.ndim == 2 and w.block_dim == 0 and w.padding == 0 and w.fp4_pack == "pair"):
+        return w
+    name, K = w.elem_dtype.name, w.shape[0]
+    if name in ("float4_e2m1", "float6_e2m3") and env.TORCHMX_INT8_DOMAIN == "1":
+        return w.to_int8_domain()
+    if name == "float4_e2m1" and K % 64 == 0:
+        return w.to_fp4_halves()
+    if (name == "float8_e4m3" and K % 512 == 0 and env.TORCHMX_FP8_HALVES == "1"
+            and env.TORCHMX_FP8_DOT != "1" and int(w.scale_e8m0.min()) >= 10):
+        return w.to_fp8_halves()
+    if name in ("float6_e3m2", "float6_e2m3") and K % 1024 == 0 and env.TORCHMX_FP6_PACK == "1":
+        return w.to_fp6_quarters()
+    return w
+
+
 class MXInferenceLinear(nn.Module):
     """Linear with an MX weight and dynamically MX-quantized activations.
 
     The weight is stored K-major (``(in, out)``, blocked on the contraction
-    dim); fp4 weights with ``in % 64 == 0`` are repacked into the halves
-    layout that K3 reads (the stored values are unchanged)."""
+    dim) in the layout ``torchmx_tpu/layers/linear.py:88-148`` chooses (the
+    stored values are unchanged):
+
+    * fp4 and fp6 e2m3 re-coded as MXINT8 under ``TORCHMX_INT8_DOMAIN=1``;
+    * fp4 with ``in % 64 == 0`` in the halves layout (K3; the JAX package
+      asks ``in % 512 == 0``, and keeps the pair layout below it, whose
+      kernel is not ported);
+    * fp8 with ``in % 512 == 0`` and every scale >= 10 in the halves layout
+      (K3), unless ``TORCHMX_FP8_HALVES != "1"`` or ``TORCHMX_FP8_DOT ==
+      "1"`` (B9 takes the flat layout);
+    * fp6 with ``in % 1024 == 0`` in the quarters layout (B8) unless
+      ``TORCHMX_FP6_PACK != "1"``;
+    * any other one-byte weight flat (B6)."""
 
     def __init__(self, weight_mx: MXTensor, bias: Optional[torch.Tensor], qconfig: QLinearConfig):
         super().__init__()
         if weight_mx.block_dim == weight_mx.ndim - 1:
             weight_mx = weight_mx.T  # to K-major
-        if (
-            weight_mx.elem_dtype == dtypes.float4_e2m1
-            and weight_mx.ndim == 2
-            and weight_mx.padding == 0
-            and weight_mx.shape[0] % 64 == 0
-        ):
-            weight_mx = weight_mx.to_fp4_halves()
-        self.weight = weight_mx
+        self.weight = kernel_layout(weight_mx)
         self.bias = bias
         self.qconfig = qconfig
         self.in_features, self.out_features = weight_mx.shape

@@ -26,6 +26,7 @@ from ..mx_array import quantize_mx
 from ..packing import fp4_pairs_to_halves
 from ..ops.backend import DeviceLike, resolve_device
 from ..ops.cuda_attention import cached_attention_any, dequantize_cache
+from ..ops.cuda_norm import rms_norm
 
 CachePosition = Union[int, torch.Tensor]
 
@@ -199,9 +200,9 @@ class RMSNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(torch.float32)
-        xf = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + self.eps)
-        return (xf * self.weight.to(torch.float32)).to(x.dtype)
+        """The row-wise kernel on the card (a row's bytes do not depend on
+        the other rows), the plain version on the CPU (``ops/cuda_norm``)."""
+        return rms_norm(x, self.weight, self.eps)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

@@ -9,9 +9,19 @@ Fields of :class:`MXTensor`:
 * ``data`` — uint8 payload (int8 for the int8 format; fp4 packs two codes
   per byte along ``block_dim``);
 * metadata: ``elem_dtype``, ``block_size``, ``orig_dtype``, ``block_dim``,
-  ``padding``, ``fp4_pack`` (``"pair"``: neighbours (2p, 2p+1) share a byte,
-  high nibble first; ``"halves"``: 2-D K-major fp4 where byte p holds
-  elements (p, p + K/2), the layout the fused matmul kernel reads).
+  ``padding``, ``fp4_pack``, the payload layout (the JAX package's field
+  name, which covers the 2-D K-major kernel layouts of every format):
+
+  - ``"pair"``: the reference layout, one code per byte (fp4: neighbours
+    (2p, 2p+1) share a byte, high nibble first);
+  - ``"halves"``: fp4 bytes ``(K/2, N)`` where byte p holds elements p (high
+    nibble) and p + K/2 (low), or fp8 ``uint16`` words ``(K/2, N)`` where word
+    p holds the codes of elements p (high byte) and p + K/2 (low): K3's
+    layouts;
+  - ``"quarters"``: fp6 in three byte planes of ``K/4`` rows, 4 codes per 3
+    bytes (``P0 = q0 << 2 | q3 >> 4``, ``P1 = q1 << 2 | (q3 >> 2) & 3``,
+    ``P2 = q2 << 2 | q3 & 3`` for the codes q0..q3 of the four K quarters):
+    B8's layout.
 """
 
 from __future__ import annotations
@@ -31,7 +41,7 @@ from .mx_quantization import (
     quantize_mx_with_e8m0_shared_exponent_hw_exact,
     quantize_mx_with_e8m0_shared_exponent_simulated,
 )
-from .packing import pack_uint4, unpack_uint4
+from .packing import fp6_quarters_to_codes, fp8_halves_to_codes, pack_uint4, unpack_uint4
 
 
 def quantize_mx_plain(
@@ -112,9 +122,9 @@ class MXTensor:
         elem_dtype = dtypes.as_dtype(elem_dtype)
         if scale_e8m0.dtype != torch.uint8:
             raise TypeError("scale must be uint8")
-        if data.dtype not in (torch.uint8, torch.int8):
+        if data.dtype not in (torch.uint8, torch.int8, torch.uint16):
             raise TypeError(f"{data.dtype} payload is unsupported")
-        if fp4_pack not in ("pair", "halves"):
+        if fp4_pack not in ("pair", "halves", "quarters"):
             raise ValueError(fp4_pack)
         self.scale_e8m0 = scale_e8m0
         self.data = data
@@ -139,6 +149,10 @@ class MXTensor:
         s = list(self.data.shape)
         if self.elem_dtype == dtypes.float4_e2m1:
             s[self.block_dim] = s[self.block_dim] * 2 - self.padding % 2
+        elif self.fp4_pack == "quarters":  # 3 byte planes hold 4 code planes
+            s[self.block_dim] = s[self.block_dim] * 4 // 3
+        elif self.fp4_pack == "halves":  # fp8: one u16 word per two elements
+            s[self.block_dim] = s[self.block_dim] * 2
         return tuple(s)
 
     @property
@@ -209,10 +223,93 @@ class MXTensor:
         codes = torch.cat([self.data >> 4, self.data & 0xF], dim=0)
         return self._replace(data=pack_uint4(codes, packing_dim=0), fp4_pack="pair")
 
+    def _check_kernel_layout(self, what: str, elems, k_multiple: int) -> int:
+        if self.elem_dtype not in elems or self.fp4_pack != "pair":
+            raise ValueError(f"{what} needs a {'/'.join(e.name for e in elems)} tensor in the pair layout")
+        if not (self.ndim == 2 and self.block_dim == 0 and self.padding == 0):
+            raise ValueError(f"{what} needs a 2-D K-major unpadded tensor")
+        K = self.shape[0]
+        if K % k_multiple:
+            raise ValueError(f"{what} needs K % {k_multiple} == 0, got {K}")
+        return K
+
+    def to_fp8_halves(self) -> "MXTensor":
+        """Repack a 2-D K-major fp8 payload into K3's "halves" layout: uint16
+        word p holds the codes of elements p (high byte) and p + K/2 (low
+        byte), the same bytes per element as the flat layout.  Needs K % 64
+        == 0.  The JAX kernel's decode needs every scale >= 10 (no decoded
+        value below the bf16 normal range); ``MXInferenceLinear`` checks that
+        before it repacks."""
+        K = self._check_kernel_layout("to_fp8_halves", (dtypes.float8_e4m3,), 64)
+        codes = self.data.to(torch.int32)
+        words = (codes[: K // 2] << 8) | codes[K // 2:]
+        # through int16 (wrapping), as PyTorch casts few ops to and from uint16
+        return self._replace(data=words.to(torch.int16).view(torch.uint16).contiguous(), fp4_pack="halves")
+
+    def _fp8_halves_to_flat(self) -> "MXTensor":
+        return self._replace(data=fp8_halves_to_codes(self.data).to(torch.uint8), fp4_pack="pair")
+
+    def to_fp6_quarters(self) -> "MXTensor":
+        """Repack a 2-D K-major fp6 payload into B8's planar "quarters"
+        layout: the codes q0..q3 of the four K quarters go into three byte
+        planes of K/4 rows, ``P0 = q0 << 2 | q3 >> 4``, ``P1 = q1 << 2 | (q3 >>
+        2) & 3``, ``P2 = q2 << 2 | q3 & 3`` (4 codes per 3 bytes).  Needs K %
+        128 == 0, so that each quarter stays 32-block aligned."""
+        K = self._check_kernel_layout("to_fp6_quarters", (dtypes.float6_e3m2, dtypes.float6_e2m3), 128)
+        q = K // 4
+        c = self.data.to(torch.int32)
+        q0, q1, q2, q3 = c[:q], c[q:2 * q], c[2 * q:3 * q], c[3 * q:]
+        planes = [(q0 << 2) | (q3 >> 4), (q1 << 2) | ((q3 >> 2) & 3), (q2 << 2) | (q3 & 3)]
+        return self._replace(data=torch.cat(planes, dim=0).to(torch.uint8), fp4_pack="quarters")
+
+    def _quarters_to_flat(self) -> "MXTensor":
+        return self._replace(data=fp6_quarters_to_codes(self.data).to(torch.uint8), fp4_pack="pair")
+
+    def to_int8_domain(self) -> "MXTensor":
+        """Exact MXINT8 re-coding of fp4 and fp6 e2m3 tensors (int8 passes
+        through): every fp4 value is a multiple of 2^-1 and every e2m3 value
+        of 2^-3, so ``value = intval * 2^(se - k - 127)`` with ``intval =
+        value * 2^k`` (at most 12 / 60) and k = 1 / 3: the same values, one
+        int8 code per element.  Blocks whose scale is below k flush to zero
+        (their values are below about 2^-124 of the format's maximum)."""
+        if self.elem_dtype == dtypes.int8:
+            return self
+        if self.padding:
+            raise ValueError("int8-domain re-coding of a padded tensor")
+        if self.elem_dtype == dtypes.float4_e2m1:
+            if self.fp4_pack == "halves":
+                return self._halves_to_pair().to_int8_domain()
+            codes = unpack_uint4(self.data, packing_dim=self.block_dim).to(torch.int32)
+            mag = codes & 7
+            # value * 2: {0, .5, 1, 1.5, 2, 3, 4, 6} -> {0, 1, 2, 3, 4, 6, 8, 12}
+            intmag = torch.where(mag < 4, mag, (4 + 2 * (mag & 1)) << ((mag >> 1) - 2).clamp(min=0))
+            sign, k_off = codes & 8, 1
+        elif self.elem_dtype == dtypes.float6_e2m3:
+            if self.fp4_pack != "pair":
+                raise ValueError("re-code fp6 e2m3 from the flat layout")
+            codes = self.data.to(torch.int32)
+            e, m = (codes >> 3) & 3, codes & 7
+            # value * 8: subnormal m, normal (8 + m) << (e - 1); at most 60
+            intmag = torch.where(e == 0, m, (8 + m) << (e - 1).clamp(min=0))
+            sign, k_off = codes & 0x20, 3
+        else:
+            raise ValueError(f"{self.elem_dtype.name} values are not int8-representable")
+        se = self.scale_e8m0.to(torch.int32)
+        keep = se >= k_off
+        data = torch.where(sign > 0, -intmag, intmag)
+        data = torch.where(keep.repeat_interleave(self.block_size, dim=self.block_dim), data, 0)
+        scale = torch.where(keep, se - k_off, 0).to(torch.uint8)
+        return self._replace(scale_e8m0=scale, data=data.to(torch.int8), elem_dtype=dtypes.int8,
+                             fp4_pack="pair")
+
     def to_dtype(self, target_dtype: torch.dtype) -> torch.Tensor:
         """Dequantize (plain PyTorch; used off the CUDA main path)."""
         if self.fp4_pack == "halves":
+            if self.elem_dtype == dtypes.float8_e4m3:
+                return self._fp8_halves_to_flat().to_dtype(target_dtype)
             return self._halves_to_pair().to_dtype(target_dtype)
+        if self.fp4_pack == "quarters":
+            return self._quarters_to_flat().to_dtype(target_dtype)
         data_lp = self.data
         bd = self.block_dim
         org_size = data_lp.shape[bd]

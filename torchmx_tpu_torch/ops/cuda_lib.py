@@ -32,7 +32,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("mx_quantize", "mx_matmul", "mx_attention", "mx_attention_chunkdot",
-           "mx_attention_dmajor", "mx_attention_int8dot")
+           "mx_attention_dmajor", "mx_attention_int8dot", "mx_matmul_1byte", "mx_matmul_fp6q",
+           "mx_matmul_int8dot", "mx_rmsnorm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -56,6 +57,25 @@ SIGNATURES = {
     "mx_matmul": {
         # x, w, scale, out, workspace, M, N, K, act_fq_code, tile_rows, splits, stream
         "mx_matmul_fp4_halves_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # the same over fp8 halves (uint16 words)
+        "mx_matmul_fp8_halves_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "mx_matmul_1byte": {
+        # x, w, scale, out, workspace, M, N, K, elem_code, act_fq_code, tile_rows, splits, stream
+        "mx_matmul_1byte_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "mx_matmul_fp6q": {
+        # x, planes, scale, out, workspace, M, N, K, elem_code, act_fq_code, tile_rows, splits, stream
+        "mx_matmul_fp6q_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "mx_matmul_int8dot": {
+        # x codes, x scales, w codes, w scales, out, workspace, M, N, K, tile_rows, splits, stream
+        "mx_matmul_int8dot_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "mx_matmul_fp8dot_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
+    "mx_rmsnorm": {
+        # x, weight, out, rows, D, eps, stream
+        "mx_rmsnorm_launch": (_P, _P, _P, _L, _I, _F, _P),
     },
     "mx_attention": {
         # q, kd, ks, vd, vs, q_off, kv_len, out, b, hq, hkv, sq, L, d,

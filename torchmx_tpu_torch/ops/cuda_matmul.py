@@ -1,15 +1,19 @@
-"""K3 ``mx_matmul_fp4_halves``: the CUDA kernel (``csrc/mx_matmul.cu``) and
-its plain PyTorch version.
+"""K3 ``mx_matmul_fp4_halves`` and its fp8 variant ``mx_matmul_fp8_halves``:
+the CUDA kernel (``csrc/mx_matmul.cu``) and its plain PyTorch versions.
 
 Replaces ``torchmx_tpu/ops/pallas_matmul.py::_linear_kernel_fp4_halves``:
-``x (M, K) bf16 @ W (K, N)`` with W MXFP4 in the K-major halves layout
-(``W (K/2, N) uint8``, byte p holds elements p and p + K/2; ``scale
-(K/32, N) uint8``), fp32 accumulation, one bf16 rounding, and an optional
-fused activation fake-quantize (``act_fq``) of each 32-element x block.
+``x (M, K) bf16 @ W (K, N)`` with W in a K-major halves layout, fp32
+accumulation, one bf16 rounding, and an optional fused activation
+fake-quantize (``act_fq``) of each 32-element x block.  The weight is MXFP4
+(``W (K/2, N) uint8``, byte p holds elements p and p + K/2) or MXFP8
+(``W (K/2, N) uint16``, word p holds the codes of elements p and p + K/2:
+the JAX kernel's ``elem_name="float8_e4m3"``); ``scale (K/32, N) uint8``.
 
-Weight decode follows ``decode_fp4_to_bf16`` of the reference: the scale
-folds into the bf16 exponent, and results below the bf16 normal range flush
-to zero (the plain version flushes explicitly).
+Weight decode follows ``decode_fp4_to_bf16`` of the reference for fp4 (the
+scale folds into the bf16 exponent, results below the bf16 normal range
+flush to zero; the plain version flushes explicitly) and
+``decode_codes_to_bf16(dot_operand=True)`` for fp8
+(:func:`decode_code_dot`, which B6 and B8 share).
 """
 
 from __future__ import annotations
@@ -18,7 +22,9 @@ from typing import Optional
 
 import torch
 
-from ..mx_quantization import bf16_from_bits
+from .. import dtypes
+from ..mx_quantization import bf16_from_bits, f32_from_bits
+from ..packing import fp8_halves_to_codes
 from . import cuda_lib
 from .backend import on_cuda
 from .cuda_quantize import mx_fake_quantize_plain
@@ -44,28 +50,107 @@ def dequantize_fp4_halves(w_data: torch.Tensor, w_scale: torch.Tensor) -> torch.
     return decode_fp4_to_bf16(codes, se)
 
 
-def mx_matmul_fp4_halves_plain(
-    x: torch.Tensor, w_data: torch.Tensor, w_scale: torch.Tensor, act_fq: Optional[str] = None
-) -> torch.Tensor:
-    """Plain version of K3: fake-quantize x (if ``act_fq``), decode W, fp32
-    matmul, one bf16 rounding."""
+def fq_matmul(x: torch.Tensor, w: torch.Tensor, act_fq: Optional[str]) -> torch.Tensor:
+    """The matmul kernels' plain versions: fake-quantize x (if ``act_fq``),
+    fp32 matmul with the decoded bf16 W, one bf16 rounding."""
     if act_fq is not None:
         x = mx_fake_quantize_plain(x, act_fq)
-    w = dequantize_fp4_halves(w_data, w_scale)
     return (x.to(torch.float32) @ w.to(torch.float32)).to(torch.bfloat16)
 
 
-def _plan(M: int, N: int, K: int, device: torch.device):
-    """(rows per tile, K splits) for the kernel.  The tile follows M.  The
-    splits follow N and K alone: enough that a single row tile (decode) keeps
-    the SMs busy.  An output element's fp32 sum order is fixed by the splits,
-    so a row's result does not depend on how many other rows share the call:
-    a prompt admitted whole, in chunks or after a cached prefix gets the same
-    bytes.  (At large M the extra splits cost a pass over the fp32 partials.)"""
+def mx_matmul_fp4_halves_plain(
+    x: torch.Tensor, w_data: torch.Tensor, w_scale: torch.Tensor, act_fq: Optional[str] = None
+) -> torch.Tensor:
+    """Plain version of K3."""
+    return fq_matmul(x, dequantize_fp4_halves(w_data, w_scale), act_fq)
+
+
+def _plan(M: int, N: int, K: int, device: torch.device, k_tile: int = 64):
+    """(rows per tile, K splits) for the matmul kernels (K3, B6 and B9 take
+    64 K elements per iteration, B8 128).  The tile follows M.  The splits
+    follow N and K alone: enough that a single row tile (decode) keeps the
+    SMs busy.  An output element's fp32 sum order is fixed by the splits, so
+    a row's result does not depend on how many other rows share the call: a
+    prompt admitted whole, in chunks or after a cached prefix gets the same
+    bytes.  B6 and B9 share this plan, which is what lets them give an int8
+    row the same bytes (``cuda_matmul_formats``).  (At large M the extra
+    splits cost a pass over the fp32 partials.)"""
     bm = 16 if M <= 16 else (64 if M <= 64 or N % 128 else 128)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(1, min(K // 64, 16, -(-2 * sms // (N // 64))))
+    splits = max(1, min(K // k_tile, 16, -(-2 * sms // (N // 64))))
     return bm, splits
+
+
+def decode_code_dot(codes: torch.Tensor, se: torch.Tensor, elem_name: str) -> torch.Tensor:
+    """int32 codes times ``2^(se-127)`` -> bf16, as a dot operand
+    (``mx_common.cuh::decode_code_dot``): the exponent and mantissa bits land
+    in the bf16 fields, the scale folds into the exponent, a subnormal code
+    decodes as ``(1 + m/2^mb) 2^F - 2^F``; results below the bf16 normal range
+    flush to zero; int8 is ``code * 2^(se-127)``."""
+    se = se.to(torch.int32)
+    if elem_name == "int8":
+        v = codes.to(torch.int8).to(torch.float32) * f32_from_bits(se << 23)
+        return v.to(torch.bfloat16)
+    elem = dtypes.STR_TO_SUPPORTED_ELEM_DTYPE[elem_name]
+    mb, nbits = elem.mantissa_bits, elem.mantissa_bits + elem.exponent_bits
+    codes = codes.to(torch.int32)
+    mag = (codes & ((1 << nbits) - 1)) << (7 - mb)
+    sub = (mag < 0x80).to(torch.int32)
+    fshift = (se - elem.exponent_bias + sub) << 7
+    b = mag + fshift
+    dead = b < 0x80
+    f = torch.where(dead, 0.0, f32_from_bits(b << 16))
+    c = torch.where((sub == 1) & ~dead, f32_from_bits(fshift << 16), 0.0)
+    v = f - c
+    return torch.where(((codes >> nbits) & 1) == 1, -v, v).to(torch.bfloat16)
+
+
+def dequantize_fp8_halves(w_data: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+    """(K/2, N) uint16 halves words + (K/32, N) scales -> (K, N) bf16 weight."""
+    se = w_scale.to(torch.int32).repeat_interleave(32, dim=0)
+    return decode_code_dot(fp8_halves_to_codes(w_data), se, "float8_e4m3")
+
+
+def mx_matmul_fp8_halves_plain(
+    x: torch.Tensor, w_data: torch.Tensor, w_scale: torch.Tensor, act_fq: Optional[str] = None
+) -> torch.Tensor:
+    """Plain version of K3 over an fp8 halves weight."""
+    return fq_matmul(x, dequantize_fp8_halves(w_data, w_scale), act_fq)
+
+
+def check_matmul_operands(x: torch.Tensor, w_data: torch.Tensor, w_scale: torch.Tensor,
+                          w_rows: int, w_dtype: torch.dtype, what: str, k_multiple: int = 64):
+    """Raise unless x is a contiguous 2-D bf16 (M, K) with K and N
+    multiples of the kernels' tiles and the weight ``(w_rows, N)`` of
+    ``w_dtype`` with a ``(K/32, N)`` uint8 scale, both contiguous."""
+    if x.dim() != 2 or x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous 2-D bf16 tensor, got {x.dtype} {tuple(x.shape)}")
+    K, N = x.shape[1], w_data.shape[-1]
+    if K % k_multiple or N % 64:
+        raise ValueError(f"the {what} kernel needs K % {k_multiple} == 0 and N % 64 == 0, got K={K} N={N}")
+    if w_data.shape != (w_rows, N) or w_scale.shape != (K // 32, N):
+        raise ValueError(f"weight {tuple(w_data.shape)} / scale {tuple(w_scale.shape)} do not match K={K}")
+    if w_data.dtype != w_dtype or w_scale.dtype != torch.uint8:
+        raise ValueError(f"the {what} kernel takes a {w_dtype} payload and a uint8 scale, "
+                         f"got {w_data.dtype} / {w_scale.dtype}")
+    if not (w_data.is_contiguous() and w_scale.is_contiguous()):
+        raise ValueError("weight payload and scale must be contiguous")
+
+
+def _launch_halves(fn: str, x, w_data, w_scale, act_fq, w_dtype, what):
+    M, K = x.shape
+    check_matmul_operands(x, w_data, w_scale, K // 2, w_dtype, what)
+    N = w_data.shape[1]
+    bm, splits = _plan(M, N, K, x.device)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    ws = torch.empty((splits, M, N) if splits > 1 else (1,), dtype=torch.float32, device=x.device)
+    act = -1 if act_fq is None else cuda_lib.ELEM_CODES[act_fq]
+    cuda_lib.launch(
+        "mx_matmul", fn,
+        x.data_ptr(), w_data.data_ptr(), w_scale.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        M, N, K, act, bm, splits,
+    )
+    return out
 
 
 def mx_matmul_fp4_halves(
@@ -77,25 +162,16 @@ def mx_matmul_fp4_halves(
         raise ValueError(f"the fp4 matmul fuses act_fq in {ACT_FQ_FORMATS}, got {act_fq!r}")
     if not on_cuda(x, w_data, w_scale):
         return mx_matmul_fp4_halves_plain(x, w_data, w_scale, act_fq)
-    if x.dim() != 2 or x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError(f"x must be a contiguous 2-D bf16 tensor, got {x.dtype} {tuple(x.shape)}")
-    M, K = x.shape
-    N = w_data.shape[1]
-    if K % 64 or N % 64:
-        raise ValueError(f"the fp4 matmul kernel needs K % 64 == 0 and N % 64 == 0, got K={K} N={N}")
-    if w_data.shape != (K // 2, N) or w_scale.shape != (K // 32, N):
-        raise ValueError(f"weight {tuple(w_data.shape)} / scale {tuple(w_scale.shape)} do not match K={K}")
-    if w_data.dtype != torch.uint8 or w_scale.dtype != torch.uint8:
-        raise ValueError("weight payload and scale must be uint8")
-    if not (w_data.is_contiguous() and w_scale.is_contiguous()):
-        raise ValueError("weight payload and scale must be contiguous")
-    bm, splits = _plan(M, N, K, x.device)
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    ws = torch.empty((splits, M, N) if splits > 1 else (1,), dtype=torch.float32, device=x.device)
-    act = -1 if act_fq is None else cuda_lib.ELEM_CODES[act_fq]
-    cuda_lib.launch(
-        "mx_matmul", "mx_matmul_fp4_halves_launch",
-        x.data_ptr(), w_data.data_ptr(), w_scale.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        M, N, K, act, bm, splits,
-    )
-    return out
+    return _launch_halves("mx_matmul_fp4_halves_launch", x, w_data, w_scale, act_fq, torch.uint8, "fp4")
+
+
+def mx_matmul_fp8_halves(
+    x: torch.Tensor, w_data: torch.Tensor, w_scale: torch.Tensor, act_fq: Optional[str] = None
+) -> torch.Tensor:
+    """K3 over an fp8 halves weight (uint16 words), counted as
+    ``mx_matmul_fp8_halves``.  ``act_fq`` is None or ``"float8_e4m3"``."""
+    if act_fq not in ACT_FQ_FORMATS:
+        raise ValueError(f"the fp8 halves matmul fuses act_fq in {ACT_FQ_FORMATS}, got {act_fq!r}")
+    if not on_cuda(x, w_data, w_scale):
+        return mx_matmul_fp8_halves_plain(x, w_data, w_scale, act_fq)
+    return _launch_halves("mx_matmul_fp8_halves_launch", x, w_data, w_scale, act_fq, torch.uint16, "fp8 halves")

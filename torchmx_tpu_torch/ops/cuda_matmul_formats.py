@@ -1,0 +1,173 @@
+"""The matmul kernels for the one-byte, fp6-quarters and int8-dot weight
+layouts, and their plain PyTorch versions:
+
+* B6 ``mx_matmul_1byte`` (``csrc/mx_matmul_1byte.cu``) replaces
+  ``torchmx_tpu/ops/pallas_matmul.py::_linear_kernel_1byte``: ``fq(x) (M, K)
+  bf16 @ W (K, N)`` with one code per byte (fp8 e4m3, fp6 e3m2 or e2m3, or
+  int8), ``scale (K/32, N)``; ``act_fq`` in None, ``"float8_e4m3"``,
+  ``"int8"``.
+* B8 ``mx_matmul_fp6q`` (``csrc/mx_matmul_fp6q.cu``) replaces
+  ``_linear_kernel_fp6q``: the same with an fp6 weight in the planar
+  quarters layout (``(3K/4, N)`` bytes, ``MXTensor.to_fp6_quarters``);
+  ``act_fq`` in None, ``"float8_e4m3"``.
+* B9 ``mx_matmul_int8dot`` / ``mx_matmul_fp8dot`` (``csrc/mx_matmul_int8dot.cu``)
+  replace ``_int8dot_kernel`` (and its ``fp8=True`` variant): x is quantized
+  by K1 to int8 (or e4m3) codes and E8M0 scales, each 32-element block's dot
+  with W's codes is taken on the codes (exact int32 for int8), multiplied by
+  ``2^(sx-127)`` then ``2^(sw-127)`` (f32 factors built from the scale
+  bytes: byte 0 gives +0) and added to an f32 accumulator in block order.
+
+Weight decode (B6, B8) is ``decode_codes_to_bf16(dot_operand=True)`` of the
+reference, and ``decode_int8_to_bf16`` for int8: signed zeros and the fp8
+NaN code are not reproduced, results below the bf16 normal range flush.
+
+B6 forms each 32-block's partial product in a zeroed accumulator and adds
+it to the row's sum in block order, over the same K splits as B9
+(``cuda_matmul._plan``).  With int8 weights and an int8-grid x every
+partial is exact, so B6 and B9 give a row the same bytes: the engine's rows
+keep their bits whichever kernel their admission's size picks.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..mx_quantization import f32_from_bits
+from ..packing import fp6_quarters_to_codes
+from . import cuda_lib
+from .backend import on_cuda
+from .cuda_matmul import _plan, check_matmul_operands, decode_code_dot, fq_matmul
+from .cuda_quantize import mx_quantize
+
+CODE_FORMATS_1BYTE = ("float8_e4m3", "float6_e3m2", "float6_e2m3", "int8")
+FP6_FORMATS = ("float6_e3m2", "float6_e2m3")
+ACT_FQ_1BYTE = (None, "float8_e4m3", "int8")
+ACT_FQ_FP6Q = (None, "float8_e4m3")
+INT8DOT_MAX_M = 256  # rows above which the JAX package leaves int8 dots for the 1-byte kernel
+
+
+def dequantize_1byte(w_codes: torch.Tensor, w_scale: torch.Tensor, elem_name: str) -> torch.Tensor:
+    """(K, N) one-byte codes + (K/32, N) scales -> (K, N) bf16 weight."""
+    codes = w_codes.to(torch.int32) if elem_name == "int8" else w_codes.to(torch.int32) & 0xFF
+    return decode_code_dot(codes, w_scale.to(torch.int32).repeat_interleave(32, dim=0), elem_name)
+
+
+def dequantize_fp6q(planes: torch.Tensor, w_scale: torch.Tensor, elem_name: str) -> torch.Tensor:
+    return decode_code_dot(fp6_quarters_to_codes(planes),
+                           w_scale.to(torch.int32).repeat_interleave(32, dim=0), elem_name)
+
+
+def _check_formats(elem_name, act_fq, formats, acts, what):
+    if elem_name not in formats:
+        raise ValueError(f"the {what} kernel takes code formats {formats}, got {elem_name!r}")
+    if act_fq not in acts:
+        raise ValueError(f"the {what} kernel fuses act_fq in {acts}, got {act_fq!r}")
+
+
+def _launch_matmul(src: str, fn: str, x, w, w_scale, elem_name, act_fq, k_tile, w_rows):
+    M, K = x.shape
+    N = w.shape[1]
+    check_matmul_operands(x, w, w_scale, w_rows, torch.int8 if elem_name == "int8" else torch.uint8,
+                          src, k_multiple=k_tile)
+    bm, splits = _plan(M, N, K, x.device, k_tile)
+    if k_tile == 128:
+        bm = min(bm, 64)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    ws = torch.empty((splits, M, N) if splits > 1 else (1,), dtype=torch.float32, device=x.device)
+    act = -1 if act_fq is None else cuda_lib.ELEM_CODES[act_fq]
+    cuda_lib.launch(src, fn, x.data_ptr(), w.data_ptr(), w_scale.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                    M, N, K, cuda_lib.ELEM_CODES[elem_name], act, bm, splits)
+    return out
+
+
+def mx_matmul_1byte_plain(x, w_codes, w_scale, elem_name: str, act_fq: Optional[str] = None):
+    """Plain version of B6: fake-quantize x (if ``act_fq``), decode W, fp32
+    matmul, one bf16 rounding."""
+    return fq_matmul(x, dequantize_1byte(w_codes, w_scale, elem_name), act_fq)
+
+
+def mx_matmul_1byte(x, w_codes, w_scale, elem_name: str, act_fq: Optional[str] = None):
+    """B6: ``fq(x) @ W`` in bf16 for a one-byte-per-code weight.  CUDA
+    tensors launch the kernel (K % 64 and N % 64 must be 0); the rest raises."""
+    _check_formats(elem_name, act_fq, CODE_FORMATS_1BYTE, ACT_FQ_1BYTE, "one-byte")
+    if not on_cuda(x, w_codes, w_scale):
+        return mx_matmul_1byte_plain(x, w_codes, w_scale, elem_name, act_fq)
+    return _launch_matmul("mx_matmul_1byte", "mx_matmul_1byte_launch", x, w_codes, w_scale, elem_name,
+                          act_fq, 64, x.shape[1])
+
+
+def mx_matmul_fp6q_plain(x, planes, w_scale, elem_name: str, act_fq: Optional[str] = None):
+    """Plain version of B8."""
+    return fq_matmul(x, dequantize_fp6q(planes, w_scale, elem_name), act_fq)
+
+
+def mx_matmul_fp6q(x, planes, w_scale, elem_name: str, act_fq: Optional[str] = None):
+    """B8: ``fq(x) @ W`` in bf16 for an fp6 weight in the quarters layout.
+    CUDA tensors launch the kernel (K % 128 and N % 64 must be 0)."""
+    _check_formats(elem_name, act_fq, FP6_FORMATS, ACT_FQ_FP6Q, "fp6 quarters")
+    if not on_cuda(x, planes, w_scale):
+        return mx_matmul_fp6q_plain(x, planes, w_scale, elem_name, act_fq)
+    return _launch_matmul("mx_matmul_fp6q", "mx_matmul_fp6q_launch", x, planes, w_scale, elem_name,
+                          act_fq, 128, 3 * x.shape[1] // 4)
+
+
+def _code_values(codes: torch.Tensor, fp8: bool) -> torch.Tensor:
+    """One-byte codes -> their exact values (int8, or e4m3 without scale) in float64."""
+    if fp8:
+        return codes.contiguous().view(torch.uint8).view(torch.float8_e4m3fn).float().double()
+    return codes.view(torch.int8).to(torch.float64)
+
+
+def mx_matmul_int8dot_plain(xc, sx, w_codes, w_scale, fp8: bool = False) -> torch.Tensor:
+    """Plain version of B9 on codes: each 32-block's dot exact (float64),
+    times ``2^(sx-127)`` then ``2^(sw-127)`` in f32, added in block order,
+    one bf16 rounding."""
+    M, K = xc.shape
+    N, nb = w_codes.shape[1], K // 32
+    xv = _code_values(xc, fp8).reshape(M, nb, 32).transpose(0, 1)
+    wv = _code_values(w_codes, fp8).reshape(nb, 32, N)
+    dots = torch.bmm(xv, wv).to(torch.float32)  # (nb, M, N)
+    px = f32_from_bits(sx.to(torch.int32) << 23).t()  # (nb, M)
+    pw = f32_from_bits(w_scale.to(torch.int32) << 23)  # (nb, N)
+    acc = torch.zeros((M, N), dtype=torch.float32, device=xc.device)
+    for b in range(nb):
+        acc += (dots[b] * px[b][:, None]) * pw[b][None, :]
+    return acc.to(torch.bfloat16)
+
+
+def mx_matmul_int8dot_codes(xc, sx, w_codes, w_scale, fp8: bool = False) -> torch.Tensor:
+    """B9 on x already quantized to codes ``xc (M, K)`` and scales ``sx (M,
+    K/32)``: the kernel on CUDA tensors, counted as ``mx_matmul_int8dot``
+    (``mx_matmul_fp8dot`` for e4m3 codes); M up to ``INT8DOT_MAX_M``."""
+    if not on_cuda(xc, sx, w_codes, w_scale):
+        return mx_matmul_int8dot_plain(xc, sx, w_codes, w_scale, fp8)
+    M, K = xc.shape
+    N = w_codes.shape[1]
+    code_dtype = torch.uint8 if fp8 else torch.int8
+    if xc.dtype != code_dtype or w_codes.dtype != code_dtype or sx.dtype != torch.uint8:
+        raise ValueError(f"B9 takes {code_dtype} codes and uint8 scales, got {xc.dtype} / {w_codes.dtype} / {sx.dtype}")
+    if not 0 < M <= INT8DOT_MAX_M or K % 64 or N % 64:
+        raise ValueError(f"B9 needs 0 < M <= {INT8DOT_MAX_M}, K % 64 == 0 and N % 64 == 0, got M={M} K={K} N={N}")
+    if sx.shape != (M, K // 32) or w_codes.shape != (K, N) or w_scale.shape != (K // 32, N):
+        raise ValueError(f"B9 operand shapes do not match: x {tuple(xc.shape)} sx {tuple(sx.shape)} "
+                         f"w {tuple(w_codes.shape)} sw {tuple(w_scale.shape)}")
+    if not all(t.is_contiguous() for t in (xc, sx, w_codes, w_scale)):
+        raise ValueError("B9 operands must be contiguous")
+    _, splits = _plan(M, N, K, xc.device)
+    bm = 16 if M <= 16 else 64
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=xc.device)
+    ws = torch.empty((splits, M, N) if splits > 1 else (1,), dtype=torch.float32, device=xc.device)
+    fn = "mx_matmul_fp8dot_launch" if fp8 else "mx_matmul_int8dot_launch"
+    cuda_lib.launch("mx_matmul_int8dot", fn, xc.data_ptr(), sx.data_ptr(), w_codes.data_ptr(),
+                    w_scale.data_ptr(), out.data_ptr(), ws.data_ptr(), M, N, K, bm, splits)
+    return out
+
+
+def mx_matmul_int8dot(x: torch.Tensor, w_codes, w_scale, fp8: bool = False) -> torch.Tensor:
+    """B9 on a bf16 x: K1 quantizes x to MXINT8 (MXFP8 with ``fp8``) codes
+    and scales, as ``int8dot_any`` / ``fp8dot_any`` do, then the int8-dot
+    kernel (the plain versions of both on CPU tensors)."""
+    sx, xc = mx_quantize(x.contiguous(), "float8_e4m3" if fp8 else "int8")
+    return mx_matmul_int8dot_codes(xc, sx, w_codes, w_scale, fp8)

@@ -1,5 +1,7 @@
 """fp4 payload packing: two 4-bit codes per byte, first element in the HIGH
-nibble (``b = e0 << 4 | e1``), the layout of ``torchmx_tpu/packing.py``."""
+nibble (``b = e0 << 4 | e1``), the layout of ``torchmx_tpu/packing.py``; and
+the unpacking of the fp8 "halves" and fp6 "quarters" kernel layouts along
+dim 0 (``MXTensor.to_fp8_halves`` / ``to_fp6_quarters`` pack them)."""
 
 from __future__ import annotations
 
@@ -37,3 +39,20 @@ def fp4_pairs_to_halves(packed: torch.Tensor) -> torch.Tensor:
 def fp4_halves_to_pairs(data: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`fp4_pairs_to_halves`."""
     return pack_uint4(torch.cat([data >> 4, data & 0xF], dim=-1), packing_dim=-1)
+
+
+def fp8_halves_to_codes(words: torch.Tensor) -> torch.Tensor:
+    """(K/2, N) uint16 words, word p holding the codes of rows p (high byte)
+    and p + K/2 (low byte) -> (K, N) int32 codes."""
+    w = words.view(torch.int16).to(torch.int32) & 0xFFFF
+    return torch.cat([w >> 8, w & 0xFF], dim=0)
+
+
+def fp6_quarters_to_codes(planes: torch.Tensor) -> torch.Tensor:
+    """(3K/4, N) byte planes ``P0 = q0 << 2 | q3 >> 4``, ``P1 = q1 << 2 |
+    (q3 >> 2) & 3``, ``P2 = q2 << 2 | q3 & 3`` -> (K, N) int32 fp6 codes, the
+    K quarters q0..q3 in order."""
+    q = planes.shape[0] // 3
+    p0, p1, p2 = (planes[i * q:(i + 1) * q].to(torch.int32) for i in range(3))
+    q3 = ((p0 & 3) << 4) | ((p1 & 3) << 2) | (p2 & 3)
+    return torch.cat([p0 >> 2, p1 >> 2, p2 >> 2, q3], dim=0)
