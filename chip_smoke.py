@@ -5,7 +5,7 @@ Run from the repository root with one card:  python3 chip_smoke.py
 Phases, each on ``cuda``; any failure raises and the script exits non-zero:
 
 1. device: name, and name + power limit from nvidia-smi;
-2. kernels: builds the twelve CUDA sources from ``torchmx_tpu_torch/csrc``
+2. kernels: builds the CUDA sources from ``torchmx_tpu_torch/csrc``
    and holds each kernel against its plain PyTorch version on the card (K1/K2
    bit-exact over all 2^16 bf16 patterns in all five formats, and at every
    main-path shape; K3 rel <= 1e-2; K4 over fp8 and int8 caches, K5 over
@@ -16,12 +16,17 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    over both fp6 formats and K3 over fp8 halves rel <= 1e-2, B9 over int8,
    int8-domain fp4 / e2m3 and e4m3 weights within one bf16 step, each at the
    five Llama-3-8B linears at every main-path M, and B9 giving B6's bytes on
-   int8; the RMSNorm kernel within one bf16 step), then
+   int8; the RMSNorm kernel within one bf16 step; this slice's B12 over bf16
+   experts and four code formats at tm 8 and 128 rel <= 1e-2, on bench.py's
+   shape routed-2 and spread and at the Mixtral main path's w1 and w2 calls,
+   giving B6's bytes for every live tile of int8 experts; the router kernel
+   within one bf16 step), then
    times kernel, plain version and, where one exists, the one PyTorch call
    computing the same function (CUDA events, median of 20, L2 flushed
    before each call); every matmul kernel and the RMSNorm kernel must give a
    row the same bytes whatever the number of rows in the call, and B9 and
-   B6 the same bytes for an int8 row;
+   B6 the same bytes for an int8 row; B12 and the router kernel give every
+   token the same bytes at every token count from 1 to 511;
 3. model check: a 2-layer model at Llama-3-8B width, seeded random weights,
    b=2, 16 greedy tokens, with the fp8 cache, the int8 cache and the int8
    d-major cache with the all-int8 decode flag (K6 and K7); then this slice's
@@ -32,7 +37,14 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    (L2 rel, gates in GATES), and the tokens wherever the plain top-2 gap
    exceeds the cache's tie gap.  The plain path with another rounding
    (float64 attention, other tiles) must pass the same gates, and each
-   planted kernel fault must fail one;
+   planted kernel fault must fail one.  Then 2-layer Mixtral-8x7B-width
+   models over the int8 seq cache (router rows 0 and 1 tied, so that the
+   tie-break is exercised): fp4 grouped experts (B12 on int8-domain codes)
+   with four planted faults (B12 on the wrong expert, B12 on the next
+   block's scale row, the router's tie-break reversed, combine dropping the
+   second expert) and e3m2 grouped experts, the kernel path replaying the
+   plain path's expert choices (``RouteTape``); and the int8-weight grouped
+   model against the per-expert one (B6), bit for bit;
 4. the ``generate`` path: Llama-3-8B (32 layers) with MXFP4 weights, MXFP8
    activations and an fp8 KV cache, built layer by layer from a seed,
    greedy generation of 128 tokens after a 64-token prompt at batch 1 and
@@ -66,12 +78,19 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    must keep its bytes), then ``generate`` at batch 32 over the fp8 cache
    with MXFP6 e3m2 weights (B8 throughout), MXFP8 weights (K3 over fp8
    halves) and MXFP8 weights under ``TORCHMX_FP8_DOT=1`` (B9-fp8 at decode,
-   B6 at prefill).
+   B6 at prefill);
+8. this slice's path: Mixtral-8x7B (32 layers, 8 experts, top-2) with MXFP4
+   grouped experts (stacked int8-domain codes, B12), MXFP4 attention (K3),
+   MXFP8 activations and the int8 seq cache, built layer by layer from a
+   seed: ``generate`` at batch 1 and 32 (prompt 64 + 128 new) and the
+   48-request engine stream with every check of phase 5; every decode step
+   must launch B12 96 times.  Last, the engine against the plain path on a
+   2-layer Mixtral, the plain run replaying the kernel run's expert choices.
 
 Every kernel must have launched on each main path that runs it.  The line
 before last is a JSON object describing every kernel; the last is
 ``{"ok": true, "device": {...}}``.  ``--layers N`` cuts the depth of the
-models of phases 4-7.
+Llama models of phases 4-7 (Mixtral keeps its 32).
 """
 
 from __future__ import annotations
@@ -1186,14 +1205,16 @@ def _rel(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def teacher_forced(model, ids, caches, pos, floor: bool):
+def teacher_forced(model, ids, caches, pos, floor: bool, tape=None):
     """One step, layer by layer from the plain path's hidden state: each
     decoder layer's update (output minus input) on the kernel path, from a
     copy of the same cache, against the plain path's; then lm_head on the
     same final hidden state.  With ``floor``, also the plain path with
     float64 attention against the plain path, layer by layer.  Advances
-    ``caches`` by the plain path.  Returns (worst layer rel, lm_head rel,
-    worst layer floor or None, plain logits of the last row)."""
+    ``caches`` by the plain path.  With a ``RouteTape`` the plain layer
+    records its routing and the other two replay it.  Returns (worst layer
+    rel, lm_head rel, worst layer floor or None, plain logits of the last
+    row)."""
     from torchmx_tpu_torch.models.llama import rope_cos_sin
     from torchmx_tpu_torch.ops.backend import plain_path
 
@@ -1203,14 +1224,23 @@ def teacher_forced(model, ids, caches, pos, floor: bool):
     position_ids = torch.arange(pos, pos + s, device=x.device)[None].expand(b, s)
     cos, sin = rope_cos_sin(m.inv_freq, position_ids, x.dtype)
     worst, worst_floor = 0.0, None
+    def tape_mode(mode, who="kernel"):
+        if tape is not None:
+            tape.mode, tape.cursor, tape.who = mode, len(tape.routes) - 1, who
+
     for layer, cache in zip(m.layers, caches):
         kw = dict(cos=cos, sin=sin, cache_position=pos)
-        got = layer(x, cache=cache.clone(), **kw)
+        pre, pre64 = cache.clone(), cache.clone() if floor else None
+        tape_mode("record")
         with plain_path():
-            if floor:
-                with f64_plain_attention():
-                    ref64 = layer(x, cache=cache.clone(), **kw)
             ref = layer(x, cache=cache, **kw)
+        tape_mode("replay")
+        got = layer(x, cache=pre, **kw)
+        if floor:
+            tape_mode("replay", who="floor")
+            with plain_path(), f64_plain_attention():
+                ref64 = layer(x, cache=pre64, **kw)
+        tape_mode(None)
         update = ref.float() - x.float()
         worst = max(worst, _rel(got.float() - x.float(), update))
         if floor:
@@ -1294,7 +1324,16 @@ GATES = {"float8_e4m3": {"layer": 5e-2, "lm_head": 2e-2, "logits": 8e-2, "tie_ga
          # 1.73 / 1.52.
          "W8A8 int8 cache": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3},
          "MXFP6 e3m2 fp8 cache": {"layer": 5e-2, "lm_head": 2e-2, "logits": 8e-2, "tie_gap": 0.1},
-         "MXFP8 fp8 cache": {"layer": 5e-2, "lm_head": 2e-2, "logits": 8e-2, "tie_gap": 0.1}}
+         "MXFP8 fp8 cache": {"layer": 5e-2, "lm_head": 2e-2, "logits": 8e-2, "tie_gap": 0.1},
+         # Mixtral over the int8 cache, kernels held under the plain path's
+         # expert choices (RouteTape): the int8 cache's gates, no routing
+         # decision may differ on the same logits, and the kernel path's own
+         # choices may flip only where the plain path's k-th and (k+1)-th
+         # expert probabilities lie within route_tie_gap.
+         "Mixtral fp4 grouped int8 cache": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3,
+                                            "route_tie_gap": 5e-2},
+         "Mixtral e3m2 grouped int8 cache": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3,
+                                             "route_tie_gap": 5e-2}}
 
 
 def gate_failures(r: dict, gates: dict) -> list:
@@ -1303,6 +1342,11 @@ def gate_failures(r: dict, gates: dict) -> list:
             if not r[key] <= gates[key]]
     if r["decisive_flips"]:
         out.append(f"{r['decisive_flips']} tokens differ at decisive steps")
+    if r.get("route_mismatch"):
+        out.append(f"{r['route_mismatch']} routing decisions differ on the same router logits")
+    if r.get("max_flipped_route_gap", 0.0) > gates.get("route_tie_gap", float("inf")):
+        out.append(f"an expert choice flipped at a probability gap of {r['max_flipped_route_gap']:.3e} "
+                   f"> {gates['route_tie_gap']:g}")
     if r["generate_mismatch"] and not out:
         out.append(f"generate() picked {r['generate_mismatch']} other tokens")
     return out
@@ -1316,10 +1360,10 @@ def apply_gates(all_readings: dict, gates_of: dict, card) -> None:
         bad = gate_failures(sound, gates)
         if bad:
             raise AssertionError(f"model check, {cache}: {'; '.join(bad)}")
-        for key in ("layer", "logits"):  # another rounding of correct code passes too
-            if not sound[f"floor_{key}"] <= gates[key]:
+        for key, gate in (("layer", "layer"), ("logits", "logits"), ("max_flipped_route_gap", "route_tie_gap")):
+            if gate in gates and not sound[f"floor_{key}"] <= gates[gate]:  # another rounding of correct code passes too
                 raise AssertionError(f"model check, {cache}: the plain path with its other rounding fails "
-                                     f"the {key} gate ({sound[f'floor_{key}']:.3e} > {gates[key]:g})")
+                                     f"the {gate} gate ({sound[f'floor_{key}']:.3e} > {gates[gate]:g})")
         for fault in readings:
             if fault == "sound":
                 continue
@@ -1473,6 +1517,10 @@ def run_slice(model, dev, card, cache="float8_e4m3", batches=(1, 32), weights="f
 
 
 KERNEL_OF_DEVICE_NAME = (  # substring of the CUDA function name -> kernel
+    ("grouped_reduce_kernel", "split-K reduce of B12"),
+    ("grouped_mark_kernel", "row marks of B12"),
+    ("router_kernel", "mx_router_logits"),
+    ("grouped_kernel", "mx_grouped_matmul"),
     ("matmul_int8dot_kernel<16, 1, 4, true>", "mx_matmul_fp8dot"),
     ("matmul_int8dot_kernel<64, 2, 2, true>", "mx_matmul_fp8dot"),
     ("matmul_int8dot_kernel", "mx_matmul_int8dot"),
@@ -1744,7 +1792,7 @@ def engine_profile(model, kv, requests, prefix, step_ms: float) -> dict:
     return out
 
 
-def compare_with_plain_path(dev, card) -> dict:
+def compare_with_plain_path(dev, card, mixtral: bool = False) -> dict:
     """The engine on the kernel path against the same engine under
     ``plain_path()``, on a model of PLAIN_LAYERS layers at full width (the
     plain path at 32 layers takes over a second per step): a mini stream runs
@@ -1752,11 +1800,19 @@ def compare_with_plain_path(dev, card) -> dict:
     kernel path's tokens so that both see the same state at every step (a
     random model's logits are flat, and free-running streams part ways at
     the first near tie).  Wherever the plain path's top-2 gap exceeds the
-    int8 tie gap, its own pick must be the kernel path's token."""
+    int8 tie gap, its own pick must be the kernel path's token.  With
+    ``mixtral``, a 2-layer Mixtral-8x7B-width model, and the plain run
+    replays the kernel run's expert choices (``RouteTape``): its own choices,
+    from hidden states that differ by the kernels' rounding through both
+    layers and the cache, are reported; on the same logits they must be the
+    kernel run's.  (The model check holds the choices from identical layer
+    inputs to a near-tie gate.)"""
     from torchmx_tpu_torch.models.serve import DecodeEngine
     from torchmx_tpu_torch.ops.backend import plain_path
 
-    model = build_model(dev, card, PLAIN_LAYERS, seed=5)
+    layers = 2 if mixtral else PLAIN_LAYERS
+    model = build_mixtral(dev, card, layers, seed=5) if mixtral else build_model(dev, card, layers, seed=5)
+    tape = RouteTape() if mixtral else contextlib.nullcontext()
     kv = quant_configs("int8")[2]
     prefix, requests = make_requests(model.config.vocab_size, seed=11, n=8)
     for r in requests:
@@ -1767,10 +1823,15 @@ def compare_with_plain_path(dev, card) -> dict:
         eng.cache_prefix(prefix)
         return drive(eng, requests, follow)
 
-    got = run()
-    tokens = {rid: rec["tokens"] for rid, rec in got["requests"].items()}
-    with plain_path():
-        ref = run(follow=tokens)
+    with tape:
+        if mixtral:
+            tape.mode = "record"
+        got = run()
+        tokens = {rid: rec["tokens"] for rid, rec in got["requests"].items()}
+        if mixtral:
+            tape.mode, tape.cursor = "replay", 0
+        with plain_path():
+            ref = run(follow=tokens)
     tie_gap = GATES["int8"]["tie_gap"]
     decisive = near_ties = 0
     other, worst = [], 0.0  # picks where the plain path would have gone another way
@@ -1782,11 +1843,18 @@ def compare_with_plain_path(dev, card) -> dict:
         if own != tokens[rid][idx]:
             other.append((rid, idx, round(gap, 4)))
             worst = max(worst, gap)
-    out = dict(layers=PLAIN_LAYERS, requests=len(requests), steps_compared=decisive + near_ties,
-               decisive_steps=decisive, near_ties=near_ties, other_picks=len(other), largest_gap_of_another_pick=worst,
-               tie_gap=tie_gap, kernel_seconds=got["seconds"], plain_seconds=ref["seconds"])
-    log(f"engine vs plain path at {PLAIN_LAYERS} layers (full width, chunked admission, prefix, teacher-forced): "
+    out = dict(model="Mixtral-8x7B" if mixtral else "Llama-3-8B", layers=layers, requests=len(requests),
+               steps_compared=decisive + near_ties, decisive_steps=decisive, near_ties=near_ties,
+               other_picks=len(other), largest_gap_of_another_pick=worst, tie_gap=tie_gap,
+               kernel_seconds=got["seconds"], plain_seconds=ref["seconds"])
+    if mixtral:
+        st = tape.stats["kernel"]
+        out.update(route_mismatch=st["mismatch"], own_route_flips=st["flips"], routed_rows=st["rows"],
+                   max_flipped_route_gap=st["max_flip_gap"])
+    log(f"engine vs plain path at {layers} layers (full width, chunked admission, prefix, teacher-forced): "
         f"{json.dumps(out)} [{card}]")
+    if mixtral and out["route_mismatch"]:
+        raise AssertionError("engine vs plain path: the routing differs on the same router logits")
     if worst > tie_gap:
         raise AssertionError(f"engine vs plain path: the plain path picks another token at decisive steps: "
                              f"{[o for o in other if o[2] > tie_gap]}")
@@ -1871,6 +1939,9 @@ def run_engine(model, dev, card, cache="int8", weights="fp4") -> dict:
             "mx_cached_attention_int8dot" if k7 else "mx_cached_attention_chunkdot": layers}
     if weights == "w8a8":  # B9 takes every linear; K1 quantizes its x and writes K and V
         want.update(mx_matmul_int8dot=linears, mx_quantize=linears + 2 * layers)
+    elif weights == "mixtral":  # K3: q/k/v/o and lm_head; B12: w1, w3, w2; K2: x_sorted and the SwiGLU output
+        want.update(mx_matmul_fp4_halves=4 * layers + 1, mx_grouped_matmul=3 * layers,
+                    mx_fake_quantize=2 * layers, mx_quantize=2 * layers, mx_router_logits=layers)
     else:
         want.update(mx_matmul_fp4_halves=linears, mx_quantize=(3 if k7 else 2) * layers)
     for st in run["steps"]:
@@ -1953,6 +2024,490 @@ def run_formats(dev, card, layers: int):
     return paths, per_step, results
 
 
+# -- this slice: Mixtral-8x7B and B12 ------------------------------------------------
+
+# mistralai/Mixtral-8x7B-v0.1 config.json: the model of phases 3b and 8.
+MIXTRAL_8X7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_hidden_layers=32,
+                    num_attention_heads=32, num_key_value_heads=8, head_dim=128, rope_theta=1e6,
+                    rms_norm_eps=1e-5, max_position_embeddings=32768, sliding_window=None,
+                    num_local_experts=8, num_experts_per_tok=2)
+GROUPED_TM = 128  # the grouped block's row tile (grouped_tm)
+B12_SHAPES = {"w1/w3": (4096, 14336), "w2": (14336, 4096)}
+# Token counts B12 sees on the main path: decode at b=1 and b=32, an engine
+# admission, prefill of b=32 x 64.
+B12_MAIN_T = (1, 32, 512, 2048)
+
+
+def _routing(dev, gen, T, routed2, E=8):
+    """(T, 2) int32 experts: every token on experts 0 and 1 (routed-2), or
+    two distinct random experts per token (spread)."""
+    if routed2:
+        return torch.tensor([[0, 1]], dtype=torch.int32, device=dev).expand(T, 2).contiguous()
+    return torch.rand(T, E, generator=gen, device=dev).argsort(dim=1)[:, :2].to(torch.int32)
+
+
+def _stacked_codes(w, elem):
+    """Stacked (E, K, N) codes and (E, K/32, N) scales of ``elem`` itself
+    (``quantize_stacked`` re-codes e2m3 as int8)."""
+    from torchmx_tpu_torch.mx_array import MXTensor, quantize_stacked
+
+    if elem != "float6_e2m3":
+        return quantize_stacked(w, elem)
+    ts = [MXTensor.to_mx(w[e].t().contiguous(), elem) for e in range(w.shape[0])]
+    return (torch.stack([t.data.t() for t in ts]).contiguous(),
+            torch.stack([t.scale_e8m0.t() for t in ts]).contiguous())
+
+
+def _b12_bound(T, K, N, live_experts, elem):
+    """Bytes: the useful rows of x and of the output, the live experts'
+    weights (codes and scales); operations: 2 * A * N * K, A = 2 T."""
+    A = 2 * T
+    wb = K * N * (2 if elem is None else 1 + 1 / 32)
+    return bound(A * K * 2 + live_experts * wb + A * N * 2, 2 * A * N * K)
+
+
+def _grouped_library(xs, w_bf16, te, tr, tm):
+    """(the one PyTorch call computing B12's function on the live rows, its
+    name): ``torch._grouped_mm`` over the bf16-dequantized experts where this
+    PyTorch has it, else the per-expert ``torch.matmul``s on each expert's
+    live rows, in one function."""
+    E = w_bf16.shape[0]
+    tiles = tr.cpu() > 0
+    per_e = torch.bincount(te.cpu()[tiles].long(), minlength=E) * tm
+    total = int(per_e.sum())
+    a = xs[:total]
+    offs = torch.cumsum(per_e, 0).to(torch.int32).to(xs.device)
+    if hasattr(torch, "_grouped_mm"):
+        try:
+            torch._grouped_mm(a, w_bf16, offs=offs, out_dtype=torch.bfloat16)
+            return (lambda: torch._grouped_mm(a, w_bf16, offs=offs, out_dtype=torch.bfloat16)), "torch._grouped_mm"
+        except (RuntimeError, TypeError, ValueError) as exc:
+            log(f"torch._grouped_mm not usable here ({str(exc).splitlines()[0][:120]}): per-expert torch.matmul")
+    bounds = [0] + torch.cumsum(per_e, 0).tolist()
+    parts = [(a[bounds[e]:bounds[e + 1]], w_bf16[e]) for e in range(E) if bounds[e + 1] > bounds[e]]
+    return (lambda: [torch.matmul(x, w) for x, w in parts]), "per-expert torch.matmul"
+
+
+def check_grouped_kernel(dev, timer, gen):
+    """B12 against its plain version (rel <= 1e-2) for bf16 experts and the
+    four code formats at tm 8 and 128, on ``bench.py:338``'s shape (E=8,
+    K=4096, N=14336, T=8 tokens, k=2) routed-2 and spread, and on the main
+    path's w1 and w2 shapes at every token count it sees; dead rows must be
+    0 and every live tile of int8 experts must give B6's bytes on the same
+    rows.  Timed (kernel, plain, the library call, the bound) at the main
+    path's int8 calls and on the bench shape, whose routed-2 / spread ratio
+    is the dead-tile skip.  Returns (entry, rows)."""
+    from torchmx_tpu_torch.ops import cuda_matmul_formats as kf
+    from torchmx_tpu_torch.ops import cuda_moe, moe
+
+    E, rows, worst = 8, [], 0.0
+    for label, (K, N) in B12_SHAPES.items():
+        w = torch.empty((E, K, N), dtype=torch.bfloat16, device=dev)
+        for e in range(E):
+            w[e] = (torch.randn(K, N, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+        weights = {None: (w, None)}
+        weights.update({el: _stacked_codes(w, el) for el in kf.CODE_FORMATS_1BYTE})
+
+        def run(T, routed2, tm, elem, b6=False, time_it=False, what=""):
+            nonlocal worst
+            x = torch.randn(T, K, generator=gen, device=dev).to(torch.bfloat16)
+            xs, te, tr, _ = moe.group_tokens(x, _routing(dev, gen, T, routed2), tm, E)
+            wq, sc = weights[elem]
+            out = cuda_moe.mx_grouped_matmul(xs, wq, te, tr, tm, sc, elem)
+            ref = cuda_moe.mx_grouped_matmul_plain(xs, wq, te, tr, tm, sc, elem)
+            rel = _rel_max(out, ref)
+            worst = max(worst, (out.float() - ref.float()).abs().max().item())
+            dead = torch.repeat_interleave(tr == 0, tm)
+            live = sorted({e for e, n in zip(te.tolist(), tr.tolist()) if n})
+            msg = f"B12 {label} {what} T={T} tm={tm} {elem or 'bf16'}: R={xs.shape[0]}, {len(live)} live experts, rel err {rel:.3e}"
+            if not (rel <= 1e-2 and bool((out[dead] == 0).all())):
+                raise AssertionError(msg + ", or a dead row is not 0")
+            if b6:
+                for t, (e, n) in enumerate(zip(te.tolist(), tr.tolist())):
+                    r = slice(t * tm, t * tm + n)
+                    if n and not torch.equal(out[r], kf.mx_matmul_1byte(xs[r].contiguous(), wq[e], sc[e], elem)):
+                        raise AssertionError(msg + f": tile {t} is not B6's bytes")
+                msg += ", every live tile B6's bytes"
+            log(msg)
+            if time_it:
+                w_bf16 = w if elem is None else torch.stack([kf.dequantize_1byte(wq[e], sc[e], elem) for e in range(E)])
+                lib, lib_name = _grouped_library(xs, w_bf16, te, tr, tm)
+                t_b, by = _b12_bound(T, K, N, len(live), elem)
+                row = dict(kernel="mx_grouped_matmul", linear=label, case=what, T=T, R=xs.shape[0], tm=tm, K=K, N=N,
+                           elem=elem or "bf16", live_experts=len(live),
+                           ms=timer(lambda: cuda_moe.mx_grouped_matmul(xs, wq, te, tr, tm, sc, elem)),
+                           plain_ms=timer(lambda: cuda_moe.mx_grouped_matmul_plain(xs, wq, te, tr, tm, sc, elem),
+                                          reps=3),
+                           library_ms=timer(lib), library=lib_name, bound_ms=t_b, bound_by=by)
+                log("B12 timing", json.dumps(row))
+                rows.append(row)
+                del w_bf16
+
+        if label == "w1/w3":  # bench.py:338's shape, every format, both row tiles
+            for elem in (None,) + kf.CODE_FORMATS_1BYTE:
+                for tm in (8, GROUPED_TM):
+                    for routed2 in (True, False):
+                        run(8, routed2, tm, elem, b6=elem == "int8",
+                            time_it=tm == GROUPED_TM and elem in (None, "int8"),
+                            what="bench routed-2" if routed2 else "bench spread")
+        for T in B12_MAIN_T:  # the main path's calls: int8 (fp4 re-coded) and e3m2 experts
+            run(T, False, GROUPED_TM, "int8", b6=True, time_it=True, what="main path")
+            run(T, False, GROUPED_TM, "float6_e3m2", what="main path")
+        del weights, w
+        torch.cuda.empty_cache()
+    for elem in ("bf16", "int8"):
+        r2, sp = (next(r for r in rows if r["case"] == c and r["elem"] == elem) for c in ("bench routed-2", "bench spread"))
+        log(f"B12 bench shape {elem}: routed-2 {r2['ms']:.4f} ms against spread {sp['ms']:.4f} ms "
+            f"(ratio {r2['ms'] / sp['ms']:.3f}; the dead-tile skip)")
+    pick = next(r for r in rows if r["case"] == "main path" and r["T"] == 32 and r["linear"] == "w1/w3")
+    return dict(name="mx_grouped_matmul", route="cuda", source="torchmx_tpu_torch/csrc/mx_grouped_matmul.cu",
+                replaces="torchmx_tpu/ops/pallas_moe.py:54/:74/:136",
+                shape=f"w1 decode b=32: T=32 k=2 R={pick['R']} tm=128 K=4096 N=14336 int8 experts",
+                max_abs_err=worst, tolerance="rel <= 1e-2 (max abs over max abs); B6's bytes on int8 experts",
+                library=pick["library"],
+                **{k: pick[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}), rows
+
+
+ROUTER_T = (1, 32, 2048)  # decode b=1, b=32, prefill b=32 x 64
+
+
+def check_router_kernel(dev, timer, gen):
+    """The router kernel against its plain version (cuBLAS, f32 sums) within
+    one bf16 step, at the main path's token counts, timed beside the bf16
+    ``torch.matmul``.  Returns (entry, rows)."""
+    from torchmx_tpu_torch.ops import cuda_moe
+
+    E, H, rows, worst, worst_steps = 8, 4096, [], 0.0, 0.0
+    w = (torch.randn(E, H, generator=gen, device=dev) * H ** -0.5).to(torch.bfloat16)
+    for T in ROUTER_T:
+        x = torch.randn(T, H, generator=gen, device=dev).to(torch.bfloat16)
+        out, ref = cuda_moe.mx_router_logits(x, w), cuda_moe.mx_router_logits_plain(x, w)
+        steps = bf16_steps(out, ref)
+        worst, worst_steps = max(worst, max_abs_diff(out, ref)), max(worst_steps, steps)
+        log(f"mx_router_logits T={T}: {int((out != ref).sum())} of {out.numel()} logits differ from the plain "
+            f"version's, at most {steps:.3g} bf16 steps")
+        if steps > 1.0:
+            raise AssertionError(f"mx_router_logits T={T}: {steps} bf16 steps from the plain version")
+        t_b, by = bound(2 * T * H + 2 * E * H + 2 * T * E, 2 * T * E * H)
+        row = dict(T=T, ms=timer(lambda: cuda_moe.mx_router_logits(x, w)),
+                   plain_ms=timer(lambda: cuda_moe.mx_router_logits_plain(x, w), reps=5),
+                   library_ms=timer(lambda: torch.matmul(x, w.t())), bound_ms=t_b, bound_by=by)
+        log("mx_router_logits timing", json.dumps(row))
+        rows.append(row)
+    pick = rows[1]
+    return dict(name="mx_router_logits", route="cuda", source="torchmx_tpu_torch/csrc/mx_router.cu",
+                replaces="torchmx_tpu/layers/mx_mixtral_moe.py:249",
+                repair="no TPU kernel: the JAX router is a plain jnp matmul; this kernel repairs the port's row "
+                       "invariance (cuBLAS sums a row in another order at other row counts)",
+                shape="T=32 H=4096 E=8", max_abs_err=worst, bf16_steps=worst_steps, tolerance="one bf16 step",
+                **{k: pick[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}), rows
+
+
+def check_moe_row_invariance(dev) -> dict:
+    """B12 and the router at every token count from 1 to 511: each token's
+    rows (gathered by ``dest``) and each token's router logits must keep
+    their bytes whatever the other tokens are; B12 over int8 experts at the
+    w1 and w2 shapes, the router on 4 draws."""
+    from torchmx_tpu_torch.models.mixtral import router_logits
+    from torchmx_tpu_torch.mx_array import quantize_stacked
+    from torchmx_tpu_torch.ops import cuda_moe, moe
+
+    gen = torch.Generator(dev).manual_seed(8765)
+    E, bad = 8, []
+    for label, (K, N) in B12_SHAPES.items():
+        w = torch.empty((E, K, N), dtype=torch.bfloat16, device=dev)
+        for e in range(E):
+            w[e] = (torch.randn(K, N, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+        wq, sc = quantize_stacked(w, "int8")
+        del w
+        x = torch.randn(512, K, generator=gen, device=dev).to(torch.bfloat16)
+        top = _routing(dev, gen, 512, False)
+
+        def rows_of(k):
+            xs, te, tr, dest = moe.group_tokens(x[:k], top[:k], GROUPED_TM, E)
+            return cuda_moe.mx_grouped_matmul(xs, wq, te, tr, GROUPED_TM, sc, "int8")[dest.long()]
+
+        full = rows_of(512)
+        bad += [f"B12 {label} tokens={k}" for k in range(1, 512) if not torch.equal(rows_of(k), full[:2 * k])]
+        del wq, sc
+    gw = (torch.randn(E, 4096, generator=gen, device=dev) * 4096 ** -0.5).to(torch.bfloat16)
+    cublas = collections.Counter()  # the plain (cuBLAS) product's counts that differ: what the kernel repairs
+    for _ in range(4):
+        x = torch.randn(512, 4096, generator=gen, device=dev).to(torch.bfloat16)
+        full = router_logits(x, gw)
+        bad += [f"router tokens={k}" for k in range(1, 512) if not torch.equal(router_logits(x[:k], gw), full[:k])]
+        full = cuda_moe.mx_router_logits_plain(x, gw)
+        cublas.update(k for k in range(1, 512) if not torch.equal(cuda_moe.mx_router_logits_plain(x[:k], gw), full[:k]))
+    if bad:
+        raise AssertionError(f"a token's result depends on the number of tokens: {bad[:20]} ({len(bad)} counts)")
+    log(f"row invariance: B12 (int8 experts, w1 and w2 shapes) and the router kernel (4 draws) give every token the "
+        f"same bytes at every count from 1 to 511; the cuBLAS router differed at {len(cublas)} counts "
+        f"(first: {sorted(cublas)[:12]})")
+    return dict(counts="1-511", b12_shapes=list(B12_SHAPES), router_draws=4, cublas_router_counts_differing=len(cublas))
+
+
+class RouteTape:
+    """Routing decisions of the plain path, replayed on the kernel path.
+
+    Which experts run is a discontinuous function of the router logits: a
+    kernel path that differs from the plain path by a rounding may pick
+    another expert where two probabilities nearly tie, and that token's
+    output then differs by a whole expert.  So the model check holds the
+    kernels under the same decisions and the routing apart: installed as
+    ``models.mixtral.route_topk_raw``, the tape records the plain path's
+    decisions ("record"); on the kernel path ("replay") a token whose own
+    experts differ from the plain path's takes the plain path's experts and
+    weights, every other token keeps its own.  The kernel path also runs its
+    routing function on the plain path's logits, whose decisions must be the
+    same (``route_mismatch``); its own decisions may differ only at near
+    ties (``route_flips``, the largest plain-path gap p_k - p_(k+1) among
+    them)."""
+
+    def __init__(self):
+        from torchmx_tpu_torch.models import mixtral
+
+        self.mixtral, self.orig = mixtral, mixtral.route_topk_raw
+        self.mode, self.routes, self.cursor = None, [], 0
+        self.who = "kernel"  # whose replays are counted: "kernel" or "floor" (the plain path, another rounding)
+        self.stats = {w: dict(mismatch=0, flips=0, rows=0, max_flip_gap=0.0) for w in ("kernel", "floor")}
+        self.flipped_rows = None
+
+    def __enter__(self):
+        self.mixtral.route_topk_raw = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mixtral.route_topk_raw = self.orig
+
+    @staticmethod
+    def _sets(idx):
+        return idx.sort(dim=-1).values
+
+    def __call__(self, logits, k):
+        own = self.orig(logits, k)
+        if self.mode == "record":
+            self.routes.append((logits, own))
+            return own
+        if self.mode != "replay":
+            return own
+        ref_logits, ref = self.routes[self.cursor]
+        self.cursor += 1
+        st = self.stats[self.who]
+        same_logits = self.orig(ref_logits, k)[1]
+        st["mismatch"] += int((self._sets(same_logits) != self._sets(ref[1])).any(dim=-1).sum())
+        flipped = (self._sets(own[1]) != self._sets(ref[1])).any(dim=-1)
+        p = torch.softmax(ref_logits.float(), dim=-1).sort(dim=-1, descending=True).values
+        gap = (p[:, k - 1] - p[:, k])[flipped]
+        st["flips"] += int(flipped.sum())
+        st["rows"] += int(flipped.numel())
+        if gap.numel():
+            st["max_flip_gap"] = max(st["max_flip_gap"], float(gap.max()))
+        if self.flipped_rows is not None and self.who == "kernel":
+            self.flipped_rows |= flipped.reshape(self.flipped_rows.shape[0], -1).any(dim=1)
+        keep = flipped[:, None]  # a token whose experts differ takes the plain path's choice and weights
+        return torch.where(keep, ref[0], own[0]), torch.where(keep, ref[1], own[1])
+
+
+MIXTRAL_FAULTS = ("B12 contracts tile t with expert tile_expert[t] + 1 mod E", "B12 scale row of the next K block",
+                  "router tie-break reversed", "combine_tokens drops the second expert")
+# The model checks of this slice: name -> (weight format, planted faults).
+MIXTRAL_CHECKS = {"Mixtral fp4 grouped int8 cache": ("float4_e2m1", MIXTRAL_FAULTS),
+                  "Mixtral e3m2 grouped int8 cache": ("float6_e3m2", ())}
+
+
+@contextlib.contextmanager
+def moe_fault(name):
+    """A wrong B12, router or combine, on the kernel path only."""
+    from torchmx_tpu_torch.models import mixtral
+    from torchmx_tpu_torch.ops import cuda_moe, moe
+    from torchmx_tpu_torch.ops.backend import on_cuda
+
+    if name.startswith("B12"):
+        mod, attr = cuda_moe, "mx_grouped_matmul"
+        orig = cuda_moe.mx_grouped_matmul
+
+        def faulty(x, w, te, tr, tm, w_scale=None, elem_name=None):
+            if on_cuda(x):
+                if "expert" in name:
+                    te = ((te + 1) % w.shape[0]).to(torch.int32)
+                else:
+                    w_scale = w_scale.roll(-1, dims=1)
+            return orig(x, w, te, tr, tm, w_scale, elem_name)
+    elif name.startswith("router"):
+        mod, attr = mixtral, "route_topk_raw"
+        orig = mixtral.route_topk_raw
+
+        def faulty(logits, k):
+            if not on_cuda(logits):
+                return orig(logits, k)
+            E = logits.shape[-1]
+            vals, idx = orig(logits.flip(-1), k)  # the higher index first among equal values
+            return vals, (E - 1 - idx).to(torch.int32)
+    else:
+        mod, attr = moe, "combine_tokens"
+        orig = moe.combine_tokens
+
+        def faulty(y_sorted, dest, top_vals):
+            if on_cuda(y_sorted):
+                top_vals = top_vals * torch.tensor([1.0] + [0.0] * (top_vals.shape[1] - 1), device=top_vals.device)
+            return orig(y_sorted, dest, top_vals)
+    setattr(mod, attr, faulty)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, orig)
+
+
+def build_mixtral(dev, card, layers: int, seed: int = 0, weights="float4_e2m1", acts="float8_e4m3",
+                  grouped: bool = True, tied_router: bool = False):
+    """Mixtral-8x7B at full width, ``layers`` deep: seeded random bf16 weights
+    made on the card and quantized layer by layer (the grouped block over
+    stacked codes unless ``grouped`` is False).  ``tied_router`` makes each
+    layer's router rows 0 and 1 equal: the two experts' logits then tie
+    exactly on every token (the tie-break's test)."""
+    from torchmx_tpu_torch.models.mixtral import MixtralConfig, MixtralForCausalLM
+    from torchmx_tpu_torch.ops import cuda_lib
+    from torchmx_tpu_torch.quant_api import build_quantized
+
+    qa, qm, _ = quant_configs(weights=weights, acts=acts)
+    cfg = MixtralConfig(**{**MIXTRAL_8X7B, "num_hidden_layers": layers})
+
+    def prepare(layer):
+        layer.mlp.grouped, layer.mlp.grouped_tm = grouped, GROUPED_TM
+        if tied_router:
+            layer.mlp.gate.weight[1] = layer.mlp.gate.weight[0]
+
+    cuda_lib.reset_launch_counts()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_quantized(MixtralForCausalLM, cfg, qa, qm, dev, torch.Generator(dev).manual_seed(seed), prepare)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    log(f"model: built and quantized Mixtral-8x7B ({layers} layers), {weights} weights "
+        f"({'grouped, stacked codes' if grouped else 'per-expert linears'}) / {acts} activations, in {seconds:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card [{card}]")
+    log(f"model: launches while building (weight quantization, not a main path): {json.dumps(dict(cuda_lib.LAUNCHES))}")
+    model.build_seconds = seconds
+    return model
+
+
+def mixtral_readings(model, prompt, n, kv, floor: bool, tie_gap: float) -> dict:
+    """``model_readings`` with the routing tape: each step the plain path runs
+    first, layer by layer, recording its routing; the kernel path's layers,
+    its end-to-end forward and the plain path with float64 attention replay
+    it.  Adds the routing readings, of the kernel path and (``floor_``) of
+    the plain path with float64 attention.  ``generate`` runs on its own
+    routing, so a row is compared with it only until its own routing first
+    parted from the plain path's (from there on their caches differ)."""
+    from torchmx_tpu_torch.models.generate import generate
+    from torchmx_tpu_torch.ops.backend import plain_path
+
+    tokens = generate(model, prompt, n, kv_cache_config=kv)
+    caches = model.init_cache(prompt.shape[0], 128, kv)
+    r = dict(logits=0.0, layer=0.0, lm_head=0.0, floor_logits=None, floor_layer=None, near_ties=0,
+             decisive_flips=0, max_flipped_gap=0.0, generate_mismatch=0, finite=True)
+    step_in, pos = prompt, 0
+    with torch.inference_mode(), RouteTape() as tape:
+        parted = torch.zeros(prompt.shape[0], dtype=torch.bool, device=prompt.device)
+        for i in range(n):
+            snap = [c.clone() for c in caches]
+            snap64 = [c.clone() for c in caches] if floor else None
+            tape.routes = []
+            layer, head, layer_floor, ref = teacher_forced(model, step_in, snap, pos, floor, tape)
+            tape.mode, tape.cursor, tape.who = "replay", 0, "kernel"
+            tape.flipped_rows = parted
+            got = model(step_in, caches=caches, cache_position=pos, last_only=True)[:, -1].float()
+            tape.flipped_rows = None
+            if floor:
+                tape.cursor, tape.who = 0, "floor"
+                with plain_path(), f64_plain_attention():
+                    ref64 = model(step_in, caches=snap64, cache_position=pos, last_only=True)[:, -1]
+                r["floor_logits"] = max(r["floor_logits"] or 0.0, _rel(ref64, ref))
+                r["floor_layer"] = max(r["floor_layer"] or 0.0, layer_floor)
+            tape.mode = None
+            r["logits"] = max(r["logits"], _rel(got, ref))
+            r["layer"], r["lm_head"] = max(r["layer"], layer), max(r["lm_head"], head)
+            top2 = ref.topk(2, dim=-1).values
+            gap = top2[:, 0] - top2[:, 1]
+            decisive, differ = gap > tie_gap, got.argmax(-1) != ref.argmax(-1)
+            r["near_ties"] += int((~decisive).sum())
+            r["decisive_flips"] += int((differ & decisive).sum())
+            r["max_flipped_gap"] = max(r["max_flipped_gap"], float((gap * differ).max()))
+            r["generate_mismatch"] += int(((got.argmax(-1) != tokens[:, i]) & ~parted).sum())
+            r["finite"] &= bool(torch.isfinite(got).all())
+            pos += step_in.shape[1]
+            step_in = tokens[:, i:i + 1]
+    k, f = tape.stats["kernel"], tape.stats["floor"]
+    r.update(route_mismatch=k["mismatch"], route_flips=k["flips"], routed_rows=k["rows"],
+             max_flipped_route_gap=k["max_flip_gap"], rows_parted_from_generate=int(parted.sum()))
+    if floor:
+        r.update(floor_route_flips=f["flips"], floor_max_flipped_route_gap=f["max_flip_gap"])
+    return r
+
+
+def model_check_mixtral(dev, card) -> dict:
+    """Kernel path against plain path on 2-layer Mixtral-8x7B-width models
+    (seeded, router rows 0 and 1 tied), b=2, 16 greedy tokens over the int8
+    seq cache, with the routing tape: fp4 grouped experts (with the four
+    planted faults of MIXTRAL_FAULTS, each of which must fail a gate) and
+    e3m2 grouped experts; then the int8-weight grouped model against the
+    int8 per-expert model (B6 in dense-exact mode): the same logits, bit for
+    bit, at every step."""
+    from torchmx_tpu_torch.models.generate import generate
+
+    kv = quant_configs("int8")[2]
+    prompt = torch.randint(0, MIXTRAL_8X7B["vocab_size"], (2, 64), generator=torch.Generator(dev).manual_seed(2),
+                           device=dev)
+    all_readings = {}
+    for name, (weights, faults) in MIXTRAL_CHECKS.items():
+        model = build_mixtral(dev, card, 2, seed=1, weights=weights, tied_router=True)
+        tie_gap = GATES[name]["tie_gap"]
+        readings = {"sound": mixtral_readings(model, prompt, 16, kv, True, tie_gap)}
+        for fault in faults:
+            with moe_fault(fault):
+                readings[fault] = mixtral_readings(model, prompt, 16, kv, False, tie_gap)
+        del model
+        for fault, r in readings.items():
+            log(f"model check {name} [{fault}]: 2 layers at Mixtral-8x7B width, b=2, 16 greedy tokens: "
+                f"{json.dumps(r)} [{card}]")
+        all_readings[name] = readings
+    apply_gates(all_readings, GATES, card)
+    outs = {}
+    for grouped in (True, False):
+        model = build_mixtral(dev, card, 2, seed=3, weights="int8", grouped=grouped)
+        outs[grouped] = generate(model, prompt, 8, kv_cache_config=kv, return_logits=True)
+        del model
+    same = torch.equal(outs[True][0], outs[False][0]) and torch.equal(outs[True][1], outs[False][1])
+    gap = (outs[True][1] - outs[False][1]).abs().max().item()
+    log(f"model check: int8-weight grouped (B12) against per-expert (B6) Mixtral, 2 layers, b=2, prompt 64 + 8: "
+        f"logits bit-identical {same} (max abs difference {gap}) [{card}]")
+    if not same:
+        raise AssertionError(f"the grouped int8 model differs from the per-expert one by {gap}")
+    all_readings["int8 grouped vs per-expert"] = dict(bit_identical=same, max_abs_difference=gap)
+    return all_readings
+
+
+def run_mixtral(dev, card, layers: int) -> tuple:
+    """The Mixtral main paths at full width and ``layers`` deep (32 unless
+    cut): ``generate`` at b=1 and b=32 over the int8 seq cache, then the
+    48-request engine stream with all its checks.  Returns (launches by path,
+    launches per decode step by path, results)."""
+    model = build_mixtral(dev, card, layers)
+    build_s = model.build_seconds
+    paths, per_step, results = {}, {}, {}
+    paths["generate_mixtral"], res = run_slice(model, dev, card, "int8", weights="Mixtral fp4 grouped")
+    for b, r in res.items():
+        per_step[f"mixtral_b{b}"] = r["launches_per_decode_step"]
+        results[f"generate_b{b}"] = r
+    results["engine"] = run_engine(model, dev, card, "int8", weights="mixtral")
+    paths["engine_mixtral"] = results["engine"]["launches"]
+    per_step["engine_mixtral"] = results["engine"]["launches_per_decode_step"]
+    results["build_seconds"] = build_s
+    del model
+    torch.cuda.empty_cache()
+    return paths, per_step, results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=32, help="depth of the 8B models (default 32)")
@@ -1978,17 +2533,21 @@ def main() -> int:
     k3, k3_rows = check_matmul_kernel(dev, timer, gen)
     format_entries, format_rows = check_format_kernels(dev, timer, gen)
     rmsnorm, rmsnorm_rows = check_rmsnorm_kernel(dev, timer, gen)
+    b12, b12_rows = check_grouped_kernel(dev, timer, gen)
+    router, router_rows = check_router_kernel(dev, timer, gen)
     k4, k4_rows = check_attention_kernel(dev, timer, gen)
     k5, int8_rows, k4_int8_err = check_int8_attention_kernels(dev, timer, gen)
     k4["max_abs_err"] = max(k4["max_abs_err"], k4_int8_err)
     k6, k7, dmajor_rows = check_dmajor_attention_kernels(dev, timer, gen)
-    kernels += [k3, k4, k5, k6, k7, *format_entries, rmsnorm]
+    kernels += [k3, k4, k5, k6, k7, *format_entries, rmsnorm, b12, router]
     cache_write = check_cache_write(dev, timer, gen)
     row_invariance = check_row_invariance(dev)
+    row_invariance["moe"] = check_moe_row_invariance(dev)
     accuracy = attention_accuracy(dev, gen)
     log(f"phase 2 (kernels) done at {time.perf_counter() - t_start:.0f} s")
     check_readings = model_check(dev, card)
     check_readings.update(model_check_formats(dev, card))
+    check_readings.update(model_check_mixtral(dev, card))
     log(f"phase 3 (model checks) done at {time.perf_counter() - t_start:.0f} s")
     model = build_model(dev, card, args.layers)
     # Each main path is driven with the counts set to 0 just before it and
@@ -2008,22 +2567,30 @@ def main() -> int:
     log(f"phases 4-6 (fp4 paths) done at {time.perf_counter() - t_start:.0f} s")
     format_paths, format_per_step, format_results = run_formats(dev, card, args.layers)
     paths.update(format_paths)
-    log(f"phase 7 (this slice's formats) done at {time.perf_counter() - t_start:.0f} s")
+    log(f"phase 7 (the weight formats) done at {time.perf_counter() - t_start:.0f} s")
+    mixtral_paths, mixtral_per_step, mixtral_results = run_mixtral(dev, card, MIXTRAL_8X7B["num_hidden_layers"])
+    paths.update(mixtral_paths)
+    log(f"phase 8 (Mixtral-8x7B) done at {time.perf_counter() - t_start:.0f} s")
     plain_results = compare_with_plain_path(dev, card)
+    plain_results_mixtral = compare_with_plain_path(dev, card, mixtral=True)
     for b, r in slice_results.items():
         per_step[f"b{b}"] = r["launches_per_decode_step"]
     per_step["engine"] = engine_results["launches_per_decode_step"]
     per_step["engine_dmajor"] = engine_dmajor["launches_per_decode_step"]
     per_step["generate_fp4_dmajor_b32"] = slice_fp4[32]["launches_per_decode_step"]
     per_step.update(format_per_step)
+    per_step.update(mixtral_per_step)
     seq = {"mx_quantize", "mx_fake_quantize", "mx_matmul_fp4_halves", "mx_cached_attention", "mx_rmsnorm"}
     dmajor = (seq - {"mx_cached_attention"}) | {"mx_cached_attention_dmajor"}
     fmt = seq - {"mx_matmul_fp4_halves"}
+    moe_path = {"mx_grouped_matmul", "mx_matmul_fp4_halves", "mx_cached_attention_chunkdot", "mx_quantize",
+                "mx_fake_quantize", "mx_rmsnorm", "mx_router_logits"}
     on_path = {"generate": seq, "engine": seq | {"mx_cached_attention_chunkdot"},
                "engine_dmajor": dmajor | {"mx_cached_attention_int8dot"}, "generate_fp4_dmajor": dmajor,
                "engine_w8a8": fmt | {"mx_matmul_int8dot", "mx_matmul_1byte", "mx_cached_attention_chunkdot"},
                "generate_fp6": fmt | {"mx_matmul_fp6q"}, "generate_fp8": fmt | {"mx_matmul_fp8_halves"},
-               "generate_fp8dot": fmt | {"mx_matmul_fp8dot", "mx_matmul_1byte"}}
+               "generate_fp8dot": fmt | {"mx_matmul_fp8dot", "mx_matmul_1byte"},
+               "generate_mixtral": moe_path, "engine_mixtral": moe_path}
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -2039,6 +2606,8 @@ def main() -> int:
                        attention_accuracy=accuracy, model_check=check_readings,
                        slice=slice_results, engine=engine_results, engine_dmajor=engine_dmajor,
                        slice_fp4_dmajor=slice_fp4, formats=format_results, engine_vs_plain=plain_results,
+                       grouped_matmul=b12_rows, router=router_rows, mixtral=mixtral_results,
+                       engine_vs_plain_mixtral=plain_results_mixtral,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log("kernels: " + ", ".join(f"{k['name']} ok ({k['launches']} launches)" for k in kernels) + f" [{card}]")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")

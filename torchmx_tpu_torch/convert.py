@@ -1,11 +1,18 @@
-"""Bridge from the JAX package: Llama parameters and MX KV caches.
+"""Bridge from the JAX package: model parameters, MX weights and MX KV caches.
 
 ``from_flat_params`` takes the JAX model's parameters as a flat
 ``{dotted path: numpy array}`` dict (paths as ``nnx`` flattens the model
 state, e.g. ``model.layers.0.self_attn.q_proj.weight``; bf16 arrays as
-``ml_dtypes.bfloat16``) and returns this package's bf16
-``LlamaForCausalLM`` computing the same function.  Quantize it afterwards
-with ``quant_api.quantize_llm_``, from the same bf16 weights.
+``ml_dtypes.bfloat16``) and returns this package's bf16 causal LM of the
+config's family (Llama, Mistral or Mixtral) computing the same function.
+A Mixtral's stacked expert weights ``mlp.w1`` / ``w3`` ``(E, H, I)`` and
+``mlp.w2`` ``(E, I, H)`` and its router ``mlp.gate.weight`` ``(E, H)`` keep
+their names and layouts.  Quantize the model afterwards with
+``quant_api.quantize_llm_``, from the same bf16 weights.
+
+``grouped_moe_from_buffers`` takes a JAX grouped MX MoE block's stacked
+codes and scales (numpy) and returns the port's grouped block over the same
+bytes.
 
 ``cache_from_buffers`` takes the four buffers of a JAX ``MXLayerKVCache`` (as
 numpy arrays) and returns this package's cache over the same bytes, in the
@@ -22,7 +29,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .config import QLinearConfig
+from .layers.mx_mixtral_moe import MXInferenceMixtralMoeBlockGrouped
 from .models.llama import LlamaConfig, LlamaForCausalLM, MXLayerKVCache
+from .models.mistral import MistralConfig, MistralForCausalLM
+from .models.mixtral import MixtralConfig, MixtralForCausalLM
 from .mx_array import MXTensor
 from .ops.backend import DeviceLike, resolve_device
 
@@ -34,11 +45,18 @@ def _to_torch(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
+def causal_lm_class(config: LlamaConfig):
+    """The causal-LM class of the config's family."""
+    if isinstance(config, MixtralConfig):
+        return MixtralForCausalLM
+    return MistralForCausalLM if isinstance(config, MistralConfig) else LlamaForCausalLM
+
+
 def from_flat_params(
     params: Dict[str, np.ndarray], config: LlamaConfig, device: DeviceLike = None
 ) -> LlamaForCausalLM:
     device = resolve_device(device)
-    model = LlamaForCausalLM(config, device=device)
+    model = causal_lm_class(config)(config, device=device)
     targets = dict(model.named_parameters())
     targets["model.embed_tokens.weight"] = targets.pop("model.embed_tokens")
     targets["model.inv_freq"] = model.model.inv_freq
@@ -82,3 +100,20 @@ def mx_tensor_from_buffers(
     device = resolve_device(device)
     return MXTensor(_to_torch(scale).to(device), _to_torch(data).to(device), elem_dtype_name, block_size,
                     padding=padding, block_dim=block_dim, fp4_pack=fp4_pack)
+
+
+def grouped_moe_from_buffers(
+    config: MixtralConfig, gate_weight: np.ndarray, codes: Dict[str, np.ndarray], scales: Dict[str, np.ndarray],
+    qconfig: QLinearConfig, kernel_elem: str, device: DeviceLike = None,
+) -> MXInferenceMixtralMoeBlockGrouped:
+    """The port's grouped MX MoE block over a JAX grouped block's bytes:
+    the router weight ``(E, H)`` bf16, and ``codes`` / ``scales`` keyed
+    ``"w1"``, ``"w3"``, ``"w2"`` (the JAX block's ``w*_codes`` ``(E, K, N)``
+    and ``w*_scale`` ``(E, K/32, N)``), decoded as ``kernel_elem``."""
+    device = resolve_device(device)
+
+    def on(d):
+        return {k: _to_torch(v).to(device) for k, v in d.items()}
+
+    return MXInferenceMixtralMoeBlockGrouped(config, _to_torch(gate_weight).to(device), on(codes), on(scales),
+                                             qconfig, kernel_elem)

@@ -98,11 +98,17 @@ class MXInferenceLinear(nn.Module):
         self.in_features, self.out_features = weight_mx.shape
 
     @classmethod
-    def from_float(cls, mod: Linear, qconfig: QLinearConfig) -> "MXInferenceLinear":
-        w = mod.weight.detach().to(torch.bfloat16).contiguous()
+    def from_weights(cls, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                     qconfig: QLinearConfig) -> "MXInferenceLinear":
+        """From a weight in the torch layout ``(out, in)``, quantized along
+        ``in`` (``torchmx_tpu/layers/linear.py`` ``from_weights``)."""
         wc = qconfig.weights_config
-        bias = None if mod.bias is None else mod.bias.detach()
+        w = weight.detach().to(torch.bfloat16).contiguous()
         return cls(MXTensor.to_mx(w, wc.elem_dtype, wc.block_size), bias, qconfig)
+
+    @classmethod
+    def from_float(cls, mod: Linear, qconfig: QLinearConfig) -> "MXInferenceLinear":
+        return cls.from_weights(mod.weight, None if mod.bias is None else mod.bias.detach(), qconfig)
 
     def _add_bias(self, out: torch.Tensor) -> torch.Tensor:
         return out if self.bias is None else out + self.bias.to(out.dtype)

@@ -257,10 +257,14 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
+    # Extension points of sibling families (Mistral, Mixtral).
+    attention_cls = LlamaAttention
+    mlp_cls = LlamaMLP
+
     def __init__(self, config: LlamaConfig, layer_idx: int, device=None, generator=None):
         super().__init__()
-        self.self_attn = LlamaAttention(config, layer_idx, device, generator)
-        self.mlp = LlamaMLP(config, device, generator)
+        self.self_attn = type(self).attention_cls(config, layer_idx, device, generator)
+        self.mlp = type(self).mlp_cls(config, device, generator)
         self.input_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps, device)
         self.post_attention_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps, device)
 
@@ -271,6 +275,8 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
+    layer_cls = LlamaDecoderLayer  # extension point
+
     def __init__(self, config: LlamaConfig, device=None, generator=None):
         super().__init__()
         self.config = config
@@ -279,7 +285,7 @@ class LlamaModel(nn.Module):
             emb = (torch.randn(emb.shape, generator=generator, device=device) * 0.02).to(torch.bfloat16)
         self.embed_tokens = nn.Parameter(emb, requires_grad=False)
         self.layers = nn.ModuleList(
-            LlamaDecoderLayer(config, i, device, generator) for i in range(config.num_hidden_layers)
+            type(self).layer_cls(config, i, device, generator) for i in range(config.num_hidden_layers)
         )
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps, device)
         self.register_buffer("inv_freq", rope_inv_freq(config, device), persistent=False)
@@ -304,12 +310,14 @@ class LlamaForCausalLM(nn.Module):
     allocate nothing (layers are then filled in one by one).  With a
     ``generator`` the weights are seeded random, else zeros."""
 
+    model_cls = LlamaModel  # extension point
+
     def __init__(self, config: LlamaConfig, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
         self.config = config
-        self.model = LlamaModel(config, device, generator)
+        self.model = type(self).model_cls(config, device, generator)
         self.lm_head = None if config.tie_word_embeddings else Linear(
             config.hidden_size, config.vocab_size, device=device, generator=generator
         )

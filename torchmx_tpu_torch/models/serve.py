@@ -63,7 +63,9 @@ class DecodeEngine:
     """Static-slot continuous batching around a causal LM of this package.
 
     Args:
-        model: a ``LlamaForCausalLM`` (quantized or not).
+        model: a causal LM of this package (``LlamaForCausalLM``,
+            ``MistralForCausalLM`` or ``MixtralForCausalLM``; quantized or
+            not): the engine uses its ``model``, ``logits`` and ``init_cache``.
         max_batch: number of request slots (the decode batch size).
         max_len: per-slot KV-cache capacity in tokens, rounded up to a
             multiple of 128 (the attention kernels' tile multiple).

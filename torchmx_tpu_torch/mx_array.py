@@ -323,3 +323,29 @@ class MXTensor:
             data_lp, self.scale_e8m0, self.elem_dtype.name, self.block_size, target_dtype, bd
         )
         return out.narrow(bd, 0, org_size) if self.padding else out
+
+
+INT8_DOMAIN_FORMATS = ("float4_e2m1", "float6_e2m3")  # re-coded exactly as MXINT8 by quantize_stacked
+
+
+def quantize_stacked(w_km: torch.Tensor, elem_dtype_name: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stacked K-major expert weights ``(E, K, N)`` bf16 -> codes ``(E, K, N)``
+    and scales ``(E, K/32, N)``, blocked along K, one byte per code
+    (``MXInferenceMixtralMoeBlockGrouped._quantize_stacked`` in
+    ``torchmx_tpu/layers/mx_mixtral_moe.py``).  fp4 and fp6 e2m3 quantize on
+    their own grid and are then re-coded exactly as MXINT8
+    (:meth:`MXTensor.to_int8_domain`, int8 codes); the other formats keep
+    their codes (uint8; int8 for MXINT8).  One expert matrix at a time, so
+    the temporaries stay the size of one ``(K, N)`` matrix."""
+    E, K, N = w_km.shape
+    codes = scales = None
+    for e in range(E):
+        t = MXTensor.to_mx(w_km[e].to(torch.bfloat16).t().contiguous(), elem_dtype_name, 32)
+        if elem_dtype_name in INT8_DOMAIN_FORMATS:
+            t = t.to_int8_domain()
+        if codes is None:
+            codes = torch.empty((E, K, N), dtype=t.data.dtype, device=w_km.device)
+            scales = torch.empty((E, K // 32, N), dtype=torch.uint8, device=w_km.device)
+        codes[e] = t.data.t()
+        scales[e] = t.scale_e8m0.t()
+    return codes, scales

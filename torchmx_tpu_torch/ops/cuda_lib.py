@@ -33,7 +33,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("mx_quantize", "mx_matmul", "mx_attention", "mx_attention_chunkdot",
            "mx_attention_dmajor", "mx_attention_int8dot", "mx_matmul_1byte", "mx_matmul_fp6q",
-           "mx_matmul_int8dot", "mx_rmsnorm")
+           "mx_matmul_int8dot", "mx_rmsnorm", "mx_grouped_matmul", "mx_router")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -72,6 +72,15 @@ SIGNATURES = {
         # x codes, x scales, w codes, w scales, out, workspace, M, N, K, tile_rows, splits, stream
         "mx_matmul_int8dot_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
         "mx_matmul_fp8dot_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
+    "mx_grouped_matmul": {
+        # x, w, scale, tile_expert, tile_rows, row marks, out, workspace, R, N, K, E, tm,
+        # elem_code (-1: bf16), splits, stream
+        "mx_grouped_matmul_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "mx_router": {
+        # x, w, out, rows, H, E, stream
+        "mx_router_logits_launch": (_P, _P, _P, _L, _I, _I, _P),
     },
     "mx_rmsnorm": {
         # x, weight, out, rows, D, eps, stream
