@@ -20,13 +20,21 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    experts and four code formats at tm 8 and 128 rel <= 1e-2, on bench.py's
    shape routed-2 and spread and at the Mixtral main path's w1 and w2 calls,
    giving B6's bytes for every live tile of int8 experts; the router kernel
-   within one bf16 step), then
+   bit for bit; B13 over bf16, fp8, both fp6, int8 and fp4
+   latent caches at the Moonlight path's decode, admission and prefill
+   shapes and bench.py's MLA decode shape abs <= 2e-2, and over the int8
+   cache against B13 bf16 over the dequantized latent; B14 over the int8
+   d-major latent abs <= 2e-2 and SQNR > 30 dB against exact attention; B7
+   at the shared-expert down shape rel <= 1e-2, unfused and with fp8 / int8
+   act fq; the router's f32 mode bit for bit at E = 64 and 256; K4 over fp6
+   caches abs <= 2e-2), then
    times kernel, plain version and, where one exists, the one PyTorch call
    computing the same function (CUDA events, median of 20, L2 flushed
    before each call); every matmul kernel and the RMSNorm kernel must give a
    row the same bytes whatever the number of rows in the call, and B9 and
-   B6 the same bytes for an int8 row; B12 and the router kernel give every
-   token the same bytes at every token count from 1 to 511;
+   B6 the same bytes for an int8 row; B12, the router kernel in both modes
+   and B7 give every token the same bytes at every token count from 1 to
+   511;
 3. model check: a 2-layer model at Llama-3-8B width, seeded random weights,
    b=2, 16 greedy tokens, with the fp8 cache, the int8 cache and the int8
    d-major cache with the all-int8 decode flag (K6 and K7); then this slice's
@@ -43,9 +51,19 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    with four planted faults (B12 on the wrong expert, B12 on the next
    block's scale row, the router's tie-break reversed, combine dropping the
    second expert) and e3m2 grouped experts, the kernel path replaying the
-   plain path's expert choices (``RouteTape``); and the int8-weight grouped
-   model against the per-expert one (B6), bit for bit;
-4. the ``generate`` path: Llama-3-8B (32 layers) with MXFP4 weights, MXFP8
+   plain path's expert choices (``RouteTape``), a fifth fault flipping an
+   expert choice at a probability gap above 5e-2; and the int8-weight
+   grouped model against the per-expert one (B6), bit for bit.  Then
+   2-layer models at Moonlight-16B-A3B width (layer 0 dense, layer 1 MoE,
+   router rows 0 and 1 tied, random correction biases) over the int8 seq
+   latent (B13, with seven planted faults: B13 on the next position's scale,
+   B13 taking V from the rope key, B7 with its nibbles swapped, the
+   correction bias in the weights, routed_scaling_factor dropped, the shared
+   experts dropped, a routing flip above 5e-2), the fp4 seq latent, the bf16
+   ``MLACache`` and the int8 d-major latent with the all-int8 flag (B14),
+   the kernels under the plain path's expert choices (``NoauxRouteTape``);
+4. the ``generate`` path: Llama-3-8B's width (8 of its 32 layers by default)
+   with MXFP4 weights, MXFP8
    activations and an fp8 KV cache, built layer by layer from a seed,
    greedy generation of 128 tokens after a 64-token prompt at batch 1 and
    32.  The launch counts are set to 0 just before each timed ``generate``
@@ -79,18 +97,29 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    with MXFP6 e3m2 weights (B8 throughout), MXFP8 weights (K3 over fp8
    halves) and MXFP8 weights under ``TORCHMX_FP8_DOT=1`` (B9-fp8 at decode,
    B6 at prefill);
-8. this slice's path: Mixtral-8x7B (32 layers, 8 experts, top-2) with MXFP4
+8. Mixtral-8x7B (32 layers, 8 experts, top-2) with MXFP4
    grouped experts (stacked int8-domain codes, B12), MXFP4 attention (K3),
    MXFP8 activations and the int8 seq cache, built layer by layer from a
    seed: ``generate`` at batch 1 and 32 (prompt 64 + 128 new) and the
    48-request engine stream with every check of phase 5; every decode step
-   must launch B12 96 times.  Last, the engine against the plain path on a
-   2-layer Mixtral, the plain run replaying the kernel run's expert choices.
+   must launch B12 96 times;
+9. the DeepSeek-V3 path: Moonlight-16B-A3B (27 layers, 64 routed experts,
+   top-6, 2 shared experts, DeepSeek-V3 MLA) with MXFP4 weights (grouped
+   experts on int8-domain codes, B12; the shared experts' down_proj, K 2816,
+   in the pair layout, B7), MXFP8 activations, the f32 router and the int8
+   seq latent cache (B13): ``generate`` at batch 1 and 32, the 48-request
+   engine stream with every check of phase 5, then ``generate`` at batch 32
+   over the int8 d-major latent with ``TORCHMX_ATTN_INT8_DOT=1`` (B14 at
+   every decode step); every decode step must launch each kernel as often
+   as the model's structure says.  Last, the engine against the plain path
+   on a 4-layer Llama, a 2-layer Mixtral and a 4-layer Moonlight, the plain
+   runs replaying the kernel runs' expert choices.
 
 Every kernel must have launched on each main path that runs it.  The line
 before last is a JSON object describing every kernel; the last is
-``{"ok": true, "device": {...}}``.  ``--layers N`` cuts the depth of the
-Llama models of phases 4-7 (Mixtral keeps its 32).
+``{"ok": true, "device": {...}}``.  The Llama models of phases 4-7 run 8
+of Llama-3-8B's 32 layers (``--layers N`` sets another depth); Mixtral keeps
+its 32 layers, Moonlight its 27.
 """
 
 from __future__ import annotations
@@ -114,6 +143,10 @@ BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, data sheet
 LLAMA3_8B = dict(vocab_size=128256, hidden_size=4096, intermediate_size=14336,
                  num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
                  rope_theta=500000.0)
+# Depth of the Llama-3-8B-width models of phases 4-7 by default: cut from 32
+# so that the whole script, with the Mixtral and Moonlight phases at their
+# full depth, ends well inside its time limit (PERF.md).
+LLAMA_LAYERS = 8
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1079,23 +1112,30 @@ def f64_plain_attention():
     takes it), so that p is rounded to bf16 against the global maximum and not
     a running one (the CUDA K5 differs from its plain version in just that
     way: its warps take the tiles in another order); K7 over tiles of 32
-    positions, so that p is requantized in other groups."""
+    positions, so that p is requantized in other groups; B13's plain version
+    in float64 and B14's over tiles of 128 positions."""
     import functools
 
     from torchmx_tpu_torch.ops import cuda_attention as ca
+    from torchmx_tpu_torch.ops import cuda_mla
 
     names = ("mx_cached_attention_plain", "mx_cached_attention_chunkdot_plain", "mx_cached_attention_dmajor_plain")
     plain, tile = {n: getattr(ca, n) for n in names + ("mx_cached_attention_int8dot_plain",)}, ca.CHUNKDOT_TILE
+    mla = {n: getattr(cuda_mla, n) for n in ("mx_mla_attention_plain", "mx_mla_attention_int8dot_plain")}
     for n in names:
         setattr(ca, n, functools.partial(plain[n], compute_dtype=torch.float64))
     ca.mx_cached_attention_int8dot_plain = functools.partial(plain["mx_cached_attention_int8dot_plain"], tile=32)
     ca.CHUNKDOT_TILE = 1 << 20
+    cuda_mla.mx_mla_attention_plain = functools.partial(mla["mx_mla_attention_plain"], compute_dtype=torch.float64)
+    cuda_mla.mx_mla_attention_int8dot_plain = functools.partial(mla["mx_mla_attention_int8dot_plain"], tile=128)
     try:
         yield
     finally:
         ca.CHUNKDOT_TILE = tile
         for n, fn in plain.items():
             setattr(ca, n, fn)
+        for n, fn in mla.items():
+            setattr(cuda_mla, n, fn)
 
 
 # Wrong kernels the model check must catch, each emulated at its wrapper on
@@ -1333,7 +1373,26 @@ GATES = {"float8_e4m3": {"layer": 5e-2, "lm_head": 2e-2, "logits": 8e-2, "tie_ga
          "Mixtral fp4 grouped int8 cache": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3,
                                             "route_tie_gap": 5e-2},
          "Mixtral e3m2 grouped int8 cache": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3,
-                                             "route_tie_gap": 5e-2}}
+                                             "route_tie_gap": 5e-2},
+         # Moonlight-16B-A3B width (2 layers), the kernels held under the plain
+         # path's expert choices (NoauxRouteTape); route_tie_gap bounds the gap
+         # of the biased sigmoid choice values at an own flip.  The int8
+         # cache's gates hold on the H100 (700 W), layer / logits: int8 seq
+         # latent 1.30e-2 / 5.02e-2, plain with float64 attention 1.85e-2 /
+         # 5.02e-2; fp4 3.6e-3 / 5.25e-2 and 2.83e-2 / 5.78e-2; bf16 2.35e-2 /
+         # 5.45e-2 and 2.16e-2 / 5.35e-2; int8 d-major (B14) 1.0e-4 / 2.73e-2
+         # and (B14's plain version over tiles of 128) 7.05e-2 / 9.98e-2; own
+         # routing flips at gaps <= 1.65e-2.  Faults: >= 3.41e-1 / 2.75e-1,
+         # or (the bias in the weights, a flip above 5e-2) 284 and 2 routing
+         # decisions that differ on the same scores.
+         "Moonlight int8 seq latent": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3,
+                                       "route_tie_gap": 5e-2},
+         "Moonlight fp4 seq latent": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3,
+                                      "route_tie_gap": 5e-2},
+         "Moonlight bf16 MLACache": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3,
+                                     "route_tie_gap": 5e-2},
+         "Moonlight int8 d-major int8dot": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3,
+                                            "route_tie_gap": 5e-2}}
 
 
 def gate_failures(r: dict, gates: dict) -> list:
@@ -1474,8 +1533,8 @@ def run_slice(model, dev, card, cache="float8_e4m3", batches=(1, 32), weights="f
 
     kv = quant_configs(CACHES[cache][0])[2]
     cfg = model.config
-    if cfg.num_hidden_layers != LLAMA3_8B["num_hidden_layers"]:
-        log(f"slice: depth cut to {cfg.num_hidden_layers} of 32 layers (--layers)")
+    if type(cfg).__name__ == "LlamaConfig" and cfg.num_hidden_layers != LLAMA3_8B["num_hidden_layers"]:
+        log(f"slice: depth cut to {cfg.num_hidden_layers} of 32 layers")
     # The counts at the start of every forward of the timed run: the first
     # is the prefill, the rest are decode steps.
     at_forward = []
@@ -1517,6 +1576,10 @@ def run_slice(model, dev, card, cache="float8_e4m3", batches=(1, 32), weights="f
 
 
 KERNEL_OF_DEVICE_NAME = (  # substring of the CUDA function name -> kernel
+    ("mla_int8dot_kernel", "mx_mla_attention_int8dot"),
+    ("mla_kernel", "mx_mla_attention"),
+    ("matmul_fp4_pair_kernel", "mx_matmul_fp4_pair"),
+    ("reduce_splits_fp4p_kernel", "split-K reduce of B7"),
     ("grouped_reduce_kernel", "split-K reduce of B12"),
     ("grouped_mark_kernel", "row marks of B12"),
     ("router_kernel", "mx_router_logits"),
@@ -1792,7 +1855,7 @@ def engine_profile(model, kv, requests, prefix, step_ms: float) -> dict:
     return out
 
 
-def compare_with_plain_path(dev, card, mixtral: bool = False) -> dict:
+def compare_with_plain_path(dev, card, family: str = "llama") -> dict:
     """The engine on the kernel path against the same engine under
     ``plain_path()``, on a model of PLAIN_LAYERS layers at full width (the
     plain path at 32 layers takes over a second per step): a mini stream runs
@@ -1806,13 +1869,21 @@ def compare_with_plain_path(dev, card, mixtral: bool = False) -> dict:
     from hidden states that differ by the kernels' rounding through both
     layers and the cache, are reported; on the same logits they must be the
     kernel run's.  (The model check holds the choices from identical layer
-    inputs to a near-tie gate.)"""
+    inputs to a near-tie gate.)  ``family`` "deepseek": a 4-layer
+    Moonlight-16B-A3B-width model (layer 0 dense, 1-3 MoE) over the int8 seq
+    latent cache, its routing replayed the same way (``NoauxRouteTape``)."""
     from torchmx_tpu_torch.models.serve import DecodeEngine
     from torchmx_tpu_torch.ops.backend import plain_path
 
-    layers = 2 if mixtral else PLAIN_LAYERS
-    model = build_mixtral(dev, card, layers, seed=5) if mixtral else build_model(dev, card, layers, seed=5)
-    tape = RouteTape() if mixtral else contextlib.nullcontext()
+    mixtral = family != "llama"
+    layers = 2 if family == "mixtral" else PLAIN_LAYERS
+    if family == "mixtral":
+        model = build_mixtral(dev, card, layers, seed=5)
+    elif family == "deepseek":
+        model = build_moonlight(dev, card, layers, seed=5)
+    else:
+        model = build_model(dev, card, layers, seed=5)
+    tape = {"mixtral": RouteTape, "deepseek": NoauxRouteTape}.get(family, contextlib.nullcontext)()
     kv = quant_configs("int8")[2]
     prefix, requests = make_requests(model.config.vocab_size, seed=11, n=8)
     for r in requests:
@@ -1843,7 +1914,8 @@ def compare_with_plain_path(dev, card, mixtral: bool = False) -> dict:
         if own != tokens[rid][idx]:
             other.append((rid, idx, round(gap, 4)))
             worst = max(worst, gap)
-    out = dict(model="Mixtral-8x7B" if mixtral else "Llama-3-8B", layers=layers, requests=len(requests),
+    out = dict(model={"mixtral": "Mixtral-8x7B", "deepseek": "Moonlight-16B-A3B"}.get(family, "Llama-3-8B"),
+               layers=layers, requests=len(requests),
                steps_compared=decisive + near_ties, decisive_steps=decisive, near_ties=near_ties,
                other_picks=len(other), largest_gap_of_another_pick=worst, tie_gap=tie_gap,
                kernel_seconds=got["seconds"], plain_seconds=ref["seconds"])
@@ -1937,7 +2009,9 @@ def run_engine(model, dev, card, cache="int8", weights="fp4") -> dict:
     linears = 7 * layers + 1
     want = {"mx_rmsnorm": 2 * layers + 1,
             "mx_cached_attention_int8dot" if k7 else "mx_cached_attention_chunkdot": layers}
-    if weights == "w8a8":  # B9 takes every linear; K1 quantizes its x and writes K and V
+    if weights == "moonlight":
+        want = moonlight_launches_per_step(model.config)
+    elif weights == "w8a8":  # B9 takes every linear; K1 quantizes its x and writes K and V
         want.update(mx_matmul_int8dot=linears, mx_quantize=linears + 2 * layers)
     elif weights == "mixtral":  # K3: q/k/v/o and lm_head; B12: w1, w3, w2; K2: x_sorted and the SwiGLU output
         want.update(mx_matmul_fp4_halves=4 * layers + 1, mx_grouped_matmul=3 * layers,
@@ -1947,8 +2021,9 @@ def run_engine(model, dev, card, cache="int8", weights="fp4") -> dict:
     for st in run["steps"]:
         if st["rows"] and st["launches"] != want:
             raise AssertionError(f"engine: a decode step launched {st['launches']}, expected {want}")
+    attention = "B13" if weights == "moonlight" else "K7, not K6" if k7 else "K5, not K4"
     log(f"engine, {weights} {cache} cache: every one of {len(run['steps'])} decode steps launched {json.dumps(want)}: "
-        f"{'K7, not K6' if k7 else 'K5, not K4'}, served each of them; the whole stream launched {json.dumps(launches)}")
+        f"{attention}, served each of them; the whole stream launched {json.dumps(launches)}")
 
     # 3. Admitted whole without the prefix cache, and in chunks among others.
     same_stream(free[1], alone(requests[1], with_prefix=False), "request 1 over the prefix vs whole")
@@ -2172,9 +2247,9 @@ ROUTER_T = (1, 32, 2048)  # decode b=1, b=32, prefill b=32 x 64
 
 
 def check_router_kernel(dev, timer, gen):
-    """The router kernel against its plain version (cuBLAS, f32 sums) within
-    one bf16 step, at the main path's token counts, timed beside the bf16
-    ``torch.matmul``.  Returns (entry, rows)."""
+    """The router kernel against its plain version (the same fixed summation
+    order) bit for bit, at the main path's token counts, timed beside the
+    bf16 ``torch.matmul``.  Returns (entry, rows)."""
     from torchmx_tpu_torch.ops import cuda_moe
 
     E, H, rows, worst, worst_steps = 8, 4096, [], 0.0, 0.0
@@ -2186,7 +2261,7 @@ def check_router_kernel(dev, timer, gen):
         worst, worst_steps = max(worst, max_abs_diff(out, ref)), max(worst_steps, steps)
         log(f"mx_router_logits T={T}: {int((out != ref).sum())} of {out.numel()} logits differ from the plain "
             f"version's, at most {steps:.3g} bf16 steps")
-        if steps > 1.0:
+        if steps > 0.0:
             raise AssertionError(f"mx_router_logits T={T}: {steps} bf16 steps from the plain version")
         t_b, by = bound(2 * T * H + 2 * E * H + 2 * T * E, 2 * T * E * H)
         row = dict(T=T, ms=timer(lambda: cuda_moe.mx_router_logits(x, w)),
@@ -2199,7 +2274,7 @@ def check_router_kernel(dev, timer, gen):
                 replaces="torchmx_tpu/layers/mx_mixtral_moe.py:249",
                 repair="no TPU kernel: the JAX router is a plain jnp matmul; this kernel repairs the port's row "
                        "invariance (cuBLAS sums a row in another order at other row counts)",
-                shape="T=32 H=4096 E=8", max_abs_err=worst, bf16_steps=worst_steps, tolerance="one bf16 step",
+                shape="T=32 H=4096 E=8", max_abs_err=worst, bf16_steps=worst_steps, tolerance="bit for bit",
                 **{k: pick[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}), rows
 
 
@@ -2231,13 +2306,17 @@ def check_moe_row_invariance(dev) -> dict:
         bad += [f"B12 {label} tokens={k}" for k in range(1, 512) if not torch.equal(rows_of(k), full[:2 * k])]
         del wq, sc
     gw = (torch.randn(E, 4096, generator=gen, device=dev) * 4096 ** -0.5).to(torch.bfloat16)
-    cublas = collections.Counter()  # the plain (cuBLAS) product's counts that differ: what the kernel repairs
+    cublas = collections.Counter()  # the cuBLAS product's counts that differ: what the kernel repairs
+
+    def cublas_logits(t):
+        return (t.float() @ gw.float().t()).to(torch.bfloat16)
+
     for _ in range(4):
         x = torch.randn(512, 4096, generator=gen, device=dev).to(torch.bfloat16)
         full = router_logits(x, gw)
         bad += [f"router tokens={k}" for k in range(1, 512) if not torch.equal(router_logits(x[:k], gw), full[:k])]
-        full = cuda_moe.mx_router_logits_plain(x, gw)
-        cublas.update(k for k in range(1, 512) if not torch.equal(cuda_moe.mx_router_logits_plain(x[:k], gw), full[:k]))
+        full = cublas_logits(x)
+        cublas.update(k for k in range(1, 512) if not torch.equal(cublas_logits(x[:k]), full[:k]))
     if bad:
         raise AssertionError(f"a token's result depends on the number of tokens: {bad[:20]} ({len(bad)} counts)")
     log(f"row invariance: B12 (int8 experts, w1 and w2 shapes) and the router kernel (4 draws) give every token the "
@@ -2254,50 +2333,61 @@ class RouteTape:
     another expert where two probabilities nearly tie, and that token's
     output then differs by a whole expert.  So the model check holds the
     kernels under the same decisions and the routing apart: installed as
-    ``models.mixtral.route_topk_raw``, the tape records the plain path's
+    ``models.mixtral.route_topk_raw`` (``NoauxRouteTape``: DeepSeek's
+    ``models.deepseek.route_noaux_tc``), the tape records the plain path's
     decisions ("record"); on the kernel path ("replay") a token whose own
     experts differ from the plain path's takes the plain path's experts and
     weights, every other token keeps its own.  The kernel path also runs its
-    routing function on the plain path's logits, whose decisions must be the
+    routing function on the plain path's inputs, whose decisions must be the
     same (``route_mismatch``); its own decisions may differ only at near
-    ties (``route_flips``, the largest plain-path gap p_k - p_(k+1) among
-    them)."""
+    ties (``route_flips``, the largest plain-path gap between the k-th and
+    (k+1)-th choice among them: probabilities for Mixtral, the biased
+    sigmoid scores for DeepSeek)."""
 
-    def __init__(self):
-        from torchmx_tpu_torch.models import mixtral
-
-        self.mixtral, self.orig = mixtral, mixtral.route_topk_raw
+    def __init__(self, module=None, attr="route_topk_raw"):
+        if module is None:
+            from torchmx_tpu_torch.models import mixtral as module
+        self.module, self.attr, self.orig = module, attr, getattr(module, attr)
         self.mode, self.routes, self.cursor = None, [], 0
         self.who = "kernel"  # whose replays are counted: "kernel" or "floor" (the plain path, another rounding)
         self.stats = {w: dict(mismatch=0, flips=0, rows=0, max_flip_gap=0.0) for w in ("kernel", "floor")}
         self.flipped_rows = None
 
     def __enter__(self):
-        self.mixtral.route_topk_raw = self
+        setattr(self.module, self.attr, self)
         return self
 
     def __exit__(self, *exc):
-        self.mixtral.route_topk_raw = self.orig
+        setattr(self.module, self.attr, self.orig)
 
     @staticmethod
     def _sets(idx):
         return idx.sort(dim=-1).values
 
-    def __call__(self, logits, k):
-        own = self.orig(logits, k)
+    @staticmethod
+    def _gap(inputs, k):
+        """(T,) gap between the k-th and (k+1)-th choice of the inputs."""
+        logits = inputs[0]
+        p = torch.softmax(logits.float(), dim=-1).sort(dim=-1, descending=True).values
+        return p[:, k - 1] - p[:, k]
+
+    def _k(self, inputs):
+        return inputs[1]
+
+    def __call__(self, *inputs):
+        own = self.orig(*inputs)
         if self.mode == "record":
-            self.routes.append((logits, own))
+            self.routes.append((inputs, own))
             return own
         if self.mode != "replay":
             return own
-        ref_logits, ref = self.routes[self.cursor]
+        ref_inputs, ref = self.routes[self.cursor]
         self.cursor += 1
         st = self.stats[self.who]
-        same_logits = self.orig(ref_logits, k)[1]
-        st["mismatch"] += int((self._sets(same_logits) != self._sets(ref[1])).any(dim=-1).sum())
+        same_inputs = self.orig(*ref_inputs)[1]
+        st["mismatch"] += int((self._sets(same_inputs) != self._sets(ref[1])).any(dim=-1).sum())
         flipped = (self._sets(own[1]) != self._sets(ref[1])).any(dim=-1)
-        p = torch.softmax(ref_logits.float(), dim=-1).sort(dim=-1, descending=True).values
-        gap = (p[:, k - 1] - p[:, k])[flipped]
+        gap = self._gap(ref_inputs, self._k(ref_inputs))[flipped]
         st["flips"] += int(flipped.sum())
         st["rows"] += int(flipped.numel())
         if gap.numel():
@@ -2308,8 +2398,29 @@ class RouteTape:
         return torch.where(keep, ref[0], own[0]), torch.where(keep, ref[1], own[1])
 
 
+class NoauxRouteTape(RouteTape):
+    """The tape over DeepSeek's ``route_noaux_tc(scores, bias, config)``; the
+    gap is that of the biased, group-masked choice values."""
+
+    def __init__(self):
+        from torchmx_tpu_torch.models import deepseek
+
+        super().__init__(deepseek, "route_noaux_tc")
+
+    @staticmethod
+    def _gap(inputs, k):
+        from torchmx_tpu_torch.models import deepseek
+
+        v = deepseek.noaux_choice(*inputs).sort(dim=-1, descending=True).values
+        return v[:, k - 1] - v[:, k]
+
+    def _k(self, inputs):
+        return inputs[2].num_experts_per_tok
+
+
 MIXTRAL_FAULTS = ("B12 contracts tile t with expert tile_expert[t] + 1 mod E", "B12 scale row of the next K block",
-                  "router tie-break reversed", "combine_tokens drops the second expert")
+                  "router tie-break reversed", "combine_tokens drops the second expert",
+                  "an expert choice flipped at a gap above 5e-2")
 # The model checks of this slice: name -> (weight format, planted faults).
 MIXTRAL_CHECKS = {"Mixtral fp4 grouped int8 cache": ("float4_e2m1", MIXTRAL_FAULTS),
                   "Mixtral e3m2 grouped int8 cache": ("float6_e3m2", ())}
@@ -2343,6 +2454,23 @@ def moe_fault(name):
             E = logits.shape[-1]
             vals, idx = orig(logits.flip(-1), k)  # the higher index first among equal values
             return vals, (E - 1 - idx).to(torch.int32)
+    elif name.startswith("an expert choice"):
+        mod, attr = mixtral, "route_topk_raw"
+        orig = mixtral.route_topk_raw
+
+        def faulty(logits, k):
+            vals, idx = orig(logits, k)
+            if not on_cuda(logits):
+                return vals, idx
+            # The first token whose k-th and (k+1)-th probabilities lie more
+            # than 5e-2 apart takes its (k+1)-th expert in place of its k-th.
+            p, order = torch.sort(torch.softmax(logits.float(), dim=-1), dim=-1, descending=True, stable=True)
+            wide = torch.nonzero(p[:, k - 1] - p[:, k] > 5e-2)
+            if wide.numel():
+                t = int(wide[0, 0])
+                idx = idx.clone()
+                idx[t, k - 1] = order[t, k].to(torch.int32)
+            return vals, idx
     else:
         mod, attr = moe, "combine_tokens"
         orig = moe.combine_tokens
@@ -2391,7 +2519,7 @@ def build_mixtral(dev, card, layers: int, seed: int = 0, weights="float4_e2m1", 
     return model
 
 
-def mixtral_readings(model, prompt, n, kv, floor: bool, tie_gap: float) -> dict:
+def moe_readings(model, prompt, n, kv, floor: bool, tie_gap: float, tape_cls=RouteTape) -> dict:
     """``model_readings`` with the routing tape: each step the plain path runs
     first, layer by layer, recording its routing; the kernel path's layers,
     its end-to-end forward and the plain path with float64 attention replay
@@ -2407,7 +2535,7 @@ def mixtral_readings(model, prompt, n, kv, floor: bool, tie_gap: float) -> dict:
     r = dict(logits=0.0, layer=0.0, lm_head=0.0, floor_logits=None, floor_layer=None, near_ties=0,
              decisive_flips=0, max_flipped_gap=0.0, generate_mismatch=0, finite=True)
     step_in, pos = prompt, 0
-    with torch.inference_mode(), RouteTape() as tape:
+    with torch.inference_mode(), tape_cls() as tape:
         parted = torch.zeros(prompt.shape[0], dtype=torch.bool, device=prompt.device)
         for i in range(n):
             snap = [c.clone() for c in caches]
@@ -2462,10 +2590,10 @@ def model_check_mixtral(dev, card) -> dict:
     for name, (weights, faults) in MIXTRAL_CHECKS.items():
         model = build_mixtral(dev, card, 2, seed=1, weights=weights, tied_router=True)
         tie_gap = GATES[name]["tie_gap"]
-        readings = {"sound": mixtral_readings(model, prompt, 16, kv, True, tie_gap)}
+        readings = {"sound": moe_readings(model, prompt, 16, kv, True, tie_gap)}
         for fault in faults:
             with moe_fault(fault):
-                readings[fault] = mixtral_readings(model, prompt, 16, kv, False, tie_gap)
+                readings[fault] = moe_readings(model, prompt, 16, kv, False, tie_gap)
         del model
         for fault, r in readings.items():
             log(f"model check {name} [{fault}]: 2 layers at Mixtral-8x7B width, b=2, 16 greedy tokens: "
@@ -2508,9 +2636,570 @@ def run_mixtral(dev, card, layers: int) -> tuple:
     return paths, per_step, results
 
 
+# -- phase 2: B13, B14, B7, the router's f32 mode, K4-fp6 ----------------------------------------
+
+# moonshotai/Moonlight-16B-A3B config.json (model_type deepseek_v3), not cut.
+MOONLIGHT_16B = dict(vocab_size=163840, hidden_size=2048, intermediate_size=11264, num_hidden_layers=27,
+                     num_attention_heads=16, num_key_value_heads=16, q_lora_rank=None, kv_lora_rank=512,
+                     qk_rope_head_dim=64, qk_nope_head_dim=128, v_head_dim=128, n_routed_experts=64,
+                     n_shared_experts=2, num_experts_per_tok=6, moe_intermediate_size=1408, n_group=1,
+                     topk_group=1, norm_topk_prob=True, routed_scaling_factor=2.446, first_k_dense_replace=1,
+                     rope_theta=50000.0, rms_norm_eps=1e-5, max_position_embeddings=8192,
+                     tie_word_embeddings=False)
+MLA_FORMATS = ("bfloat16", "float8_e4m3", "float6_e3m2", "float6_e2m3", "int8", "float4_e2m1")
+MLA_RAGGED = [1 + round(i * 1023 / 31) for i in range(32)]  # kv_len 1 .. 1024 over 32 rows
+# (label, b, n, L, sq, kv_len of each row): B13's calls on the Moonlight main path (decode over the
+# engine's 1024-position cache at b=1 and 32, an admission of 512, generate's prefill of 32 x 64 over
+# its 256-position cache) and bench.py:434's decode shape.
+MLA_CASES = [("decode b=1 L=1024 kv=700", 1, 16, 1024, 1, [700]),
+             ("decode b=32 L=1024 ragged", 32, 16, 1024, 1, MLA_RAGGED),
+             ("admission b=1 sq=512 L=1024", 1, 16, 1024, 512, [512]),
+             ("prefill b=32 sq=64 L=256", 32, 16, 256, 64, [64] * 32),
+             ("bench b=8 n=32 L=8192", 8, 32, 8192, 1, [8192] * 8)]
+MLA_INT8DOT_CASES = [c for c in MLA_CASES if c[4] == 1]
+
+
+def _mla_case(dev, gen, b, n, L, sq, kv, elem, layout="seq"):
+    """A latent cache of ``elem`` (bf16: ``MLACache``) filled with random
+    latents and rope keys at every position, and queries at the last ``sq``
+    of each row's ``kv`` visible positions: a dict of what the kernels take."""
+    from torchmx_tpu_torch.models.deepseek import MLACache, MXMLACache
+
+    lat = torch.randn(b, L, 512, generator=gen, device=dev).to(torch.bfloat16)
+    rot = torch.randn(b, L, 64, generator=gen, device=dev).to(torch.bfloat16)
+    if elem == "bfloat16":
+        cache = MLACache.create(b, L, 512, 64, device=dev)
+    else:
+        cache = MXMLACache.create(b, L, 512, 64, elem, layout=layout, device=dev)
+    cache.write(lat, rot, 0)
+    kv_len = torch.tensor(kv, dtype=torch.int32, device=dev)
+    return dict(q_lat=(torch.randn(b, n, sq, 512, generator=gen, device=dev) * 0.5).to(torch.bfloat16),
+                q_rot=(torch.randn(b, n, sq, 64, generator=gen, device=dev) * 0.5).to(torch.bfloat16),
+                cache=cache, q_off=(kv_len - sq).clamp(min=0), kv_len=kv_len, sm=192 ** -0.5, elem=elem, n=n)
+
+
+def _mla_args(c):
+    """B13's arguments: the folded queries and the cache's four tensors."""
+    b, n, sq, _ = c["q_lat"].shape
+    cache = c["cache"]
+    tensors = cache.buffers if c["elem"] != "bfloat16" else (cache.latent, cache.latent, cache.k_rot, cache.k_rot)
+    fold = lambda q: q.transpose(1, 2).reshape(b, sq * n, q.shape[3]).contiguous()  # noqa: E731
+    return (fold(c["q_lat"]), fold(c["q_rot"]), *tensors, c["q_off"], c["kv_len"], c["sm"], c["elem"], n)
+
+
+def _mla_work(c):
+    """(bytes, operations): each visible position's codes and scales once,
+    q and the output once; the two dots over each query row's visible keys."""
+    b, n, sq, _ = c["q_lat"].shape
+    elem, layout = c["elem"], getattr(c["cache"], "layout", "seq")
+    if elem == "bfloat16":
+        per_pos = 2 * 576
+    elif layout == "dmajor":
+        per_pos = 576 + 2  # per-position scales
+    else:
+        per_pos = (288 if elem == "float4_e2m1" else 576) + 18
+    nbytes, ops = b * n * sq * (576 + 512) * 2, 0
+    for q_off, kv in zip(c["q_off"].tolist(), c["kv_len"].tolist()):
+        nbytes += per_pos * min(kv, q_off + sq)
+        ops += 2 * n * (576 + 512) * sum(min(q_off + j + 1, kv) for j in range(sq))
+    return nbytes, ops
+
+
+def _mla_dense(c):
+    """The dequantized cache as SDPA's inputs: q = [q_lat | q_rot], K = [lat |
+    rot], V = lat, the heads broadcast, and the boolean mask."""
+    lat, rot = c["cache"].read()
+    b, n, sq, _ = c["q_lat"].shape
+    q = torch.cat([c["q_lat"], c["q_rot"]], dim=-1)
+    k = torch.cat([lat, rot], dim=-1)[:, None].expand(b, n, -1, -1)
+    v = lat.contiguous()[:, None].expand(b, n, -1, -1)
+    pos = c["q_off"][:, None] + torch.arange(sq, device=q.device)[None]
+    j = torch.arange(lat.shape[1], device=q.device)
+    mask = ((j <= pos[..., None]) & (j < c["kv_len"][:, None, None]))[:, None]
+    return q, k, v, mask
+
+
+def _mla_exact(c):
+    """Float64 attention over the dequantized cache, p not rounded."""
+    q, k, v, mask = _mla_dense(c)
+    s = (q.double() @ k.double().transpose(-1, -2)) * c["sm"]
+    return torch.softmax(s.masked_fill(~mask, float("-inf")), -1) @ v.double()
+
+
+def _mla_library(c):
+    """(the SDPA call over the dequantized cache, the backend that serves it):
+    the memory-efficient kernel where it takes the shape (head dim 576 is
+    past flash attention's limit), else the math one."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q, k, v, mask = _mla_dense(c)
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=c["sm"])
+        try:
+            call()
+            return call, backend.name
+        except RuntimeError:
+            continue
+    raise AssertionError("no SDPA backend takes the MLA shape")
+
+
+def check_mla_kernel(dev, timer, gen):
+    """B13 against its plain version (abs <= 2e-2) in all six cache formats at
+    every MLA_CASES shape; B13 over the int8 cache against B13 bf16 over the
+    dequantized latent (the same decoded values: abs <= 2e-2, and printed
+    whether bit for bit); timed over the int8 cache (the main path's) at
+    every shape beside its plain version, SDPA and the bound, and over the
+    other formats at decode b=32.  Returns (entry, rows)."""
+    from torchmx_tpu_torch.models.deepseek import MLACache
+    from torchmx_tpu_torch.ops import cuda_mla
+
+    worst, rows = 0.0, []
+    for label, b, n, L, sq, kv in MLA_CASES:
+        for elem in MLA_FORMATS:
+            c = _mla_case(dev, gen, b, n, L, sq, kv, elem)
+            args = _mla_args(c)
+            out = cuda_mla.mx_mla_attention(*args)
+            err = (out.float() - cuda_mla.mx_mla_attention_plain(*args).float()).abs().max().item()
+            worst = max(worst, err)
+            log(f"B13 mx_mla_attention {label} {elem}: max abs err {err:.3e}")
+            if not err <= 2e-2:
+                raise AssertionError(f"B13 {label} {elem}: abs err {err}")
+            if elem == "int8":
+                lat, rot = c["cache"].read()
+                dense = dict(c, cache=MLACache(lat.contiguous(), rot.contiguous()), elem="bfloat16")
+                via_bf16 = cuda_mla.mx_mla_attention(*_mla_args(dense))
+                d = (out.float() - via_bf16.float()).abs().max().item()
+                log(f"B13 {label}: int8 cache against bf16 over the dequantized latent: max abs diff {d:.3e}, "
+                    f"bit-identical {torch.equal(out, via_bf16)}")
+                if not d <= 2e-2:
+                    raise AssertionError(f"B13 {label}: int8 against bf16 over the same values differs by {d}")
+            if elem == "int8" or label.startswith("decode b=32"):
+                t_b, by = bound(*_mla_work(c))
+                lib, backend = _mla_library(c)
+                row = dict(case=label, elem=elem, ms=timer(lambda: cuda_mla.mx_mla_attention(*args)),
+                           plain_ms=timer(lambda: cuda_mla.mx_mla_attention_plain(*args), reps=3),
+                           library_ms=timer(lib, reps=5), library_backend=backend, bound_ms=t_b, bound_by=by)
+                log("B13 timing", json.dumps(row))
+                rows.append(row)
+            del c, args
+    pick = next(r for r in rows if r["case"].startswith("decode b=32") and r["elem"] == "int8")
+    return dict(name="mx_mla_attention", route="cuda", source="torchmx_tpu_torch/csrc/mx_mla.cu",
+                replaces="torchmx_tpu/ops/pallas_mla.py:75",
+                shape="decode b=32 n=16 r=512 dr=64 L=1024 kv_len 1-1024, int8 seq latent", max_abs_err=worst,
+                **{k: pick[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}), rows
+
+
+def check_mla_int8dot_kernel(dev, timer, gen):
+    """B14 over the int8 d-major latent against its plain version (abs <=
+    2e-2) and against float64 attention over the dequantized cache (SQNR >
+    30 dB) at its decode shapes; timed (the kernel alone, and with its q
+    quantization by the plain quantizer) beside its plain version, SDPA and
+    the bound.  Returns (entry, rows)."""
+    from torchmx_tpu_torch.ops import cuda_mla
+
+    worst, rows = 0.0, []
+    for label, b, n, L, sq, kv in MLA_INT8DOT_CASES:
+        c = _mla_case(dev, gen, b, n, L, sq, kv, "int8", layout="dmajor")
+        args = (c["q_lat"], c["q_rot"], *c["cache"].buffers, c["q_off"], c["kv_len"], c["sm"])
+        out = cuda_mla.mx_mla_attention_int8dot(*args)
+        err = (out.float() - cuda_mla.mx_mla_attention_int8dot_plain(*args).float()).abs().max().item()
+        db = sqnr_db(out, _mla_exact(c))
+        worst = max(worst, err)
+        log(f"B14 mx_mla_attention_int8dot {label}: max abs err {err:.3e}, SQNR {db:.1f} dB against exact attention")
+        if not (err <= 2e-2 and db > 30):
+            raise AssertionError(f"B14 {label}: abs err {err}, SQNR {db} dB")
+        t_b, by = bound(*_mla_work(c))
+        lib, backend = _mla_library(c)
+        qlsc, qld = cuda_mla.quantize_q_rows(c["q_lat"], c["sm"])
+        qrsc, qrd = cuda_mla.quantize_q_rows(c["q_rot"], c["sm"])
+        codes = (qld, qlsc.contiguous(), qrd, qrsc.contiguous(), *c["cache"].buffers, c["q_off"], c["kv_len"])
+        row = dict(case=label, ms=timer(lambda: cuda_mla.mx_mla_attention_int8dot_codes(*codes)),
+                   ms_with_q_quantize=timer(lambda: cuda_mla.mx_mla_attention_int8dot(*args)),
+                   plain_ms=timer(lambda: cuda_mla.mx_mla_attention_int8dot_plain(*args), reps=3),
+                   library_ms=timer(lib, reps=5), library_backend=backend, bound_ms=t_b, bound_by=by, sqnr_db=db)
+        log("B14 timing", json.dumps(row))
+        rows.append(row)
+        del c, args
+    pick = next(r for r in rows if r["case"].startswith("decode b=32"))
+    return dict(name="mx_mla_attention_int8dot", route="cuda", source="torchmx_tpu_torch/csrc/mx_mla_int8dot.cu",
+                replaces="torchmx_tpu/ops/pallas_mla.py:343",
+                shape="decode b=32 n=16 r=512 dr=64 L=1024 kv_len 1-1024, int8 d-major latent", max_abs_err=worst,
+                **{k: pick[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}), rows
+
+
+FP4_PAIR_SHAPE = (2816, 2048)  # (K, N) of Moonlight's shared-expert down_proj: K % 512 != 0 keeps the pair layout
+FP4_PAIR_MS = (1, 32, 64, 2048)  # decode b=1 and 32, prefill of 64 tokens at b=1 and 32
+
+
+def check_fp4_pair_kernel(dev, timer, gen):
+    """B7 against its plain version (rel <= 1e-2) at the shared-expert down
+    shape, unfused and with fused (M <= 64) or two-pass (K2, above) fp8 and
+    int8 act fq, at every main-path M; timed with fp8 act fq beside its plain
+    version, ``torch.matmul`` with a bf16 weight and the bound.  Returns
+    (entry, rows)."""
+    from torchmx_tpu_torch.mx_array import MXTensor
+    from torchmx_tpu_torch.ops import cuda_matmul_formats as kf
+
+    K, N = FP4_PAIR_SHAPE
+    w = MXTensor.to_mx((torch.randn(N, K, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16), "float4_e2m1").T
+    assert w.fp4_pack == "pair"
+    w_bf16 = kf.dequantize_fp4_pair(w.data, w.scale_e8m0)
+    worst, rows = 0.0, []
+    for M in FP4_PAIR_MS:
+        x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+        for act in (None, "float8_e4m3", "int8"):
+            o = kf.mx_matmul_fp4_pair(x, w.data, w.scale_e8m0, act)
+            r = kf.mx_matmul_fp4_pair_plain(x, w.data, w.scale_e8m0, act)
+            err = (o.float() - r.float()).abs().max().item()
+            rel = err / r.float().abs().max().item()
+            worst = max(worst, err)
+            log(f"B7 mx_matmul_fp4_pair M={M} N={N} K={K} act_fq={act}: rel err {rel:.3e}")
+            if not rel <= 1e-2:
+                raise AssertionError(f"B7 M={M} act_fq={act}: rel {rel}")
+        act = "float8_e4m3"
+        t_b, by = bound(2 * M * K + K * N / 2 + K * N / 32 + 2 * M * N, 2 * M * N * K)
+        row = dict(M=M, N=N, K=K, act_fq=act, fused=M <= kf.ACT_FQ_FUSE_MAX_M,
+                   ms=timer(lambda: kf.mx_matmul_fp4_pair(x, w.data, w.scale_e8m0, act)),
+                   plain_ms=timer(lambda: kf.mx_matmul_fp4_pair_plain(x, w.data, w.scale_e8m0, act), reps=5),
+                   library_ms=timer(lambda: torch.matmul(x, w_bf16)), bound_ms=t_b, bound_by=by)
+        log("B7 timing", json.dumps(row))
+        rows.append(row)
+    pick = next(r for r in rows if r["M"] == 32)
+    return dict(name="mx_matmul_fp4_pair", route="cuda", source="torchmx_tpu_torch/csrc/mx_matmul_fp4_pair.cu",
+                replaces="torchmx_tpu/ops/pallas_matmul.py:473", shape=f"M=32 N={N} K={K} act_fq=float8_e4m3",
+                max_abs_err=worst, **{k: pick[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}), rows
+
+
+# (E, H) of the f32 router: Moonlight's and DeepSeek-V3's (256 experts over hidden 7168).
+ROUTER_F32_SHAPES = {"Moonlight E=64 H=2048": (64, 2048), "DeepSeek-V3 E=256 H=7168": (256, 7168)}
+
+
+def check_router_f32(dev, timer, gen):
+    """The router kernel's f32 mode against its plain version, bit for bit (0
+    ulp), at E=64 and 256 and the main path's token counts; timed beside its
+    plain version, the f32 ``F.linear`` and the bound.  Returns rows."""
+    import torch.nn.functional as F
+
+    from torchmx_tpu_torch.ops import cuda_moe
+
+    rows = []
+    for label, (E, H) in ROUTER_F32_SHAPES.items():
+        w = (torch.randn(E, H, generator=gen, device=dev) * H ** -0.5).to(torch.bfloat16)
+        wf = w.float()
+        for T in ROUTER_T:
+            x = torch.randn(T, H, generator=gen, device=dev).to(torch.bfloat16)
+            out = cuda_moe.mx_router_logits(x, w, f32=True)
+            ref = cuda_moe.mx_router_logits_plain(x, w, f32=True)
+            differ = int((out != ref).sum())
+            log(f"mx_router_logits f32 {label} T={T}: {differ} of {out.numel()} logits differ from the plain version's")
+            if differ:
+                raise AssertionError(f"the router's f32 mode {label} T={T}: {differ} logits differ from the plain version")
+            t_b, by = bound(2 * T * H + 2 * E * H + 4 * T * E, 2 * T * E * H)
+            row = dict(shape=label, T=T, ms=timer(lambda: cuda_moe.mx_router_logits(x, w, f32=True)),
+                       plain_ms=timer(lambda: cuda_moe.mx_router_logits_plain(x, w, f32=True), reps=3),
+                       library_ms=timer(lambda: F.linear(x.float(), wf)), bound_ms=t_b, bound_by=by)
+            log("mx_router_logits f32 timing", json.dumps(row))
+            rows.append(row)
+    return rows
+
+
+K4_FP6_CASES = [("decode b=32 L=256 kv=192", 32, 256, 1, [192] * 32), ("prefill b=32 L=256 sq=64", 32, 256, 64, [64] * 32)]
+
+
+def check_k4_fp6(dev, timer, gen):
+    """K4 over seq-layout fp6 caches (e3m2, e2m3) at the Llama main path's
+    decode and prefill shapes against its plain version (abs <= 2e-2), timed
+    at decode.  Returns (worst error, rows)."""
+    from torchmx_tpu_torch.ops import cuda_attention as ca
+
+    worst, rows = 0.0, []
+    for elem in ("float6_e3m2", "float6_e2m3"):
+        for label, b, L, sq, kv in K4_FP6_CASES:
+            args = _attn_case(dev, gen, b, 32, 8, 128, L, sq, kv, elem)
+            err = (ca.mx_cached_attention(*args).float() - ca.mx_cached_attention_plain(*args).float()).abs().max().item()
+            worst = max(worst, err)
+            log(f"K4 mx_cached_attention {elem} {label}: max abs err {err:.3e}")
+            if not err <= 2e-2:
+                raise AssertionError(f"K4 {elem} {label}: abs err {err}")
+            if sq == 1:
+                t_b, by = bound(*_attn_work(args))
+                row = dict(case=f"{elem} {label}", ms=timer(lambda: ca.mx_cached_attention(*args)),
+                           plain_ms=timer(lambda: ca.mx_cached_attention_plain(*args), reps=5), bound_ms=t_b, bound_by=by)
+                log("K4-fp6 timing", json.dumps(row))
+                rows.append(row)
+    return worst, rows
+
+
+def check_slice6_row_invariance(dev) -> dict:
+    """B7 (fp8 act fq: fused up to 64 rows, K2 first above) and the router's
+    f32 mode (Moonlight's E=64, H=2048) at every row count from 1 to 511: a
+    row's bytes must not depend on the count."""
+    from torchmx_tpu_torch.mx_array import MXTensor
+    from torchmx_tpu_torch.ops import cuda_matmul_formats as kf
+    from torchmx_tpu_torch.ops import cuda_moe
+
+    gen = torch.Generator(dev).manual_seed(9876)
+    K, N = FP4_PAIR_SHAPE
+    w = MXTensor.to_mx((torch.randn(N, K, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16), "float4_e2m1").T
+    x = torch.randn(512, K, generator=gen, device=dev).to(torch.bfloat16)
+    full = kf.mx_matmul_fp4_pair(x, w.data, w.scale_e8m0, "float8_e4m3")
+    bad = [f"B7 rows={k}" for k in range(1, 512)
+           if not torch.equal(kf.mx_matmul_fp4_pair(x[:k].contiguous(), w.data, w.scale_e8m0, "float8_e4m3"), full[:k])]
+    gw = (torch.randn(64, 2048, generator=gen, device=dev) * 2048 ** -0.5).to(torch.bfloat16)
+    xr = torch.randn(512, 2048, generator=gen, device=dev).to(torch.bfloat16)
+    full = cuda_moe.mx_router_logits(xr, gw, f32=True)
+    bad += [f"router f32 rows={k}" for k in range(1, 512)
+            if not torch.equal(cuda_moe.mx_router_logits(xr[:k], gw, f32=True), full[:k])]
+    if bad:
+        raise AssertionError(f"a row's result depends on the number of rows: {bad[:20]} ({len(bad)} counts)")
+    log("row invariance: B7 (K=2816 N=2048, fp8 act fq) and the router's f32 mode (E=64 H=2048) give every row the "
+        "same bytes at every count from 1 to 511")
+    return dict(counts="1-511", b7=FP4_PAIR_SHAPE, router_f32=(64, 2048))
+
+
+# -- DeepSeek-V3 MLA and the noaux-tc MoE at Moonlight-16B-A3B's width -----------------------------
+
+
+def build_moonlight(dev, card, layers: int, seed: int = 0, weights="float4_e2m1", acts="float8_e4m3",
+                    grouped: bool = True, tied_router: bool = False):
+    """Moonlight-16B-A3B at full width, ``layers`` deep (27 unless cut):
+    seeded random bf16 weights made on the card and quantized layer by layer
+    (the routed experts as stacked codes for B12, re-coded exactly as MXINT8
+    for fp4, unless ``grouped`` is False), each MoE layer's correction bias
+    random (std 0.05).  ``tied_router`` makes router rows 0 and 1 and their
+    biases equal, so that the tie-break is exercised."""
+    from torchmx_tpu_torch.models.deepseek import DeepseekV3Config, DeepseekV3ForCausalLM, DeepseekV3MoE
+    from torchmx_tpu_torch.ops import cuda_lib
+    from torchmx_tpu_torch.quant_api import build_quantized
+
+    qa, qm, _ = quant_configs(weights=weights, acts=acts)
+    cfg = DeepseekV3Config(**{**MOONLIGHT_16B, "num_hidden_layers": layers})
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def prepare(layer):
+        if isinstance(layer.mlp, DeepseekV3MoE):
+            layer.mlp.grouped, layer.mlp.grouped_tm = grouped, GROUPED_TM
+            bias = layer.mlp.gate.e_score_correction_bias
+            bias.copy_(torch.randn(bias.shape, generator=gen, device=dev) * 0.05)
+            if tied_router:
+                layer.mlp.gate.weight[1] = layer.mlp.gate.weight[0]
+                bias[1] = bias[0]
+
+    cuda_lib.reset_launch_counts()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model = build_quantized(DeepseekV3ForCausalLM, cfg, qa, qm, dev, gen, prepare)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    layouts = sorted({(m.weight.elem_dtype.name, m.weight.fp4_pack) for m in model.modules()
+                      if hasattr(getattr(m, "weight", None), "fp4_pack")})
+    log(f"model: built and quantized Moonlight-16B-A3B ({layers} layers), {weights} weights "
+        f"({'grouped, stacked codes' if grouped else 'per-expert linears'}, linear layouts {layouts}) / {acts} "
+        f"activations, in {seconds:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card [{card}]")
+    log(f"model: launches while building (weight quantization, not a main path): {json.dumps(dict(cuda_lib.LAUNCHES))}")
+    model.build_seconds = seconds
+    return model
+
+
+def moonlight_launches_per_step(cfg, int8dot: bool = False) -> dict:
+    """Kernel launches of one decode step of the MX DeepSeek model (fp4
+    weights, fp8 activations, grouped experts), from its structure: per
+    layer q_proj (or q_a / q_b), kv_a_proj and o_proj on K3 (input widths
+    multiples of 512), kv_a_layernorm and the two layer norms; per dense
+    layer gate / up / down on K3 (or B7 where K % 512 != 0); per MoE layer
+    the router, B12 x 3, K2 on x_sorted and on the SwiGLU output, the shared
+    experts' gate / up and down (K3 or B7); lm_head; the final norm; B13 and
+    K1 (the latent write) per layer, or B14 and no K1 (the d-major latent's
+    per-position quantizer is the plain one) with the int8-dot flag."""
+    layers, dense = cfg.num_hidden_layers, min(cfg.first_k_dense_replace, cfg.num_hidden_layers)
+    moe = layers - dense
+    c = collections.Counter()
+
+    def linear(k_in, n=1):
+        c["mx_matmul_fp4_halves" if k_in % 512 == 0 else "mx_matmul_fp4_pair"] += n
+
+    h, n_heads = cfg.hidden_size, cfg.num_attention_heads
+    if cfg.q_lora_rank:
+        linear(h, layers)
+        linear(cfg.q_lora_rank, layers)
+        c["mx_rmsnorm"] += layers
+    else:
+        linear(h, layers)
+    linear(h, layers)  # kv_a_proj_with_mqa
+    linear(n_heads * cfg.v_head_dim, layers)  # o_proj
+    linear(h, 2 * dense)
+    linear(cfg.intermediate_size, dense)
+    shared = cfg.moe_intermediate_size * cfg.n_shared_experts
+    linear(h, 2 * moe)
+    linear(shared, moe)
+    linear(h)  # lm_head
+    c["mx_rmsnorm"] += 3 * layers + 1
+    c.update(mx_router_logits=moe, mx_grouped_matmul=3 * moe, mx_fake_quantize=2 * moe)
+    if int8dot:
+        c["mx_mla_attention_int8dot"] += layers
+    else:
+        c.update(mx_mla_attention=layers, mx_quantize=layers)
+    return dict(c)
+
+
+DEEPSEEK_FAULTS = ("B13 reads the next position's scale", "B13 takes V from the rope key",
+                   "B7 with its nibbles swapped", "the correction bias added to the weights, not the choice",
+                   "routed_scaling_factor dropped", "the shared experts dropped",
+                   "an expert choice flipped at a gap above 5e-2")
+# The DeepSeek model checks: name -> (cache format or None for the bf16 MLACache, layout, int8-dot flag, faults).
+DEEPSEEK_CHECKS = {"Moonlight int8 seq latent": ("int8", "seq", False, DEEPSEEK_FAULTS),
+                   "Moonlight fp4 seq latent": ("float4_e2m1", "seq", False, ()),
+                   "Moonlight bf16 MLACache": (None, "seq", False, ()),
+                   "Moonlight int8 d-major int8dot": ("int8", "dmajor", True, ())}
+
+
+@contextlib.contextmanager
+def deepseek_fault(name):
+    """A wrong B13, B7, router or MoE, on the kernel path only (under
+    ``plain_path()`` the original runs)."""
+    import dataclasses
+
+    from torchmx_tpu_torch.models import deepseek
+    from torchmx_tpu_torch.models.mixtral import MixtralSparseMoeBlock
+    from torchmx_tpu_torch.ops import cuda_matmul_formats as kf
+    from torchmx_tpu_torch.ops import cuda_mla
+    from torchmx_tpu_torch.ops.backend import on_cuda
+
+    if name.startswith("B13"):
+        mod, attr = cuda_mla, "mx_mla_attention"
+        orig = cuda_mla.mx_mla_attention
+
+        def faulty(ql, qr, ld, ls, rd, rs, q_off, kv_len, sm, elem, n, v_from_rot=False):
+            if on_cuda(ql):
+                if "scale" in name:
+                    ls, rs = ls.roll(-1, dims=1).contiguous(), rs.roll(-1, dims=1).contiguous()
+                else:
+                    v_from_rot = True
+            return orig(ql, qr, ld, ls, rd, rs, q_off, kv_len, sm, elem, n, v_from_rot)
+    elif name.startswith("B7"):
+        mod, attr = kf, "mx_matmul_fp4_pair"
+        orig = kf.mx_matmul_fp4_pair
+
+        def faulty(x, w, sw, act_fq=None):
+            if on_cuda(x):
+                w = ((w & 0xF) << 4) | (w >> 4)
+            return orig(x, w, sw, act_fq)
+    elif name.startswith("the shared"):
+        mod, attr = deepseek.DeepseekV3MoE, "forward"
+        orig = deepseek.DeepseekV3MoE.forward
+
+        def faulty(self, x):
+            return MixtralSparseMoeBlock.forward(self, x) if on_cuda(x) else orig(self, x)
+    else:
+        mod, attr = deepseek, "route_noaux_tc"
+        orig = deepseek.route_noaux_tc
+
+        def faulty(scores, bias, config):
+            if not on_cuda(scores):
+                return orig(scores, bias, config)
+            if name.startswith("routed"):
+                return orig(scores, bias, dataclasses.replace(config, routed_scaling_factor=1.0))
+            k = config.num_experts_per_tok
+            if name.startswith("the correction"):  # chosen on the raw scores, weighted by the biased ones
+                top_idx = torch.sort(deepseek.noaux_choice(scores, torch.zeros_like(bias), config), dim=-1,
+                                     descending=True, stable=True)[1][:, :k]
+                top_w = (scores + bias[None, :]).gather(1, top_idx)
+                top_w = top_w / (top_w.sum(dim=-1, keepdim=True) + 1e-20)
+                return top_w * config.routed_scaling_factor, top_idx.to(torch.int32)
+            # The first token whose k-th and (k+1)-th choices lie more than
+            # 5e-2 apart takes its (k+1)-th expert in place of its k-th.
+            top_w, top_idx = orig(scores, bias, config)
+            vals, idx = torch.sort(deepseek.noaux_choice(scores, bias, config), dim=-1, descending=True, stable=True)
+            wide = torch.nonzero(vals[:, k - 1] - vals[:, k] > 5e-2)
+            if wide.numel():
+                t = int(wide[0, 0])
+                top_idx = top_idx.clone()
+                top_idx[t, k - 1] = idx[t, k].to(torch.int32)
+            return top_w, top_idx
+    setattr(mod, attr, faulty)
+    try:
+        yield
+    finally:
+        setattr(mod, attr, orig)
+
+
+def model_check_deepseek(dev, card, checks=tuple(DEEPSEEK_CHECKS), n_tokens: int = 12) -> dict:
+    """Kernel path against plain path on a 2-layer model at Moonlight-16B-A3B
+    width (layer 0 dense, layer 1 MoE with grouped experts; router rows 0 and
+    1 tied), b=2, a 64-token prompt and ``n_tokens`` greedy tokens, with the
+    routing tape (``NoauxRouteTape``): over the int8 seq latent (B13, with
+    the seven planted faults of DEEPSEEK_FAULTS, each of which must fail a
+    gate), the fp4 seq latent (B13-fp4), the bf16 ``MLACache`` (B13-bf16) and
+    the int8 d-major latent with the all-int8 flag (B14 at decode, JAX's
+    eager route at prefill)."""
+    model = build_moonlight(dev, card, 2, seed=1, tied_router=True)
+    prompt = torch.randint(0, MOONLIGHT_16B["vocab_size"], (2, 64), generator=torch.Generator(dev).manual_seed(2),
+                           device=dev)
+    all_readings = {}
+    for name in checks:
+        elem, layout, int8dot, faults = DEEPSEEK_CHECKS[name]
+        kv = None if elem is None else quant_configs(elem)[2]
+        tie_gap = GATES[name]["tie_gap"]
+        with kv_env(layout, int8dot):
+            readings = {"sound": moe_readings(model, prompt, n_tokens, kv, True, tie_gap, NoauxRouteTape)}
+            for fault in faults:
+                with deepseek_fault(fault):
+                    readings[fault] = moe_readings(model, prompt, n_tokens, kv, False, tie_gap, NoauxRouteTape)
+        for fault, r in readings.items():
+            log(f"model check {name} [{fault}]: 2 layers at Moonlight-16B-A3B width, b=2, {n_tokens} greedy tokens: "
+                f"{json.dumps(r)} [{card}]")
+        all_readings[name] = readings
+    del model
+    torch.cuda.empty_cache()
+    apply_gates(all_readings, GATES, card)
+    return all_readings
+
+
+def run_moonlight(dev, card, layers: int) -> tuple:
+    """The Moonlight-16B-A3B main paths at full width and ``layers`` deep (27
+    unless cut), MXFP4 weights (grouped experts on int8-domain codes), MXFP8
+    activations, the f32 router: ``generate`` at b=1 and b=32 over the int8
+    seq latent cache, the 48-request engine stream with all its checks, and
+    ``generate`` at b=32 over the int8 d-major latent with the all-int8 flag
+    (B14 at every decode step).  Every decode step must launch each kernel
+    as often as ``moonlight_launches_per_step`` says.  Returns (launches by
+    path, launches per decode step by path, results)."""
+    model = build_moonlight(dev, card, layers)
+    paths, per_step, results = {}, {}, {"build_seconds": model.build_seconds}
+    want = moonlight_launches_per_step(model.config)
+    log(f"Moonlight: expected launches per decode step (from the model's structure): {json.dumps(want)}")
+    paths["generate_moonlight"], res = run_slice(model, dev, card, "int8", weights="Moonlight fp4 grouped")
+    for b, r in res.items():
+        per_step[f"moonlight_b{b}"] = r["launches_per_decode_step"]
+        results[f"generate_b{b}"] = r
+        if r["launches_per_decode_step"] != want:
+            raise AssertionError(f"Moonlight generate b={b}: a decode step launched {r['launches_per_decode_step']}, "
+                                 f"expected {want}")
+    results["engine"] = run_engine(model, dev, card, "int8", weights="moonlight")
+    paths["engine_moonlight"] = results["engine"]["launches"]
+    per_step["engine_moonlight"] = results["engine"]["launches_per_decode_step"]
+    with kv_env(*CACHES["int8 d-major int8dot"][1:]):
+        paths["generate_moonlight_int8dot"], res = run_slice(model, dev, card, "int8 d-major int8dot", batches=(32,),
+                                                             weights="Moonlight fp4 grouped")
+    want_b14 = moonlight_launches_per_step(model.config, int8dot=True)
+    if res[32]["launches_per_decode_step"] != want_b14:
+        raise AssertionError(f"Moonlight int8-dot generate: a decode step launched "
+                             f"{res[32]['launches_per_decode_step']}, expected {want_b14}")
+    results["generate_int8dot_b32"] = res[32]
+    per_step["moonlight_int8dot_b32"] = res[32]["launches_per_decode_step"]
+    del model
+    torch.cuda.empty_cache()
+    return paths, per_step, results
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=32, help="depth of the 8B models (default 32)")
+    ap.add_argument("--layers", type=int, default=LLAMA_LAYERS,
+                    help=f"depth of the Llama-3-8B models of phases 4-7 (default {LLAMA_LAYERS} of 32)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2539,15 +3228,24 @@ def main() -> int:
     k5, int8_rows, k4_int8_err = check_int8_attention_kernels(dev, timer, gen)
     k4["max_abs_err"] = max(k4["max_abs_err"], k4_int8_err)
     k6, k7, dmajor_rows = check_dmajor_attention_kernels(dev, timer, gen)
-    kernels += [k3, k4, k5, k6, k7, *format_entries, rmsnorm, b12, router]
+    k4_fp6_err, k4_fp6_rows = check_k4_fp6(dev, timer, gen)
+    k4["max_abs_err"] = max(k4["max_abs_err"], k4_fp6_err)
+    b13, b13_rows = check_mla_kernel(dev, timer, gen)
+    b14, b14_rows = check_mla_int8dot_kernel(dev, timer, gen)
+    b7, b7_rows = check_fp4_pair_kernel(dev, timer, gen)
+    router_f32_rows = check_router_f32(dev, timer, gen)
+    router["f32_mode"] = next(r for r in router_f32_rows if r["T"] == 32 and r["shape"].startswith("Moonlight"))
+    kernels += [k3, k4, k5, k6, k7, *format_entries, rmsnorm, b12, router, b7, b13, b14]
     cache_write = check_cache_write(dev, timer, gen)
     row_invariance = check_row_invariance(dev)
     row_invariance["moe"] = check_moe_row_invariance(dev)
+    row_invariance["slice6"] = check_slice6_row_invariance(dev)
     accuracy = attention_accuracy(dev, gen)
     log(f"phase 2 (kernels) done at {time.perf_counter() - t_start:.0f} s")
     check_readings = model_check(dev, card)
     check_readings.update(model_check_formats(dev, card))
     check_readings.update(model_check_mixtral(dev, card))
+    check_readings.update(model_check_deepseek(dev, card))
     log(f"phase 3 (model checks) done at {time.perf_counter() - t_start:.0f} s")
     model = build_model(dev, card, args.layers)
     # Each main path is driven with the counts set to 0 just before it and
@@ -2571,8 +3269,12 @@ def main() -> int:
     mixtral_paths, mixtral_per_step, mixtral_results = run_mixtral(dev, card, MIXTRAL_8X7B["num_hidden_layers"])
     paths.update(mixtral_paths)
     log(f"phase 8 (Mixtral-8x7B) done at {time.perf_counter() - t_start:.0f} s")
+    moonlight_paths, moonlight_per_step, moonlight_results = run_moonlight(dev, card, MOONLIGHT_16B["num_hidden_layers"])
+    paths.update(moonlight_paths)
+    log(f"phase 9 (Moonlight-16B-A3B) done at {time.perf_counter() - t_start:.0f} s")
     plain_results = compare_with_plain_path(dev, card)
-    plain_results_mixtral = compare_with_plain_path(dev, card, mixtral=True)
+    plain_results_mixtral = compare_with_plain_path(dev, card, "mixtral")
+    plain_results_deepseek = compare_with_plain_path(dev, card, "deepseek")
     for b, r in slice_results.items():
         per_step[f"b{b}"] = r["launches_per_decode_step"]
     per_step["engine"] = engine_results["launches_per_decode_step"]
@@ -2580,6 +3282,7 @@ def main() -> int:
     per_step["generate_fp4_dmajor_b32"] = slice_fp4[32]["launches_per_decode_step"]
     per_step.update(format_per_step)
     per_step.update(mixtral_per_step)
+    per_step.update(moonlight_per_step)
     seq = {"mx_quantize", "mx_fake_quantize", "mx_matmul_fp4_halves", "mx_cached_attention", "mx_rmsnorm"}
     dmajor = (seq - {"mx_cached_attention"}) | {"mx_cached_attention_dmajor"}
     fmt = seq - {"mx_matmul_fp4_halves"}
@@ -2591,6 +3294,11 @@ def main() -> int:
                "generate_fp6": fmt | {"mx_matmul_fp6q"}, "generate_fp8": fmt | {"mx_matmul_fp8_halves"},
                "generate_fp8dot": fmt | {"mx_matmul_fp8dot", "mx_matmul_1byte"},
                "generate_mixtral": moe_path, "engine_mixtral": moe_path}
+    moonlight = {"mx_mla_attention", "mx_matmul_fp4_halves", "mx_matmul_fp4_pair", "mx_grouped_matmul", "mx_quantize",
+                 "mx_fake_quantize", "mx_rmsnorm", "mx_router_logits"}
+    on_path.update(generate_moonlight=moonlight, engine_moonlight=moonlight,
+                   generate_moonlight_int8dot=(moonlight - {"mx_mla_attention", "mx_quantize"})
+                   | {"mx_mla_attention_int8dot"})
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -2607,7 +3315,9 @@ def main() -> int:
                        slice=slice_results, engine=engine_results, engine_dmajor=engine_dmajor,
                        slice_fp4_dmajor=slice_fp4, formats=format_results, engine_vs_plain=plain_results,
                        grouped_matmul=b12_rows, router=router_rows, mixtral=mixtral_results,
-                       engine_vs_plain_mixtral=plain_results_mixtral,
+                       engine_vs_plain_mixtral=plain_results_mixtral, attention_k4_fp6=k4_fp6_rows,
+                       mla=b13_rows, mla_int8dot=b14_rows, matmul_fp4_pair=b7_rows, router_f32=router_f32_rows,
+                       moonlight=moonlight_results, engine_vs_plain_deepseek=plain_results_deepseek,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log("kernels: " + ", ".join(f"{k['name']} ok ({k['launches']} launches)" for k in kernels) + f" [{card}]")
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")

@@ -214,9 +214,13 @@ def test_int8dot_attention_plain_matches_pallas_kernel(flags):
 @pytest.mark.parametrize("sq", [1, 2, 64])
 @pytest.mark.parametrize("elem", ["int8", "float8_e4m3", "float4_e2m1"])
 def test_int8dot_rule_matches_jax(flags, elem, sq, d, layout, flag):
+    """JAX's rule, cut to the shapes K7 takes (head_dim 128, 1, 2, 4 or 8
+    query heads per KV head)."""
     flags(flag)
     cache = types.SimpleNamespace(elem_dtype_name=elem, layout=layout)
-    assert ca.use_int8dot(cache, sq, d) == jpa.use_int8dot(cache, sq, d)
+    for group in (1, 2, 4, 8, 7):
+        want = jpa.use_int8dot(cache, sq, d) and d == 128 and group != 7
+        assert ca.use_int8dot(cache, sq, d, group) == want
 
 
 @pytest.mark.parametrize("flag", ["0", "1"])

@@ -214,7 +214,12 @@ def test_mx_cached_attention_plain_int8_matches_pallas_kernel(pallas_env, sq):
 @pytest.mark.parametrize("sq", [1, 2, 64])
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_chunkdot_dispatch_rule_matches_jax(elem, sq, d):
-    assert cuda_attention.use_chunkdot(elem, sq, d) == jpa.use_chunkdot(elem, sq, d)
+    """The port's rule is JAX's, cut to the shapes K5 takes: head_dim 128 and
+    1, 2, 4 or 8 query heads per KV head (d = 256 and a group of 7 are JAX
+    tiers not ported: there the predicate says no, and K4 serves)."""
+    for group in (1, 2, 4, 8, 7):
+        want = jpa.use_chunkdot(elem, sq, d) and d == 128 and group != 7
+        assert cuda_attention.use_chunkdot(elem, sq, d, group) == want
 
 
 def test_attention_wrappers_reject_what_the_kernels_do_not_take():

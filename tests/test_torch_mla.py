@@ -1,0 +1,386 @@
+"""The port's MLA attention, latent caches and the kernels of the DeepSeek
+slice held against the JAX package on the same numpy inputs (JAX on the
+CPU, its Pallas kernels in interpret mode): the fp4 layout rule (ROADMAP
+C.4), the latent caches' bytes in every format and layout, the plain
+versions of B13 (``mx_mla_attention``), B14 (``mx_mla_attention_int8dot``)
+and B7 (``mx_matmul_fp4_pair``) against the Pallas kernels they replace,
+the MLA dispatch's routes, and the row invariance of the plain reductions
+(ROADMAP C.1).  On a machine with a card, the three kernels against their
+plain versions.
+
+Tolerances: cache buffers, layouts and q codes bit-equal; plain B13 against
+the JAX kernel atol = rtol = 2e-2 (the JAX kernel takes one tile of 256
+positions, the port tiles of 32: p rounds to bf16 against other running
+maxima), the JAX tests' own tolerance; plain B14 at the JAX kernel's tile
+abs <= 2e-2 and, at the CUDA kernel's tile, SQNR above 30 dB against exact
+attention; plain B7 rel <= 1e-2 (K3's).
+"""
+
+import contextlib
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from flax import nnx
+
+from torchmx_tpu import env_variables as jenv
+from torchmx_tpu.config import MXConfig as JMXConfig
+from torchmx_tpu.config import QLinearConfig as JQLin
+from torchmx_tpu.layers.linear import MXInferenceLinear as JLinear
+from torchmx_tpu.models import deepseek as jds
+from torchmx_tpu.mx_array import MXArray
+from torchmx_tpu.mx_array import quantize_mx as jquantize_mx
+from torchmx_tpu.ops import pallas_matmul as jpm
+from torchmx_tpu.ops import pallas_mla as jmla
+from torchmx_tpu_torch import env_variables as env
+from torchmx_tpu_torch.config import MXConfig, QLinearConfig
+from torchmx_tpu_torch.layers.linear import MXInferenceLinear
+from torchmx_tpu_torch.models import deepseek as tds
+from torchmx_tpu_torch.mx_array import MXTensor
+from torchmx_tpu_torch.ops import cuda_lib, cuda_mla, cuda_moe
+from torchmx_tpu_torch.ops import cuda_matmul_formats as kf
+from torchmx_tpu_torch.ops.cuda_norm import rms_norm_plain
+
+torch.set_num_threads(1)
+
+def bf16(x) -> np.ndarray:
+    return np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
+
+
+def t_bf16(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+
+
+def j_bf16(x: np.ndarray):
+    return jnp.asarray(x, jnp.bfloat16)
+
+
+def to_np(t: torch.Tensor) -> np.ndarray:
+    return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def flat_state(module) -> dict:
+    _, state = nnx.split(module)
+    return {".".join(map(str, k)): np.asarray(v.get_value()) for k, v in state.flat_state()}
+
+
+@contextlib.contextmanager
+def jax_env(**kw):
+    """Set knobs on both packages' env modules (the JAX package's fused MLA
+    kernel forced on), restoring them afterwards."""
+    kw = {"TORCHMX_FUSED_ATTENTION": "pallas", **kw}
+    old = {k: (getattr(jenv, k), getattr(env, k, None)) for k in kw}
+    for k, v in kw.items():
+        setattr(jenv, k, v)
+        if hasattr(env, k):
+            setattr(env, k, v)
+    try:
+        yield
+    finally:
+        for k, (j, t) in old.items():
+            setattr(jenv, k, j)
+            if t is not None:
+                setattr(env, k, t)
+
+
+# -- the fp4 layout rule (ROADMAP C.4) ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("K", [128, 512, 1408, 2048, 2816, 4096, 11264, 14336])
+def test_fp4_layout_rule_matches_jax(K):
+    """An fp4 weight of ``K`` inputs takes JAX's layout (halves only when K %
+    512 == 0, else pair), byte for byte; on the CPU the pair layout's kernel
+    is B7's plain version."""
+    w = bf16(np.random.default_rng(K).standard_normal((64, K)) * 0.05)
+    jq = JQLin(weights_config=JMXConfig("float4_e2m1"), activations_config=JMXConfig("float8_e4m3"))
+    tq = QLinearConfig(MXConfig("float4_e2m1"), MXConfig("float8_e4m3"))
+    jw = JLinear.from_weights(j_bf16(w), None, jq).weight.get_value()
+    tw = MXInferenceLinear(MXTensor.to_mx(t_bf16(w), "float4_e2m1", 32), None, tq).weight
+    assert tw.fp4_pack == jw.fp4_pack == ("halves" if K % 512 == 0 else "pair")
+    np.testing.assert_array_equal(tw.data.numpy(), np.asarray(jw.data))
+    np.testing.assert_array_equal(tw.scale_e8m0.numpy(), np.asarray(jw.scale_e8m0))
+
+
+# -- row invariance of the plain reductions (ROADMAP C.1) -----------------------------------------
+
+
+@pytest.mark.parametrize("what", ["rmsnorm", "router-bf16", "router-f32"])
+def test_plain_reductions_are_row_invariant(what):
+    """A row's bytes from the plain RMSNorm and the plain router (both
+    modes) do not depend on how many rows share the call, at every count
+    from 1 to 64."""
+    g = torch.Generator().manual_seed(17)
+    x = torch.randn(64, 2048, generator=g).to(torch.bfloat16)
+    if what == "rmsnorm":
+        w = (1 + 0.1 * torch.randn(2048, generator=g)).to(torch.bfloat16)
+        fn = lambda t: rms_norm_plain(t, w, 1e-5)  # noqa: E731
+    else:
+        gw = (torch.randn(64, 2048, generator=g) * 2048 ** -0.5).to(torch.bfloat16)
+        fn = lambda t: cuda_moe.mx_router_logits_plain(t, gw, f32=what.endswith("f32"))  # noqa: E731
+    full = fn(x)
+    assert [k for k in range(1, 65) if not torch.equal(fn(x[:k]), full[:k])] == []
+
+
+# -- the latent caches -------------------------------------------------------------------------
+
+B, R, DR = 2, 64, 64
+CACHE_CASES = [("bfloat16", "seq")] + [(e, lay) for e in ("float8_e4m3", "float6_e3m2", "float6_e2m3", "int8")
+                                       for lay in ("seq", "dmajor")] + [("float4_e2m1", "seq")]
+
+
+def _jax_cache(elem, layout, L, r=R, dr=DR):
+    if elem == "bfloat16":
+        return jds.MLACache.create(B, L, r, dr)
+    return jds.MXMLACache.create(B, L, r, dr, elem, 32, layout=layout)
+
+
+def _port_cache(jc):
+    """The port's cache over a JAX cache's bytes."""
+    if isinstance(jc, jds.MLACache):
+        return tds.MLACache(t_bf16(np.asarray(jc.latent, np.float32)), t_bf16(np.asarray(jc.k_rot, np.float32)))
+    bufs = [torch.from_numpy(np.array(getattr(jc, n))) for n in ("lat_data", "lat_scale", "rot_data", "rot_scale")]
+    return tds.MXMLACache(*bufs, jc.elem_dtype_name, jc.block_size, jc.layout)
+
+
+def _same_buffers(tc, jc):
+    names = ("latent", "k_rot") if isinstance(jc, jds.MLACache) else ("lat_data", "lat_scale", "rot_data", "rot_scale")
+    for name, t in zip(names, tc.buffers):
+        j = np.asarray(getattr(jc, name))
+        if j.dtype.name == "bfloat16":
+            np.testing.assert_array_equal(to_np(t), np.asarray(j, np.float32), err_msg=name)
+        else:
+            assert str(t.dtype).split(".")[-1] == str(j.dtype), name
+            np.testing.assert_array_equal(t.numpy(), j, err_msg=name)
+
+
+@pytest.mark.parametrize("per_row", [False, True], ids=["int-pos", "per-row-pos"])
+@pytest.mark.parametrize("elem,layout", CACHE_CASES, ids=[f"{e}-{lay}" for e, lay in CACHE_CASES])
+def test_latent_cache_write_matches_jax(elem, layout, per_row):
+    """A prefill of 5 positions, then a decode write at position 5 (or at
+    per-row positions 5 and 9): every buffer bit-equal to JAX's, and
+    ``read()`` equal too."""
+    rng = np.random.default_rng(3)
+    lat, rot = bf16(rng.standard_normal((B, 5, R))), bf16(rng.standard_normal((B, 5, DR)) * 3)
+    jc = _jax_cache(elem, layout, 32)
+    tc = tds.MLACache.create(B, 32, R, DR) if elem == "bfloat16" else \
+        tds.MXMLACache.create(B, 32, R, DR, elem, layout=layout)
+    jc = jc.write(j_bf16(lat), j_bf16(rot), 0)
+    tc.write(t_bf16(lat), t_bf16(rot), 0)
+    lat1, rot1 = bf16(rng.standard_normal((B, 1, R)) * 0.01), bf16(rng.standard_normal((B, 1, DR)))
+    pos = np.array([5, 9], np.int32) if per_row else 5
+    jc = jc.write(j_bf16(lat1), j_bf16(rot1), jnp.asarray(pos) if per_row else pos)
+    tc.write(t_bf16(lat1), t_bf16(rot1), torch.from_numpy(pos) if per_row else pos)
+    _same_buffers(tc, jc)
+    for t, j in zip(tc.read(), jc.read()):
+        np.testing.assert_array_equal(to_np(t), np.asarray(j, np.float32))
+
+
+def test_latent_cache_layout_rule(monkeypatch):
+    """``layout=None`` takes ``TORCHMX_KV_LAYOUT`` (warning when the int8-dot
+    flag is off), fp4 stays seq, fp4 d-major is refused; the engine's hooks
+    (``buffers``, ``clone``, ``max_len``) hold in both layouts."""
+    monkeypatch.setattr(env, "TORCHMX_KV_LAYOUT", "dmajor")
+    monkeypatch.setattr(env, "TORCHMX_ATTN_INT8_DOT", "0")
+    with pytest.warns(UserWarning, match="d-major"):
+        c = tds.MXMLACache.create(1, 64, R, DR, "int8")
+    assert c.layout == "dmajor" and c.max_len == 64 and c.lat_data.shape == (1, R, 64)
+    assert tds.MXMLACache.create(1, 64, R, DR, "float4_e2m1").layout == "seq"
+    with pytest.raises(ValueError, match="seq layout"):
+        tds.MXMLACache.create(1, 64, R, DR, "float4_e2m1", layout="dmajor")
+    monkeypatch.setattr(env, "TORCHMX_ATTN_INT8_DOT", "1")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        c = tds.MXMLACache.create(1, 64, R, DR, "int8")
+    twin = c.clone()
+    assert all(a.data_ptr() != b.data_ptr() and torch.equal(a, b) for a, b in zip(c.buffers, twin.buffers))
+
+
+# -- plain B13 and B14 against the Pallas kernels ---------------------------------------------------
+
+N_HEADS, L_ATTN = 4, 256
+MLA_ELEMS = ["bfloat16", "float8_e4m3", "float6_e3m2", "float6_e2m3", "int8", "float4_e2m1"]
+MLA_CASES = {"decode": (1, 200, 201), "prefill": (16, 0, 16), "per-row": (1, np.array([3, 250]), np.array([4, 251]))}
+
+
+def _filled(elem, layout="seq", L=L_ATTN, r=R, dr=DR, seed=11):
+    rng = np.random.default_rng(seed)
+    lat, rot = bf16(rng.standard_normal((B, L, r)) * 0.3), bf16(rng.standard_normal((B, L, dr)) * 0.3)
+    jc = _jax_cache(elem, layout, L, r, dr).write(j_bf16(lat), j_bf16(rot), 0)
+    return jc, _port_cache(jc)
+
+
+def _queries(sq, r=R, dr=DR, seed=12):
+    rng = np.random.default_rng(seed)
+    return bf16(rng.standard_normal((B, N_HEADS, sq, r)) * 0.3), bf16(rng.standard_normal((B, N_HEADS, sq, dr)) * 0.3)
+
+
+@pytest.mark.parametrize("case", list(MLA_CASES))
+@pytest.mark.parametrize("elem", MLA_ELEMS)
+def test_mla_plain_matches_pallas_kernel(elem, case):
+    """The port's dispatch on the CPU (plain B13) against JAX's
+    ``mla_cached_attention`` (the Pallas kernel, interpret mode): decode,
+    prefill through the cache and per-row positions."""
+    sq, q_off, kv_len = MLA_CASES[case]
+    jc, tc = _filled(elem)
+    ql, qr = _queries(sq)
+    sm = (R + DR) ** -0.5
+    with jax_env():
+        jo = jmla.mla_cached_attention(j_bf16(ql), j_bf16(qr), jc, jnp.asarray(q_off), jnp.asarray(kv_len), sm)
+    assert jo is not None
+    pos = (lambda v: torch.from_numpy(v)) if isinstance(q_off, np.ndarray) else (lambda v: v)
+    eager = cuda_mla.ROUTES["eager"]
+    got = cuda_mla.mla_cached_attention(t_bf16(ql), t_bf16(qr), tc, pos(q_off), pos(kv_len), sm)
+    assert cuda_mla.ROUTES["eager"] == eager and got.shape == (B, N_HEADS, sq, R)
+    np.testing.assert_allclose(to_np(got), np.asarray(jo, np.float32), atol=2e-2, rtol=2e-2)
+
+
+def _exact_mla(ql, qr, cache, q_off, kv_len, sm):
+    lat, rot = (torch.from_numpy(np.asarray(t, np.float32)).double() for t in cache.read())
+    s = (torch.from_numpy(ql).double() @ lat[:, None].transpose(-1, -2)
+         + torch.from_numpy(qr).double() @ rot[:, None].transpose(-1, -2)) * sm
+    j = torch.arange(lat.shape[1])
+    visible = (j[None] < torch.from_numpy(np.minimum(kv_len, q_off + 1))[:, None])[:, None, None]
+    return torch.softmax(s.masked_fill(~visible, float("-inf")), -1) @ lat[:, None]
+
+
+def test_mla_int8dot_plain_matches_pallas_kernel():
+    """Plain B14 at the JAX kernel's own tile (512 at L = 1024: two tiles,
+    so the per-tile requantization of p is exercised), per-row positions with
+    one row seeing less than its written prefix, against JAX's
+    ``_mla_int8dot_attention``; at the CUDA kernel's tile of 32, SQNR above
+    30 dB against exact attention."""
+    L, r, dr = 1024, 512, 64
+    jc, tc = _filled("int8", "dmajor", L, r, dr, seed=13)
+    ql, qr = _queries(1, r, dr, seed=14)
+    q_off, kv_len = np.array([900, 1023], np.int32), np.array([700, 1024], np.int32)
+    sm = (128 + dr) ** -0.5
+    with jax_env(TORCHMX_ATTN_INT8_DOT="1"):
+        assert jmla.use_mla_int8dot(jc, 1, r, dr) and cuda_mla.use_mla_int8dot(tc, 1, r, dr)
+        jo = jmla.mla_cached_attention(j_bf16(ql), j_bf16(qr), jc, jnp.asarray(q_off), jnp.asarray(kv_len), sm)
+        args = (t_bf16(ql), t_bf16(qr), *tc.buffers, torch.from_numpy(q_off), torch.from_numpy(kv_len), sm)
+        at_jax_tile = cuda_mla.mx_mla_attention_int8dot_plain(*args, tile=jmla._pick_lt(L))
+        via = cuda_mla.mla_cached_attention(t_bf16(ql), t_bf16(qr), tc, torch.from_numpy(q_off),
+                                            torch.from_numpy(kv_len), sm)
+    err = np.abs(to_np(at_jax_tile) - np.asarray(jo, np.float32)).max()
+    assert err <= 2e-2, err
+    assert torch.equal(via, cuda_mla.mx_mla_attention_int8dot_plain(*args))
+    exact = _exact_mla(ql, qr, jc, q_off, kv_len, sm)
+    sqnr = 10 * torch.log10(exact.square().sum() / (via.double() - exact).square().sum())
+    assert sqnr > 30, float(sqnr)
+    # The q codes and scales are JAX's, bit for bit.
+    js, jd = jquantize_mx(j_bf16(ql).reshape(B, N_HEADS, r), "int8", r)
+    ts, td = cuda_mla.quantize_rows(t_bf16(ql).reshape(B, N_HEADS, r), "int8")
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+def test_mla_int8dot_plain_skips_hidden_positions():
+    """A stale NaN scale (255) past a row's prefix changes nothing in plain
+    B14 (the JAX kernel would give NaN there: the port's standing decision)."""
+    L, r, dr = 256, 512, 64
+    _, tc = _filled("int8", "dmajor", L, r, dr, seed=15)
+    ql, qr = _queries(1, r, dr, seed=16)
+    args = [t_bf16(ql), t_bf16(qr), *tc.buffers, torch.tensor([40, 100]), torch.tensor([41, 101]), 0.1]
+    ref = cuda_mla.mx_mla_attention_int8dot_plain(*args)
+    args[3][:, :, 120], args[5][:, :, 130] = 255, 255
+    assert torch.equal(cuda_mla.mx_mla_attention_int8dot_plain(*args), ref) and torch.isfinite(ref.float()).all()
+
+
+def test_mla_dispatch_routes():
+    """Where JAX takes its eager route the port does too, and counts it: a
+    d-major cache without the int8-dot flag, a block size of 64; the seq
+    layout and the d-major decode with the flag take the kernels."""
+    ql, qr = _queries(2, 512, 64, seed=18)
+    q = (t_bf16(ql), t_bf16(qr))
+    before = cuda_mla.ROUTES["eager"]
+    seq = tds.MXMLACache.create(B, 128, 512, 64, "int8", layout="seq")
+    dmaj = tds.MXMLACache.create(B, 128, 512, 64, "int8", layout="dmajor")
+    blk64 = tds.MXMLACache.create(B, 128, 512, 64, "int8", block_size=64, layout="seq")
+    for c in (seq, dmaj, blk64):
+        c.write(torch.randn(B, 2, 512).to(torch.bfloat16), torch.randn(B, 2, 64).to(torch.bfloat16), 0)
+    cuda_mla.mla_cached_attention(*q, seq, 0, 2, 0.1)
+    assert cuda_mla.ROUTES["eager"] == before
+    cuda_mla.mla_cached_attention(*q, dmaj, 0, 2, 0.1)
+    cuda_mla.mla_cached_attention(*q, blk64, 0, 2, 0.1)
+    assert cuda_mla.ROUTES["eager"] == before + 2
+    with jax_env(TORCHMX_ATTN_INT8_DOT="1"):
+        cuda_mla.mla_cached_attention(q[0][:, :, 1:], q[1][:, :, 1:], dmaj, 1, 2, 0.1)
+    assert cuda_mla.ROUTES["eager"] == before + 2
+
+
+# -- plain B7 against the Pallas kernel ----------------------------------------------------------
+
+
+@pytest.mark.parametrize("act_fq", [None, "float8_e4m3", "int8"])
+def test_fp4_pair_plain_matches_pallas_kernel(act_fq):
+    """Plain B7 against ``_pallas_matmul_fp4`` (interpret mode) at the
+    shared-expert down shape's K (2816, the pair layout, bk 256)."""
+    M, K, N = 16, 2816, 128
+    rng = np.random.default_rng(6)
+    x = bf16(rng.standard_normal((M, K)))
+    w = bf16(rng.standard_normal((N, K)) * 0.05)
+    jw = MXArray.to_mx(j_bf16(w), "float4_e2m1", 32).T
+    tw = MXTensor.to_mx(t_bf16(w), "float4_e2m1", 32).T
+    assert jw.fp4_pack == tw.fp4_pack == "pair"
+    ref = np.asarray(jpm._pallas_matmul_fp4(j_bf16(x), jw.data, jw.scale_e8m0, 128, 256, jnp.bfloat16, act_fq),
+                     np.float32)
+    got = kf.mx_matmul_fp4_pair(t_bf16(x), tw.data, tw.scale_e8m0, act_fq)
+    assert float(np.abs(to_np(got) - ref).max() / np.abs(ref).max()) <= 1e-2
+    np.testing.assert_array_equal(to_np(kf.dequantize_fp4_pair(tw.data, tw.scale_e8m0)),
+                                  np.asarray(jw.to_dtype(jnp.bfloat16), np.float32))
+
+
+# -- the CUDA kernels (need a card) ---------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("elem", MLA_ELEMS)
+def test_cuda_mla_kernel_matches_plain(cuda_device, elem):
+    _, tc = _filled(elem, r=512, dr=64)
+    tc = tds.MLACache(*(t.to(cuda_device) for t in tc.buffers)) if elem == "bfloat16" else \
+        tds.MXMLACache(*(t.to(cuda_device) for t in tc.buffers), elem, 32, "seq")
+    ql, qr = (t_bf16(a).to(cuda_device) for a in _queries(3, 512, 64))
+    q_off, kv_len = torch.tensor([0, 200], device=cuda_device), torch.tensor([3, 203], device=cuda_device)
+    before = cuda_lib.LAUNCHES["mx_mla_attention"]
+    got = cuda_mla.mla_cached_attention(ql, qr, tc, q_off, kv_len, 0.07)
+    assert cuda_lib.LAUNCHES["mx_mla_attention"] == before + 1
+    from torchmx_tpu_torch.ops.backend import plain_path
+
+    with plain_path():
+        ref = cuda_mla.mla_cached_attention(ql, qr, tc, q_off, kv_len, 0.07)
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.gpu
+def test_cuda_mla_int8dot_kernel_matches_plain(cuda_device):
+    _, tc = _filled("int8", "dmajor", 256, 512, 64)
+    bufs = [t.to(cuda_device) for t in tc.buffers]
+    ql, qr = (t_bf16(a).to(cuda_device) for a in _queries(1, 512, 64))
+    args = (ql, qr, *bufs, torch.tensor([100, 255], device=cuda_device), torch.tensor([101, 256], device=cuda_device),
+            0.07)
+    got = cuda_mla.mx_mla_attention_int8dot(*args)
+    assert (got.float() - cuda_mla.mx_mla_attention_int8dot_plain(*args).float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act_fq", [None, "float8_e4m3", "int8"])
+def test_cuda_fp4_pair_kernel_matches_plain_and_is_row_invariant(cuda_device, act_fq):
+    g = torch.Generator().manual_seed(8)
+    w = MXTensor.to_mx((torch.randn(256, 2816, generator=g) * 0.05).to(torch.bfloat16).to(cuda_device),
+                       "float4_e2m1").T
+    x = torch.randn(130, 2816, generator=g).to(torch.bfloat16).to(cuda_device)
+    full = kf.mx_matmul_fp4_pair(x, w.data, w.scale_e8m0, act_fq)
+    ref = kf.mx_matmul_fp4_pair_plain(x, w.data, w.scale_e8m0, act_fq)
+    assert ((full.float() - ref.float()).abs().max() / ref.float().abs().max()).item() <= 1e-2
+    for k in (1, 17, 64, 65):
+        assert torch.equal(kf.mx_matmul_fp4_pair(x[:k].contiguous(), w.data, w.scale_e8m0, act_fq), full[:k])

@@ -4,15 +4,19 @@
 ``{dotted path: numpy array}`` dict (paths as ``nnx`` flattens the model
 state, e.g. ``model.layers.0.self_attn.q_proj.weight``; bf16 arrays as
 ``ml_dtypes.bfloat16``) and returns this package's bf16 causal LM of the
-config's family (Llama, Mistral or Mixtral) computing the same function.
-A Mixtral's stacked expert weights ``mlp.w1`` / ``w3`` ``(E, H, I)`` and
-``mlp.w2`` ``(E, I, H)`` and its router ``mlp.gate.weight`` ``(E, H)`` keep
-their names and layouts.  Quantize the model afterwards with
+config's family (Llama, Mistral, Mixtral or DeepSeek-V3) computing the same
+function.  A Mixtral's stacked expert weights ``mlp.w1`` / ``w3`` ``(E, H,
+I)`` and ``mlp.w2`` ``(E, I, H)`` and its router ``mlp.gate.weight`` ``(E,
+H)`` keep their names and layouts, and so do DeepSeek-V3's MLA projections
+and latent norms, its router's ``mlp.gate.e_score_correction_bias`` (f32)
+and its ``mlp.shared_experts``.  Quantize the model afterwards with
 ``quant_api.quantize_llm_``, from the same bf16 weights.
 
 ``grouped_moe_from_buffers`` takes a JAX grouped MX MoE block's stacked
 codes and scales (numpy) and returns the port's grouped block over the same
-bytes.
+bytes; with ``gate_bias`` and ``shared_experts`` (a DeepSeek-V3 block's
+correction bias and the port's MX shared experts) the DeepSeek grouped
+block.
 
 ``cache_from_buffers`` takes the four buffers of a JAX ``MXLayerKVCache`` (as
 numpy arrays) and returns this package's cache over the same bytes, in the
@@ -30,7 +34,9 @@ import numpy as np
 import torch
 
 from .config import QLinearConfig
+from .layers.mx_deepseek_attention import MXInferenceDeepseekV3MoEGrouped
 from .layers.mx_mixtral_moe import MXInferenceMixtralMoeBlockGrouped
+from .models.deepseek import DeepseekV3Config, DeepseekV3ForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM, MXLayerKVCache
 from .models.mistral import MistralConfig, MistralForCausalLM
 from .models.mixtral import MixtralConfig, MixtralForCausalLM
@@ -47,6 +53,8 @@ def _to_torch(arr: np.ndarray) -> torch.Tensor:
 
 def causal_lm_class(config: LlamaConfig):
     """The causal-LM class of the config's family."""
+    if isinstance(config, DeepseekV3Config):
+        return DeepseekV3ForCausalLM
     if isinstance(config, MixtralConfig):
         return MixtralForCausalLM
     return MistralForCausalLM if isinstance(config, MistralConfig) else LlamaForCausalLM
@@ -104,7 +112,8 @@ def mx_tensor_from_buffers(
 
 def grouped_moe_from_buffers(
     config: MixtralConfig, gate_weight: np.ndarray, codes: Dict[str, np.ndarray], scales: Dict[str, np.ndarray],
-    qconfig: QLinearConfig, kernel_elem: str, device: DeviceLike = None,
+    qconfig: QLinearConfig, kernel_elem: str, device: DeviceLike = None, gate_bias: Optional[np.ndarray] = None,
+    shared_experts=None,
 ) -> MXInferenceMixtralMoeBlockGrouped:
     """The port's grouped MX MoE block over a JAX grouped block's bytes:
     the router weight ``(E, H)`` bf16, and ``codes`` / ``scales`` keyed
@@ -115,5 +124,11 @@ def grouped_moe_from_buffers(
     def on(d):
         return {k: _to_torch(v).to(device) for k, v in d.items()}
 
-    return MXInferenceMixtralMoeBlockGrouped(config, _to_torch(gate_weight).to(device), on(codes), on(scales),
-                                             qconfig, kernel_elem)
+    block = MXInferenceMixtralMoeBlockGrouped(config, _to_torch(gate_weight).to(device), on(codes), on(scales),
+                                              qconfig, kernel_elem)
+    if gate_bias is None:
+        return block
+    block.__class__ = MXInferenceDeepseekV3MoEGrouped
+    block.e_score_bias = _to_torch(gate_bias).to(device=device, dtype=torch.float32)
+    block.shared_experts = shared_experts
+    return block

@@ -5,8 +5,8 @@
 // launched by _mx_cached_attention (:279).
 //
 // Inputs: q (b, hq, sq, d) bf16; K/V codes (b, hkv, L, d), one byte each
-// (fp8 e4m3 or int8), and scales (b, hkv, L, d/32) uint8; q_off, kv_len (b,)
-// int32.  Output (b, hq, sq, d)
+// (fp8 e4m3, fp6 e3m2 or e2m3, or int8), and scales (b, hkv, L, d/32)
+// uint8; q_off, kv_len (b,) int32.  Output (b, hq, sq, d)
 // bf16.  GQA is folded: the rows of one KV head are ordered (query
 // position, head in group), row r sees positions <= q_off + r / G and
 // < kv_len.
@@ -219,10 +219,16 @@ extern "C" int mx_cached_attention_launch(const void* q, const void* kd, const v
                                           int sq, int L, int d, float sm_scale, int elem,
                                           void* stream) {
   if (d != kD || hq % hkv || L % kL) return (int)cudaErrorInvalidValue;
-  if (elem != mx::kFp8E4M3 && elem != mx::kInt8) return (int)cudaErrorInvalidValue;
   if (b == 0 || sq == 0) return 0;
   dim3 grid((sq * (hq / hkv) + kRows - 1) / kRows, hkv, b);
-  auto kernel = elem == mx::kInt8 ? attention_kernel<mx::kInt8> : attention_kernel<mx::kFp8E4M3>;
+  decltype(&attention_kernel<mx::kInt8>) kernel;
+  switch (elem) {
+    case mx::kFp8E4M3: kernel = attention_kernel<mx::kFp8E4M3>; break;
+    case mx::kFp6E3M2: kernel = attention_kernel<mx::kFp6E3M2>; break;
+    case mx::kFp6E2M3: kernel = attention_kernel<mx::kFp6E2M3>; break;
+    case mx::kInt8: kernel = attention_kernel<mx::kInt8>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
       (const uint16_t*)q, (const uint8_t*)kd, (const uint8_t*)ks, (const uint8_t*)vd,
       (const uint8_t*)vs, (const int*)q_off, (const int*)kv_len, (uint16_t*)out, hq, hkv, sq, L,

@@ -13,12 +13,9 @@ from torch import nn
 from .. import env_variables as env
 from ..config import QLinearConfig
 from ..mx_array import MXTensor
+from ..ops.cuda_matmul_formats import ACT_FQ_FUSE_MAX_M
 from ..ops.matmul import mx_dynamic_matmul, mx_matmul
 from ..ops.quantize import mx_fake_quantize
-
-# Rows above which activations shared by several linears are fake-quantized
-# once (shared_activation_fq) instead of inside each matmul's prologue.
-ACT_FQ_FUSE_MAX_M = 64
 
 
 class Linear(nn.Module):
@@ -60,7 +57,7 @@ def kernel_layout(w: MXTensor) -> MXTensor:
     name, K = w.elem_dtype.name, w.shape[0]
     if name in ("float4_e2m1", "float6_e2m3") and env.TORCHMX_INT8_DOMAIN == "1":
         return w.to_int8_domain()
-    if name == "float4_e2m1" and K % 64 == 0:
+    if name == "float4_e2m1" and K % 512 == 0:
         return w.to_fp4_halves()
     if (name == "float8_e4m3" and K % 512 == 0 and env.TORCHMX_FP8_HALVES == "1"
             and env.TORCHMX_FP8_DOT != "1" and int(w.scale_e8m0.min()) >= 10):
@@ -78,9 +75,8 @@ class MXInferenceLinear(nn.Module):
     stored values are unchanged):
 
     * fp4 and fp6 e2m3 re-coded as MXINT8 under ``TORCHMX_INT8_DOMAIN=1``;
-    * fp4 with ``in % 64 == 0`` in the halves layout (K3; the JAX package
-      asks ``in % 512 == 0``, and keeps the pair layout below it, whose
-      kernel is not ported);
+    * fp4 with ``in % 512 == 0`` in the halves layout (K3), any other fp4
+      weight in the pair layout (B7);
     * fp8 with ``in % 512 == 0`` and every scale >= 10 in the halves layout
       (K3), unless ``TORCHMX_FP8_HALVES != "1"`` or ``TORCHMX_FP8_DOT ==
       "1"`` (B9 takes the flat layout);

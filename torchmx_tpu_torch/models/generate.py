@@ -8,6 +8,8 @@ positions are masked)."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..config import MXConfig
@@ -16,15 +18,15 @@ from .sampling import sample_logits
 
 @torch.inference_mode()
 def generate(model, input_ids: torch.Tensor, max_new_tokens: int, *,
-             kv_cache_config: MXConfig, temperature: float = 0.0, top_k: int = 0,
+             kv_cache_config: Optional[MXConfig], temperature: float = 0.0, top_k: int = 0,
              top_p: float = 1.0, min_p: float = 0.0, seed: int = 0, return_logits: bool = False):
     """``(batch, max_new_tokens)`` token ids: the argmax at ``temperature ==
     0``, else sampled through the temperature / top-k / top-p / min-p filters
     from a generator seeded with ``seed`` on the model's device.  With
     ``return_logits`` also the fp32 logits ``(batch, max_new_tokens, vocab)``
-    each token was picked from."""
-    if kv_cache_config is None:
-        raise NotImplementedError("a bf16 KV cache is not ported; pass an MX kv_cache_config")
+    each token was picked from.  ``kv_cache_config`` None asks the model
+    for its high-precision cache (DeepSeek-V3's bf16 ``MLACache``; Llama's
+    bf16 cache is not ported and raises)."""
     input_ids = input_ids.to(model.device)
     b, s = input_ids.shape
     max_len = (s + max_new_tokens + 127) // 128 * 128

@@ -339,6 +339,8 @@ class LlamaForCausalLM(nn.Module):
         return self.logits(hidden[:, -1:] if last_only else hidden)
 
     def init_cache(self, batch: int, max_len: int, kv_cache_config) -> List[MXLayerKVCache]:
+        if kv_cache_config is None:
+            raise NotImplementedError("a bf16 KV cache is not ported; pass an MX kv_cache_config")
         c = self.config
         return [
             MXLayerKVCache.create(batch, c.num_key_value_heads, max_len, c.head_dim,

@@ -42,7 +42,8 @@ Where this differs from the reference, which jits its steps:
   request's first token.
 * Left for later and raising ``NotImplementedError``: ``speculative_draft_len``
   (needs ``models/speculate.py``), ``ring`` (needs sliding windows), ``mesh``
-  (needs ``parallel/``), and a bf16 cache (``kv_cache_config=None``).
+  (needs ``parallel/``), and a bf16 KV cache for the Llama family
+  (``kv_cache_config=None``; DeepSeek-V3 takes it: its bf16 latent cache).
 """
 
 from __future__ import annotations
@@ -53,10 +54,9 @@ import numpy as np
 import torch
 
 from ..ops.backend import DeviceLike, resolve_device
-from .llama import MXLayerKVCache
 from .sampling import sample_logits
 
-SlotCaches = List[MXLayerKVCache]
+SlotCaches = list  # per-layer caches with ``buffers`` and ``clone`` (the slot is dim 0 of every buffer)
 
 
 class DecodeEngine:
@@ -64,14 +64,17 @@ class DecodeEngine:
 
     Args:
         model: a causal LM of this package (``LlamaForCausalLM``,
-            ``MistralForCausalLM`` or ``MixtralForCausalLM``; quantized or
-            not): the engine uses its ``model``, ``logits`` and ``init_cache``.
+            ``MistralForCausalLM``, ``MixtralForCausalLM`` or
+            ``DeepseekV3ForCausalLM``; quantized or not): the engine uses its
+            ``model``, ``logits`` and ``init_cache``.
         max_batch: number of request slots (the decode batch size).
         max_len: per-slot KV-cache capacity in tokens, rounded up to a
             multiple of 128 (the attention kernels' tile multiple).
-        kv_cache_config: the ``MXConfig`` of the MX KV cache (required).  Its
-            storage layout is ``env_variables.TORCHMX_KV_LAYOUT`` at the time
-            the engine is built, as in the reference.
+        kv_cache_config: the ``MXConfig`` of the MX KV (or latent) cache; None
+            for the model's bf16 cache where it has one (DeepSeek-V3's
+            ``MLACache``).  Its storage layout is
+            ``env_variables.TORCHMX_KV_LAYOUT`` at the time the engine is
+            built, as in the reference.
         eos_token_id: token id(s) that release a slot when *generated* (the
             EOS token itself is not emitted).
         prefill_chunk: chunked admissions: ``add()`` only queues the prompt,
@@ -113,8 +116,7 @@ class DecodeEngine:
         ring: bool = False,
     ):
         for name, asked in (("speculative_draft_len", speculative_draft_len is not None),
-                            ("ring", ring), ("mesh", mesh is not None),
-                            ("a bf16 KV cache (kv_cache_config=None)", kv_cache_config is None)):
+                            ("ring", ring), ("mesh", mesh is not None)):
             if asked:
                 raise NotImplementedError(f"{name} is not ported yet")
         self.device = resolve_device(device)

@@ -57,7 +57,8 @@ def _per_row(v: IntOrTensor, b: int, device) -> torch.Tensor:
     return torch.full((b,), int(v), dtype=torch.int32, device=device)
 
 
-K4_FORMATS = {"float8_e4m3": torch.uint8, "int8": torch.int8}  # format -> codes dtype
+K4_FORMATS = {"float8_e4m3": torch.uint8, "int8": torch.int8, "float6_e3m2": torch.uint8,
+              "float6_e2m3": torch.uint8}  # format -> codes dtype
 
 
 def _check_cache_tensors(k_data, k_scale, v_data, v_scale, codes_dtype) -> None:
@@ -128,9 +129,9 @@ def mx_cached_attention(
     q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float, elem_dtype_name: str
 ) -> torch.Tensor:
     """K4: ``q (b, hq, sq, d)`` bf16 over the seq-layout MX cache
-    ``(b, hkv, L, d)`` codes (uint8; int8 for the int8 format) +
-    ``(b, hkv, L, d/32)`` scales.  CUDA tensors launch the kernel (fp8 or
-    int8 cache, d = 128, L % 64 == 0; other shapes raise)."""
+    ``(b, hkv, L, d)`` codes (uint8, one code a byte; int8 for the int8
+    format) + ``(b, hkv, L, d/32)`` scales.  CUDA tensors launch the kernel
+    (fp8, fp6 or int8 cache, d = 128, L % 64 == 0; other shapes raise)."""
     if not on_cuda(q, k_data, k_scale, v_data, v_scale):
         return mx_cached_attention_plain(
             q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale, elem_dtype_name
@@ -139,7 +140,7 @@ def mx_cached_attention(
     _, hkv, L, dp = k_data.shape
     if elem_dtype_name not in K4_FORMATS or d != 128 or dp != d or L % 64 or hq % hkv:
         raise ValueError(
-            f"the attention kernel takes an fp8 or int8 cache with d=128 and L % 64 == 0, "
+            f"the attention kernel takes an fp8, fp6 or int8 cache with d=128 and L % 64 == 0, "
             f"got {elem_dtype_name} q{tuple(q.shape)} cache{tuple(k_data.shape)}"
         )
     _check_cache_tensors(k_data, k_scale, v_data, v_scale, K4_FORMATS[elem_dtype_name])
@@ -426,18 +427,22 @@ def mx_cached_attention_int8dot(
     return out
 
 
-def use_chunkdot(elem_dtype_name: str, sq: int, d: int) -> bool:
+KERNEL_GROUPS = (1, 2, 4, 8)  # query heads per KV head that K5 and K7 take
+
+
+def use_chunkdot(elem_dtype_name: str, sq: int, d: int, group: int = 1) -> bool:
     """True when K5 serves the call in the seq layout: int8 cache, one query
-    position, head_dim a multiple of 128 (``use_chunkdot`` of the reference)."""
-    return elem_dtype_name == "int8" and sq == 1 and d % 128 == 0
+    position, and the shapes K5 takes, head_dim 128 and 1, 2, 4 or 8 query
+    heads per KV head (``use_chunkdot`` of the reference also takes any d %
+    128 == 0 and any group; those tiers are not ported)."""
+    return elem_dtype_name == "int8" and sq == 1 and d == 128 and group in KERNEL_GROUPS
 
 
-def use_int8dot(cache, sq: int, d: int) -> bool:
+def use_int8dot(cache, sq: int, d: int, group: int = 1) -> bool:
     """True when K7 serves the call: the opt-in flag, an int8 d-major cache,
-    one query position, head_dim a multiple of 128 (``use_int8dot`` of the
-    reference)."""
+    one query position, and the shapes K7 takes (as ``use_chunkdot``)."""
     return (env.TORCHMX_ATTN_INT8_DOT == "1" and getattr(cache, "layout", "seq") == "dmajor"
-            and cache.elem_dtype_name == "int8" and sq == 1 and d % 128 == 0)
+            and cache.elem_dtype_name == "int8" and sq == 1 and d == 128 and group in KERNEL_GROUPS)
 
 
 def cached_attention_any(q, cache, q_off: IntOrTensor, kv_len: IntOrTensor, sm_scale: float,
@@ -453,10 +458,11 @@ def cached_attention_any(q, cache, q_off: IntOrTensor, kv_len: IntOrTensor, sm_s
     if cache.block_size != 32:
         raise ValueError("MX KV caches use block size 32")
     tensors = (cache.k_data, cache.k_scale, cache.v_data, cache.v_scale)
+    group = q.shape[1] // cache.k_data.shape[1]
     if getattr(cache, "layout", "seq") == "dmajor":
-        if use_int8dot(cache, q.shape[2], q.shape[3]):
+        if use_int8dot(cache, q.shape[2], q.shape[3], group):
             return mx_cached_attention_int8dot(q, *tensors, q_off, kv_len, sm_scale)
         return mx_cached_attention_dmajor(q, *tensors, q_off, kv_len, sm_scale, cache.elem_dtype_name)
-    if use_chunkdot(cache.elem_dtype_name, q.shape[2], q.shape[3]):
+    if use_chunkdot(cache.elem_dtype_name, q.shape[2], q.shape[3], group):
         return mx_cached_attention_chunkdot(q, *tensors, q_off, kv_len, sm_scale)
     return mx_cached_attention(q, *tensors, q_off, kv_len, sm_scale, cache.elem_dtype_name)

@@ -33,7 +33,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("mx_quantize", "mx_matmul", "mx_attention", "mx_attention_chunkdot",
            "mx_attention_dmajor", "mx_attention_int8dot", "mx_matmul_1byte", "mx_matmul_fp6q",
-           "mx_matmul_int8dot", "mx_rmsnorm", "mx_grouped_matmul", "mx_router")
+           "mx_matmul_int8dot", "mx_rmsnorm", "mx_grouped_matmul", "mx_router", "mx_matmul_fp4_pair",
+           "mx_mla", "mx_mla_int8dot")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -79,8 +80,26 @@ SIGNATURES = {
         "mx_grouped_matmul_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     },
     "mx_router": {
-        # x, w, out, rows, H, E, stream
-        "mx_router_logits_launch": (_P, _P, _P, _L, _I, _I, _P),
+        # x, w, out, rows, H, E, f32_out, stream
+        "mx_router_logits_launch": (_P, _P, _P, _L, _I, _I, _I, _P),
+    },
+    "mx_matmul_fp4_pair": {
+        # x, w, scale, out, workspace, M, N, K, act_fq_code, tile_rows, splits, stream
+        "mx_matmul_fp4_pair_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "mx_mla": {
+        # q_lat, q_rot, lat codes, lat scales, rot codes, rot scales, q_off, kv_len, out,
+        # b, rows, n, L, r, dr, sm_scale, elem_code (-1: bf16), v_from_rot, stream
+        "mx_mla_attention_launch": (
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P
+        ),
+    },
+    "mx_mla_int8dot": {
+        # q_lat codes, q_lat scales, q_rot codes, q_rot scales, lat codes, lat scales,
+        # rot codes, rot scales, q_off, kv_len, out, b, n, L, r, dr, stream
+        "mx_mla_attention_int8dot_launch": (
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P
+        ),
     },
     "mx_rmsnorm": {
         # x, weight, out, rows, D, eps, stream

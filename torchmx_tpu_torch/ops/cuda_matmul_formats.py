@@ -6,6 +6,12 @@ layouts, and their plain PyTorch versions:
   bf16 @ W (K, N)`` with one code per byte (fp8 e4m3, fp6 e3m2 or e2m3, or
   int8), ``scale (K/32, N)``; ``act_fq`` in None, ``"float8_e4m3"``,
   ``"int8"``.
+* B7 ``mx_matmul_fp4_pair`` (``csrc/mx_matmul_fp4_pair.cu``) replaces
+  ``_linear_kernel_fp4``: the same with an fp4 weight in the reference's
+  "pair" packing (``(K/2, N)`` bytes, byte p holding elements 2p (high
+  nibble) and 2p + 1 (low nibble)); ``act_fq`` in None, ``"float8_e4m3"``,
+  ``"int8"``, fused at M <= ``ACT_FQ_FUSE_MAX_M`` rows and applied by K2
+  first above it, as ``_run_kernel`` does.
 * B8 ``mx_matmul_fp6q`` (``csrc/mx_matmul_fp6q.cu``) replaces
   ``_linear_kernel_fp6q``: the same with an fp6 weight in the planar
   quarters layout (``(3K/4, N)`` bytes, ``MXTensor.to_fp6_quarters``);
@@ -38,14 +44,20 @@ from ..mx_quantization import f32_from_bits
 from ..packing import fp6_quarters_to_codes
 from . import cuda_lib
 from .backend import on_cuda
-from .cuda_matmul import _plan, check_matmul_operands, decode_code_dot, fq_matmul
+from .cuda_matmul import _plan, check_matmul_operands, decode_code_dot, decode_fp4_to_bf16, fq_matmul
 from .cuda_quantize import mx_quantize
+from .quantize import mx_fake_quantize
 
 CODE_FORMATS_1BYTE = ("float8_e4m3", "float6_e3m2", "float6_e2m3", "int8")
 FP6_FORMATS = ("float6_e3m2", "float6_e2m3")
 ACT_FQ_1BYTE = (None, "float8_e4m3", "int8")
 ACT_FQ_FP6Q = (None, "float8_e4m3")
 INT8DOT_MAX_M = 256  # rows above which the JAX package leaves int8 dots for the 1-byte kernel
+ACT_FQ_FP4_PAIR = (None, "float8_e4m3", "int8")
+# Rows above which B7 takes x fake-quantized by K2 instead of fusing the
+# activation quantize (``_ACT_FQ_FUSE_MAX_M`` of the reference); the layers
+# share the threshold for an activation read by several linears.
+ACT_FQ_FUSE_MAX_M = 64
 
 
 def dequantize_1byte(w_codes: torch.Tensor, w_scale: torch.Tensor, elem_name: str) -> torch.Tensor:
@@ -111,6 +123,51 @@ def mx_matmul_fp6q(x, planes, w_scale, elem_name: str, act_fq: Optional[str] = N
         return mx_matmul_fp6q_plain(x, planes, w_scale, elem_name, act_fq)
     return _launch_matmul("mx_matmul_fp6q", "mx_matmul_fp6q_launch", x, planes, w_scale, elem_name,
                           act_fq, 128, 3 * x.shape[1] // 4)
+
+
+def dequantize_fp4_pair(w_data: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+    """(K/2, N) pair bytes + (K/32, N) scales -> (K, N) bf16 weight, decoded
+    as K3 decodes fp4 (``decode_fp4_to_bf16``)."""
+    b = w_data.to(torch.int32)
+    codes = torch.stack([b >> 4, b & 0xF], dim=1).reshape(2 * b.shape[0], b.shape[1])
+    return decode_fp4_to_bf16(codes, w_scale.to(torch.int32).repeat_interleave(32, dim=0))
+
+
+def fp4_pair_takes(K: int, N: int) -> bool:
+    """The shapes JAX's plan serves with a pair fp4 weight (``_pick_tiles``:
+    a K block of 256, 512 or 1024, or the whole K when 32 <= K <= 1024), with
+    N a multiple of 64."""
+    return (K % 256 == 0 or (32 <= K <= 1024 and K % 32 == 0)) and N % 64 == 0
+
+
+def mx_matmul_fp4_pair_plain(x, w_data, w_scale, act_fq: Optional[str] = None):
+    """Plain version of B7."""
+    return fq_matmul(x, dequantize_fp4_pair(w_data, w_scale), act_fq)
+
+
+def mx_matmul_fp4_pair(x, w_data, w_scale, act_fq: Optional[str] = None):
+    """B7: ``fq(x) @ W`` in bf16 for an fp4 weight in the pair packing.  CUDA
+    tensors launch the kernel on the shapes ``fp4_pair_takes``; the rest
+    raises."""
+    if act_fq not in ACT_FQ_FP4_PAIR:
+        raise ValueError(f"the fp4 pair kernel fuses act_fq in {ACT_FQ_FP4_PAIR}, got {act_fq!r}")
+    if not on_cuda(x, w_data, w_scale):
+        return mx_matmul_fp4_pair_plain(x, w_data, w_scale, act_fq)
+    M, K = x.shape
+    N = w_data.shape[-1]
+    if not fp4_pair_takes(K, N):
+        raise ValueError(f"the fp4 pair kernel takes K % 256 == 0 or 32 <= K <= 1024 with K % 32 == 0, and "
+                         f"N % 64 == 0, got K={K} N={N}")
+    check_matmul_operands(x, w_data, w_scale, K // 2, torch.uint8, "fp4 pair", k_multiple=32)
+    if act_fq is not None and M > ACT_FQ_FUSE_MAX_M:
+        x, act_fq = mx_fake_quantize(x, act_fq), None
+    bm, splits = _plan(M, N, K, x.device)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    ws = torch.empty((splits, M, N) if splits > 1 else (1,), dtype=torch.float32, device=x.device)
+    act = -1 if act_fq is None else cuda_lib.ELEM_CODES[act_fq]
+    cuda_lib.launch("mx_matmul_fp4_pair", "mx_matmul_fp4_pair_launch", x.data_ptr(), w_data.data_ptr(),
+                    w_scale.data_ptr(), out.data_ptr(), ws.data_ptr(), M, N, K, act, bm, splits)
+    return out
 
 
 def _code_values(codes: torch.Tensor, fp8: bool) -> torch.Tensor:

@@ -1,0 +1,380 @@
+"""Absorbed multi-head latent attention (DeepSeek-V3 MLA) over a latent cache:
+the kernels, their plain PyTorch versions, and ``mla_cached_attention``, the
+dispatch the MLA layer calls (``torchmx_tpu/ops/pallas_mla.py``).
+
+* B13 ``mx_mla_attention`` (``csrc/mx_mla.cu``) replaces ``_mla_kernel``:
+  ``out = softmax(sm_scale * (q_lat . lat^T + q_rot . rot^T)) . lat`` over the
+  seq-layout latent cache (bf16 ``MLACache``, or ``MXMLACache`` in fp8, fp6,
+  int8 or halves-packed fp4), rows ``(query position, head)`` sharing the
+  latent, per-row causal masking from ``q_off`` / ``kv_len``, prefill and
+  decode alike.  Kernel and plain version: online softmax over tiles of
+  ``MLA_TILE`` positions in fp32, ``p`` rounded to bf16 before ``p . lat``,
+  masked scores ``-1e30``, a row with no visible key outputs 0; they differ
+  in fp32 summation order only.
+* B14 ``mx_mla_attention_int8dot`` (``csrc/mx_mla_int8dot.cu``) replaces
+  ``_mla_kernel_int8dot``: decode (one query position) over an int8 d-major
+  latent cache under ``TORCHMX_ATTN_INT8_DOT=1``, q and p quantized to int8
+  and both dots exact (``mx_mla_attention_int8dot_plain`` states the
+  formula).
+
+``mla_cached_attention`` routes as the JAX function does: B14 where
+``use_mla_int8dot`` says so, B13 where ``plan_mla_attention`` gives a plan,
+and JAX's own eager route everywhere else (a d-major cache outside B14, a
+block size other than 32, a cache length no tile divides):
+``mla_eager_attention`` dequantizes the whole cache with ``read()``, in
+PyTorch ops on the tensors' device, and is counted in ``ROUTES["eager"]``.
+It is the reference design, not a fallback: a kernel that fails raises.
+
+The int8 quantization of B14's q (one scale per row) and the d-major cache
+write (one scale per position) use a block of the full width; K1 takes
+blocks of 32 only, as JAX's Pallas quantizer does, so both go to the plain
+quantizer (``quantize_rows``), on the card too, bit for bit.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Optional, Tuple
+
+import torch
+
+from .. import env_variables as env
+from ..mx_array import dequantize_mx, quantize_mx_plain
+from ..packing import fp4_halves_to_pairs
+from . import cuda_lib
+from .backend import on_cuda
+from .cuda_attention import NEG_INF, IntOrTensor, _per_row, _pow2_scale
+
+MLA_TILE = 32  # KV positions per online-softmax step of B13 and B14 (kT in csrc/mx_mla*.cu)
+KERNEL_R, KERNEL_DR = 512, 64  # the latent rank and rope width the kernels take
+BLOCK = 32
+MAX_ROWS = 256  # per-q-tile row budget of the JAX plan
+MLA_FORMATS = ("bfloat16", "float8_e4m3", "float6_e3m2", "float6_e2m3", "int8", "float4_e2m1")
+
+#: how often each route of ``mla_cached_attention`` ran: "eager" counts JAX's
+#: dequantize-the-cache route (the kernels count in ``cuda_lib.LAUNCHES``).
+ROUTES: "collections.Counter[str]" = collections.Counter()
+
+
+def quantize_rows(x: torch.Tensor, elem_dtype_name: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MX-quantize ``x (..., w)`` bf16 with one shared exponent per row (block
+    = w): ``(scale (..., 1) uint8, codes (..., w))``, by the plain quantizer
+    on either device (K1 takes blocks of 32 only)."""
+    return quantize_mx_plain(x.to(torch.bfloat16).contiguous(), elem_dtype_name, x.shape[-1])
+
+
+# -- the tiling oracle (torchmx_tpu/ops/pallas_attention.py:863-883, pallas_mla.py:234-257) -----------
+
+
+def _pick_lt(L: int) -> Optional[int]:
+    cap = 2048 if L >= 8192 else (1024 if L >= 2048 else 512)
+    return next((c for c in (cap, 1024, 512, 256, 128) if c <= cap and L % c == 0), None)
+
+
+def _pick_sqt(sq: int, g: int) -> Optional[int]:
+    if sq * g <= MAX_ROWS:
+        return sq
+    for c in range(MAX_ROWS // g, 0, -1):
+        if sq % c == 0 and (c * g) % 8 == 0:
+            return c
+    return None
+
+
+def plan_mla_attention(n_heads: int, sq: int, L: int, r: int, dr: int, elem_name: str):
+    """JAX's static oracle: a plan (not None) where its fused kernel serves
+    the shape, None where it takes the eager route.  B13 serves exactly the
+    shapes with a plan (on the card: r = 512, dr = 64)."""
+    if elem_name not in MLA_FORMATS:
+        return None
+    if elem_name == "float4_e2m1":
+        if r % (2 * BLOCK) or dr % (2 * BLOCK):
+            return None
+    elif elem_name != "bfloat16" and (r % BLOCK or dr % BLOCK):
+        return None
+    lt, sqt = _pick_lt(L), _pick_sqt(sq, n_heads)
+    return None if lt is None or sqt is None else (lt, sqt)
+
+
+def use_mla_int8dot(cache, sq: int, r: int, dr: int) -> bool:
+    """True when B14 serves the call: the opt-in flag, an int8 d-major latent
+    cache, one query position, and the widths B14 takes (r = 512, dr = 64;
+    ``use_mla_int8dot`` of the reference takes any r % 128 and dr % 32, whose
+    other widths are not ported)."""
+    return (env.TORCHMX_ATTN_INT8_DOT == "1" and getattr(cache, "layout", "seq") == "dmajor"
+            and cache.elem_dtype_name == "int8" and sq == 1 and r == KERNEL_R and dr == KERNEL_DR)
+
+
+# -- B13 ------------------------------------------------------------------------------------------
+
+
+def dequantize_latent(data: torch.Tensor, scale: torch.Tensor, elem_name: str) -> torch.Tensor:
+    """A seq-layout latent (or rope key) buffer ``(b, L, w)`` (fp4: ``(b, L,
+    w/2)`` halves-packed) to bf16 ``(b, L, w)``."""
+    if elem_name == "bfloat16":
+        return data.to(torch.bfloat16)
+    if elem_name == "float4_e2m1":
+        data = fp4_halves_to_pairs(data)
+    return dequantize_mx(data, scale, elem_name, BLOCK, torch.bfloat16, 2)
+
+
+def mx_mla_attention_plain(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_scale, q_off, kv_len,
+                           sm_scale: float, elem_name: str, n_heads: int,
+                           compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version of B13 over folded rows: ``q_lat (b, rows, r)`` and
+    ``q_rot (b, rows, dr)`` bf16, rows ordered (query position, head) with
+    ``n_heads`` heads, against the dequantized cache, tile by tile
+    (``MLA_TILE`` positions).  ``compute_dtype=torch.float64`` computes the
+    same function with another rounding."""
+    f = compute_dtype
+    lat = dequantize_latent(lat_data, lat_scale, elem_name)
+    rot = dequantize_latent(rot_data, rot_scale, elem_name)
+    b, rows, r = q_lat.shape
+    L, dev = lat.shape[1], q_lat.device
+    q_off = _per_row(q_off, b, dev)
+    kv_len = _per_row(kv_len, b, dev)
+    # Positions at or past kv_len enter as 0, as in the kernel: a stale NaN
+    # scale there must not reach the dots.
+    live = (torch.arange(L, device=dev) < kv_len[:, None])[:, :, None]
+    lat = torch.where(live, lat, 0).to(f)
+    rot = torch.where(live, rot, 0).to(f)
+    q_pos = (q_off[:, None] + torch.arange(rows, device=dev)[None] // n_heads)[:, :, None]
+    ql, qr = q_lat.to(torch.bfloat16).to(f), q_rot.to(torch.bfloat16).to(f)
+    m = torch.full((b, rows, 1), NEG_INF, dtype=f, device=dev)
+    l = torch.zeros((b, rows, 1), dtype=f, device=dev)
+    acc = torch.zeros((b, rows, r), dtype=f, device=dev)
+    for t0 in range(0, min(L, int(kv_len.max())), MLA_TILE):
+        lt, rt = lat[:, t0:t0 + MLA_TILE], rot[:, t0:t0 + MLA_TILE]
+        kv_pos = torch.arange(t0, t0 + lt.shape[1], device=dev)
+        s = (ql @ lt.transpose(1, 2) + qr @ rt.transpose(1, 2)) * sm_scale
+        valid = (kv_pos <= q_pos) & (kv_pos < kv_len[:, None, None])
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(s - m_new), 0.0)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).to(f) @ lt
+        m = m_new
+    return (acc / torch.where(l == 0, 1.0, l)).to(torch.bfloat16)
+
+
+def _codes_dtype(elem_name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "int8": torch.int8}.get(elem_name, torch.uint8)
+
+
+def mx_mla_attention(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_scale, q_off, kv_len,
+                     sm_scale: float, elem_name: str, n_heads: int, v_from_rot: bool = False) -> torch.Tensor:
+    """B13: ``(b, rows, r)`` bf16 from folded queries over the seq-layout
+    latent cache (see ``mx_mla_attention_plain``).  CUDA tensors launch the
+    kernel (r = 512, dr = 64, L % 32 == 0; other shapes raise).  The scales
+    of a bf16 cache are ignored (pass any uint8 tensor).  ``v_from_rot``
+    makes the kernel read V from the rope key instead of the latent: a
+    planted fault for the model check, never set by the package."""
+    if not on_cuda(q_lat, q_rot, lat_data, rot_data):
+        return mx_mla_attention_plain(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_scale, q_off, kv_len,
+                                      sm_scale, elem_name, n_heads)
+    b, rows, r = q_lat.shape
+    dr, L = q_rot.shape[2], lat_data.shape[1]
+    pack = 2 if elem_name == "float4_e2m1" else 1
+    if (elem_name not in MLA_FORMATS or r != KERNEL_R or dr != KERNEL_DR or L % MLA_TILE or rows % n_heads
+            or lat_data.shape != (b, L, r // pack) or rot_data.shape != (b, L, dr // pack)):
+        raise ValueError(f"the MLA kernel takes r={KERNEL_R}, dr={KERNEL_DR}, L % {MLA_TILE} == 0 and a "
+                         f"{MLA_FORMATS} cache, got {elem_name} q_lat{tuple(q_lat.shape)} q_rot{tuple(q_rot.shape)} "
+                         f"latent{tuple(lat_data.shape)} rope{tuple(rot_data.shape)}")
+    cd = _codes_dtype(elem_name)
+    bufs = (lat_data, rot_data) if elem_name == "bfloat16" else (lat_data, lat_scale, rot_data, rot_scale)
+    for t in bufs:
+        if not t.is_contiguous() or t.dtype not in (cd, torch.uint8):
+            raise ValueError(f"latent cache buffers must be contiguous {cd} codes and uint8 scales")
+    if elem_name != "bfloat16" and (lat_scale.shape != (b, L, r // BLOCK) or rot_scale.shape != (b, L, dr // BLOCK)):
+        raise ValueError(f"latent scales must be ({b}, {L}, {r // BLOCK}) and ({b}, {L}, {dr // BLOCK})")
+    if elem_name == "bfloat16":
+        lat_scale = rot_scale = lat_data  # unread
+    ql = q_lat.to(torch.bfloat16).contiguous()
+    qr = q_rot.to(torch.bfloat16).contiguous()
+    q_off = _per_row(q_off, b, ql.device)
+    kv_len = _per_row(kv_len, b, ql.device)
+    out = torch.empty_like(ql)
+    elem = -1 if elem_name == "bfloat16" else cuda_lib.ELEM_CODES[elem_name]
+    cuda_lib.launch("mx_mla", "mx_mla_attention_launch", ql.data_ptr(), qr.data_ptr(), lat_data.data_ptr(),
+                    lat_scale.data_ptr(), rot_data.data_ptr(), rot_scale.data_ptr(), q_off.data_ptr(),
+                    kv_len.data_ptr(), out.data_ptr(), b, rows, n_heads, L, r, dr, float(sm_scale), elem,
+                    int(v_from_rot))
+    return out
+
+
+# -- B14 ------------------------------------------------------------------------------------------
+
+
+def quantize_q_rows(q: torch.Tensor, sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B14's query: ``q (b, n, 1, w)`` to int8 codes ``(b, n, w)`` with one
+    scale per row, as f32 ``(b, n)`` with ``sm_scale`` folded in."""
+    b, n, _, w = q.shape
+    se, codes = quantize_rows(q.reshape(b, n, w), "int8")
+    return _pow2_scale(se[..., 0]) * sm_scale, codes
+
+
+def _int8dot_check(q_lat, q_rot, lat_data, rot_data) -> None:
+    b, n, sq, r = q_lat.shape
+    if (sq != 1 or q_rot.shape[:3] != (b, n, 1) or lat_data.dtype != torch.int8 or rot_data.dtype != torch.int8
+            or lat_data.shape[:2] != (b, r) or rot_data.shape[:2] != (b, q_rot.shape[3])):
+        raise ValueError(f"int8-dot MLA takes one query position over an int8 d-major latent, got "
+                         f"q_lat{tuple(q_lat.shape)} latent{tuple(lat_data.shape)} {lat_data.dtype}")
+
+
+def mx_mla_attention_int8dot_plain(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_scale, q_off, kv_len,
+                                   sm_scale: float, tile: int = MLA_TILE) -> torch.Tensor:
+    """Plain version of B14, tile by tile (``tile`` positions; the result
+    depends on it): ``q_lat (b, n, 1, r)`` / ``q_rot (b, n, 1, dr)`` bf16 over
+    the d-major int8 latent ``(b, r, L)`` / ``(b, dr, L)`` with per-position
+    scales ``(b, 1, L)``.  With ql, qr the int8 rows and qlsc, qrsc their f32
+    scales times sm_scale (``quantize_q_rows``), pk(e) the float whose bits
+    are e << 23:
+
+    * ``s = (dot(ql, lat_j) * qlsc) * pk(el_j) + (dot(qr, rot_j) * qrsc) *
+      pk(er_j)``, both dots exact integers;
+    * j visible when ``j <= q_off`` and ``j < kv_len``, masked ``-1e30``,
+      online softmax in fp32;
+    * per tile ``p3 = p * pk(el_j)`` at visible j (0 elsewhere, whatever the
+      stale scale), ``mx = max p3`` (1 where 0), ``pq = round_half_even(p3 *
+      (127 / mx))``, ``acc = acc * alpha + (pq . lat^T) * (mx * (1/127))``;
+    * ``out = acc / l`` (l = 1 where 0).
+
+    The kernel differs in fp32 summation order only (and so in ties of
+    pq).  The integer dots run in float64, where they are exact."""
+    _int8dot_check(q_lat, q_rot, lat_data, rot_data)
+    b, n, _, r = q_lat.shape
+    L, dev, f64 = lat_data.shape[2], q_lat.device, torch.float64
+    qlsc, qld = quantize_q_rows(q_lat, sm_scale)
+    qrsc, qrd = quantize_q_rows(q_rot, sm_scale)
+    qld, qrd = qld.to(f64), qrd.to(f64)
+    q_off = _per_row(q_off, b, dev)
+    kv_len = _per_row(kv_len, b, dev)
+    visible = torch.minimum(kv_len, q_off + 1).clamp(max=L)
+    m = torch.full((b, n, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, n, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, n, r), dtype=torch.float32, device=dev)
+    for t0 in range(0, int(visible.max()), tile):
+        lt = lat_data[:, :, t0:t0 + tile].to(f64)
+        rt = rot_data[:, :, t0:t0 + tile].to(f64)
+        T = lt.shape[2]
+        valid = (torch.arange(t0, t0 + T, device=dev) < visible[:, None])[:, None, :]  # (b, 1, T)
+        pkl = _pow2_scale(lat_scale[:, :, t0:t0 + tile])  # (b, 1, T)
+        pkr = _pow2_scale(rot_scale[:, :, t0:t0 + tile])
+        s_l = (qld @ lt).to(torch.float32)
+        s_r = (qrd @ rt).to(torch.float32)
+        s = (s_l * qlsc[..., None]) * pkl + (s_r * qrsc[..., None]) * pkr
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(s - m_new), 0.0)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        p3 = torch.where(valid, p * pkl, 0.0)
+        mx = p3.amax(dim=-1, keepdim=True)
+        mx = torch.where(mx == 0, 1.0, mx)
+        pq = torch.round(p3 * (127.0 / mx))
+        pv = (pq.to(f64) @ lt.transpose(1, 2)).to(torch.float32)
+        acc = acc * alpha + pv * (mx * (1.0 / 127.0))
+        m = m_new
+    out = acc / torch.where(l == 0, 1.0, l)
+    return out[:, :, None, :].to(torch.bfloat16)
+
+
+def mx_mla_attention_int8dot_codes(qld, qlsc, qrd, qrsc, lat_data, lat_scale, rot_data, rot_scale, q_off, kv_len,
+                                   ) -> torch.Tensor:
+    """B14's launch on queries already quantized by ``quantize_q_rows``:
+    codes ``(b, n, r)`` / ``(b, n, dr)`` int8 and f32 row scales ``(b, n)``
+    with sm_scale folded in; CUDA tensors only (r = 512, dr = 64, L % 32 ==
+    0; other shapes raise).  Returns ``(b, n, 1, r)`` bf16."""
+    b, n, r = qld.shape
+    dr, L = qrd.shape[2], lat_data.shape[2]
+    if (r != KERNEL_R or dr != KERNEL_DR or L % MLA_TILE or lat_data.shape != (b, r, L)
+            or rot_data.shape != (b, dr, L) or lat_data.dtype != torch.int8 or rot_data.dtype != torch.int8):
+        raise ValueError(f"the int8-dot MLA kernel takes r={KERNEL_R}, dr={KERNEL_DR}, L % {MLA_TILE} == 0 and an "
+                         f"int8 d-major latent, got q codes {tuple(qld.shape)} / {tuple(qrd.shape)} latent "
+                         f"{tuple(lat_data.shape)} {lat_data.dtype}")
+    if lat_scale.shape != (b, 1, L) or rot_scale.shape != (b, 1, L) or lat_scale.dtype != torch.uint8:
+        raise ValueError(f"per-position scales must be ({b}, 1, {L}) uint8")
+    tensors = (qld, qlsc, qrd, qrsc, lat_data, lat_scale, rot_data, rot_scale)
+    if not all(t.is_contiguous() for t in tensors) or qlsc.dtype != torch.float32 or qrsc.dtype != torch.float32:
+        raise ValueError("B14's operands must be contiguous, the row scales f32")
+    q_off = _per_row(q_off, b, qld.device)
+    kv_len = _per_row(kv_len, b, qld.device)
+    out = torch.empty((b, n, 1, r), dtype=torch.bfloat16, device=qld.device)
+    cuda_lib.launch("mx_mla_int8dot", "mx_mla_attention_int8dot_launch", *(t.data_ptr() for t in tensors),
+                    q_off.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b, n, L, r, dr)
+    return out
+
+
+def mx_mla_attention_int8dot(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_scale, q_off, kv_len,
+                             sm_scale: float) -> torch.Tensor:
+    """B14: ``(b, n, 1, r)`` bf16 (see ``mx_mla_attention_int8dot_plain``).
+    CUDA tensors quantize q by ``quantize_q_rows`` and launch the kernel
+    (``mx_mla_attention_int8dot_codes``)."""
+    if not on_cuda(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_scale):
+        return mx_mla_attention_int8dot_plain(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_scale, q_off,
+                                              kv_len, sm_scale)
+    _int8dot_check(q_lat, q_rot, lat_data, rot_data)
+    qlsc, qld = quantize_q_rows(q_lat, sm_scale)
+    qrsc, qrd = quantize_q_rows(q_rot, sm_scale)
+    return mx_mla_attention_int8dot_codes(qld, qlsc.contiguous(), qrd, qrsc.contiguous(), lat_data, lat_scale,
+                                          rot_data, rot_scale, q_off, kv_len)
+
+
+# -- the dispatch (torchmx_tpu/models/deepseek.py:498-533, ops/pallas_mla.py:260-341) -------------------
+
+
+def mla_eager_attention(q_lat, q_rot, cache, q_off: IntOrTensor, sm_scale: float) -> torch.Tensor:
+    """JAX's eager route: the whole cache dequantized by ``read()``, fp32
+    scores over every position with the causal mask of ``q_off``, an fp32
+    softmax rounded to bf16, ``p . lat`` in fp32 rounded to bf16.  Positions
+    past the last query's are zeroed first (a stale scale there must not
+    reach the products)."""
+    ROUTES["eager"] += 1
+    b, n, sq, _ = q_lat.shape
+    lat, rot = cache.read()  # (b, L, r) / (b, L, dr) bf16
+    L, dev = lat.shape[1], lat.device
+    q_pos = _per_row(q_off, b, dev)[:, None] + torch.arange(sq, device=dev)  # (b, sq)
+    j = torch.arange(L, device=dev)
+    live = (j[None] < q_pos[:, -1:] + 1)[:, :, None]
+    lat = torch.where(live, lat, 0).to(torch.float32)
+    rot = torch.where(live, rot, 0).to(torch.float32)
+    s = q_lat.to(torch.float32) @ lat[:, None].transpose(-1, -2)
+    s = s + q_rot.to(torch.float32) @ rot[:, None].transpose(-1, -2)
+    s = s * sm_scale
+    visible = (j[None, None] <= q_pos[:, :, None])[:, None]  # (b, 1, sq, L)
+    s = torch.where(visible, s, torch.finfo(torch.float32).min)
+    p = torch.softmax(s, dim=-1).to(torch.bfloat16)
+    return (p.to(torch.float32) @ lat[:, None]).to(torch.bfloat16)
+
+
+def mla_cached_attention(q_lat, q_rot, cache, q_off: IntOrTensor, kv_len: IntOrTensor,
+                         sm_scale: float) -> torch.Tensor:
+    """Absorbed attention of ``q_lat (b, n, sq, r)`` and ``q_rot (b, n, sq,
+    dr)`` (RoPE applied) over an ``MXMLACache`` or ``MLACache`` holding the
+    cache after the current tokens were written; ``q_off`` is the first query
+    position and ``kv_len`` the visible prefix, each an int or a (b,)
+    tensor.  Returns ``(b, n, sq, r)`` bf16, to be folded through the V half
+    of ``kv_b_proj`` by the caller."""
+    b, n, sq, r = q_lat.shape
+    dr = q_rot.shape[3]
+    if hasattr(cache, "lat_data"):  # MXMLACache
+        elem = cache.elem_dtype_name
+        if cache.block_size != BLOCK:
+            return mla_eager_attention(q_lat, q_rot, cache, q_off, sm_scale)
+        if cache.layout == "dmajor":
+            if (use_mla_int8dot(cache, sq, r, dr) and _pick_lt(cache.max_len) is not None
+                    and n <= MAX_ROWS):
+                return mx_mla_attention_int8dot(q_lat, q_rot, *cache.buffers, q_off, kv_len, sm_scale)
+            return mla_eager_attention(q_lat, q_rot, cache, q_off, sm_scale)
+        tensors = cache.buffers
+    else:  # MLACache
+        elem = "bfloat16"
+        tensors = (cache.latent, cache.latent, cache.k_rot, cache.k_rot)
+    if plan_mla_attention(n, sq, cache.max_len, r, dr, elem) is None:
+        return mla_eager_attention(q_lat, q_rot, cache, q_off, sm_scale)
+
+    def fold(q):  # (b, n, sq, x) -> (b, sq * n, x), rows ordered (query position, head)
+        return q.to(torch.bfloat16).transpose(1, 2).reshape(b, sq * n, q.shape[3])
+
+    out = mx_mla_attention(fold(q_lat), fold(q_rot), *tensors, q_off, kv_len, sm_scale, elem, n)
+    return out.reshape(b, sq, n, r).transpose(1, 2)

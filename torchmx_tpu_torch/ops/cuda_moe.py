@@ -1,7 +1,7 @@
 """The MoE kernels and their plain PyTorch versions: B12
 ``mx_grouped_matmul``, the dropless grouped expert GEMM
 (``csrc/mx_grouped_matmul.cu``), and ``mx_router_logits``, the router's
-row-wise product (``csrc/mx_router.cu``).
+row-wise product in bf16 or f32 (``csrc/mx_router.cu``).
 
 B12 replaces ``torchmx_tpu/ops/pallas_moe.py::_grouped_kernel_bf16``,
 ``_grouped_kernel_tinner`` and ``_grouped_kernel_mx`` (``grouped_matmul``):
@@ -34,6 +34,7 @@ from . import cuda_lib
 from .backend import on_cuda
 from .cuda_matmul import _plan
 from .cuda_matmul_formats import CODE_FORMATS_1BYTE, mx_matmul_1byte_plain
+from .cuda_norm import pairwise_sum
 
 GROUPED_FORMATS = (None,) + CODE_FORMATS_1BYTE  # None: bf16 experts
 
@@ -110,27 +111,49 @@ def mx_grouped_matmul(x, w, tile_expert, tile_rows, tm: int, w_scale=None,
     return out
 
 
-def mx_router_logits_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w.T`` with an f32 accumulation and one bf16 rounding."""
-    return (x.to(torch.float32) @ w.to(torch.float32).t()).to(x.dtype)
+ROUTER_CHUNK = 256  # elements of a row summed by one pairwise tree (csrc/mx_router.cu)
+ROUTER_MAX_E = 256
 
 
-def mx_router_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The router's logits ``(T, E)`` bf16 from ``x (T, H)`` and the router
-    weight ``w (E, H)`` (torch layout).  It replaces no TPU kernel (the JAX
-    router is a plain jnp matmul); on the card it repairs the port's row
-    invariance: cuBLAS sums a row in another order at other row counts,
-    which moved a token's logits, and at a near tie its experts, with the
-    number of tokens in the call.  The kernel gives each row one block that
-    sums in a fixed order (H a multiple of 256; 2, 4, 8 or 16 experts)."""
+def mx_router_logits_plain(x: torch.Tensor, w: torch.Tensor, f32: bool = False) -> torch.Tensor:
+    """``x @ w.T`` in the kernel's order, bit for bit: the exact f32
+    products of each chunk of ``ROUTER_CHUNK`` elements summed by a pairwise
+    tree, the chunk sums added in chunk order (the tail of a row not a chunk
+    multiple forms a last, shorter chunk); one bf16 rounding, or none with
+    ``f32``.  A row's result does not depend on the other rows."""
+    T, H = x.shape
+    E = w.shape[0]
+    wf = w.to(torch.float32)
+    out = torch.empty((T, E), dtype=torch.float32, device=x.device)
+    step = max(1, (1 << 26) // max(1, E * H))  # rows per pass: bounds the (rows, E, H) products
+    for r0 in range(0, T, step):
+        p = x[r0:r0 + step].to(torch.float32)[:, None, :] * wf[None]
+        acc = torch.zeros(p.shape[:2], dtype=torch.float32, device=x.device)
+        for c0 in range(0, H, ROUTER_CHUNK):
+            acc = acc + pairwise_sum(p[..., c0:c0 + ROUTER_CHUNK])
+        out[r0:r0 + step] = acc
+    return out if f32 else out.to(x.dtype)
+
+
+def mx_router_logits(x: torch.Tensor, w: torch.Tensor, f32: bool = False) -> torch.Tensor:
+    """The router's logits ``(T, E)`` from ``x (T, H)`` and the router
+    weight ``w (E, H)`` (torch layout), both bf16: rounded to bf16
+    (Mixtral), or f32 with ``f32`` (DeepSeek-V3's sigmoid router).  It
+    replaces no TPU kernel (the JAX router is a plain jnp matmul); on the
+    card it repairs the port's row invariance: cuBLAS sums a row in another
+    order at other row counts, which moved a token's logits, and at a near
+    tie its experts, with the number of tokens in the call.  The kernel sums
+    each row in the plain version's fixed order (H a multiple of 256, up to
+    256 experts)."""
     if not on_cuda(x, w):
-        return mx_router_logits_plain(x, w)
+        return mx_router_logits_plain(x, w, f32)
     (T, H), E = x.shape, w.shape[0]
     if x.dim() != 2 or x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 or w.shape != (E, H) \
-            or H % 256 or E not in (2, 4, 8, 16):
-        raise ValueError(f"the router kernel takes bf16 x (T, H) and w (E, H) with H % 256 == 0 and E in "
-                         f"(2, 4, 8, 16), got {x.dtype} {tuple(x.shape)} and {w.dtype} {tuple(w.shape)}")
+            or H % ROUTER_CHUNK or not 1 <= E <= ROUTER_MAX_E:
+        raise ValueError(f"the router kernel takes bf16 x (T, H) and w (E, H) with H % {ROUTER_CHUNK} == 0 and "
+                         f"1 <= E <= {ROUTER_MAX_E}, got {x.dtype} {tuple(x.shape)} and {w.dtype} {tuple(w.shape)}")
     x, w = x.contiguous(), w.contiguous()
-    out = torch.empty((T, E), dtype=torch.bfloat16, device=x.device)
-    cuda_lib.launch("mx_router", "mx_router_logits_launch", x.data_ptr(), w.data_ptr(), out.data_ptr(), T, H, E)
+    out = torch.empty((T, E), dtype=torch.float32 if f32 else torch.bfloat16, device=x.device)
+    cuda_lib.launch("mx_router", "mx_router_logits_launch", x.data_ptr(), w.data_ptr(), out.data_ptr(), T, H, E,
+                    int(f32))
     return out

@@ -7,7 +7,9 @@ PyTorch's fp32 ``mean`` over 4096 sums in another order at 3-15 rows than at
 other row counts, so a row's bytes depended on how many rows shared the call.
 The kernel gives each row one warp that sums its squares in a fixed order,
 so a row's result does not depend on the other rows.  Same formula:
-``x * rsqrt(mean(x * x) + eps) * w`` in fp32, one bf16 rounding.
+``x * rsqrt(mean(x * x) + eps) * w`` in fp32, one bf16 rounding.  The plain
+version sums the squares by a fixed pairwise tree (``pairwise_sum``), so it
+too gives a row the same bytes whatever the row count.
 """
 
 from __future__ import annotations
@@ -18,9 +20,21 @@ from . import cuda_lib
 from .backend import on_cuda
 
 
+def pairwise_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim by a pairwise tree over consecutive elements
+    (0+1, 2+3, ..., then the pairs of pairs; a zero pads an odd level):
+    elementwise adds only, so a row's sum does not depend on the other rows."""
+    while v.shape[-1] > 1:
+        if v.shape[-1] % 2:
+            v = torch.cat([v, torch.zeros_like(v[..., :1])], dim=-1)
+        v = v[..., 0::2] + v[..., 1::2]
+    return v[..., 0]
+
+
 def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.to(torch.float32)
-    xf = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    ms = pairwise_sum(xf * xf)[..., None] / xf.shape[-1]
+    xf = xf * torch.rsqrt(ms + eps)
     return (xf * weight.to(torch.float32)).to(x.dtype)
 
 

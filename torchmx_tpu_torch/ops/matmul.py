@@ -6,15 +6,16 @@ or one of the kernel layouts of it).  Each weight layout has its kernel (the
 CUDA kernel on a CUDA tensor, its plain version on a CPU tensor):
 
 * fp4 or fp8 "halves" -> K3 (``mx_matmul_fp4_halves`` / ``mx_matmul_fp8_halves``);
+* fp4 "pair" -> B7 (``mx_matmul_fp4_pair``);
 * fp6 "quarters" -> B8 (``mx_matmul_fp6q``);
 * one code per byte (fp8, fp6, int8) -> B6 (``mx_matmul_1byte``);
 * int8 activations with an int8 weight, or, under ``TORCHMX_FP8_DOT=1``, fp8
   activations with a flat fp8 weight, at M <= 256 -> B9
   (``mx_matmul_int8dot``), from ``mx_dynamic_matmul`` only.
 
-Any other weight (fp4 in the pair layout, a padded or n-d tensor, another
-block size) runs the plain dequantize-then-matmul path, on the CPU only: on
-the card a weight no kernel takes raises.
+Any other weight (a padded or n-d tensor, another block size) runs the plain
+dequantize-then-matmul path, on the CPU only: on the card a weight no kernel
+takes raises.
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ def _kernel_of(w: MXTensor):
         return (lambda x, w, act: fn(x, w.data, w.scale_e8m0, act)), k3.ACT_FQ_FORMATS
     if w.fp4_pack == "quarters":
         return (lambda x, w, act: kf.mx_matmul_fp6q(x, w.data, w.scale_e8m0, name, act)), kf.ACT_FQ_FP6Q
+    if name == "float4_e2m1":
+        return (lambda x, w, act: kf.mx_matmul_fp4_pair(x, w.data, w.scale_e8m0, act)), kf.ACT_FQ_FP4_PAIR
     if name in kf.CODE_FORMATS_1BYTE:
         return (lambda x, w, act: kf.mx_matmul_1byte(x, w.data, w.scale_e8m0, name, act)), kf.ACT_FQ_1BYTE
     return None

@@ -3,9 +3,10 @@
 hold in bf16 next to their quantized copy.
 
 The registries map a block's exact type to its MX version, as the JAX
-package's do, limited to the ported families (Llama, Mistral, Mixtral).
-A ``MixtralSparseMoeBlock`` becomes the per-expert MX block, or the
-stacked grouped one when its ``grouped`` flag is set."""
+package's do, limited to the ported families (Llama, Mistral, Mixtral,
+DeepSeek-V3).  A ``MixtralSparseMoeBlock`` or ``DeepseekV3MoE`` becomes the
+per-expert MX block, or the stacked grouped one when its ``grouped`` flag is
+set."""
 
 from __future__ import annotations
 
@@ -19,18 +20,22 @@ from .config import QAttentionConfig, QLinearConfig
 from .layers.linear import Linear, MXInferenceLinear
 from .layers.mx_llama_attention import MXInferenceLlamaAttention, MXInferenceLlamaMLP
 from .layers.mx_mistral_attention import MXInferenceMistralAttention, MXInferenceMistralMLP
+from .layers.mx_deepseek_attention import MXInferenceDeepseekV3MoE, MXInferenceMLAAttention
 from .layers.mx_mixtral_moe import MXInferenceMixtralMoeBlock
+from .models.deepseek import DeepseekV3MoE, MLAAttention
 from .models.llama import LlamaAttention, LlamaConfig, LlamaForCausalLM, LlamaMLP
 from .models.mistral import MistralAttention, MistralMLP
 from .models.mixtral import MixtralSparseMoeBlock
 from .ops.backend import DeviceLike, resolve_device
 
 ATTENTION_LAYERS: Dict[Type, Type] = {
+    MLAAttention: MXInferenceMLAAttention,
     MistralAttention: MXInferenceMistralAttention,
     LlamaAttention: MXInferenceLlamaAttention,
 }
 
 MLP_LAYERS: Dict[Type, Type] = {
+    DeepseekV3MoE: MXInferenceDeepseekV3MoE,
     MistralMLP: MXInferenceMistralMLP,
     MixtralSparseMoeBlock: MXInferenceMixtralMoeBlock,
     LlamaMLP: MXInferenceLlamaMLP,
@@ -75,7 +80,7 @@ def build_quantized(
     prepare_layer: Optional[Callable[[nn.Module], None]] = None,
 ) -> LlamaForCausalLM:
     """A seeded random (or zero) causal LM of ``model_cls`` (Llama, Mistral,
-    Mixtral), made and quantized one decoder layer at a time on ``device``:
+    Mixtral, DeepSeek-V3), made and quantized one decoder layer at a time on ``device``:
     the whole bf16 model is never held.  ``prepare_layer`` sees each bf16
     layer before it is quantized (e.g. to set ``mlp.grouped``)."""
     device = resolve_device(device)
