@@ -15,8 +15,10 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    30 dB; this slice's B6 over four code formats and three act_fq values, B8
    over both fp6 formats and K3 over fp8 halves rel <= 1e-2, B9 over int8,
    int8-domain fp4 / e2m3 and e4m3 weights within one bf16 step, each at the
-   five Llama-3-8B linears at every main-path M, and B9 giving B6's bytes on
-   int8; the RMSNorm kernel within one bf16 step; this slice's B12 over bf16
+   five Llama-3-8B linears at every main-path M (B6 also at 1-2048 rows
+   across its tile edges, at K = 64 and 128, and on every (code, scale) pair
+   bit for bit), and B9 giving B6's bytes on int8; the RMSNorm kernel within
+   one bf16 step; this slice's B12 over bf16
    experts and four code formats at tm 8 and 128 rel <= 1e-2, on bench.py's
    shape routed-2 and spread and at the Mixtral main path's w1 and w2 calls,
    giving B6's bytes for every live tile of int8 experts; the router kernel
@@ -382,6 +384,13 @@ def check_matmul_kernel(dev, timer, gen):
 # at 1 and 32; B9 at M in (1, 32, 64, 256) (it takes M <= 256).
 FORMAT_MS = (1, 32, 64, 2048)
 B9_MS = (1, 32, 64, 256)
+# B6 at every row count its callers give it (decode batches, admissions of
+# 32-512 rows, 2048-row prefills), across its 64 / 128-row tile switch and
+# with ragged row tiles; and at K = 64 and 128, fewer K steps than the
+# stages of its async-copy ring (N = 4096 and 1024: a two-pass and a
+# walked split plan at 2048 rows).
+B6_MS = (1, 32, 64, 65, 128, 300, 512, 2047, 2048)
+B6_SHORT_K = {"K=64": (64, 4096), "K=128": (128, 1024)}
 ONE_BF16_STEP = "every element within one bf16 step of the plain version's"
 
 
@@ -408,14 +417,17 @@ def check_format_kernels(dev, timer, gen):
     """B6 over its four code formats and three act_fq values, B8 over both fp6
     formats, B9 over int8, int8-domain fp4 and e2m3, and e4m3 weights, and K3
     over fp8 halves, each against its plain version at every main-path
-    shape (B6, B8, K3-fp8 rel <= 1e-2; B9 within one bf16 step), then timed
-    at the paths' calls: kernel, plain version, ``torch.matmul`` on the
-    bf16-dequantized weight, and the bound (B9's operations at 1979 TOP/s
-    dense int8 / fp8).  Returns (entries, timing rows)."""
+    shape (B6, B8, K3-fp8 rel <= 1e-2; B9 within one bf16 step); B6 also at
+    every M of B6_MS, at K = 64 and 128, and on every (code, scale) pair bit
+    for bit; then timed at the paths' calls: kernel, plain version,
+    ``torch.matmul`` on the bf16-dequantized weight, and the bound (B9's
+    operations at 1979 TOP/s dense int8 / fp8); B6 at every M of B6_MS, its
+    kernel, K2 and split reduce apart.  Returns (entries, timing rows)."""
     from torchmx_tpu_torch.mx_array import MXTensor
     from torchmx_tpu_torch.ops import cuda_matmul as cm
     from torchmx_tpu_torch.ops import cuda_matmul_formats as kf
     from torchmx_tpu_torch.ops.cuda_quantize import mx_quantize
+    from torchmx_tpu_torch.ops.quantize import mx_fake_quantize
 
     worst = collections.defaultdict(float)  # max abs error by kernel
     rows = []
@@ -438,6 +450,27 @@ def check_format_kernels(dev, timer, gen):
         row["library_ms"] = timer(lambda: torch.matmul(x, w_bf16))
         log(f"{name} timing", json.dumps(row))
         rows.append(row)
+        return row
+
+    def time_b6(label, M, x, t, elem, act, w_bf16):
+        """A B6 timing row: the wrapper's call (ms), and apart the kernel
+        alone, K2 where the wrapper runs it first (act_fq above 64 rows)
+        and the split reduce where the plan has a second pass."""
+        K, N = w_bf16.shape
+        plan = kf.plan_1byte(M, N, K, cm.sm_count(dev))
+        fused = act if M <= kf.ACT_FQ_FUSE_MAX_M else None
+        xq = mx_fake_quantize(x, act) if act is not None and fused is None else x
+        out, ws = kf.b6_kernel(xq, t.data, t.scale_e8m0, elem, fused, plan)
+        row = time_row("mx_matmul_1byte", label, M, f"{elem} act_fq={act}",
+                       lambda: kf.mx_matmul_1byte(x, t.data, t.scale_e8m0, elem, act),
+                       lambda: kf.mx_matmul_1byte_plain(x, t.data, t.scale_e8m0, elem, act),
+                       w_bf16, 2 * M * K + K * N * (1 + 1 / 32) + 2 * M * N, 2 * M * N * K)
+        row.update(kernel_ms=timer(lambda: kf.b6_kernel(xq, t.data, t.scale_e8m0, elem, fused, plan)),
+                   k2_ms=timer(lambda: mx_fake_quantize(x, act)) if xq is not x else None,
+                   reduce_ms=timer(lambda: kf.b6_reduce(ws, out)) if ws is not None else None,
+                   plan=dict(splits=plan.splits, walk=plan.walk))
+        log("mx_matmul_1byte parts", json.dumps({k: row[k] for k in ("linear", "M", "case", "kernel_ms", "k2_ms",
+                                                                      "reduce_ms", "plan")}))
 
     for label, (K, N) in K3_MAIN_LINEARS.items():
         w = (torch.randn(N, K, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
@@ -448,13 +481,15 @@ def check_format_kernels(dev, timer, gen):
                    "float6_e2m3": flat["float6_e2m3"].to_int8_domain()}
         del w
         ms = (1, 32) if label == "lm_head" else FORMAT_MS
-        for M in ms:
+        for M in B6_MS:
             x = xs(M, K)
             for e, t in flat.items():
                 for act in kf.ACT_FQ_1BYTE:
                     check("mx_matmul_1byte", label, M, f"{e} act_fq={act}",
                           kf.mx_matmul_1byte(x, t.data, t.scale_e8m0, e, act),
                           kf.mx_matmul_1byte_plain(x, t.data, t.scale_e8m0, e, act))
+        for M in ms:
+            x = xs(M, K)
             for e, t in quarters.items():
                 for act in kf.ACT_FQ_FP6Q:
                     check("mx_matmul_fp6q", label, M, f"{e} act_fq={act}",
@@ -482,21 +517,14 @@ def check_format_kernels(dev, timer, gen):
         # Timing at the paths' calls.
         w_bf16 = flat["int8"].to_dtype(torch.bfloat16)
         kn = K * N
+        # B6 at the W8A8 and FP8_DOT prefills' calls (int8 and e4m3 codes,
+        # the activation format each linear gets) and at every other M.
+        for M in ((1, 32) if label == "lm_head" else B6_MS):
+            x = xs(M, K)
+            for e in ("int8", "float8_e4m3"):
+                time_b6(label, M, x, flat[e], e, _path_act(label, M, e), w_bf16)
         for M in ms:
             x = xs(M, K)
-            act = _path_act(label, M, "int8")
-            t = flat["int8"]
-            if M > 64:  # the W8A8 prefill: B6 on int8 codes
-                time_row("mx_matmul_1byte", label, M, f"int8 act_fq={act}",
-                         lambda: kf.mx_matmul_1byte(x, t.data, t.scale_e8m0, "int8", act),
-                         lambda: kf.mx_matmul_1byte_plain(x, t.data, t.scale_e8m0, "int8", act),
-                         w_bf16, 2 * M * K + kn + kn / 32 + 2 * M * N, 2 * M * N * K)
-                a8 = _path_act(label, M, "float8_e4m3")
-                t8 = flat["float8_e4m3"]
-                time_row("mx_matmul_1byte", label, M, f"float8_e4m3 act_fq={a8}",
-                         lambda: kf.mx_matmul_1byte(x, t8.data, t8.scale_e8m0, "float8_e4m3", a8),
-                         lambda: kf.mx_matmul_1byte_plain(x, t8.data, t8.scale_e8m0, "float8_e4m3", a8),
-                         w_bf16, 2 * M * K + kn + kn / 32 + 2 * M * N, 2 * M * N * K)
             a8 = _path_act(label, M, "float8_e4m3")
             q = quarters["float6_e3m2"]
             time_row("mx_matmul_fp6q", label, M, f"float6_e3m2 act_fq={a8}",
@@ -520,6 +548,30 @@ def check_format_kernels(dev, timer, gen):
                          lambda: _plain_int8dot(x, t8, True), w_bf16, nbytes, 2 * M * N * K, INT8_OPS)
         del flat, quarters, halves, int8dom, w_bf16
         torch.cuda.empty_cache()
+    # Every (code, scale) pair through B6's decode: x the identity, so the
+    # output is the decoded weight, bit for bit (NaN as NaN), at both plans.
+    codes = torch.arange(256, device=dev, dtype=torch.int32).reshape(256, 1).expand(256, 256).to(torch.uint8)
+    scales = torch.arange(256, device=dev, dtype=torch.int32).reshape(1, 256).expand(8, 256).to(torch.uint8)
+    eye = torch.eye(256, device=dev, dtype=torch.bfloat16)
+    for e in kf.CODE_FORMATS_1BYTE:
+        wc = codes.contiguous().view(torch.int8) if e == "int8" else codes.contiguous()
+        for M in (64, 256):
+            o = kf.mx_matmul_1byte(eye[:M].contiguous(), wc, scales.contiguous(), e)
+            r = kf.mx_matmul_1byte_plain(eye[:M].contiguous(), wc, scales.contiguous(), e)
+            differ = int(((o.view(torch.int16) != r.view(torch.int16)) & ~(o.isnan() & r.isnan())).sum())
+            log(f"mx_matmul_1byte {e}: every (code, scale) pair decoded at M={M}: {differ} of {o.numel()} differ")
+            if differ:
+                raise AssertionError(f"B6 {e} decodes {differ} (code, scale) pairs unlike its plain version")
+    for label, (K, N) in B6_SHORT_K.items():  # fewer K steps than ring stages
+        w = (torch.randn(N, K, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+        for e in kf.CODE_FORMATS_1BYTE:
+            t = MXTensor.to_mx(w, e).T
+            for M in B6_MS:
+                x = xs(M, K)
+                for act in kf.ACT_FQ_1BYTE:
+                    check("mx_matmul_1byte", f"{label} N={N}", M, f"{e} act_fq={act}",
+                          kf.mx_matmul_1byte(x, t.data, t.scale_e8m0, e, act),
+                          kf.mx_matmul_1byte_plain(x, t.data, t.scale_e8m0, e, act))
 
     def entry(name, source, replaces, pick):
         r = next(r for r in rows if r["kernel"] == name and pick(r))
@@ -1153,7 +1205,8 @@ PLANTED_FAULTS_DMAJOR = ("K7 kv_len one short", "K7 V scale of chunk c taken fro
 
 # The same for this slice's weight formats, one or two per new kernel.
 PLANTED_FAULTS_FORMATS = {
-    "W8A8 int8 cache": ("B9 weight scale of block b taken from block b+1", "B6 int8 weight scale one binade high"),
+    "W8A8 int8 cache": ("B9 weight scale of block b taken from block b+1", "B6 int8 weight scale one binade high",
+                        "B6 reads the codes of K tile t+1 with the scales of tile t"),
     "MXFP6 e3m2 fp8 cache": ("B8 planes P1 and P2 swapped",),
     "MXFP8 fp8 cache": ("K3-fp8 halves swapped",),
 }
@@ -1175,10 +1228,14 @@ def planted_fault(name):
     elif name.startswith("B6"):
         mod, attr = kf, "mx_matmul_1byte"
         orig = kf.mx_matmul_1byte
+        stale_stage = "K tile t+1" in name  # a ring slot read one stage late: the next 64 code rows
 
         def faulty(x, w, sw, elem, act_fq=None):
             if on_cuda(x) and elem == "int8":
-                sw = sw + 1
+                if stale_stage:
+                    w = w.roll(-64, dims=0)
+                else:
+                    sw = sw + 1
             return orig(x, w, sw, elem, act_fq)
     elif name.startswith("B8"):
         mod, attr = kf, "mx_matmul_fp6q"

@@ -352,6 +352,32 @@ def test_b9_and_b6_agree_on_int8_rows():
     assert int((b9 != b6).sum()) <= b9.numel() // 100
 
 
+# (N, K) of the main path's B6 calls: q/o, k/v, gate/up, down, lm_head.
+B6_MAIN_NK = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336), (128256, 4096)]
+
+
+@pytest.mark.parametrize("N,K", B6_MAIN_NK)
+def test_b6_plan_fits_and_keeps_the_splits(N, K):
+    """B6's launch plan over M = 1..4096 on a 132-SM card: the K splits are
+    ``_plan``'s (shared with K3 and B9) at every M, the tiles are the same at
+    every M, the shared memory fits a block and the column tile divides N."""
+    class Props:
+        multi_processor_count = 132
+
+    orig = torch.cuda.get_device_properties
+    torch.cuda.get_device_properties = lambda device: Props()
+    try:
+        want = {cuda_matmul._plan(M, N, K, "cuda")[1] for M in range(1, 4097)}
+    finally:
+        torch.cuda.get_device_properties = orig
+    assert len(want) == 1
+    plans = [kf.plan_1byte(M, N, K, 132) for M in range(1, 4097)]
+    assert {p.splits for p in plans} == want
+    assert {(p.bm, p.bn, p.stages) for p in plans} == {(kf.B6_BM, kf.B6_BN, kf.B6_STAGES)}
+    assert all(p.smem_bytes <= kf.SMEM_LIMIT and N % p.bn == 0 for p in plans)
+    assert all(not p.walk for p in plans if p.splits == 1)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take():
     _, tw = weight_pair(18, 256, 128, "float8_e4m3")
     x = torch.zeros(4, 256, dtype=torch.bfloat16)
@@ -454,13 +480,14 @@ def _within_one_bf16_step(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M", [1, 32, 256])
+@pytest.mark.parametrize("K", [1024, 4096])
+@pytest.mark.parametrize("M", [1, 32, 256, 2048])
 @pytest.mark.parametrize("act_fq", [None, "float8_e4m3", "int8"])
 @pytest.mark.parametrize("elem", kf.CODE_FORMATS_1BYTE)
-def test_cuda_1byte_kernel_matches_plain(cuda_device, elem, act_fq, M):
+def test_cuda_1byte_kernel_matches_plain(cuda_device, elem, act_fq, M, K):
     g = torch.Generator().manual_seed(0)
-    w = MXTensor.to_mx((torch.randn(256, 1024, generator=g) * 0.05).to(torch.bfloat16).to(cuda_device), elem).T
-    x = torch.randn(M, 1024, generator=g).to(torch.bfloat16).to(cuda_device)
+    w = MXTensor.to_mx((torch.randn(256, K, generator=g) * 0.05).to(torch.bfloat16).to(cuda_device), elem).T
+    x = torch.randn(M, K, generator=g).to(torch.bfloat16).to(cuda_device)
     out = kf.mx_matmul_1byte(x, w.data, w.scale_e8m0, elem, act_fq)
     ref = kf.mx_matmul_1byte_plain(x, w.data, w.scale_e8m0, elem, act_fq)
     assert ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item() <= 1e-2

@@ -5,150 +5,380 @@
 // Replaces torchmx_tpu/ops/pallas_matmul.py::_linear_kernel_1byte (:419),
 // launched by _pallas_matmul_1byte (:1000).
 //
-// What bounds it on an H100: at decode (M up to 32) the weight bytes (K*N +
+// What bounds it on an H100: at decode (M up to 64) the weight bytes (K*N +
 // K*N/32); at prefill (M in the thousands) the tensor-core operations,
-// 2*M*N*K.  Design: K3's (csrc/mx_matmul.cu) with one code per byte.  Each
-// iteration takes 64 rows of W (two 32-element MX blocks) and the matching
-// 64 columns of x, decodes W to bf16 straight into shared memory as a dot
-// operand (mx::decode_code_dot: the scale folds into the exponent;
-// int8 codes times 2^(se-127)), optionally fake-quantizes each x block in
-// the same prologue (fp8 or int8, mx::fq_magic, one warp per block), then
-// runs mma.sync m16n8k16 bf16 -> fp32.  Each MX block's product is formed in
-// a zeroed fragment (two k16 steps) and added to the accumulator in block
-// order; K is split over blockIdx.z as ops/cuda_matmul._plan says, and the
-// partials are summed in split order by a second kernel.  B9
-// (csrc/mx_matmul_int8dot.cu) adds its exact block sums in the same order
-// over the same splits, so for int8 weights and an int8-grid x the two give
-// the same bytes.  The element format is a run-time argument (a uniform
-// branch in the decode), the activation format and tile a template one.
+// 2*M*N*K at 989 TFLOP/s bf16.  The design, against what held the first
+// version (mma.sync fed by scalar shared loads, 4 % of the bf16 peak):
+//  1. The activation quantize: fused here only at M <= 64 (one warp per
+//     (row, 32-block) of a stage's x tile, in place, mx::fq_magic); above
+//     that the wrapper runs K2 once and this kernel reads x as it is, so no
+//     column tile repeats it.
+//  2. Loads overlap the tensor cores: a ring of kStages shared-memory stages
+//     (a 128 x 64 bf16 x tile, 64 x 128 code bytes, 2 x 128 scale bytes)
+//     filled by TMA kStages - 1 stages ahead (one thread starts a stage's
+//     three box copies, completing on the slot's mbarrier; zeros past M and
+//     N), in dynamic shared memory; one CTA barrier a stage.  (TMA, not
+//     16-byte cp.async from every thread: those fill the load/store unit
+//     ahead of the decode's ldmatrix.)
+//  3. W is decoded once, in registers, straight into wgmma's A operand: the
+//     kernel computes out^T = W^T x^T, so the codes are A (64 columns of W a
+//     warpgroup) and x is B, K-major in shared memory as TMA lands it.
+//     One ldmatrix.x4.trans of the (swizzled, conflict-free) code tile gives
+//     each thread 2 x 2 byte blocks, (K 2t, 2t+1) x (n, n+1): exactly A
+//     fragments of rows g and g + 8 when warp w's A row 16w + g + 8h stands
+//     for column 16w + 2g + h.  No decoded tile is stored, read back or
+//     fenced.  The decode: where all of a warp's scales of the block lie in
+//     [kSafeLo, kSafeHi] (every decoded value bf16-normal), exact integer
+//     and fma / bf16-multiply arithmetic with no conversion instruction
+//     (decode_fast); elsewhere mx::decode_bf16_bits element by element.
+//     Both are mx::decode_bf16_bits bit for bit.
+//  4. wgmma.mma_async m64n128k16 bf16 -> f32, A from registers, two
+//     warpgroups (128 columns of W) over 128 rows of x, at every M: a row's
+//     bytes do not depend on M.  Each MX block's two k16 products go into
+//     the partial fragment p, the first with scale-d = 0, and p is added to
+//     the accumulator in block order once its group retires (p is read only
+//     after wait_group 0, so ptxas serializes nothing); while a block's
+//     wgmma runs the CUDA cores decode the next block's fragments from raw
+//     operands fetched a phase earlier (the ldmatrix latency hidden).  With
+//     int8 codes on an int8-grid x every partial is exact, so B9
+//     (csrc/mx_matmul_int8dot.cu) gives the same bytes; wgmma and mma.sync
+//     m16n8k16 round a k16 sum alike, so B12 (csrc/mx_grouped_matmul.cu)
+//     gives them too.
+//  5. K splits: ops/cuda_matmul._plan's, a function of N and K alone, summed
+//     ((0 + p0) + p1) + ... in split order (mx::reduce_splits).  Where the
+//     output tiles fill the card (gridDim.z == 1) a CTA walks its splits in
+//     that order itself, adding each split's accumulator to a total held in
+//     shared memory: no fp32 workspace.  Otherwise blockIdx.z takes one
+//     split, its partial goes to the workspace and a second kernel sums them.
+// The epilogue stages the result through shared memory and stores 16 bytes
+// a thread.  The element and activation formats are template arguments.
+// What holds it at prefill (PERF.md): the CUDA cores' work a stage (the
+// decode and the 128 fp32 partial adds a thread) at 8 warps an SM, not the
+// tensor cores.
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
 #include "mx_common.cuh"
+#include "mx_wgmma.cuh"
 
 namespace {
 
-constexpr int kKTile = 64;        // K elements per iteration: two MX blocks
-constexpr int kPad = kKTile + 8;  // smem row stride in bf16
+// Built with -DB6_PHASE_PROFILE (torchmx_tpu_torch/tools/b6_phase_profile.py),
+// the kernel adds each mainloop phase's clock cycles, for threads 0 and 200,
+// into the workspace: 8 counters each (wgmma start, barrier + TMA start +
+// stage wait, fetch + decode, wgmma wait, partial adds + flush, -, total,
+// stages).  Otherwise the hooks are empty.
+#ifdef B6_PHASE_PROFILE
+#define B6_PHASE(i) (prof_t[i] += clock64() - prof_c, prof_c = clock64())
+#else
+#define B6_PHASE(i) ((void)0)
+#endif
 
-__device__ __forceinline__ uint16_t decode_1byte(int elem, int code, int se) {
-  switch (elem) {
-    case mx::kFp8E4M3: return mx::decode_bf16_bits<mx::kFp8E4M3>(code, se);
-    case mx::kFp6E3M2: return mx::decode_bf16_bits<mx::kFp6E3M2>(code, se);
-    case mx::kFp6E2M3: return mx::decode_bf16_bits<mx::kFp6E2M3>(code, se);
-    default: return mx::decode_bf16_bits<mx::kInt8>(code, se);
+constexpr int kKT = 64;              // K elements per stage: two MX blocks
+constexpr int kBN = 128;             // columns of W per CTA: two warpgroups of 64
+constexpr int kBM = 128;             // rows of x per CTA: wgmma n128
+constexpr int kThreads = 256;
+constexpr int kStages = 6;           // TMA ring depth
+constexpr int kOutStride = kBN + 8;  // fp32 staging row stride, in floats
+constexpr int kXBytes = kBM * kKT * 2;
+constexpr int kWBytes = kKT * kBN;
+constexpr int kSBytes = 2 * kBN;
+
+// Dynamic shared memory (cuda_matmul_formats.b6_smem_bytes mirrors it): the
+// x, code and scale rings, their mbarriers and the fp32 staging tile; 1024
+// bytes of slack align the swizzled tiles.
+struct Smem {
+  static constexpr int x = 0;
+  static constexpr int w = kStages * kXBytes;
+  static constexpr int s = w + kStages * kWBytes;
+  static constexpr int bar = s + kStages * kSBytes;  // one mbarrier a ring slot
+  static constexpr int out = bar + 64;
+  static constexpr int bytes = out + kBM * kOutStride * 4 + 1024;
+};
+
+// Scales at which decode_fast is exact in every format: every decoded value
+// is bf16-normal and finite, and int8's 2^23 + 255 times 2^(se-127) is
+// finite in fp32.
+constexpr uint32_t kSafeLo = 16, kSafeHi = 224;
+
+// Start the TMA copies of K stage `it` into ring slot `slot` (one thread):
+// the x tile (rows m0.., K it*64..), the code tile and the scale rows; past
+// M and N they come as zeros.
+__device__ __forceinline__ void load_stage(uint32_t sbase, int slot, int it, const CUtensorMap* tx,
+                                           const CUtensorMap* tw, const CUtensorMap* ts, int m0, int n0) {
+  const uint32_t bar = sbase + Smem::bar + slot * 8;
+  mx::mbar_expect_tx(bar, kXBytes + kWBytes + kSBytes);
+  mx::tma_load_2d(sbase + Smem::x + slot * kXBytes, tx, bar, it * kKT, m0);
+  mx::tma_load_2d(sbase + Smem::w + slot * kWBytes, tw, bar, n0, it * kKT);
+  mx::tma_load_2d(sbase + Smem::s + slot * kSBytes, ts, bar, n0, it * 2);
+}
+
+// Fake-quantize each 32-element block of the first `rows` rows of a stage's
+// x tile in place, one warp a (row, block), one element a lane (the rows
+// past M are zeros, which fake-quantize to zeros).
+template <int A>
+__device__ __forceinline__ void fq_stage(uint8_t* xs, int rows, int warp8, int lane) {
+  for (int item = warp8; item < rows * 2; item += kThreads / 32) {
+    const int r = item >> 1, h = item & 1;
+    uint16_t* e = reinterpret_cast<uint16_t*>(xs + mx::sw128(r, h * 4 + (lane >> 3))) + (lane & 7);
+    const int bits = *e;
+    const int emax = (int)__reduce_max_sync(0xffffffffu, (unsigned)((bits >> 7) & 0xFF));
+    *e = mx::fq_magic<A>(bits, mx::block_scale(emax, mx::Elem<A>::max_pow2));
   }
 }
 
-template <int BM, int BN, int WM, int WN, int ACT>
-__global__ void __launch_bounds__(WM * WN * 32)
-matmul_1byte_kernel(const uint16_t* __restrict__ x, const uint8_t* __restrict__ w,
-                    const uint8_t* __restrict__ scale, uint16_t* __restrict__ out,
-                    float* __restrict__ ws, int M, int N, int K, int splits, int elem) {
-  constexpr int kThreads = WM * WN * 32;
-  constexpr int kWarps = WM * WN;
-  constexpr int WTM = BM / WM, WTN = BN / WN;  // warp tile
-  constexpr int MT = WTM / 16, NT = WTN / 8;   // mma tiles per warp
-  constexpr int A = ACT < 0 ? 0 : ACT;
-  __shared__ __align__(16) uint16_t Xs[BM][kPad];
-  __shared__ __align__(16) uint16_t Ws[BN][kPad];
+// Two decoded codes as bf16x2: bytes hi and 2 + hi of r (K 2t and 2t + 1
+// of one column), with that column's scale se.
+template <int E>
+__device__ __forceinline__ uint32_t decode_exact(uint32_t r, int hi, int se) {
+  return (uint32_t)mx::decode_bf16_bits<E>((int)((r >> (8 * hi)) & 0xFF), se) |
+         ((uint32_t)mx::decode_bf16_bits<E>((int)((r >> (16 + 8 * hi)) & 0xFF), se) << 16);
+}
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / WN, wn = warp % WN;
-  const int g = lane / 4, t = lane % 4;
-  const int n_base = blockIdx.x * BN, m_base = blockIdx.y * BM;
-  const int iters = K / kKTile;
-  const int per = (iters + splits - 1) / splits;
-  const int it0 = blockIdx.z * per, it1 = min(iters, it0 + per);
+// The same where the scale is safe, with no conversion instruction (16 a
+// clock on an SM): the bf16 bits are built by integer ops.  int8: the float
+// 2^23 + (code + 128) from its bits, times 2^(se-127) less (2^23 + 128)
+// 2^(se-127) in one exact fma, then the upper halves of two floats packed.
+// fp: each code's sign, exponent and mantissa fields land in a bf16 lane
+// (the code's value times 2^(bias-127), a subnormal code a bf16 subnormal),
+// then two exact bf16 multiplies: by 2^(127-bias) (rebias, per format) and
+// by 2^(se-127).
+template <int E>
+__device__ __forceinline__ uint32_t decode_fast(uint32_t r, int hi, float sf, float sneg, uint32_t rebias2,
+                                                uint32_t scale2) {
+  if (E == mx::kInt8) {
+    const uint32_t u = r ^ 0x80808080u;
+    const float a = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + hi));
+    const float b = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442 + hi));
+    return __byte_perm(__float_as_uint(fmaf(a, sf, sneg)), __float_as_uint(fmaf(b, sf, sneg)), 0x7632);
+  } else {
+    constexpr int mb = mx::Elem<E>::mb, nb = mx::Elem<E>::mb + mx::Elem<E>::eb;
+    constexpr uint32_t mag = 0x01010101u * ((1u << nb) - 1), sgn = 0x01010101u * (1u << nb);
+    // bytes hi and 2 + hi into the low byte of each 16-bit lane: fields, then sign
+    const uint32_t f = __byte_perm(r & mag, 0u, 0x4240 + 0x101 * hi);
+    const uint32_t sg = __byte_perm(r & sgn, 0u, 0x2404 + 0x1010 * hi) << (7 - nb);
+    uint32_t v = (f << (7 - mb)) + sg;
+    __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&v);
+    x = __hmul2(__hmul2(x, *reinterpret_cast<const __nv_bfloat162*>(&rebias2)),
+                *reinterpret_cast<const __nv_bfloat162*>(&scale2));
+    return *reinterpret_cast<const uint32_t*>(&x);
+  }
+}
 
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+// A block's raw operands for this thread, fetched one phase before they are
+// decoded: one ldmatrix.x4.trans of the code tile (matrix q: K rows 32 blk
+// + 8q .. + 7, the warp's 16 columns) and the scale bytes of its columns 2g
+// and 2g + 1.  Warp w of warpgroup wg takes columns 64 wg + 16 w .. + 15 of
+// the CTA's W tile.
+struct Raw {
+  uint32_t r[4];
+  uint32_t s;
+};
 
-  for (int it = it0; it < it1; ++it) {
-    const int k0 = it * kKTile;
-    // x: BM rows x two 32-element blocks, one warp per (row, block).
-    for (int rb = warp; rb < BM * 2; rb += kWarps) {
-      int row = rb / 2, hb = rb % 2;
-      int m = m_base + row;
-      int bits = m < M ? x[(long long)m * K + k0 + hb * 32 + lane] : 0;
-      if (ACT >= 0) {
-        int emax = (int)__reduce_max_sync(0xffffffffu, (unsigned)((bits >> 7) & 0xFF));
-        bits = mx::fq_magic<A>(bits, mx::block_scale(emax, mx::Elem<A>::max_pow2));
-      }
-      Xs[row][hb * 32 + lane] = (uint16_t)bits;
+__device__ __forceinline__ void fetch(Raw& raw, const uint8_t* smem, uint32_t sbase, int slot, int blk, int cn,
+                                      int lane) {
+  mx::ldmatrix_x4_trans(raw.r, sbase + Smem::w + slot * kWBytes + mx::sw128(blk * 32 + (lane >> 3) * 8 + (lane & 7), cn));
+  raw.s = *reinterpret_cast<const uint16_t*>(smem + Smem::s + slot * kSBytes + blk * kBN + cn * 16 + 2 * (lane >> 2));
+}
+
+// The A fragments of a block from its raw operands: f[kk] for the block's
+// k16 step kk.
+template <int E>
+__device__ __forceinline__ void decode(uint32_t (&f)[2][4], const Raw& raw) {
+  const int s_lo = raw.s & 0xFF, s_hi = raw.s >> 8;  // columns 2g and 2g + 1
+  const bool safe = (uint32_t)s_lo - kSafeLo <= kSafeHi - kSafeLo && (uint32_t)s_hi - kSafeLo <= kSafeHi - kSafeLo;
+  if (__all_sync(0xffffffffu, safe)) {
+    const float sf_lo = __uint_as_float((uint32_t)s_lo << 23), sf_hi = __uint_as_float((uint32_t)s_hi << 23);
+    const float sneg_lo = -8388736.0f * sf_lo, sneg_hi = -8388736.0f * sf_hi;  // -(2^23 + 128) 2^(se-127)
+    constexpr uint32_t rebias = (uint32_t)(254 - mx::Elem<E>::bias) << 7;       // bf16 2^(127-bias)
+    const uint32_t rb2 = rebias | (rebias << 16);
+    const uint32_t sc_lo = ((uint32_t)s_lo << 7) | ((uint32_t)s_lo << 23);  // bf16x2 2^(se-127)
+    const uint32_t sc_hi = ((uint32_t)s_hi << 7) | ((uint32_t)s_hi << 23);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      f[kk][0] = decode_fast<E>(raw.r[2 * kk], 0, sf_lo, sneg_lo, rb2, sc_lo);
+      f[kk][1] = decode_fast<E>(raw.r[2 * kk], 1, sf_hi, sneg_hi, rb2, sc_hi);
+      f[kk][2] = decode_fast<E>(raw.r[2 * kk + 1], 0, sf_lo, sneg_lo, rb2, sc_lo);
+      f[kk][3] = decode_fast<E>(raw.r[2 * kk + 1], 1, sf_hi, sneg_hi, rb2, sc_hi);
     }
-    // W: 64 rows x BN columns, 16 codes per thread per step.
-    for (int c = tid; c < kKTile * BN / 16; c += kThreads) {
-      int r = c / (BN / 16), n0 = (c % (BN / 16)) * 16;
-      int n = n_base + n0;
-      uint4 wb = *reinterpret_cast<const uint4*>(w + (long long)(k0 + r) * N + n);
-      uint4 sb = *reinterpret_cast<const uint4*>(scale + (long long)((k0 + r) / 32) * N + n);
-      const uint8_t* wbb = reinterpret_cast<const uint8_t*>(&wb);
-      const uint8_t* sbb = reinterpret_cast<const uint8_t*>(&sb);
+  } else {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) Ws[n0 + j][r] = decode_1byte(elem, wbb[j], sbb[j]);
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) f[kk][q] = decode_exact<E>(raw.r[2 * kk + (q >> 1)], q & 1, q & 1 ? s_hi : s_lo);
+  }
+}
+
+// Tell the compiler the fragment changed here (after a wgmma wait), so that
+// no read of it moves above the wait.
+__device__ __forceinline__ void fence_fragment(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Start one MX block: p = its two k16 products (A from f, B the x tile at
+// K offset 32 blk), one commit group.
+__device__ __forceinline__ void start_block(float (&p)[64], const uint32_t (&f)[2][4], uint32_t xs, int blk) {
+  mx::wgmma_fence();
+  mx::wgmma_m64n128k16_rs(p, f[0], mx::wgmma_desc(xs + 64 * blk, 16, 1024), 0);
+  mx::wgmma_m64n128k16_rs(p, f[1], mx::wgmma_desc(xs + 64 * blk + 32, 16, 1024), 1);
+  mx::wgmma_commit();
+}
+
+// A split ends: total (this thread's elements of the [m][n] staging tile)
+// += acc, acc = 0.  acc[4j + 2h + i] is column nb + 2g + h, row 8j + 2t + i.
+__device__ __forceinline__ void flush_split(float (&acc)[64], float* total, int nb, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float2* q = reinterpret_cast<float2*>(total + (8 * j + 2 * t + i) * kOutStride + nb + 2 * g);
+      float2 v = *q;
+      v.x += acc[4 * j + i];
+      v.y += acc[4 * j + 2 + i];
+      *q = v;
     }
-    __syncthreads();
 #pragma unroll
-    for (int blk = 0; blk < kKTile / 32; ++blk) {
-      float part[MT][NT][4];
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+}
+
+template <int E, int ACT>
+__global__ void __launch_bounds__(kThreads, 1)
+matmul_1byte_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                    const __grid_constant__ CUtensorMap ts, uint16_t* __restrict__ out, float* __restrict__ ws,
+                    int M, int N, int K, int splits) {
+#ifdef B6_PHASE_PROFILE
+  long long prof_t[6] = {0, 0, 0, 0, 0, 0}, prof_0 = clock64(), prof_c = prof_0;
+#endif
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_addr = mx::smem_addr(smem_raw);
+  uint8_t* smem = smem_raw + (((raw_addr + 1023) & ~1023u) - raw_addr);
+  const uint32_t sbase = mx::smem_addr(smem);
+  float* total = reinterpret_cast<float*>(smem + Smem::out);
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, nb = wg * 64 + warp * 16, cn = nb / 16;
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM, rows = min(kBM, M - m0);
+  const int iters = K / kKT, per = (iters + splits - 1) / splits;
+  // gridDim.z == 1: this CTA walks every split in order; else split blockIdx.z.
+  const int it0 = gridDim.z == 1 ? 0 : blockIdx.z * per;
+  const int it1 = gridDim.z == 1 ? iters : min(iters, it0 + per);
+  const int nt = max(it1 - it0, 0);
+  int split_end = it0 + per;  // the K stage after the current split's last
+
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
+  for (int j = 0; j < 16; ++j)
 #pragma unroll
-        for (int j = 0; j < NT; ++j)
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float2*>(total + (8 * j + 2 * t + i) * kOutStride + nb + 2 * g) = make_float2(0.f, 0.f);
+  float acc[64], p[64];
 #pragma unroll
-          for (int r = 0; r < 4; ++r) part[i][j][r] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        const int c0 = blk * 32 + kk * 16 + 2 * t;
-        uint32_t a[MT][4], b[NT][2];
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          int r0 = wm * WTM + i * 16 + g;
-          a[i][0] = *reinterpret_cast<const uint32_t*>(&Xs[r0][c0]);
-          a[i][1] = *reinterpret_cast<const uint32_t*>(&Xs[r0 + 8][c0]);
-          a[i][2] = *reinterpret_cast<const uint32_t*>(&Xs[r0][c0 + 8]);
-          a[i][3] = *reinterpret_cast<const uint32_t*>(&Xs[r0 + 8][c0 + 8]);
-        }
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          int n0 = wn * WTN + j * 8 + g;
-          b[j][0] = *reinterpret_cast<const uint32_t*>(&Ws[n0][c0]);
-          b[j][1] = *reinterpret_cast<const uint32_t*>(&Ws[n0][c0 + 8]);
-        }
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < NT; ++j) mx::mma_bf16_16816(part[i][j], a[i], b[j]);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[i][j][r] += part[i][j][r];
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mx::mbar_init(sbase + Smem::bar + 8 * s, 1);
+    mx::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int s = 0; s < kStages - 1 && s < nt; ++s) load_stage(sbase, s, it0 + s, &tx, &tw, &ts, m0, n0);
+  uint32_t f0[2][4], f1[2][4];  // A fragments of a stage's blocks 0 and 1
+  Raw r0, r1;                    // their raw operands, fetched a phase ahead
+  if (nt > 0) {
+    mx::mbar_wait(sbase + Smem::bar, 0);
+    if (ACT >= 0) {
+      fq_stage<ACT < 0 ? 0 : ACT>(smem + Smem::x, rows, tid >> 5, lane);
+      mx::fence_proxy_async();
+      __syncthreads();
     }
-    __syncthreads();
+    fetch(r0, smem, sbase, 0, 0, cn, lane);
+    fetch(r1, smem, sbase, 0, 1, cn, lane);
+    decode<E>(f0, r0);
   }
 
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        int m = m_base + wm * WTM + i * 16 + g + h * 8;
-        int n = n_base + wn * WTN + j * 8 + 2 * t;
-        if (m >= M) continue;
-        float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-        if (splits == 1) {
-          *reinterpret_cast<__nv_bfloat162*>(out + (long long)m * N + n) = __floats2bfloat162_rn(v0, v1);
-        } else {
-          *reinterpret_cast<float2*>(ws + ((long long)blockIdx.z * M + m) * N + n) = make_float2(v0, v1);
-        }
+  // Stage st: MX block 0 then block 1, each two k16 wgmmas into the partial
+  // p (the first with scale-d = 0), added to acc once retired: the partials
+  // are added in block order.  While a block's wgmma runs, the CUDA cores
+  // decode the next block's fragments and fetch the raw operands of the one
+  // after; p is read only after wait_group 0, so ptxas serializes nothing.
+  for (int st = 0; st < nt; ++st) {
+    const uint32_t xs = sbase + Smem::x + (st % kStages) * kXBytes;
+    const bool next = st + 1 < nt;
+    const int nslot = (st + 1) % kStages;
+    B6_PHASE(5);
+    start_block(p, f0, xs, 0);
+    B6_PHASE(0);
+    decode<E>(f1, r1);
+    B6_PHASE(2);
+    if (next) {
+      // After this barrier stage st - 1's ring slot is free: its wgmmas have
+      // retired and its codes were read into registers.
+      __syncthreads();
+      if (tid == 0 && st + kStages - 1 < nt) {
+        mx::fence_proxy_async();
+        load_stage(sbase, (st + kStages - 1) % kStages, it0 + st + kStages - 1, &tx, &tw, &ts, m0, n0);
       }
+      mx::mbar_wait(sbase + Smem::bar + 8 * nslot, ((st + 1) / kStages) & 1);  // stage st + 1 has landed
+      B6_PHASE(1);
+      fetch(r0, smem, sbase, nslot, 0, cn, lane);
+      B6_PHASE(2);
+    }
+    mx::wgmma_wait<0>();
+    fence_fragment(p);
+    B6_PHASE(3);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += p[i];
+    B6_PHASE(4);
+
+    start_block(p, f1, xs, 1);
+    B6_PHASE(0);
+    if (next) {
+      if (ACT >= 0) {
+        fq_stage<ACT < 0 ? 0 : ACT>(smem + Smem::x + nslot * kXBytes, rows, tid >> 5, lane);
+        mx::fence_proxy_async();
+      }
+      fetch(r1, smem, sbase, nslot, 1, cn, lane);
+      decode<E>(f0, r0);
+    }
+    B6_PHASE(2);
+    mx::wgmma_wait<0>();
+    fence_fragment(p);
+    B6_PHASE(3);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += p[i];
+    if (st == nt - 1 || it0 + st + 1 == split_end) {
+      flush_split(acc, total, nb, g, t);
+      split_end += per;
+    }
+    B6_PHASE(4);
+    if (ACT >= 0 && next) __syncthreads();  // the next stage's x, fake-quantized by all threads
+  }
+#ifdef B6_PHASE_PROFILE
+  if (tid == 0 || tid == 200) {
+    unsigned long long* c = reinterpret_cast<unsigned long long*>(ws) + (tid == 0 ? 0 : 8);
+    for (int i = 0; i < 5; ++i) atomicAdd(c + i, (unsigned long long)prof_t[i]);
+    atomicAdd(c + 6, (unsigned long long)(clock64() - prof_0));
+    atomicAdd(c + 7, (unsigned long long)nt);
+  }
+#endif
+  __syncthreads();
+
+  // Epilogue: 8 columns a thread, 16-byte stores.
+  for (int i = tid; i < kBM * (kBN / 8); i += kThreads) {
+    const int r = i / (kBN / 8), c = (i % (kBN / 8)) * 8, m = m0 + r, n = n0 + c;
+    if (m >= M || n >= N) continue;
+    const float4 a = *reinterpret_cast<const float4*>(total + r * kOutStride + c);
+    const float4 b = *reinterpret_cast<const float4*>(total + r * kOutStride + c + 4);
+    if (gridDim.z == 1) {
+      __nv_bfloat162 o[4] = {__floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w),
+                             __floats2bfloat162_rn(b.x, b.y), __floats2bfloat162_rn(b.z, b.w)};
+      *reinterpret_cast<uint4*>(out + (long long)m * N + n) = *reinterpret_cast<const uint4*>(o);
+    } else {
+      float* dst = ws + ((long long)blockIdx.z * M + m) * N + n;
+      *reinterpret_cast<float4*>(dst) = a;
+      *reinterpret_cast<float4*>(dst + 4) = b;
+    }
+  }
 }
 
 __global__ void reduce_splits_1byte_kernel(const float* __restrict__ ws, uint16_t* __restrict__ out,
@@ -156,48 +386,92 @@ __global__ void reduce_splits_1byte_kernel(const float* __restrict__ ws, uint16_
   mx::reduce_splits(ws, out, mn, splits, (long long)blockIdx.x * blockDim.x + threadIdx.x);
 }
 
-template <int BM, int BN, int WM, int WN, int ACT>
-cudaError_t run(const void* x, const void* w, const void* scale, void* out, void* ws, int M, int N,
-                int K, int elem, int splits, cudaStream_t stream) {
-  dim3 grid(N / BN, (M + BM - 1) / BM, splits);
-  matmul_1byte_kernel<BM, BN, WM, WN, ACT><<<grid, WM * WN * 32, 0, stream>>>(
-      (const uint16_t*)x, (const uint8_t*)w, (const uint8_t*)scale, (uint16_t*)out, (float*)ws, M, N,
-      K, splits, elem);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  long long mn = (long long)M * N;
-  reduce_splits_1byte_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>((const float*)ws,
-                                                                              (uint16_t*)out, mn, splits);
+// cuTensorMapEncodeTiled, looked up through the runtime's entry points (no
+// link against libcuda).
+PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A 2-D tensor map: inner x outer elements of `type` at base, rows
+// row_bytes apart, boxes of box_inner x box_outer.
+bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t inner, uint64_t outer,
+                uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer, CUtensorMapSwizzle swizzle) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (encode == nullptr) return false;
+  cuuint64_t dims[2] = {inner, outer}, strides[1] = {row_bytes};
+  cuuint32_t box[2] = {box_inner, box_outer}, elem_strides[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int E, int ACT>
+cudaError_t run(const void* x, const void* w, const void* scale, void* out, void* ws, int M, int N, int K,
+                int splits, int walk, cudaStream_t stream) {
+  CUtensorMap tx, tw, ts;
+  if (!tensor_map(&tx, CU_TENSOR_MAP_DATA_TYPE_UINT16, x, K, M, (uint64_t)K * 2, kKT, kBM,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, N, kBN, kKT, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&ts, CU_TENSOR_MAP_DATA_TYPE_UINT8, scale, N, K / 32, N, kBN, 2, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(matmul_1byte_kernel<E, ACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           Smem::bytes);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, walk ? 1 : splits);
+  matmul_1byte_kernel<E, ACT><<<grid, kThreads, Smem::bytes, stream>>>(tx, tw, ts, (uint16_t*)out, (float*)ws, M, N,
+                                                                         K, splits);
   return cudaGetLastError();
 }
 
-template <int ACT>
-cudaError_t dispatch_tile(const void* x, const void* w, const void* scale, void* out, void* ws, int M,
-                          int N, int K, int elem, int bm, int splits, cudaStream_t s) {
-  switch (bm) {
-    case 16: return run<16, 64, 1, 4, ACT>(x, w, scale, out, ws, M, N, K, elem, splits, s);
-    case 64: return run<64, 64, 2, 2, ACT>(x, w, scale, out, ws, M, N, K, elem, splits, s);
-    case 128: return run<128, 128, 2, 4, ACT>(x, w, scale, out, ws, M, N, K, elem, splits, s);
+template <int E>
+int dispatch_act(const void* x, const void* w, const void* scale, void* out, void* ws, int M, int N, int K, int act_fq,
+                 int splits, int walk, cudaStream_t s) {
+  switch (act_fq) {
+    case -1: return (int)run<E, -1>(x, w, scale, out, ws, M, N, K, splits, walk, s);
+    case mx::kFp8E4M3: return (int)run<E, mx::kFp8E4M3>(x, w, scale, out, ws, M, N, K, splits, walk, s);
+    case mx::kInt8: return (int)run<E, mx::kInt8>(x, w, scale, out, ws, M, N, K, splits, walk, s);
   }
-  return cudaErrorInvalidValue;
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// elem: mx::kFp8E4M3, kFp6E3M2, kFp6E2M3 or kInt8 (w then holds int8 codes).
-// act_fq: -1 for none, mx::kFp8E4M3 or mx::kInt8.  bm: 16, 64 (64-column
-// tiles) or 128 (128-column tiles).
-extern "C" int mx_matmul_1byte_launch(const void* x, const void* w, const void* scale, void* out,
-                                      void* ws, int M, int N, int K, int elem, int act_fq, int bm,
-                                      int splits, void* stream) {
+// The main kernel alone.  elem: mx::kFp8E4M3, kFp6E3M2, kFp6E2M3 or kInt8
+// (w then holds int8 codes).  act_fq: -1 for none, mx::kFp8E4M3 or
+// mx::kInt8 (the wrapper fuses it at M <= 64).  walk != 0 (or splits == 1):
+// each CTA walks all splits and writes out; else split s writes its fp32
+// partial to ws[s] (splits x M x N) and mx_matmul_1byte_reduce_launch sums.
+extern "C" int mx_matmul_1byte_launch(const void* x, const void* w, const void* scale, void* out, void* ws,
+                                      int M, int N, int K, int elem, int act_fq, int splits, int walk,
+                                      void* stream) {
   if (M == 0) return 0;
-  if (elem != mx::kFp8E4M3 && elem != mx::kFp6E3M2 && elem != mx::kFp6E2M3 && elem != mx::kInt8)
-    return (int)cudaErrorInvalidValue;
+  if (splits < 1 || K % kKT || N % 64) return (int)cudaErrorInvalidValue;
+  walk = walk || splits == 1;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (act_fq) {
-    case -1: return dispatch_tile<-1>(x, w, scale, out, ws, M, N, K, elem, bm, splits, s);
-    case mx::kFp8E4M3: return dispatch_tile<mx::kFp8E4M3>(x, w, scale, out, ws, M, N, K, elem, bm, splits, s);
-    case mx::kInt8: return dispatch_tile<mx::kInt8>(x, w, scale, out, ws, M, N, K, elem, bm, splits, s);
+  switch (elem) {
+    case mx::kFp8E4M3: return dispatch_act<mx::kFp8E4M3>(x, w, scale, out, ws, M, N, K, act_fq, splits, walk, s);
+    case mx::kFp6E3M2: return dispatch_act<mx::kFp6E3M2>(x, w, scale, out, ws, M, N, K, act_fq, splits, walk, s);
+    case mx::kFp6E2M3: return dispatch_act<mx::kFp6E2M3>(x, w, scale, out, ws, M, N, K, act_fq, splits, walk, s);
+    case mx::kInt8: return dispatch_act<mx::kInt8>(x, w, scale, out, ws, M, N, K, act_fq, splits, walk, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// out (mn bf16) = the split partials ws (splits x mn fp32) summed in split order.
+extern "C" int mx_matmul_1byte_reduce_launch(const void* ws, void* out, long long mn, int splits, void* stream) {
+  if (mn == 0) return 0;
+  reduce_splits_1byte_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      (const float*)ws, (uint16_t*)out, mn, splits);
+  return (int)cudaGetLastError();
 }

@@ -1,0 +1,116 @@
+// Hopper building blocks of the wgmma matmul kernels: TMA copies completing
+// on mbarriers, the 128-byte swizzled shared-memory tiles TMA writes and
+// wgmma and ldmatrix read, wgmma's shared-memory matrix descriptor, and
+// wgmma.mma_async m64n128k16 bf16 -> f32 with A from registers and B K-major
+// in shared memory.  sm_90a only.
+//
+// Tiles.  An operand tile is made of 1024-byte atoms of eight 128-byte rows
+// (row r of a K-major B tile holds 64 bf16 K values); the 16-byte chunk c
+// of row r lies at chunk c ^ (r % 8): TMA's 128-byte swizzle (atoms
+// 1024-byte aligned, 8 rows = 1024 bytes apart).
+#pragma once
+
+#include <stdint.h>
+
+namespace mx {
+
+// Byte offset of 16-byte chunk c (0..7) of row r in a swizzled run of
+// 128-byte rows (r counts rows from a 1024-byte aligned start).
+__device__ __forceinline__ uint32_t sw128(int r, int c) { return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4)); }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) { return (uint32_t)__cvta_generic_to_shared(p); }
+
+// mbarriers and TMA: a ring slot's barrier counts one arrival (the thread
+// that starts the slot's copies, announcing their bytes) and completes when
+// the copies have landed; waiters pass the parity of the fill they wait for.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+__device__ __forceinline__ void mbar_init_fence() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// A 2-D box of the tensor map (its element coordinates c0 innermost, c1)
+// into shared memory, completing on mbarrier bar; elements outside the
+// tensor come as zeros.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap, uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(dst), "l"(tmap), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Order this thread's generic-proxy accesses to shared memory before the
+// async proxy's (wgmma's operand reads, TMA's writes).
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// Shared-memory matrix descriptor of a 128-byte swizzled K-major tile:
+// start address, leading byte offset (unused for this layout) and stride
+// byte offset (1024, between 8-row atoms).
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() { asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory"); }
+
+// d (64 x 128 f32, the warpgroup's fragment) = A (64 x 16 bf16, from
+// registers) * B (16 x 128 bf16, K-major in shared memory) + (scale_d ? d :
+// 0).  For thread t of the warpgroup (w = t / 32, l = t % 32, g = l / 4,
+// q = l % 4): a[0..3] is mma.sync m16n8k16's A fragment of rows 16w + g and
+// 16w + g + 8 (a0: row g, K 2q, 2q+1; a1: row g+8; a2: row g, K 2q+8, 2q+9;
+// a3: row g+8, K 2q+8, 2q+9); d[4j + 2h + i] is row 16w + g + 8h, column
+// 8j + 2q + i.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+                                                    int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// ldmatrix x4 with .trans of four 8 x 8 b16 matrices; lane l passes the row
+// address of row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned).  Lane
+// (g = l/4, t = l%4) receives, in r[q], elements [row 2t][col g] (low half)
+// and [row 2t + 1][col g] (high half) of matrix q.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+}  // namespace mx

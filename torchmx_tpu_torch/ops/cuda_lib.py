@@ -62,8 +62,10 @@ SIGNATURES = {
         "mx_matmul_fp8_halves_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
     "mx_matmul_1byte": {
-        # x, w, scale, out, workspace, M, N, K, elem_code, act_fq_code, tile_rows, splits, stream
+        # x, w, scale, out, workspace, M, N, K, elem_code, act_fq_code, splits, walk, stream
         "mx_matmul_1byte_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        # workspace, out, M * N, splits, stream
+        "mx_matmul_1byte_reduce_launch": (_P, _P, _L, _I, _P),
     },
     "mx_matmul_fp6q": {
         # x, planes, scale, out, workspace, M, N, K, elem_code, act_fq_code, tile_rows, splits, stream
@@ -192,11 +194,13 @@ def lib(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def launch(src: str, fn: str, *args) -> None:
+def launch(src: str, fn: str, *args, count: bool = True) -> None:
     """Call ``fn`` of ``csrc/<src>.cu`` on PyTorch's current stream, raise on
-    a launch error, and count the launch."""
+    a launch error, and count the launch (``count=False``: a kernel's second
+    pass, which its first launch has counted)."""
     stream = torch.cuda.current_stream().cuda_stream
     rc = getattr(lib(src), fn)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} failed to launch: cudaError {rc}")
-    LAUNCHES[fn.removesuffix("_launch")] += 1
+    if count:
+        LAUNCHES[fn.removesuffix("_launch")] += 1

@@ -66,19 +66,28 @@ def mx_matmul_fp4_halves_plain(
 
 
 def _plan(M: int, N: int, K: int, device: torch.device, k_tile: int = 64):
-    """(rows per tile, K splits) for the matmul kernels (K3, B6 and B9 take
+    """(rows per tile, K splits) for the matmul kernels (K3, B7 and B9 take
     64 K elements per iteration, B8 128).  The tile follows M.  The splits
-    follow N and K alone: enough that a single row tile (decode) keeps the
-    SMs busy.  An output element's fp32 sum order is fixed by the splits, so
-    a row's result does not depend on how many other rows share the call: a
-    prompt admitted whole, in chunks or after a cached prefix gets the same
-    bytes.  B6 and B9 share this plan, which is what lets them give an int8
-    row the same bytes (``cuda_matmul_formats``).  (At large M the extra
-    splits cost a pass over the fp32 partials.)"""
+    follow N and K alone (:func:`k_splits`): enough that a single row tile
+    (decode) keeps the SMs busy.  An output element's fp32 sum order is fixed
+    by the splits, so a row's result does not depend on how many other rows
+    share the call: a prompt admitted whole, in chunks or after a cached
+    prefix gets the same bytes.  B6 (``cuda_matmul_formats.plan_1byte``) and
+    B9 take the same splits, which is what lets them give an int8 row the
+    same bytes.  (At large M the extra splits cost a pass over the fp32
+    partials.)"""
     bm = 16 if M <= 16 else (64 if M <= 64 or N % 128 else 128)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(1, min(K // k_tile, 16, -(-2 * sms // (N // 64))))
-    return bm, splits
+    return bm, k_splits(N, K, sm_count(device), k_tile)
+
+
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def k_splits(N: int, K: int, sms: int, k_tile: int = 64) -> int:
+    """The K splits of the matmul kernels: enough that one row tile of 64
+    columns makes two CTAs an SM, at most 16 and at most one per K step."""
+    return max(1, min(K // k_tile, 16, -(-2 * sms // (N // 64))))
 
 
 def decode_code_dot(codes: torch.Tensor, se: torch.Tensor, elem_name: str) -> torch.Tensor:

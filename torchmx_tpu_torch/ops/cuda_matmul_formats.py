@@ -29,14 +29,17 @@ NaN code are not reproduced, results below the bf16 normal range flush.
 
 B6 forms each 32-block's partial product in a zeroed accumulator and adds
 it to the row's sum in block order, over the same K splits as B9
-(``cuda_matmul._plan``).  With int8 weights and an int8-grid x every
+(``cuda_matmul.k_splits``).  With int8 weights and an int8-grid x every
 partial is exact, so B6 and B9 give a row the same bytes: the engine's rows
-keep their bits whichever kernel their admission's size picks.
+keep their bits whichever kernel their admission's size picks.  Above
+``ACT_FQ_FUSE_MAX_M`` rows B6's wrapper, like B7's, fake-quantizes x once by
+K2 and launches the kernel without ``act_fq`` (the same bytes as the fused
+prologue); its launch plan is :func:`plan_1byte`.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -44,7 +47,8 @@ from ..mx_quantization import f32_from_bits
 from ..packing import fp6_quarters_to_codes
 from . import cuda_lib
 from .backend import on_cuda
-from .cuda_matmul import _plan, check_matmul_operands, decode_code_dot, decode_fp4_to_bf16, fq_matmul
+from .cuda_matmul import (_plan, check_matmul_operands, decode_code_dot, decode_fp4_to_bf16, fq_matmul, k_splits,
+                          sm_count)
 from .cuda_quantize import mx_quantize
 from .quantize import mx_fake_quantize
 
@@ -78,36 +82,87 @@ def _check_formats(elem_name, act_fq, formats, acts, what):
         raise ValueError(f"the {what} kernel fuses act_fq in {acts}, got {act_fq!r}")
 
 
-def _launch_matmul(src: str, fn: str, x, w, w_scale, elem_name, act_fq, k_tile, w_rows):
-    M, K = x.shape
-    N = w.shape[1]
-    check_matmul_operands(x, w, w_scale, w_rows, torch.int8 if elem_name == "int8" else torch.uint8,
-                          src, k_multiple=k_tile)
-    bm, splits = _plan(M, N, K, x.device, k_tile)
-    if k_tile == 128:
-        bm = min(bm, 64)
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    ws = torch.empty((splits, M, N) if splits > 1 else (1,), dtype=torch.float32, device=x.device)
-    act = -1 if act_fq is None else cuda_lib.ELEM_CODES[act_fq]
-    cuda_lib.launch(src, fn, x.data_ptr(), w.data_ptr(), w_scale.data_ptr(), out.data_ptr(), ws.data_ptr(),
-                    M, N, K, cuda_lib.ELEM_CODES[elem_name], act, bm, splits)
-    return out
-
-
 def mx_matmul_1byte_plain(x, w_codes, w_scale, elem_name: str, act_fq: Optional[str] = None):
     """Plain version of B6: fake-quantize x (if ``act_fq``), decode W, fp32
     matmul, one bf16 rounding."""
     return fq_matmul(x, dequantize_1byte(w_codes, w_scale, elem_name), act_fq)
 
 
+# B6's launch (csrc/mx_matmul_1byte.cu): a CTA takes 128 columns of W (two
+# warpgroups, one wgmma m64n128k16 each) and 128 rows of x, through a ring
+# of 6 TMA stages of 64 K.
+B6_BM = 128
+B6_BN = 128
+B6_STAGES = 6
+SMEM_LIMIT = 232_448  # dynamic shared memory a block can use on an H100
+
+
+class Plan1Byte(NamedTuple):
+    bm: int  # rows of x a CTA
+    bn: int  # columns of W a CTA
+    stages: int
+    smem_bytes: int  # the kernel's dynamic shared memory (Smem::bytes)
+    splits: int  # K splits: k_splits(N, K), shared with K3 and B9
+    walk: bool  # each CTA walks its splits (no fp32 workspace, no second pass)
+
+
+def b6_smem_bytes() -> int:
+    """Smem::bytes of csrc/mx_matmul_1byte.cu: the x, code and scale rings,
+    their mbarriers, the fp32 staging tile, 1024 bytes of slack."""
+    ring = B6_STAGES * (B6_BM * 64 * 2 + 64 * B6_BN + 2 * B6_BN)
+    return ring + 64 + B6_BM * (B6_BN + 8) * 4 + 1024
+
+
+def plan_1byte(M: int, N: int, K: int, sms: int) -> Plan1Byte:
+    """B6's launch plan.  The tile, the instruction and the K order are the
+    same at every M and the splits are ``k_splits(N, K)``: a row's bytes do
+    not depend on M.  Where the output tiles alone make half a wave or more,
+    each CTA sums its splits itself, in split order (the bytes of the
+    two-pass form)."""
+    splits = k_splits(N, K, sms)
+    tiles = -(-M // B6_BM) * -(-N // B6_BN)
+    return Plan1Byte(B6_BM, B6_BN, B6_STAGES, b6_smem_bytes(), splits, splits > 1 and 2 * tiles >= sms)
+
+
+def b6_kernel(x, w_codes, w_scale, elem_name: str, act_fq: Optional[str], plan: Plan1Byte):
+    """B6's main kernel alone on CUDA tensors the wrapper has checked:
+    (out, None), or (out, the fp32 split partials) for :func:`b6_reduce`."""
+    M, K = x.shape
+    N = w_codes.shape[1]
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    two_pass = plan.splits > 1 and not plan.walk
+    ws = torch.empty((plan.splits, M, N) if two_pass else (1,), dtype=torch.float32, device=x.device)
+    act = -1 if act_fq is None else cuda_lib.ELEM_CODES[act_fq]
+    cuda_lib.launch("mx_matmul_1byte", "mx_matmul_1byte_launch", x.data_ptr(), w_codes.data_ptr(),
+                    w_scale.data_ptr(), out.data_ptr(), ws.data_ptr(), M, N, K, cuda_lib.ELEM_CODES[elem_name],
+                    act, plan.splits, int(plan.walk))
+    return out, (ws if two_pass else None)
+
+
+def b6_reduce(ws: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """B6's second pass: ``out`` = the split partials summed in split order."""
+    cuda_lib.launch("mx_matmul_1byte", "mx_matmul_1byte_reduce_launch", ws.data_ptr(), out.data_ptr(),
+                    out.numel(), ws.shape[0], count=False)
+    return out
+
+
 def mx_matmul_1byte(x, w_codes, w_scale, elem_name: str, act_fq: Optional[str] = None):
     """B6: ``fq(x) @ W`` in bf16 for a one-byte-per-code weight.  CUDA
-    tensors launch the kernel (K % 64 and N % 64 must be 0); the rest raises."""
+    tensors launch the kernel (K % 64 and N % 64 must be 0); the rest raises.
+    Above ``ACT_FQ_FUSE_MAX_M`` rows x is fake-quantized once by K2 first."""
     _check_formats(elem_name, act_fq, CODE_FORMATS_1BYTE, ACT_FQ_1BYTE, "one-byte")
     if not on_cuda(x, w_codes, w_scale):
         return mx_matmul_1byte_plain(x, w_codes, w_scale, elem_name, act_fq)
-    return _launch_matmul("mx_matmul_1byte", "mx_matmul_1byte_launch", x, w_codes, w_scale, elem_name,
-                          act_fq, 64, x.shape[1])
+    M, K = x.shape
+    check_matmul_operands(x, w_codes, w_scale, K, torch.int8 if elem_name == "int8" else torch.uint8, "one-byte")
+    if any(t.data_ptr() % 16 for t in (x, w_codes, w_scale)):
+        raise ValueError("the one-byte kernel reads x, the codes and the scales 16 bytes at a time: "
+                         "their storage must be 16-byte aligned")
+    if act_fq is not None and M > ACT_FQ_FUSE_MAX_M:
+        x, act_fq = mx_fake_quantize(x, act_fq), None
+    out, ws = b6_kernel(x, w_codes, w_scale, elem_name, act_fq,
+                        plan_1byte(M, w_codes.shape[1], K, sm_count(x.device)))
+    return out if ws is None else b6_reduce(ws, out)
 
 
 def mx_matmul_fp6q_plain(x, planes, w_scale, elem_name: str, act_fq: Optional[str] = None):
@@ -121,8 +176,16 @@ def mx_matmul_fp6q(x, planes, w_scale, elem_name: str, act_fq: Optional[str] = N
     _check_formats(elem_name, act_fq, FP6_FORMATS, ACT_FQ_FP6Q, "fp6 quarters")
     if not on_cuda(x, planes, w_scale):
         return mx_matmul_fp6q_plain(x, planes, w_scale, elem_name, act_fq)
-    return _launch_matmul("mx_matmul_fp6q", "mx_matmul_fp6q_launch", x, planes, w_scale, elem_name,
-                          act_fq, 128, 3 * x.shape[1] // 4)
+    M, K = x.shape
+    N = planes.shape[1]
+    check_matmul_operands(x, planes, w_scale, 3 * K // 4, torch.uint8, "fp6 quarters", k_multiple=128)
+    bm, splits = _plan(M, N, K, x.device, 128)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    ws = torch.empty((splits, M, N) if splits > 1 else (1,), dtype=torch.float32, device=x.device)
+    act = -1 if act_fq is None else cuda_lib.ELEM_CODES[act_fq]
+    cuda_lib.launch("mx_matmul_fp6q", "mx_matmul_fp6q_launch", x.data_ptr(), planes.data_ptr(), w_scale.data_ptr(),
+                    out.data_ptr(), ws.data_ptr(), M, N, K, cuda_lib.ELEM_CODES[elem_name], act, min(bm, 64), splits)
+    return out
 
 
 def dequantize_fp4_pair(w_data: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
