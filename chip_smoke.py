@@ -384,11 +384,11 @@ def check_matmul_kernel(dev, timer, gen):
 # at 1 and 32; B9 at M in (1, 32, 64, 256) (it takes M <= 256).
 FORMAT_MS = (1, 32, 64, 2048)
 B9_MS = (1, 32, 64, 256)
-# B6 at every row count its callers give it (decode batches, admissions of
-# 32-512 rows, 2048-row prefills), across its 64 / 128-row tile switch and
-# with ragged row tiles; and at K = 64 and 128, fewer K steps than the
-# stages of its async-copy ring (N = 4096 and 1024: a two-pass and a
-# walked split plan at 2048 rows).
+# B6 and B8 at every row count their callers give them (decode batches,
+# admissions of 32-512 rows, 2048-row prefills), across the 64-row switch of
+# the activation quantize and with ragged row tiles; B6 also at K = 64 and
+# 128, fewer K steps than the stages of its async-copy ring (N = 4096 and
+# 1024: a two-pass and a walked split plan at 2048 rows).
 B6_MS = (1, 32, 64, 65, 128, 300, 512, 2047, 2048)
 B6_SHORT_K = {"K=64": (64, 4096), "K=128": (128, 1024)}
 ONE_BF16_STEP = "every element within one bf16 step of the plain version's"
@@ -413,44 +413,162 @@ def _path_act(label, M, act):
     return None if (M > 64 and label in K3_PREFILL_SHARED_FQ) else act
 
 
+class FormatBench:
+    """The checks and timing rows of phase 2's weight-format kernels: each
+    kernel against its plain version (rel <= 1e-2, or within one bf16 step),
+    the worst abs error by kernel, and timing rows (kernel, plain version,
+    ``torch.matmul`` on the bf16-dequantized weight, the bound)."""
+
+    def __init__(self, dev, timer, gen):
+        self.dev, self.timer, self.gen = dev, timer, gen
+        self.worst = collections.defaultdict(float)  # max abs error by kernel
+        self.rows = []
+
+    def xs(self, M, K):
+        return torch.randn(M, K, generator=self.gen, device=self.dev).to(torch.bfloat16)
+
+    def check(self, name, label, M, what, out, ref, b9=False):
+        err = bf16_steps(out, ref) if b9 else _rel_max(out, ref)
+        self.worst[name] = max(self.worst[name], (out.float() - ref.float()).abs().max().item())
+        log(f"{name} {label} M={M} {what}: {'bf16 steps' if b9 else 'rel err'} {err:.3e}")
+        if not (err <= 1.0 if b9 else err <= 1e-2):
+            raise AssertionError(f"{name} {label} M={M} {what}: {err}")
+
+    def time_row(self, name, label, M, what, fn, plain, w_bf16, nbytes, ops, peak=BF16_FLOPS):
+        t_b, by = bound(nbytes, ops, peak)
+        row = dict(kernel=name, linear=label, M=M, K=w_bf16.shape[0], N=w_bf16.shape[1], case=what,
+                   ms=self.timer(fn), plain_ms=self.timer(plain, reps=5), bound_ms=t_b, bound_by=by)
+        x = self.xs(M, w_bf16.shape[0])
+        row["library_ms"] = self.timer(lambda: torch.matmul(x, w_bf16))
+        log(f"{name} timing", json.dumps(row))
+        self.rows.append(row)
+        return row
+
+    def entry(self, name, source, replaces, pick):
+        r = next(r for r in self.rows if r["kernel"] == name and pick(r))
+        return dict(name=name, route="cuda", source=f"torchmx_tpu_torch/csrc/{source}", replaces=replaces,
+                    shape=f"{r['linear']} M={r['M']} N={r['N']} K={r['K']} {r['case']}",
+                    max_abs_err=self.worst[name],
+                    tolerance=ONE_BF16_STEP if name == "mx_matmul_int8dot" else "rel <= 1e-2 (max abs over max abs)",
+                    **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+
+
+def every_code_scale_pair(dev, codes_per_row: int):
+    """A (K = 256, N = 256) weight holding every (code, scale) pair: code k %
+    codes_per_row at row k, scale n in column n; x the identity gives it
+    back, bit for bit.  Returns (codes (K, N) int32, scales (8, N) uint8)."""
+    codes = (torch.arange(256, device=dev, dtype=torch.int32) % codes_per_row).reshape(256, 1).expand(256, 256)
+    scales = torch.arange(256, device=dev, dtype=torch.int32).reshape(1, 256).expand(8, 256).to(torch.uint8)
+    return codes.contiguous(), scales.contiguous()
+
+
+def check_decode_bits(name, e, o, r):
+    differ = int(((o.view(torch.int16) != r.view(torch.int16)) & ~(o.isnan() & r.isnan())).sum())
+    log(f"{name} {e}: every (code, scale) pair decoded at M={o.shape[0]}: {differ} of {o.numel()} differ")
+    if differ:
+        raise AssertionError(f"{name} {e} decodes {differ} (code, scale) pairs unlike its plain version")
+
+
+# B8 at K = 128 and 256: fewer K steps than the stages of its ring (N = 4096
+# and 1024: one split, and two splits walked or two-pass by M).
+B8_SHORT_K = {"K=128": (128, 4096), "K=256": (256, 1024)}
+
+
+def check_fp6q_kernel(dev, timer, gen, bench=None):
+    """B8 against its plain version (rel <= 1e-2) over both fp6 formats and
+    both act_fq values at the five Llama-3-8B linears and every M of B6_MS
+    (lm_head at 1 and 32), and at K = 128 and 256; every (code, scale) pair
+    through its decode bit for bit (x the identity); then timed at the P6
+    path's calls at every M, the wrapper's call split into the kernel alone,
+    K2 where the wrapper runs it first and the split reduce where the plan
+    has a second pass, each beside the bound and ``torch.matmul``.  Returns
+    (entry, timing rows)."""
+    from torchmx_tpu_torch.mx_array import MXTensor
+    from torchmx_tpu_torch.ops import cuda_matmul as cm
+    from torchmx_tpu_torch.ops import cuda_matmul_formats as kf
+    from torchmx_tpu_torch.ops.quantize import mx_fake_quantize
+
+    b = bench or FormatBench(dev, timer, gen)
+    name = "mx_matmul_fp6q"
+
+    def check_all(label, w, ms):
+        K = w.shape[1]
+        quarters = {e: MXTensor.to_mx(w, e).T.to_fp6_quarters() for e in kf.FP6_FORMATS}
+        for M in ms:
+            x = b.xs(M, K)
+            for e, t in quarters.items():
+                for act in kf.ACT_FQ_FP6Q:
+                    b.check(name, label, M, f"{e} act_fq={act}", kf.mx_matmul_fp6q(x, t.data, t.scale_e8m0, e, act),
+                            kf.mx_matmul_fp6q_plain(x, t.data, t.scale_e8m0, e, act))
+        return quarters
+
+    def time_b8(label, M, x, q, act, w_bf16):
+        """A B8 timing row (the wrapper's call) and its parts: the kernel
+        alone, K2 where the wrapper runs it first, the split reduce."""
+        K, N = w_bf16.shape
+        plan = kf.plan_fp6q(M, N, K, cm.sm_count(dev))
+        xq = mx_fake_quantize(x, act) if act is not None else x
+        out, ws = kf.b8_kernel(xq, q.data, q.scale_e8m0, "float6_e3m2", plan)
+        kn = K * N
+        row = b.time_row(name, label, M, f"float6_e3m2 act_fq={act}",
+                         lambda: kf.mx_matmul_fp6q(x, q.data, q.scale_e8m0, "float6_e3m2", act),
+                         lambda: kf.mx_matmul_fp6q_plain(x, q.data, q.scale_e8m0, "float6_e3m2", act),
+                         w_bf16, 2 * M * K + 0.75 * kn + kn / 32 + 2 * M * N, 2 * M * N * K)
+        row.update(kernel_ms=timer(lambda: kf.b8_kernel(xq, q.data, q.scale_e8m0, "float6_e3m2", plan)),
+                   k2_ms=timer(lambda: mx_fake_quantize(x, act)) if act is not None else None,
+                   reduce_ms=timer(lambda: kf.b8_reduce(ws, out)) if ws is not None else None,
+                   plan=dict(splits=plan.splits, walk=plan.walk))
+        for part in ("kernel_ms", "k2_ms", "reduce_ms"):
+            log(f"{name} {part[:-3]}", json.dumps({k: row[k] for k in ("linear", "M", "case", part, "bound_ms",
+                                                                      "bound_by", "library_ms", "plan")}))
+
+    for label, (K, N) in K3_MAIN_LINEARS.items():
+        w = (torch.randn(N, K, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+        ms = (1, 32) if label == "lm_head" else B6_MS
+        quarters = check_all(label, w, ms)
+        w_bf16 = MXTensor.to_mx(w, "int8").T.to_dtype(torch.bfloat16)
+        del w
+        for M in ms:
+            time_b8(label, M, b.xs(M, K), quarters["float6_e3m2"], _path_act(label, M, "float8_e4m3"), w_bf16)
+        del quarters, w_bf16
+        torch.cuda.empty_cache()
+    for label, (K, N) in B8_SHORT_K.items():  # fewer K steps than ring stages
+        check_all(f"{label} N={N}", (torch.randn(N, K, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16),
+                  B6_MS)
+    # Every (code, scale) pair through B8's rebuild and decode: each K
+    # quarter holds codes 0..63 in every column, column n at scale n.
+    codes, scales = every_code_scale_pair(dev, 64)
+    eye = torch.eye(256, device=dev, dtype=torch.bfloat16)
+    for e in kf.FP6_FORMATS:
+        planes = MXTensor(scales, codes.to(torch.uint8), e, 32, block_dim=0).to_fp6_quarters().data
+        for M in (64, 256):
+            x = eye[:M].contiguous()
+            check_decode_bits("mx_matmul_fp6q", e, kf.mx_matmul_fp6q(x, planes, scales, e),
+                              kf.mx_matmul_fp6q_plain(x, planes, scales, e))
+    entry = b.entry(name, "mx_matmul_fp6q.cu", "torchmx_tpu/ops/pallas_matmul.py:568",
+                    lambda r: r["linear"] == "gate_proj/up_proj" and r["M"] == 32)
+    return entry, [r for r in b.rows if r["kernel"] == name]
+
+
 def check_format_kernels(dev, timer, gen):
-    """B6 over its four code formats and three act_fq values, B8 over both fp6
-    formats, B9 over int8, int8-domain fp4 and e2m3, and e4m3 weights, and K3
-    over fp8 halves, each against its plain version at every main-path
-    shape (B6, B8, K3-fp8 rel <= 1e-2; B9 within one bf16 step); B6 also at
-    every M of B6_MS, at K = 64 and 128, and on every (code, scale) pair bit
-    for bit; then timed at the paths' calls: kernel, plain version,
-    ``torch.matmul`` on the bf16-dequantized weight, and the bound (B9's
-    operations at 1979 TOP/s dense int8 / fp8); B6 at every M of B6_MS, its
-    kernel, K2 and split reduce apart.  Returns (entries, timing rows)."""
+    """B6 over its four code formats and three act_fq values, B8 (by
+    :func:`check_fp6q_kernel`), B9 over int8, int8-domain fp4 and e2m3, and
+    e4m3 weights, and K3 over fp8 halves, each against its plain version at
+    every main-path shape (B6, B8, K3-fp8 rel <= 1e-2; B9 within one bf16
+    step); B6 also at every M of B6_MS, at K = 64 and 128, and on every
+    (code, scale) pair bit for bit; then timed at the paths' calls: kernel,
+    plain version, ``torch.matmul`` on the bf16-dequantized weight, and the
+    bound (B9's operations at 1979 TOP/s dense int8 / fp8); B6 at every M of
+    B6_MS, its kernel, K2 and split reduce apart.  Returns (entries, timing
+    rows)."""
     from torchmx_tpu_torch.mx_array import MXTensor
     from torchmx_tpu_torch.ops import cuda_matmul as cm
     from torchmx_tpu_torch.ops import cuda_matmul_formats as kf
     from torchmx_tpu_torch.ops.cuda_quantize import mx_quantize
     from torchmx_tpu_torch.ops.quantize import mx_fake_quantize
 
-    worst = collections.defaultdict(float)  # max abs error by kernel
-    rows = []
-
-    def xs(M, K):
-        return torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
-
-    def check(name, label, M, what, out, ref, b9=False):
-        err = bf16_steps(out, ref) if b9 else _rel_max(out, ref)
-        worst[name] = max(worst[name], (out.float() - ref.float()).abs().max().item())
-        log(f"{name} {label} M={M} {what}: {'bf16 steps' if b9 else 'rel err'} {err:.3e}")
-        if not (err <= 1.0 if b9 else err <= 1e-2):
-            raise AssertionError(f"{name} {label} M={M} {what}: {err}")
-
-    def time_row(name, label, M, what, fn, plain, w_bf16, nbytes, ops, peak=BF16_FLOPS):
-        t_b, by = bound(nbytes, ops, peak)
-        row = dict(kernel=name, linear=label, M=M, K=w_bf16.shape[0], N=w_bf16.shape[1], case=what,
-                   ms=timer(fn), plain_ms=timer(plain, reps=5), bound_ms=t_b, bound_by=by)
-        x = xs(M, w_bf16.shape[0])
-        row["library_ms"] = timer(lambda: torch.matmul(x, w_bf16))
-        log(f"{name} timing", json.dumps(row))
-        rows.append(row)
-        return row
+    b = FormatBench(dev, timer, gen)
+    xs, check, time_row = b.xs, b.check, b.time_row
 
     def time_b6(label, M, x, t, elem, act, w_bf16):
         """A B6 timing row: the wrapper's call (ms), and apart the kernel
@@ -472,10 +590,10 @@ def check_format_kernels(dev, timer, gen):
         log("mx_matmul_1byte parts", json.dumps({k: row[k] for k in ("linear", "M", "case", "kernel_ms", "k2_ms",
                                                                       "reduce_ms", "plan")}))
 
+    fp6q_entry, _ = check_fp6q_kernel(dev, timer, gen, b)
     for label, (K, N) in K3_MAIN_LINEARS.items():
         w = (torch.randn(N, K, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
         flat = {e: MXTensor.to_mx(w, e).T for e in kf.CODE_FORMATS_1BYTE}
-        quarters = {e: MXTensor.to_mx(w, e).T.to_fp6_quarters() for e in kf.FP6_FORMATS}
         halves = flat["float8_e4m3"].to_fp8_halves()
         int8dom = {"int8": flat["int8"], "float4_e2m1": MXTensor.to_mx(w, "float4_e2m1").T.to_int8_domain(),
                    "float6_e2m3": flat["float6_e2m3"].to_int8_domain()}
@@ -490,11 +608,6 @@ def check_format_kernels(dev, timer, gen):
                           kf.mx_matmul_1byte_plain(x, t.data, t.scale_e8m0, e, act))
         for M in ms:
             x = xs(M, K)
-            for e, t in quarters.items():
-                for act in kf.ACT_FQ_FP6Q:
-                    check("mx_matmul_fp6q", label, M, f"{e} act_fq={act}",
-                          kf.mx_matmul_fp6q(x, t.data, t.scale_e8m0, e, act),
-                          kf.mx_matmul_fp6q_plain(x, t.data, t.scale_e8m0, e, act))
             for act in cm.ACT_FQ_FORMATS:
                 check("mx_matmul_fp8_halves", label, M, f"act_fq={act}",
                       cm.mx_matmul_fp8_halves(x, halves.data, halves.scale_e8m0, act),
@@ -526,11 +639,6 @@ def check_format_kernels(dev, timer, gen):
         for M in ms:
             x = xs(M, K)
             a8 = _path_act(label, M, "float8_e4m3")
-            q = quarters["float6_e3m2"]
-            time_row("mx_matmul_fp6q", label, M, f"float6_e3m2 act_fq={a8}",
-                     lambda: kf.mx_matmul_fp6q(x, q.data, q.scale_e8m0, "float6_e3m2", a8),
-                     lambda: kf.mx_matmul_fp6q_plain(x, q.data, q.scale_e8m0, "float6_e3m2", a8),
-                     w_bf16, 2 * M * K + 0.75 * kn + kn / 32 + 2 * M * N, 2 * M * N * K)
             time_row("mx_matmul_fp8_halves", label, M, f"act_fq={a8}",
                      lambda: cm.mx_matmul_fp8_halves(x, halves.data, halves.scale_e8m0, a8),
                      lambda: cm.mx_matmul_fp8_halves_plain(x, halves.data, halves.scale_e8m0, a8),
@@ -546,22 +654,19 @@ def check_format_kernels(dev, timer, gen):
                 time_row("mx_matmul_fp8dot", label, M, "e4m3, x quantized by K1 inside the call",
                          lambda: kf.mx_matmul_int8dot(x, t8.data, t8.scale_e8m0, True),
                          lambda: _plain_int8dot(x, t8, True), w_bf16, nbytes, 2 * M * N * K, INT8_OPS)
-        del flat, quarters, halves, int8dom, w_bf16
+        del flat, halves, int8dom, w_bf16
         torch.cuda.empty_cache()
     # Every (code, scale) pair through B6's decode: x the identity, so the
     # output is the decoded weight, bit for bit (NaN as NaN), at both plans.
-    codes = torch.arange(256, device=dev, dtype=torch.int32).reshape(256, 1).expand(256, 256).to(torch.uint8)
-    scales = torch.arange(256, device=dev, dtype=torch.int32).reshape(1, 256).expand(8, 256).to(torch.uint8)
+    codes, scales = every_code_scale_pair(dev, 256)
     eye = torch.eye(256, device=dev, dtype=torch.bfloat16)
     for e in kf.CODE_FORMATS_1BYTE:
-        wc = codes.contiguous().view(torch.int8) if e == "int8" else codes.contiguous()
+        wc = codes.to(torch.uint8)
+        wc = wc.view(torch.int8) if e == "int8" else wc
         for M in (64, 256):
-            o = kf.mx_matmul_1byte(eye[:M].contiguous(), wc, scales.contiguous(), e)
-            r = kf.mx_matmul_1byte_plain(eye[:M].contiguous(), wc, scales.contiguous(), e)
-            differ = int(((o.view(torch.int16) != r.view(torch.int16)) & ~(o.isnan() & r.isnan())).sum())
-            log(f"mx_matmul_1byte {e}: every (code, scale) pair decoded at M={M}: {differ} of {o.numel()} differ")
-            if differ:
-                raise AssertionError(f"B6 {e} decodes {differ} (code, scale) pairs unlike its plain version")
+            x = eye[:M].contiguous()
+            check_decode_bits("mx_matmul_1byte", e, kf.mx_matmul_1byte(x, wc, scales, e),
+                              kf.mx_matmul_1byte_plain(x, wc, scales, e))
     for label, (K, N) in B6_SHORT_K.items():  # fewer K steps than ring stages
         w = (torch.randn(N, K, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
         for e in kf.CODE_FORMATS_1BYTE:
@@ -573,24 +678,17 @@ def check_format_kernels(dev, timer, gen):
                           kf.mx_matmul_1byte(x, t.data, t.scale_e8m0, e, act),
                           kf.mx_matmul_1byte_plain(x, t.data, t.scale_e8m0, e, act))
 
-    def entry(name, source, replaces, pick):
-        r = next(r for r in rows if r["kernel"] == name and pick(r))
-        return dict(name=name, route="cuda", source=f"torchmx_tpu_torch/csrc/{source}", replaces=replaces,
-                    shape=f"{r['linear']} M={r['M']} N={r['N']} K={r['K']} {r['case']}",
-                    max_abs_err=worst[name],
-                    tolerance=ONE_BF16_STEP if name == "mx_matmul_int8dot" else "rel <= 1e-2 (max abs over max abs)",
-                    **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-
     decode_gate_up = lambda r: r["linear"] == "gate_proj/up_proj" and r["M"] == 32  # noqa: E731
     entries = [
-        entry("mx_matmul_fp8_halves", "mx_matmul.cu", "torchmx_tpu/ops/pallas_matmul.py:504", decode_gate_up),
-        entry("mx_matmul_1byte", "mx_matmul_1byte.cu", "torchmx_tpu/ops/pallas_matmul.py:419",
-              lambda r: r["linear"] == "gate_proj/up_proj" and r["M"] == FORMAT_MS[-1] and r["case"].startswith("int8")),
-        entry("mx_matmul_fp6q", "mx_matmul_fp6q.cu", "torchmx_tpu/ops/pallas_matmul.py:568", decode_gate_up),
-        entry("mx_matmul_int8dot", "mx_matmul_int8dot.cu", "torchmx_tpu/ops/pallas_matmul.py:728", decode_gate_up),
-        entry("mx_matmul_fp8dot", "mx_matmul_int8dot.cu", "torchmx_tpu/ops/pallas_matmul.py:728", decode_gate_up),
+        b.entry("mx_matmul_fp8_halves", "mx_matmul.cu", "torchmx_tpu/ops/pallas_matmul.py:504", decode_gate_up),
+        b.entry("mx_matmul_1byte", "mx_matmul_1byte.cu", "torchmx_tpu/ops/pallas_matmul.py:419",
+                lambda r: r["linear"] == "gate_proj/up_proj" and r["M"] == FORMAT_MS[-1]
+                and r["case"].startswith("int8")),
+        fp6q_entry,
+        b.entry("mx_matmul_int8dot", "mx_matmul_int8dot.cu", "torchmx_tpu/ops/pallas_matmul.py:728", decode_gate_up),
+        b.entry("mx_matmul_fp8dot", "mx_matmul_int8dot.cu", "torchmx_tpu/ops/pallas_matmul.py:728", decode_gate_up),
     ]
-    return entries, rows
+    return entries, b.rows
 
 
 INT8_OPS = 1979e12  # dense int8 / fp8 tensor-core peak, data sheet
@@ -1207,7 +1305,7 @@ PLANTED_FAULTS_DMAJOR = ("K7 kv_len one short", "K7 V scale of chunk c taken fro
 PLANTED_FAULTS_FORMATS = {
     "W8A8 int8 cache": ("B9 weight scale of block b taken from block b+1", "B6 int8 weight scale one binade high",
                         "B6 reads the codes of K tile t+1 with the scales of tile t"),
-    "MXFP6 e3m2 fp8 cache": ("B8 planes P1 and P2 swapped",),
+    "MXFP6 e3m2 fp8 cache": ("B8 planes P1 and P2 swapped", "B8 decodes quarter 3 with quarter 2's scales"),
     "MXFP8 fp8 cache": ("K3-fp8 halves swapped",),
 }
 
@@ -1241,10 +1339,16 @@ def planted_fault(name):
         mod, attr = kf, "mx_matmul_fp6q"
         orig = kf.mx_matmul_fp6q
 
+        quarter3_scales = "quarter 3" in name  # the scale rows of the wrong quarter
+
         def faulty(x, planes, sw, elem, act_fq=None):
             if on_cuda(x):
-                q = planes.shape[0] // 3
-                planes = torch.cat([planes[:q], planes[2 * q:], planes[q:2 * q]])
+                if quarter3_scales:
+                    q = sw.shape[0] // 4
+                    sw = torch.cat([sw[:3 * q], sw[2 * q:3 * q]])
+                else:
+                    q = planes.shape[0] // 3
+                    planes = torch.cat([planes[:q], planes[2 * q:], planes[q:2 * q]])
             return orig(x, planes, sw, elem, act_fq)
     elif name.startswith("K3-fp8"):
         mod, attr = cm, "mx_matmul_fp8_halves"
@@ -2153,6 +2257,13 @@ def run_formats(dev, card, layers: int):
         del model
         results[path] = res[32]
         per_step[f"{path}_b32"] = res[32]["launches_per_decode_step"]
+    # P6's decode step: B8 at each of a layer's 7 linears and at lm_head; K2
+    # once for each x they read (q/k/v share one, gate/up one; o_proj,
+    # down_proj and lm_head one each).
+    step, want, want_k2 = per_step["generate_fp6_b32"], 7 * layers + 1, 4 * layers + 1
+    if step.get("mx_matmul_fp6q") != want or step.get("mx_fake_quantize") != want_k2:
+        raise AssertionError(f"generate_fp6: {want} launches of B8 and {want_k2} of K2 expected per decode step, "
+                             f"got {step}")
     return paths, per_step, results
 
 

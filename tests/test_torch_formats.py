@@ -281,6 +281,37 @@ def test_w8a8_mlp_takes_b6_without_act_above_64_rows(monkeypatch):
             assert [c[2] for c in calls] == [None, None, "int8"]
 
 
+@pytest.mark.parametrize("M", [1, 32, 64, 65])
+def test_fp6q_layers_share_one_activation_quantize_at_every_m(M):
+    """B8's wrapper quantizes x by K2 first at every M, so with fp6-quarters
+    weights the layers fake-quantize x once for q/k/v and once for gate/up
+    at every M (``shared_activation_fq``), and those B8 calls take no
+    ``act_fq``; down_proj's stays.  The outputs are bit-identical to each
+    linear quantizing its own x."""
+    from torchmx_tpu_torch.layers.linear import shared_activation_fq
+    from torchmx_tpu_torch.layers.mx_llama_attention import MXInferenceLlamaAttention, MXInferenceLlamaMLP
+    from torchmx_tpu_torch.models.llama import LlamaAttention, LlamaConfig as TCfg, LlamaMLP, silu
+
+    cfg = TCfg(vocab_size=64, hidden_size=1024, intermediate_size=1024, num_hidden_layers=1,
+               num_attention_heads=8, num_key_value_heads=2, head_dim=128)
+    q = QLinearConfig(MXConfig("float6_e3m2"), MXConfig("float8_e4m3"))
+    gen = torch.Generator().manual_seed(0)
+    mlp = MXInferenceLlamaMLP.from_float(LlamaMLP(cfg, "cpu", gen), q)
+    attn = MXInferenceLlamaAttention.from_float(LlamaAttention(cfg, 0, "cpu", gen), QAttentionConfig(q))
+    assert mlp.gate_proj.weight.fp4_pack == "quarters"
+    x = torch.randn(1, M, 1024, generator=gen).to(torch.bfloat16)
+    calls = []
+    with spies(calls):
+        mlp(x)
+        attn._project_qkv(x)
+    assert [c[1:] for c in calls] == ([("fp6q", None)] * 2 + [("fp6q", "float8_e4m3")] + [("fp6q", None)] * 3)
+    assert shared_activation_fq(x, mlp.gate_proj, mlp.up_proj) is not None
+    h = silu(mlp.gate_proj(x)) * mlp.up_proj(x)
+    assert torch.equal(mlp(x), mlp.down_proj(h))
+    for got, lin in zip(attn._project_qkv(x), (attn.q_proj, attn.k_proj, attn.v_proj)):
+        assert torch.equal(got, lin(x))
+
+
 # -- the kernels' plain versions against the Pallas kernels -----------------------------------
 
 
@@ -374,6 +405,19 @@ def test_b6_plan_fits_and_keeps_the_splits(N, K):
     plans = [kf.plan_1byte(M, N, K, 132) for M in range(1, 4097)]
     assert {p.splits for p in plans} == want
     assert {(p.bm, p.bn, p.stages) for p in plans} == {(kf.B6_BM, kf.B6_BN, kf.B6_STAGES)}
+    assert all(p.smem_bytes <= kf.SMEM_LIMIT and N % p.bn == 0 for p in plans)
+    assert all(not p.walk for p in plans if p.splits == 1)
+
+
+@pytest.mark.parametrize("N,K", B6_MAIN_NK)
+def test_b8_plan_fits_and_keeps_the_splits(N, K):
+    """B8's launch plan over M = 1..4096 on a 132-SM card: the K splits are
+    ``k_splits(N, K, 132, 128)`` at every M, the tile and the stage count are
+    the same at every M, the shared memory fits a block and the column tile
+    divides N."""
+    plans = [kf.plan_fp6q(M, N, K, 132) for M in range(1, 4097)]
+    assert {p.splits for p in plans} == {cuda_matmul.k_splits(N, K, 132, 128)}
+    assert {(p.bm, p.bn, p.stages) for p in plans} == {(kf.B8_BM, kf.B8_BN, kf.B8_STAGES)}
     assert all(p.smem_bytes <= kf.SMEM_LIMIT and N % p.bn == 0 for p in plans)
     assert all(not p.walk for p in plans if p.splits == 1)
 
@@ -494,18 +538,20 @@ def test_cuda_1byte_kernel_matches_plain(cuda_device, elem, act_fq, M, K):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M", [1, 32, 256])
+@pytest.mark.parametrize("act_fq", [None, "float8_e4m3"])
+@pytest.mark.parametrize("K", [1024, 4096])
+@pytest.mark.parametrize("M", [1, 32, 65, 256, 2048])
 @pytest.mark.parametrize("elem", kf.FP6_FORMATS)
-def test_cuda_fp6q_and_fp8_halves_kernels_match_plain(cuda_device, elem, M):
+def test_cuda_fp6q_and_fp8_halves_kernels_match_plain(cuda_device, elem, M, K, act_fq):
     g = torch.Generator().manual_seed(1)
-    w = (torch.randn(256, 1024, generator=g) * 0.05).to(torch.bfloat16).to(cuda_device)
-    x = torch.randn(M, 1024, generator=g).to(torch.bfloat16).to(cuda_device)
+    w = (torch.randn(256, K, generator=g) * 0.05).to(torch.bfloat16).to(cuda_device)
+    x = torch.randn(M, K, generator=g).to(torch.bfloat16).to(cuda_device)
     q = MXTensor.to_mx(w, elem).T.to_fp6_quarters()
     h = MXTensor.to_mx(w, "float8_e4m3").T.to_fp8_halves()
-    for out, ref in ((kf.mx_matmul_fp6q(x, q.data, q.scale_e8m0, elem, "float8_e4m3"),
-                      kf.mx_matmul_fp6q_plain(x, q.data, q.scale_e8m0, elem, "float8_e4m3")),
-                     (cuda_matmul.mx_matmul_fp8_halves(x, h.data, h.scale_e8m0, "float8_e4m3"),
-                      cuda_matmul.mx_matmul_fp8_halves_plain(x, h.data, h.scale_e8m0, "float8_e4m3"))):
+    for out, ref in ((kf.mx_matmul_fp6q(x, q.data, q.scale_e8m0, elem, act_fq),
+                      kf.mx_matmul_fp6q_plain(x, q.data, q.scale_e8m0, elem, act_fq)),
+                     (cuda_matmul.mx_matmul_fp8_halves(x, h.data, h.scale_e8m0, act_fq),
+                      cuda_matmul.mx_matmul_fp8_halves_plain(x, h.data, h.scale_e8m0, act_fq))):
         assert ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item() <= 1e-2
 
 

@@ -27,11 +27,11 @@
 //     each thread 2 x 2 byte blocks, (K 2t, 2t+1) x (n, n+1): exactly A
 //     fragments of rows g and g + 8 when warp w's A row 16w + g + 8h stands
 //     for column 16w + 2g + h.  No decoded tile is stored, read back or
-//     fenced.  The decode: where all of a warp's scales of the block lie in
-//     [kSafeLo, kSafeHi] (every decoded value bf16-normal), exact integer
-//     and fma / bf16-multiply arithmetic with no conversion instruction
-//     (decode_fast); elsewhere mx::decode_bf16_bits element by element.
-//     Both are mx::decode_bf16_bits bit for bit.
+//     fenced.  The decode (csrc/mx_wgmma_decode.cuh, shared with B8): where
+//     all of a warp's scales of the block are safe (every decoded value
+//     bf16-normal), exact integer and fma / bf16-multiply arithmetic with no
+//     conversion instruction (decode_fast); elsewhere mx::decode_bf16_bits
+//     element by element.  Both are mx::decode_bf16_bits bit for bit.
 //  4. wgmma.mma_async m64n128k16 bf16 -> f32, A from registers, two
 //     warpgroups (128 columns of W) over 128 rows of x, at every M: a row's
 //     bytes do not depend on M.  Each MX block's two k16 products go into
@@ -55,11 +55,9 @@
 // What holds it at prefill (PERF.md): the CUDA cores' work a stage (the
 // decode and the 128 fp32 partial adds a thread) at 8 warps an SM, not the
 // tensor cores.
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
 #include "mx_common.cuh"
 #include "mx_wgmma.cuh"
+#include "mx_wgmma_decode.cuh"
 
 namespace {
 
@@ -96,11 +94,6 @@ struct Smem {
   static constexpr int bytes = out + kBM * kOutStride * 4 + 1024;
 };
 
-// Scales at which decode_fast is exact in every format: every decoded value
-// is bf16-normal and finite, and int8's 2^23 + 255 times 2^(se-127) is
-// finite in fp32.
-constexpr uint32_t kSafeLo = 16, kSafeHi = 224;
-
 // Start the TMA copies of K stage `it` into ring slot `slot` (one thread):
 // the x tile (rows m0.., K it*64..), the code tile and the scale rows; past
 // M and N they come as zeros.
@@ -127,44 +120,6 @@ __device__ __forceinline__ void fq_stage(uint8_t* xs, int rows, int warp8, int l
   }
 }
 
-// Two decoded codes as bf16x2: bytes hi and 2 + hi of r (K 2t and 2t + 1
-// of one column), with that column's scale se.
-template <int E>
-__device__ __forceinline__ uint32_t decode_exact(uint32_t r, int hi, int se) {
-  return (uint32_t)mx::decode_bf16_bits<E>((int)((r >> (8 * hi)) & 0xFF), se) |
-         ((uint32_t)mx::decode_bf16_bits<E>((int)((r >> (16 + 8 * hi)) & 0xFF), se) << 16);
-}
-
-// The same where the scale is safe, with no conversion instruction (16 a
-// clock on an SM): the bf16 bits are built by integer ops.  int8: the float
-// 2^23 + (code + 128) from its bits, times 2^(se-127) less (2^23 + 128)
-// 2^(se-127) in one exact fma, then the upper halves of two floats packed.
-// fp: each code's sign, exponent and mantissa fields land in a bf16 lane
-// (the code's value times 2^(bias-127), a subnormal code a bf16 subnormal),
-// then two exact bf16 multiplies: by 2^(127-bias) (rebias, per format) and
-// by 2^(se-127).
-template <int E>
-__device__ __forceinline__ uint32_t decode_fast(uint32_t r, int hi, float sf, float sneg, uint32_t rebias2,
-                                                uint32_t scale2) {
-  if (E == mx::kInt8) {
-    const uint32_t u = r ^ 0x80808080u;
-    const float a = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + hi));
-    const float b = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442 + hi));
-    return __byte_perm(__float_as_uint(fmaf(a, sf, sneg)), __float_as_uint(fmaf(b, sf, sneg)), 0x7632);
-  } else {
-    constexpr int mb = mx::Elem<E>::mb, nb = mx::Elem<E>::mb + mx::Elem<E>::eb;
-    constexpr uint32_t mag = 0x01010101u * ((1u << nb) - 1), sgn = 0x01010101u * (1u << nb);
-    // bytes hi and 2 + hi into the low byte of each 16-bit lane: fields, then sign
-    const uint32_t f = __byte_perm(r & mag, 0u, 0x4240 + 0x101 * hi);
-    const uint32_t sg = __byte_perm(r & sgn, 0u, 0x2404 + 0x1010 * hi) << (7 - nb);
-    uint32_t v = (f << (7 - mb)) + sg;
-    __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&v);
-    x = __hmul2(__hmul2(x, *reinterpret_cast<const __nv_bfloat162*>(&rebias2)),
-                *reinterpret_cast<const __nv_bfloat162*>(&scale2));
-    return *reinterpret_cast<const uint32_t*>(&x);
-  }
-}
-
 // A block's raw operands for this thread, fetched one phase before they are
 // decoded: one ldmatrix.x4.trans of the code tile (matrix q: K rows 32 blk
 // + 8q .. + 7, the warp's 16 columns) and the scale bytes of its columns 2g
@@ -179,41 +134,6 @@ __device__ __forceinline__ void fetch(Raw& raw, const uint8_t* smem, uint32_t sb
                                       int lane) {
   mx::ldmatrix_x4_trans(raw.r, sbase + Smem::w + slot * kWBytes + mx::sw128(blk * 32 + (lane >> 3) * 8 + (lane & 7), cn));
   raw.s = *reinterpret_cast<const uint16_t*>(smem + Smem::s + slot * kSBytes + blk * kBN + cn * 16 + 2 * (lane >> 2));
-}
-
-// The A fragments of a block from its raw operands: f[kk] for the block's
-// k16 step kk.
-template <int E>
-__device__ __forceinline__ void decode(uint32_t (&f)[2][4], const Raw& raw) {
-  const int s_lo = raw.s & 0xFF, s_hi = raw.s >> 8;  // columns 2g and 2g + 1
-  const bool safe = (uint32_t)s_lo - kSafeLo <= kSafeHi - kSafeLo && (uint32_t)s_hi - kSafeLo <= kSafeHi - kSafeLo;
-  if (__all_sync(0xffffffffu, safe)) {
-    const float sf_lo = __uint_as_float((uint32_t)s_lo << 23), sf_hi = __uint_as_float((uint32_t)s_hi << 23);
-    const float sneg_lo = -8388736.0f * sf_lo, sneg_hi = -8388736.0f * sf_hi;  // -(2^23 + 128) 2^(se-127)
-    constexpr uint32_t rebias = (uint32_t)(254 - mx::Elem<E>::bias) << 7;       // bf16 2^(127-bias)
-    const uint32_t rb2 = rebias | (rebias << 16);
-    const uint32_t sc_lo = ((uint32_t)s_lo << 7) | ((uint32_t)s_lo << 23);  // bf16x2 2^(se-127)
-    const uint32_t sc_hi = ((uint32_t)s_hi << 7) | ((uint32_t)s_hi << 23);
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      f[kk][0] = decode_fast<E>(raw.r[2 * kk], 0, sf_lo, sneg_lo, rb2, sc_lo);
-      f[kk][1] = decode_fast<E>(raw.r[2 * kk], 1, sf_hi, sneg_hi, rb2, sc_hi);
-      f[kk][2] = decode_fast<E>(raw.r[2 * kk + 1], 0, sf_lo, sneg_lo, rb2, sc_lo);
-      f[kk][3] = decode_fast<E>(raw.r[2 * kk + 1], 1, sf_hi, sneg_hi, rb2, sc_hi);
-    }
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) f[kk][q] = decode_exact<E>(raw.r[2 * kk + (q >> 1)], q & 1, q & 1 ? s_hi : s_lo);
-  }
-}
-
-// Tell the compiler the fragment changed here (after a wgmma wait), so that
-// no read of it moves above the wait.
-__device__ __forceinline__ void fence_fragment(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // Start one MX block: p = its two k16 products (A from f, B the x tile at
@@ -293,7 +213,7 @@ matmul_1byte_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constan
     }
     fetch(r0, smem, sbase, 0, 0, cn, lane);
     fetch(r1, smem, sbase, 0, 1, cn, lane);
-    decode<E>(f0, r0);
+    mx::decode_fragments<E>(f0, r0.r, r0.s);
   }
 
   // Stage st: MX block 0 then block 1, each two k16 wgmmas into the partial
@@ -308,7 +228,7 @@ matmul_1byte_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constan
     B6_PHASE(5);
     start_block(p, f0, xs, 0);
     B6_PHASE(0);
-    decode<E>(f1, r1);
+    mx::decode_fragments<E>(f1, r1.r, r1.s);
     B6_PHASE(2);
     if (next) {
       // After this barrier stage st - 1's ring slot is free: its wgmmas have
@@ -324,7 +244,7 @@ matmul_1byte_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constan
       B6_PHASE(2);
     }
     mx::wgmma_wait<0>();
-    fence_fragment(p);
+    mx::fence_fragment(p);
     B6_PHASE(3);
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] += p[i];
@@ -338,11 +258,11 @@ matmul_1byte_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constan
         mx::fence_proxy_async();
       }
       fetch(r1, smem, sbase, nslot, 1, cn, lane);
-      decode<E>(f0, r0);
+      mx::decode_fragments<E>(f0, r0.r, r0.s);
     }
     B6_PHASE(2);
     mx::wgmma_wait<0>();
-    fence_fragment(p);
+    mx::fence_fragment(p);
     B6_PHASE(3);
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] += p[i];
@@ -386,40 +306,14 @@ __global__ void reduce_splits_1byte_kernel(const float* __restrict__ ws, uint16_
   mx::reduce_splits(ws, out, mn, splits, (long long)blockIdx.x * blockDim.x + threadIdx.x);
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime's entry points (no
-// link against libcuda).
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
-// A 2-D tensor map: inner x outer elements of `type` at base, rows
-// row_bytes apart, boxes of box_inner x box_outer.
-bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t inner, uint64_t outer,
-                uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer, CUtensorMapSwizzle swizzle) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
-  if (encode == nullptr) return false;
-  cuuint64_t dims[2] = {inner, outer}, strides[1] = {row_bytes};
-  cuuint32_t box[2] = {box_inner, box_outer}, elem_strides[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int E, int ACT>
 cudaError_t run(const void* x, const void* w, const void* scale, void* out, void* ws, int M, int N, int K,
                 int splits, int walk, cudaStream_t stream) {
   CUtensorMap tx, tw, ts;
-  if (!tensor_map(&tx, CU_TENSOR_MAP_DATA_TYPE_UINT16, x, K, M, (uint64_t)K * 2, kKT, kBM,
+  if (!mx::tensor_map(&tx, CU_TENSOR_MAP_DATA_TYPE_UINT16, x, K, M, (uint64_t)K * 2, kKT, kBM,
                   CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !tensor_map(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, N, kBN, kKT, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !tensor_map(&ts, CU_TENSOR_MAP_DATA_TYPE_UINT8, scale, N, K / 32, N, kBN, 2, CU_TENSOR_MAP_SWIZZLE_NONE))
+      !mx::tensor_map(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, N, kBN, kKT, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !mx::tensor_map(&ts, CU_TENSOR_MAP_DATA_TYPE_UINT8, scale, N, K / 32, N, kBN, 2, CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {

@@ -7,9 +7,14 @@
 // Tiles.  An operand tile is made of 1024-byte atoms of eight 128-byte rows
 // (row r of a K-major B tile holds 64 bf16 K values); the 16-byte chunk c
 // of row r lies at chunk c ^ (r % 8): TMA's 128-byte swizzle (atoms
-// 1024-byte aligned, 8 rows = 1024 bytes apart).
+// 1024-byte aligned, 8 rows = 1024 bytes apart).  A 64-byte swizzled tile
+// (rows of 32 bf16 K values) has 512-byte atoms of eight rows; chunk c
+// (0..3) of row r lies at chunk c ^ ((r / 2) % 4).
 #pragma once
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace mx {
@@ -23,12 +28,16 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) { return (uint32_t)
 // mbarriers and TMA: a ring slot's barrier counts one arrival (the thread
 // that starts the slot's copies, announcing their bytes) and completes when
 // the copies have landed; waiters pass the parity of the fill they wait for.
+// A slot's "empty" barrier counts the arrivals of the slot's readers.
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
 }
 __device__ __forceinline__ void mbar_init_fence() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
@@ -55,6 +64,14 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap, uint
       : "memory");
 }
 
+// A 3-D box (c0 innermost, c1, c2) of the tensor map, the same way.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* tmap, uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(dst), "l"(tmap), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // Order this thread's generic-proxy accesses to shared memory before the
 // async proxy's (wgmma's operand reads, TMA's writes).
 __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
@@ -65,6 +82,13 @@ __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
+}
+
+// The same for a 64-byte swizzled K-major tile (layout type 2): 8-row atoms
+// 512 bytes apart.
+__device__ __forceinline__ uint64_t wgmma_desc_sw64(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(512 >> 4) << 32) |
+         ((uint64_t)2 << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -103,6 +127,13 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// Tell the compiler the fragment changed here (after a wgmma wait), so that
+// no read of it moves above the wait.
+__device__ __forceinline__ void fence_fragment(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
 // ldmatrix x4 with .trans of four 8 x 8 b16 matrices; lane l passes the row
 // address of row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned).  Lane
 // (g = l/4, t = l%4) receives, in r[q], elements [row 2t][col g] (low half)
@@ -111,6 +142,35 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+
+// Host side: cuTensorMapEncodeTiled, looked up through the runtime's entry
+// points (no link against libcuda).
+inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A 2-D tensor map: inner x outer elements of `type` at base, rows
+// row_bytes apart, boxes of box_inner x box_outer; with depth > 1 a 3-D
+// map of `depth` such matrices, matrix_bytes apart, boxes `depth` deep.
+inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t inner, uint64_t outer,
+                       uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer, CUtensorMapSwizzle swizzle,
+                       uint32_t depth = 1, uint64_t matrix_bytes = 0) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (encode == nullptr) return false;
+  cuuint64_t dims[3] = {inner, outer, depth}, strides[2] = {row_bytes, matrix_bytes};
+  cuuint32_t box[3] = {box_inner, box_outer, depth}, elem_strides[3] = {1, 1, 1};
+  return encode(map, type, depth > 1 ? 3 : 2, const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace mx

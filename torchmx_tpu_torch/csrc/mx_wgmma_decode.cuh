@@ -1,0 +1,93 @@
+// The decode of MX code words into wgmma's A fragments, shared by the
+// kernels that compute out^T = W^T x^T with W decoded in registers: B6
+// (csrc/mx_matmul_1byte.cu, one code a byte) and B8 (csrc/mx_matmul_fp6q.cu,
+// fp6 codes rebuilt from the quarters planes).
+//
+// A thread's raw operand of one 32-row MX block is four words r[q], from one
+// ldmatrix.x4.trans of a [K][n] byte tile (matrix q: K rows 8q .. 8q + 7 of
+// the block, the warp's 16 columns): byte hi + 2 i of r[q] is the code at K
+// 8q + 2t + i, column 2g + hi of the warp (g = lane / 4, t = lane % 4), and
+// s holds the scale bytes of columns 2g (low) and 2g + 1 (high).  Every
+// decoded value equals mx::decode_bf16_bits bit for bit.
+#pragma once
+
+#include "mx_common.cuh"
+
+namespace mx {
+
+// Scales at which decode_fast is exact: every decoded value is bf16-normal
+// and finite.  int8: [16, 224] (2^23 + 255 times 2^(se-127) is finite in
+// fp32); fp: [16, 127 + bias], where 2^(se - bias) is one bf16.
+constexpr uint32_t kSafeLo = 16;
+template <int E>
+__device__ __forceinline__ constexpr uint32_t safe_hi() {
+  return E == kInt8 ? 224u : 127u + Elem<E>::bias;
+}
+
+// Two decoded codes as bf16x2: bytes hi and 2 + hi of r (K 2t and 2t + 1
+// of one column), with that column's scale se.
+template <int E>
+__device__ __forceinline__ uint32_t decode_exact(uint32_t r, int hi, int se) {
+  return (uint32_t)decode_bf16_bits<E>((int)((r >> (8 * hi)) & 0xFF), se) |
+         ((uint32_t)decode_bf16_bits<E>((int)((r >> (16 + 8 * hi)) & 0xFF), se) << 16);
+}
+
+// The same where the scale is safe, with no conversion instruction (16 a
+// clock on an SM): the bf16 bits are built by integer ops.  int8: the float
+// 2^23 + (code + 128) from its bits, times 2^(se-127) less (2^23 + 128)
+// 2^(se-127) in one exact fma, then the upper halves of two floats packed.
+// fp: each code's sign, exponent and mantissa fields land in a bf16 lane
+// (the code's value times 2^(bias-127), a subnormal code a bf16 subnormal),
+// then one exact bf16 multiply by scale2 = 2^(se - bias).  Bits above an fp
+// code's sign bit are ignored.
+template <int E>
+__device__ __forceinline__ uint32_t decode_fast(uint32_t r, int hi, float sf, float sneg, uint32_t scale2) {
+  if (E == kInt8) {
+    const uint32_t u = r ^ 0x80808080u;
+    const float a = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + hi));
+    const float b = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442 + hi));
+    return __byte_perm(__float_as_uint(fmaf(a, sf, sneg)), __float_as_uint(fmaf(b, sf, sneg)), 0x7632);
+  } else {
+    constexpr int mb = Elem<E>::mb, nb = Elem<E>::mb + Elem<E>::eb;
+    constexpr uint32_t mag = 0x01010101u * ((1u << nb) - 1), sgn = 0x01010101u * (1u << nb);
+    // bytes hi and 2 + hi into each 16-bit lane: the fields into the low
+    // byte, the sign (moved to bit 7 of its byte) into the high byte
+    const uint32_t f = __byte_perm(r & mag, 0u, 0x4240 + 0x101 * hi);
+    const uint32_t sg = __byte_perm((r & sgn) << (7 - nb), 0u, 0x2404 + 0x1010 * hi);
+    uint32_t v = (f << (7 - mb)) + sg;
+    __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&v);
+    x = __hmul2(x, *reinterpret_cast<const __nv_bfloat162*>(&scale2));
+    return *reinterpret_cast<const uint32_t*>(&x);
+  }
+}
+
+// The A fragments of a block from its raw operand: f[kk] for the block's
+// k16 step kk.  Where all of the warp's scales are safe, decode_fast;
+// elsewhere decode_exact.
+template <int E>
+__device__ __forceinline__ void decode_fragments(uint32_t (&f)[2][4], const uint32_t (&r)[4], uint32_t s) {
+  const int s_lo = s & 0xFF, s_hi = (s >> 8) & 0xFF;  // columns 2g and 2g + 1
+  constexpr uint32_t span = safe_hi<E>() - kSafeLo;
+  const bool safe = (uint32_t)s_lo - kSafeLo <= span && (uint32_t)s_hi - kSafeLo <= span;
+  if (__all_sync(0xffffffffu, safe)) {
+    const float sf_lo = __uint_as_float((uint32_t)s_lo << 23), sf_hi = __uint_as_float((uint32_t)s_hi << 23);
+    const float sneg_lo = -8388736.0f * sf_lo, sneg_hi = -8388736.0f * sf_hi;  // -(2^23 + 128) 2^(se-127)
+    constexpr int rebias = 127 - Elem<E>::bias;
+    const uint32_t sc_lo = (uint32_t)(s_lo + rebias) * 0x00800080u;  // bf16x2 2^(se - bias)
+    const uint32_t sc_hi = (uint32_t)(s_hi + rebias) * 0x00800080u;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      f[kk][0] = decode_fast<E>(r[2 * kk], 0, sf_lo, sneg_lo, sc_lo);
+      f[kk][1] = decode_fast<E>(r[2 * kk], 1, sf_hi, sneg_hi, sc_hi);
+      f[kk][2] = decode_fast<E>(r[2 * kk + 1], 0, sf_lo, sneg_lo, sc_lo);
+      f[kk][3] = decode_fast<E>(r[2 * kk + 1], 1, sf_hi, sneg_hi, sc_hi);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) f[kk][q] = decode_exact<E>(r[2 * kk + (q >> 1)], q & 1, q & 1 ? s_hi : s_lo);
+  }
+}
+
+}  // namespace mx

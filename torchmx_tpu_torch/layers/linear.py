@@ -13,7 +13,7 @@ from torch import nn
 from .. import env_variables as env
 from ..config import QLinearConfig
 from ..mx_array import MXTensor
-from ..ops.cuda_matmul_formats import ACT_FQ_FUSE_MAX_M
+from ..ops.cuda_matmul_formats import act_fq_first
 from ..ops.matmul import mx_dynamic_matmul, mx_matmul
 from ..ops.quantize import mx_fake_quantize
 
@@ -125,13 +125,16 @@ class MXInferenceLinear(nn.Module):
 
 def shared_activation_fq(x: torch.Tensor, *linears) -> Optional[torch.Tensor]:
     """Fake-quantize ``x`` once for several MX linears that read it under the
-    same activation config, at prefill sizes (rows > ``ACT_FQ_FUSE_MAX_M``);
-    None where sharing does not apply (each linear then fuses its own)."""
+    same activation config, where a linear's matmul would take x quantized
+    by K2 first (``act_fq_first``: at prefill sizes, and at every size for
+    fp6-quarters weights); None where sharing does not apply (each linear
+    then fuses its own)."""
     if not all(isinstance(lin, MXInferenceLinear) for lin in linears):
         return None
     cfg = linears[0].qconfig.activations_config
     if any(lin.qconfig.activations_config != cfg for lin in linears[1:]):
         return None
-    if x.numel() // x.shape[-1] <= ACT_FQ_FUSE_MAX_M:
+    rows = x.numel() // x.shape[-1]
+    if not any(act_fq_first(lin.weight.fp4_pack, rows) for lin in linears):
         return None
     return mx_fake_quantize(x.to(torch.bfloat16).contiguous(), cfg.elem_dtype, cfg.block_size)

@@ -68,8 +68,10 @@ SIGNATURES = {
         "mx_matmul_1byte_reduce_launch": (_P, _P, _L, _I, _P),
     },
     "mx_matmul_fp6q": {
-        # x, planes, scale, out, workspace, M, N, K, elem_code, act_fq_code, tile_rows, splits, stream
-        "mx_matmul_fp6q_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        # x, planes, scale, out, workspace, M, N, K, elem_code, splits, walk, stream
+        "mx_matmul_fp6q_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # workspace, out, M * N, splits, stream
+        "mx_matmul_fp6q_reduce_launch": (_P, _P, _L, _I, _P),
     },
     "mx_matmul_int8dot": {
         # x codes, x scales, w codes, w scales, out, workspace, M, N, K, tile_rows, splits, stream
@@ -181,16 +183,31 @@ def build_all() -> Dict[str, Path]:
     return paths
 
 
+def _bind(handle: ctypes.CDLL, src: str) -> ctypes.CDLL:
+    for fn, argtypes in SIGNATURES[src].items():
+        getattr(handle, fn).argtypes = list(argtypes)
+        getattr(handle, fn).restype = ctypes.c_int
+    return handle
+
+
+def build_variant(name: str, *flags: str) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built with extra ``flags`` (a diagnostic build,
+    e.g. ``-DB8_PHASE_PROFILE``) into a library of its own, loaded and bound
+    like :func:`lib`'s; not counted, not cached across processes."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = hashlib.sha256(" ".join(flags).encode()).hexdigest()[:8]
+    out = BUILD_DIR / f"lib{name}-variant-{tag}-{os.getpid()}.so"
+    subprocess.run([_nvcc(), *NVCC_FLAGS, *flags, "-I", str(CSRC_DIR), "-o", str(out),
+                    str(CSRC_DIR / f"{name}.cu")], check=True)
+    return _bind(ctypes.CDLL(str(out)), name)
+
+
 def lib(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (building all on first use)."""
     with _lock:
         if not _libs:
             for src, path in build_all().items():
-                handle = ctypes.CDLL(str(path))
-                for fn, argtypes in SIGNATURES[src].items():
-                    getattr(handle, fn).argtypes = list(argtypes)
-                    getattr(handle, fn).restype = ctypes.c_int
-                _libs[src] = handle
+                _libs[src] = _bind(ctypes.CDLL(str(path)), src)
         return _libs[name]
 
 

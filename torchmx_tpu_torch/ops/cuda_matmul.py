@@ -65,11 +65,11 @@ def mx_matmul_fp4_halves_plain(
     return fq_matmul(x, dequantize_fp4_halves(w_data, w_scale), act_fq)
 
 
-def _plan(M: int, N: int, K: int, device: torch.device, k_tile: int = 64):
-    """(rows per tile, K splits) for the matmul kernels (K3, B7 and B9 take
-    64 K elements per iteration, B8 128).  The tile follows M.  The splits
-    follow N and K alone (:func:`k_splits`): enough that a single row tile
-    (decode) keeps the SMs busy.  An output element's fp32 sum order is fixed
+def _plan(M: int, N: int, K: int, device: torch.device):
+    """(rows per tile, K splits) for the matmul kernels K3, B7 and B9 (64 K
+    elements per iteration).  The tile follows M.  The splits follow N and K
+    alone (:func:`k_splits`): enough that a single row tile (decode) keeps
+    the SMs busy.  An output element's fp32 sum order is fixed
     by the splits, so a row's result does not depend on how many other rows
     share the call: a prompt admitted whole, in chunks or after a cached
     prefix gets the same bytes.  B6 (``cuda_matmul_formats.plan_1byte``) and
@@ -77,7 +77,7 @@ def _plan(M: int, N: int, K: int, device: torch.device, k_tile: int = 64):
     same bytes.  (At large M the extra splits cost a pass over the fp32
     partials.)"""
     bm = 16 if M <= 16 else (64 if M <= 64 or N % 128 else 128)
-    return bm, k_splits(N, K, sm_count(device), k_tile)
+    return bm, k_splits(N, K, sm_count(device))
 
 
 def sm_count(device: torch.device) -> int:

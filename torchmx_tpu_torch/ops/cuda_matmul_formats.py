@@ -15,7 +15,9 @@ layouts, and their plain PyTorch versions:
 * B8 ``mx_matmul_fp6q`` (``csrc/mx_matmul_fp6q.cu``) replaces
   ``_linear_kernel_fp6q``: the same with an fp6 weight in the planar
   quarters layout (``(3K/4, N)`` bytes, ``MXTensor.to_fp6_quarters``);
-  ``act_fq`` in None, ``"float8_e4m3"``.
+  ``act_fq`` in None, ``"float8_e4m3"``, applied by K2 first at every M (the
+  kernel reads x as it is; :func:`act_fq_first`); its launch plan is
+  :func:`plan_fp6q`.
 * B9 ``mx_matmul_int8dot`` / ``mx_matmul_fp8dot`` (``csrc/mx_matmul_int8dot.cu``)
   replace ``_int8dot_kernel`` (and its ``fp8=True`` variant): x is quantized
   by K1 to int8 (or e4m3) codes and E8M0 scales, each 32-element block's dot
@@ -58,10 +60,19 @@ ACT_FQ_1BYTE = (None, "float8_e4m3", "int8")
 ACT_FQ_FP6Q = (None, "float8_e4m3")
 INT8DOT_MAX_M = 256  # rows above which the JAX package leaves int8 dots for the 1-byte kernel
 ACT_FQ_FP4_PAIR = (None, "float8_e4m3", "int8")
-# Rows above which B7 takes x fake-quantized by K2 instead of fusing the
-# activation quantize (``_ACT_FQ_FUSE_MAX_M`` of the reference); the layers
-# share the threshold for an activation read by several linears.
+# Rows above which B6 and B7 take x fake-quantized by K2 instead of fusing
+# the activation quantize (``_ACT_FQ_FUSE_MAX_M`` of the reference).
 ACT_FQ_FUSE_MAX_M = 64
+
+
+def act_fq_first(fp4_pack: str, rows: int) -> bool:
+    """Whether a weight in layout ``fp4_pack`` takes x already fake-quantized
+    by K2 at ``rows`` rows, rather than its kernel fusing the activation
+    quantize: above ``ACT_FQ_FUSE_MAX_M`` rows (as the reference's
+    ``_run_kernel``), and at every M for B8's quarters.  Where it is true,
+    the layers fake-quantize an x read by several linears once for all of
+    them (``layers/linear.shared_activation_fq``)."""
+    return rows > ACT_FQ_FUSE_MAX_M or fp4_pack == "quarters"
 
 
 def dequantize_1byte(w_codes: torch.Tensor, w_scale: torch.Tensor, elem_name: str) -> torch.Tensor:
@@ -94,15 +105,22 @@ def mx_matmul_1byte_plain(x, w_codes, w_scale, elem_name: str, act_fq: Optional[
 B6_BM = 128
 B6_BN = 128
 B6_STAGES = 6
+# B8's (csrc/mx_matmul_fp6q.cu): the same tile through a ring of 3 stages of
+# 128 K (one MX block of each K quarter).
+B8_BM = 128
+B8_BN = 128
+B8_STAGES = 3
 SMEM_LIMIT = 232_448  # dynamic shared memory a block can use on an H100
 
 
-class Plan1Byte(NamedTuple):
+class WgmmaPlan(NamedTuple):
+    """The launch plan of a TMA + wgmma matmul kernel (B6, B8)."""
+
     bm: int  # rows of x a CTA
     bn: int  # columns of W a CTA
     stages: int
     smem_bytes: int  # the kernel's dynamic shared memory (Smem::bytes)
-    splits: int  # K splits: k_splits(N, K), shared with K3 and B9
+    splits: int  # K splits: k_splits(N, K)
     walk: bool  # each CTA walks its splits (no fp32 workspace, no second pass)
 
 
@@ -113,7 +131,7 @@ def b6_smem_bytes() -> int:
     return ring + 64 + B6_BM * (B6_BN + 8) * 4 + 1024
 
 
-def plan_1byte(M: int, N: int, K: int, sms: int) -> Plan1Byte:
+def plan_1byte(M: int, N: int, K: int, sms: int) -> WgmmaPlan:
     """B6's launch plan.  The tile, the instruction and the K order are the
     same at every M and the splits are ``k_splits(N, K)``: a row's bytes do
     not depend on M.  Where the output tiles alone make half a wave or more,
@@ -121,10 +139,10 @@ def plan_1byte(M: int, N: int, K: int, sms: int) -> Plan1Byte:
     two-pass form)."""
     splits = k_splits(N, K, sms)
     tiles = -(-M // B6_BM) * -(-N // B6_BN)
-    return Plan1Byte(B6_BM, B6_BN, B6_STAGES, b6_smem_bytes(), splits, splits > 1 and 2 * tiles >= sms)
+    return WgmmaPlan(B6_BM, B6_BN, B6_STAGES, b6_smem_bytes(), splits, splits > 1 and 2 * tiles >= sms)
 
 
-def b6_kernel(x, w_codes, w_scale, elem_name: str, act_fq: Optional[str], plan: Plan1Byte):
+def b6_kernel(x, w_codes, w_scale, elem_name: str, act_fq: Optional[str], plan: WgmmaPlan):
     """B6's main kernel alone on CUDA tensors the wrapper has checked:
     (out, None), or (out, the fp32 split partials) for :func:`b6_reduce`."""
     M, K = x.shape
@@ -158,7 +176,7 @@ def mx_matmul_1byte(x, w_codes, w_scale, elem_name: str, act_fq: Optional[str] =
     if any(t.data_ptr() % 16 for t in (x, w_codes, w_scale)):
         raise ValueError("the one-byte kernel reads x, the codes and the scales 16 bytes at a time: "
                          "their storage must be 16-byte aligned")
-    if act_fq is not None and M > ACT_FQ_FUSE_MAX_M:
+    if act_fq is not None and act_fq_first("pair", M):
         x, act_fq = mx_fake_quantize(x, act_fq), None
     out, ws = b6_kernel(x, w_codes, w_scale, elem_name, act_fq,
                         plan_1byte(M, w_codes.shape[1], K, sm_count(x.device)))
@@ -170,22 +188,63 @@ def mx_matmul_fp6q_plain(x, planes, w_scale, elem_name: str, act_fq: Optional[st
     return fq_matmul(x, dequantize_fp6q(planes, w_scale, elem_name), act_fq)
 
 
+def b8_smem_bytes() -> int:
+    """Smem::bytes of csrc/mx_matmul_fp6q.cu: the x (four 32-column slices),
+    plane (three 32-row tiles) and scale (four rows) rings, their mbarriers,
+    the fp32 staging tile, 1024 bytes of slack."""
+    ring = B8_STAGES * (4 * B8_BM * 32 * 2 + 3 * 32 * B8_BN + 4 * B8_BN)
+    return ring + 64 + B8_BM * (B8_BN + 8) * 4 + 1024
+
+
+def plan_fp6q(M: int, N: int, K: int, sms: int) -> WgmmaPlan:
+    """B8's launch plan: as :func:`plan_1byte`, with the splits
+    ``k_splits(N, K, sms, 128)`` (128 K a stage).  The tile, the instruction
+    and the K order are the same at every M: a row's bytes do not depend on
+    M."""
+    splits = k_splits(N, K, sms, 128)
+    tiles = -(-M // B8_BM) * -(-N // B8_BN)
+    return WgmmaPlan(B8_BM, B8_BN, B8_STAGES, b8_smem_bytes(), splits, splits > 1 and 2 * tiles >= sms)
+
+
+def b8_kernel(x, planes, w_scale, elem_name: str, plan: WgmmaPlan):
+    """B8's main kernel alone on CUDA tensors the wrapper has checked (x
+    already fake-quantized where asked): (out, None), or (out, the fp32 split
+    partials) for :func:`b8_reduce`."""
+    M, K = x.shape
+    N = planes.shape[1]
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    two_pass = plan.splits > 1 and not plan.walk
+    ws = torch.empty((plan.splits, M, N) if two_pass else (1,), dtype=torch.float32, device=x.device)
+    cuda_lib.launch("mx_matmul_fp6q", "mx_matmul_fp6q_launch", x.data_ptr(), planes.data_ptr(), w_scale.data_ptr(),
+                    out.data_ptr(), ws.data_ptr(), M, N, K, cuda_lib.ELEM_CODES[elem_name], plan.splits,
+                    int(plan.walk))
+    return out, (ws if two_pass else None)
+
+
+def b8_reduce(ws: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """B8's second pass: ``out`` = the split partials summed in split order."""
+    cuda_lib.launch("mx_matmul_fp6q", "mx_matmul_fp6q_reduce_launch", ws.data_ptr(), out.data_ptr(),
+                    out.numel(), ws.shape[0], count=False)
+    return out
+
+
 def mx_matmul_fp6q(x, planes, w_scale, elem_name: str, act_fq: Optional[str] = None):
     """B8: ``fq(x) @ W`` in bf16 for an fp6 weight in the quarters layout.
-    CUDA tensors launch the kernel (K % 128 and N % 64 must be 0)."""
+    CUDA tensors launch the kernel (K % 128 and N % 64 must be 0); the rest
+    raises.  With ``act_fq`` x is fake-quantized once by K2 first, at every
+    M: the kernel reads it as it is."""
     _check_formats(elem_name, act_fq, FP6_FORMATS, ACT_FQ_FP6Q, "fp6 quarters")
     if not on_cuda(x, planes, w_scale):
         return mx_matmul_fp6q_plain(x, planes, w_scale, elem_name, act_fq)
     M, K = x.shape
-    N = planes.shape[1]
     check_matmul_operands(x, planes, w_scale, 3 * K // 4, torch.uint8, "fp6 quarters", k_multiple=128)
-    bm, splits = _plan(M, N, K, x.device, 128)
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    ws = torch.empty((splits, M, N) if splits > 1 else (1,), dtype=torch.float32, device=x.device)
-    act = -1 if act_fq is None else cuda_lib.ELEM_CODES[act_fq]
-    cuda_lib.launch("mx_matmul_fp6q", "mx_matmul_fp6q_launch", x.data_ptr(), planes.data_ptr(), w_scale.data_ptr(),
-                    out.data_ptr(), ws.data_ptr(), M, N, K, cuda_lib.ELEM_CODES[elem_name], act, min(bm, 64), splits)
-    return out
+    if any(t.data_ptr() % 16 for t in (x, planes, w_scale)):
+        raise ValueError("the fp6 quarters kernel reads x, the planes and the scales by TMA: "
+                         "their storage must be 16-byte aligned")
+    if act_fq is not None and act_fq_first("quarters", M):
+        x = mx_fake_quantize(x, act_fq)
+    out, ws = b8_kernel(x, planes, w_scale, elem_name, plan_fp6q(M, planes.shape[1], K, sm_count(x.device)))
+    return out if ws is None else b8_reduce(ws, out)
 
 
 def dequantize_fp4_pair(w_data: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
@@ -222,7 +281,7 @@ def mx_matmul_fp4_pair(x, w_data, w_scale, act_fq: Optional[str] = None):
         raise ValueError(f"the fp4 pair kernel takes K % 256 == 0 or 32 <= K <= 1024 with K % 32 == 0, and "
                          f"N % 64 == 0, got K={K} N={N}")
     check_matmul_operands(x, w_data, w_scale, K // 2, torch.uint8, "fp4 pair", k_multiple=32)
-    if act_fq is not None and M > ACT_FQ_FUSE_MAX_M:
+    if act_fq is not None and act_fq_first("pair", M):
         x, act_fq = mx_fake_quantize(x, act_fq), None
     bm, splits = _plan(M, N, K, x.device)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)

@@ -11,9 +11,7 @@ the kernel's time.  Run from the repository root on a machine with one card:
 
 from __future__ import annotations
 
-import ctypes
 import os
-import subprocess
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
@@ -28,21 +26,10 @@ PHASES = ("wgmma start", "barrier + TMA start + stage wait", "fetch + decode", "
 SHAPES = {"gate_proj/up_proj": (4096, 14336), "down_proj": (14336, 4096), "q_proj/o_proj": (4096, 4096)}
 
 
-def build() -> ctypes.CDLL:
-    cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = cuda_lib.BUILD_DIR / "libmx_matmul_1byte_phase_profile.so"
-    subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-DB6_PHASE_PROFILE", "-I", str(cuda_lib.CSRC_DIR),
-                    "-o", str(out), str(cuda_lib.CSRC_DIR / "mx_matmul_1byte.cu")], check=True)
-    lib = ctypes.CDLL(str(out))
-    lib.mx_matmul_1byte_launch.argtypes = list(cuda_lib.SIGNATURES["mx_matmul_1byte"]["mx_matmul_1byte_launch"])
-    lib.mx_matmul_1byte_launch.restype = ctypes.c_int
-    return lib
-
-
 def main(ms) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("b6_phase_profile: no CUDA device")
-    lib, dev = build(), torch.device("cuda")
+    lib, dev = cuda_lib.build_variant("mx_matmul_1byte", "-DB6_PHASE_PROFILE"), torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, (K, N) in SHAPES.items():

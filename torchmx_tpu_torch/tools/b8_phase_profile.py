@@ -1,0 +1,81 @@
+"""Where B8's mainloop spends its clock cycles, on the card.
+
+Builds ``csrc/mx_matmul_fp6q.cu`` with ``-DB8_PHASE_PROFILE`` into a library
+of its own, runs the kernel on MXFP6 e3m2 weights at the Llama-3-8B
+linears' shapes (each CTA walking its K splits), and prints, for a thread of
+each warpgroup, the cycles per K stage (128 K) of each mainloop phase, the
+instrumented kernel's time and the time of the kernel as built for the
+main path (``chip_smoke.Timer``, at the plan's own launch, its split reduce
+left out).  Run from the repository root on a machine with one card:
+
+    python3 torchmx_tpu_torch/tools/b8_phase_profile.py [M ...]
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+
+from torchmx_tpu_torch.mx_array import MXTensor  # noqa: E402
+from torchmx_tpu_torch.ops import cuda_lib  # noqa: E402
+from torchmx_tpu_torch.ops import cuda_matmul_formats as kf  # noqa: E402
+
+PHASES = ("wgmma start", "wgmma wait", "rebuild + decode", "stage wait", "fetch", "split add + rest")
+SHAPES = {"gate_proj/up_proj": (4096, 14336), "down_proj": (14336, 4096), "q_proj/o_proj": (4096, 4096)}
+
+
+def main(ms) -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("b8_phase_profile: no CUDA device")
+    dev = torch.device("cuda")
+    profiled = cuda_lib.build_variant("mx_matmul_fp6q", "-DB8_PHASE_PROFILE")
+    timer, gen = chip_smoke.Timer(dev), torch.Generator(dev).manual_seed(0)
+    print(chip_smoke.card_line(), flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    elem = "float6_e3m2"
+    for label, (K, N) in SHAPES.items():
+        w = (torch.randn(N, K, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+        q = MXTensor.to_mx(w, elem).T.to_fp6_quarters()
+        for M in ms:
+            x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+            out = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+            plan = kf.plan_fp6q(M, N, K, sms)
+
+            def launch(lib, ws, walk):
+                rc = lib.mx_matmul_fp6q_launch(x.data_ptr(), q.data.data_ptr(), q.scale_e8m0.data_ptr(),
+                                               out.data_ptr(), ws.data_ptr(), M, N, K, cuda_lib.ELEM_CODES[elem],
+                                               plan.splits, walk, torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"launch failed: cudaError {rc}")
+
+            counters = torch.zeros(16, dtype=torch.int64, device=dev)
+            launch(profiled, counters, 1)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            launch(profiled, counters, 1)
+            end.record()
+            torch.cuda.synchronize()
+            ms_ = start.elapsed_time(end)
+            counters.zero_()
+            launch(profiled, counters, 1)
+            v = counters.tolist()
+            for who, o in (("warpgroup 0", 0), ("warpgroup 1", 8)):
+                stages = max(v[o + 7], 1)
+                parts = ", ".join(f"{name} {v[o + i] / stages:.0f}" for i, name in enumerate(PHASES))
+                print(f"{label} {elem} M={M} N={N} K={K}: {ms_:.4f} ms (instrumented); {who}: "
+                      f"{v[o + 6] / stages:.0f} cycles per K stage: {parts}", flush=True)
+            ws = torch.empty((plan.splits, M, N) if plan.splits > 1 and not plan.walk else (1,),
+                             dtype=torch.float32, device=dev)
+            kernel_ms = timer(lambda: launch(cuda_lib.lib("mx_matmul_fp6q"), ws, int(plan.walk)))
+            print(f"{label} {elem} M={M}: the kernel {kernel_ms:.4f} ms ({plan.splits} splits, walk {plan.walk})",
+                  flush=True)
+
+
+if __name__ == "__main__":
+    main([int(a) for a in sys.argv[1:]] or [2048])
