@@ -8,12 +8,14 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
 2. kernels: builds the CUDA sources from ``torchmx_tpu_torch/csrc``
    and holds each kernel against its plain PyTorch version on the card (K1/K2
    bit-exact over all 2^16 bf16 patterns in all five formats, and at every
-   main-path shape; K3 rel <= 1e-2; K4 over fp8 and int8 caches, K5 over
+   main-path shape; K3 over fp4 halves rel <= 1e-2 and on every (code,
+   scale) pair bit for bit; K4 over fp8 and int8 caches, K5 over
    int8 caches, K6 over d-major fp8, int8, fp4 and fp6 caches and K7 over
    int8 d-major caches abs <= 2e-2, each at every main-path shape; K6 against
    K4 on the same cache content; K7's SQNR against exact attention above
    30 dB; this slice's B6 over four code formats and three act_fq values, B8
-   over both fp6 formats and K3 over fp8 halves rel <= 1e-2, B9 over int8,
+   over both fp6 formats and K3 over fp8 halves rel <= 1e-2 (K3-fp8 also on
+   every (code, scale) pair bit for bit), B9 over int8,
    int8-domain fp4 / e2m3 and e4m3 weights within one bf16 step, each at the
    five Llama-3-8B linears at every main-path M (B6 also at 1-2048 rows
    across its tile edges, at K = 64 and 128, and on every (code, scale) pair
@@ -80,7 +82,8 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    for bit alone and among 31 others, admitted whole, in chunks of 128 or
    over the cached prefix; EOS, a stop sequence and a full cache must each
    end a request with the right reason; every decode step must launch K3,
-   K1, K5 and the RMSNorm kernel as often as the depth says and K4 and K2
+   K2 (once for q/k/v, once for gate/up, once each for o_proj, down_proj and
+   lm_head), K1, K5 and the RMSNorm kernel as often as the depth says and K4
    never.  On a 4-layer
    model the engine's streams must equal the plain path's at every decisive
    step.  Reports tok/s over the stream, the gap between ``step()``
@@ -305,17 +308,71 @@ def check_quantize_kernels(dev, timer, gen):
     return out
 
 
-# The slice's projections as (K, N) and the activation fake-quantize each
-# gets at prefill, when rows > 64 (q/k/v and gate/up read an activation
-# fake-quantized once by K2, so K3 runs without act_fq; o_proj and down_proj
-# fuse it).  lm_head sees only the last position (M = batch).
+# The slice's projections as (K, N).  q/k/v and gate/up read an activation
+# fake-quantized once by K2 (SHARED_FQ_LINEARS): at prefill (rows > 64) for
+# every weight layout, at every M where the wrapper takes K2 first (K3's
+# halves, B8's quarters); o_proj, down_proj and lm_head quantize their own.
+# lm_head sees only the last position (M = batch).
 K3_MAIN_LINEARS = {"q_proj/o_proj": (4096, 4096), "k_proj/v_proj": (4096, 1024),
                    "gate_proj/up_proj": (4096, 14336), "down_proj": (14336, 4096),
                    "lm_head": (4096, 128256)}
-K3_PREFILL_SHARED_FQ = {"q_proj/o_proj", "k_proj/v_proj", "gate_proj/up_proj"}
+SHARED_FQ_LINEARS = {"q_proj/o_proj", "k_proj/v_proj", "gate_proj/up_proj"}
+
+
+def k3_parts(timer, dev, x, w, elem, row):
+    """A K3 timing row's parts, added to ``row``: the kernel alone on x
+    quantized by K2, K2 on the call's x, the split reduce where the plan has
+    a second pass, and the plan."""
+    from torchmx_tpu_torch.ops import cuda_matmul as cm
+    from torchmx_tpu_torch.ops.quantize import mx_fake_quantize
+
+    M, K = x.shape
+    plan = cm.plan_halves(M, w.shape[1], K, cm.sm_count(dev), elem)
+    xq = mx_fake_quantize(x, "float8_e4m3")
+    out, ws = cm.k3_kernel(xq, w.data, w.scale_e8m0, elem, plan)
+    row.update(kernel_ms=timer(lambda: cm.k3_kernel(xq, w.data, w.scale_e8m0, elem, plan)),
+               k2_ms=timer(lambda: mx_fake_quantize(x, "float8_e4m3")),
+               reduce_ms=timer(lambda: cm.k3_reduce(ws, out, elem)) if ws is not None else None,
+               plan=dict(splits=plan.splits, walk=plan.walk))
+    log(f"K3 {elem} parts", json.dumps({k: row.get(k) for k in ("linear", "M", "act_fq", "case", "kernel_ms", "k2_ms",
+                                                                 "reduce_ms", "plan")}))
+    return row
+
+
+def every_halves_pair(dev, elem):
+    """Every (code, scale) pair of fp4 (16 x 256) or fp8 (256 x 256) in a
+    (K = 256, N = 256) halves weight: code k % codes at row k, scale n in
+    column n (:func:`every_code_scale_pair`).  Returns (payload, scales)."""
+    fp4 = elem == "float4_e2m1"
+    codes, scales = every_code_scale_pair(dev, 16 if fp4 else 256)
+    if fp4:
+        return ((codes[:128] << 4) | codes[128:]).to(torch.uint8).contiguous(), scales
+    return ((codes[:128] << 8) | codes[128:]).to(torch.int16).view(torch.uint16).contiguous(), scales
+
+
+def check_halves_decode(dev, elem):
+    """Every (code, scale) pair through K3's decode, bit for bit: x the
+    identity, so the output is the decoded weight (NaN as NaN); at M = 64
+    (the first half's codes) and 256 (both halves)."""
+    from torchmx_tpu_torch.ops import cuda_matmul as cm
+
+    data, scales = every_halves_pair(dev, elem)
+    fn, plain = ((cm.mx_matmul_fp4_halves, cm.mx_matmul_fp4_halves_plain) if elem == "float4_e2m1" else
+                 (cm.mx_matmul_fp8_halves, cm.mx_matmul_fp8_halves_plain))
+    eye = torch.eye(256, device=dev, dtype=torch.bfloat16)
+    for M in (64, 256):
+        x = eye[:M].contiguous()
+        check_decode_bits(fn.__name__, elem, fn(x, data, scales), plain(x, data, scales))
 
 
 def check_matmul_kernel(dev, timer, gen):
+    """K3 over fp4 halves against its plain version (rel <= 1e-2) with and
+    without act_fq at every main-path (M, K, N) and at M = 65 and 256; every
+    (code, scale) pair through its decode bit for bit; then timed at every
+    main-path call: the wrapper as the path calls it (K2 inside where the
+    linear quantizes its own x), the plain version, ``torch.matmul`` on the
+    bf16-dequantized weight, the bound, and apart the kernel alone, K2 and
+    the split reduce.  Returns (entry, timing rows)."""
     from torchmx_tpu_torch.mx_array import MXTensor
     from torchmx_tpu_torch.ops import cuda_matmul as cm
 
@@ -341,40 +398,38 @@ def check_matmul_kernel(dev, timer, gen):
     def xs(M, K):
         return torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
 
-    for M in (1, 32, 256):  # the fixed grid
-        x = xs(M, 4096)
-        for label in ("q_proj/o_proj", "gate_proj/up_proj"):
-            for act in (None, "float8_e4m3"):
-                check(x, label, act)
-    # Every (M, K, N, act_fq) the main path gives K3: decode at batch 1 and
-    # 32, prefill of 64 tokens at batch 1 (M = 64, fused fq) and 32 (M = 2048).
-    path_calls = []
+    # Every (M, K, N) the main path gives K3 (decode at batch 1 and 32,
+    # prefill of 64 tokens at batch 1 and 32), and 65 and 256 rows, with and
+    # without the activation quantize.
     for label, (K, N) in K3_MAIN_LINEARS.items():
-        for M in (1, 32) if label == "lm_head" else (1, 32, 64, 2048):
-            act = None if (M == 2048 and label in K3_PREFILL_SHARED_FQ) else "float8_e4m3"
-            path_calls.append((label, M, act))
-            check(xs(M, K), label, act)
+        for M in (1, 32) if label == "lm_head" else (1, 32, 64, 65, 256, 2048):
+            x = xs(M, K)
+            for act in cm.ACT_FQ_FORMATS:
+                check(x, label, act)
+    check_halves_decode(dev, "float4_e2m1")
     # Timing at every main-path call; the JSON entry is the batch-32 decode
-    # gate/up shape (M=32, N=14336, K=4096) with fused fp8 act fq.
+    # gate/up call (M=32, N=14336, K=4096, x quantized by the layer's K2).
     rows = []
-    for label, M, act in path_calls:
+    for label, (K, N) in K3_MAIN_LINEARS.items():
         w = weights[label]
-        K, N = w.shape
-        x = xs(M, K)
         w_bf16 = cm.dequantize_fp4_halves(w.data, w.scale_e8m0)
-        t_b, by = bound(2 * M * K + K * N / 2 + K * N / 32 + 2 * M * N, 2 * M * N * K)
-        row = dict(linear=label, M=M, N=N, K=K, act_fq=act,
-                   ms=timer(lambda: cm.mx_matmul_fp4_halves(x, w.data, w.scale_e8m0, act)),
-                   plain_ms=timer(lambda: cm.mx_matmul_fp4_halves_plain(x, w.data, w.scale_e8m0, act), reps=5),
-                   library_ms=timer(lambda: torch.matmul(x, w_bf16)),
-                   bound_ms=t_b, bound_by=by)
-        log("K3 timing", json.dumps(row))
-        rows.append(row)
+        for M in (1, 32) if label == "lm_head" else FORMAT_MS:
+            x = xs(M, K)
+            act = _path_act(label, M, "float8_e4m3", first=True)
+            t_b, by = bound(2 * M * K + K * N / 2 + K * N / 32 + 2 * M * N, 2 * M * N * K)
+            row = dict(linear=label, M=M, N=N, K=K, act_fq=act,
+                       ms=timer(lambda: cm.mx_matmul_fp4_halves(x, w.data, w.scale_e8m0, act)),
+                       plain_ms=timer(lambda: cm.mx_matmul_fp4_halves_plain(x, w.data, w.scale_e8m0, act), reps=5),
+                       library_ms=timer(lambda: torch.matmul(x, w_bf16)),
+                       bound_ms=t_b, bound_by=by)
+            k3_parts(timer, dev, x, w, "float4_e2m1", row)
+            log("K3 timing", json.dumps(row))
+            rows.append(row)
         del w_bf16
     pick = next(r for r in rows if r["M"] == 32 and r["N"] == 14336)
     return dict(name="mx_matmul_fp4_halves", route="cuda", source="torchmx_tpu_torch/csrc/mx_matmul.cu",
                 replaces="torchmx_tpu/ops/pallas_matmul.py:504",
-                shape="M=32 N=14336 K=4096 act_fq=float8_e4m3", max_abs_err=worst,
+                shape="M=32 N=14336 K=4096 act_fq=None (x quantized by the layer's shared K2)", max_abs_err=worst,
                 ms=pick["ms"], plain_ms=pick["plain_ms"], bound_ms=pick["bound_ms"],
                 bound_by=pick["bound_by"], library_ms=pick["library_ms"]), rows
 
@@ -406,11 +461,12 @@ def _rel_max(o, r) -> float:
     return (o.float() - r.float()).abs().max().item() / r.float().abs().max().item()
 
 
-def _path_act(label, M, act):
-    """The activation format a linear's kernel fuses on the main path: at
-    prefill (M > 64) q/k/v and gate/up read an activation fake-quantized
-    once by K2, so their kernel runs without act_fq."""
-    return None if (M > 64 and label in K3_PREFILL_SHARED_FQ) else act
+def _path_act(label, M, act, first=False):
+    """The activation format a linear's wrapper gets on the main path: q/k/v
+    and gate/up read an activation fake-quantized once by K2 at prefill (M >
+    64), and at every M where the wrapper takes K2 first (``first``: K3), so
+    their wrapper runs without act_fq."""
+    return None if ((first or M > 64) and label in SHARED_FQ_LINEARS) else act
 
 
 class FormatBench:
@@ -555,12 +611,13 @@ def check_format_kernels(dev, timer, gen):
     :func:`check_fp6q_kernel`), B9 over int8, int8-domain fp4 and e2m3, and
     e4m3 weights, and K3 over fp8 halves, each against its plain version at
     every main-path shape (B6, B8, K3-fp8 rel <= 1e-2; B9 within one bf16
-    step); B6 also at every M of B6_MS, at K = 64 and 128, and on every
-    (code, scale) pair bit for bit; then timed at the paths' calls: kernel,
+    step), K3-fp8 also at 65 and 256 rows; B6 also at every M of B6_MS and at
+    K = 64 and 128; B6 and K3-fp8 on every (code, scale) pair bit for bit;
+    then timed at the paths' calls: kernel,
     plain version, ``torch.matmul`` on the bf16-dequantized weight, and the
     bound (B9's operations at 1979 TOP/s dense int8 / fp8); B6 at every M of
-    B6_MS, its kernel, K2 and split reduce apart.  Returns (entries, timing
-    rows)."""
+    B6_MS and K3-fp8 at the path's, their kernel, K2 and split reduce apart.
+    Returns (entries, timing rows)."""
     from torchmx_tpu_torch.mx_array import MXTensor
     from torchmx_tpu_torch.ops import cuda_matmul as cm
     from torchmx_tpu_torch.ops import cuda_matmul_formats as kf
@@ -606,7 +663,7 @@ def check_format_kernels(dev, timer, gen):
                     check("mx_matmul_1byte", label, M, f"{e} act_fq={act}",
                           kf.mx_matmul_1byte(x, t.data, t.scale_e8m0, e, act),
                           kf.mx_matmul_1byte_plain(x, t.data, t.scale_e8m0, e, act))
-        for M in ms:
+        for M in (1, 32) if label == "lm_head" else (1, 32, 64, 65, 256, 2048):
             x = xs(M, K)
             for act in cm.ACT_FQ_FORMATS:
                 check("mx_matmul_fp8_halves", label, M, f"act_fq={act}",
@@ -638,11 +695,12 @@ def check_format_kernels(dev, timer, gen):
                 time_b6(label, M, x, flat[e], e, _path_act(label, M, e), w_bf16)
         for M in ms:
             x = xs(M, K)
-            a8 = _path_act(label, M, "float8_e4m3")
-            time_row("mx_matmul_fp8_halves", label, M, f"act_fq={a8}",
-                     lambda: cm.mx_matmul_fp8_halves(x, halves.data, halves.scale_e8m0, a8),
-                     lambda: cm.mx_matmul_fp8_halves_plain(x, halves.data, halves.scale_e8m0, a8),
-                     w_bf16, 2 * M * K + kn + kn / 32 + 2 * M * N, 2 * M * N * K)
+            a8 = _path_act(label, M, "float8_e4m3", first=True)
+            row = time_row("mx_matmul_fp8_halves", label, M, f"act_fq={a8}",
+                           lambda: cm.mx_matmul_fp8_halves(x, halves.data, halves.scale_e8m0, a8),
+                           lambda: cm.mx_matmul_fp8_halves_plain(x, halves.data, halves.scale_e8m0, a8),
+                           w_bf16, 2 * M * K + kn + kn / 32 + 2 * M * N, 2 * M * N * K)
+            k3_parts(timer, dev, x, halves, "float8_e4m3", row)
         for M in ((1, 32) if label == "lm_head" else B9_MS):
             x = xs(M, K)
             t, t8 = flat["int8"], flat["float8_e4m3"]
@@ -667,6 +725,7 @@ def check_format_kernels(dev, timer, gen):
             x = eye[:M].contiguous()
             check_decode_bits("mx_matmul_1byte", e, kf.mx_matmul_1byte(x, wc, scales, e),
                               kf.mx_matmul_1byte_plain(x, wc, scales, e))
+    check_halves_decode(dev, "float8_e4m3")
     for label, (K, N) in B6_SHORT_K.items():  # fewer K steps than ring stages
         w = (torch.randn(N, K, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
         for e in kf.CODE_FORMATS_1BYTE:
@@ -1291,7 +1350,8 @@ def f64_plain_attention():
 # Wrong kernels the model check must catch, each emulated at its wrapper on
 # the kernel path only (under plain_path() the wrapper is left alone).
 PLANTED_FAULTS = ("K4 causal mask one position late", "K4 kv_len one short",
-                  "K3 fused activation fq skipped")
+                  "K3 activation fq skipped", "K3 fp4 halves swapped",
+                  "K3 reads the codes of stage t+1 with the scales of stage t")
 # The same for the int8 cache, whose decode steps run K5.
 PLANTED_FAULTS_INT8 = ("K5 kv_len one short", "K5 V scale of chunk c taken from chunk c+1",
                        "K4 kv_len one short")
@@ -1358,6 +1418,15 @@ def planted_fault(name):
             if on_cuda(x):
                 wi = w.view(torch.int16).to(torch.int32) & 0xFFFF
                 w = (((wi & 0xFF) << 8) | (wi >> 8)).to(torch.int16).view(torch.uint16)
+            return orig(x, w, sw, act_fq)
+    elif name.startswith("K3 ") and "fq" not in name:
+        mod, attr = cm, "mx_matmul_fp4_halves"
+        orig = cm.mx_matmul_fp4_halves
+        stale_stage = "stage t+1" in name  # a ring slot read one stage late: the next 64 packed rows
+
+        def faulty(x, w, sw, act_fq=None):
+            if on_cuda(x):
+                w = w.roll(-64, dims=0) if stale_stage else ((w & 0xF) << 4) | (w >> 4)
             return orig(x, w, sw, act_fq)
     elif name.startswith("K7 q scale"):
         mod, attr = ca, "quantize_q_int8"
@@ -1685,10 +1754,27 @@ def build_model(dev, card, layers: int, seed: int = 0, weights="float4_e2m1", ac
     return model
 
 
-def run_slice(model, dev, card, cache="float8_e4m3", batches=(1, 32), weights="fp4"):
+def halves_launches_per_step(layers: int, kernel: str = "mx_matmul_fp4_halves") -> dict:
+    """K3's and K2's launches in one decode step of a Llama with fp4 (or fp8)
+    halves weights: K3 at each layer's 7 linears and lm_head; K2 once for
+    q/k/v, once for gate/up, once each for o_proj and down_proj, and once for
+    lm_head (the wrappers take K2 first; the layers share it)."""
+    return {kernel: 7 * layers + 1, "mx_fake_quantize": 4 * layers + 1}
+
+
+def mixtral_launches_per_step(layers: int) -> dict:
+    """Mixtral's decode step: K3 at q/k/v/o and lm_head, B12 at w1, w3 and
+    w2, K2 once for q/k/v, once for o_proj, on x_sorted and on the SwiGLU
+    output, and once for lm_head; the router kernel once a layer."""
+    return dict(mx_matmul_fp4_halves=4 * layers + 1, mx_grouped_matmul=3 * layers,
+                mx_fake_quantize=4 * layers + 1, mx_router_logits=layers)
+
+
+def run_slice(model, dev, card, cache="float8_e4m3", batches=(1, 32), weights="fp4", want=None):
     """The ``generate`` path over ``cache`` (a key of CACHES; call it inside
     the cache's ``kv_env``) at the given batch sizes; ``weights`` names the
-    model's weight format in the log."""
+    model's weight format in the log.  With ``want`` ({kernel: launches}),
+    every decode step must launch those kernels that often."""
     from torchmx_tpu_torch.models.generate import generate
     from torchmx_tpu_torch.ops import cuda_lib
 
@@ -1725,6 +1811,9 @@ def run_slice(model, dev, card, cache="float8_e4m3", batches=(1, 32), weights="f
         results[b] = dict(batch=b, seconds=dt, tokens_per_s=tps, peak_gib=peak, launches=dict(run),
                           launches_prefill=dict(at_forward[1] - at_forward[0]),
                           launches_per_decode_step={k: v / steps for k, v in (run - at_forward[1]).items()})
+        step = results[b]["launches_per_decode_step"]
+        if want is not None and {k: step.get(k) for k in want} != want:
+            raise AssertionError(f"slice b={b}, {weights} weights: a decode step launched {step}, expected {want}")
         log(f"slice, {weights} weights, {cache} cache: b={b} prompt 64 + 128 new tokens in {dt:.3f} s = {tps:.1f} tok/s, "
             f"peak {peak:.2f} GiB; launches {json.dumps(results[b]['launches'])}, of which prefill "
             f"{json.dumps(results[b]['launches_prefill'])}, per decode step "
@@ -2103,7 +2192,7 @@ def run_engine(model, dev, card, cache="int8", weights="fp4") -> dict:
     stream (tokens and log-probabilities, bit for bit) is the same alone and
     in company, admitted whole, in chunks or over the cached prefix; that
     EOS, a stop sequence and a full cache each end a request with the right
-    reason; and that every decode step launched K3, K1 and its decode
+    reason; and that every decode step launched K3, K2, K1 and its decode
     attention kernel (K5 in the seq layout; K7, with one more K1 per layer for
     q, in the d-major layout with the all-int8 flag) as often as the model's
     depth says, and no other kernel."""
@@ -2174,11 +2263,10 @@ def run_engine(model, dev, card, cache="int8", weights="fp4") -> dict:
         want = moonlight_launches_per_step(model.config)
     elif weights == "w8a8":  # B9 takes every linear; K1 quantizes its x and writes K and V
         want.update(mx_matmul_int8dot=linears, mx_quantize=linears + 2 * layers)
-    elif weights == "mixtral":  # K3: q/k/v/o and lm_head; B12: w1, w3, w2; K2: x_sorted and the SwiGLU output
-        want.update(mx_matmul_fp4_halves=4 * layers + 1, mx_grouped_matmul=3 * layers,
-                    mx_fake_quantize=2 * layers, mx_quantize=2 * layers, mx_router_logits=layers)
+    elif weights == "mixtral":
+        want.update(mixtral_launches_per_step(layers), mx_quantize=2 * layers)
     else:
-        want.update(mx_matmul_fp4_halves=linears, mx_quantize=(3 if k7 else 2) * layers)
+        want.update(halves_launches_per_step(layers), mx_quantize=(3 if k7 else 2) * layers)
     for st in run["steps"]:
         if st["rows"] and st["launches"] != want:
             raise AssertionError(f"engine: a decode step launched {st['launches']}, expected {want}")
@@ -2253,7 +2341,8 @@ def run_formats(dev, card, layers: int):
         weights, acts, cache, knobs = FORMATS[name]
         with env_knobs(**knobs):
             model = build_model(dev, card, layers, weights=weights, acts=acts)
-            paths[path], res = run_slice(model, dev, card, cache, batches=(32,), weights=name)
+            want = halves_launches_per_step(layers, "mx_matmul_fp8_halves") if path == "generate_fp8" else None
+            paths[path], res = run_slice(model, dev, card, cache, batches=(32,), weights=name, want=want)
         del model
         results[path] = res[32]
         per_step[f"{path}_b32"] = res[32]["launches_per_decode_step"]
@@ -2791,7 +2880,8 @@ def run_mixtral(dev, card, layers: int) -> tuple:
     model = build_mixtral(dev, card, layers)
     build_s = model.build_seconds
     paths, per_step, results = {}, {}, {}
-    paths["generate_mixtral"], res = run_slice(model, dev, card, "int8", weights="Mixtral fp4 grouped")
+    paths["generate_mixtral"], res = run_slice(model, dev, card, "int8", weights="Mixtral fp4 grouped",
+                                               want=mixtral_launches_per_step(layers))
     for b, r in res.items():
         per_step[f"mixtral_b{b}"] = r["launches_per_decode_step"]
         results[f"generate_b{b}"] = r
@@ -3180,15 +3270,22 @@ def moonlight_launches_per_step(cfg, int8dot: bool = False) -> dict:
     multiples of 512), kv_a_layernorm and the two layer norms; per dense
     layer gate / up / down on K3 (or B7 where K % 512 != 0); per MoE layer
     the router, B12 x 3, K2 on x_sorted and on the SwiGLU output, the shared
-    experts' gate / up and down (K3 or B7); lm_head; the final norm; B13 and
+    experts' gate / up and down (K3 or B7); lm_head; the final norm; K2
+    before each K3 (one for a gate / up pair; B7 fuses its own); B13 and
     K1 (the latent write) per layer, or B14 and no K1 (the d-major latent's
     per-position quantizer is the plain one) with the int8-dot flag."""
     layers, dense = cfg.num_hidden_layers, min(cfg.first_k_dense_replace, cfg.num_hidden_layers)
     moe = layers - dense
     c = collections.Counter()
 
-    def linear(k_in, n=1):
-        c["mx_matmul_fp4_halves" if k_in % 512 == 0 else "mx_matmul_fp4_pair"] += n
+    def linear(k_in, n=1, k2=None):
+        """n launches of a linear: K3 where K % 512 == 0, with K2 first (k2
+        launches for the n where they share one x, else n), else B7."""
+        if k_in % 512 == 0:
+            c["mx_matmul_fp4_halves"] += n
+            c["mx_fake_quantize"] += n if k2 is None else k2
+        else:
+            c["mx_matmul_fp4_pair"] += n
 
     h, n_heads = cfg.hidden_size, cfg.num_attention_heads
     if cfg.q_lora_rank:
@@ -3199,10 +3296,10 @@ def moonlight_launches_per_step(cfg, int8dot: bool = False) -> dict:
         linear(h, layers)
     linear(h, layers)  # kv_a_proj_with_mqa
     linear(n_heads * cfg.v_head_dim, layers)  # o_proj
-    linear(h, 2 * dense)
+    linear(h, 2 * dense, k2=dense)  # gate / up share one K2
     linear(cfg.intermediate_size, dense)
     shared = cfg.moe_intermediate_size * cfg.n_shared_experts
-    linear(h, 2 * moe)
+    linear(h, 2 * moe, k2=moe)
     linear(shared, moe)
     linear(h)  # lm_head
     c["mx_rmsnorm"] += 3 * layers + 1
@@ -3421,14 +3518,15 @@ def main() -> int:
     # cache, the engine over the int8 d-major cache with the all-int8 flag,
     # generate() over the fp4 d-major cache; then this slice's formats.
     paths, per_step = {}, {}
-    paths["generate"], slice_results = run_slice(model, dev, card)
+    paths["generate"], slice_results = run_slice(model, dev, card, want=halves_launches_per_step(args.layers))
     engine_results = run_engine(model, dev, card)
     paths["engine"] = engine_results["launches"]
     with kv_env(*CACHES["int8 d-major int8dot"][1:]):
         engine_dmajor = run_engine(model, dev, card, "int8 d-major int8dot")
     paths["engine_dmajor"] = engine_dmajor["launches"]
     with kv_env(*CACHES["float4_e2m1 d-major"][1:]):
-        paths["generate_fp4_dmajor"], slice_fp4 = run_slice(model, dev, card, "float4_e2m1 d-major", batches=(32,))
+        paths["generate_fp4_dmajor"], slice_fp4 = run_slice(model, dev, card, "float4_e2m1 d-major", batches=(32,),
+                                                            want=halves_launches_per_step(args.layers))
     del model
     log(f"phases 4-6 (fp4 paths) done at {time.perf_counter() - t_start:.0f} s")
     format_paths, format_per_step, format_results = run_formats(dev, card, args.layers)

@@ -312,6 +312,71 @@ def test_fp6q_layers_share_one_activation_quantize_at_every_m(M):
         assert torch.equal(got, lin(x))
 
 
+@pytest.fixture(scope="module")
+def fp4_layer_pair():
+    """Layer 0 of the 2-layer model (hidden 512, intermediate 1024) from the
+    same bf16 weights, quantized to MXFP4 weights / MXFP8 activations by
+    each package: (JAX layer, port layer)."""
+    jmodel = JLlama(JLlamaConfig(**SMALL), rngs=nnx.Rngs(3))
+    _, state = nnx.split(jmodel)
+    params = {".".join(map(str, k)): np.asarray(v.get_value()) for k, v in state.flat_state()}
+    port = from_flat_params(params, LlamaConfig(**SMALL), device="cpu")
+    jq = JQLin(weights_config=JMXConfig("float4_e2m1"), activations_config=JMXConfig("float8_e4m3"))
+    jquantize_llm_(jmodel, JQAttn(projection_config=jq), jq)
+    tq = QLinearConfig(MXConfig("float4_e2m1"), MXConfig("float8_e4m3"))
+    quantize_llm_(port, QAttentionConfig(tq), tq)
+    return jmodel.model.layers[0], port.model.layers[0]
+
+
+@pytest.mark.parametrize("M", [1, 32, 64, 2048])
+def test_fp4_layers_share_one_activation_quantize_at_every_m(fp4_layer_pair, M):
+    """K3's wrappers quantize x by K2 first at every M, so with fp4 halves
+    weights the layers fake-quantize x once for q/k/v and once for gate/up
+    at every M (two K2 launches on the card), and those K3 calls take no
+    ``act_fq``; down_proj's wrapper takes its own.  The MLP's output and the
+    q/k/v projections equal the JAX layer's (Pallas path, interpret mode):
+    rel <= 1e-2 for a projection, 2e-2 for the MLP (down_proj's activation
+    quantize turns an ulp of its input into a quantization step), as
+    ``tests/test_torch_llama.py``'s logits."""
+    from torchmx_tpu_torch.layers import linear
+
+    jlayer, layer = fp4_layer_pair
+    mlp, attn = layer.mlp, layer.self_attn
+    assert {lin.weight.fp4_pack for lin in (mlp.gate_proj, mlp.down_proj, attn.q_proj, attn.o_proj)} == {"halves"}
+    x = rand_bf16(30 + M, (1, M, SMALL["hidden_size"]))
+    calls, k2 = [], []
+    k3, fq = cuda_matmul.mx_matmul_fp4_halves, linear.mx_fake_quantize
+
+    def spy_k3(x2, w, s, act_fq=None):
+        calls.append(act_fq)
+        return k3(x2, w, s, act_fq)
+
+    def spy_fq(*a, **k):
+        k2.append(a[0].shape)
+        return fq(*a, **k)
+
+    cuda_matmul.mx_matmul_fp4_halves, linear.mx_fake_quantize = spy_k3, spy_fq
+    try:
+        got_mlp = mlp(to_torch(x))
+        got_qkv = attn._project_qkv(to_torch(x))
+    finally:
+        cuda_matmul.mx_matmul_fp4_halves, linear.mx_fake_quantize = k3, fq
+    assert calls == [None, None, "float8_e4m3", None, None, None]
+    assert len(k2) == 2
+    old = jenv.TORCHMX_QUANTIZE_BACKEND
+    jenv.TORCHMX_QUANTIZE_BACKEND = "pallas"
+    try:
+        xj = jnp.asarray(x, jnp.bfloat16)
+        ref_mlp = jlayer.mlp(xj)
+        ref_qkv = [jlayer.self_attn.q_proj(xj), jlayer.self_attn.k_proj(xj), jlayer.self_attn.v_proj(xj)]
+    finally:
+        jenv.TORCHMX_QUANTIZE_BACKEND = old
+    assert rel(got_mlp.float().numpy(), ref_mlp) <= 2e-2
+    for got, ref in zip(got_qkv, ref_qkv):
+        assert rel(got.float().numpy(), ref) <= 1e-2
+    assert sum(cuda_lib.LAUNCHES.values()) == 0
+
+
 # -- the kernels' plain versions against the Pallas kernels -----------------------------------
 
 
@@ -390,7 +455,7 @@ B6_MAIN_NK = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336), (128256,
 @pytest.mark.parametrize("N,K", B6_MAIN_NK)
 def test_b6_plan_fits_and_keeps_the_splits(N, K):
     """B6's launch plan over M = 1..4096 on a 132-SM card: the K splits are
-    ``_plan``'s (shared with K3 and B9) at every M, the tiles are the same at
+    ``_plan``'s (shared with B7 and B9) at every M, the tiles are the same at
     every M, the shared memory fits a block and the column tile divides N."""
     class Props:
         multi_processor_count = 132
@@ -420,6 +485,38 @@ def test_b8_plan_fits_and_keeps_the_splits(N, K):
     assert {(p.bm, p.bn, p.stages) for p in plans} == {(kf.B8_BM, kf.B8_BN, kf.B8_STAGES)}
     assert all(p.smem_bytes <= kf.SMEM_LIMIT and N % p.bn == 0 for p in plans)
     assert all(not p.walk for p in plans if p.splits == 1)
+
+
+# (N, K) of K3's calls: Llama-3-8B's five linears (above), Mixtral-8x7B's
+# q/o, k/v and lm_head, Moonlight-16B-A3B's q_proj, kv_a_proj (N = 576, a
+# multiple of 64 but not of 128), o_proj, dense gate/up and down, shared
+# experts' gate/up and lm_head, and the K = 512 of the 2-layer test models.
+K3_MAIN_NK = B6_MAIN_NK + [(32000, 4096), (3072, 2048), (576, 2048), (2048, 2048), (11264, 2048), (2048, 11264),
+                           (2816, 2048), (163840, 2048), (1024, 512), (512, 512)]
+
+
+@pytest.mark.parametrize("elem", list(cuda_matmul.HALVES_FORMATS))
+@pytest.mark.parametrize("N,K", K3_MAIN_NK)
+def test_k3_plan_fits_and_keeps_the_splits(N, K, elem):
+    """K3's launch plan over M = 1..4096 on a 132-SM card, for fp4 and fp8
+    halves: the K splits are ``k_splits(N, K, 132, 128)`` at every M, the
+    tile and the stage count are the same at every M, the shared memory fits
+    a block."""
+    plans = [cuda_matmul.plan_halves(M, N, K, 132, elem) for M in range(1, 4097)]
+    splits = cuda_matmul.k_splits(N, K, 132, 128)
+    assert {p.splits for p in plans} == {splits}
+    assert {(p.bm, p.bn, p.stages) for p in plans} == {(cuda_matmul.K3_BM, cuda_matmul.K3_BN, cuda_matmul.K3_STAGES)}
+    assert all(p.smem_bytes <= kf.SMEM_LIMIT and N % 64 == 0 for p in plans)
+    assert all(not p.walk for p in plans if p.splits == 1)
+
+
+def test_k3_plan_counts_the_shared_memory_of_each_format():
+    """fp8 halves hold twice fp4's W bytes a stage; both leave room for no
+    fourth stage, so the ring depth is the same for both."""
+    fp4, fp8 = (cuda_matmul.k3_smem_bytes(e) for e in ("float4_e2m1", "float8_e4m3"))
+    assert fp8 - fp4 == cuda_matmul.K3_STAGES * 64 * cuda_matmul.K3_BN
+    stage = 2 * cuda_matmul.K3_BM * 128 + 64 * cuda_matmul.K3_BN + 4 * cuda_matmul.K3_BN
+    assert fp4 <= kf.SMEM_LIMIT < fp4 + stage
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take():

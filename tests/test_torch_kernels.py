@@ -93,6 +93,17 @@ def test_mx_matmul_fp4_halves_plain_matches_pallas_kernel(M, act_fq):
     assert err <= 1e-2, err
 
 
+def test_fp4_decode_matches_jax_on_every_nibble_and_scale():
+    """K3's plain fp4 decode (``decode_fp4_to_bf16``, which the kernel's
+    decode equals bit for bit on the card) gives the bits of the JAX
+    package's ``decode_fp4_to_bf16`` for all 16 x 256 (nibble, scale)
+    pairs, flushed and wrapped results included."""
+    nib, se = np.meshgrid(np.arange(16, dtype=np.int32), np.arange(256, dtype=np.int32), indexing="ij")
+    ref = jpm.decode_fp4_to_bf16(jnp.asarray(nib), jnp.asarray(se))
+    got = cuda_matmul.decode_fp4_to_bf16(torch.from_numpy(nib), torch.from_numpy(se))
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(), np.asarray(ref).view(np.int16))
+
+
 def test_unfused_activation_formats_take_two_passes():
     """K3 fuses only fp8 activations and rejects other formats; with an fp6
     activation ``mx_dynamic_matmul`` fake-quantizes first and then runs K3
@@ -279,6 +290,26 @@ def test_cuda_matmul_kernel_matches_plain(cuda_device, M):
     out = cuda_matmul.mx_matmul_fp4_halves(x, tw.data, tw.scale_e8m0, "float8_e4m3")
     ref = cuda_matmul.mx_matmul_fp4_halves_plain(x, tw.data, tw.scale_e8m0, "float8_e4m3")
     assert ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item() <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act_fq", [None, "float8_e4m3"])
+@pytest.mark.parametrize("M", [1, 32, 65, 2048])
+@pytest.mark.parametrize("K", [512, 4096])
+@pytest.mark.parametrize("elem", ["float4_e2m1", "float8_e4m3"])
+def test_cuda_halves_kernels_match_plain(cuda_device, elem, K, M, act_fq):
+    """K3 over fp4 and fp8 halves against its plain version, rel <= 1e-2,
+    at N = 576 (a ragged last column tile) and 4096."""
+    g = torch.Generator().manual_seed(2)
+    for N in (576, 4096):
+        w = MXTensor.to_mx((torch.randn(N, K, generator=g) * 0.05).to(torch.bfloat16).to(cuda_device), elem).T
+        w = w.to_fp4_halves() if elem == "float4_e2m1" else w.to_fp8_halves()
+        x = torch.randn(M, K, generator=g).to(torch.bfloat16).to(cuda_device)
+        fn, plain = ((cuda_matmul.mx_matmul_fp4_halves, cuda_matmul.mx_matmul_fp4_halves_plain)
+                     if elem == "float4_e2m1" else
+                     (cuda_matmul.mx_matmul_fp8_halves, cuda_matmul.mx_matmul_fp8_halves_plain))
+        out, ref = fn(x, w.data, w.scale_e8m0, act_fq), plain(x, w.data, w.scale_e8m0, act_fq)
+        assert ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item() <= 1e-2
 
 
 @pytest.mark.gpu

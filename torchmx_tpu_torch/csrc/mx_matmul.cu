@@ -1,244 +1,458 @@
-// K3 mx_matmul_fp4_halves: out (M, N) bf16 = fq(x) (M, K) @ W (K, N) with W
+// K3 mx_matmul_fp4_halves: out (M, N) bf16 = x (M, K) @ W (K, N) with W
 // MXFP4 in the K-major "halves" layout: byte p of column n holds element p
-// (high nibble) and element p + K/2 (low nibble); scale rows [0, K/64) cover
-// the first half, [K/64, K/32) the second.  mx_matmul_fp8_halves is the same
-// kernel over MXFP8 halves: uint16 word p of column n holds the code of
-// element p (high byte) and of element p + K/2 (low byte), decoded as a dot
-// operand (mx::decode_code_dot<kFp8E4M3>); same bytes per element as the
-// flat layout, read as two contiguous halves of x like the fp4 layout.
+// (high nibble) and element p + K/2 (low nibble); scale (K/32, N), rows
+// [0, K/64) for the first half, [K/64, K/32) for the second.
+// mx_matmul_fp8_halves is the same kernel over MXFP8 halves: uint16 word p
+// of column n holds the code of element p (high byte) and of element p +
+// K/2 (low byte).
 //
 // Replaces torchmx_tpu/ops/pallas_matmul.py::_linear_kernel_fp4_halves
-// (:504), launched by _pallas_matmul_fp4_halves (:1110), with
-// elem_name "float4_e2m1" and "float8_e4m3".
+// (:504), launched by _pallas_matmul_fp4_halves (:1110), with elem_name
+// "float4_e2m1" and "float8_e4m3".
 //
-// What bounds it on an H100: at decode (M = batch, up to 32) the weight
-// bytes (K*N/2 + K*N/32); at prefill (M in the thousands) the tensor-core
-// operations, 2*M*N*K.  Design: each iteration takes 32 packed rows of W (64
-// K elements: 32 from each half) and the two matching 32-column slices of x
-// (contiguous, no strided access), decodes W nibbles to bf16 straight into
-// shared memory (the scale folds into the bf16 exponent field: no multiply),
-// optionally fake-quantizes each 32-element x block in the same prologue
-// (one warp per block, the block max by warp reduction), then runs
-// mma.sync m16n8k16 bf16 -> fp32.  The accumulator stays fp32 until one
-// bf16 rounding at the end.  Decode-sized M gives too few output tiles to
-// fill 132 SMs, so K is split over blockIdx.z; the fp32 partials are summed
-// in a fixed order by a second small kernel (deterministic).  No TMA, no
-// wgmma, no pipelining yet: a later change.
+// What bounds it on an H100: at decode (M up to 64) the weight bytes (K N /
+// 2 + K N / 32 for fp4, K N + K N / 32 for fp8); at prefill the tensor-core
+// operations, 2 M N K at 989 TFLOP/s bf16.  The design is B8's mainloop
+// (csrc/mx_matmul_fp6q.cu) with K3's operands:
+//  1. x is read as it is: where the caller asks for an activation format
+//     x is fake-quantized once by K2 first, at every M, so no column tile
+//     repeats the quantize of its rows; the layers share that K2 among the
+//     linears that read one x.
+//  2. Loads overlap the tensor cores: a ring of kStages stages filled by TMA
+//     from a producer warp (one thread starts a stage's copies once the
+//     slot's "empty" mbarrier says every consumer warp is done with it; they
+//     complete on its "full" mbarrier; zeros past M and N).  A stage is 128
+//     K: 64 packed rows of W (one 128-byte swizzled box of 64 x 128 bytes
+//     for fp4, two boxes of 64 x 64 words for fp8, the second left out
+//     where it lies wholly past N), one 3-D box of the four scale rows of
+//     those rows (two of the first half, two of the second), and the two
+//     matching 64-column x slices at K offsets p0 and K/2 + p0 (128-byte
+//     swizzled K-major tiles).  At M <= 128 the x box is M rows and the rows
+//     past M are zeros set once in shared memory.  No CTA barrier in the
+//     mainloop: the two consumer warpgroups run out of phase.
+//  3. W is decoded in registers, straight into wgmma's A operand (the
+//     kernel computes out^T = W^T x^T).  fp4: one ldmatrix.x4.trans of a
+//     32-row tile gives each thread the bytes at K (2t, 2t + 1) of columns
+//     2g and 2g + 1 (B6's fragment layout); the high nibbles make the first
+//     half's fragments, the low nibbles the second half's.  fp8: one
+//     ldmatrix.x4.trans per k16 step gives the words at K (2t, 2t + 1) of
+//     columns g and g + 8; a byte permute splits the high bytes (first
+//     half) from the low ones (second half).  One load thus feeds two k16
+//     products, against the x slices at p0 and K/2 + p0.  Both decode by
+//     csrc/mx_wgmma_decode.cuh (no conversion instruction where the warp's
+//     scales are safe), bit for bit mx::decode_fp4 and
+//     mx::decode_bf16_bits<kFp8E4M3>; no decoded tile is stored.
+//  4. One accumulator: wgmma.mma_async m64n128k16 bf16 -> f32, A from
+//     registers, x K-major in shared memory as B, two warpgroups (128
+//     columns of W) over 128 rows of x at every M, so a row's bytes do not
+//     depend on M.  Every k16 product of a split goes straight into the
+//     accumulator (the split's first with scale-d = 0).  One commit group
+//     for one 32-row block of both halves (four k16 products); while it
+//     runs, the CUDA cores decode the next block into the other of two
+//     fragment buffers (wait_group 1 before a buffer is written again); the
+//     accumulator is read only after wait_group 0.
+//  5. K splits: ops/cuda_matmul.k_splits(N, K, sms, 128), a function of N
+//     and K alone, summed ((0 + p0) + p1) + ... in split order
+//     (mx::reduce_splits).  Where the output tiles fill the card
+//     (gridDim.z == 1) a CTA walks its splits in that order itself, adding
+//     each split's accumulator to a total held in shared memory.  Otherwise
+//     blockIdx.z takes one split, its partial goes to the fp32 workspace and
+//     the reduce kernel of the format sums them.
+// The epilogue stages the result through shared memory and stores 16 bytes
+// a thread.  The element format is a template argument.
 #include "mx_common.cuh"
+#include "mx_wgmma.cuh"
+#include "mx_wgmma_decode.cuh"
 
 namespace {
 
-constexpr int kKTile = 64;           // K elements per iteration (32 per half)
-constexpr int kPad = kKTile + 8;     // smem row stride in bf16: conflict-free fragment loads
+// Built with -DK3_PHASE_PROFILE (torchmx_tpu_torch/tools/b8_phase_profile.py
+// --kernel k3), the kernel adds each mainloop phase's clock cycles, for
+// threads 0 and 200, into the workspace, as B8's hooks do.
+#ifdef K3_PHASE_PROFILE
+#define K3_PHASE(i) (prof_t[i] += clock64() - prof_c, prof_c = clock64())
+#else
+#define K3_PHASE(i) ((void)0)
+#endif
 
-// E: the weight's element format (mx::kFp4E2M1 bytes or mx::kFp8E4M3 words).
-template <int E, int BM, int BN, int WM, int WN, int ACT>
-__device__ __forceinline__ void halves_body(const uint16_t* __restrict__ x, const void* __restrict__ wv,
-                                            const uint8_t* __restrict__ scale, uint16_t* __restrict__ out,
-                                            float* __restrict__ ws, int M, int N, int K, int splits) {
-  constexpr int kThreads = WM * WN * 32;
-  constexpr int kWarps = WM * WN;
-  constexpr int WTM = BM / WM, WTN = BN / WN;  // warp tile
-  constexpr int MT = WTM / 16, NT = WTN / 8;   // mma tiles per warp
-  __shared__ __align__(16) uint16_t Xs[BM][kPad];
-  __shared__ __align__(16) uint16_t Ws[BN][kPad];
+constexpr int kKT = 128;             // K elements per stage: 64 of each half
+constexpr int kRows = 64;            // packed rows of W per stage
+constexpr int kBN = 128;             // columns of W per CTA: two warpgroups of 64
+constexpr int kBM = 128;             // rows of x per CTA: wgmma n128
+constexpr int kConsumers = 256;      // two warpgroups: decode and wgmma
+constexpr int kThreads = kConsumers + 32;  // and one producer warp: TMA
+constexpr int kStages = 3;           // TMA ring depth
+constexpr int kOutStride = kBN + 8;  // fp32 staging row stride, in floats
+constexpr int kXSlice = kBM * 128;   // one half's 64 columns of x: kBM rows of 128 bytes
+constexpr int kXBytes = 2 * kXSlice;
+constexpr int kWBox = kRows * 128;   // one 64 x 128-byte box of W
+constexpr int kSBytes = 4 * kBN;
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / WN, wn = warp % WN;
-  const int g = lane / 4, t = lane % 4;
-  const int n_base = blockIdx.x * BN, m_base = blockIdx.y * BM;
-  const int half = K / 2;
-  const int iters = half / 32;
-  const int per = (iters + splits - 1) / splits;
-  const int it0 = blockIdx.z * per, it1 = min(iters, it0 + per);
+// Dynamic shared memory (cuda_matmul.k3_smem_bytes mirrors it): the x, W and
+// scale rings, their mbarriers and the fp32 staging tile; 1024 bytes of
+// slack align the swizzled tiles.  A W stage is one box for fp4 (64 rows x
+// 128 columns of bytes), two for fp8 (64 rows x 64 columns of words each).
+template <int E>
+struct Smem {
+  static constexpr int wbytes = (E == mx::kFp4E2M1 ? 1 : 2) * kWBox;
+  static constexpr int x = 0;
+  static constexpr int w = kStages * kXBytes;
+  static constexpr int s = w + kStages * wbytes;
+  static constexpr int full = s + kStages * kSBytes;  // a ring slot's fill has landed
+  static constexpr int empty = full + 32;             // a ring slot's readers are done
+  static constexpr int out = full + 64;
+  static constexpr int bytes = out + kBM * kOutStride * 4 + 1024;
+};
 
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+// Start the TMA copies of K stage `it` into ring slot `slot` (one thread):
+// W's packed rows 64 it .. + 63, the scale rows 2 it and 2 it + 1 of both
+// halves, and x's columns 64 it .. and K/2 + 64 it .. (xrows rows from m0);
+// past M and N they come as zeros.
+template <int E>
+__device__ __forceinline__ void load_stage(uint32_t sbase, int slot, int it, int K, int N, int xrows,
+                                           const CUtensorMap* tx, const CUtensorMap* tw, const CUtensorMap* ts,
+                                           int m0, int n0) {
+  const uint32_t bar = sbase + Smem<E>::full + slot * 8;
+  const bool second = E == mx::kFp8E4M3 && n0 + 64 < N;  // fp8's second word box lies (partly) inside N
+  mx::mbar_expect_tx(bar, 2 * xrows * 128 + (second ? 2 : 1) * kWBox + kSBytes);
+  const uint32_t w = sbase + Smem<E>::w + slot * Smem<E>::wbytes;
+  mx::tma_load_2d(w, tw, bar, n0, kRows * it);
+  if (second) mx::tma_load_2d(w + kWBox, tw, bar, n0 + 64, kRows * it);
+  mx::tma_load_3d(sbase + Smem<E>::s + slot * kSBytes, ts, bar, n0, 2 * it, 0);
+  const uint32_t x = sbase + Smem<E>::x + slot * kXBytes;
+  mx::tma_load_2d(x, tx, bar, kRows * it, m0);
+  mx::tma_load_2d(x + kXSlice, tx, bar, K / 2 + kRows * it, m0);
+}
 
-  for (int it = it0; it < it1; ++it) {
-    const int p0 = it * 32;
-    // x: BM rows x two 32-element blocks, one warp per (row, block).
-    for (int rb = warp; rb < BM * 2; rb += kWarps) {
-      int row = rb / 2, hb = rb % 2;
-      int m = m_base + row;
-      int col = (hb ? half : 0) + p0 + lane;
-      int bits = m < M ? x[(long long)m * K + col] : 0;
-      if (ACT >= 0) {
-        int emax = (int)__reduce_max_sync(0xffffffffu, (unsigned)((bits >> 7) & 0xFF));
-        int se = mx::block_scale(emax, mx::Elem<(ACT < 0 ? 0 : ACT)>::max_pow2);
-        bits = mx::fq_magic<(ACT < 0 ? 0 : ACT)>(bits, se);
-      }
-      Xs[row][hb * 32 + lane] = (uint16_t)bits;
-    }
-    if constexpr (E == mx::kFp4E2M1) {
-      // W: 32 packed rows x BN columns, 16 bytes per thread per step.
-      const uint8_t* w = static_cast<const uint8_t*>(wv);
-      for (int c = tid; c < 32 * BN / 16; c += kThreads) {
-        int r = c / (BN / 16), n0 = (c % (BN / 16)) * 16;
-        int n = n_base + n0;
-        uint4 wb = *reinterpret_cast<const uint4*>(w + (long long)(p0 + r) * N + n);
-        uint4 sa = *reinterpret_cast<const uint4*>(scale + (long long)(p0 / 32) * N + n);
-        uint4 sb = *reinterpret_cast<const uint4*>(scale + (long long)(half / 32 + p0 / 32) * N + n);
-        const uint8_t* wbb = reinterpret_cast<const uint8_t*>(&wb);
-        const uint8_t* sab = reinterpret_cast<const uint8_t*>(&sa);
-        const uint8_t* sbb = reinterpret_cast<const uint8_t*>(&sb);
+// A stage's raw operands for this thread, fetched ahead of their decode.
+// fp4: r[j][q] from one ldmatrix.x4.trans of rows 32 j .. + 31 (matrix q:
+// rows 8q .. 8q + 7, the warp's 16 byte columns).  fp8: r[j][4 kk + q] from
+// one ldmatrix.x4.trans per k16 step kk of rows 32 j + 16 kk .. + 15
+// (matrices: rows + 0 / + 8 x the warp's columns + 0 / + 8).  s[2 h + j]:
+// the scale bytes of the thread's two columns (low, high) in row j of half
+// h.  Warp w of warpgroup wg takes columns 64 wg + 16 w .. + 15.
+template <int E>
+struct Raw {
+  uint32_t r[2][E == mx::kFp4E2M1 ? 4 : 8];
+  uint32_t s[4];
+};
+
+template <int E>
+__device__ __forceinline__ void fetch(Raw<E>& raw, const uint8_t* smem, uint32_t sbase, int slot, int wg, int warp,
+                                      int lane) {
+  const int nb = 64 * wg + 16 * warp, g = lane >> 2;
+  const uint32_t w = sbase + Smem<E>::w + slot * Smem<E>::wbytes;
+  const uint8_t* s = smem + Smem<E>::s + slot * kSBytes;
+  if constexpr (E == mx::kFp4E2M1) {
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          Ws[n0 + j][r] = mx::decode_fp4(wbb[j] >> 4, sab[j]);
-          Ws[n0 + j][32 + r] = mx::decode_fp4(wbb[j] & 0xF, sbb[j]);
-        }
-      }
-    } else {
-      // W: 32 rows of u16 words x BN columns, 8 words (16 bytes) per thread per step.
-      const uint16_t* w = static_cast<const uint16_t*>(wv);
-      for (int c = tid; c < 32 * BN / 8; c += kThreads) {
-        int r = c / (BN / 8), n0 = (c % (BN / 8)) * 8;
-        int n = n_base + n0;
-        uint4 wb = *reinterpret_cast<const uint4*>(w + (long long)(p0 + r) * N + n);
-        uint2 sa = *reinterpret_cast<const uint2*>(scale + (long long)(p0 / 32) * N + n);
-        uint2 sb = *reinterpret_cast<const uint2*>(scale + (long long)(half / 32 + p0 / 32) * N + n);
-        const uint16_t* wbw = reinterpret_cast<const uint16_t*>(&wb);
-        const uint8_t* sab = reinterpret_cast<const uint8_t*>(&sa);
-        const uint8_t* sbb = reinterpret_cast<const uint8_t*>(&sb);
+    for (int j = 0; j < 2; ++j) mx::ldmatrix_x4_trans(raw.r[j], w + mx::sw128(32 * j + lane, nb / 16));
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          Ws[n0 + j][r] = mx::decode_bf16_bits<mx::kFp8E4M3>(wbw[j] >> 8, sab[j]);
-          Ws[n0 + j][32 + r] = mx::decode_bf16_bits<mx::kFp8E4M3>(wbw[j] & 0xFF, sbb[j]);
-        }
-      }
-    }
-    __syncthreads();
+    for (int i = 0; i < 4; ++i) raw.s[i] = *reinterpret_cast<const uint16_t*>(s + i * kBN + nb + 2 * g);
+  } else {
+    const int m = lane >> 3;  // lane l: row l % 8 of matrix l / 8
 #pragma unroll
-    for (int kk = 0; kk < kKTile / 16; ++kk) {
-      uint32_t a[MT][4], b[NT][2];
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        int r0 = wm * WTM + i * 16 + g, c0 = kk * 16 + 2 * t;
-        a[i][0] = *reinterpret_cast<const uint32_t*>(&Xs[r0][c0]);
-        a[i][1] = *reinterpret_cast<const uint32_t*>(&Xs[r0 + 8][c0]);
-        a[i][2] = *reinterpret_cast<const uint32_t*>(&Xs[r0][c0 + 8]);
-        a[i][3] = *reinterpret_cast<const uint32_t*>(&Xs[r0 + 8][c0 + 8]);
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t v[4];
+        mx::ldmatrix_x4_trans(v, w + wg * kWBox + mx::sw128(32 * j + 16 * kk + 8 * (m >> 1) + (lane & 7),
+                                                             2 * warp + (m & 1)));
+#pragma unroll
+        for (int q = 0; q < 4; ++q) raw.r[j][4 * kk + q] = v[q];
       }
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        int n0 = wn * WTN + j * 8 + g, c0 = kk * 16 + 2 * t;
-        b[j][0] = *reinterpret_cast<const uint32_t*>(&Ws[n0][c0]);
-        b[j][1] = *reinterpret_cast<const uint32_t*>(&Ws[n0][c0 + 8]);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mx::mma_bf16_16816(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();
+    for (int i = 0; i < 4; ++i) raw.s[i] = s[i * kBN + nb + g] | (uint32_t)s[i * kBN + nb + g + 8] << 8;
   }
+}
 
+// Block J's A fragments, f[h] for half h, from the raw operands, in the
+// decode's byte layout: byte c + 2 i of word q is the code at K 8q + 2t + i
+// of the thread's column c (fp4: nibbles past the code are ignored).
+template <int E, int J>
+__device__ __forceinline__ void decode_block(uint32_t (&f)[2][2][4], const Raw<E>& raw) {
+  uint32_t a[4], b[4];
+  if constexpr (E == mx::kFp4E2M1) {
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+    for (int q = 0; q < 4; ++q) {
+      a[q] = raw.r[J][q] >> 4;
+      b[q] = raw.r[J][q];
+    }
+  } else {
+    // word pair (column g, column g + 8) at K 2t, 2t + 1: the high bytes
+    // are the first half's codes, the low bytes the second half's.
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int kk = 0; kk < 2; ++kk)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        int m = m_base + wm * WTM + i * 16 + g + h * 8;
-        int n = n_base + wn * WTN + j * 8 + 2 * t;
-        if (m >= M) continue;
-        float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-        if (splits == 1) {
-          __nv_bfloat162 o = __floats2bfloat162_rn(v0, v1);
-          *reinterpret_cast<__nv_bfloat162*>(out + (long long)m * N + n) = o;
-        } else {
-          float2* dst = reinterpret_cast<float2*>(ws + ((long long)blockIdx.z * M + m) * N + n);
-          *dst = make_float2(v0, v1);
-        }
+      for (int p = 0; p < 2; ++p) {
+        const uint32_t lo = raw.r[J][4 * kk + 2 * p], hi = raw.r[J][4 * kk + 2 * p + 1];
+        a[2 * kk + p] = __byte_perm(lo, hi, 0x7351);
+        b[2 * kk + p] = __byte_perm(lo, hi, 0x6240);
       }
-}
-
-// Distinct kernel names per weight format, so that a profile tells them apart.
-template <int BM, int BN, int WM, int WN, int ACT>
-__global__ void __launch_bounds__(WM * WN * 32)
-matmul_fp4_halves_kernel(const uint16_t* __restrict__ x, const void* __restrict__ w,
-                         const uint8_t* __restrict__ scale, uint16_t* __restrict__ out,
-                         float* __restrict__ ws, int M, int N, int K, int splits) {
-  halves_body<mx::kFp4E2M1, BM, BN, WM, WN, ACT>(x, w, scale, out, ws, M, N, K, splits);
-}
-
-template <int BM, int BN, int WM, int WN, int ACT>
-__global__ void __launch_bounds__(WM * WN * 32)
-matmul_fp8_halves_kernel(const uint16_t* __restrict__ x, const void* __restrict__ w,
-                         const uint8_t* __restrict__ scale, uint16_t* __restrict__ out,
-                         float* __restrict__ ws, int M, int N, int K, int splits) {
-  halves_body<mx::kFp8E4M3, BM, BN, WM, WN, ACT>(x, w, scale, out, ws, M, N, K, splits);
-}
-
-// Sum the split-K partials in split order and round once to bf16.
-__global__ void reduce_splits_kernel(const float* __restrict__ ws, uint16_t* __restrict__ out,
-                                     long long mn, int splits) {
-  mx::reduce_splits(ws, out, mn, splits, (long long)blockIdx.x * blockDim.x + threadIdx.x);
-}
-
-__global__ void reduce_splits_fp8h_kernel(const float* __restrict__ ws, uint16_t* __restrict__ out,
-                                          long long mn, int splits) {
-  mx::reduce_splits(ws, out, mn, splits, (long long)blockIdx.x * blockDim.x + threadIdx.x);
-}
-
-template <int E, int BM, int BN, int WM, int WN, int ACT>
-cudaError_t run(const void* x, const void* w, const void* scale, void* out, void* ws, int M,
-                int N, int K, int splits, cudaStream_t stream) {
-  dim3 grid(N / BN, (M + BM - 1) / BM, splits);
-  auto kernel = E == mx::kFp4E2M1 ? matmul_fp4_halves_kernel<BM, BN, WM, WN, ACT>
-                                  : matmul_fp8_halves_kernel<BM, BN, WM, WN, ACT>;
-  kernel<<<grid, WM * WN * 32, 0, stream>>>((const uint16_t*)x, w, (const uint8_t*)scale,
-                                            (uint16_t*)out, (float*)ws, M, N, K, splits);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  long long mn = (long long)M * N;
-  auto reduce = E == mx::kFp4E2M1 ? reduce_splits_kernel : reduce_splits_fp8h_kernel;
-  reduce<<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>((const float*)ws, (uint16_t*)out, mn, splits);
-  return cudaGetLastError();
-}
-
-template <int E, int ACT>
-cudaError_t dispatch_tile(const void* x, const void* w, const void* scale, void* out, void* ws,
-                          int M, int N, int K, int bm, int splits, cudaStream_t s) {
-  switch (bm) {
-    case 16: return run<E, 16, 64, 1, 4, ACT>(x, w, scale, out, ws, M, N, K, splits, s);
-    case 64: return run<E, 64, 64, 2, 2, ACT>(x, w, scale, out, ws, M, N, K, splits, s);
-    case 128: return run<E, 128, 128, 2, 4, ACT>(x, w, scale, out, ws, M, N, K, splits, s);
   }
-  return cudaErrorInvalidValue;
+  mx::decode_fragments<E>(f[0], a, raw.s[J]);
+  mx::decode_fragments<E>(f[1], b, raw.s[2 + J]);
+}
+
+// Start block j of both halves: acc (+)= its four k16 products (A from f,
+// B the x slices at xs and xs + kXSlice, 32 K in), one commit group;
+// scale_d = 0 starts a split.
+__device__ __forceinline__ void start_block(float (&acc)[64], const uint32_t (&f)[2][2][4], uint32_t xs, int j,
+                                            int scale_d) {
+  mx::wgmma_fence();
+  mx::wgmma_m64n128k16_rs(acc, f[0][0], mx::wgmma_desc(xs + 64 * j, 16, 1024), scale_d);
+  mx::wgmma_m64n128k16_rs(acc, f[0][1], mx::wgmma_desc(xs + 64 * j + 32, 16, 1024), 1);
+  mx::wgmma_m64n128k16_rs(acc, f[1][0], mx::wgmma_desc(xs + kXSlice + 64 * j, 16, 1024), 1);
+  mx::wgmma_m64n128k16_rs(acc, f[1][1], mx::wgmma_desc(xs + kXSlice + 64 * j + 32, 16, 1024), 1);
+  mx::wgmma_commit();
+}
+
+// A split ends: total (this thread's elements of the [m][n] staging tile)
+// += acc.  acc[4j + 2h + i] is row 8j + 2t + i and the thread's column h:
+// nb + 2g + h for fp4, nb + g + 8h for fp8.
+template <int E>
+__device__ __forceinline__ void add_split(const float (&acc)[64], float* total, int nb, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float* row = total + (8 * j + 2 * t + i) * kOutStride;
+      if constexpr (E == mx::kFp4E2M1) {
+        float2* q = reinterpret_cast<float2*>(row + nb + 2 * g);
+        float2 v = *q;
+        v.x += acc[4 * j + i];
+        v.y += acc[4 * j + 2 + i];
+        *q = v;
+      } else {
+        row[nb + g] += acc[4 * j + i];
+        row[nb + g + 8] += acc[4 * j + 2 + i];
+      }
+    }
 }
 
 template <int E>
-int launch(const void* x, const void* w, const void* scale, void* out, void* ws, int M, int N,
-           int K, int act_fq, int bm, int splits, void* stream) {
-  if (M == 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (act_fq) {
-    case -1: return dispatch_tile<E, -1>(x, w, scale, out, ws, M, N, K, bm, splits, s);
-    case mx::kFp8E4M3: return dispatch_tile<E, mx::kFp8E4M3>(x, w, scale, out, ws, M, N, K, bm, splits, s);
+__device__ __forceinline__ void halves_body(const CUtensorMap* tx, const CUtensorMap* tw, const CUtensorMap* ts,
+                                            uint16_t* __restrict__ out, float* __restrict__ ws, int M, int N, int K,
+                                            int splits, int xrows) {
+#ifdef K3_PHASE_PROFILE
+  long long prof_t[6] = {0, 0, 0, 0, 0, 0}, prof_0 = clock64(), prof_c = prof_0;
+#endif
+  using S = Smem<E>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_addr = mx::smem_addr(smem_raw);
+  uint8_t* smem = smem_raw + (((raw_addr + 1023) & ~1023u) - raw_addr);
+  const uint32_t sbase = mx::smem_addr(smem);
+  float* total = reinterpret_cast<float*>(smem + S::out);
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, nb = wg * 64 + warp * 16;
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+  const int iters = K / kKT, per = (iters + splits - 1) / splits;
+  // gridDim.z == 1: this CTA walks every split in order; else split blockIdx.z.
+  const int it0 = gridDim.z == 1 ? 0 : blockIdx.z * per;
+  const int it1 = gridDim.z == 1 ? iters : min(iters, it0 + per);
+  const int nt = max(it1 - it0, 0);
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mx::mbar_init(sbase + S::full + 8 * s, 1);
+      mx::mbar_init(sbase + S::empty + 8 * s, kConsumers / 32);  // one arrival a consumer warp
+    }
+    mx::mbar_init_fence();
   }
-  return (int)cudaErrorInvalidValue;
+  for (int i = tid; i < kBM * kOutStride / 4; i += kThreads)
+    reinterpret_cast<float4*>(total)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // x rows past the box (M <= kBM: the box holds the M rows) are zeros
+  // that TMA never writes: set them once, for the whole ring.
+  for (int i = tid; i < kStages * 2 * (kBM - xrows) * 8; i += kThreads) {
+    const int c = i & 7, r = xrows + (i >> 3) % (kBM - xrows), sh = (i >> 3) / (kBM - xrows);
+    *reinterpret_cast<uint4*>(smem + S::x + sh * kXSlice + r * 128 + c * 16) = make_uint4(0, 0, 0, 0);
+  }
+  mx::fence_proxy_async();
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // The producer: stage st into slot st % kStages once the slot's readers
+    // of stage st - kStages are done.
+    if (tid == kConsumers)
+      for (int st = 0; st < nt; ++st) {
+        const int slot = st % kStages;
+        if (st >= kStages) mx::mbar_wait(sbase + S::empty + 8 * slot, (st / kStages - 1) & 1);
+        load_stage<E>(sbase, slot, it0 + st, K, N, xrows, tx, tw, ts, m0, n0);
+      }
+  } else {
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    uint32_t fa[2][2][4], fb[2][2][4];  // A fragments: block 0 of both halves in fa, block 1 in fb
+    Raw<E> cur, nxt;                     // this stage's raw operands and the next's
+    if (nt > 0) {
+      mx::mbar_wait(sbase + S::full, 0);
+      fetch<E>(cur, smem, sbase, 0, wg, warp, lane);
+      decode_block<E, 0>(fa, cur);
+    }
+
+    // Stage st: block 0 in one commit group, block 1 in the next, into acc.
+    // Before a fragment buffer is decoded into again, wait_group 1 retires
+    // the group that read it (the one before the newest); the first such
+    // wait of a stage retires the previous stage's last group, and the warp
+    // then releases that stage's slot.  k counts the stages of the current
+    // split.
+    for (int st = 0, k = 0; st < nt; ++st) {
+      const uint32_t xs = sbase + S::x + (st % kStages) * kXBytes;
+      const bool next = st + 1 < nt;
+      const int nslot = (st + 1) % kStages;
+      K3_PHASE(5);
+      start_block(acc, fa, xs, 0, k != 0);
+      K3_PHASE(0);
+      mx::wgmma_wait<1>();
+      if (st > 0 && lane == 0) mx::mbar_arrive(sbase + S::empty + 8 * ((st - 1) % kStages));
+      K3_PHASE(1);
+      decode_block<E, 1>(fb, cur);
+      K3_PHASE(2);
+      if (next) {
+        mx::mbar_wait(sbase + S::full + 8 * nslot, ((st + 1) / kStages) & 1);  // stage st + 1 has landed
+        K3_PHASE(3);
+        fetch<E>(nxt, smem, sbase, nslot, wg, warp, lane);
+        K3_PHASE(4);
+      }
+      start_block(acc, fb, xs, 1, 1);
+      K3_PHASE(0);
+      if (!next || ++k == per) {  // the split ends
+        // acc is read only here, after wait_group 0, and written only by
+        // wgmma (scale-d = 0 starts a split): ptxas serializes nothing.
+        mx::wgmma_wait<0>();
+        add_split<E>(acc, total, nb, g, t);
+        k = 0;
+      }
+      if (next) {
+        cur = nxt;
+        K3_PHASE(5);
+        mx::wgmma_wait<1>();
+        K3_PHASE(1);
+        decode_block<E, 0>(fa, cur);
+        K3_PHASE(2);
+      }
+    }
+    mx::wgmma_wait<0>();  // without it ptxas injects the wait at the loop's exit (info C7517)
+#ifdef K3_PHASE_PROFILE
+    if (tid == 0 || tid == 200) {
+      unsigned long long* c = reinterpret_cast<unsigned long long*>(ws) + (tid == 0 ? 0 : 8);
+      for (int i = 0; i < 6; ++i) atomicAdd(c + i, (unsigned long long)prof_t[i]);
+      atomicAdd(c + 6, (unsigned long long)(clock64() - prof_0));
+      atomicAdd(c + 7, (unsigned long long)nt);
+    }
+#endif
+  }
+  __syncthreads();
+
+  // Epilogue: 8 columns a thread, 16-byte stores.
+  for (int i = tid; i < kBM * (kBN / 8); i += kThreads) {
+    const int r = i / (kBN / 8), c = (i % (kBN / 8)) * 8, m = m0 + r, n = n0 + c;
+    if (m >= M || n >= N) continue;
+    const float4 a = *reinterpret_cast<const float4*>(total + r * kOutStride + c);
+    const float4 b = *reinterpret_cast<const float4*>(total + r * kOutStride + c + 4);
+    if (gridDim.z == 1) {
+      __nv_bfloat162 o[4] = {__floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w),
+                             __floats2bfloat162_rn(b.x, b.y), __floats2bfloat162_rn(b.z, b.w)};
+      *reinterpret_cast<uint4*>(out + (long long)m * N + n) = *reinterpret_cast<const uint4*>(o);
+    } else {
+      float* dst = ws + ((long long)blockIdx.z * M + m) * N + n;
+      *reinterpret_cast<float4*>(dst) = a;
+      *reinterpret_cast<float4*>(dst + 4) = b;
+    }
+  }
+}
+
+// Distinct kernel names per weight format, so that a profile tells them apart.
+__global__ void __launch_bounds__(kThreads, 1)
+matmul_fp4_halves_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                         const __grid_constant__ CUtensorMap ts, uint16_t* __restrict__ out,
+                         float* __restrict__ ws, int M, int N, int K, int splits, int xrows) {
+  halves_body<mx::kFp4E2M1>(&tx, &tw, &ts, out, ws, M, N, K, splits, xrows);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+matmul_fp8_halves_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                         const __grid_constant__ CUtensorMap ts, uint16_t* __restrict__ out,
+                         float* __restrict__ ws, int M, int N, int K, int splits, int xrows) {
+  halves_body<mx::kFp8E4M3>(&tx, &tw, &ts, out, ws, M, N, K, splits, xrows);
+}
+
+// Sum the split-K partials in split order and round once to bf16.
+__global__ void reduce_splits_kernel(const float* __restrict__ ws, uint16_t* __restrict__ out, long long mn,
+                                     int splits) {
+  mx::reduce_splits(ws, out, mn, splits, (long long)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+__global__ void reduce_splits_fp8h_kernel(const float* __restrict__ ws, uint16_t* __restrict__ out, long long mn,
+                                          int splits) {
+  mx::reduce_splits(ws, out, mn, splits, (long long)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+template <int E>
+cudaError_t run(const void* x, const void* w, const void* scale, void* out, void* ws, int M, int N, int K,
+                int splits, int walk, cudaStream_t stream) {
+  CUtensorMap tx, tw, ts;
+  const int xrows = min(M, kBM);  // x rows a box: past M, zeros set once in shared memory
+  const bool fp4 = E == mx::kFp4E2M1;
+  if (!mx::tensor_map(&tx, CU_TENSOR_MAP_DATA_TYPE_UINT16, x, K, M, (uint64_t)K * 2, 64, xrows,
+                      CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !mx::tensor_map(&tw, fp4 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_UINT16, w, N, K / 2,
+                      (uint64_t)N * (fp4 ? 1 : 2), fp4 ? kBN : 64, kRows, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !mx::tensor_map(&ts, CU_TENSOR_MAP_DATA_TYPE_UINT8, scale, N, K / 64, N, kBN, 2, CU_TENSOR_MAP_SWIZZLE_NONE, 2,
+                      (uint64_t)(K / 64) * N))
+    return cudaErrorInvalidValue;
+  auto kernel = fp4 ? matmul_fp4_halves_kernel : matmul_fp8_halves_kernel;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<E>::bytes);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, walk ? 1 : splits);
+  kernel<<<grid, kThreads, Smem<E>::bytes, stream>>>(tx, tw, ts, (uint16_t*)out, (float*)ws, M, N, K, splits, xrows);
+  return cudaGetLastError();
+}
+
+template <int E>
+int launch(const void* x, const void* w, const void* scale, void* out, void* ws, int M, int N, int K, int splits,
+           int walk, void* stream) {
+  if (M == 0) return 0;
+  if (splits < 1 || K % kKT || N % 64) return (int)cudaErrorInvalidValue;
+  return (int)run<E>(x, w, scale, out, ws, M, N, K, splits, walk || splits == 1, (cudaStream_t)stream);
+}
+
+int reduce_launch(bool fp4, const void* ws, void* out, long long mn, int splits, void* stream) {
+  if (mn == 0) return 0;
+  auto kernel = fp4 ? reduce_splits_kernel : reduce_splits_fp8h_kernel;
+  kernel<<<(unsigned)((mn + 255) / 256), 256, 0, (cudaStream_t)stream>>>((const float*)ws, (uint16_t*)out, mn,
+                                                                         splits);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// act_fq: -1 for none, or mx::kFp8E4M3 to fake-quantize the activation to
-// MXFP8 (the only activation format the port serves and checks on the card).
-// bm: 16, 64 (64-column tiles) or 128 (128-column tiles).
-extern "C" int mx_matmul_fp4_halves_launch(const void* x, const void* w, const void* scale,
-                                           void* out, void* ws, int M, int N, int K, int act_fq,
-                                           int bm, int splits, void* stream) {
-  return launch<mx::kFp4E2M1>(x, w, scale, out, ws, M, N, K, act_fq, bm, splits, stream);
+// The main kernel alone over fp4 halves: w is (K/2, N) bytes; x as it is
+// (the wrapper applies any activation quantize first).  walk != 0 (or
+// splits == 1): each CTA walks all splits and writes out; else split s
+// writes its fp32 partial to ws[s] (splits x M x N) and
+// mx_matmul_fp4_halves_reduce_launch sums.
+extern "C" int mx_matmul_fp4_halves_launch(const void* x, const void* w, const void* scale, void* out, void* ws,
+                                           int M, int N, int K, int splits, int walk, void* stream) {
+  return launch<mx::kFp4E2M1>(x, w, scale, out, ws, M, N, K, splits, walk, stream);
 }
 
 // The same over fp8 halves: w is (K/2, N) uint16 words.
-extern "C" int mx_matmul_fp8_halves_launch(const void* x, const void* w, const void* scale,
-                                           void* out, void* ws, int M, int N, int K, int act_fq,
-                                           int bm, int splits, void* stream) {
-  return launch<mx::kFp8E4M3>(x, w, scale, out, ws, M, N, K, act_fq, bm, splits, stream);
+extern "C" int mx_matmul_fp8_halves_launch(const void* x, const void* w, const void* scale, void* out, void* ws,
+                                           int M, int N, int K, int splits, int walk, void* stream) {
+  return launch<mx::kFp8E4M3>(x, w, scale, out, ws, M, N, K, splits, walk, stream);
+}
+
+// out (mn bf16) = the split partials ws (splits x mn fp32) summed in split order.
+extern "C" int mx_matmul_fp4_halves_reduce_launch(const void* ws, void* out, long long mn, int splits, void* stream) {
+  return reduce_launch(true, ws, out, mn, splits, stream);
+}
+
+extern "C" int mx_matmul_fp8_halves_reduce_launch(const void* ws, void* out, long long mn, int splits, void* stream) {
+  return reduce_launch(false, ws, out, mn, splits, stream);
 }

@@ -1,14 +1,16 @@
 // The decode of MX code words into wgmma's A fragments, shared by the
 // kernels that compute out^T = W^T x^T with W decoded in registers: B6
-// (csrc/mx_matmul_1byte.cu, one code a byte) and B8 (csrc/mx_matmul_fp6q.cu,
-// fp6 codes rebuilt from the quarters planes).
+// (csrc/mx_matmul_1byte.cu, one code a byte), B8 (csrc/mx_matmul_fp6q.cu,
+// fp6 codes rebuilt from the quarters planes) and K3 (csrc/mx_matmul.cu, fp4
+// nibbles and fp8 bytes of the halves layout).
 //
 // A thread's raw operand of one 32-row MX block is four words r[q], from one
 // ldmatrix.x4.trans of a [K][n] byte tile (matrix q: K rows 8q .. 8q + 7 of
 // the block, the warp's 16 columns): byte hi + 2 i of r[q] is the code at K
 // 8q + 2t + i, column 2g + hi of the warp (g = lane / 4, t = lane % 4), and
 // s holds the scale bytes of columns 2g (low) and 2g + 1 (high).  Every
-// decoded value equals mx::decode_bf16_bits bit for bit.
+// decoded value equals mx::decode_bf16_bits bit for bit (fp4:
+// mx::decode_fp4, whose sub-bf16-normal results flush to a signed zero).
 #pragma once
 
 #include "mx_common.cuh"
@@ -24,12 +26,20 @@ __device__ __forceinline__ constexpr uint32_t safe_hi() {
   return E == kInt8 ? 224u : 127u + Elem<E>::bias;
 }
 
+// One code as bf16 bits: decode_fp4 for an fp4 nibble (bits above it
+// ignored), else decode_bf16_bits.
+template <int E>
+__device__ __forceinline__ uint32_t decode_one(int code, int se) {
+  if constexpr (E == kFp4E2M1) return decode_fp4(code, se);
+  else return decode_bf16_bits<E>(code, se);
+}
+
 // Two decoded codes as bf16x2: bytes hi and 2 + hi of r (K 2t and 2t + 1
 // of one column), with that column's scale se.
 template <int E>
 __device__ __forceinline__ uint32_t decode_exact(uint32_t r, int hi, int se) {
-  return (uint32_t)decode_bf16_bits<E>((int)((r >> (8 * hi)) & 0xFF), se) |
-         ((uint32_t)decode_bf16_bits<E>((int)((r >> (16 + 8 * hi)) & 0xFF), se) << 16);
+  return decode_one<E>((int)((r >> (8 * hi)) & 0xFF), se) |
+         (decode_one<E>((int)((r >> (16 + 8 * hi)) & 0xFF), se) << 16);
 }
 
 // The same where the scale is safe, with no conversion instruction (16 a
@@ -39,7 +49,10 @@ __device__ __forceinline__ uint32_t decode_exact(uint32_t r, int hi, int se) {
 // fp: each code's sign, exponent and mantissa fields land in a bf16 lane
 // (the code's value times 2^(bias-127), a subnormal code a bf16 subnormal),
 // then one exact bf16 multiply by scale2 = 2^(se - bias).  Bits above an fp
-// code's sign bit are ignored.
+// code's sign bit are ignored, so an fp4 byte's low nibble decodes as it
+// is and its high nibble after a shift.  For fp4 at safe scales this is
+// decode_fp4's integer result: every value is normal, and a zero code keeps
+// its sign.
 template <int E>
 __device__ __forceinline__ uint32_t decode_fast(uint32_t r, int hi, float sf, float sneg, uint32_t scale2) {
   if (E == kInt8) {

@@ -127,8 +127,8 @@ def shared_activation_fq(x: torch.Tensor, *linears) -> Optional[torch.Tensor]:
     """Fake-quantize ``x`` once for several MX linears that read it under the
     same activation config, where a linear's matmul would take x quantized
     by K2 first (``act_fq_first``: at prefill sizes, and at every size for
-    fp6-quarters weights); None where sharing does not apply (each linear
-    then fuses its own)."""
+    fp6-quarters and fp4 / fp8 halves weights); None where sharing does not
+    apply (each linear then quantizes its own)."""
     if not all(isinstance(lin, MXInferenceLinear) for lin in linears):
         return None
     cfg = linears[0].qconfig.activations_config

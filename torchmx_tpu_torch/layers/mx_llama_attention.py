@@ -1,8 +1,9 @@
 """MX-quantized Llama MLP and attention (``torchmx_tpu/layers/
 mx_llama_attention.py``): projections become :class:`MXInferenceLinear`, and
 an activation read by several projections is fake-quantized once at prefill
-sizes, and at every size for fp6-quarters weights (``shared_activation_fq``).  Q/K/V quantization is not ported yet: the
-MX KV cache is the K/V quantization of this path."""
+sizes, and at every size for fp6-quarters and fp4 / fp8 halves weights
+(``shared_activation_fq``).  Q/K/V quantization is not ported yet: the MX KV
+cache is the K/V quantization of this path."""
 
 from __future__ import annotations
 

@@ -56,10 +56,13 @@ SIGNATURES = {
         "mx_fake_quantize_launch": (_P, _P, _L, _I, _I, _P),
     },
     "mx_matmul": {
-        # x, w, scale, out, workspace, M, N, K, act_fq_code, tile_rows, splits, stream
-        "mx_matmul_fp4_halves_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        # x, w, scale, out, workspace, M, N, K, splits, walk, stream
+        "mx_matmul_fp4_halves_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
         # the same over fp8 halves (uint16 words)
-        "mx_matmul_fp8_halves_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "mx_matmul_fp8_halves_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # workspace, out, M * N, splits, stream
+        "mx_matmul_fp4_halves_reduce_launch": (_P, _P, _L, _I, _P),
+        "mx_matmul_fp8_halves_reduce_launch": (_P, _P, _L, _I, _P),
     },
     "mx_matmul_1byte": {
         # x, w, scale, out, workspace, M, N, K, elem_code, act_fq_code, splits, walk, stream

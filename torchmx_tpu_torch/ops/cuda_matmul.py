@@ -1,13 +1,17 @@
 """K3 ``mx_matmul_fp4_halves`` and its fp8 variant ``mx_matmul_fp8_halves``:
-the CUDA kernel (``csrc/mx_matmul.cu``) and its plain PyTorch versions.
+the CUDA kernel (``csrc/mx_matmul.cu``), its launch plan and its plain
+PyTorch versions.
 
 Replaces ``torchmx_tpu/ops/pallas_matmul.py::_linear_kernel_fp4_halves``:
-``x (M, K) bf16 @ W (K, N)`` with W in a K-major halves layout, fp32
-accumulation, one bf16 rounding, and an optional fused activation
-fake-quantize (``act_fq``) of each 32-element x block.  The weight is MXFP4
-(``W (K/2, N) uint8``, byte p holds elements p and p + K/2) or MXFP8
-(``W (K/2, N) uint16``, word p holds the codes of elements p and p + K/2:
-the JAX kernel's ``elem_name="float8_e4m3"``); ``scale (K/32, N) uint8``.
+``fq(x) (M, K) bf16 @ W (K, N)`` with W in a K-major halves layout, fp32
+accumulation and one bf16 rounding.  The weight is MXFP4 (``W (K/2, N)
+uint8``, byte p holds elements p and p + K/2) or MXFP8 (``W (K/2, N)
+uint16``, word p holds the codes of elements p and p + K/2: the JAX kernel's
+``elem_name="float8_e4m3"``); ``scale (K/32, N) uint8``.  The activation
+quantize (``act_fq``) is applied by K2 first, at every M: the kernel reads x
+as it is, and the layers share that K2 among the linears reading one x
+(``cuda_matmul_formats.act_fq_first``).  The kernel runs B8's TMA + wgmma
+mainloop (:func:`plan_halves`).
 
 Weight decode follows ``decode_fp4_to_bf16`` of the reference for fp4 (the
 scale folds into the bf16 exponent, results below the bf16 normal range
@@ -18,7 +22,7 @@ flush to zero; the plain version flushes explicitly) and
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -28,8 +32,9 @@ from ..packing import fp8_halves_to_codes
 from . import cuda_lib
 from .backend import on_cuda
 from .cuda_quantize import mx_fake_quantize_plain
+from .quantize import mx_fake_quantize
 
-ACT_FQ_FORMATS = (None, "float8_e4m3")  # activation formats K3 fuses
+ACT_FQ_FORMATS = (None, "float8_e4m3")  # activation formats K3's wrappers take
 
 
 def decode_fp4_to_bf16(nibbles: torch.Tensor, se: torch.Tensor) -> torch.Tensor:
@@ -66,7 +71,7 @@ def mx_matmul_fp4_halves_plain(
 
 
 def _plan(M: int, N: int, K: int, device: torch.device):
-    """(rows per tile, K splits) for the matmul kernels K3, B7 and B9 (64 K
+    """(rows per tile, K splits) for the matmul kernels B7 and B9 (64 K
     elements per iteration).  The tile follows M.  The splits follow N and K
     alone (:func:`k_splits`): enough that a single row tile (decode) keeps
     the SMs busy.  An output element's fp32 sum order is fixed
@@ -146,32 +151,101 @@ def check_matmul_operands(x: torch.Tensor, w_data: torch.Tensor, w_scale: torch.
         raise ValueError("weight payload and scale must be contiguous")
 
 
-def _launch_halves(fn: str, x, w_data, w_scale, act_fq, w_dtype, what):
+SMEM_LIMIT = 232_448  # dynamic shared memory a block can use on an H100
+
+
+class WgmmaPlan(NamedTuple):
+    """The launch plan of a TMA + wgmma matmul kernel (B6, B8, K3)."""
+
+    bm: int  # rows of x a CTA
+    bn: int  # columns of W a CTA
+    stages: int
+    smem_bytes: int  # the kernel's dynamic shared memory (Smem::bytes)
+    splits: int  # K splits: k_splits(N, K)
+    walk: bool  # each CTA walks its splits (no fp32 workspace, no second pass)
+
+
+# K3's launch (csrc/mx_matmul.cu): a CTA takes 128 columns of W (two
+# warpgroups, one wgmma m64n128k16 each) and 128 rows of x, through a ring
+# of 3 TMA stages of 128 K (64 packed rows, 64 K of each half).
+K3_BM = 128
+K3_BN = 128
+K3_STAGES = 3
+HALVES_FORMATS = {"float4_e2m1": torch.uint8, "float8_e4m3": torch.uint16}  # K3's weight formats and payloads
+
+
+def k3_smem_bytes(elem_name: str) -> int:
+    """Smem::bytes of csrc/mx_matmul.cu: the x (two 64-column slices), W (64
+    packed rows: one byte a column for fp4, one word for fp8) and scale (four
+    rows) rings, their mbarriers, the fp32 staging tile, 1024 bytes of
+    slack."""
+    w_bytes = 64 * K3_BN * HALVES_FORMATS[elem_name].itemsize
+    ring = K3_STAGES * (2 * K3_BM * 64 * 2 + w_bytes + 4 * K3_BN)
+    return ring + 64 + K3_BM * (K3_BN + 8) * 4 + 1024
+
+
+def plan_halves(M: int, N: int, K: int, sms: int, elem_name: str = "float4_e2m1") -> WgmmaPlan:
+    """K3's launch plan: the splits ``k_splits(N, K, sms, 128)`` (128 K a
+    stage); the tile, the instruction and the K order are the same at every
+    M, so a row's bytes do not depend on M.  Where the output tiles alone
+    make half a wave or more, each CTA sums its splits itself, in split
+    order (the bytes of the two-pass form)."""
+    splits = k_splits(N, K, sms, 128)
+    tiles = -(-M // K3_BM) * -(-N // K3_BN)
+    return WgmmaPlan(K3_BM, K3_BN, K3_STAGES, k3_smem_bytes(elem_name), splits, splits > 1 and 2 * tiles >= sms)
+
+
+def _halves_fn(elem_name: str) -> str:
+    return "mx_matmul_fp4_halves" if elem_name == "float4_e2m1" else "mx_matmul_fp8_halves"
+
+
+def k3_kernel(x, w_data, w_scale, elem_name: str, plan: WgmmaPlan):
+    """K3's main kernel alone on CUDA tensors the wrapper has checked (x
+    already fake-quantized where asked): (out, None), or (out, the fp32 split
+    partials) for :func:`k3_reduce`."""
     M, K = x.shape
-    check_matmul_operands(x, w_data, w_scale, K // 2, w_dtype, what)
     N = w_data.shape[1]
-    bm, splits = _plan(M, N, K, x.device)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    ws = torch.empty((splits, M, N) if splits > 1 else (1,), dtype=torch.float32, device=x.device)
-    act = -1 if act_fq is None else cuda_lib.ELEM_CODES[act_fq]
-    cuda_lib.launch(
-        "mx_matmul", fn,
-        x.data_ptr(), w_data.data_ptr(), w_scale.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        M, N, K, act, bm, splits,
-    )
+    two_pass = plan.splits > 1 and not plan.walk
+    ws = torch.empty((plan.splits, M, N) if two_pass else (1,), dtype=torch.float32, device=x.device)
+    cuda_lib.launch("mx_matmul", _halves_fn(elem_name) + "_launch", x.data_ptr(), w_data.data_ptr(),
+                    w_scale.data_ptr(), out.data_ptr(), ws.data_ptr(), M, N, K, plan.splits, int(plan.walk))
+    return out, (ws if two_pass else None)
+
+
+def k3_reduce(ws: torch.Tensor, out: torch.Tensor, elem_name: str) -> torch.Tensor:
+    """K3's second pass: ``out`` = the split partials summed in split order."""
+    cuda_lib.launch("mx_matmul", _halves_fn(elem_name) + "_reduce_launch", ws.data_ptr(), out.data_ptr(),
+                    out.numel(), ws.shape[0], count=False)
     return out
+
+
+def _halves(x, w_data, w_scale, act_fq, elem_name):
+    what = "fp4 halves" if elem_name == "float4_e2m1" else "fp8 halves"
+    if act_fq not in ACT_FQ_FORMATS:
+        raise ValueError(f"the {what} matmul takes act_fq in {ACT_FQ_FORMATS}, got {act_fq!r}")
+    if not on_cuda(x, w_data, w_scale):
+        plain = mx_matmul_fp4_halves_plain if elem_name == "float4_e2m1" else mx_matmul_fp8_halves_plain
+        return plain(x, w_data, w_scale, act_fq)
+    M, K = x.shape
+    check_matmul_operands(x, w_data, w_scale, K // 2, HALVES_FORMATS[elem_name], what, k_multiple=128)
+    if any(t.data_ptr() % 16 for t in (x, w_data, w_scale)):
+        raise ValueError(f"the {what} kernel reads x, the weight and the scales by TMA: "
+                         "their storage must be 16-byte aligned")
+    if act_fq is not None:
+        x = mx_fake_quantize(x, act_fq)
+    out, ws = k3_kernel(x, w_data, w_scale, elem_name, plan_halves(M, w_data.shape[1], K, sm_count(x.device),
+                                                                   elem_name))
+    return out if ws is None else k3_reduce(ws, out, elem_name)
 
 
 def mx_matmul_fp4_halves(
     x: torch.Tensor, w_data: torch.Tensor, w_scale: torch.Tensor, act_fq: Optional[str] = None
 ) -> torch.Tensor:
-    """K3: ``(fq(x) @ W)`` in bf16.  CUDA tensors launch the kernel; shapes
-    it does not take raise.  ``act_fq`` is None or ``"float8_e4m3"``."""
-    if act_fq not in ACT_FQ_FORMATS:
-        raise ValueError(f"the fp4 matmul fuses act_fq in {ACT_FQ_FORMATS}, got {act_fq!r}")
-    if not on_cuda(x, w_data, w_scale):
-        return mx_matmul_fp4_halves_plain(x, w_data, w_scale, act_fq)
-    return _launch_halves("mx_matmul_fp4_halves_launch", x, w_data, w_scale, act_fq, torch.uint8, "fp4")
+    """K3: ``(fq(x) @ W)`` in bf16.  CUDA tensors launch the kernel (K % 128
+    and N % 64 must be 0); shapes it does not take raise.  ``act_fq`` is
+    None or ``"float8_e4m3"``, applied by K2 first."""
+    return _halves(x, w_data, w_scale, act_fq, "float4_e2m1")
 
 
 def mx_matmul_fp8_halves(
@@ -179,8 +253,4 @@ def mx_matmul_fp8_halves(
 ) -> torch.Tensor:
     """K3 over an fp8 halves weight (uint16 words), counted as
     ``mx_matmul_fp8_halves``.  ``act_fq`` is None or ``"float8_e4m3"``."""
-    if act_fq not in ACT_FQ_FORMATS:
-        raise ValueError(f"the fp8 halves matmul fuses act_fq in {ACT_FQ_FORMATS}, got {act_fq!r}")
-    if not on_cuda(x, w_data, w_scale):
-        return mx_matmul_fp8_halves_plain(x, w_data, w_scale, act_fq)
-    return _launch_halves("mx_matmul_fp8_halves_launch", x, w_data, w_scale, act_fq, torch.uint16, "fp8 halves")
+    return _halves(x, w_data, w_scale, act_fq, "float8_e4m3")

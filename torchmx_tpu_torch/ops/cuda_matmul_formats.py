@@ -41,7 +41,7 @@ prologue); its launch plan is :func:`plan_1byte`.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
@@ -49,8 +49,8 @@ from ..mx_quantization import f32_from_bits
 from ..packing import fp6_quarters_to_codes
 from . import cuda_lib
 from .backend import on_cuda
-from .cuda_matmul import (_plan, check_matmul_operands, decode_code_dot, decode_fp4_to_bf16, fq_matmul, k_splits,
-                          sm_count)
+from .cuda_matmul import (SMEM_LIMIT, WgmmaPlan, _plan, check_matmul_operands, decode_code_dot, decode_fp4_to_bf16,
+                          fq_matmul, k_splits, sm_count)
 from .cuda_quantize import mx_quantize
 from .quantize import mx_fake_quantize
 
@@ -69,10 +69,11 @@ def act_fq_first(fp4_pack: str, rows: int) -> bool:
     """Whether a weight in layout ``fp4_pack`` takes x already fake-quantized
     by K2 at ``rows`` rows, rather than its kernel fusing the activation
     quantize: above ``ACT_FQ_FUSE_MAX_M`` rows (as the reference's
-    ``_run_kernel``), and at every M for B8's quarters.  Where it is true,
-    the layers fake-quantize an x read by several linears once for all of
-    them (``layers/linear.shared_activation_fq``)."""
-    return rows > ACT_FQ_FUSE_MAX_M or fp4_pack == "quarters"
+    ``_run_kernel``), and at every M for B8's quarters and K3's halves
+    (their kernels read x as it is).  Where it is true, the layers
+    fake-quantize an x read by several linears once for all of them
+    (``layers/linear.shared_activation_fq``)."""
+    return rows > ACT_FQ_FUSE_MAX_M or fp4_pack in ("quarters", "halves")
 
 
 def dequantize_1byte(w_codes: torch.Tensor, w_scale: torch.Tensor, elem_name: str) -> torch.Tensor:
@@ -110,18 +111,6 @@ B6_STAGES = 6
 B8_BM = 128
 B8_BN = 128
 B8_STAGES = 3
-SMEM_LIMIT = 232_448  # dynamic shared memory a block can use on an H100
-
-
-class WgmmaPlan(NamedTuple):
-    """The launch plan of a TMA + wgmma matmul kernel (B6, B8)."""
-
-    bm: int  # rows of x a CTA
-    bn: int  # columns of W a CTA
-    stages: int
-    smem_bytes: int  # the kernel's dynamic shared memory (Smem::bytes)
-    splits: int  # K splits: k_splits(N, K)
-    walk: bool  # each CTA walks its splits (no fp32 workspace, no second pass)
 
 
 def b6_smem_bytes() -> int:

@@ -1,18 +1,21 @@
-"""Where B8's mainloop spends its clock cycles, on the card.
+"""Where B8's (or K3's) mainloop spends its clock cycles, on the card.
 
-Builds ``csrc/mx_matmul_fp6q.cu`` with ``-DB8_PHASE_PROFILE`` into a library
-of its own, runs the kernel on MXFP6 e3m2 weights at the Llama-3-8B
-linears' shapes (each CTA walking its K splits), and prints, for a thread of
-each warpgroup, the cycles per K stage (128 K) of each mainloop phase, the
-instrumented kernel's time and the time of the kernel as built for the
-main path (``chip_smoke.Timer``, at the plan's own launch, its split reduce
-left out).  Run from the repository root on a machine with one card:
+Builds ``csrc/mx_matmul_fp6q.cu`` with ``-DB8_PHASE_PROFILE`` (with
+``--kernel k3``: ``csrc/mx_matmul.cu`` with ``-DK3_PHASE_PROFILE``) into a
+library of its own, runs the kernel on MXFP6 e3m2 weights (K3: MXFP4 and
+MXFP8 halves) at the Llama-3-8B linears' shapes (each CTA walking its K
+splits), and prints, for a thread of each warpgroup, the cycles per K stage
+(128 K) of each mainloop phase, the instrumented kernel's time and the time
+of the kernel as built for the main path (``chip_smoke.Timer``, at the
+plan's own launch, its split reduce left out).  Run from the repository
+root on a machine with one card:
 
-    python3 torchmx_tpu_torch/tools/b8_phase_profile.py [M ...]
+    python3 torchmx_tpu_torch/tools/b8_phase_profile.py [--kernel b8|k3] [M ...]
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 
@@ -24,58 +27,75 @@ import chip_smoke  # noqa: E402
 
 from torchmx_tpu_torch.mx_array import MXTensor  # noqa: E402
 from torchmx_tpu_torch.ops import cuda_lib  # noqa: E402
+from torchmx_tpu_torch.ops import cuda_matmul as cm  # noqa: E402
 from torchmx_tpu_torch.ops import cuda_matmul_formats as kf  # noqa: E402
 
-PHASES = ("wgmma start", "wgmma wait", "rebuild + decode", "stage wait", "fetch", "split add + rest")
 SHAPES = {"gate_proj/up_proj": (4096, 14336), "down_proj": (14336, 4096), "q_proj/o_proj": (4096, 4096)}
+# Per kernel: the source, the profile flag, the decode phase's name, and for
+# each element format its weight layout, launch function and plan.
+KERNELS = {
+    "b8": ("mx_matmul_fp6q", "-DB8_PHASE_PROFILE", "rebuild + decode",
+           {"float6_e3m2": (lambda t: t.to_fp6_quarters(), "mx_matmul_fp6q_launch", kf.plan_fp6q)}),
+    "k3": ("mx_matmul", "-DK3_PHASE_PROFILE", "decode",
+           {"float4_e2m1": (lambda t: t.to_fp4_halves(), "mx_matmul_fp4_halves_launch", cm.plan_halves),
+            "float8_e4m3": (lambda t: t.to_fp8_halves(), "mx_matmul_fp8_halves_launch", cm.plan_halves)}),
+}
 
 
-def main(ms) -> None:
+def main(kernel: str, ms) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("b8_phase_profile: no CUDA device")
     dev = torch.device("cuda")
-    profiled = cuda_lib.build_variant("mx_matmul_fp6q", "-DB8_PHASE_PROFILE")
+    src, flag, decode_name, formats = KERNELS[kernel]
+    phases = ("wgmma start", "wgmma wait", decode_name, "stage wait", "fetch", "split add + rest")
+    profiled = cuda_lib.build_variant(src, flag)
     timer, gen = chip_smoke.Timer(dev), torch.Generator(dev).manual_seed(0)
     print(chip_smoke.card_line(), flush=True)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    elem = "float6_e3m2"
     for label, (K, N) in SHAPES.items():
         w = (torch.randn(N, K, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
-        q = MXTensor.to_mx(w, elem).T.to_fp6_quarters()
-        for M in ms:
-            x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
-            out = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
-            plan = kf.plan_fp6q(M, N, K, sms)
+        for elem, (layout, fn, plan_of) in formats.items():
+            q = layout(MXTensor.to_mx(w, elem).T)
+            for M in ms:
+                x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+                out = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+                plan = plan_of(M, N, K, sms) if kernel == "b8" else plan_of(M, N, K, sms, elem)
+                # B8's launch takes the element code; K3's function names its format.
+                elem_arg = (cuda_lib.ELEM_CODES[elem],) if kernel == "b8" else ()
 
-            def launch(lib, ws, walk):
-                rc = lib.mx_matmul_fp6q_launch(x.data_ptr(), q.data.data_ptr(), q.scale_e8m0.data_ptr(),
-                                               out.data_ptr(), ws.data_ptr(), M, N, K, cuda_lib.ELEM_CODES[elem],
-                                               plan.splits, walk, torch.cuda.current_stream().cuda_stream)
-                if rc:
-                    raise RuntimeError(f"launch failed: cudaError {rc}")
+                def launch(lib, ws, walk):
+                    rc = getattr(lib, fn)(x.data_ptr(), q.data.data_ptr(), q.scale_e8m0.data_ptr(), out.data_ptr(),
+                                          ws.data_ptr(), M, N, K, *elem_arg, plan.splits, walk,
+                                          torch.cuda.current_stream().cuda_stream)
+                    if rc:
+                        raise RuntimeError(f"launch failed: cudaError {rc}")
 
-            counters = torch.zeros(16, dtype=torch.int64, device=dev)
-            launch(profiled, counters, 1)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            launch(profiled, counters, 1)
-            end.record()
-            torch.cuda.synchronize()
-            ms_ = start.elapsed_time(end)
-            counters.zero_()
-            launch(profiled, counters, 1)
-            v = counters.tolist()
-            for who, o in (("warpgroup 0", 0), ("warpgroup 1", 8)):
-                stages = max(v[o + 7], 1)
-                parts = ", ".join(f"{name} {v[o + i] / stages:.0f}" for i, name in enumerate(PHASES))
-                print(f"{label} {elem} M={M} N={N} K={K}: {ms_:.4f} ms (instrumented); {who}: "
-                      f"{v[o + 6] / stages:.0f} cycles per K stage: {parts}", flush=True)
-            ws = torch.empty((plan.splits, M, N) if plan.splits > 1 and not plan.walk else (1,),
-                             dtype=torch.float32, device=dev)
-            kernel_ms = timer(lambda: launch(cuda_lib.lib("mx_matmul_fp6q"), ws, int(plan.walk)))
-            print(f"{label} {elem} M={M}: the kernel {kernel_ms:.4f} ms ({plan.splits} splits, walk {plan.walk})",
-                  flush=True)
+                counters = torch.zeros(16, dtype=torch.int64, device=dev)
+                launch(profiled, counters, 1)
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                launch(profiled, counters, 1)
+                end.record()
+                torch.cuda.synchronize()
+                ms_ = start.elapsed_time(end)
+                counters.zero_()
+                launch(profiled, counters, 1)
+                v = counters.tolist()
+                for who, o in (("warpgroup 0", 0), ("warpgroup 1", 8)):
+                    stages = max(v[o + 7], 1)
+                    parts = ", ".join(f"{name} {v[o + i] / stages:.0f}" for i, name in enumerate(phases))
+                    print(f"{label} {elem} M={M} N={N} K={K}: {ms_:.4f} ms (instrumented); {who}: "
+                          f"{v[o + 6] / stages:.0f} cycles per K stage: {parts}", flush=True)
+                ws = torch.empty((plan.splits, M, N) if plan.splits > 1 and not plan.walk else (1,),
+                                 dtype=torch.float32, device=dev)
+                kernel_ms = timer(lambda: launch(cuda_lib.lib(src), ws, int(plan.walk)))
+                print(f"{label} {elem} M={M}: the kernel {kernel_ms:.4f} ms ({plan.splits} splits, walk {plan.walk})",
+                      flush=True)
 
 
 if __name__ == "__main__":
-    main([int(a) for a in sys.argv[1:]] or [2048])
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="b8")
+    ap.add_argument("ms", type=int, nargs="*", default=[2048])
+    args = ap.parse_args()
+    main(args.kernel, args.ms)
