@@ -28,7 +28,11 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    latent caches at the Moonlight path's decode, admission and prefill
    shapes and bench.py's MLA decode shape abs <= 2e-2, and over the int8
    cache against B13 bf16 over the dequantized latent; B14 over the int8
-   d-major latent abs <= 2e-2 and SQNR > 30 dB against exact attention; B7
+   d-major latent abs <= 2e-2 and SQNR > 30 dB against exact attention; the
+   per-row quantize kernel bit for bit over all 2^16 bf16 patterns as rows
+   of 512 and 64 in int8, fp8 and both fp6 formats, in both output modes, and
+   at B14's query and the d-major latent writes of the Moonlight path, with
+   clamped starts; B7
    at the shared-expert down shape rel <= 1e-2, unfused and with fp8 / int8
    act fq; the router's f32 mode bit for bit at E = 64 and 256; K4 over fp6
    caches abs <= 2e-2), then
@@ -64,8 +68,10 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    B13 taking V from the rope key, B7 with its nibbles swapped, the
    correction bias in the weights, routed_scaling_factor dropped, the shared
    experts dropped, a routing flip above 5e-2), the fp4 seq latent, the bf16
-   ``MLACache`` and the int8 d-major latent with the all-int8 flag (B14),
-   the kernels under the plain path's expert choices (``NoauxRouteTape``);
+   ``MLACache`` and the int8 d-major latent with the all-int8 flag (B14 and
+   the per-row quantize kernel, with a planted fault: the latent written one
+   position late), the kernels under the plain path's expert choices
+   (``NoauxRouteTape``);
 4. the ``generate`` path: Llama-3-8B's width (8 of its 32 layers by default)
    with MXFP4 weights, MXFP8
    activations and an fp8 KV cache, built layer by layer from a seed,
@@ -115,8 +121,10 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    seq latent cache (B13): ``generate`` at batch 1 and 32, the 48-request
    engine stream with every check of phase 5, then ``generate`` at batch 32
    over the int8 d-major latent with ``TORCHMX_ATTN_INT8_DOT=1`` (B14 at
-   every decode step); every decode step must launch each kernel as often
-   as the model's structure says.  Last, the engine against the plain path
+   every decode step, the per-row quantize kernel at every latent write and
+   B14's query, the plain quantizer raising if it meets a CUDA tensor);
+   every decode step must launch each kernel as often as the model's
+   structure says.  Last, the engine against the plain path
    on a 4-layer Llama, a 2-layer Mixtral and a 4-layer Moonlight, the plain
    runs replaying the kernel runs' expert choices.
 
@@ -1351,7 +1359,8 @@ def f64_plain_attention():
 # the kernel path only (under plain_path() the wrapper is left alone).
 PLANTED_FAULTS = ("K4 causal mask one position late", "K4 kv_len one short",
                   "K3 activation fq skipped", "K3 fp4 halves swapped",
-                  "K3 reads the codes of stage t+1 with the scales of stage t")
+                  "K3 reads the codes of stage t+1 with the scales of stage t",
+                  "K2 shared by q/k/v and gate/up skipped")
 # The same for the int8 cache, whose decode steps run K5.
 PLANTED_FAULTS_INT8 = ("K5 kv_len one short", "K5 V scale of chunk c taken from chunk c+1",
                        "K4 kv_len one short")
@@ -1372,6 +1381,7 @@ PLANTED_FAULTS_FORMATS = {
 
 @contextlib.contextmanager
 def planted_fault(name):
+    from torchmx_tpu_torch.layers import mx_llama_attention
     from torchmx_tpu_torch.ops import cuda_attention as ca
     from torchmx_tpu_torch.ops import cuda_matmul as cm
     from torchmx_tpu_torch.ops import cuda_matmul_formats as kf
@@ -1410,6 +1420,13 @@ def planted_fault(name):
                     q = planes.shape[0] // 3
                     planes = torch.cat([planes[:q], planes[2 * q:], planes[q:2 * q]])
             return orig(x, planes, sw, elem, act_fq)
+    elif name.startswith("K2 shared"):
+        mod, attr = mx_llama_attention, "shared_activation_fq"
+        orig = mx_llama_attention.shared_activation_fq
+
+        def faulty(x, *linears):  # the layers' projections get x unquantized
+            x_fq = orig(x, *linears)
+            return x.to(torch.bfloat16).contiguous() if x_fq is not None and on_cuda(x) else x_fq
     elif name.startswith("K3-fp8"):
         mod, attr = cm, "mx_matmul_fp8_halves"
         orig = cm.mx_matmul_fp8_halves
@@ -1851,6 +1868,7 @@ KERNEL_OF_DEVICE_NAME = (  # substring of the CUDA function name -> kernel
     ("attention_dmajor_kernel", "mx_cached_attention_dmajor"),
     ("matmul_fp4_halves_kernel", "mx_matmul_fp4_halves"),
     ("reduce_splits_kernel", "mx_matmul_fp4_halves"),
+    ("quantize_rows_kernel", "mx_quantize_rows"),
     ("fake_quantize_kernel", "mx_fake_quantize"),
     ("quantize_kernel", "mx_quantize"),
     ("attention_kernel", "mx_cached_attention"),
@@ -3053,9 +3071,10 @@ def check_mla_kernel(dev, timer, gen):
 def check_mla_int8dot_kernel(dev, timer, gen):
     """B14 over the int8 d-major latent against its plain version (abs <=
     2e-2) and against float64 attention over the dequantized cache (SQNR >
-    30 dB) at its decode shapes; timed (the kernel alone, and with its q
-    quantization by the plain quantizer) beside its plain version, SDPA and
-    the bound.  Returns (entry, rows)."""
+    30 dB) at its decode shapes; timed (the kernel alone, as the path calls
+    it with its q quantized by the per-row kernel, and with the q quantized
+    by the plain quantizer) beside its plain version, SDPA and the bound.
+    Returns (entry, rows)."""
     from torchmx_tpu_torch.ops import cuda_mla
 
     worst, rows = 0.0, []
@@ -3071,11 +3090,16 @@ def check_mla_int8dot_kernel(dev, timer, gen):
             raise AssertionError(f"B14 {label}: abs err {err}, SQNR {db} dB")
         t_b, by = bound(*_mla_work(c))
         lib, backend = _mla_library(c)
-        qlsc, qld = cuda_mla.quantize_q_rows(c["q_lat"], c["sm"])
-        qrsc, qrd = cuda_mla.quantize_q_rows(c["q_rot"], c["sm"])
-        codes = (qld, qlsc.contiguous(), qrd, qrsc.contiguous(), *c["cache"].buffers, c["q_off"], c["kv_len"])
+        codes = (*cuda_mla.quantize_q_rows(c["q_lat"], c["q_rot"], c["sm"]), *c["cache"].buffers, c["q_off"],
+                 c["kv_len"])
+
+        def with_plain_q():
+            q = cuda_mla.quantize_q_rows(c["q_lat"], c["q_rot"], c["sm"], plain=True)
+            return cuda_mla.mx_mla_attention_int8dot_codes(*q, *codes[4:])
+
         row = dict(case=label, ms=timer(lambda: cuda_mla.mx_mla_attention_int8dot_codes(*codes)),
                    ms_with_q_quantize=timer(lambda: cuda_mla.mx_mla_attention_int8dot(*args)),
+                   ms_with_plain_q_quantize=timer(with_plain_q),
                    plain_ms=timer(lambda: cuda_mla.mx_mla_attention_int8dot_plain(*args), reps=3),
                    library_ms=timer(lib, reps=5), library_backend=backend, bound_ms=t_b, bound_by=by, sqnr_db=db)
         log("B14 timing", json.dumps(row))
@@ -3085,6 +3109,78 @@ def check_mla_int8dot_kernel(dev, timer, gen):
     return dict(name="mx_mla_attention_int8dot", route="cuda", source="torchmx_tpu_torch/csrc/mx_mla_int8dot.cu",
                 replaces="torchmx_tpu/ops/pallas_mla.py:343",
                 shape="decode b=32 n=16 r=512 dr=64 L=1024 kv_len 1-1024, int8 d-major latent", max_abs_err=worst,
+                **{k: pick[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}), rows
+
+
+# (label, b, s or n, L, positions or None for B14's query): the per-row quantize kernel's calls on the
+# Moonlight int8 d-major path (B14's q pair at decode b=1 and 32, the latent write at decode b=32 over
+# the engine's 1024 positions with one slot clamped, an admission of 512 and generate's prefill of 32 x 64).
+ROWS_CASES = [("B14 q pair b=1 n=16", 1, 16, None, None), ("B14 q pair b=32 n=16", 32, 16, None, None),
+              ("latent write decode b=32 s=1 L=1024", 32, 1, 1024, [r - 1 for r in MLA_RAGGED[:-1]] + [1030]),
+              ("latent write admission b=1 s=512 L=1024", 1, 512, 1024, [600]),
+              ("latent write prefill b=32 s=64 L=256", 32, 64, 256, [0] * 32)]
+
+
+def check_quantize_rows_kernel(dev, timer, gen):
+    """The per-row quantize kernel (``mx_quantize_rows``) against its plain
+    version, bit for bit (codes, scales, the d-major buffers around the
+    written columns): over all 2^16 bf16 patterns as rows of 512 and of 64 in
+    the four formats it takes, in both output modes (the d-major one at
+    per-row starts, two of which clamp), and at every ROWS_CASES shape; timed
+    there beside its plain version and the bound.  Returns (entry, rows)."""
+    from torchmx_tpu_torch.models.deepseek import MXMLACache
+    from torchmx_tpu_torch.ops import cuda_quantize as cq
+
+    def compare(label, elem, x1, x2, sm=1.0, L=None, pos=None):
+        if L is None:
+            got, ref = cq.mx_quantize_rows(x1, x2, elem, sm), cq.mx_quantize_rows_plain(x1, x2, elem, sm)
+        else:
+            caches = [MXMLACache.create(x1.shape[0], L, x1.shape[2], x2.shape[2], elem, layout="dmajor", device=dev)
+                      for _ in range(2)]
+            cq.mx_quantize_rows(x1, x2, elem, out=caches[0].buffers, pos=pos)
+            cq.mx_quantize_rows_plain(x1, x2, elem, out=caches[1].buffers, pos=pos)
+            got, ref = caches[0].buffers, caches[1].buffers
+        bad = sum(int((g.view(torch.uint8) != r.view(torch.uint8)).sum()) for g, r in zip(got, ref))
+        log(f"mx_quantize_rows {elem} {label}: {bad} mismatching bytes")
+        if bad:
+            raise AssertionError(f"mx_quantize_rows {elem} {label}: differs from its plain version")
+
+    every = all_bf16_blocks(dev).reshape(-1)
+    x512 = every.repeat(8).reshape(1024, 512)  # a row: 512 neighbouring patterns, so its exponents vary
+    x64 = every.reshape(1024, 64)
+    starts = torch.tensor([0, 256, 300, -5], dtype=torch.int32, device=dev)  # 300 and -5 clamp to 256 and 0
+    for elem in cq.ROW_FORMATS:
+        compare("all bf16 patterns, rows of 512 and 64", elem, x512, x64)
+        compare("all bf16 patterns, d-major, starts 0 / 256 / 300 / -5 over L=512", elem,
+                x512.reshape(4, 256, 512), x64.reshape(4, 256, 64), L=512, pos=starts)
+    sm = 192 ** -0.5  # Moonlight's qk_head_dim
+    rows = []
+    for label, b, sn, L, pos in ROWS_CASES:
+        x1 = torch.randn(b, sn, 512, generator=gen, device=dev).to(torch.bfloat16)
+        x2 = torch.randn(b, sn, 64, generator=gen, device=dev).to(torch.bfloat16)
+        n = b * sn
+        if L is None:
+            compare(label, "int8", x1, x2, sm)
+            call = lambda: cq.mx_quantize_rows(x1, x2, "int8", sm)  # noqa: E731
+            plain = lambda: cq.mx_quantize_rows_plain(x1, x2, "int8", sm)  # noqa: E731
+            nbytes = n * (3 * 576 + 8)
+        else:
+            p = torch.tensor(pos, dtype=torch.int32, device=dev)
+            for elem in cq.ROW_FORMATS:
+                compare(label, elem, x1, x2, L=L, pos=p)
+            cache = MXMLACache.create(b, L, 512, 64, "int8", layout="dmajor", device=dev)
+            call = lambda: cq.mx_quantize_rows(x1, x2, "int8", out=cache.buffers, pos=p)  # noqa: E731
+            plain = lambda: cq.mx_quantize_rows_plain(x1, x2, "int8", out=cache.buffers, pos=p)  # noqa: E731
+            nbytes = n * (3 * 576 + 2) + 4 * b
+        t_b, by = bound(nbytes)
+        row = dict(case=label, ms=timer(call), plain_ms=timer(plain, reps=5), bound_ms=t_b, bound_by=by,
+                   library_ms=None)
+        log("mx_quantize_rows timing", json.dumps(row))
+        rows.append(row)
+    pick = next(r for r in rows if r["case"].startswith("latent write decode"))
+    return dict(name="mx_quantize_rows", route="cuda", source="torchmx_tpu_torch/csrc/mx_quantize.cu",
+                replaces="torchmx_tpu/models/deepseek.py:316",  # jnp quantize_mx at block = w (also pallas_mla.py:522)
+                shape="int8 latent write, decode b=32 s=1 L=1024, rows of 512 + 64", max_abs_err=0.0,
                 **{k: pick[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}), rows
 
 
@@ -3271,9 +3367,10 @@ def moonlight_launches_per_step(cfg, int8dot: bool = False) -> dict:
     layer gate / up / down on K3 (or B7 where K % 512 != 0); per MoE layer
     the router, B12 x 3, K2 on x_sorted and on the SwiGLU output, the shared
     experts' gate / up and down (K3 or B7); lm_head; the final norm; K2
-    before each K3 (one for a gate / up pair; B7 fuses its own); B13 and
-    K1 (the latent write) per layer, or B14 and no K1 (the d-major latent's
-    per-position quantizer is the plain one) with the int8-dot flag."""
+    before each K3 (one for the first query projection and kv_a_proj, one
+    for a gate / up pair; B7 fuses its own); B13 and K1 (the latent write)
+    per layer, or with the int8-dot flag B14 and the per-row quantize kernel
+    twice (the d-major latent write and B14's query)."""
     layers, dense = cfg.num_hidden_layers, min(cfg.first_k_dense_replace, cfg.num_hidden_layers)
     moe = layers - dense
     c = collections.Counter()
@@ -3288,13 +3385,10 @@ def moonlight_launches_per_step(cfg, int8dot: bool = False) -> dict:
             c["mx_matmul_fp4_pair"] += n
 
     h, n_heads = cfg.hidden_size, cfg.num_attention_heads
+    linear(h, 2 * layers, k2=layers)  # q_proj (or q_a_proj) and kv_a_proj_with_mqa share one K2
     if cfg.q_lora_rank:
-        linear(h, layers)
         linear(cfg.q_lora_rank, layers)
         c["mx_rmsnorm"] += layers
-    else:
-        linear(h, layers)
-    linear(h, layers)  # kv_a_proj_with_mqa
     linear(n_heads * cfg.v_head_dim, layers)  # o_proj
     linear(h, 2 * dense, k2=dense)  # gate / up share one K2
     linear(cfg.intermediate_size, dense)
@@ -3305,7 +3399,7 @@ def moonlight_launches_per_step(cfg, int8dot: bool = False) -> dict:
     c["mx_rmsnorm"] += 3 * layers + 1
     c.update(mx_router_logits=moe, mx_grouped_matmul=3 * moe, mx_fake_quantize=2 * moe)
     if int8dot:
-        c["mx_mla_attention_int8dot"] += layers
+        c.update(mx_mla_attention_int8dot=layers, mx_quantize_rows=2 * layers)
     else:
         c.update(mx_mla_attention=layers, mx_quantize=layers)
     return dict(c)
@@ -3315,17 +3409,18 @@ DEEPSEEK_FAULTS = ("B13 reads the next position's scale", "B13 takes V from the 
                    "B7 with its nibbles swapped", "the correction bias added to the weights, not the choice",
                    "routed_scaling_factor dropped", "the shared experts dropped",
                    "an expert choice flipped at a gap above 5e-2")
+DEEPSEEK_FAULTS_DMAJOR = ("mx_quantize_rows writes the latent one position late",)
 # The DeepSeek model checks: name -> (cache format or None for the bf16 MLACache, layout, int8-dot flag, faults).
 DEEPSEEK_CHECKS = {"Moonlight int8 seq latent": ("int8", "seq", False, DEEPSEEK_FAULTS),
                    "Moonlight fp4 seq latent": ("float4_e2m1", "seq", False, ()),
                    "Moonlight bf16 MLACache": (None, "seq", False, ()),
-                   "Moonlight int8 d-major int8dot": ("int8", "dmajor", True, ())}
+                   "Moonlight int8 d-major int8dot": ("int8", "dmajor", True, DEEPSEEK_FAULTS_DMAJOR)}
 
 
 @contextlib.contextmanager
 def deepseek_fault(name):
-    """A wrong B13, B7, router or MoE, on the kernel path only (under
-    ``plain_path()`` the original runs)."""
+    """A wrong B13, B7, per-row quantize kernel, router or MoE, on the
+    kernel path only (under ``plain_path()`` the original runs)."""
     import dataclasses
 
     from torchmx_tpu_torch.models import deepseek
@@ -3345,6 +3440,14 @@ def deepseek_fault(name):
                 else:
                     v_from_rot = True
             return orig(ql, qr, ld, ls, rd, rs, q_off, kv_len, sm, elem, n, v_from_rot)
+    elif name.startswith("mx_quantize_rows"):
+        mod, attr = deepseek, "mx_quantize_rows"
+        orig = deepseek.mx_quantize_rows
+
+        def faulty(x1, x2, elem, sm_scale=1.0, out=None, pos=None):
+            if on_cuda(x1) and out is not None:
+                pos = pos + 1  # the kernel clamps the start to L - s
+            return orig(x1, x2, elem, sm_scale, out, pos)
     elif name.startswith("B7"):
         mod, attr = kf, "mx_matmul_fp4_pair"
         orig = kf.mx_matmul_fp4_pair
@@ -3400,7 +3503,8 @@ def model_check_deepseek(dev, card, checks=tuple(DEEPSEEK_CHECKS), n_tokens: int
     the seven planted faults of DEEPSEEK_FAULTS, each of which must fail a
     gate), the fp4 seq latent (B13-fp4), the bf16 ``MLACache`` (B13-bf16) and
     the int8 d-major latent with the all-int8 flag (B14 at decode, JAX's
-    eager route at prefill)."""
+    eager route at prefill, the per-row quantize kernel at every latent write
+    and B14's query; one planted fault, DEEPSEEK_FAULTS_DMAJOR)."""
     model = build_moonlight(dev, card, 2, seed=1, tied_router=True)
     prompt = torch.randint(0, MOONLIGHT_16B["vocab_size"], (2, 64), generator=torch.Generator(dev).manual_seed(2),
                            device=dev)
@@ -3424,14 +3528,38 @@ def model_check_deepseek(dev, card, checks=tuple(DEEPSEEK_CHECKS), n_tokens: int
     return all_readings
 
 
+@contextlib.contextmanager
+def no_plain_quantizer_on_the_card():
+    """Within this block the plain quantizer raises on a CUDA tensor: the
+    int8 d-major path's latent writes and B14's query must go through the
+    per-row quantize kernel."""
+    from torchmx_tpu_torch import mx_array
+    from torchmx_tpu_torch.ops import cuda_quantize
+
+    orig = mx_array.quantize_mx_plain
+
+    def guarded(data_hp, *a, **k):
+        if data_hp.is_cuda:
+            raise AssertionError(f"the plain quantizer ran on a CUDA tensor {tuple(data_hp.shape)}")
+        return orig(data_hp, *a, **k)
+
+    mx_array.quantize_mx_plain = cuda_quantize.quantize_mx_plain = guarded
+    try:
+        yield
+    finally:
+        mx_array.quantize_mx_plain = cuda_quantize.quantize_mx_plain = orig
+
+
 def run_moonlight(dev, card, layers: int) -> tuple:
     """The Moonlight-16B-A3B main paths at full width and ``layers`` deep (27
     unless cut), MXFP4 weights (grouped experts on int8-domain codes), MXFP8
     activations, the f32 router: ``generate`` at b=1 and b=32 over the int8
     seq latent cache, the 48-request engine stream with all its checks, and
     ``generate`` at b=32 over the int8 d-major latent with the all-int8 flag
-    (B14 at every decode step).  Every decode step must launch each kernel
-    as often as ``moonlight_launches_per_step`` says.  Returns (launches by
+    (B14 at every decode step, the per-row quantize kernel at every latent
+    write and B14's query, the plain quantizer raising on a CUDA tensor).
+    Every decode step must launch each kernel as often as
+    ``moonlight_launches_per_step`` says.  Returns (launches by
     path, launches per decode step by path, results)."""
     model = build_moonlight(dev, card, layers)
     paths, per_step, results = {}, {}, {"build_seconds": model.build_seconds}
@@ -3447,7 +3575,7 @@ def run_moonlight(dev, card, layers: int) -> tuple:
     results["engine"] = run_engine(model, dev, card, "int8", weights="moonlight")
     paths["engine_moonlight"] = results["engine"]["launches"]
     per_step["engine_moonlight"] = results["engine"]["launches_per_decode_step"]
-    with kv_env(*CACHES["int8 d-major int8dot"][1:]):
+    with kv_env(*CACHES["int8 d-major int8dot"][1:]), no_plain_quantizer_on_the_card():
         paths["generate_moonlight_int8dot"], res = run_slice(model, dev, card, "int8 d-major int8dot", batches=(32,),
                                                              weights="Moonlight fp4 grouped")
     want_b14 = moonlight_launches_per_step(model.config, int8dot=True)
@@ -3497,10 +3625,11 @@ def main() -> int:
     k4["max_abs_err"] = max(k4["max_abs_err"], k4_fp6_err)
     b13, b13_rows = check_mla_kernel(dev, timer, gen)
     b14, b14_rows = check_mla_int8dot_kernel(dev, timer, gen)
+    rows_q, rows_q_rows = check_quantize_rows_kernel(dev, timer, gen)
     b7, b7_rows = check_fp4_pair_kernel(dev, timer, gen)
     router_f32_rows = check_router_f32(dev, timer, gen)
     router["f32_mode"] = next(r for r in router_f32_rows if r["T"] == 32 and r["shape"].startswith("Moonlight"))
-    kernels += [k3, k4, k5, k6, k7, *format_entries, rmsnorm, b12, router, b7, b13, b14]
+    kernels += [k3, k4, k5, k6, k7, *format_entries, rmsnorm, b12, router, b7, b13, b14, rows_q]
     cache_write = check_cache_write(dev, timer, gen)
     row_invariance = check_row_invariance(dev)
     row_invariance["moe"] = check_moe_row_invariance(dev)
@@ -3564,7 +3693,7 @@ def main() -> int:
                  "mx_fake_quantize", "mx_rmsnorm", "mx_router_logits"}
     on_path.update(generate_moonlight=moonlight, engine_moonlight=moonlight,
                    generate_moonlight_int8dot=(moonlight - {"mx_mla_attention", "mx_quantize"})
-                   | {"mx_mla_attention_int8dot"})
+                   | {"mx_mla_attention_int8dot", "mx_quantize_rows"})
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -3582,7 +3711,8 @@ def main() -> int:
                        slice_fp4_dmajor=slice_fp4, formats=format_results, engine_vs_plain=plain_results,
                        grouped_matmul=b12_rows, router=router_rows, mixtral=mixtral_results,
                        engine_vs_plain_mixtral=plain_results_mixtral, attention_k4_fp6=k4_fp6_rows,
-                       mla=b13_rows, mla_int8dot=b14_rows, matmul_fp4_pair=b7_rows, router_f32=router_f32_rows,
+                       mla=b13_rows, mla_int8dot=b14_rows, quantize_rows=rows_q_rows, matmul_fp4_pair=b7_rows,
+                       router_f32=router_f32_rows,
                        moonlight=moonlight_results, engine_vs_plain_deepseek=plain_results_deepseek,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log("kernels: " + ", ".join(f"{k['name']} ok ({k['launches']} launches)" for k in kernels) + f" [{card}]")

@@ -272,8 +272,8 @@ def test_mla_int8dot_plain_matches_pallas_kernel():
     assert sqnr > 30, float(sqnr)
     # The q codes and scales are JAX's, bit for bit.
     js, jd = jquantize_mx(j_bf16(ql).reshape(B, N_HEADS, r), "int8", r)
-    ts, td = cuda_mla.quantize_rows(t_bf16(ql).reshape(B, N_HEADS, r), "int8")
-    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    td, tsc = cuda_mla.quantize_q_rows(t_bf16(ql), t_bf16(qr), sm)[:2]
+    np.testing.assert_array_equal(tsc.numpy(), (np.asarray(js, np.int32)[..., 0] << 23).view(np.float32) * np.float32(sm))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
 
 

@@ -1,7 +1,12 @@
-// K1 mx_quantize and K2 mx_fake_quantize: one warp per 32-element MX block.
+// K1 mx_quantize and K2 mx_fake_quantize: one warp per 32-element MX block;
+// mx_quantize_rows: one warp per row, one exponent a row.
 //
-// Replace torchmx_tpu/ops/pallas_quantize.py::_quantize_kernel (:137) and
-// ::_fake_quantize_kernel / _fake_quantize_lane_kernel (:217, :225).
+// K1 and K2 replace torchmx_tpu/ops/pallas_quantize.py::_quantize_kernel
+// (:137) and ::_fake_quantize_kernel / _fake_quantize_lane_kernel (:217,
+// :225).  mx_quantize_rows replaces no TPU kernel: JAX quantizes MLA's
+// per-row operands (block = the row's width) as jnp ops under XLA
+// (torchmx_tpu/ops/pallas_mla.py:522-527, models/deepseek.py:316-321); it
+// is a repair of the port, which ran them as dozens of small PyTorch kernels.
 //
 // What bounds them on an H100: bytes.  Each element is read once (2 bytes)
 // and written once (1 byte of codes or 2 bytes of bf16), against a few dozen
@@ -68,6 +73,96 @@ cudaError_t launch_fq(const void* x, void* out, long long nblocks, cudaStream_t 
   return cudaGetLastError();
 }
 
+// mx_quantize_rows: MX quantization with one E8M0 exponent per row (block =
+// the row's width w, w % 32 == 0, w <= 1024), bit for bit
+// quantize_mx_plain(x, elem, w).  Each row holds a pair of inputs (widths w1
+// and w2: MLA's latent and rope key, or B14's q_lat and q_rot), so a call
+// site is one launch.  One warp a row: lane l keeps elements l, l + 32, ...
+// in registers (coalesced loads), the row's exponent max is one warp
+// reduction, each element is cast as K1 casts it.  Bytes and launches bound
+// it; there is nothing to tile.  Two outputs:
+//   row-major (B14's query): codes (rows, w) and f32 row scales
+//     pk(se) * sm_scale in one rounding;
+//   d-major (the latent cache write): row (b, t) of b x s new positions goes
+//     to column clamp(pos[b], 0, L - s) + t of codes (b, w, L) and scales
+//     (b, 1, L), as _write_rows clamps (models/deepseek.py).
+constexpr int kMaxRowLanes = 32;  // w / 32 elements a lane, w <= 1024
+
+template <int E>
+__device__ __forceinline__ int cast_code(int bits, int se) {
+  if (E == mx::kInt8) return mx::cast_int8(bits, se);
+  return mx::cast_hw_exact<E>(bits, se);
+}
+
+// Quantize the w values at x, one warp; hands (element index, code) to
+// `store` and returns the row's shared exponent.
+template <int E, typename Store>
+__device__ __forceinline__ int quantize_row(const uint16_t* __restrict__ x, int w, int lane, Store store) {
+  int bits[kMaxRowLanes];
+  int emax = 0;
+#pragma unroll
+  for (int i = 0; i < kMaxRowLanes; ++i) {
+    if (i * 32 < w) {
+      bits[i] = x[i * 32 + lane];
+      emax = max(emax, (bits[i] >> 7) & 0xFF);
+    }
+  }
+  emax = (int)__reduce_max_sync(0xffffffffu, (unsigned)emax);
+  int se = mx::block_scale(emax, mx::Elem<E>::max_pow2);
+#pragma unroll
+  for (int i = 0; i < kMaxRowLanes; ++i)
+    if (i * 32 < w) store(i * 32 + lane, cast_code<E>(bits[i], se));
+  return se;
+}
+
+struct RowPair {
+  const uint16_t* x;  // (rows, w) bf16 bits
+  uint8_t* codes;     // row-major (rows, w) or d-major (b, w, L)
+  void* scale;        // f32 (rows,) or uint8 (b, 1, L)
+  int w;
+};
+
+template <int E, bool kDmajor>
+__device__ __forceinline__ void quantize_row_to(const RowPair& p, long long row, long long bi, long long col, int L,
+                                                float sm_scale, int lane) {
+  const uint16_t* x = p.x + row * p.w;
+  if (kDmajor) {
+    uint8_t* base = p.codes + bi * p.w * L + col;
+    int se = quantize_row<E>(x, p.w, lane, [&](int e, int c) { base[(long long)e * L] = (uint8_t)c; });
+    if (lane == 0) ((uint8_t*)p.scale)[bi * L + col] = (uint8_t)se;
+  } else {
+    uint8_t* base = p.codes + row * p.w;
+    int se = quantize_row<E>(x, p.w, lane, [&](int e, int c) { base[e] = (uint8_t)c; });
+    if (lane == 0) ((float*)p.scale)[row] = __fmul_rn(mx::pow2_scale(se), sm_scale);
+  }
+}
+
+template <int E, bool kDmajor>
+__global__ void quantize_rows_kernel(RowPair a, RowPair b, const int* __restrict__ pos, long long rows, int s,
+                                     int L, float sm_scale) {
+  long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (row >= rows) return;  // whole warps exit together
+  int lane = threadIdx.x % 32;
+  long long bi = 0, col = 0;
+  if (kDmajor) {
+    bi = row / s;
+    col = min(max(pos[bi], 0), L - s) + row % s;
+  }
+  quantize_row_to<E, kDmajor>(a, row, bi, col, L, sm_scale, lane);
+  quantize_row_to<E, kDmajor>(b, row, bi, col, L, sm_scale, lane);
+}
+
+template <int E>
+cudaError_t launch_rows(RowPair a, RowPair b, const int* pos, long long rows, int s, int L, float sm_scale,
+                        bool dmajor, cudaStream_t stream) {
+  unsigned grid = (unsigned)((rows + kWarps - 1) / kWarps);
+  if (dmajor)
+    quantize_rows_kernel<E, true><<<grid, kWarps * 32, 0, stream>>>(a, b, pos, rows, s, L, sm_scale);
+  else
+    quantize_rows_kernel<E, false><<<grid, kWarps * 32, 0, stream>>>(a, b, pos, rows, s, L, sm_scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int mx_quantize_launch(const void* x, void* scale, void* codes, long long rows, int K,
@@ -98,4 +193,27 @@ extern "C" int mx_fake_quantize_launch(const void* x, void* out, long long rows,
     case mx::kInt8: return launch_fq<mx::kInt8>(x, out, nblocks, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// rows = b * s rows of the pair (x1: w1 wide, x2: w2 wide); dmajor = 0:
+// codes (rows, w) and f32 scales (rows,), pos, s and L unread; dmajor = 1:
+// codes (b, w, L) and uint8 scales (b, 1, L) at int32 positions pos (b,).
+extern "C" int mx_quantize_rows_launch(const void* x1, const void* x2, void* codes1, void* scale1, void* codes2,
+                                       void* scale2, const void* pos, long long rows, int s, int L, int w1, int w2,
+                                       int elem, float sm_scale, int dmajor, void* stream) {
+  if (w1 % 32 || w2 % 32 || w1 <= 0 || w2 <= 0 || w1 > 32 * kMaxRowLanes || w2 > 32 * kMaxRowLanes)
+    return (int)cudaErrorInvalidValue;
+  if (dmajor && (s <= 0 || s > L || rows % s)) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  RowPair a{(const uint16_t*)x1, (uint8_t*)codes1, scale1, w1};
+  RowPair b{(const uint16_t*)x2, (uint8_t*)codes2, scale2, w2};
+  const int* p = (const int*)pos;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (elem) {
+    case mx::kFp8E4M3: return launch_rows<mx::kFp8E4M3>(a, b, p, rows, s, L, sm_scale, dmajor, st);
+    case mx::kFp6E3M2: return launch_rows<mx::kFp6E3M2>(a, b, p, rows, s, L, sm_scale, dmajor, st);
+    case mx::kFp6E2M3: return launch_rows<mx::kFp6E2M3>(a, b, p, rows, s, L, sm_scale, dmajor, st);
+    case mx::kInt8: return launch_rows<mx::kInt8>(a, b, p, rows, s, L, sm_scale, dmajor, st);
+  }
+  return (int)cudaErrorInvalidValue;  // fp4 rows are not taken (fp4 MLA caches stay seq)
 }

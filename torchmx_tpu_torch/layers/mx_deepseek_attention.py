@@ -3,8 +3,12 @@ mx_deepseek_attention.py``).
 
 * :class:`MXInferenceMLAAttention`: every projection becomes an
   ``MXInferenceLinear``; the latent-space norms stay high precision.  The
-  absorbed products contract the **dequantized** ``kv_b_proj`` weight, the
-  values the MX matmul would see; JAX dequantizes it at every call, the
+  first query projection (``q_proj``, or ``q_a_proj`` with a q LoRA rank)
+  and ``kv_a_proj_with_mqa`` read the same x, fake-quantized once for both
+  where their matmuls take K2 first (``shared_activation_fq``, as the Llama
+  layers share it among q/k/v), bit for bit each linear quantizing its own.
+  The absorbed products contract the **dequantized** ``kv_b_proj`` weight,
+  the values the MX matmul would see; JAX dequantizes it at every call, the
   port once, when the layer is built (the same values).
 * :class:`MXInferenceDeepseekV3MoE` (per-expert) and
   :class:`MXInferenceDeepseekV3MoEGrouped` (stacked codes, B12): the Mixtral
@@ -22,7 +26,7 @@ from torch import nn
 
 from ..config import QAttentionConfig, QLinearConfig
 from ..models.deepseek import DeepseekV3MoE, MLAAttention
-from .linear import MXInferenceLinear
+from .linear import MXInferenceLinear, shared_activation_fq
 from .mx_llama_attention import MXInferenceLlamaMLP
 from .mx_mixtral_moe import MXInferenceMixtralMoeBlock, MXInferenceMixtralMoeBlockGrouped, _RouterAlias
 
@@ -55,6 +59,16 @@ class MXInferenceMLAAttention(MLAAttention):
         self.register_buffer("w_kb", w[:, :dn].contiguous(), persistent=False)
         self.register_buffer("w_vb", w[:, dn:].contiguous(), persistent=False)
         return self
+
+    def _project_inputs(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        first = self.q_a_proj if self.config.q_lora_rank else self.q_proj
+        x_fq = shared_activation_fq(x, first, self.kv_a_proj_with_mqa)
+        if x_fq is None:
+            return super()._project_inputs(x)
+        q = first.apply_prequantized(x_fq)
+        if self.config.q_lora_rank:
+            q = self.q_b_proj(self.q_a_layernorm(q))
+        return q, self.kv_a_proj_with_mqa.apply_prequantized(x_fq)
 
     def _kv_b_halves(self) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.w_kb, self.w_vb

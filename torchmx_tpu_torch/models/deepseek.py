@@ -36,7 +36,8 @@ from .. import env_variables as env
 from ..layers.linear import Linear
 from ..mx_array import dequantize_mx, quantize_mx
 from ..ops import cuda_moe
-from ..ops.cuda_mla import mla_cached_attention, quantize_rows
+from ..ops.cuda_mla import mla_cached_attention
+from ..ops.cuda_quantize import mx_quantize_rows
 from ..packing import fp4_halves_to_pairs, fp4_pairs_to_halves
 from .llama import (
     CachePosition,
@@ -87,12 +88,11 @@ class DeepseekV3Config(LlamaConfig):
 # -- latent caches -----------------------------------------------------------------------------
 
 
-def _write_rows(buf: torch.Tensor, new: torch.Tensor, pos: CachePosition, seq_dim: int) -> None:
-    """Store ``new`` into ``buf`` at sequence positions ``[pos, pos + s)``
-    along ``seq_dim`` (1: ``(b, L, x)``; 2: ``(b, x, L)``), in place.  A
-    per-row start past the buffer is clamped to ``L - s``, as XLA clamps
-    ``dynamic_update_slice``."""
-    s, L = new.shape[seq_dim], buf.shape[seq_dim]
+def _write_rows(buf: torch.Tensor, new: torch.Tensor, pos: CachePosition) -> None:
+    """Store ``new (b, s, x)`` into ``buf (b, L, x)`` at sequence positions
+    ``[pos, pos + s)``, in place.  A per-row start past the buffer is clamped
+    to ``L - s``, as XLA clamps ``dynamic_update_slice``."""
+    s, L = new.shape[1], buf.shape[1]
     if isinstance(pos, torch.Tensor):
         b = buf.shape[0]
         if pos.shape != (b,) or pos.device != buf.device:
@@ -102,14 +102,15 @@ def _write_rows(buf: torch.Tensor, new: torch.Tensor, pos: CachePosition, seq_di
             raise ValueError(f"cache of length {L} cannot take {s} positions")
         rows = torch.arange(b, device=buf.device)[:, None]
         cols = pos.long().clamp(0, L - s)[:, None] + torch.arange(s, device=buf.device)
-        if seq_dim == 1:
-            buf[rows, cols] = new.to(buf.dtype)
-        else:  # buf.transpose(1, 2)[rows, cols] is (b, s, x)
-            buf.transpose(1, 2)[rows, cols] = new.transpose(1, 2).to(buf.dtype)
+        buf[rows, cols] = new.to(buf.dtype)
         return
+    _check_int_position(pos, s, L)
+    buf.narrow(1, pos, s).copy_(new)
+
+
+def _check_int_position(pos: int, s: int, L: int) -> None:
     if pos + s > L:
         raise ValueError(f"cache of length {L} cannot take positions up to {pos + s}")
-    buf.narrow(seq_dim, pos, s).copy_(new)
 
 
 class MLACache:
@@ -137,8 +138,8 @@ class MLACache:
         return self.latent.shape[1]
 
     def write(self, latent_new: torch.Tensor, k_rot_new: torch.Tensor, pos: CachePosition) -> None:
-        _write_rows(self.latent, latent_new.to(torch.bfloat16), pos, 1)
-        _write_rows(self.k_rot, k_rot_new.to(torch.bfloat16), pos, 1)
+        _write_rows(self.latent, latent_new.to(torch.bfloat16), pos)
+        _write_rows(self.k_rot, k_rot_new.to(torch.bfloat16), pos)
 
     def read(self) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.latent, self.k_rot
@@ -154,7 +155,9 @@ class MXMLACache:
       card) over ``[latent | k_rot]`` per write;
     * ``"dmajor"``: codes ``(b, w, L)`` and per-position scales ``(b, 1, L)``
       (one exponent over a position's whole latent, and one over its rope
-      key), the layout of B14; quantized by the plain quantizer (block = w).
+      key), the layout of B14; one launch of the per-row quantize kernel
+      (``ops/cuda_quantize.mx_quantize_rows``, block = w) per write on the
+      card, which stores the codes in place.
 
     ``layout=None`` takes ``TORCHMX_KV_LAYOUT``, except that an fp4 cache
     stays seq; fp4 d-major is refused.  ``write`` updates in place."""
@@ -222,20 +225,21 @@ class MXMLACache:
         ``(b,)`` tensor on the cache's device)."""
         r = latent_new.shape[-1]
         if self.layout == "dmajor":
-            for new, data, scale in ((latent_new, self.lat_data, self.lat_scale),
-                                     (k_rot_new, self.rot_data, self.rot_scale)):
-                se, codes = quantize_rows(new, self.elem_dtype_name)
-                _write_rows(data, codes.transpose(1, 2), pos, 2)
-                _write_rows(scale, se.transpose(1, 2), pos, 2)
+            if not isinstance(pos, torch.Tensor):  # an int start: a device tensor, no synchronisation
+                b, s = latent_new.shape[:2]
+                _check_int_position(pos, s, self.max_len)
+                pos = torch.full((b,), pos, dtype=torch.int32, device=self.lat_data.device)
+            mx_quantize_rows(latent_new.to(torch.bfloat16), k_rot_new.to(torch.bfloat16), self.elem_dtype_name,
+                             out=self.buffers, pos=pos)
             return
         cat = torch.cat([latent_new.to(torch.bfloat16), k_rot_new.to(torch.bfloat16)], dim=-1).contiguous()
         s_all, d_all = quantize_mx(cat, self.elem_dtype_name, self.block_size)
         split = r // 2 if self.elem_dtype_name == "float4_e2m1" else r  # pair bytes split on pair boundaries
         nb = r // self.block_size
-        _write_rows(self.lat_data, self._pack(d_all[..., :split]), pos, 1)
-        _write_rows(self.rot_data, self._pack(d_all[..., split:]), pos, 1)
-        _write_rows(self.lat_scale, s_all[..., :nb], pos, 1)
-        _write_rows(self.rot_scale, s_all[..., nb:], pos, 1)
+        _write_rows(self.lat_data, self._pack(d_all[..., :split]), pos)
+        _write_rows(self.rot_data, self._pack(d_all[..., split:]), pos)
+        _write_rows(self.lat_scale, s_all[..., :nb], pos)
+        _write_rows(self.rot_scale, s_all[..., nb:], pos)
 
     def read(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The dequantized ``(latent (b, L, r), k_rot (b, L, dr))`` bf16."""
@@ -264,8 +268,9 @@ def absorb(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 class MLAAttention(nn.Module):
     """Multi-head latent attention (HF ``DeepseekV3Attention`` semantics), the
-    absorbed cached form.  ``_kv_b_halves`` is the seam the MX layer
-    overrides (the dequantized MX weight there)."""
+    absorbed cached form.  ``_project_inputs`` and ``_kv_b_halves`` are the
+    seams the MX layer overrides (one activation quantize for the two
+    projections of x there; the dequantized MX weight)."""
 
     def __init__(self, config: DeepseekV3Config, layer_idx: int = 0, device=None, generator=None):
         super().__init__()
@@ -288,10 +293,14 @@ class MLAAttention(nn.Module):
         self.o_proj = Linear(n * self.v_head_dim, h, use_bias=bias, **kw)
         self.scaling = self.qk_head_dim ** -0.5
 
-    def _project_q(self, x: torch.Tensor) -> torch.Tensor:
+    def _project_inputs(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The two projections of the layer's input: the query ``(b, s, n *
+        qk_head_dim)`` and ``kv_a_proj_with_mqa``'s ``(b, s, r + dr)``."""
         if self.config.q_lora_rank:
-            return self.q_b_proj(self.q_a_layernorm(self.q_a_proj(x)))
-        return self.q_proj(x)
+            q = self.q_b_proj(self.q_a_layernorm(self.q_a_proj(x)))
+        else:
+            q = self.q_proj(x)
+        return q, self.kv_a_proj_with_mqa(x)
 
     def _kv_b_halves(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """``kv_b_proj``'s K half ``(n, dn, r)`` and V half ``(n, dv, r)``."""
@@ -302,9 +311,9 @@ class MLAAttention(nn.Module):
     def forward(self, hidden, *, cos, sin, cache, cache_position: CachePosition):
         b, s, _ = hidden.shape
         n, dn, dr, r = self.num_heads, self.qk_nope_head_dim, self.qk_rope_head_dim, self.kv_lora_rank
-        q = self._project_q(hidden).view(b, s, n, self.qk_head_dim).transpose(1, 2)
+        q, ckv = self._project_inputs(hidden)
+        q = q.view(b, s, n, self.qk_head_dim).transpose(1, 2)
         q_pass, q_rot = q[..., :dn], q[..., dn:]
-        ckv = self.kv_a_proj_with_mqa(hidden)
         latent = self.kv_a_layernorm(ckv[..., :r])
         k_rot = ckv[..., r:].reshape(b, 1, s, dr)
         if self.config.rope_interleave:

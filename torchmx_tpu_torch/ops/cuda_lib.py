@@ -54,6 +54,9 @@ SIGNATURES = {
         "mx_quantize_launch": (_P, _P, _P, _L, _I, _I, _P),
         # x, out, rows, K, elem_code, stream
         "mx_fake_quantize_launch": (_P, _P, _L, _I, _I, _P),
+        # x1, x2, codes1, scale1, codes2, scale2, pos, rows, s, L, w1, w2, elem_code, sm_scale,
+        # dmajor, stream
+        "mx_quantize_rows_launch": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _I, _P),
     },
     "mx_matmul": {
         # x, w, scale, out, workspace, M, N, K, splits, walk, stream

@@ -25,25 +25,29 @@ block size other than 32, a cache length no tile divides):
 PyTorch ops on the tensors' device, and is counted in ``ROUTES["eager"]``.
 It is the reference design, not a fallback: a kernel that fails raises.
 
-The int8 quantization of B14's q (one scale per row) and the d-major cache
-write (one scale per position) use a block of the full width; K1 takes
-blocks of 32 only, as JAX's Pallas quantizer does, so both go to the plain
-quantizer (``quantize_rows``), on the card too, bit for bit.
+The int8 quantization of B14's query (one scale per row) uses a block of
+the row's width, which K1's blocks of 32 do not take (nor does JAX's Pallas
+quantizer: JAX runs it as jnp ops).  ``quantize_q_rows`` quantizes q_lat and
+q_rot in one launch of the per-row kernel (``ops/cuda_quantize.
+mx_quantize_rows``) on the card, by its plain version on the CPU, bit for
+bit; the d-major latent write goes through the same kernel
+(``models/deepseek.MXMLACache.write``).
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
 from .. import env_variables as env
-from ..mx_array import dequantize_mx, quantize_mx_plain
+from ..mx_array import dequantize_mx
 from ..packing import fp4_halves_to_pairs
 from . import cuda_lib
 from .backend import on_cuda
 from .cuda_attention import NEG_INF, IntOrTensor, _per_row, _pow2_scale
+from .cuda_quantize import mx_quantize_rows, mx_quantize_rows_plain
 
 MLA_TILE = 32  # KV positions per online-softmax step of B13 and B14 (kT in csrc/mx_mla*.cu)
 KERNEL_R, KERNEL_DR = 512, 64  # the latent rank and rope width the kernels take
@@ -54,13 +58,6 @@ MLA_FORMATS = ("bfloat16", "float8_e4m3", "float6_e3m2", "float6_e2m3", "int8", 
 #: how often each route of ``mla_cached_attention`` ran: "eager" counts JAX's
 #: dequantize-the-cache route (the kernels count in ``cuda_lib.LAUNCHES``).
 ROUTES: "collections.Counter[str]" = collections.Counter()
-
-
-def quantize_rows(x: torch.Tensor, elem_dtype_name: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MX-quantize ``x (..., w)`` bf16 with one shared exponent per row (block
-    = w): ``(scale (..., 1) uint8, codes (..., w))``, by the plain quantizer
-    on either device (K1 takes blocks of 32 only)."""
-    return quantize_mx_plain(x.to(torch.bfloat16).contiguous(), elem_dtype_name, x.shape[-1])
 
 
 # -- the tiling oracle (torchmx_tpu/ops/pallas_attention.py:863-883, pallas_mla.py:234-257) -----------
@@ -205,12 +202,15 @@ def mx_mla_attention(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_scale, q_o
 # -- B14 ------------------------------------------------------------------------------------------
 
 
-def quantize_q_rows(q: torch.Tensor, sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B14's query: ``q (b, n, 1, w)`` to int8 codes ``(b, n, w)`` with one
-    scale per row, as f32 ``(b, n)`` with ``sm_scale`` folded in."""
-    b, n, _, w = q.shape
-    se, codes = quantize_rows(q.reshape(b, n, w), "int8")
-    return _pow2_scale(se[..., 0]) * sm_scale, codes
+def quantize_q_rows(q_lat: torch.Tensor, q_rot: torch.Tensor, sm_scale: float, plain: bool = False):
+    """B14's query: ``q_lat (b, n, 1, r)`` and ``q_rot (b, n, 1, dr)`` to int8
+    codes ``(b, n, w)`` with one scale per row, as f32 ``(b, n)`` with
+    ``sm_scale`` folded in: ``(ql codes, ql scales, qr codes, qr scales)``,
+    by one launch of the per-row kernel on the card (``plain``: by its plain
+    version on either device)."""
+    b, n = q_lat.shape[:2]
+    quantize = mx_quantize_rows_plain if plain else mx_quantize_rows
+    return quantize(q_lat.reshape(b, n, -1), q_rot.reshape(b, n, -1), "int8", sm_scale)
 
 
 def _int8dot_check(q_lat, q_rot, lat_data, rot_data) -> None:
@@ -227,7 +227,7 @@ def mx_mla_attention_int8dot_plain(q_lat, q_rot, lat_data, lat_scale, rot_data, 
     depends on it): ``q_lat (b, n, 1, r)`` / ``q_rot (b, n, 1, dr)`` bf16 over
     the d-major int8 latent ``(b, r, L)`` / ``(b, dr, L)`` with per-position
     scales ``(b, 1, L)``.  With ql, qr the int8 rows and qlsc, qrsc their f32
-    scales times sm_scale (``quantize_q_rows``), pk(e) the float whose bits
+    scales times sm_scale (``quantize_q_rows`` by the plain quantizer), pk(e) the float whose bits
     are e << 23:
 
     * ``s = (dot(ql, lat_j) * qlsc) * pk(el_j) + (dot(qr, rot_j) * qrsc) *
@@ -244,8 +244,7 @@ def mx_mla_attention_int8dot_plain(q_lat, q_rot, lat_data, lat_scale, rot_data, 
     _int8dot_check(q_lat, q_rot, lat_data, rot_data)
     b, n, _, r = q_lat.shape
     L, dev, f64 = lat_data.shape[2], q_lat.device, torch.float64
-    qlsc, qld = quantize_q_rows(q_lat, sm_scale)
-    qrsc, qrd = quantize_q_rows(q_rot, sm_scale)
+    qld, qlsc, qrd, qrsc = quantize_q_rows(q_lat, q_rot, sm_scale, plain=True)
     qld, qrd = qld.to(f64), qrd.to(f64)
     q_off = _per_row(q_off, b, dev)
     kv_len = _per_row(kv_len, b, dev)
@@ -308,15 +307,14 @@ def mx_mla_attention_int8dot_codes(qld, qlsc, qrd, qrsc, lat_data, lat_scale, ro
 def mx_mla_attention_int8dot(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_scale, q_off, kv_len,
                              sm_scale: float) -> torch.Tensor:
     """B14: ``(b, n, 1, r)`` bf16 (see ``mx_mla_attention_int8dot_plain``).
-    CUDA tensors quantize q by ``quantize_q_rows`` and launch the kernel
+    CUDA tensors quantize q_lat and q_rot by one launch of the per-row
+    kernel (``quantize_q_rows``) and launch B14
     (``mx_mla_attention_int8dot_codes``)."""
     if not on_cuda(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_scale):
         return mx_mla_attention_int8dot_plain(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_scale, q_off,
                                               kv_len, sm_scale)
     _int8dot_check(q_lat, q_rot, lat_data, rot_data)
-    qlsc, qld = quantize_q_rows(q_lat, sm_scale)
-    qrsc, qrd = quantize_q_rows(q_rot, sm_scale)
-    return mx_mla_attention_int8dot_codes(qld, qlsc.contiguous(), qrd, qrsc.contiguous(), lat_data, lat_scale,
+    return mx_mla_attention_int8dot_codes(*quantize_q_rows(q_lat, q_rot, sm_scale), lat_data, lat_scale,
                                           rot_data, rot_scale, q_off, kv_len)
 
 

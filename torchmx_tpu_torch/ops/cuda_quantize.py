@@ -1,7 +1,7 @@
-"""K1 ``mx_quantize`` and K2 ``mx_fake_quantize``: CUDA kernels
-(``csrc/mx_quantize.cu``) and their plain PyTorch versions.
+"""K1 ``mx_quantize``, K2 ``mx_fake_quantize`` and ``mx_quantize_rows``: CUDA
+kernels (``csrc/mx_quantize.cu``) and their plain PyTorch versions.
 
-They replace ``torchmx_tpu/ops/pallas_quantize.py``'s ``_quantize_kernel``
+K1 and K2 replace ``torchmx_tpu/ops/pallas_quantize.py``'s ``_quantize_kernel``
 (bf16 -> E8M0 scale + hw-exact RNE codes) and ``_fake_quantize_kernel`` /
 ``_fake_quantize_lane_kernel`` (quantize-dequantize in one pass with the fp32
 magic-number RNE).  Both kernels are bit-exact to their plain versions over
@@ -10,11 +10,17 @@ every bf16 bit pattern (checked on the card by ``chip_smoke.py``).
 Fake-quantize contract: ``mx_fake_quantize(x) == dequantize_mx(quantize_mx(x))``
 bit for bit, including the flush of results below the fp32 normal range to a
 signed zero that ``dequantize_mx`` inherits from the reference.
+
+``mx_quantize_rows`` quantizes with one exponent per row (block = the row's
+width), which K1's blocks of 32 do not take: MLA's d-major latent write and
+B14's query (``ops/cuda_mla``, ``models/deepseek``).  JAX runs it as jnp ops
+(no Pallas kernel), so the kernel is a repair of the port, bit for bit
+``quantize_mx_plain(x, elem, w)``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -29,6 +35,7 @@ from ..mx_quantization import (
 )
 from . import cuda_lib
 from .backend import on_cuda
+from .cuda_attention import _pow2_scale
 
 BLOCK = 32
 
@@ -123,3 +130,93 @@ def mx_fake_quantize_kernel(
         x.data_ptr(), out.data_ptr(), x.numel() // K, K, cuda_lib.ELEM_CODES[elem_dtype_name],
     )
     return out
+
+
+ROW_FORMATS = ("float8_e4m3", "float6_e3m2", "float6_e2m3", "int8")  # the d-major caches' formats
+ROW_MAX_WIDTH = 1024  # 32 elements a lane of the kernel's warp
+
+
+def _check_rows(x1, x2, elem_dtype_name, out, pos) -> None:
+    if elem_dtype_name not in ROW_FORMATS:
+        raise ValueError(f"row quantization takes {ROW_FORMATS}, got {elem_dtype_name}")
+    if x1.shape[:-1] != x2.shape[:-1]:
+        raise ValueError(f"the pair must share its rows, got {tuple(x1.shape)} and {tuple(x2.shape)}")
+    if out is None:
+        return
+    if x1.dim() != 3:
+        raise ValueError(f"a d-major write takes (b, s, w) rows, got {tuple(x1.shape)}")
+    b, s = x1.shape[:2]
+    L = out[0].shape[2]
+    for x, data, scale in ((x1, out[0], out[1]), (x2, out[2], out[3])):
+        if data.shape != (b, x.shape[2], L) or scale.shape != (b, 1, L):
+            raise ValueError(f"d-major buffers must be ({b}, {x.shape[2]}, {L}) and ({b}, 1, {L}), got "
+                             f"{tuple(data.shape)} and {tuple(scale.shape)}")
+    if not isinstance(pos, torch.Tensor) or pos.shape != (b,) or pos.device != out[0].device:
+        raise ValueError(f"per-row positions must be a ({b},) tensor on {out[0].device}, got {pos!r}")
+    if s > L:
+        raise ValueError(f"cache of length {L} cannot take {s} positions")
+
+
+def mx_quantize_rows_plain(x1: torch.Tensor, x2: torch.Tensor, elem_dtype_name: str, sm_scale: float = 1.0,
+                           out: Optional[Sequence[torch.Tensor]] = None, pos: Optional[torch.Tensor] = None):
+    """Plain version of ``mx_quantize_rows``: each of ``x1 (..., w1)`` and
+    ``x2 (..., w2)`` by ``quantize_mx_plain`` at block = its width, then
+
+    * ``out=None``: returns ``(codes1, scale1, codes2, scale2)``, codes
+      ``(..., w)`` (int8 for int8, else uint8) and f32 row scales ``(...)``
+      equal to ``pk(se) * sm_scale`` (pk(e): the float whose bits are e << 23);
+    * ``out=(data1, scale1, data2, scale2)``, the d-major buffers ``(b, w,
+      L)`` / ``(b, 1, L)``, and ``pos`` a ``(b,)`` tensor: rows ``(b, s, w)``
+      stored at columns ``clamp(pos, 0, L - s) + t`` (as XLA clamps
+      ``dynamic_update_slice``), in place; returns None."""
+    _check_rows(x1, x2, elem_dtype_name, out, pos)
+    quantized = [quantize_mx_plain(x.to(torch.bfloat16).contiguous(), elem_dtype_name, x.shape[-1])
+                 for x in (x1, x2)]
+    if out is None:
+        return tuple(v for se, codes in quantized for v in (codes, _pow2_scale(se[..., 0]) * sm_scale))
+    b, s = x1.shape[:2]
+    dev, L = x1.device, out[0].shape[2]
+    rows = torch.arange(b, device=dev)[:, None]
+    cols = pos.long().clamp(0, L - s)[:, None] + torch.arange(s, device=dev)
+    for (se, codes), data, scale in zip(quantized, out[0::2], out[1::2]):
+        data.transpose(1, 2)[rows, cols] = codes.to(data.dtype)
+        scale.transpose(1, 2)[rows, cols] = se
+    return None
+
+
+def mx_quantize_rows(x1: torch.Tensor, x2: torch.Tensor, elem_dtype_name: str, sm_scale: float = 1.0,
+                     out: Optional[Sequence[torch.Tensor]] = None, pos: Optional[torch.Tensor] = None):
+    """MX quantization with one E8M0 exponent per row of a pair of inputs
+    sharing their rows (see ``mx_quantize_rows_plain``).  CUDA tensors launch
+    the kernel once for both (widths multiples of 32 up to 1024, bf16 rows,
+    contiguous buffers; other inputs raise)."""
+    if not on_cuda(x1, x2, *(out or ()), pos):
+        return mx_quantize_rows_plain(x1, x2, elem_dtype_name, sm_scale, out, pos)
+    _check_rows(x1, x2, elem_dtype_name, out, pos)
+    w1, w2 = x1.shape[-1], x2.shape[-1]
+    if x1.dtype != torch.bfloat16 or x2.dtype != torch.bfloat16 or any(
+            w % BLOCK or not 0 < w <= ROW_MAX_WIDTH for w in (w1, w2)):
+        raise ValueError(f"the row quantize kernel takes bf16 rows of widths multiple of {BLOCK} up to "
+                         f"{ROW_MAX_WIDTH}, got {x1.dtype} {tuple(x1.shape)} and {x2.dtype} {tuple(x2.shape)}")
+    x1, x2 = x1.contiguous(), x2.contiguous()
+    cd = torch.int8 if elem_dtype_name == "int8" else torch.uint8
+    rows = x1.numel() // w1
+    if out is None:
+        lead = tuple(x1.shape[:-1])
+        result = (torch.empty(lead + (w1,), dtype=cd, device=x1.device),
+                  torch.empty(lead, dtype=torch.float32, device=x1.device),
+                  torch.empty(lead + (w2,), dtype=cd, device=x1.device),
+                  torch.empty(lead, dtype=torch.float32, device=x1.device))
+        bufs, p, s, L = result, None, 1, 1
+    else:
+        if not all(t.is_contiguous() for t in out) or out[0].dtype != cd or out[2].dtype != cd or any(
+                t.dtype != torch.uint8 for t in out[1::2]):
+            raise ValueError(f"d-major buffers must be contiguous {cd} codes and uint8 scales")
+        result, bufs, s, L = None, out, x1.shape[1], out[0].shape[2]
+        p = pos.to(torch.int32).contiguous()
+    cuda_lib.launch(
+        "mx_quantize", "mx_quantize_rows_launch",
+        x1.data_ptr(), x2.data_ptr(), *(t.data_ptr() for t in bufs), None if p is None else p.data_ptr(),
+        rows, s, L, w1, w2, cuda_lib.ELEM_CODES[elem_dtype_name], float(sm_scale), int(out is not None),
+    )
+    return result
