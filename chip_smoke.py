@@ -32,10 +32,13 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    per-row quantize kernel bit for bit over all 2^16 bf16 patterns as rows
    of 512 and 64 in int8, fp8 and both fp6 formats, in both output modes, and
    at B14's query and the d-major latent writes of the Moonlight path, with
-   clamped starts; B7
-   at the shared-expert down shape rel <= 1e-2, unfused and with fp8 / int8
-   act fq; the router's f32 mode bit for bit at E = 64 and 256; K4 over fp6
-   caches abs <= 2e-2), then
+   clamped starts; B7 (K3's
+   kernel in the pair layout, x in even / odd K planes written by K2) at the
+   shared-expert down shape and at K = 160, 896 and 4864 rel <= 1e-2, with
+   act fq None, fp8 and int8, its pair decode on every (code, scale) pair bit
+   for bit, and K2's plane mode bit for bit over all 2^16 bf16 patterns; the
+   router's f32 mode bit for bit at E = 64 and 256; K4 over fp6 caches
+   abs <= 2e-2), then
    times kernel, plain version and, where one exists, the one PyTorch call
    computing the same function (CUDA events, median of 20, L2 flushed
    before each call); every matmul kernel and the RMSNorm kernel must give a
@@ -64,8 +67,9 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    grouped model against the per-expert one (B6), bit for bit.  Then
    2-layer models at Moonlight-16B-A3B width (layer 0 dense, layer 1 MoE,
    router rows 0 and 1 tied, random correction biases) over the int8 seq
-   latent (B13, with seven planted faults: B13 on the next position's scale,
-   B13 taking V from the rope key, B7 with its nibbles swapped, the
+   latent (B13, with nine planted faults: B13 on the next position's scale,
+   B13 taking V from the rope key, B7 with its nibbles swapped, B7 reading
+   block 2j's scale for block 2j + 1, K2 writing B7's odd plane first, the
    correction bias in the weights, routed_scaling_factor dropped, the shared
    experts dropped, a routing flip above 5e-2), the fp4 seq latent, the bf16
    ``MLACache`` and the int8 d-major latent with the all-int8 flag (B14 and
@@ -117,7 +121,8 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
 9. the DeepSeek-V3 path: Moonlight-16B-A3B (27 layers, 64 routed experts,
    top-6, 2 shared experts, DeepSeek-V3 MLA) with MXFP4 weights (grouped
    experts on int8-domain codes, B12; the shared experts' down_proj, K 2816,
-   in the pair layout, B7), MXFP8 activations, the f32 router and the int8
+   in the pair layout, B7 after its own K2), MXFP8 activations, the f32
+   router and the int8
    seq latent cache (B13): ``generate`` at batch 1 and 32, the 48-request
    engine stream with every check of phase 5, then ``generate`` at batch 32
    over the int8 d-major latent with ``TORCHMX_ATTN_INT8_DOT=1`` (B14 at
@@ -1869,6 +1874,7 @@ KERNEL_OF_DEVICE_NAME = (  # substring of the CUDA function name -> kernel
     ("matmul_fp4_halves_kernel", "mx_matmul_fp4_halves"),
     ("reduce_splits_kernel", "mx_matmul_fp4_halves"),
     ("quantize_rows_kernel", "mx_quantize_rows"),
+    ("fake_quantize_planes_kernel", "K2 planes of B7"),
     ("fake_quantize_kernel", "mx_fake_quantize"),
     ("quantize_kernel", "mx_quantize"),
     ("attention_kernel", "mx_cached_attention"),
@@ -3186,45 +3192,133 @@ def check_quantize_rows_kernel(dev, timer, gen):
 
 FP4_PAIR_SHAPE = (2816, 2048)  # (K, N) of Moonlight's shared-expert down_proj: K % 512 != 0 keeps the pair layout
 FP4_PAIR_MS = (1, 32, 64, 2048)  # decode b=1 and 32, prefill of 64 tokens at b=1 and 32
+# B7 beyond the main path's shape: a short K the planes pad (K % 128 != 0),
+# Qwen2-0.5B's gate/up (K 896) and down (K 4864, N 896 = 7 x 128: a half
+# column tile), the pair weights of ROADMAP A.2.
+FP4_PAIR_EXTRA = {"K=160": (160, 2048), "Qwen2-0.5B gate/up": (896, 4864), "Qwen2-0.5B down": (4864, 896)}
+PAIR_ACTS = (None, "float8_e4m3", "int8")
+
+
+def b7_parts(timer, dev, x, w, act, row):
+    """A B7 timing row's parts, added to ``row``: the kernel alone on x in
+    plane order, K2's plane mode on the call's x, the split reduce where the
+    plan has a second pass, and the plan."""
+    from torchmx_tpu_torch.ops import cuda_matmul as cm
+    from torchmx_tpu_torch.ops import cuda_matmul_formats as kf
+    from torchmx_tpu_torch.ops import cuda_quantize as cq
+
+    (M, K), N = x.shape, w.shape[1]
+    plan = kf.plan_pair(M, N, K, cm.sm_count(dev))
+    xp = cq.mx_fake_quantize_planes(x, act)
+    out, ws = kf.b7_kernel(xp, w.data, w.scale_e8m0, K, plan)
+    row.update(kernel_ms=timer(lambda: kf.b7_kernel(xp, w.data, w.scale_e8m0, K, plan)),
+               k2_ms=timer(lambda: cq.mx_fake_quantize_planes(x, act)),
+               reduce_ms=timer(lambda: kf.b7_reduce(ws, out)) if ws is not None else None,
+               plan=dict(splits=plan.splits, walk=plan.walk))
+    log("B7 parts", json.dumps({k: row.get(k) for k in ("shape", "M", "act_fq", "kernel_ms", "k2_ms", "reduce_ms",
+                                                         "plan")}))
+    return row
+
+
+def every_pair_weight(dev):
+    """A (K = 512, N = 256) pair weight holding every (code, scale) pair:
+    code k % 16 at K row k; scale row r of column n is n for even r and
+    (n + 128) % 256 for odd r, so each 32-row tile of packed bytes spans two
+    MX blocks, and the warp's 16 columns are safe in one and unsafe in the
+    other (scales 16-127 against 144-255).  Returns (bytes, scales)."""
+    codes = (torch.arange(512, device=dev, dtype=torch.int32) % 16).reshape(512, 1).expand(512, 256)
+    n = torch.arange(256, device=dev, dtype=torch.int32).reshape(1, 256)
+    scales = torch.cat([n, (n + 128) % 256]).repeat(8, 1).to(torch.uint8).contiguous()
+    return ((codes[0::2] << 4) | codes[1::2]).to(torch.uint8).contiguous(), scales
+
+
+def check_pair_decode(dev):
+    """Every (code, scale) pair through B7's decode, bit for bit: x the
+    identity, so the output is the decoded weight (NaN as NaN), at M = 64
+    (the first packed tile) and 512 (all)."""
+    from torchmx_tpu_torch.ops import cuda_matmul_formats as kf
+
+    data, scales = every_pair_weight(dev)
+    eye = torch.eye(512, device=dev, dtype=torch.bfloat16)
+    for M in (64, 512):
+        x = eye[:M].contiguous()
+        check_decode_bits("mx_matmul_fp4_pair", "float4_e2m1", kf.mx_matmul_fp4_pair(x, data, scales),
+                          kf.mx_matmul_fp4_pair_plain(x, data, scales))
+
+
+def check_pair_planes(dev, gen):
+    """K2's plane mode against its plain version, bit for bit: all 2^16 bf16
+    patterns as rows of 64 and 96 (the planes padded) in each mode, and the
+    main path's activations (Moonlight's shared down_proj at decode and
+    prefill, Qwen2-0.5B's widths)."""
+    from torchmx_tpu_torch.ops import cuda_quantize as cq
+
+    x_all = all_bf16_blocks(dev).reshape(-1)
+    cases = [("all bf16 patterns, rows of 64", x_all.reshape(-1, 64)),
+             ("all bf16 patterns, rows of 96", x_all[:65472].reshape(-1, 96))]
+    for M, K in ((32, 2816), (2048, 2816), (32, 896), (32, 4864), (33, 160)):
+        cases.append((f"({M}, {K})", (torch.randn(M, K, generator=gen, device=dev)
+                                      * torch.exp2(torch.randn(M, K, generator=gen, device=dev) * 3)).to(torch.bfloat16)))
+    for label, x in cases:
+        for act in PAIR_ACTS:
+            got, want = cq.mx_fake_quantize_planes(x, act), cq.mx_fake_quantize_planes_plain(x, act)
+            differ = int(((got.view(torch.int16) != want.view(torch.int16)) & ~(got.isnan() & want.isnan())).sum())
+            log(f"K2 plane mode act={act} {label}: {differ} of {got.numel()} values differ from the plain version's")
+            if differ:
+                raise AssertionError(f"K2's plane mode act={act} {label}: {differ} values differ")
 
 
 def check_fp4_pair_kernel(dev, timer, gen):
     """B7 against its plain version (rel <= 1e-2) at the shared-expert down
-    shape, unfused and with fused (M <= 64) or two-pass (K2, above) fp8 and
-    int8 act fq, at every main-path M; timed with fp8 act fq beside its plain
-    version, ``torch.matmul`` with a bf16 weight and the bound.  Returns
-    (entry, rows)."""
+    shape and the shapes of FP4_PAIR_EXTRA, with act fq None, fp8 and int8,
+    at every main-path M; the pair decode on every (code, scale) pair and
+    K2's plane mode, bit for bit; timed with fp8 act fq as the path calls it
+    (K2's plane mode inside) beside its plain version, ``torch.matmul`` with a
+    bf16 weight and the bound, and apart the kernel alone, K2 and the split
+    reduce (every M at the down shape, M = 32 and 2048 at the others).
+    Returns (entry, rows)."""
     from torchmx_tpu_torch.mx_array import MXTensor
     from torchmx_tpu_torch.ops import cuda_matmul_formats as kf
 
-    K, N = FP4_PAIR_SHAPE
-    w = MXTensor.to_mx((torch.randn(N, K, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16), "float4_e2m1").T
-    assert w.fp4_pack == "pair"
-    w_bf16 = kf.dequantize_fp4_pair(w.data, w.scale_e8m0)
     worst, rows = 0.0, []
-    for M in FP4_PAIR_MS:
-        x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
-        for act in (None, "float8_e4m3", "int8"):
-            o = kf.mx_matmul_fp4_pair(x, w.data, w.scale_e8m0, act)
-            r = kf.mx_matmul_fp4_pair_plain(x, w.data, w.scale_e8m0, act)
-            err = (o.float() - r.float()).abs().max().item()
-            rel = err / r.float().abs().max().item()
-            worst = max(worst, err)
-            log(f"B7 mx_matmul_fp4_pair M={M} N={N} K={K} act_fq={act}: rel err {rel:.3e}")
-            if not rel <= 1e-2:
-                raise AssertionError(f"B7 M={M} act_fq={act}: rel {rel}")
-        act = "float8_e4m3"
-        t_b, by = bound(2 * M * K + K * N / 2 + K * N / 32 + 2 * M * N, 2 * M * N * K)
-        row = dict(M=M, N=N, K=K, act_fq=act, fused=M <= kf.ACT_FQ_FUSE_MAX_M,
-                   ms=timer(lambda: kf.mx_matmul_fp4_pair(x, w.data, w.scale_e8m0, act)),
-                   plain_ms=timer(lambda: kf.mx_matmul_fp4_pair_plain(x, w.data, w.scale_e8m0, act), reps=5),
-                   library_ms=timer(lambda: torch.matmul(x, w_bf16)), bound_ms=t_b, bound_by=by)
-        log("B7 timing", json.dumps(row))
-        rows.append(row)
-    pick = next(r for r in rows if r["M"] == 32)
-    return dict(name="mx_matmul_fp4_pair", route="cuda", source="torchmx_tpu_torch/csrc/mx_matmul_fp4_pair.cu",
-                replaces="torchmx_tpu/ops/pallas_matmul.py:473", shape=f"M=32 N={N} K={K} act_fq=float8_e4m3",
-                max_abs_err=worst, **{k: pick[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}), rows
+    for label, (K, N) in {"shared-expert down_proj": FP4_PAIR_SHAPE, **FP4_PAIR_EXTRA}.items():
+        w = MXTensor.to_mx((torch.randn(N, K, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16),
+                           "float4_e2m1").T
+        assert w.fp4_pack == "pair"
+        w_bf16 = kf.dequantize_fp4_pair(w.data, w.scale_e8m0)
+        for M in FP4_PAIR_MS:
+            x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+            for act in PAIR_ACTS:
+                o = kf.mx_matmul_fp4_pair(x, w.data, w.scale_e8m0, act)
+                r = kf.mx_matmul_fp4_pair_plain(x, w.data, w.scale_e8m0, act)
+                err = (o.float() - r.float()).abs().max().item()
+                rel = err / r.float().abs().max().item()
+                worst = max(worst, err)
+                log(f"B7 mx_matmul_fp4_pair {label} M={M} N={N} K={K} act_fq={act}: rel err {rel:.3e}")
+                if not rel <= 1e-2:
+                    raise AssertionError(f"B7 {label} M={M} act_fq={act}: rel {rel}")
+            if (K, N) != FP4_PAIR_SHAPE and M not in (32, 2048):
+                continue
+            act = "float8_e4m3"
+            t_b, by = bound(2 * M * K + K * N / 2 + K * N / 32 + 2 * M * N, 2 * M * N * K)
+            row = dict(shape=label, M=M, N=N, K=K, act_fq=act,
+                       ms=timer(lambda: kf.mx_matmul_fp4_pair(x, w.data, w.scale_e8m0, act)),
+                       plain_ms=timer(lambda: kf.mx_matmul_fp4_pair_plain(x, w.data, w.scale_e8m0, act), reps=5),
+                       library_ms=timer(lambda: torch.matmul(x, w_bf16)), bound_ms=t_b, bound_by=by)
+            b7_parts(timer, dev, x, w, act, row)
+            log("B7 timing", json.dumps(row))
+            rows.append(row)
+        del w_bf16
+    check_pair_decode(dev)
+    check_pair_planes(dev, gen)
+    pick = next(r for r in rows if r["M"] == 32 and (r["K"], r["N"]) == FP4_PAIR_SHAPE)
+    K, N = FP4_PAIR_SHAPE
+    return dict(name="mx_matmul_fp4_pair", route="cuda", source="torchmx_tpu_torch/csrc/mx_matmul.cu",
+                replaces="torchmx_tpu/ops/pallas_matmul.py:473",
+                shape=f"M=32 N={N} K={K} act_fq=float8_e4m3 (K2's plane mode inside)",
+                tolerance="rel <= 1e-2 (max abs over max abs)", max_abs_err=worst,
+                **{k: pick[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "kernel_ms", "k2_ms",
+                                        "reduce_ms")}), rows
 
 
 # (E, H) of the f32 router: Moonlight's and DeepSeek-V3's (256 experts over hidden 7168).
@@ -3288,7 +3382,7 @@ def check_k4_fp6(dev, timer, gen):
 
 
 def check_slice6_row_invariance(dev) -> dict:
-    """B7 (fp8 act fq: fused up to 64 rows, K2 first above) and the router's
+    """B7 (fp8 act fq by K2's plane mode) and the router's
     f32 mode (Moonlight's E=64, H=2048) at every row count from 1 to 511: a
     row's bytes must not depend on the count."""
     from torchmx_tpu_torch.mx_array import MXTensor
@@ -3368,7 +3462,8 @@ def moonlight_launches_per_step(cfg, int8dot: bool = False) -> dict:
     the router, B12 x 3, K2 on x_sorted and on the SwiGLU output, the shared
     experts' gate / up and down (K3 or B7); lm_head; the final norm; K2
     before each K3 (one for the first query projection and kv_a_proj, one
-    for a gate / up pair; B7 fuses its own); B13 and K1 (the latent write)
+    for a gate / up pair) and before each B7 (its plane mode, never shared);
+    B13 and K1 (the latent write)
     per layer, or with the int8-dot flag B14 and the per-row quantize kernel
     twice (the d-major latent write and B14's query)."""
     layers, dense = cfg.num_hidden_layers, min(cfg.first_k_dense_replace, cfg.num_hidden_layers)
@@ -3377,12 +3472,14 @@ def moonlight_launches_per_step(cfg, int8dot: bool = False) -> dict:
 
     def linear(k_in, n=1, k2=None):
         """n launches of a linear: K3 where K % 512 == 0, with K2 first (k2
-        launches for the n where they share one x, else n), else B7."""
+        launches for the n where they share one x, else n), else B7 with
+        its own K2."""
         if k_in % 512 == 0:
             c["mx_matmul_fp4_halves"] += n
             c["mx_fake_quantize"] += n if k2 is None else k2
         else:
             c["mx_matmul_fp4_pair"] += n
+            c["mx_fake_quantize"] += n
 
     h, n_heads = cfg.hidden_size, cfg.num_attention_heads
     linear(h, 2 * layers, k2=layers)  # q_proj (or q_a_proj) and kv_a_proj_with_mqa share one K2
@@ -3406,7 +3503,8 @@ def moonlight_launches_per_step(cfg, int8dot: bool = False) -> dict:
 
 
 DEEPSEEK_FAULTS = ("B13 reads the next position's scale", "B13 takes V from the rope key",
-                   "B7 with its nibbles swapped", "the correction bias added to the weights, not the choice",
+                   "B7 with its nibbles swapped", "B7 reads block 2j's scale for block 2j + 1",
+                   "K2 writes B7's odd plane first", "the correction bias added to the weights, not the choice",
                    "routed_scaling_factor dropped", "the shared experts dropped",
                    "an expert choice flipped at a gap above 5e-2")
 DEEPSEEK_FAULTS_DMAJOR = ("mx_quantize_rows writes the latent one position late",)
@@ -3419,8 +3517,8 @@ DEEPSEEK_CHECKS = {"Moonlight int8 seq latent": ("int8", "seq", False, DEEPSEEK_
 
 @contextlib.contextmanager
 def deepseek_fault(name):
-    """A wrong B13, B7, per-row quantize kernel, router or MoE, on the
-    kernel path only (under ``plain_path()`` the original runs)."""
+    """A wrong B13, B7, K2 plane mode, per-row quantize kernel, router or
+    MoE, on the kernel path only (under ``plain_path()`` the original runs)."""
     import dataclasses
 
     from torchmx_tpu_torch.models import deepseek
@@ -3454,8 +3552,21 @@ def deepseek_fault(name):
 
         def faulty(x, w, sw, act_fq=None):
             if on_cuda(x):
-                w = ((w & 0xF) << 4) | (w >> 4)
+                if "nibbles" in name:
+                    w = ((w & 0xF) << 4) | (w >> 4)
+                else:
+                    sw = sw[0::2].repeat_interleave(2, dim=0)[:sw.shape[0]].contiguous()
             return orig(x, w, sw, act_fq)
+    elif name.startswith("K2 writes"):
+        mod, attr = kf, "mx_fake_quantize_planes"
+        orig = kf.mx_fake_quantize_planes
+
+        def faulty(x, act_fq=None):
+            out = orig(x, act_fq)
+            if on_cuda(x):
+                half = out.shape[1] // 2
+                out = torch.cat([out[:, half:], out[:, :half]], dim=1).contiguous()
+            return out
     elif name.startswith("the shared"):
         mod, attr = deepseek.DeepseekV3MoE, "forward"
         orig = deepseek.DeepseekV3MoE.forward
@@ -3500,7 +3611,7 @@ def model_check_deepseek(dev, card, checks=tuple(DEEPSEEK_CHECKS), n_tokens: int
     width (layer 0 dense, layer 1 MoE with grouped experts; router rows 0 and
     1 tied), b=2, a 64-token prompt and ``n_tokens`` greedy tokens, with the
     routing tape (``NoauxRouteTape``): over the int8 seq latent (B13, with
-    the seven planted faults of DEEPSEEK_FAULTS, each of which must fail a
+    the nine planted faults of DEEPSEEK_FAULTS, each of which must fail a
     gate), the fp4 seq latent (B13-fp4), the bf16 ``MLACache`` (B13-bf16) and
     the int8 d-major latent with the all-int8 flag (B14 at decode, JAX's
     eager route at prefill, the per-row quantize kernel at every latent write

@@ -373,12 +373,13 @@ def test_cuda_mla_int8dot_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("K", [2816, 160, 896])
 @pytest.mark.parametrize("act_fq", [None, "float8_e4m3", "int8"])
-def test_cuda_fp4_pair_kernel_matches_plain_and_is_row_invariant(cuda_device, act_fq):
+def test_cuda_fp4_pair_kernel_matches_plain_and_is_row_invariant(cuda_device, act_fq, K):
     g = torch.Generator().manual_seed(8)
-    w = MXTensor.to_mx((torch.randn(256, 2816, generator=g) * 0.05).to(torch.bfloat16).to(cuda_device),
+    w = MXTensor.to_mx((torch.randn(256, K, generator=g) * 0.05).to(torch.bfloat16).to(cuda_device),
                        "float4_e2m1").T
-    x = torch.randn(130, 2816, generator=g).to(torch.bfloat16).to(cuda_device)
+    x = torch.randn(130, K, generator=g).to(torch.bfloat16).to(cuda_device)
     full = kf.mx_matmul_fp4_pair(x, w.data, w.scale_e8m0, act_fq)
     ref = kf.mx_matmul_fp4_pair_plain(x, w.data, w.scale_e8m0, act_fq)
     assert ((full.float() - ref.float()).abs().max() / ref.float().abs().max()).item() <= 1e-2

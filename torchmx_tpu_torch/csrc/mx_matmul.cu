@@ -5,10 +5,14 @@
 // mx_matmul_fp8_halves is the same kernel over MXFP8 halves: uint16 word p
 // of column n holds the code of element p (high byte) and of element p +
 // K/2 (low byte).
+// B7 mx_matmul_fp4_pair is the same kernel over MXFP4 in the reference's
+// "pair" layout: byte p of column n holds element 2p (high nibble) and
+// element 2p + 1 (low nibble); scale (K/32, N), row p / 16 for byte p.
 //
 // Replaces torchmx_tpu/ops/pallas_matmul.py::_linear_kernel_fp4_halves
 // (:504), launched by _pallas_matmul_fp4_halves (:1110), with elem_name
-// "float4_e2m1" and "float8_e4m3".
+// "float4_e2m1" and "float8_e4m3", and ::_linear_kernel_fp4 (:473),
+// launched by _pallas_matmul_fp4 (:1021).
 //
 // What bounds it on an H100: at decode (M up to 64) the weight bytes (K N /
 // 2 + K N / 32 for fp4, K N + K N / 32 for fp8); at prefill the tensor-core
@@ -17,28 +21,38 @@
 //  1. x is read as it is: where the caller asks for an activation format
 //     x is fake-quantized once by K2 first, at every M, so no column tile
 //     repeats the quantize of its rows; the layers share that K2 among the
-//     linears that read one x.
+//     linears that read one x.  For the pair layout K2 writes x as two
+//     planes, [even K | odd K], each zero-padded to Kp/2 columns (Kp = 128
+//     ceil(K / 128)): as JAX's kernel takes x split into its even and odd K
+//     planes, so the pair's high nibbles meet the first plane and its low
+//     nibbles the second, exactly where the halves layout's two halves meet
+//     x's two halves.
 //  2. Loads overlap the tensor cores: a ring of kStages stages filled by TMA
 //     from a producer warp (one thread starts a stage's copies once the
 //     slot's "empty" mbarrier says every consumer warp is done with it; they
 //     complete on its "full" mbarrier; zeros past M and N).  A stage is 128
 //     K: 64 packed rows of W (one 128-byte swizzled box of 64 x 128 bytes
 //     for fp4, two boxes of 64 x 64 words for fp8, the second left out
-//     where it lies wholly past N), one 3-D box of the four scale rows of
-//     those rows (two of the first half, two of the second), and the two
-//     matching 64-column x slices at K offsets p0 and K/2 + p0 (128-byte
-//     swizzled K-major tiles).  At M <= 128 the x box is M rows and the rows
-//     past M are zeros set once in shared memory.  No CTA barrier in the
-//     mainloop: the two consumer warpgroups run out of phase.
+//     where it lies wholly past N), the four scale rows of those rows (halves:
+//     one 3-D box, two rows of the first half and two of the second; pair:
+//     one 2-D box of four consecutive rows, one per 16 packed rows, past the
+//     true K/32 rows zeros), and the two matching 64-column x slices at
+//     columns p0 and Kx/2 + p0 of x's Kx columns (128-byte swizzled K-major
+//     tiles).  At M <= 128 the x box is M rows and the rows past M are zeros
+//     set once in shared memory.  No CTA barrier in the mainloop: the two
+//     consumer warpgroups run out of phase.
 //  3. W is decoded in registers, straight into wgmma's A operand (the
 //     kernel computes out^T = W^T x^T).  fp4: one ldmatrix.x4.trans of a
 //     32-row tile gives each thread the bytes at K (2t, 2t + 1) of columns
 //     2g and 2g + 1 (B6's fragment layout); the high nibbles make the first
-//     half's fragments, the low nibbles the second half's.  fp8: one
+//     half's (pair: the even plane's) fragments, the low nibbles the second
+//     half's (the odd plane's).  In the halves layout a 32-row tile is one
+//     MX block of each half; in the pair layout its two k16 steps lie in two
+//     MX blocks, so each step decodes at its own scale word.  fp8: one
 //     ldmatrix.x4.trans per k16 step gives the words at K (2t, 2t + 1) of
 //     columns g and g + 8; a byte permute splits the high bytes (first
 //     half) from the low ones (second half).  One load thus feeds two k16
-//     products, against the x slices at p0 and K/2 + p0.  Both decode by
+//     products, against the two x slices.  All decode by
 //     csrc/mx_wgmma_decode.cuh (no conversion instruction where the warp's
 //     scales are safe), bit for bit mx::decode_fp4 and
 //     mx::decode_bf16_bits<kFp8E4M3>; no decoded tile is stored.
@@ -51,7 +65,7 @@
 //     runs, the CUDA cores decode the next block into the other of two
 //     fragment buffers (wait_group 1 before a buffer is written again); the
 //     accumulator is read only after wait_group 0.
-//  5. K splits: ops/cuda_matmul.k_splits(N, K, sms, 128), a function of N
+//  5. K splits: ops/cuda_matmul.k_splits(N, Kx, sms, 128), a function of N
 //     and K alone, summed ((0 + p0) + p1) + ... in split order
 //     (mx::reduce_splits).  Where the output tiles fill the card
 //     (gridDim.z == 1) a CTA walks its splits in that order itself, adding
@@ -59,7 +73,7 @@
 //     blockIdx.z takes one split, its partial goes to the fp32 workspace and
 //     the reduce kernel of the format sums them.
 // The epilogue stages the result through shared memory and stores 16 bytes
-// a thread.  The element format is a template argument.
+// a thread.  The element format and the layout are template arguments.
 #include "mx_common.cuh"
 #include "mx_wgmma.cuh"
 #include "mx_wgmma_decode.cuh"
@@ -74,6 +88,10 @@ namespace {
 #else
 #define K3_PHASE(i) ((void)0)
 #endif
+// Built with -DK3_DATAPATH_ONLY (b8_phase_profile.py --datapath-only), the
+// consumers only wait for each stage to land and release its slot: no
+// fetch, decode or wgmma, the output zeros.  It times the weight and x
+// stream of the mainloop alone.
 
 constexpr int kKT = 128;             // K elements per stage: 64 of each half
 constexpr int kRows = 64;            // packed rows of W per stage
@@ -87,6 +105,8 @@ constexpr int kXSlice = kBM * 128;   // one half's 64 columns of x: kBM rows of 
 constexpr int kXBytes = 2 * kXSlice;
 constexpr int kWBox = kRows * 128;   // one 64 x 128-byte box of W
 constexpr int kSBytes = 4 * kBN;
+
+enum Layout { kHalves, kPair };  // W's packing: K3's halves, B7's pair
 
 // Dynamic shared memory (cuda_matmul.k3_smem_bytes mirrors it): the x, W and
 // scale rings, their mbarriers and the fp32 staging tile; 1024 bytes of
@@ -105,11 +125,12 @@ struct Smem {
 };
 
 // Start the TMA copies of K stage `it` into ring slot `slot` (one thread):
-// W's packed rows 64 it .. + 63, the scale rows 2 it and 2 it + 1 of both
-// halves, and x's columns 64 it .. and K/2 + 64 it .. (xrows rows from m0);
-// past M and N they come as zeros.
-template <int E>
-__device__ __forceinline__ void load_stage(uint32_t sbase, int slot, int it, int K, int N, int xrows,
+// W's packed rows 64 it .. + 63, their four scale rows (halves: rows 2 it and
+// 2 it + 1 of both halves; pair: rows 4 it .. 4 it + 3), and x's columns
+// 64 it .. and Kx/2 + 64 it .. (xrows rows from m0); past M, N and W's rows
+// they come as zeros.
+template <int E, int L>
+__device__ __forceinline__ void load_stage(uint32_t sbase, int slot, int it, int Kx, int N, int xrows,
                                            const CUtensorMap* tx, const CUtensorMap* tw, const CUtensorMap* ts,
                                            int m0, int n0) {
   const uint32_t bar = sbase + Smem<E>::full + slot * 8;
@@ -118,19 +139,23 @@ __device__ __forceinline__ void load_stage(uint32_t sbase, int slot, int it, int
   const uint32_t w = sbase + Smem<E>::w + slot * Smem<E>::wbytes;
   mx::tma_load_2d(w, tw, bar, n0, kRows * it);
   if (second) mx::tma_load_2d(w + kWBox, tw, bar, n0 + 64, kRows * it);
-  mx::tma_load_3d(sbase + Smem<E>::s + slot * kSBytes, ts, bar, n0, 2 * it, 0);
+  const uint32_t s = sbase + Smem<E>::s + slot * kSBytes;
+  if (L == kPair) mx::tma_load_2d(s, ts, bar, n0, 4 * it);
+  else mx::tma_load_3d(s, ts, bar, n0, 2 * it, 0);
   const uint32_t x = sbase + Smem<E>::x + slot * kXBytes;
   mx::tma_load_2d(x, tx, bar, kRows * it, m0);
-  mx::tma_load_2d(x + kXSlice, tx, bar, K / 2 + kRows * it, m0);
+  mx::tma_load_2d(x + kXSlice, tx, bar, Kx / 2 + kRows * it, m0);
 }
 
 // A stage's raw operands for this thread, fetched ahead of their decode.
 // fp4: r[j][q] from one ldmatrix.x4.trans of rows 32 j .. + 31 (matrix q:
 // rows 8q .. 8q + 7, the warp's 16 byte columns).  fp8: r[j][4 kk + q] from
 // one ldmatrix.x4.trans per k16 step kk of rows 32 j + 16 kk .. + 15
-// (matrices: rows + 0 / + 8 x the warp's columns + 0 / + 8).  s[2 h + j]:
-// the scale bytes of the thread's two columns (low, high) in row j of half
-// h.  Warp w of warpgroup wg takes columns 64 wg + 16 w .. + 15.
+// (matrices: rows + 0 / + 8 x the warp's columns + 0 / + 8).  s[i]: the
+// scale bytes of the thread's two columns (low, high) in the stage's scale
+// row i (halves: row j of half h at i = 2 h + j; pair: the MX block of
+// packed rows 16 i .. 16 i + 15).  Warp w of warpgroup wg takes columns
+// 64 wg + 16 w .. + 15.
 template <int E>
 struct Raw {
   uint32_t r[2][E == mx::kFp4E2M1 ? 4 : 8];
@@ -165,10 +190,12 @@ __device__ __forceinline__ void fetch(Raw<E>& raw, const uint8_t* smem, uint32_t
   }
 }
 
-// Block J's A fragments, f[h] for half h, from the raw operands, in the
-// decode's byte layout: byte c + 2 i of word q is the code at K 8q + 2t + i
-// of the thread's column c (fp4: nibbles past the code are ignored).
-template <int E, int J>
+// Block J's A fragments, f[h] for half h (pair: plane h), from the raw
+// operands, in the decode's byte layout: byte c + 2 i of word q is the code
+// at K 8q + 2t + i of the thread's column c (fp4: nibbles past the code are
+// ignored).  Pair: k16 step kk of the block (packed rows 32 J + 16 kk ..)
+// takes scale row 2 J + kk, for both planes.
+template <int E, int L, int J>
 __device__ __forceinline__ void decode_block(uint32_t (&f)[2][2][4], const Raw<E>& raw) {
   uint32_t a[4], b[4];
   if constexpr (E == mx::kFp4E2M1) {
@@ -189,8 +216,14 @@ __device__ __forceinline__ void decode_block(uint32_t (&f)[2][2][4], const Raw<E
         b[2 * kk + p] = __byte_perm(lo, hi, 0x6240);
       }
   }
-  mx::decode_fragments<E>(f[0], a, raw.s[J]);
-  mx::decode_fragments<E>(f[1], b, raw.s[2 + J]);
+  if constexpr (L == kPair) {
+    const uint32_t s[2] = {raw.s[2 * J], raw.s[2 * J + 1]};
+    mx::decode_fragments<E>(f[0], a, s);
+    mx::decode_fragments<E>(f[1], b, s);
+  } else {
+    mx::decode_fragments<E>(f[0], a, raw.s[J]);
+    mx::decode_fragments<E>(f[1], b, raw.s[2 + J]);
+  }
 }
 
 // Start block j of both halves: acc (+)= its four k16 products (A from f,
@@ -229,9 +262,11 @@ __device__ __forceinline__ void add_split(const float (&acc)[64], float* total, 
     }
 }
 
-template <int E>
-__device__ __forceinline__ void halves_body(const CUtensorMap* tx, const CUtensorMap* tw, const CUtensorMap* ts,
-                                            uint16_t* __restrict__ out, float* __restrict__ ws, int M, int N, int K,
+// The kernel over x's Kx columns (halves: K; pair: Kx = the padded planes'
+// width); W's and the scales' true rows are the tensor maps'.
+template <int E, int L>
+__device__ __forceinline__ void matmul_body(const CUtensorMap* tx, const CUtensorMap* tw, const CUtensorMap* ts,
+                                            uint16_t* __restrict__ out, float* __restrict__ ws, int M, int N, int Kx,
                                             int splits, int xrows) {
 #ifdef K3_PHASE_PROFILE
   long long prof_t[6] = {0, 0, 0, 0, 0, 0}, prof_0 = clock64(), prof_c = prof_0;
@@ -246,7 +281,7 @@ __device__ __forceinline__ void halves_body(const CUtensorMap* tx, const CUtenso
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3, nb = wg * 64 + warp * 16;
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
-  const int iters = K / kKT, per = (iters + splits - 1) / splits;
+  const int iters = Kx / kKT, per = (iters + splits - 1) / splits;
   // gridDim.z == 1: this CTA walks every split in order; else split blockIdx.z.
   const int it0 = gridDim.z == 1 ? 0 : blockIdx.z * per;
   const int it1 = gridDim.z == 1 ? iters : min(iters, it0 + per);
@@ -277,9 +312,16 @@ __device__ __forceinline__ void halves_body(const CUtensorMap* tx, const CUtenso
       for (int st = 0; st < nt; ++st) {
         const int slot = st % kStages;
         if (st >= kStages) mx::mbar_wait(sbase + S::empty + 8 * slot, (st / kStages - 1) & 1);
-        load_stage<E>(sbase, slot, it0 + st, K, N, xrows, tx, tw, ts, m0, n0);
+        load_stage<E, L>(sbase, slot, it0 + st, Kx, N, xrows, tx, tw, ts, m0, n0);
       }
   } else {
+#ifdef K3_DATAPATH_ONLY
+    for (int st = 0; st < nt; ++st) {
+      const int slot = st % kStages;
+      mx::mbar_wait(sbase + S::full + 8 * slot, (st / kStages) & 1);
+      if (lane == 0) mx::mbar_arrive(sbase + S::empty + 8 * slot);
+    }
+#else
     float acc[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
@@ -288,7 +330,7 @@ __device__ __forceinline__ void halves_body(const CUtensorMap* tx, const CUtenso
     if (nt > 0) {
       mx::mbar_wait(sbase + S::full, 0);
       fetch<E>(cur, smem, sbase, 0, wg, warp, lane);
-      decode_block<E, 0>(fa, cur);
+      decode_block<E, L, 0>(fa, cur);
     }
 
     // Stage st: block 0 in one commit group, block 1 in the next, into acc.
@@ -307,7 +349,7 @@ __device__ __forceinline__ void halves_body(const CUtensorMap* tx, const CUtenso
       mx::wgmma_wait<1>();
       if (st > 0 && lane == 0) mx::mbar_arrive(sbase + S::empty + 8 * ((st - 1) % kStages));
       K3_PHASE(1);
-      decode_block<E, 1>(fb, cur);
+      decode_block<E, L, 1>(fb, cur);
       K3_PHASE(2);
       if (next) {
         mx::mbar_wait(sbase + S::full + 8 * nslot, ((st + 1) / kStages) & 1);  // stage st + 1 has landed
@@ -329,7 +371,7 @@ __device__ __forceinline__ void halves_body(const CUtensorMap* tx, const CUtenso
         K3_PHASE(5);
         mx::wgmma_wait<1>();
         K3_PHASE(1);
-        decode_block<E, 0>(fa, cur);
+        decode_block<E, L, 0>(fa, cur);
         K3_PHASE(2);
       }
     }
@@ -342,6 +384,7 @@ __device__ __forceinline__ void halves_body(const CUtensorMap* tx, const CUtenso
       atomicAdd(c + 7, (unsigned long long)nt);
     }
 #endif
+#endif  // K3_DATAPATH_ONLY
   }
   __syncthreads();
 
@@ -363,19 +406,27 @@ __device__ __forceinline__ void halves_body(const CUtensorMap* tx, const CUtenso
   }
 }
 
-// Distinct kernel names per weight format, so that a profile tells them apart.
+// Distinct kernel names per weight format and layout, so that a profile
+// tells them apart.
 __global__ void __launch_bounds__(kThreads, 1)
 matmul_fp4_halves_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
                          const __grid_constant__ CUtensorMap ts, uint16_t* __restrict__ out,
                          float* __restrict__ ws, int M, int N, int K, int splits, int xrows) {
-  halves_body<mx::kFp4E2M1>(&tx, &tw, &ts, out, ws, M, N, K, splits, xrows);
+  matmul_body<mx::kFp4E2M1, kHalves>(&tx, &tw, &ts, out, ws, M, N, K, splits, xrows);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
 matmul_fp8_halves_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
                          const __grid_constant__ CUtensorMap ts, uint16_t* __restrict__ out,
                          float* __restrict__ ws, int M, int N, int K, int splits, int xrows) {
-  halves_body<mx::kFp8E4M3>(&tx, &tw, &ts, out, ws, M, N, K, splits, xrows);
+  matmul_body<mx::kFp8E4M3, kHalves>(&tx, &tw, &ts, out, ws, M, N, K, splits, xrows);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+matmul_fp4_pair_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
+                       const __grid_constant__ CUtensorMap ts, uint16_t* __restrict__ out,
+                       float* __restrict__ ws, int M, int N, int Kx, int splits, int xrows) {
+  matmul_body<mx::kFp4E2M1, kPair>(&tx, &tw, &ts, out, ws, M, N, Kx, splits, xrows);
 }
 
 // Sum the split-K partials in split order and round once to bf16.
@@ -389,20 +440,34 @@ __global__ void reduce_splits_fp8h_kernel(const float* __restrict__ ws, uint16_t
   mx::reduce_splits(ws, out, mn, splits, (long long)blockIdx.x * blockDim.x + threadIdx.x);
 }
 
-template <int E>
+__global__ void reduce_splits_fp4p_kernel(const float* __restrict__ ws, uint16_t* __restrict__ out, long long mn,
+                                          int splits) {
+  mx::reduce_splits(ws, out, mn, splits, (long long)blockIdx.x * blockDim.x + threadIdx.x);
+}
+
+// The pair layout's x width: each plane zero-padded to a multiple of 64
+// columns (the stage's slice).
+inline int pair_width(int K) { return (K + kKT - 1) / kKT * kKT; }
+
+template <int E, int L>
 cudaError_t run(const void* x, const void* w, const void* scale, void* out, void* ws, int M, int N, int K,
                 int splits, int walk, cudaStream_t stream) {
   CUtensorMap tx, tw, ts;
   const int xrows = min(M, kBM);  // x rows a box: past M, zeros set once in shared memory
   const bool fp4 = E == mx::kFp4E2M1;
-  if (!mx::tensor_map(&tx, CU_TENSOR_MAP_DATA_TYPE_UINT16, x, K, M, (uint64_t)K * 2, 64, xrows,
+  const int Kx = L == kPair ? pair_width(K) : K;
+  const bool scale_map =
+      L == kPair ? mx::tensor_map(&ts, CU_TENSOR_MAP_DATA_TYPE_UINT8, scale, N, K / 32, N, kBN, 4,
+                                  CU_TENSOR_MAP_SWIZZLE_NONE)
+                 : mx::tensor_map(&ts, CU_TENSOR_MAP_DATA_TYPE_UINT8, scale, N, K / 64, N, kBN, 2,
+                                  CU_TENSOR_MAP_SWIZZLE_NONE, 2, (uint64_t)(K / 64) * N);
+  if (!mx::tensor_map(&tx, CU_TENSOR_MAP_DATA_TYPE_UINT16, x, Kx, M, (uint64_t)Kx * 2, 64, xrows,
                       CU_TENSOR_MAP_SWIZZLE_128B) ||
       !mx::tensor_map(&tw, fp4 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_UINT16, w, N, K / 2,
                       (uint64_t)N * (fp4 ? 1 : 2), fp4 ? kBN : 64, kRows, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !mx::tensor_map(&ts, CU_TENSOR_MAP_DATA_TYPE_UINT8, scale, N, K / 64, N, kBN, 2, CU_TENSOR_MAP_SWIZZLE_NONE, 2,
-                      (uint64_t)(K / 64) * N))
+      !scale_map)
     return cudaErrorInvalidValue;
-  auto kernel = fp4 ? matmul_fp4_halves_kernel : matmul_fp8_halves_kernel;
+  auto kernel = L == kPair ? matmul_fp4_pair_kernel : fp4 ? matmul_fp4_halves_kernel : matmul_fp8_halves_kernel;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<E>::bytes);
@@ -410,21 +475,21 @@ cudaError_t run(const void* x, const void* w, const void* scale, void* out, void
     attr_set = true;
   }
   dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, walk ? 1 : splits);
-  kernel<<<grid, kThreads, Smem<E>::bytes, stream>>>(tx, tw, ts, (uint16_t*)out, (float*)ws, M, N, K, splits, xrows);
+  kernel<<<grid, kThreads, Smem<E>::bytes, stream>>>(tx, tw, ts, (uint16_t*)out, (float*)ws, M, N, Kx, splits, xrows);
   return cudaGetLastError();
 }
 
-template <int E>
+template <int E, int L>
 int launch(const void* x, const void* w, const void* scale, void* out, void* ws, int M, int N, int K, int splits,
            int walk, void* stream) {
   if (M == 0) return 0;
-  if (splits < 1 || K % kKT || N % 64) return (int)cudaErrorInvalidValue;
-  return (int)run<E>(x, w, scale, out, ws, M, N, K, splits, walk || splits == 1, (cudaStream_t)stream);
+  if (splits < 1 || K <= 0 || K % (L == kPair ? 32 : kKT) || N % 64) return (int)cudaErrorInvalidValue;
+  return (int)run<E, L>(x, w, scale, out, ws, M, N, K, splits, walk || splits == 1, (cudaStream_t)stream);
 }
 
-int reduce_launch(bool fp4, const void* ws, void* out, long long mn, int splits, void* stream) {
+template <typename Kernel>
+int reduce_launch(Kernel kernel, const void* ws, void* out, long long mn, int splits, void* stream) {
   if (mn == 0) return 0;
-  auto kernel = fp4 ? reduce_splits_kernel : reduce_splits_fp8h_kernel;
   kernel<<<(unsigned)((mn + 255) / 256), 256, 0, (cudaStream_t)stream>>>((const float*)ws, (uint16_t*)out, mn,
                                                                          splits);
   return (int)cudaGetLastError();
@@ -439,20 +504,33 @@ int reduce_launch(bool fp4, const void* ws, void* out, long long mn, int splits,
 // mx_matmul_fp4_halves_reduce_launch sums.
 extern "C" int mx_matmul_fp4_halves_launch(const void* x, const void* w, const void* scale, void* out, void* ws,
                                            int M, int N, int K, int splits, int walk, void* stream) {
-  return launch<mx::kFp4E2M1>(x, w, scale, out, ws, M, N, K, splits, walk, stream);
+  return launch<mx::kFp4E2M1, kHalves>(x, w, scale, out, ws, M, N, K, splits, walk, stream);
 }
 
 // The same over fp8 halves: w is (K/2, N) uint16 words.
 extern "C" int mx_matmul_fp8_halves_launch(const void* x, const void* w, const void* scale, void* out, void* ws,
                                            int M, int N, int K, int splits, int walk, void* stream) {
-  return launch<mx::kFp8E4M3>(x, w, scale, out, ws, M, N, K, splits, walk, stream);
+  return launch<mx::kFp8E4M3, kHalves>(x, w, scale, out, ws, M, N, K, splits, walk, stream);
+}
+
+// The same over fp4 pairs: w is (K/2, N) bytes, scale (K/32, N), K % 32 ==
+// 0; x is (M, Kp) in plane order (Kp = 128 ceil(K / 128): columns [0, K/2)
+// x's even elements, [Kp/2, Kp/2 + K/2) its odd ones, zeros elsewhere), as
+// K2's plane mode writes it.
+extern "C" int mx_matmul_fp4_pair_launch(const void* x, const void* w, const void* scale, void* out, void* ws,
+                                         int M, int N, int K, int splits, int walk, void* stream) {
+  return launch<mx::kFp4E2M1, kPair>(x, w, scale, out, ws, M, N, K, splits, walk, stream);
 }
 
 // out (mn bf16) = the split partials ws (splits x mn fp32) summed in split order.
 extern "C" int mx_matmul_fp4_halves_reduce_launch(const void* ws, void* out, long long mn, int splits, void* stream) {
-  return reduce_launch(true, ws, out, mn, splits, stream);
+  return reduce_launch(reduce_splits_kernel, ws, out, mn, splits, stream);
 }
 
 extern "C" int mx_matmul_fp8_halves_reduce_launch(const void* ws, void* out, long long mn, int splits, void* stream) {
-  return reduce_launch(false, ws, out, mn, splits, stream);
+  return reduce_launch(reduce_splits_fp8h_kernel, ws, out, mn, splits, stream);
+}
+
+extern "C" int mx_matmul_fp4_pair_reduce_launch(const void* ws, void* out, long long mn, int splits, void* stream) {
+  return reduce_launch(reduce_splits_fp4p_kernel, ws, out, mn, splits, stream);
 }

@@ -1,5 +1,7 @@
 // K1 mx_quantize and K2 mx_fake_quantize: one warp per 32-element MX block;
-// mx_quantize_rows: one warp per row, one exponent a row.
+// mx_quantize_rows: one warp per row, one exponent a row.  K2 also writes in
+// B7's plane order (mx_fake_quantize_planes_launch): the row's even
+// elements, then its odd ones, each plane zero-padded, quantized or copied.
 //
 // K1 and K2 replace torchmx_tpu/ops/pallas_quantize.py::_quantize_kernel
 // (:137) and ::_fake_quantize_kernel / _fake_quantize_lane_kernel (:217,
@@ -54,6 +56,40 @@ __global__ void fake_quantize_kernel(const uint16_t* __restrict__ x, uint16_t* _
   int emax = (int)__reduce_max_sync(0xffffffffu, (unsigned)((bits >> 7) & 0xFF));
   int se = mx::block_scale(emax, mx::Elem<E>::max_pow2);
   out[blk * 32 + lane] = mx::fq_magic<E>(bits, se);
+}
+
+// K2 in plane order, for B7 (csrc/mx_matmul.cu): element k of a row goes to
+// column k / 2 of the even plane (k even) or Kp/2 + k / 2 of the odd plane
+// of out (rows, Kp); columns K/2 .. Kp/2 - 1 of each plane are zeros.  A
+// block's scale is taken over its 32 consecutive elements of the row, 16 of
+// each plane: the joint scale of JAX's _fq_xT_pair.  E < 0: a copy into the
+// planes, no quantize.  One warp per 32 columns of the padded row (blockIdx.x
+// the row, blockIdx.y kWarps blocks of it): the 16 even lanes store 32
+// consecutive bytes of the even plane, the odd lanes of the odd plane; the
+// warps past K store the zeros.
+template <int E>
+__global__ void fake_quantize_planes_kernel(const uint16_t* __restrict__ x, uint16_t* __restrict__ out, int K,
+                                            int Kp) {
+  const int b = blockIdx.y * kWarps + threadIdx.x / 32;
+  if (32 * b >= Kp) return;  // whole warps exit together
+  const int lane = threadIdx.x % 32;
+  const long long row = blockIdx.x;
+  int bits = 0;
+  if (32 * b < K) {  // the whole warp: K % 32 == 0
+    bits = x[row * K + 32 * b + lane];
+    if constexpr (E >= 0) {
+      int emax = (int)__reduce_max_sync(0xffffffffu, (unsigned)((bits >> 7) & 0xFF));
+      bits = mx::fq_magic<E>(bits, mx::block_scale(emax, mx::Elem<E>::max_pow2));
+    }
+  }
+  out[row * Kp + (lane & 1) * (Kp / 2) + 16 * b + (lane >> 1)] = (uint16_t)bits;
+}
+
+template <int E>
+cudaError_t launch_planes(const void* x, void* out, long long rows, int K, int Kp, cudaStream_t stream) {
+  dim3 grid((unsigned)rows, (unsigned)((Kp / 32 + kWarps - 1) / kWarps));
+  fake_quantize_planes_kernel<E><<<grid, kWarps * 32, 0, stream>>>((const uint16_t*)x, (uint16_t*)out, K, Kp);
+  return cudaGetLastError();
 }
 
 template <int E>
@@ -191,6 +227,22 @@ extern "C" int mx_fake_quantize_launch(const void* x, void* out, long long rows,
     case mx::kFp6E3M2: return launch_fq<mx::kFp6E3M2>(x, out, nblocks, s);
     case mx::kFp6E2M3: return launch_fq<mx::kFp6E2M3>(x, out, nblocks, s);
     case mx::kInt8: return launch_fq<mx::kInt8>(x, out, nblocks, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// x (rows, K) -> out (rows, Kp) in B7's plane order; elem: mx::kFp8E4M3,
+// mx::kInt8, or -1 for a copy without quantize.  K % 32 == 0, Kp % 64 == 0,
+// Kp >= K.
+extern "C" int mx_fake_quantize_planes_launch(const void* x, void* out, long long rows, int K, int Kp, int elem,
+                                              void* stream) {
+  if (K <= 0 || K % 32 || Kp % 64 || Kp < K || rows >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (elem) {
+    case -1: return launch_planes<-1>(x, out, rows, K, Kp, s);
+    case mx::kFp8E4M3: return launch_planes<mx::kFp8E4M3>(x, out, rows, K, Kp, s);
+    case mx::kInt8: return launch_planes<mx::kInt8>(x, out, rows, K, Kp, s);
   }
   return (int)cudaErrorInvalidValue;
 }

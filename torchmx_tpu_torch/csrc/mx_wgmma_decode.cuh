@@ -1,8 +1,9 @@
 // The decode of MX code words into wgmma's A fragments, shared by the
 // kernels that compute out^T = W^T x^T with W decoded in registers: B6
 // (csrc/mx_matmul_1byte.cu, one code a byte), B8 (csrc/mx_matmul_fp6q.cu,
-// fp6 codes rebuilt from the quarters planes) and K3 (csrc/mx_matmul.cu, fp4
-// nibbles and fp8 bytes of the halves layout).
+// fp6 codes rebuilt from the quarters planes), K3 (csrc/mx_matmul.cu, fp4
+// nibbles and fp8 bytes of the halves layout) and B7 (the same file, fp4
+// nibbles of the pair layout, a scale word per k16 step).
 //
 // A thread's raw operand of one 32-row MX block is four words r[q], from one
 // ldmatrix.x4.trans of a [K][n] byte tile (matrix q: K rows 8q .. 8q + 7 of
@@ -74,32 +75,61 @@ __device__ __forceinline__ uint32_t decode_fast(uint32_t r, int hi, float sf, fl
   }
 }
 
-// The A fragments of a block from its raw operand: f[kk] for the block's
-// k16 step kk.  Where all of the warp's scales are safe, decode_fast;
-// elsewhere decode_exact.
+// Whether a scale byte is one at which decode_fast is exact.
 template <int E>
-__device__ __forceinline__ void decode_fragments(uint32_t (&f)[2][4], const uint32_t (&r)[4], uint32_t s) {
-  const int s_lo = s & 0xFF, s_hi = (s >> 8) & 0xFF;  // columns 2g and 2g + 1
-  constexpr uint32_t span = safe_hi<E>() - kSafeLo;
-  const bool safe = (uint32_t)s_lo - kSafeLo <= span && (uint32_t)s_hi - kSafeLo <= span;
-  if (__all_sync(0xffffffffu, safe)) {
+__device__ __forceinline__ bool scale_safe(int se) {
+  return (uint32_t)se - kSafeLo <= safe_hi<E>() - kSafeLo;
+}
+
+// The A fragments of one k16 step, f, from its two raw words (r0: K 0-7 of
+// the step, r1: K 8-15) at the scale bytes s_lo / s_hi of the thread's
+// columns 2g / 2g + 1, by decode_fast (fast: every scale of the warp is
+// safe) or decode_exact.
+template <int E>
+__device__ __forceinline__ void decode_step(uint32_t (&f)[4], uint32_t r0, uint32_t r1, int s_lo, int s_hi,
+                                            bool fast) {
+  if (fast) {
     const float sf_lo = __uint_as_float((uint32_t)s_lo << 23), sf_hi = __uint_as_float((uint32_t)s_hi << 23);
     const float sneg_lo = -8388736.0f * sf_lo, sneg_hi = -8388736.0f * sf_hi;  // -(2^23 + 128) 2^(se-127)
     constexpr int rebias = 127 - Elem<E>::bias;
     const uint32_t sc_lo = (uint32_t)(s_lo + rebias) * 0x00800080u;  // bf16x2 2^(se - bias)
     const uint32_t sc_hi = (uint32_t)(s_hi + rebias) * 0x00800080u;
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      f[kk][0] = decode_fast<E>(r[2 * kk], 0, sf_lo, sneg_lo, sc_lo);
-      f[kk][1] = decode_fast<E>(r[2 * kk], 1, sf_hi, sneg_hi, sc_hi);
-      f[kk][2] = decode_fast<E>(r[2 * kk + 1], 0, sf_lo, sneg_lo, sc_lo);
-      f[kk][3] = decode_fast<E>(r[2 * kk + 1], 1, sf_hi, sneg_hi, sc_hi);
-    }
+    f[0] = decode_fast<E>(r0, 0, sf_lo, sneg_lo, sc_lo);
+    f[1] = decode_fast<E>(r0, 1, sf_hi, sneg_hi, sc_hi);
+    f[2] = decode_fast<E>(r1, 0, sf_lo, sneg_lo, sc_lo);
+    f[3] = decode_fast<E>(r1, 1, sf_hi, sneg_hi, sc_hi);
   } else {
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
+    for (int q = 0; q < 4; ++q) f[q] = decode_exact<E>(q >> 1 ? r1 : r0, q & 1, q & 1 ? s_hi : s_lo);
+  }
+}
+
+// The A fragments of a block from its raw operand: f[kk] for the block's
+// k16 step kk, both at the scale word s (column 2g's byte low, 2g + 1's
+// high).  Where all of the warp's scales are safe, decode_fast; elsewhere
+// decode_exact.
+template <int E>
+__device__ __forceinline__ void decode_fragments(uint32_t (&f)[2][4], const uint32_t (&r)[4], uint32_t s) {
+  const int s_lo = s & 0xFF, s_hi = (s >> 8) & 0xFF;  // columns 2g and 2g + 1
+  if (__all_sync(0xffffffffu, scale_safe<E>(s_lo) && scale_safe<E>(s_hi))) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) f[kk][q] = decode_exact<E>(r[2 * kk + (q >> 1)], q & 1, q & 1 ? s_hi : s_lo);
+    for (int kk = 0; kk < 2; ++kk) decode_step<E>(f[kk], r[2 * kk], r[2 * kk + 1], s_lo, s_hi, true);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) decode_step<E>(f[kk], r[2 * kk], r[2 * kk + 1], s_lo, s_hi, false);
+  }
+}
+
+// The same where each k16 step has a scale word of its own (s[kk]: the
+// block's rows 16 kk .. 16 kk + 15 lie in another MX block than the other
+// step's, as in B7's pair layout): the safe test runs per step.
+template <int E>
+__device__ __forceinline__ void decode_fragments(uint32_t (&f)[2][4], const uint32_t (&r)[4], const uint32_t (&s)[2]) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    const int s_lo = s[kk] & 0xFF, s_hi = (s[kk] >> 8) & 0xFF;
+    const bool fast = __all_sync(0xffffffffu, scale_safe<E>(s_lo) && scale_safe<E>(s_hi));
+    decode_step<E>(f[kk], r[2 * kk], r[2 * kk + 1], s_lo, s_hi, fast);
   }
 }
 

@@ -123,18 +123,30 @@ class MXInferenceLinear(nn.Module):
         return f"in={self.in_features}, out={self.out_features}, qconfig={self.qconfig}"
 
 
+def fq_layout(w: MXTensor) -> str:
+    """The layout name ``act_fq_first`` takes for the kernel that reads the
+    K-major weight ``w``: its fp4_pack for halves and quarters, ``"pair"``
+    for an fp4 weight in the pair packing (B7), else ``"1byte"`` (B6)."""
+    if w.fp4_pack in ("halves", "quarters"):
+        return w.fp4_pack
+    return "pair" if w.elem_dtype.name == "float4_e2m1" else "1byte"
+
+
 def shared_activation_fq(x: torch.Tensor, *linears) -> Optional[torch.Tensor]:
     """Fake-quantize ``x`` once for several MX linears that read it under the
     same activation config, where a linear's matmul would take x quantized
     by K2 first (``act_fq_first``: at prefill sizes, and at every size for
     fp6-quarters and fp4 / fp8 halves weights); None where sharing does not
-    apply (each linear then quantizes its own)."""
+    apply (each linear then quantizes its own).  Linears of fp4 pair weights
+    are kept out: B7's own K2 writes x in the plane order its kernel reads,
+    which a shared row-major x would have to be copied into again."""
     if not all(isinstance(lin, MXInferenceLinear) for lin in linears):
         return None
     cfg = linears[0].qconfig.activations_config
     if any(lin.qconfig.activations_config != cfg for lin in linears[1:]):
         return None
     rows = x.numel() // x.shape[-1]
-    if not any(act_fq_first(lin.weight.fp4_pack, rows) for lin in linears):
+    layouts = [fq_layout(lin.weight) for lin in linears]
+    if "pair" in layouts or not any(act_fq_first(layout, rows) for layout in layouts):
         return None
     return mx_fake_quantize(x.to(torch.bfloat16).contiguous(), cfg.elem_dtype, cfg.block_size)

@@ -33,8 +33,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("mx_quantize", "mx_matmul", "mx_attention", "mx_attention_chunkdot",
            "mx_attention_dmajor", "mx_attention_int8dot", "mx_matmul_1byte", "mx_matmul_fp6q",
-           "mx_matmul_int8dot", "mx_rmsnorm", "mx_grouped_matmul", "mx_router", "mx_matmul_fp4_pair",
-           "mx_mla", "mx_mla_int8dot")
+           "mx_matmul_int8dot", "mx_rmsnorm", "mx_grouped_matmul", "mx_router", "mx_mla", "mx_mla_int8dot")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -54,6 +53,8 @@ SIGNATURES = {
         "mx_quantize_launch": (_P, _P, _P, _L, _I, _I, _P),
         # x, out, rows, K, elem_code, stream
         "mx_fake_quantize_launch": (_P, _P, _L, _I, _I, _P),
+        # x, out, rows, K, Kp (the planes' width), elem_code (-1: copy), stream
+        "mx_fake_quantize_planes_launch": (_P, _P, _L, _I, _I, _I, _P),
         # x1, x2, codes1, scale1, codes2, scale2, pos, rows, s, L, w1, w2, elem_code, sm_scale,
         # dmajor, stream
         "mx_quantize_rows_launch": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _I, _P),
@@ -61,11 +62,13 @@ SIGNATURES = {
     "mx_matmul": {
         # x, w, scale, out, workspace, M, N, K, splits, walk, stream
         "mx_matmul_fp4_halves_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-        # the same over fp8 halves (uint16 words)
+        # the same over fp8 halves (uint16 words), and over fp4 pairs (x in plane order)
         "mx_matmul_fp8_halves_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "mx_matmul_fp4_pair_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
         # workspace, out, M * N, splits, stream
         "mx_matmul_fp4_halves_reduce_launch": (_P, _P, _L, _I, _P),
         "mx_matmul_fp8_halves_reduce_launch": (_P, _P, _L, _I, _P),
+        "mx_matmul_fp4_pair_reduce_launch": (_P, _P, _L, _I, _P),
     },
     "mx_matmul_1byte": {
         # x, w, scale, out, workspace, M, N, K, elem_code, act_fq_code, splits, walk, stream
@@ -92,10 +95,6 @@ SIGNATURES = {
     "mx_router": {
         # x, w, out, rows, H, E, f32_out, stream
         "mx_router_logits_launch": (_P, _P, _P, _L, _I, _I, _I, _P),
-    },
-    "mx_matmul_fp4_pair": {
-        # x, w, scale, out, workspace, M, N, K, act_fq_code, tile_rows, splits, stream
-        "mx_matmul_fp4_pair_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     },
     "mx_mla": {
         # q_lat, q_rot, lat codes, lat scales, rot codes, rot scales, q_off, kv_len, out,
@@ -217,13 +216,14 @@ def lib(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def launch(src: str, fn: str, *args, count: bool = True) -> None:
+def launch(src: str, fn: str, *args, count: bool = True, name: str = "") -> None:
     """Call ``fn`` of ``csrc/<src>.cu`` on PyTorch's current stream, raise on
-    a launch error, and count the launch (``count=False``: a kernel's second
-    pass, which its first launch has counted)."""
+    a launch error, and count the launch under ``name`` (default: ``fn``
+    without ``_launch``; ``count=False``: a kernel's second pass, which its
+    first launch has counted)."""
     stream = torch.cuda.current_stream().cuda_stream
     rc = getattr(lib(src), fn)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} failed to launch: cudaError {rc}")
     if count:
-        LAUNCHES[fn.removesuffix("_launch")] += 1
+        LAUNCHES[name or fn.removesuffix("_launch")] += 1

@@ -71,7 +71,7 @@ def mx_matmul_fp4_halves_plain(
 
 
 def _plan(M: int, N: int, K: int, device: torch.device):
-    """(rows per tile, K splits) for the matmul kernels B7 and B9 (64 K
+    """(rows per tile, K splits) for the matmul kernels B9 and B12 (64 K
     elements per iteration).  The tile follows M.  The splits follow N and K
     alone (:func:`k_splits`): enough that a single row tile (decode) keeps
     the SMs busy.  An output element's fp32 sum order is fixed

@@ -6,12 +6,14 @@ layouts, and their plain PyTorch versions:
   bf16 @ W (K, N)`` with one code per byte (fp8 e4m3, fp6 e3m2 or e2m3, or
   int8), ``scale (K/32, N)``; ``act_fq`` in None, ``"float8_e4m3"``,
   ``"int8"``.
-* B7 ``mx_matmul_fp4_pair`` (``csrc/mx_matmul_fp4_pair.cu``) replaces
-  ``_linear_kernel_fp4``: the same with an fp4 weight in the reference's
-  "pair" packing (``(K/2, N)`` bytes, byte p holding elements 2p (high
-  nibble) and 2p + 1 (low nibble)); ``act_fq`` in None, ``"float8_e4m3"``,
-  ``"int8"``, fused at M <= ``ACT_FQ_FUSE_MAX_M`` rows and applied by K2
-  first above it, as ``_run_kernel`` does.
+* B7 ``mx_matmul_fp4_pair`` (``csrc/mx_matmul.cu``, K3's kernel in its
+  pair layout) replaces ``_linear_kernel_fp4``: the same with an fp4 weight
+  in the reference's "pair" packing (``(K/2, N)`` bytes, byte p holding
+  elements 2p (high nibble) and 2p + 1 (low nibble)); ``act_fq`` in None,
+  ``"float8_e4m3"``, ``"int8"``.  At every M, K2 first writes x as its even
+  and odd K planes (``cuda_quantize.mx_fake_quantize_planes``: fake-quantized,
+  or copied where ``act_fq`` is None), as ``_pallas_matmul_fp4`` splits x
+  before its kernel; its launch plan is :func:`plan_pair`.
 * B8 ``mx_matmul_fp6q`` (``csrc/mx_matmul_fp6q.cu``) replaces
   ``_linear_kernel_fp6q``: the same with an fp6 weight in the planar
   quarters layout (``(3K/4, N)`` bytes, ``MXTensor.to_fp6_quarters``);
@@ -34,8 +36,8 @@ it to the row's sum in block order, over the same K splits as B9
 (``cuda_matmul.k_splits``).  With int8 weights and an int8-grid x every
 partial is exact, so B6 and B9 give a row the same bytes: the engine's rows
 keep their bits whichever kernel their admission's size picks.  Above
-``ACT_FQ_FUSE_MAX_M`` rows B6's wrapper, like B7's, fake-quantizes x once by
-K2 and launches the kernel without ``act_fq`` (the same bytes as the fused
+``ACT_FQ_FUSE_MAX_M`` rows B6's wrapper fake-quantizes x once by K2 and
+launches the kernel without ``act_fq`` (the same bytes as the fused
 prologue); its launch plan is :func:`plan_1byte`.
 """
 
@@ -50,8 +52,8 @@ from ..packing import fp6_quarters_to_codes
 from . import cuda_lib
 from .backend import on_cuda
 from .cuda_matmul import (SMEM_LIMIT, WgmmaPlan, _plan, check_matmul_operands, decode_code_dot, decode_fp4_to_bf16,
-                          fq_matmul, k_splits, sm_count)
-from .cuda_quantize import mx_quantize
+                          fq_matmul, k_splits, plan_halves, sm_count)
+from .cuda_quantize import PLANE_FORMATS, mx_fake_quantize_planes, mx_quantize, pair_width
 from .quantize import mx_fake_quantize
 
 CODE_FORMATS_1BYTE = ("float8_e4m3", "float6_e3m2", "float6_e2m3", "int8")
@@ -59,21 +61,22 @@ FP6_FORMATS = ("float6_e3m2", "float6_e2m3")
 ACT_FQ_1BYTE = (None, "float8_e4m3", "int8")
 ACT_FQ_FP6Q = (None, "float8_e4m3")
 INT8DOT_MAX_M = 256  # rows above which the JAX package leaves int8 dots for the 1-byte kernel
-ACT_FQ_FP4_PAIR = (None, "float8_e4m3", "int8")
-# Rows above which B6 and B7 take x fake-quantized by K2 instead of fusing
-# the activation quantize (``_ACT_FQ_FUSE_MAX_M`` of the reference).
+ACT_FQ_FP4_PAIR = PLANE_FORMATS  # B7's activation quantize is K2's plane mode
+# Rows above which B6 takes x fake-quantized by K2 instead of fusing the
+# activation quantize (``_ACT_FQ_FUSE_MAX_M`` of the reference).
 ACT_FQ_FUSE_MAX_M = 64
 
 
-def act_fq_first(fp4_pack: str, rows: int) -> bool:
-    """Whether a weight in layout ``fp4_pack`` takes x already fake-quantized
-    by K2 at ``rows`` rows, rather than its kernel fusing the activation
-    quantize: above ``ACT_FQ_FUSE_MAX_M`` rows (as the reference's
-    ``_run_kernel``), and at every M for B8's quarters and K3's halves
-    (their kernels read x as it is).  Where it is true, the layers
-    fake-quantize an x read by several linears once for all of them
+def act_fq_first(layout: str, rows: int) -> bool:
+    """Whether the kernel of a weight layout (``"1byte"``: B6, ``"pair"``:
+    B7, ``"quarters"``: B8, ``"halves"``: K3) takes x already fake-quantized
+    by K2 at ``rows`` rows, rather than fusing the activation quantize: B6
+    above ``ACT_FQ_FUSE_MAX_M`` rows (as the reference's ``_run_kernel``),
+    the others at every M (their kernels read x as it is; B7's in the plane
+    order its own K2 writes).  Where it is true, the layers fake-quantize an
+    x read by several linears of the row-major layouts once for all of them
     (``layers/linear.shared_activation_fq``)."""
-    return rows > ACT_FQ_FUSE_MAX_M or fp4_pack in ("quarters", "halves")
+    return rows > ACT_FQ_FUSE_MAX_M or layout in ("pair", "quarters", "halves")
 
 
 def dequantize_1byte(w_codes: torch.Tensor, w_scale: torch.Tensor, elem_name: str) -> torch.Tensor:
@@ -165,7 +168,7 @@ def mx_matmul_1byte(x, w_codes, w_scale, elem_name: str, act_fq: Optional[str] =
     if any(t.data_ptr() % 16 for t in (x, w_codes, w_scale)):
         raise ValueError("the one-byte kernel reads x, the codes and the scales 16 bytes at a time: "
                          "their storage must be 16-byte aligned")
-    if act_fq is not None and act_fq_first("pair", M):
+    if act_fq is not None and act_fq_first("1byte", M):
         x, act_fq = mx_fake_quantize(x, act_fq), None
     out, ws = b6_kernel(x, w_codes, w_scale, elem_name, act_fq,
                         plan_1byte(M, w_codes.shape[1], K, sm_count(x.device)))
@@ -256,12 +259,41 @@ def mx_matmul_fp4_pair_plain(x, w_data, w_scale, act_fq: Optional[str] = None):
     return fq_matmul(x, dequantize_fp4_pair(w_data, w_scale), act_fq)
 
 
+def plan_pair(M: int, N: int, K: int, sms: int) -> WgmmaPlan:
+    """B7's launch plan: K3's (:func:`plan_halves`, fp4) over the padded
+    planes' width ``pair_width(K)``, so the splits are ``k_splits(N,
+    pair_width(K), sms, 128)``; the tile, the instruction and the K order are
+    the same at every M, so a row's bytes do not depend on M."""
+    return plan_halves(M, N, pair_width(K), sms, "float4_e2m1")
+
+
+def b7_kernel(xp, w_data, w_scale, K: int, plan: WgmmaPlan):
+    """B7's main kernel alone on CUDA tensors the wrapper has checked, x in
+    plane order ``xp (M, pair_width(K))``: (out, None), or (out, the fp32
+    split partials) for :func:`b7_reduce`."""
+    M, N = xp.shape[0], w_data.shape[1]
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=xp.device)
+    two_pass = plan.splits > 1 and not plan.walk
+    ws = torch.empty((plan.splits, M, N) if two_pass else (1,), dtype=torch.float32, device=xp.device)
+    cuda_lib.launch("mx_matmul", "mx_matmul_fp4_pair_launch", xp.data_ptr(), w_data.data_ptr(), w_scale.data_ptr(),
+                    out.data_ptr(), ws.data_ptr(), M, N, K, plan.splits, int(plan.walk))
+    return out, (ws if two_pass else None)
+
+
+def b7_reduce(ws: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """B7's second pass: ``out`` = the split partials summed in split order."""
+    cuda_lib.launch("mx_matmul", "mx_matmul_fp4_pair_reduce_launch", ws.data_ptr(), out.data_ptr(), out.numel(),
+                    ws.shape[0], count=False)
+    return out
+
+
 def mx_matmul_fp4_pair(x, w_data, w_scale, act_fq: Optional[str] = None):
     """B7: ``fq(x) @ W`` in bf16 for an fp4 weight in the pair packing.  CUDA
-    tensors launch the kernel on the shapes ``fp4_pair_takes``; the rest
+    tensors run K2 in plane order (fake-quantizing with ``act_fq``, copying
+    without), then the kernel, on the shapes ``fp4_pair_takes``; the rest
     raises."""
     if act_fq not in ACT_FQ_FP4_PAIR:
-        raise ValueError(f"the fp4 pair kernel fuses act_fq in {ACT_FQ_FP4_PAIR}, got {act_fq!r}")
+        raise ValueError(f"the fp4 pair kernel takes act_fq in {ACT_FQ_FP4_PAIR}, got {act_fq!r}")
     if not on_cuda(x, w_data, w_scale):
         return mx_matmul_fp4_pair_plain(x, w_data, w_scale, act_fq)
     M, K = x.shape
@@ -270,15 +302,12 @@ def mx_matmul_fp4_pair(x, w_data, w_scale, act_fq: Optional[str] = None):
         raise ValueError(f"the fp4 pair kernel takes K % 256 == 0 or 32 <= K <= 1024 with K % 32 == 0, and "
                          f"N % 64 == 0, got K={K} N={N}")
     check_matmul_operands(x, w_data, w_scale, K // 2, torch.uint8, "fp4 pair", k_multiple=32)
-    if act_fq is not None and act_fq_first("pair", M):
-        x, act_fq = mx_fake_quantize(x, act_fq), None
-    bm, splits = _plan(M, N, K, x.device)
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
-    ws = torch.empty((splits, M, N) if splits > 1 else (1,), dtype=torch.float32, device=x.device)
-    act = -1 if act_fq is None else cuda_lib.ELEM_CODES[act_fq]
-    cuda_lib.launch("mx_matmul_fp4_pair", "mx_matmul_fp4_pair_launch", x.data_ptr(), w_data.data_ptr(),
-                    w_scale.data_ptr(), out.data_ptr(), ws.data_ptr(), M, N, K, act, bm, splits)
-    return out
+    if any(t.data_ptr() % 16 for t in (w_data, w_scale)):
+        raise ValueError("the fp4 pair kernel reads the weight and the scales by TMA: their storage must be "
+                         "16-byte aligned")
+    out, ws = b7_kernel(mx_fake_quantize_planes(x, act_fq), w_data, w_scale, K,
+                        plan_pair(M, N, K, sm_count(x.device)))
+    return out if ws is None else b7_reduce(ws, out)
 
 
 def _code_values(codes: torch.Tensor, fp8: bool) -> torch.Tensor:

@@ -11,6 +11,12 @@ Fake-quantize contract: ``mx_fake_quantize(x) == dequantize_mx(quantize_mx(x))``
 bit for bit, including the flush of results below the fp32 normal range to a
 signed zero that ``dequantize_mx`` inherits from the reference.
 
+K2 also writes in B7's plane order (``mx_fake_quantize_planes``): x's even
+elements, then its odd ones, each plane zero-padded to ``pair_width(K) / 2``
+columns, as ``_pallas_matmul_fp4`` splits x before its kernel; with an
+activation format each 32-element block of the row is fake-quantized at its
+joint scale over both planes (``_fq_xT_pair``), without one it is a copy.
+
 ``mx_quantize_rows`` quantizes with one exponent per row (block = the row's
 width), which K1's blocks of 32 do not take: MLA's d-major latent write and
 B14's query (``ops/cuda_mla``, ``models/deepseek``).  JAX runs it as jnp ops
@@ -129,6 +135,49 @@ def mx_fake_quantize_kernel(
         "mx_quantize", "mx_fake_quantize_launch",
         x.data_ptr(), out.data_ptr(), x.numel() // K, K, cuda_lib.ELEM_CODES[elem_dtype_name],
     )
+    return out
+
+
+PLANE_FORMATS = (None, "float8_e4m3", "int8")  # the plane mode's activation formats (B7's)
+
+
+def pair_width(K: int) -> int:
+    """Columns of x in B7's plane order: two planes of K/2 columns, each
+    zero-padded to a multiple of 64 (the kernel's stage slice)."""
+    return -(-K // 128) * 128
+
+
+def mx_fake_quantize_planes_plain(x: torch.Tensor, elem_dtype_name: Optional[str] = None) -> torch.Tensor:
+    """Plain version of K2's plane mode: ``x (M, K)`` fake-quantized (if
+    ``elem_dtype_name``) by :func:`mx_fake_quantize_plain`, whose blocks are
+    32 consecutive elements of a row, then split into ``[even K | odd K]``
+    planes of ``pair_width(K) / 2`` columns each, zeros past K/2."""
+    M, K = x.shape
+    if elem_dtype_name is not None:
+        x = mx_fake_quantize_plain(x, elem_dtype_name)
+    half = pair_width(K) // 2
+    out = torch.zeros((M, 2 * half), dtype=torch.bfloat16, device=x.device)
+    out[:, :K // 2] = x[:, 0::2]
+    out[:, half:half + K // 2] = x[:, 1::2]
+    return out
+
+
+def mx_fake_quantize_planes(x: torch.Tensor, elem_dtype_name: Optional[str] = None) -> torch.Tensor:
+    """K2 in B7's plane order (see :func:`mx_fake_quantize_planes_plain`).
+    CUDA tensors launch the kernel: counted as ``mx_fake_quantize`` with an
+    activation format, as ``mx_pair_planes`` for the copy without one."""
+    if elem_dtype_name not in PLANE_FORMATS:
+        raise ValueError(f"the plane mode takes {PLANE_FORMATS}, got {elem_dtype_name!r}")
+    if not on_cuda(x):
+        return mx_fake_quantize_planes_plain(x, elem_dtype_name)
+    if x.dim() != 2 or x.dtype != torch.bfloat16 or not x.is_contiguous() or x.shape[1] % BLOCK:
+        raise ValueError(f"the plane mode needs a contiguous 2-D bf16 x with K % {BLOCK} == 0, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    M, K = x.shape
+    out = torch.empty((M, pair_width(K)), dtype=torch.bfloat16, device=x.device)
+    elem = -1 if elem_dtype_name is None else cuda_lib.ELEM_CODES[elem_dtype_name]
+    cuda_lib.launch("mx_quantize", "mx_fake_quantize_planes_launch", x.data_ptr(), out.data_ptr(), M, K,
+                    out.shape[1], elem, name="mx_pair_planes" if elem_dtype_name is None else "mx_fake_quantize")
     return out
 
 

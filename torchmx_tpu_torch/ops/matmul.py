@@ -101,9 +101,9 @@ def mx_dynamic_matmul(
     """Fake-quantize ``x`` per MX block, then ``x_q @ w``.  With block size
     32: B9 where :func:`int8dot_format` says so; else, where the weight's
     wrapper takes the activation format, the wrapper applies it (in its
-    kernel's prologue, or by K2 first: B8 and K3 at every M, B6 and B7
-    above 64 rows), bit-identical to the two-pass form; else the two passes
-    (K2, then the weight's kernel)."""
+    kernel's prologue, or by K2 first: B7, B8 and K3 at every M, B6 above
+    64 rows), bit-identical to the two-pass form; else the two passes (K2,
+    then the weight's kernel)."""
     name = dtypes.as_dtype(act_elem_dtype_name).name
     if act_block_size == 32:
         fp8 = int8dot_format(x.numel() // x.shape[-1], w, name)
