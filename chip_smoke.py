@@ -15,11 +15,15 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    K4 on the same cache content; K7's SQNR against exact attention above
    30 dB; this slice's B6 over four code formats and three act_fq values, B8
    over both fp6 formats and K3 over fp8 halves rel <= 1e-2 (K3-fp8 also on
-   every (code, scale) pair bit for bit), B9 over int8,
-   int8-domain fp4 / e2m3 and e4m3 weights within one bf16 step, each at the
-   five Llama-3-8B linears at every main-path M (B6 also at 1-2048 rows
-   across its tile edges, at K = 64 and 128, and on every (code, scale) pair
-   bit for bit), and B9 giving B6's bytes on int8; the RMSNorm kernel within
+   every (code, scale) pair bit for bit), B9 over int8 and int8-domain fp4 /
+   e2m3 weights within one bf16 step and over e4m3 weights rel <= 1e-2 (at
+   M = 1, 17, 32, 64, 65, 128, 129 and 256, lm_head at 1 and 32), K1's
+   dot-order mode (B9's x) bit for bit over all 2^16 bf16 patterns and at
+   B9's shapes, each at the five Llama-3-8B linears at every main-path M (B6
+   also at 1-2048 rows across its tile edges, at K = 64 and 128, and on every
+   (code, scale) pair bit for bit), and B9 giving B6's bytes on int8; B9
+   timed as the path calls it and as its kernel, K1 and split reduce apart;
+   the RMSNorm kernel within
    one bf16 step; this slice's B12 over bf16
    experts and four code formats at tm 8 and 128 rel <= 1e-2, on bench.py's
    shape routed-2 and spread and at the Mixtral main path's w1 and w2 calls,
@@ -50,7 +54,9 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    b=2, 16 greedy tokens, with the fp8 cache, the int8 cache and the int8
    d-major cache with the all-int8 decode flag (K6 and K7); then this slice's
    weight formats on models of their own: W8A8 over the int8 cache, MXFP6
-   e3m2 and MXFP8 weights over the fp8 cache.  At every step, from the same tokens and cache, kernel path against plain path on
+   e3m2, MXFP8 and MXFP8-under-``TORCHMX_FP8_DOT`` weights over the fp8 cache
+   (the last two faults on B9: K1 writing its x in natural order, and B9-fp8
+   taking a block's weight scale from the next block).  At every step, from the same tokens and cache, kernel path against plain path on
    the same card: each decoder layer's update and lm_head's logits
    teacher-forced from the plain path's hidden state, the end-to-end logits
    (L2 rel, gates in GATES), and the tokens wherever the plain top-2 gap
@@ -283,6 +289,20 @@ def check_quantize_kernels(dev, timer, gen):
     for name, shapes in K1_MAIN_SHAPES.items():
         for shape in shapes:
             worst1 = max(worst1, compare(name, f"main-path {shape}", randn(shape), False)[0])
+    # K1's dot-order mode (B9's x): every bf16 pattern as rows of 512, and
+    # B9's decode and admission shapes.
+    for name in cq.DOT_FORMATS:
+        for label, x in (("all bf16 patterns (128, 512)", x_all.reshape(128, 512)),
+                         ("all bf16 patterns, 17 rows", x_all.reshape(128, 512)[:17].contiguous()),
+                         ("main-path (32, 4096)", randn((32, 4096))), ("main-path (256, 14336)", randn((256, 14336))),
+                         ("main-path (1, 4096)", randn((1, 4096)))):
+            s, c = cq.mx_quantize_dot(x, name)
+            sp, cp = cq.mx_quantize_dot_plain(x, name)
+            bad = int((s.view(torch.int32) != sp.view(torch.int32)).sum()) + int(
+                (c.view(torch.uint8) != cp.view(torch.uint8)).sum())
+            log(f"K1 mx_quantize in B9's dot order {name} {label}: {bad} mismatching scale factors / code bytes")
+            if bad:
+                raise AssertionError(f"K1's dot-order mode {name} {label}: differs from plain")
     for shape in K2_MAIN_SHAPES:
         x = randn(shape)
         fq, fp = cq.mx_fake_quantize_kernel(x, "float8_e4m3"), cq.mx_fake_quantize_plain(x, "float8_e4m3")
@@ -449,9 +469,18 @@ def check_matmul_kernel(dev, timer, gen):
 
 # The weight-format kernels (B6, B8, B9 and K3-fp8, as ROADMAP.md names them) at
 # the main-path shapes: the five linears at M in (1, 32, 64, 2048), lm_head
-# at 1 and 32; B9 at M in (1, 32, 64, 256) (it takes M <= 256).
+# at 1 and 32; B9 (it takes M <= 256) at decode batches and admissions of up
+# to 256 rows, across its row tile (128) and the 64-row switch of B6's
+# activation quantize.
 FORMAT_MS = (1, 32, 64, 2048)
-B9_MS = (1, 32, 64, 256)
+B9_MS = (1, 17, 32, 64, 65, 128, 129, 256)
+# B9-fp8's L2 rel against its plain version (exact block sums), the precision
+# its design rests on: its in-block sums are mma.sync's f32 sums of exact
+# products.  On an NVIDIA H100 80GB HBM3 (700 W) this build read at most
+# 6.0e-5 over the 34 shapes of the check below (down_proj M=17), where a
+# build on wgmma's e4m3 form read 4.2e-4 to 7.2e-4 at gate/up and down M=32;
+# its max-abs rel, 3.2e-3 to 4.6e-3, passed the check's 1e-2.
+B9_FP8_L2_REL_MAX = 1.5e-4
 # B6 and B8 at every row count their callers give them (decode batches,
 # admissions of 32-512 rows, 2048-row prefills), across the 64-row switch of
 # the activation quantize and with ragged row tiles; B6 also at K = 64 and
@@ -634,6 +663,7 @@ def check_format_kernels(dev, timer, gen):
     from torchmx_tpu_torch.mx_array import MXTensor
     from torchmx_tpu_torch.ops import cuda_matmul as cm
     from torchmx_tpu_torch.ops import cuda_matmul_formats as kf
+    from torchmx_tpu_torch.ops import cuda_quantize as cq
     from torchmx_tpu_torch.ops.cuda_quantize import mx_quantize
     from torchmx_tpu_torch.ops.quantize import mx_fake_quantize
 
@@ -659,6 +689,26 @@ def check_format_kernels(dev, timer, gen):
                    plan=dict(splits=plan.splits, walk=plan.walk))
         log("mx_matmul_1byte parts", json.dumps({k: row[k] for k in ("linear", "M", "case", "kernel_ms", "k2_ms",
                                                                       "reduce_ms", "plan")}))
+
+    def time_b9(label, M, x, t, fp8, w_bf16):
+        """A B9 timing row (the wrapper's call: K1's dot-order mode, the
+        kernel and the split reduce where the plan has a second pass), and
+        the three apart."""
+        K, N = w_bf16.shape
+        fmt, name = ("float8_e4m3", "mx_matmul_fp8dot") if fp8 else ("int8", "mx_matmul_int8dot")
+        plan = kf.plan_int8dot(M, N, K, cm.sm_count(dev))
+        px_t, xd = cq.mx_quantize_dot(x, fmt)
+        out, ws = kf.b9_kernel(xd, px_t, t.data, t.scale_e8m0, fp8, plan)
+        row = time_row(name, label, M, f"{fmt}, x quantized by K1 inside the call",
+                       lambda: kf.mx_matmul_int8dot(x, t.data, t.scale_e8m0, fp8),
+                       lambda: _plain_int8dot(x, t, fp8), w_bf16, 2 * M * K + K * N * (1 + 1 / 32) + 2 * M * N,
+                       2 * M * N * K, INT8_OPS)
+        row.update(kernel_ms=timer(lambda: kf.b9_kernel(xd, px_t, t.data, t.scale_e8m0, fp8, plan)),
+                   k1_ms=timer(lambda: cq.mx_quantize_dot(x, fmt)),
+                   reduce_ms=timer(lambda: kf.b9_reduce(ws, out, fp8)) if ws is not None else None,
+                   plan=dict(splits=plan.splits, walk=plan.walk))
+        log(f"{name} parts", json.dumps({k: row[k] for k in ("linear", "M", "case", "kernel_ms", "k1_ms",
+                                                              "reduce_ms", "plan")}))
 
     fp6q_entry, _ = check_fp6q_kernel(dev, timer, gen, b)
     for label, (K, N) in K3_MAIN_LINEARS.items():
@@ -695,8 +745,13 @@ def check_format_kernels(dev, timer, gen):
             sx, xc = mx_quantize(x, "float8_e4m3")
             out = kf.mx_matmul_int8dot(x, t.data, t.scale_e8m0, True)
             ref = kf.mx_matmul_int8dot_plain(xc, sx, t.data, t.scale_e8m0, True)
-            log(f"mx_matmul_fp8dot {label} M={M}: {bf16_steps(out, ref):.3e} bf16 steps")
+            l2 = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+            log(f"mx_matmul_fp8dot {label} M={M}: {bf16_steps(out, ref):.3e} bf16 steps, L2 rel {l2:.3e} "
+                f"(limit {B9_FP8_L2_REL_MAX:.1e})")
             check("mx_matmul_fp8dot", label, M, "e4m3 weights", out, ref)
+            if not l2 <= B9_FP8_L2_REL_MAX:
+                raise AssertionError(f"B9-fp8 {label} M={M}: L2 rel {l2:.3e} against its plain version "
+                                     f"exceeds {B9_FP8_L2_REL_MAX:.1e}")
         # Timing at the paths' calls.
         w_bf16 = flat["int8"].to_dtype(torch.bfloat16)
         kn = K * N
@@ -716,15 +771,8 @@ def check_format_kernels(dev, timer, gen):
             k3_parts(timer, dev, x, halves, "float8_e4m3", row)
         for M in ((1, 32) if label == "lm_head" else B9_MS):
             x = xs(M, K)
-            t, t8 = flat["int8"], flat["float8_e4m3"]
-            nbytes = 2 * M * K + kn + kn / 32 + 2 * M * N
-            time_row("mx_matmul_int8dot", label, M, "int8, x quantized by K1 inside the call",
-                     lambda: kf.mx_matmul_int8dot(x, t.data, t.scale_e8m0),
-                     lambda: _plain_int8dot(x, t, False), w_bf16, nbytes, 2 * M * N * K, INT8_OPS)
-            if M in (1, 32):
-                time_row("mx_matmul_fp8dot", label, M, "e4m3, x quantized by K1 inside the call",
-                         lambda: kf.mx_matmul_int8dot(x, t8.data, t8.scale_e8m0, True),
-                         lambda: _plain_int8dot(x, t8, True), w_bf16, nbytes, 2 * M * N * K, INT8_OPS)
+            time_b9(label, M, x, flat["int8"], False, w_bf16)
+            time_b9(label, M, x, flat["float8_e4m3"], True, w_bf16)
         del flat, halves, int8dom, w_bf16
         torch.cuda.empty_cache()
     # Every (code, scale) pair through B6's decode: x the identity, so the
@@ -1306,8 +1354,8 @@ def env_knobs(**knobs):
 
 
 # The weight configurations of this slice: name -> (weights, activations,
-# KV cache, knobs).  The model check runs the first three; `generate` at
-# b=32 the last three; the W8A8 engine the first.
+# KV cache, knobs).  The model check runs all four; `generate` at b=32 the
+# last three; the W8A8 engine the first.
 FORMATS = {"W8A8 int8 cache": ("int8", "int8", "int8", {}),
            "MXFP6 e3m2 fp8 cache": ("float6_e3m2", "float8_e4m3", "float8_e4m3", {}),
            "MXFP8 fp8 cache": ("float8_e4m3", "float8_e4m3", "float8_e4m3", {}),
@@ -1378,9 +1426,11 @@ PLANTED_FAULTS_DMAJOR = ("K7 kv_len one short", "K7 V scale of chunk c taken fro
 # The same for this slice's weight formats, one or two per new kernel.
 PLANTED_FAULTS_FORMATS = {
     "W8A8 int8 cache": ("B9 weight scale of block b taken from block b+1", "B6 int8 weight scale one binade high",
-                        "B6 reads the codes of K tile t+1 with the scales of tile t"),
+                        "B6 reads the codes of K tile t+1 with the scales of tile t",
+                        "K1 writes B9's x in natural order"),
     "MXFP6 e3m2 fp8 cache": ("B8 planes P1 and P2 swapped", "B8 decodes quarter 3 with quarter 2's scales"),
     "MXFP8 fp8 cache": ("K3-fp8 halves swapped",),
+    "MXFP8 FP8_DOT fp8 cache": ("B9-fp8 weight scale of block b taken from block b+1",),
 }
 
 
@@ -1395,9 +1445,19 @@ def planted_fault(name):
     if name.startswith("B9"):
         mod, attr = kf, "mx_matmul_int8dot"
         orig = kf.mx_matmul_int8dot
+        fp8_only = name.startswith("B9-fp8")  # the fault of the e4m3 variant alone
 
         def faulty(x, w, sw, fp8=False):
-            return orig(x, w, sw.roll(-1, dims=0) if on_cuda(x) else sw, fp8)
+            return orig(x, w, sw.roll(-1, dims=0) if on_cuda(x) and (fp8 or not fp8_only) else sw, fp8)
+    elif name.startswith("K1 writes B9's x"):
+        from torchmx_tpu_torch.ops import cuda_quantize as cq
+
+        mod, attr = kf, "mx_quantize_dot"  # the name B9's wrapper calls
+        orig = kf.mx_quantize_dot
+
+        def faulty(x, elem):
+            px_t, codes = orig(x, elem)
+            return px_t, (cq.from_dot_order(codes).contiguous() if on_cuda(x) else codes)
     elif name.startswith("B6"):
         mod, attr = kf, "mx_matmul_1byte"
         orig = kf.mx_matmul_1byte
@@ -1617,6 +1677,14 @@ GATES = {"float8_e4m3": {"layer": 5e-2, "lm_head": 2e-2, "logits": 8e-2, "tie_ga
          "W8A8 int8 cache": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3},
          "MXFP6 e3m2 fp8 cache": {"layer": 5e-2, "lm_head": 2e-2, "logits": 8e-2, "tie_gap": 0.1},
          "MXFP8 fp8 cache": {"layer": 5e-2, "lm_head": 2e-2, "logits": 8e-2, "tie_gap": 0.1},
+         # MXFP8 under TORCHMX_FP8_DOT=1 (B9-fp8 at decode and at prefill's
+         # o/down, B6 at prefill's q/k/v and gate/up): the fp8 cache's layer,
+         # lm_head and logits gates and the int8 cache's tie gap.  On an H100
+         # 80GB HBM3 (700 W) the sound kernels read layer 2.39e-2 (the plain
+         # path with float64 attention 2.32e-2), logits 4.86e-2, and flip a
+         # token at a top-2 gap of 0.125, as the int8 path does, with B9-fp8
+         # as close to the exact block sums as B6 is; the fault reads 1.13.
+         "MXFP8 FP8_DOT fp8 cache": {"layer": 5e-2, "lm_head": 2e-2, "logits": 8e-2, "tie_gap": 0.3},
          # Mixtral over the int8 cache, kernels held under the plain path's
          # expert choices (RouteTape): the int8 cache's gates, no routing
          # decision may differ on the same logits, and the kernel path's own
@@ -1724,9 +1792,10 @@ def model_check_formats(dev, card) -> dict:
     2-layer model at 8B width from the same seed: W8A8 over the int8 seq
     cache (B9 at decode and at prefill's o/down, B6 at prefill's q/k/v and
     gate/up, K5 at decode), MXFP6 e3m2 weights with fp8 activations over the
-    fp8 cache (B8 throughout) and MXFP8 weights over the fp8 cache (K3-fp8
-    throughout); the planted faults of PLANTED_FAULTS_FORMATS must each fail
-    a gate."""
+    fp8 cache (B8 throughout), MXFP8 weights over the fp8 cache (K3-fp8
+    throughout) and MXFP8 weights under ``TORCHMX_FP8_DOT=1`` (B9-fp8 at
+    decode and prefill's o/down, B6 at prefill's q/k/v and gate/up); the
+    planted faults of PLANTED_FAULTS_FORMATS must each fail a gate."""
     from torchmx_tpu_torch.models.llama import LlamaConfig
     from torchmx_tpu_torch.quant_api import build_quantized_llama
 
@@ -1856,10 +1925,10 @@ KERNEL_OF_DEVICE_NAME = (  # substring of the CUDA function name -> kernel
     ("grouped_mark_kernel", "row marks of B12"),
     ("router_kernel", "mx_router_logits"),
     ("grouped_kernel", "mx_grouped_matmul"),
-    ("matmul_int8dot_kernel<16, 1, 4, true>", "mx_matmul_fp8dot"),
-    ("matmul_int8dot_kernel<64, 2, 2, true>", "mx_matmul_fp8dot"),
-    ("matmul_int8dot_kernel", "mx_matmul_int8dot"),
-    ("reduce_splits_int8dot_kernel", "split-K reduce of B9"),
+    ("wgmma_fp8dot_kernel", "mx_matmul_fp8dot"),
+    ("wgmma_int8dot_kernel", "mx_matmul_int8dot"),
+    ("reduce_splits_b9", "split-K reduce of B9"),
+    ("quantize_dot_kernel", "mx_quantize"),
     ("matmul_1byte_kernel", "mx_matmul_1byte"),
     ("reduce_splits_1byte_kernel", "split-K reduce of B6"),
     ("matmul_fp6q_kernel", "mx_matmul_fp6q"),

@@ -1,5 +1,7 @@
 // K1 mx_quantize and K2 mx_fake_quantize: one warp per 32-element MX block;
-// mx_quantize_rows: one warp per row, one exponent a row.  K2 also writes in
+// mx_quantize_rows: one warp per row, one exponent a row.  K1 also writes in
+// B9's dot order (mx_quantize_dot_launch): the codes of each block permuted
+// as B9's W fragments come out, the scales transposed as f32 factors.  K2 also writes in
 // B7's plane order (mx_fake_quantize_planes_launch): the row's even
 // elements, then its odd ones, each plane zero-padded, quantized or copied.
 //
@@ -44,6 +46,42 @@ __global__ void quantize_kernel(const uint16_t* __restrict__ x, uint8_t* __restr
   } else {
     codes[blk * 32 + lane] = (uint8_t)code;
   }
+}
+
+// K1 in B9's dot order (csrc/mx_matmul_int8dot.cu): block b of row m as K1
+// quantizes it, its code of element 16h + k stored at position 16h + 4 ((k &
+// 7) >> 1) + (k & 1) + 2 (k >> 3) of the block (the order in which B9's W
+// fragments come out of ldmatrix.trans), its scale as the f32 factor 2^(se
+// - 127) (bits se << 23; se = 0 gives +0) at pxT[b][m] (K/32 x Mp: a stage's
+// two rows are one TMA box, read by B9 as they are); the warps of rows m >=
+// rows write the pad factors (0) of columns rows .. Mp - 1.  One warp per
+// (row, block).
+template <int E>
+__global__ void quantize_dot_kernel(const uint16_t* __restrict__ x, uint32_t* __restrict__ pxT,
+                                    uint8_t* __restrict__ codes, int rows, int nb, int Mp) {
+  const long long blk = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (blk >= (long long)Mp * nb) return;  // whole warps exit together
+  const int lane = threadIdx.x % 32, m = (int)(blk / nb), b = (int)(blk % nb);
+  if (m >= rows) {
+    if (lane == 0) pxT[(long long)b * Mp + m] = 0;
+    return;
+  }
+  const int bits = x[blk * 32 + lane];
+  const int emax = (int)__reduce_max_sync(0xffffffffu, (unsigned)((bits >> 7) & 0xFF));
+  const int se = mx::block_scale(emax, mx::Elem<E>::max_pow2);
+  if (lane == 0) pxT[(long long)b * Mp + m] = (uint32_t)se << 23;
+  const int code = E == mx::kInt8 ? mx::cast_int8(bits, se) : mx::cast_hw_exact<E>(bits, se);
+  const int k = lane & 15;
+  codes[blk * 32 + (lane & 16) + 4 * ((k & 7) >> 1) + (k & 1) + 2 * (k >> 3)] = (uint8_t)code;
+}
+
+template <int E>
+cudaError_t launch_quantize_dot(const void* x, void* pxT, void* codes, int rows, int nb, int Mp,
+                                cudaStream_t stream) {
+  unsigned grid = (unsigned)(((long long)Mp * nb + kWarps - 1) / kWarps);
+  quantize_dot_kernel<E><<<grid, kWarps * 32, 0, stream>>>((const uint16_t*)x, (uint32_t*)pxT, (uint8_t*)codes,
+                                                           rows, nb, Mp);
+  return cudaGetLastError();
 }
 
 template <int E>
@@ -212,6 +250,21 @@ extern "C" int mx_quantize_launch(const void* x, void* scale, void* codes, long 
     case mx::kFp6E3M2: return launch_quantize<mx::kFp6E3M2>(x, scale, codes, nblocks, s);
     case mx::kFp6E2M3: return launch_quantize<mx::kFp6E2M3>(x, scale, codes, nblocks, s);
     case mx::kInt8: return launch_quantize<mx::kInt8>(x, scale, codes, nblocks, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K1 in B9's dot order: x (rows, K) -> codes (rows, K) in dot order and
+// the f32 scale factors pxT (K/32, Mp) (Mp % 16 == 0, Mp >= rows; columns
+// past rows 0); elem: mx::kInt8 or mx::kFp8E4M3.
+extern "C" int mx_quantize_dot_launch(const void* x, void* pxT, void* codes, long long rows, int K, int Mp,
+                                      int elem, void* stream) {
+  if (K <= 0 || K % 32 || Mp % 16 || Mp < rows || rows >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (elem) {
+    case mx::kFp8E4M3: return launch_quantize_dot<mx::kFp8E4M3>(x, pxT, codes, (int)rows, K / 32, Mp, s);
+    case mx::kInt8: return launch_quantize_dot<mx::kInt8>(x, pxT, codes, (int)rows, K / 32, Mp, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,8 @@
 // Hopper building blocks of the wgmma matmul kernels: TMA copies completing
 // on mbarriers, the 128-byte swizzled shared-memory tiles TMA writes and
 // wgmma and ldmatrix read, wgmma's shared-memory matrix descriptor, and
-// wgmma.mma_async m64n128k16 bf16 -> f32 with A from registers and B K-major
-// in shared memory.  sm_90a only.
+// wgmma.mma_async m64n128k16 bf16 -> f32 (and m64n64k32 on int8 codes)
+// with A from registers and B K-major in shared memory.  sm_90a only.
 //
 // Tiles.  An operand tile is made of 1024-byte atoms of eight 128-byte rows
 // (row r of a K-major B tile holds 64 bf16 K values); the 16-byte chunk c
@@ -127,11 +127,46 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// The 32 accumulator registers of an m64n64 fragment, as asm operands %0 .. %31.
+#define MX_WGMMA_D32 "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// One MX block's dot on raw int8 codes: d (64 x 64, the warpgroup's
+// fragment) = A (64 x 32 codes, from registers) * B (32 x 64 codes, K-major
+// in shared memory), s8 x s8 -> s32, the exact integer sum, with scale-d = 0
+// (d's old value is not read).  (Its e4m3 form, e4m3 x e4m3 -> f32, keeps
+// fewer bits than f32 in the sum, where mma.sync m16n8k32 keeps them: B9
+// takes mma.sync for e4m3, csrc/mx_matmul_int8dot.cu.)  For thread t of the
+// warpgroup (w = t / 32, l = t % 32, g = l / 4, q = l % 4): a[0] holds the
+// codes at K 4q .. 4q + 3 of row 16w + g (byte i: K 4q + i), a[1] the same of
+// row 16w + g + 8, a[2] / a[3] those at K 16 + 4q ..; d[4j + 2h + i] is row
+// 16w + g + 8h, column 8j + 2q + i (the k16 layout's).
+__device__ __forceinline__ void wgmma_m64n64k32_s8_rs(int (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " MX_WGMMA_D32 ", {%32, %33, %34, %35}, %36, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(0));
+}
+
 // Tell the compiler the fragment changed here (after a wgmma wait), so that
 // no read of it moves above the wait.
-__device__ __forceinline__ void fence_fragment(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_fragment(int (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_fragment(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // ldmatrix x4 with .trans of four 8 x 8 b16 matrices; lane l passes the row
@@ -140,6 +175,15 @@ __device__ __forceinline__ void fence_fragment(float (&d)[64]) {
 // and [row 2t + 1][col g] (high half) of matrix q.
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The same without .trans: lane (g = l/4, t = l%4) receives, in r[q],
+// elements [row g][col 2t] (low half) and [row g][col 2t + 1] (high half)
+// of matrix q: bytes 4t .. 4t + 3 of row g of an 8 x 16-byte matrix.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }

@@ -51,6 +51,8 @@ SIGNATURES = {
     "mx_quantize": {
         # x, scale, codes, rows, K, elem_code, stream
         "mx_quantize_launch": (_P, _P, _P, _L, _I, _I, _P),
+        # x, pxT (f32 scale factors), codes, rows, K, Mp (pxT's width), elem_code, stream: B9's dot order
+        "mx_quantize_dot_launch": (_P, _P, _P, _L, _I, _I, _I, _P),
         # x, out, rows, K, elem_code, stream
         "mx_fake_quantize_launch": (_P, _P, _L, _I, _I, _P),
         # x, out, rows, K, Kp (the planes' width), elem_code (-1: copy), stream
@@ -83,9 +85,13 @@ SIGNATURES = {
         "mx_matmul_fp6q_reduce_launch": (_P, _P, _L, _I, _P),
     },
     "mx_matmul_int8dot": {
-        # x codes, x scales, w codes, w scales, out, workspace, M, N, K, tile_rows, splits, stream
-        "mx_matmul_int8dot_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-        "mx_matmul_fp8dot_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # x codes (dot order), x scale factors (K/32, Mp), w codes, w scales, out, workspace, M, N, K, Mp,
+        # splits, walk, reduce (the two-pass form's reduce in the same call), stream
+        "mx_matmul_int8dot_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        "mx_matmul_fp8dot_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        # workspace, out, M * N, splits, stream
+        "mx_matmul_int8dot_reduce_launch": (_P, _P, _L, _I, _P),
+        "mx_matmul_fp8dot_reduce_launch": (_P, _P, _L, _I, _P),
     },
     "mx_grouped_matmul": {
         # x, w, scale, tile_expert, tile_rows, row marks, out, workspace, R, N, K, E, tm,

@@ -71,16 +71,16 @@ def mx_matmul_fp4_halves_plain(
 
 
 def _plan(M: int, N: int, K: int, device: torch.device):
-    """(rows per tile, K splits) for the matmul kernels B9 and B12 (64 K
-    elements per iteration).  The tile follows M.  The splits follow N and K
+    """(rows per tile, K splits) for B12's grouped matmul (64 K elements per
+    iteration).  The tile follows M.  The splits follow N and K
     alone (:func:`k_splits`): enough that a single row tile (decode) keeps
     the SMs busy.  An output element's fp32 sum order is fixed
     by the splits, so a row's result does not depend on how many other rows
     share the call: a prompt admitted whole, in chunks or after a cached
-    prefix gets the same bytes.  B6 (``cuda_matmul_formats.plan_1byte``) and
-    B9 take the same splits, which is what lets them give an int8 row the
-    same bytes.  (At large M the extra splits cost a pass over the fp32
-    partials.)"""
+    prefix gets the same bytes.  B6 and B9 (``cuda_matmul_formats.plan_1byte``,
+    ``plan_int8dot``) take the same splits, which is what lets B12 and B9
+    give an int8 row B6's bytes.  (At large M the extra splits cost a pass
+    over the fp32 partials.)"""
     bm = 16 if M <= 16 else (64 if M <= 64 or N % 128 else 128)
     return bm, k_splits(N, K, sm_count(device))
 

@@ -26,6 +26,11 @@ layouts, and their plain PyTorch versions:
   with W's codes is taken on the codes (exact int32 for int8), multiplied by
   ``2^(sx-127)`` then ``2^(sw-127)`` (f32 factors built from the scale
   bytes: byte 0 gives +0) and added to an f32 accumulator in block order.
+  On the card K1 writes x in B9's dot order (``cuda_quantize.mx_quantize_dot``:
+  codes permuted inside each block as the kernel's W fragments come out,
+  scales transposed as f32 factors), and the kernel runs B6's TMA + wgmma
+  mainloop with one k32 wgmma on the raw codes per block and 64 rows; its
+  launch plan is :func:`plan_int8dot`, with B6's splits.
 
 Weight decode (B6, B8) is ``decode_codes_to_bf16(dot_operand=True)`` of the
 reference, and ``decode_int8_to_bf16`` for int8: signed zeros and the fp8
@@ -43,6 +48,7 @@ prologue); its launch plan is :func:`plan_1byte`.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -51,9 +57,9 @@ from ..mx_quantization import f32_from_bits
 from ..packing import fp6_quarters_to_codes
 from . import cuda_lib
 from .backend import on_cuda
-from .cuda_matmul import (SMEM_LIMIT, WgmmaPlan, _plan, check_matmul_operands, decode_code_dot, decode_fp4_to_bf16,
-                          fq_matmul, k_splits, plan_halves, sm_count)
-from .cuda_quantize import PLANE_FORMATS, mx_fake_quantize_planes, mx_quantize, pair_width
+from .cuda_matmul import (SMEM_LIMIT, WgmmaPlan, check_matmul_operands, decode_code_dot, decode_fp4_to_bf16, fq_matmul,
+                          k_splits, plan_halves, sm_count)
+from .cuda_quantize import PLANE_FORMATS, mx_fake_quantize_planes, mx_quantize, mx_quantize_dot, pair_width
 from .quantize import mx_fake_quantize
 
 CODE_FORMATS_1BYTE = ("float8_e4m3", "float6_e3m2", "float6_e2m3", "int8")
@@ -334,37 +340,98 @@ def mx_matmul_int8dot_plain(xc, sx, w_codes, w_scale, fp8: bool = False) -> torc
     return acc.to(torch.bfloat16)
 
 
-def mx_matmul_int8dot_codes(xc, sx, w_codes, w_scale, fp8: bool = False) -> torch.Tensor:
-    """B9 on x already quantized to codes ``xc (M, K)`` and scales ``sx (M,
-    K/32)``: the kernel on CUDA tensors, counted as ``mx_matmul_int8dot``
-    (``mx_matmul_fp8dot`` for e4m3 codes); M up to ``INT8DOT_MAX_M``."""
-    if not on_cuda(xc, sx, w_codes, w_scale):
-        return mx_matmul_int8dot_plain(xc, sx, w_codes, w_scale, fp8)
-    M, K = xc.shape
+# B9's launch (csrc/mx_matmul_int8dot.cu): a CTA takes 64 rows of x (one
+# wgmma m64n64k32 per MX block) and 128 columns of W (two consumer
+# warpgroups), through a ring of 8 TMA stages of 64 K.
+B9_BM = 64
+B9_BN = 128
+B9_STAGES = 8
+
+
+def b9_smem_bytes() -> int:
+    """Smem::bytes of csrc/mx_matmul_int8dot.cu: the x code (64 x 64
+    bytes), W code (64 x 128 bytes) and scale (W's two rows of 128 bytes,
+    x's two rows of 64 f32 factors) rings, their full and empty mbarriers,
+    the fp32 staging tile, 1024 bytes of slack."""
+    ring = B9_STAGES * (B9_BM * 64 + 64 * B9_BN + 2 * B9_BN + 2 * B9_BM * 4)
+    return ring + 16 * B9_STAGES + B9_BM * (B9_BN + 8) * 4 + 1024
+
+
+@functools.lru_cache(maxsize=None)
+def plan_int8dot(M: int, N: int, K: int, sms: int) -> WgmmaPlan:
+    """B9's launch plan: B6's splits ``k_splits(N, K, sms)`` (64 K a stage),
+    summed in split order, so that with exact int8 partials an int8 row gets
+    B6's bytes; each CTA sums its splits itself where the output tiles make
+    half a wave (the bytes of the two-pass form).  The tile (64 rows) and
+    the instruction are the same at every M, so a row's bytes do not depend
+    on M.  Cached: a decode step asks for the same few plans every call."""
+    splits = k_splits(N, K, sms)
+    tiles = -(-M // B9_BM) * -(-N // B9_BN)
+    return WgmmaPlan(B9_BM, B9_BN, B9_STAGES, b9_smem_bytes(), splits, splits > 1 and 2 * tiles >= sms)
+
+
+def _b9_fn(fp8: bool) -> str:
+    return "mx_matmul_fp8dot" if fp8 else "mx_matmul_int8dot"
+
+
+def b9_kernel(xd, px_t, w_codes, w_scale, fp8: bool, plan: WgmmaPlan, reduce: bool = False):
+    """B9 on CUDA tensors the wrapper has checked, x as K1's dot-order mode
+    writes it (``xd (M, K)``, ``px_t (K/32, Mp)``), in one host call:
+    (out, None) where the product is whole after it (the plan walks its
+    splits, or ``reduce`` has the same call launch the second pass), else
+    the main kernel alone and (out, the fp32 split partials) for
+    :func:`b9_reduce`."""
+    M, K = xd.shape
     N = w_codes.shape[1]
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=xd.device)
+    ws = None if plan.walk or plan.splits == 1 else torch.empty((plan.splits, M, N), dtype=torch.float32,
+                                                                 device=xd.device)
+    cuda_lib.launch("mx_matmul_int8dot", _b9_fn(fp8) + "_launch", xd.data_ptr(), px_t.data_ptr(),
+                    w_codes.data_ptr(), w_scale.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+                    M, N, K, px_t.shape[1], plan.splits, int(plan.walk), int(reduce))
+    return out, (None if reduce else ws)
+
+
+def b9_reduce(ws: torch.Tensor, out: torch.Tensor, fp8: bool) -> torch.Tensor:
+    """B9's second pass: ``out`` = the split partials summed in split order."""
+    cuda_lib.launch("mx_matmul_int8dot", _b9_fn(fp8) + "_reduce_launch", ws.data_ptr(), out.data_ptr(),
+                    out.numel(), ws.shape[0], count=False)
+    return out
+
+
+def _check_int8dot(M: int, K: int, w_codes, w_scale, fp8: bool) -> None:
+    """Raise unless the weight is what B9 takes at M rows of K: ``(K, N)``
+    int8 (e4m3: uint8) codes and ``(K/32, N)`` uint8 scales, contiguous and
+    16-byte aligned (TMA), with 0 < M <= ``INT8DOT_MAX_M``, K % 64 == 0 and
+    N % 64 == 0."""
+    N = w_codes.shape[-1]
     code_dtype = torch.uint8 if fp8 else torch.int8
-    if xc.dtype != code_dtype or w_codes.dtype != code_dtype or sx.dtype != torch.uint8:
-        raise ValueError(f"B9 takes {code_dtype} codes and uint8 scales, got {xc.dtype} / {w_codes.dtype} / {sx.dtype}")
+    if w_codes.dtype != code_dtype or w_scale.dtype != torch.uint8:
+        raise ValueError(f"B9 takes {code_dtype} codes and uint8 scales, got {w_codes.dtype} / {w_scale.dtype}")
     if not 0 < M <= INT8DOT_MAX_M or K % 64 or N % 64:
         raise ValueError(f"B9 needs 0 < M <= {INT8DOT_MAX_M}, K % 64 == 0 and N % 64 == 0, got M={M} K={K} N={N}")
-    if sx.shape != (M, K // 32) or w_codes.shape != (K, N) or w_scale.shape != (K // 32, N):
-        raise ValueError(f"B9 operand shapes do not match: x {tuple(xc.shape)} sx {tuple(sx.shape)} "
-                         f"w {tuple(w_codes.shape)} sw {tuple(w_scale.shape)}")
-    if not all(t.is_contiguous() for t in (xc, sx, w_codes, w_scale)):
+    if w_codes.shape != (K, N) or w_scale.shape != (K // 32, N):
+        raise ValueError(f"B9 weight shapes do not match K={K}: w {tuple(w_codes.shape)} sw {tuple(w_scale.shape)}")
+    if not (w_codes.is_contiguous() and w_scale.is_contiguous()):
         raise ValueError("B9 operands must be contiguous")
-    _, splits = _plan(M, N, K, xc.device)
-    bm = 16 if M <= 16 else 64
-    out = torch.empty((M, N), dtype=torch.bfloat16, device=xc.device)
-    ws = torch.empty((splits, M, N) if splits > 1 else (1,), dtype=torch.float32, device=xc.device)
-    fn = "mx_matmul_fp8dot_launch" if fp8 else "mx_matmul_int8dot_launch"
-    cuda_lib.launch("mx_matmul_int8dot", fn, xc.data_ptr(), sx.data_ptr(), w_codes.data_ptr(),
-                    w_scale.data_ptr(), out.data_ptr(), ws.data_ptr(), M, N, K, bm, splits)
-    return out
+    if any(t.data_ptr() % 16 for t in (w_codes, w_scale)):
+        raise ValueError("B9 reads the weight and its scales by TMA: their storage must be 16-byte aligned")
 
 
 def mx_matmul_int8dot(x: torch.Tensor, w_codes, w_scale, fp8: bool = False) -> torch.Tensor:
     """B9 on a bf16 x: K1 quantizes x to MXINT8 (MXFP8 with ``fp8``) codes
     and scales, as ``int8dot_any`` / ``fp8dot_any`` do, then the int8-dot
-    kernel (the plain versions of both on CPU tensors)."""
-    sx, xc = mx_quantize(x.contiguous(), "float8_e4m3" if fp8 else "int8")
-    return mx_matmul_int8dot_codes(xc, sx, w_codes, w_scale, fp8)
+    kernel.  CUDA tensors run K1's dot-order mode and the kernel, two host
+    calls (the weight is checked first: nothing launches for a call that
+    raises); CPU tensors the plain versions of both."""
+    fmt = "float8_e4m3" if fp8 else "int8"
+    if not on_cuda(x, w_codes, w_scale):
+        sx, xc = mx_quantize(x.contiguous(), fmt)
+        return mx_matmul_int8dot_plain(xc, sx, w_codes, w_scale, fp8)
+    if x.dim() != 2 or x.dtype != torch.bfloat16:
+        raise ValueError(f"B9 takes a 2-D bf16 x, got {x.dtype} {tuple(x.shape)}")
+    M, K = x.shape
+    _check_int8dot(M, K, w_codes, w_scale, fp8)
+    px_t, xd = mx_quantize_dot(x.contiguous(), fmt)  # K1's own output: what the kernel takes
+    plan = plan_int8dot(M, w_codes.shape[1], K, sm_count(x.device))
+    return b9_kernel(xd, px_t, w_codes, w_scale, fp8, plan, reduce=True)[0]

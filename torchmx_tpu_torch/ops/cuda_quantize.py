@@ -11,6 +11,13 @@ Fake-quantize contract: ``mx_fake_quantize(x) == dequantize_mx(quantize_mx(x))``
 bit for bit, including the flush of results below the fp32 normal range to a
 signed zero that ``dequantize_mx`` inherits from the reference.
 
+K1 also writes in B9's dot order (``mx_quantize_dot``): each block's codes
+under the permutation of K in which B9's W fragments come out of
+``ldmatrix.trans`` (:data:`DOT_ORDER`), its scales transposed to ``(K/32,
+Mp)`` as the f32 factors ``2^(se-127)`` (bits ``se << 23``), Mp = M rounded
+up to 16 (:func:`dot_scale_width`): a stage of B9 reads its two scale rows
+as one TMA box and multiplies by them as they are.
+
 K2 also writes in B7's plane order (``mx_fake_quantize_planes``): x's even
 elements, then its odd ones, each plane zero-padded to ``pair_width(K) / 2``
 columns, as ``_pallas_matmul_fp4`` splits x before its kernel; with an
@@ -83,6 +90,64 @@ def mx_quantize(
         x.numel() // K, K, cuda_lib.ELEM_CODES[elem_dtype_name],
     )
     return scale, codes
+
+
+# B9's dot order: position 16h + 4q + j of a 32-element block holds element
+# 16h + 2q + (j & 1) + 8 (j >> 1), where B9's register A fragments from
+# ldmatrix.trans put W's codes (csrc/mx_matmul_int8dot.cu).
+DOT_ORDER = tuple(16 * h + 2 * q + (j & 1) + 8 * (j >> 1) for h in range(2) for q in range(4) for j in range(4))
+DOT_FORMATS = ("int8", "float8_e4m3")  # B9's code formats
+
+
+def dot_scale_width(M: int) -> int:
+    """Columns of the dot-order mode's transposed scales: M rounded up to 16
+    (a TMA row pitch is a multiple of 16 bytes)."""
+    return -(-M // 16) * 16
+
+
+def to_dot_order(codes: torch.Tensor) -> torch.Tensor:
+    """``(..., K)`` codes, each 32-block permuted into :data:`DOT_ORDER`."""
+    K = codes.shape[-1]
+    order = torch.tensor(DOT_ORDER, device=codes.device)
+    return codes.reshape(*codes.shape[:-1], K // BLOCK, BLOCK)[..., order].reshape(codes.shape)
+
+
+def from_dot_order(codes: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`to_dot_order`."""
+    K = codes.shape[-1]
+    inverse = torch.argsort(torch.tensor(DOT_ORDER, device=codes.device))
+    return codes.reshape(*codes.shape[:-1], K // BLOCK, BLOCK)[..., inverse].reshape(codes.shape)
+
+
+def mx_quantize_dot_plain(x: torch.Tensor, elem_dtype_name: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K1's dot-order mode: ``x (M, K)`` quantized as
+    :func:`mx_quantize_plain` does, returned as (the scales transposed as f32
+    factors ``2^(se-127)``, ``(K/32, Mp)`` with zeros in columns M .. Mp - 1;
+    the codes ``(M, K)`` in :data:`DOT_ORDER`)."""
+    M, K = x.shape
+    se, codes = quantize_mx_plain(x, elem_dtype_name, BLOCK)
+    px_t = torch.zeros((K // BLOCK, dot_scale_width(M)), dtype=torch.float32, device=x.device)
+    px_t[:, :M] = f32_from_bits(se.t().to(torch.int32) << 23)
+    return px_t, to_dot_order(codes)
+
+
+def mx_quantize_dot(x: torch.Tensor, elem_dtype_name: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 in B9's dot order (see :func:`mx_quantize_dot_plain`), int8 or
+    e4m3 codes of a 2-D bf16 x.  CUDA tensors launch the kernel, counted as
+    ``mx_quantize``."""
+    if elem_dtype_name not in DOT_FORMATS:
+        raise ValueError(f"the dot-order mode takes {DOT_FORMATS}, got {elem_dtype_name!r}")
+    if x.dim() != 2:
+        raise ValueError(f"the dot-order mode takes a 2-D x, got {tuple(x.shape)}")
+    if not on_cuda(x):
+        return mx_quantize_dot_plain(x, elem_dtype_name)
+    _check_kernel_input(x, BLOCK)
+    M, K = x.shape
+    px_t = torch.empty((K // BLOCK, dot_scale_width(M)), dtype=torch.float32, device=x.device)
+    codes = torch.empty((M, K), dtype=torch.int8 if elem_dtype_name == "int8" else torch.uint8, device=x.device)
+    cuda_lib.launch("mx_quantize", "mx_quantize_dot_launch", x.data_ptr(), px_t.data_ptr(), codes.data_ptr(),
+                    M, K, px_t.shape[1], cuda_lib.ELEM_CODES[elem_dtype_name], name="mx_quantize")
+    return px_t, codes
 
 
 def mx_fake_quantize_plain(

@@ -10,12 +10,14 @@ of the kernel as built for the main path (``chip_smoke.Timer``, at the
 plan's own launch, its split reduce left out).
 
 With ``--datapath-only`` it builds ``csrc/mx_matmul.cu`` with
-``-DK3_DATAPATH_ONLY`` instead (the producer warp's TMA ring as built, the
-consumers only waiting for each stage and releasing its slot) and times it
-beside the kernel as built, at K3's gate/up and k/v shapes (fp4 and fp8
-halves) and B7's shared-expert down shape (fp4 pair, x in plane order): the
-time of the weight and x stream alone against the whole mainloop's, and the
-bytes' bound.  Run from the repository root on a machine with one card:
+``-DK3_DATAPATH_ONLY`` and ``csrc/mx_matmul_int8dot.cu`` with
+``-DB9_DATAPATH_ONLY`` instead (the producer warp's TMA ring as built, the
+consumers only waiting for each stage and releasing its slot) and times them
+beside the kernels as built, at K3's gate/up and k/v shapes (fp4 and fp8
+halves), B7's shared-expert down shape (fp4 pair, x in plane order) and B9's
+gate/up, k/v and down shapes (int8, x in K1's dot order): the time of the
+weight and x stream alone against the whole mainloop's, and the bytes'
+bound.  Run from the repository root on a machine with one card:
 
     python3 torchmx_tpu_torch/tools/b8_phase_profile.py [--kernel b8|k3] [M ...]
     python3 torchmx_tpu_torch/tools/b8_phase_profile.py --datapath-only [M ...]
@@ -106,15 +108,18 @@ def main(kernel: str, ms) -> None:
 DATAPATH_SHAPES = {"K3 gate/up": ("float4_e2m1", "halves", 4096, 14336),
                    "K3 k/v": ("float4_e2m1", "halves", 4096, 1024),
                    "K3-fp8 gate/up": ("float8_e4m3", "halves", 4096, 14336),
-                   "B7 shared down_proj": ("float4_e2m1", "pair", 2816, 2048)}
+                   "B7 shared down_proj": ("float4_e2m1", "pair", 2816, 2048),
+                   "B9 gate/up": ("int8", "int8dot", 4096, 14336),
+                   "B9 k/v": ("int8", "int8dot", 4096, 1024),
+                   "B9 down": ("int8", "int8dot", 14336, 4096)}
 
 
 def datapath_only(ms) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("b8_phase_profile: no CUDA device")
     dev = torch.device("cuda")
-    variant = cuda_lib.build_variant("mx_matmul", "-DK3_DATAPATH_ONLY")
-    built = cuda_lib.lib("mx_matmul")
+    variants = {"mx_matmul": cuda_lib.build_variant("mx_matmul", "-DK3_DATAPATH_ONLY"),
+                "mx_matmul_int8dot": cuda_lib.build_variant("mx_matmul_int8dot", "-DB9_DATAPATH_ONLY")}
     timer, gen = chip_smoke.Timer(dev), torch.Generator(dev).manual_seed(0)
     print(chip_smoke.card_line(), flush=True)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -122,27 +127,37 @@ def datapath_only(ms) -> None:
         w = MXTensor.to_mx((torch.randn(N, K, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16), elem).T
         if layout == "halves":
             w = w.to_fp4_halves() if elem == "float4_e2m1" else w.to_fp8_halves()
+        src = "mx_matmul_int8dot" if layout == "int8dot" else "mx_matmul"
         fn = {"halves": f"mx_matmul_{'fp4' if elem == 'float4_e2m1' else 'fp8'}_halves_launch",
-              "pair": "mx_matmul_fp4_pair_launch"}[layout]
+              "pair": "mx_matmul_fp4_pair_launch", "int8dot": "mx_matmul_int8dot_launch"}[layout]
         w_bytes = K * N / 32 + K * N / (2 if elem == "float4_e2m1" else 1)
         for M in ms:
+            if layout == "int8dot" and M > kf.INT8DOT_MAX_M:  # B9 takes M <= 256
+                continue
             x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
-            plan = kf.plan_pair(M, N, K, sms) if layout == "pair" else cm.plan_halves(M, N, K, sms, elem)
-            if layout == "pair":
-                x = cq.mx_fake_quantize_planes(x)
+            if layout == "int8dot":
+                plan = kf.plan_int8dot(M, N, K, sms)
+                px_t, x = cq.mx_quantize_dot(x, "int8")  # the kernel reads x's codes and f32 scale factors
+                x_args, x_bytes = (x.data_ptr(), px_t.data_ptr()), x.numel() + 4 * px_t.numel()
+                tail, post = (px_t.shape[1],), (0,)  # Mp; reduce: the main kernel alone
+            else:
+                plan = kf.plan_pair(M, N, K, sms) if layout == "pair" else cm.plan_halves(M, N, K, sms, elem)
+                if layout == "pair":
+                    x = cq.mx_fake_quantize_planes(x)
+                x_args, x_bytes, tail, post = (x.data_ptr(),), 2 * x.numel(), (), ()
             out = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
             ws = torch.empty((plan.splits, M, N) if plan.splits > 1 and not plan.walk else (1,),
                              dtype=torch.float32, device=dev)
 
             def launch(lib):
-                rc = getattr(lib, fn)(x.data_ptr(), w.data.data_ptr(), w.scale_e8m0.data_ptr(), out.data_ptr(),
-                                      ws.data_ptr(), M, N, K, plan.splits, int(plan.walk),
+                rc = getattr(lib, fn)(*x_args, w.data.data_ptr(), w.scale_e8m0.data_ptr(), out.data_ptr(),
+                                      ws.data_ptr(), M, N, K, *tail, plan.splits, int(plan.walk), *post,
                                       torch.cuda.current_stream().cuda_stream)
                 if rc:
                     raise RuntimeError(f"launch failed: cudaError {rc}")
 
-            full, stream = timer(lambda: launch(built)), timer(lambda: launch(variant))
-            bytes_ms = chip_smoke.bound(w_bytes + 2 * x.numel() + 2 * M * N)[0]
+            full, stream = timer(lambda: launch(cuda_lib.lib(src))), timer(lambda: launch(variants[src]))
+            bytes_ms = chip_smoke.bound(w_bytes + x_bytes + 2 * M * N)[0]
             print(f"{label} {elem} {layout} M={M} N={N} K={K} ({plan.splits} splits, walk {plan.walk}): "
                   f"the kernel {full:.4f} ms, its data path alone {stream:.4f} ms ({stream / full:.0%}), "
                   f"bytes' bound {bytes_ms:.4f} ms", flush=True)
@@ -152,7 +167,8 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=sorted(KERNELS), default="b8")
     ap.add_argument("--datapath-only", action="store_true",
-                    help="time K3's and B7's mainloop with consumers that only wait and release (K3_DATAPATH_ONLY)")
+                    help="time K3's, B7's and B9's mainloop with consumers that only wait and release "
+                         "(K3_DATAPATH_ONLY, B9_DATAPATH_ONLY)")
     ap.add_argument("ms", type=int, nargs="*", default=None)
     args = ap.parse_args()
     if args.datapath_only:
