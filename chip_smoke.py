@@ -24,10 +24,12 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    (code, scale) pair bit for bit), and B9 giving B6's bytes on int8; B9
    timed as the path calls it and as its kernel, K1 and split reduce apart;
    the RMSNorm kernel within
-   one bf16 step; this slice's B12 over bf16
-   experts and four code formats at tm 8 and 128 rel <= 1e-2, on bench.py's
-   shape routed-2 and spread and at the Mixtral main path's w1 and w2 calls,
-   giving B6's bytes for every live tile of int8 experts; the router kernel
+   one bf16 step; B12 over bf16
+   experts and four code formats at tm 8 and 128 rel <= 1e-2, each expert's
+   rows bounded by the token count, on bench.py's shape routed-2 and spread,
+   at Moonlight's decode b=32 and at the Mixtral and Moonlight main paths'
+   w1 and w2 calls, dead and padding rows 0, giving B6's bytes for every live
+   tile of code experts; the router kernel
    bit for bit; B13 over bf16, fp8, both fp6, int8 and fp4
    latent caches at the Moonlight path's decode, admission and prefill
    shapes and bench.py's MLA decode shape abs <= 2e-2, and over the int8
@@ -65,11 +67,12 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    planted kernel fault must fail one.  Then 2-layer Mixtral-8x7B-width
    models over the int8 seq cache (router rows 0 and 1 tied, so that the
    tie-break is exercised): fp4 grouped experts (B12 on int8-domain codes)
-   with four planted faults (B12 on the wrong expert, B12 on the next
-   block's scale row, the router's tie-break reversed, combine dropping the
-   second expert) and e3m2 grouped experts, the kernel path replaying the
-   plain path's expert choices (``RouteTape``), a fifth fault flipping an
-   expert choice at a probability gap above 5e-2; and the int8-weight
+   with six planted faults (B12 on the wrong expert, B12 on the next
+   block's scale row, inside B12's kernel W's row coordinate one MX block
+   late and a live tile's row extent one row short, the router's tie-break
+   reversed, combine dropping the second expert) and e3m2 grouped
+   experts, the kernel path replaying the plain path's expert choices
+   (``RouteTape``), a seventh fault flipping an expert choice at a probability gap above 5e-2; and the int8-weight
    grouped model against the per-expert one (B6), bit for bit.  Then
    2-layer models at Moonlight-16B-A3B width (layer 0 dense, layer 1 MoE,
    router rows 0 and 1 tied, random correction biases) over the int8 seq
@@ -1922,9 +1925,8 @@ KERNEL_OF_DEVICE_NAME = (  # substring of the CUDA function name -> kernel
     ("matmul_fp4_pair_kernel", "mx_matmul_fp4_pair"),
     ("reduce_splits_fp4p_kernel", "split-K reduce of B7"),
     ("grouped_reduce_kernel", "split-K reduce of B12"),
-    ("grouped_mark_kernel", "row marks of B12"),
     ("router_kernel", "mx_router_logits"),
-    ("grouped_kernel", "mx_grouped_matmul"),
+    ("grouped_wgmma_kernel", "mx_grouped_matmul"),
     ("wgmma_fp8dot_kernel", "mx_matmul_fp8dot"),
     ("wgmma_int8dot_kernel", "mx_matmul_int8dot"),
     ("reduce_splits_b9", "split-K reduce of B9"),
@@ -2457,18 +2459,24 @@ MIXTRAL_8X7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
                     rms_norm_eps=1e-5, max_position_embeddings=32768, sliding_window=None,
                     num_local_experts=8, num_experts_per_tok=2)
 GROUPED_TM = 128  # the grouped block's row tile (grouped_tm)
-B12_SHAPES = {"w1/w3": (4096, 14336), "w2": (14336, 4096)}
+# B12's linears on the main paths, (E, top-k, K, N): Mixtral-8x7B's w1/w3 and
+# w2, Moonlight-16B-A3B's routed w1/w3 and w2 (moe_intermediate_size 1408).
+B12_SHAPES = {"w1/w3": (8, 2, 4096, 14336), "w2": (8, 2, 14336, 4096),
+              "Moonlight w1/w3": (64, 6, 2048, 1408), "Moonlight w2": (64, 6, 1408, 2048)}
 # Token counts B12 sees on the main path: decode at b=1 and b=32, an engine
 # admission, prefill of b=32 x 64.
 B12_MAIN_T = (1, 32, 512, 2048)
+# The design target against torch._grouped_mm (decode b=32: no slower; prefill
+# T=2048: at most 2.5x), read on the int8 rows of both models.
+B12_TARGET = {32: 1.0, 2048: 2.5}
 
 
-def _routing(dev, gen, T, routed2, E=8):
-    """(T, 2) int32 experts: every token on experts 0 and 1 (routed-2), or
-    two distinct random experts per token (spread)."""
+def _routing(dev, gen, T, routed2, E=8, k=2):
+    """(T, k) int32 experts: every token on experts 0 .. k-1 (routed-2 at
+    k = 2), or k distinct random experts per token (spread)."""
     if routed2:
-        return torch.tensor([[0, 1]], dtype=torch.int32, device=dev).expand(T, 2).contiguous()
-    return torch.rand(T, E, generator=gen, device=dev).argsort(dim=1)[:, :2].to(torch.int32)
+        return torch.arange(k, dtype=torch.int32, device=dev).expand(T, k).contiguous()
+    return torch.rand(T, E, generator=gen, device=dev).argsort(dim=1)[:, :k].to(torch.int32)
 
 
 def _stacked_codes(w, elem):
@@ -2483,10 +2491,10 @@ def _stacked_codes(w, elem):
             torch.stack([t.scale_e8m0.t() for t in ts]).contiguous())
 
 
-def _b12_bound(T, K, N, live_experts, elem):
+def _b12_bound(T, K, N, live_experts, elem, k=2):
     """Bytes: the useful rows of x and of the output, the live experts'
-    weights (codes and scales); operations: 2 * A * N * K, A = 2 T."""
-    A = 2 * T
+    weights (codes and scales); operations: 2 * A * N * K, A = k T."""
+    A = k * T
     wb = K * N * (2 if elem is None else 1 + 1 / 32)
     return bound(A * K * 2 + live_experts * wb + A * N * 2, 2 * A * N * K)
 
@@ -2514,41 +2522,50 @@ def _grouped_library(xs, w_bf16, te, tr, tm):
 
 
 def check_grouped_kernel(dev, timer, gen):
-    """B12 against its plain version (rel <= 1e-2) for bf16 experts and the
-    four code formats at tm 8 and 128, on ``bench.py:338``'s shape (E=8,
-    K=4096, N=14336, T=8 tokens, k=2) routed-2 and spread, and on the main
-    path's w1 and w2 shapes at every token count it sees; dead rows must be
-    0 and every live tile of int8 experts must give B6's bytes on the same
-    rows.  Timed (kernel, plain, the library call, the bound) at the main
-    path's int8 calls and on the bench shape, whose routed-2 / spread ratio
-    is the dead-tile skip.  Returns (entry, rows)."""
+    """B12 against its plain version (rel <= 1e-2), each expert's rows
+    bounded by the token count as the MoE block bounds them: bf16 experts and
+    the four code formats at tm 8 and 128 on ``bench.py:338``'s shape (E=8,
+    K=4096, N=14336, T=8 tokens, k=2) routed-2 and spread and on Moonlight's
+    w1/w3 at decode b=32; then every main-path shape of both models (Mixtral's
+    w1/w3 and w2, top-2 of 8; Moonlight's routed w1/w3 and w2, top-6 of 64) at
+    every token count it sees, int8 experts (fp4 re-coded) and Mixtral's e3m2.
+    Dead and padding rows must be 0 and every live tile of code experts must
+    give B6's bytes on the same rows.  Timed (kernel, plain, ``torch._grouped_mm``,
+    the bound) at the main path's int8 calls and on the bench shape, whose
+    routed-2 / spread ratio is the dead-tile skip; the decode b=32 and
+    prefill T=2048 ratios to the library call are read against
+    ``B12_TARGET``.  Returns (entry, rows)."""
     from torchmx_tpu_torch.ops import cuda_matmul_formats as kf
     from torchmx_tpu_torch.ops import cuda_moe, moe
 
-    E, rows, worst = 8, [], 0.0
-    for label, (K, N) in B12_SHAPES.items():
+    rows, worst = [], 0.0
+    for label, (E, k, K, N) in B12_SHAPES.items():
         w = torch.empty((E, K, N), dtype=torch.bfloat16, device=dev)
         for e in range(E):
             w[e] = (torch.randn(K, N, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
         weights = {None: (w, None)}
         weights.update({el: _stacked_codes(w, el) for el in kf.CODE_FORMATS_1BYTE})
 
-        def run(T, routed2, tm, elem, b6=False, time_it=False, what=""):
+        def run(T, routed2, tm, elem, time_it=False, what=""):
             nonlocal worst
             x = torch.randn(T, K, generator=gen, device=dev).to(torch.bfloat16)
-            xs, te, tr, _ = moe.group_tokens(x, _routing(dev, gen, T, routed2), tm, E)
+            xs, te, tr, _ = moe.group_tokens(x, _routing(dev, gen, T, routed2, E, k), tm, E)
             wq, sc = weights[elem]
-            out = cuda_moe.mx_grouped_matmul(xs, wq, te, tr, tm, sc, elem)
-            ref = cuda_moe.mx_grouped_matmul_plain(xs, wq, te, tr, tm, sc, elem)
+            bounds = moe.row_bounds(T, k, E)
+            out = cuda_moe.mx_grouped_matmul(xs, wq, te, tr, tm, sc, elem, **bounds)
+            ref = cuda_moe.mx_grouped_matmul_plain(xs, wq, te, tr, tm, sc, elem, **bounds)
             rel = _rel_max(out, ref)
             worst = max(worst, (out.float() - ref.float()).abs().max().item())
-            dead = torch.repeat_interleave(tr == 0, tm)
+            ext = min(T, tm)
+            n_live = tr.clamp(max=ext)
+            dead = torch.arange(xs.shape[0], device=dev) % tm >= n_live.repeat_interleave(tm)
             live = sorted({e for e, n in zip(te.tolist(), tr.tolist()) if n})
-            msg = f"B12 {label} {what} T={T} tm={tm} {elem or 'bf16'}: R={xs.shape[0]}, {len(live)} live experts, rel err {rel:.3e}"
+            msg = (f"B12 {label} {what} T={T} tm={tm} {elem or 'bf16'}: R={xs.shape[0]}, {len(live)} live experts, "
+                   f"rel err {rel:.3e}")
             if not (rel <= 1e-2 and bool((out[dead] == 0).all())):
-                raise AssertionError(msg + ", or a dead row is not 0")
-            if b6:
-                for t, (e, n) in enumerate(zip(te.tolist(), tr.tolist())):
+                raise AssertionError(msg + ", or a dead or padding row is not 0")
+            if elem is not None:
+                for t, (e, n) in enumerate(zip(te.tolist(), n_live.tolist())):
                     r = slice(t * tm, t * tm + n)
                     if n and not torch.equal(out[r], kf.mx_matmul_1byte(xs[r].contiguous(), wq[e], sc[e], elem)):
                         raise AssertionError(msg + f": tile {t} is not B6's bytes")
@@ -2557,13 +2574,17 @@ def check_grouped_kernel(dev, timer, gen):
             if time_it:
                 w_bf16 = w if elem is None else torch.stack([kf.dequantize_1byte(wq[e], sc[e], elem) for e in range(E)])
                 lib, lib_name = _grouped_library(xs, w_bf16, te, tr, tm)
-                t_b, by = _b12_bound(T, K, N, len(live), elem)
-                row = dict(kernel="mx_grouped_matmul", linear=label, case=what, T=T, R=xs.shape[0], tm=tm, K=K, N=N,
-                           elem=elem or "bf16", live_experts=len(live),
-                           ms=timer(lambda: cuda_moe.mx_grouped_matmul(xs, wq, te, tr, tm, sc, elem)),
-                           plain_ms=timer(lambda: cuda_moe.mx_grouped_matmul_plain(xs, wq, te, tr, tm, sc, elem),
-                                          reps=3),
+                t_b, by = _b12_bound(T, K, N, len(live), elem, k)
+                plan = cuda_moe.plan_grouped(xs.shape[0], N, K, tm, torch.cuda.get_device_properties(dev)
+                                             .multi_processor_count, **bounds)
+                row = dict(kernel="mx_grouped_matmul", linear=label, case=what, T=T, k=k, E=E, R=xs.shape[0], tm=tm,
+                           K=K, N=N, elem=elem or "bf16", live_experts=len(live), nb=plan.nb, walk=plan.walk,
+                           splits=plan.splits,
+                           ms=timer(lambda: cuda_moe.mx_grouped_matmul(xs, wq, te, tr, tm, sc, elem, **bounds)),
+                           plain_ms=timer(lambda: cuda_moe.mx_grouped_matmul_plain(xs, wq, te, tr, tm, sc, elem,
+                                                                                   **bounds), reps=3),
                            library_ms=timer(lib), library=lib_name, bound_ms=t_b, bound_by=by)
+                row["x_library"] = row["ms"] / row["library_ms"]
                 log("B12 timing", json.dumps(row))
                 rows.append(row)
                 del w_bf16
@@ -2572,23 +2593,32 @@ def check_grouped_kernel(dev, timer, gen):
             for elem in (None,) + kf.CODE_FORMATS_1BYTE:
                 for tm in (8, GROUPED_TM):
                     for routed2 in (True, False):
-                        run(8, routed2, tm, elem, b6=elem == "int8",
-                            time_it=tm == GROUPED_TM and elem in (None, "int8"),
+                        run(8, routed2, tm, elem, time_it=tm == GROUPED_TM and elem in (None, "int8"),
                             what="bench routed-2" if routed2 else "bench spread")
-        for T in B12_MAIN_T:  # the main path's calls: int8 (fp4 re-coded) and e3m2 experts
-            run(T, False, GROUPED_TM, "int8", b6=True, time_it=True, what="main path")
-            run(T, False, GROUPED_TM, "float6_e3m2", what="main path")
+        if label == "Moonlight w1/w3":  # every format at Moonlight's decode b=32
+            for elem in (None,) + kf.CODE_FORMATS_1BYTE:
+                for tm in (8, GROUPED_TM):
+                    run(32, False, tm, elem, what="decode b=32, every format")
+        for T in B12_MAIN_T:  # the main path's calls: int8 (fp4 re-coded), and Mixtral's e3m2 experts
+            run(T, False, GROUPED_TM, "int8", time_it=True, what="main path")
+            if E == 8:
+                run(T, False, GROUPED_TM, "float6_e3m2", what="main path")
         del weights, w
         torch.cuda.empty_cache()
     for elem in ("bf16", "int8"):
         r2, sp = (next(r for r in rows if r["case"] == c and r["elem"] == elem) for c in ("bench routed-2", "bench spread"))
         log(f"B12 bench shape {elem}: routed-2 {r2['ms']:.4f} ms against spread {sp['ms']:.4f} ms "
             f"(ratio {r2['ms'] / sp['ms']:.3f}; the dead-tile skip)")
+    for r in rows:
+        if r["case"] == "main path" and r["T"] in B12_TARGET:
+            met = "met" if r["x_library"] <= B12_TARGET[r["T"]] else "missed"
+            log(f"B12 design target, {r['linear']} T={r['T']}: {r['ms']:.4f} ms against {r['library']} "
+                f"{r['library_ms']:.4f} ms = {r['x_library']:.2f}x (target <= {B12_TARGET[r['T']]}x): {met}")
     pick = next(r for r in rows if r["case"] == "main path" and r["T"] == 32 and r["linear"] == "w1/w3")
     return dict(name="mx_grouped_matmul", route="cuda", source="torchmx_tpu_torch/csrc/mx_grouped_matmul.cu",
                 replaces="torchmx_tpu/ops/pallas_moe.py:54/:74/:136",
                 shape=f"w1 decode b=32: T=32 k=2 R={pick['R']} tm=128 K=4096 N=14336 int8 experts",
-                max_abs_err=worst, tolerance="rel <= 1e-2 (max abs over max abs); B6's bytes on int8 experts",
+                max_abs_err=worst, tolerance="rel <= 1e-2 (max abs over max abs); B6's bytes on code experts",
                 library=pick["library"],
                 **{k: pick[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}), rows
 
@@ -2631,29 +2661,31 @@ def check_router_kernel(dev, timer, gen):
 def check_moe_row_invariance(dev) -> dict:
     """B12 and the router at every token count from 1 to 511: each token's
     rows (gathered by ``dest``) and each token's router logits must keep
-    their bytes whatever the other tokens are; B12 over int8 experts at the
-    w1 and w2 shapes, the router on 4 draws."""
+    their bytes whatever the other tokens are; B12 over int8 experts at
+    Mixtral's and Moonlight's w1 and w2 shapes (the wgmma n, the walk and the
+    two-pass form change with the count), the router on 4 draws."""
     from torchmx_tpu_torch.models.mixtral import router_logits
     from torchmx_tpu_torch.mx_array import quantize_stacked
     from torchmx_tpu_torch.ops import cuda_moe, moe
 
     gen = torch.Generator(dev).manual_seed(8765)
-    E, bad = 8, []
-    for label, (K, N) in B12_SHAPES.items():
+    bad = []
+    for label, (E, top_k, K, N) in B12_SHAPES.items():
         w = torch.empty((E, K, N), dtype=torch.bfloat16, device=dev)
         for e in range(E):
             w[e] = (torch.randn(K, N, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
         wq, sc = quantize_stacked(w, "int8")
         del w
         x = torch.randn(512, K, generator=gen, device=dev).to(torch.bfloat16)
-        top = _routing(dev, gen, 512, False)
+        top = _routing(dev, gen, 512, False, E, top_k)
 
-        def rows_of(k):
+        def rows_of(k):  # k tokens, each expert's rows bounded by k: the wgmma n, walk or two passes follow k
             xs, te, tr, dest = moe.group_tokens(x[:k], top[:k], GROUPED_TM, E)
-            return cuda_moe.mx_grouped_matmul(xs, wq, te, tr, GROUPED_TM, sc, "int8")[dest.long()]
+            return cuda_moe.mx_grouped_matmul(xs, wq, te, tr, GROUPED_TM, sc, "int8",
+                                              **moe.row_bounds(k, top_k, E))[dest.long()]
 
         full = rows_of(512)
-        bad += [f"B12 {label} tokens={k}" for k in range(1, 512) if not torch.equal(rows_of(k), full[:2 * k])]
+        bad += [f"B12 {label} tokens={k}" for k in range(1, 512) if not torch.equal(rows_of(k), full[:top_k * k])]
         del wq, sc
     gw = (torch.randn(E, 4096, generator=gen, device=dev) * 4096 ** -0.5).to(torch.bfloat16)
     cublas = collections.Counter()  # the cuBLAS product's counts that differ: what the kernel repairs
@@ -2669,7 +2701,8 @@ def check_moe_row_invariance(dev) -> dict:
         cublas.update(k for k in range(1, 512) if not torch.equal(cublas_logits(x[:k]), full[:k]))
     if bad:
         raise AssertionError(f"a token's result depends on the number of tokens: {bad[:20]} ({len(bad)} counts)")
-    log(f"row invariance: B12 (int8 experts, w1 and w2 shapes) and the router kernel (4 draws) give every token the "
+    log(f"row invariance: B12 (int8 experts, Mixtral's and Moonlight's w1 and w2 shapes) and the router kernel (4 "
+        f"draws) give every token the "
         f"same bytes at every count from 1 to 511; the cuBLAS router differed at {len(cublas)} counts "
         f"(first: {sorted(cublas)[:12]})")
     return dict(counts="1-511", b12_shapes=list(B12_SHAPES), router_draws=4, cublas_router_counts_differing=len(cublas))
@@ -2769,6 +2802,8 @@ class NoauxRouteTape(RouteTape):
 
 
 MIXTRAL_FAULTS = ("B12 contracts tile t with expert tile_expert[t] + 1 mod E", "B12 scale row of the next K block",
+                  "B12 kernel: W's TMA row coordinate takes the expert's K offset one MX block late",
+                  "B12 kernel: a live tile's row extent one row short",
                   "router tie-break reversed", "combine_tokens drops the second expert",
                   "an expert choice flipped at a gap above 5e-2")
 # The model checks of this slice: name -> (weight format, planted faults).
@@ -2787,13 +2822,18 @@ def moe_fault(name):
         mod, attr = cuda_moe, "mx_grouped_matmul"
         orig = cuda_moe.mx_grouped_matmul
 
-        def faulty(x, w, te, tr, tm, w_scale=None, elem_name=None):
+        def faulty(x, w, te, tr, tm, w_scale=None, elem_name=None, max_rows=None, max_experts=None):
+            fault = 0
             if on_cuda(x):
-                if "expert" in name:
+                if "TMA row" in name:
+                    fault = cuda_moe.B12_FAULTS["expert K offset one block late"]
+                elif "extent" in name:
+                    fault = cuda_moe.B12_FAULTS["extent one row short"]
+                elif "expert" in name:
                     te = ((te + 1) % w.shape[0]).to(torch.int32)
                 else:
                     w_scale = w_scale.roll(-1, dims=1)
-            return orig(x, w, te, tr, tm, w_scale, elem_name)
+            return orig(x, w, te, tr, tm, w_scale, elem_name, max_rows, max_experts, fault)
     elif name.startswith("router"):
         mod, attr = mixtral, "route_topk_raw"
         orig = mixtral.route_topk_raw
@@ -2926,7 +2966,7 @@ def moe_readings(model, prompt, n, kv, floor: bool, tie_gap: float, tape_cls=Rou
 def model_check_mixtral(dev, card) -> dict:
     """Kernel path against plain path on 2-layer Mixtral-8x7B-width models
     (seeded, router rows 0 and 1 tied), b=2, 16 greedy tokens over the int8
-    seq cache, with the routing tape: fp4 grouped experts (with the four
+    seq cache, with the routing tape: fp4 grouped experts (with the seven
     planted faults of MIXTRAL_FAULTS, each of which must fail a gate) and
     e3m2 grouped experts; then the int8-weight grouped model against the
     int8 per-expert model (B6 in dense-exact mode): the same logits, bit for

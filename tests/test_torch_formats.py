@@ -455,18 +455,10 @@ B6_MAIN_NK = [(4096, 4096), (1024, 4096), (14336, 4096), (4096, 14336), (128256,
 @pytest.mark.parametrize("N,K", B6_MAIN_NK)
 def test_b6_plan_fits_and_keeps_the_splits(N, K):
     """B6's launch plan over M = 1..4096 on a 132-SM card: the K splits are
-    ``_plan``'s (shared with B7 and B9) at every M, the tiles are the same at
-    every M, the shared memory fits a block and the column tile divides N."""
-    class Props:
-        multi_processor_count = 132
-
-    orig = torch.cuda.get_device_properties
-    torch.cuda.get_device_properties = lambda device: Props()
-    try:
-        want = {cuda_matmul._plan(M, N, K, "cuda")[1] for M in range(1, 4097)}
-    finally:
-        torch.cuda.get_device_properties = orig
-    assert len(want) == 1
+    ``k_splits(N, K)``'s (shared with B9 and B12) at every M, the tiles are
+    the same at every M, the shared memory fits a block and the column tile
+    divides N."""
+    want = {cuda_matmul.k_splits(N, K, 132)}
     plans = [kf.plan_1byte(M, N, K, 132) for M in range(1, 4097)]
     assert {p.splits for p in plans} == want
     assert {(p.bm, p.bn, p.stages) for p in plans} == {(kf.B6_BM, kf.B6_BN, kf.B6_STAGES)}

@@ -6,7 +6,8 @@ block in its three modes, the MX per-expert and grouped blocks, and a
 2-layer fp4 grouped Mixtral through ``convert``; within the port, the
 grouped int8 block against the per-expert one bit for bit, a small
 ``DecodeEngine`` stream, the Mistral window guard and the registry.  On a
-machine with a card, B12 against its plain version and against B6.
+machine with a card, the router kernel's row invariance (B12 on the card:
+``tests/test_torch_gpu_grouped.py``).
 
 Tolerances: routing indices equal, routing weights within 2 f32 ulps
 (softmax's exp differs between the libraries); grouping, combine and the
@@ -17,8 +18,7 @@ of one block (``tests/test_mixtral.py``); the model's logits rel <= 2e-2
 and greedy tokens equal up to JAX's first top-2 gap below 0.1, as
 ``tests/test_torch_llama.py``.  The model test gives the tiny config
 head_dim 128, so that the JAX Pallas attention kernel runs (at head_dim 32
-it falls back to its dequantize path).  On the card: B12 rel <= 1e-2 of its
-plain version, and B6's bytes for int8 experts.
+it falls back to its dequantize path).
 """
 
 import numpy as np
@@ -45,9 +45,8 @@ from torchmx_tpu_torch.models import mixtral as tmix
 from torchmx_tpu_torch.models.generate import generate
 from torchmx_tpu_torch.models.mistral import MistralConfig, MistralForCausalLM
 from torchmx_tpu_torch.models.serve import DecodeEngine
-from torchmx_tpu_torch.mx_array import MXTensor, quantize_stacked
+from torchmx_tpu_torch.mx_array import quantize_stacked
 from torchmx_tpu_torch.ops import cuda_lib, cuda_moe, moe
-from torchmx_tpu_torch.ops import cuda_matmul_formats as kf
 from torchmx_tpu_torch.quant_api import build_quantized, quantize_llm_
 
 torch.set_num_threads(1)
@@ -390,32 +389,6 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("tm", [8, 128])
-@pytest.mark.parametrize("elem", cuda_moe.GROUPED_FORMATS)
-def test_cuda_grouped_kernel_matches_plain_and_b6(cuda_device, elem, tm):
-    g = torch.Generator().manual_seed(4)
-    E, K, N, T = 4, 512, 256, 40
-    x = torch.randn(T, K, generator=g).to(torch.bfloat16).to(cuda_device)
-    top_idx = torch.randint(0, E, (T, 2), generator=g).to(torch.int32).to(cuda_device)
-    w = (torch.randn(E, K, N, generator=g) * 0.05).to(torch.bfloat16).to(cuda_device)
-    if elem is None:
-        codes, scales = w, None
-    else:  # the format's own codes (quantize_stacked re-codes e2m3 as int8)
-        ts = [MXTensor.to_mx(w[e].t().contiguous(), elem) for e in range(E)]
-        codes = torch.stack([t.data.t() for t in ts]).contiguous()
-        scales = torch.stack([t.scale_e8m0.t() for t in ts]).contiguous()
-    xs, te, tr, dest = moe.group_tokens(x, top_idx, tm, E)
-    out = cuda_moe.mx_grouped_matmul(xs, codes, te, tr, tm, scales, elem)
-    ref = cuda_moe.mx_grouped_matmul_plain(xs, codes, te, tr, tm, scales, elem)
-    assert ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item() <= 1e-2
-    if elem is not None:  # the same expert and rows through B6: the same bytes
-        for t, (e, n) in enumerate(zip(te.tolist(), tr.tolist())):
-            if n:
-                rows = slice(t * tm, t * tm + n)
-                assert torch.equal(out[rows], kf.mx_matmul_1byte(xs[rows].contiguous(), codes[e], scales[e], elem))
 
 
 @pytest.mark.gpu

@@ -41,10 +41,11 @@
 //     wgmma runs the CUDA cores decode the next block's fragments from raw
 //     operands fetched a phase earlier (the ldmatrix latency hidden).  With
 //     int8 codes on an int8-grid x every partial is exact, so B9
-//     (csrc/mx_matmul_int8dot.cu) gives the same bytes; wgmma and mma.sync
-//     m16n8k16 round a k16 sum alike, so B12 (csrc/mx_grouped_matmul.cu)
-//     gives them too.
-//  5. K splits: ops/cuda_matmul._plan's, a function of N and K alone, summed
+//     (csrc/mx_matmul_int8dot.cu) gives the same bytes; B12
+//     (csrc/mx_grouped_matmul.cu) runs this mainloop at n = 16-128, and
+//     wgmma rounds an element's k16 sum alike at every n, so it gives them
+//     too.
+//  5. K splits: ops/cuda_matmul.k_splits, a function of N and K alone, summed
 //     ((0 + p0) + p1) + ... in split order (mx::reduce_splits).  Where the
 //     output tiles fill the card (gridDim.z == 1) a CTA walks its splits in
 //     that order itself, adding each split's accumulator to a total held in

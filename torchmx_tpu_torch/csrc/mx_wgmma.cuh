@@ -1,8 +1,8 @@
 // Hopper building blocks of the wgmma matmul kernels: TMA copies completing
 // on mbarriers, the 128-byte swizzled shared-memory tiles TMA writes and
 // wgmma and ldmatrix read, wgmma's shared-memory matrix descriptor, and
-// wgmma.mma_async m64n128k16 bf16 -> f32 (and m64n64k32 on int8 codes)
-// with A from registers and B K-major in shared memory.  sm_90a only.
+// wgmma.mma_async m64n{16,32,64,128}k16 bf16 -> f32 (and m64n64k32 on int8
+// codes) with A from registers and B K-major in shared memory.  sm_90a only.
 //
 // Tiles.  An operand tile is made of 1024-byte atoms of eight 128-byte rows
 // (row r of a K-major B tile holds 64 bf16 K values); the 16-byte chunk c
@@ -131,6 +131,62 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
 #define MX_WGMMA_D32 "{" \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define MX_WGMMA_D16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define MX_WGMMA_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+
+// The same product as wgmma_m64n128k16_rs over 16, 32 or 64 columns of B:
+// d (64 x N f32) = A (64 x 16 bf16, registers) * B (16 x N, K-major in
+// shared memory) + (scale_d ? d : 0), with m64n128k16's fragment layout cut
+// to j < N / 8.
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " MX_WGMMA_D8 ", {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " MX_WGMMA_D16 ", {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MX_WGMMA_D32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// wgmma_m64n{N}k16_rs for N = 16, 32, 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_m64nk16_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t desc_b,
+                                                 int scale_d) {
+  if constexpr (N == 16) wgmma_m64n16k16_rs(d, a, desc_b, scale_d);
+  else if constexpr (N == 32) wgmma_m64n32k16_rs(d, a, desc_b, scale_d);
+  else if constexpr (N == 64) wgmma_m64n64k16_rs(d, a, desc_b, scale_d);
+  else wgmma_m64n128k16_rs(d, a, desc_b, scale_d);
+}
 
 // One MX block's dot on raw int8 codes: d (64 x 64, the warpgroup's
 // fragment) = A (64 x 32 codes, from registers) * B (32 x 64 codes, K-major

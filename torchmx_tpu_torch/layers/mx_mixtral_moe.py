@@ -74,7 +74,7 @@ class MXInferenceMixtralMoeBlock(MixtralSparseMoeBlock):
     def _router_logits(self, x_t):
         return router_logits(x_t, self.gate_weight)
 
-    def _expert_ffn_grouped(self, x_sorted, tile_expert, tile_rows, tm):
+    def _expert_ffn_grouped(self, x_sorted, tile_expert, tile_rows, tm, **bounds):
         raise NotImplementedError(
             "this block serves the dense-exact / capacity modes; grouped "
             "routing quantizes into MXInferenceMixtralMoeBlockGrouped "
@@ -138,12 +138,12 @@ class MXInferenceMixtralMoeBlockGrouped(MixtralSparseMoeBlock):
             return x
         return mx_fake_quantize(x.contiguous(), a.elem_dtype, a.block_size)
 
-    def _expert_ffn_grouped(self, x_sorted, tile_expert, tile_rows, tm):
+    def _expert_ffn_grouped(self, x_sorted, tile_expert, tile_rows, tm, **bounds):
         elem = self.kernel_elem
 
         def gmm(x, name):
             return moe.grouped_matmul(x, getattr(self, f"{name}_codes"), tile_expert, tile_rows, tm=tm,
-                                      w_scale=getattr(self, f"{name}_scale"), elem_name=elem)
+                                      w_scale=getattr(self, f"{name}_scale"), elem_name=elem, **bounds)
 
         xq = self._act_fq(x_sorted)
         return gmm(self._act_fq(swiglu_f32(gmm(xq, "w1"), gmm(xq, "w3"))), "w2")

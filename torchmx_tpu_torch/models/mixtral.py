@@ -133,12 +133,12 @@ class MixtralSparseMoeBlock(nn.Module):
         act = swiglu_f32(torch.bmm(xf, self.w1.to(torch.float32)), torch.bmm(xf, self.w3.to(torch.float32)))
         return torch.bmm(act.to(torch.float32), self.w2.to(torch.float32)).to(xe.dtype)
 
-    def _expert_ffn_grouped(self, x_sorted, tile_expert, tile_rows, tm: int) -> torch.Tensor:
+    def _expert_ffn_grouped(self, x_sorted, tile_expert, tile_rows, tm: int, **bounds) -> torch.Tensor:
         """(R, H) expert-sorted padded rows -> (R, H) through the grouped
-        GEMM (bf16 experts)."""
-        h1 = moe.grouped_matmul(x_sorted, self.w1, tile_expert, tile_rows, tm=tm)
-        h3 = moe.grouped_matmul(x_sorted, self.w3, tile_expert, tile_rows, tm=tm)
-        return moe.grouped_matmul(swiglu_f32(h1, h3), self.w2, tile_expert, tile_rows, tm=tm)
+        GEMM (bf16 experts); ``bounds``: ``moe.row_bounds``."""
+        h1 = moe.grouped_matmul(x_sorted, self.w1, tile_expert, tile_rows, tm=tm, **bounds)
+        h3 = moe.grouped_matmul(x_sorted, self.w3, tile_expert, tile_rows, tm=tm, **bounds)
+        return moe.grouped_matmul(swiglu_f32(h1, h3), self.w2, tile_expert, tile_rows, tm=tm, **bounds)
 
     def _route_raw(self, x_t: torch.Tensor):
         """Routing seam: ``(top_vals (T, k) f32, top_idx (T, k) int32)``."""
@@ -150,9 +150,10 @@ class MixtralSparseMoeBlock(nn.Module):
         top_vals, top_idx = self._route_raw(x_t)
         if self.grouped:
             tm = self.grouped_tm
-            x_sorted, tile_expert, tile_rows, dest = moe.group_tokens(x_t, top_idx, tm,
-                                                                      self.config.num_local_experts)
-            y_sorted = self._expert_ffn_grouped(x_sorted, tile_expert, tile_rows, tm)
+            E = self.config.num_local_experts
+            x_sorted, tile_expert, tile_rows, dest = moe.group_tokens(x_t, top_idx, tm, E)
+            bounds = moe.row_bounds(x_t.shape[0], top_idx.shape[1], E)
+            y_sorted = self._expert_ffn_grouped(x_sorted, tile_expert, tile_rows, tm, **bounds)
             y = moe.combine_tokens(y_sorted, dest, top_vals)
         else:
             cw = dense_combine_weights(top_vals, top_idx, self.config.num_local_experts)

@@ -94,9 +94,9 @@ SIGNATURES = {
         "mx_matmul_fp8dot_reduce_launch": (_P, _P, _L, _I, _P),
     },
     "mx_grouped_matmul": {
-        # x, w, scale, tile_expert, tile_rows, row marks, out, workspace, R, N, K, E, tm,
-        # elem_code (-1: bf16), splits, stream
-        "mx_grouped_matmul_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        # x, w, scale, tile_expert, tile_rows, out, workspace, R, N, K, E, tm, elem_code (-1: bf16),
+        # ext (live rows of a tile at most), nb (x rows a CTA), splits, walk, fault (0), stream
+        "mx_grouped_matmul_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     },
     "mx_router": {
         # x, w, out, rows, H, E, f32_out, stream

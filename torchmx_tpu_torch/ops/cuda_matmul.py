@@ -70,28 +70,18 @@ def mx_matmul_fp4_halves_plain(
     return fq_matmul(x, dequantize_fp4_halves(w_data, w_scale), act_fq)
 
 
-def _plan(M: int, N: int, K: int, device: torch.device):
-    """(rows per tile, K splits) for B12's grouped matmul (64 K elements per
-    iteration).  The tile follows M.  The splits follow N and K
-    alone (:func:`k_splits`): enough that a single row tile (decode) keeps
-    the SMs busy.  An output element's fp32 sum order is fixed
-    by the splits, so a row's result does not depend on how many other rows
-    share the call: a prompt admitted whole, in chunks or after a cached
-    prefix gets the same bytes.  B6 and B9 (``cuda_matmul_formats.plan_1byte``,
-    ``plan_int8dot``) take the same splits, which is what lets B12 and B9
-    give an int8 row B6's bytes.  (At large M the extra splits cost a pass
-    over the fp32 partials.)"""
-    bm = 16 if M <= 16 else (64 if M <= 64 or N % 128 else 128)
-    return bm, k_splits(N, K, sm_count(device))
-
-
 def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def k_splits(N: int, K: int, sms: int, k_tile: int = 64) -> int:
     """The K splits of the matmul kernels: enough that one row tile of 64
-    columns makes two CTAs an SM, at most 16 and at most one per K step."""
+    columns makes two CTAs an SM, at most 16 and at most one per K step.
+    An output element's fp32 sum order is fixed by the splits, so a row's
+    result does not depend on how many other rows share the call: a prompt
+    admitted whole, in chunks or after a cached prefix gets the same bytes.
+    B6, B9 and B12 take the same splits, which is what lets B9 and B12 give
+    an int8 row B6's bytes."""
     return max(1, min(K // k_tile, 16, -(-2 * sms // (N // 64))))
 
 

@@ -76,12 +76,23 @@ def combine_tokens(y_sorted: torch.Tensor, dest: torch.Tensor, top_vals: torch.T
     return y_a.reshape(T, k, -1).sum(dim=1)
 
 
+def row_bounds(T: int, k: int, E: int) -> dict:
+    """What the host knows of a grouped layout of ``T`` tokens routed to
+    ``k`` experts each of ``E``: no expert holds more than ``T`` rows (a
+    token's top-k experts are distinct), and at most ``min(E, T k)`` experts
+    are live.  :func:`grouped_matmul`'s ``max_rows`` / ``max_experts``."""
+    return dict(max_rows=max(T, 1), max_experts=min(E, max(T, 1) * k))
+
+
 def grouped_matmul(x_sorted: torch.Tensor, w_stacked: torch.Tensor, tile_expert: torch.Tensor,
                    tile_rows: torch.Tensor, *, tm: int, w_scale: Optional[torch.Tensor] = None,
-                   elem_name: Optional[str] = None) -> torch.Tensor:
+                   elem_name: Optional[str] = None, max_rows: Optional[int] = None,
+                   max_experts: Optional[int] = None) -> torch.Tensor:
     """(R, K) expert-sorted rows x stacked (E, K, N) weights -> (R, N) bf16:
     row tile t contracts with expert ``tile_expert[t]``; ``w_scale`` /
-    ``elem_name`` select the one-byte MX codes.  B12 on CUDA tensors, its
-    plain version on CPU tensors."""
+    ``elem_name`` select the one-byte MX codes; ``max_rows`` /
+    ``max_experts`` are :func:`row_bounds` (rows of a tile past ``max_rows``
+    come out as 0).  B12 on CUDA tensors, its plain version on CPU
+    tensors."""
     return cuda_moe.mx_grouped_matmul(x_sorted.contiguous(), w_stacked, tile_expert, tile_rows, tm,
-                                      w_scale, elem_name)
+                                      w_scale, elem_name, max_rows, max_experts)

@@ -17,10 +17,15 @@ beside the kernels as built, at K3's gate/up and k/v shapes (fp4 and fp8
 halves), B7's shared-expert down shape (fp4 pair, x in plane order) and B9's
 gate/up, k/v and down shapes (int8, x in K1's dot order): the time of the
 weight and x stream alone against the whole mainloop's, and the bytes'
-bound.  Run from the repository root on a machine with one card:
+bound.  With ``--datapath-only-b12`` the same for B12
+(``csrc/mx_grouped_matmul.cu`` with ``-DB12_DATAPATH_ONLY``) at the MoE
+shapes of ``chip_smoke.B12_SHAPES``, int8 experts, tm 128, each expert's rows
+bounded by the token count (the arguments are token counts).  Run from the
+repository root on a machine with one card:
 
     python3 torchmx_tpu_torch/tools/b8_phase_profile.py [--kernel b8|k3] [M ...]
     python3 torchmx_tpu_torch/tools/b8_phase_profile.py --datapath-only [M ...]
+    python3 torchmx_tpu_torch/tools/b8_phase_profile.py --datapath-only-b12 [T ...]
 """
 
 from __future__ import annotations
@@ -163,15 +168,59 @@ def datapath_only(ms) -> None:
                   f"bytes' bound {bytes_ms:.4f} ms", flush=True)
 
 
+def datapath_only_b12(ts) -> None:
+    from torchmx_tpu_torch.mx_array import quantize_stacked
+    from torchmx_tpu_torch.ops import cuda_moe, moe
+
+    if not torch.cuda.is_available():
+        raise SystemExit("b8_phase_profile: no CUDA device")
+    dev = torch.device("cuda")
+    variant = cuda_lib.build_variant("mx_grouped_matmul", "-DB12_DATAPATH_ONLY")
+    timer, gen = chip_smoke.Timer(dev), torch.Generator(dev).manual_seed(0)
+    print(chip_smoke.card_line(), flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tm = chip_smoke.GROUPED_TM
+    for label, (E, k, K, N) in chip_smoke.B12_SHAPES.items():
+        w, s = quantize_stacked((torch.randn(E, K, N, generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16),
+                                "int8")
+        for T in ts:
+            x = torch.randn(T, K, generator=gen, device=dev).to(torch.bfloat16)
+            xs, te, tr, _ = moe.group_tokens(x, chip_smoke._routing(dev, gen, T, False, E, k), tm, E)
+            bounds = moe.row_bounds(T, k, E)
+            plan = cuda_moe.plan_grouped(xs.shape[0], N, K, tm, sms, **bounds)
+            out = torch.empty(xs.shape[0], N, dtype=torch.bfloat16, device=dev)
+            ws = torch.empty(plan.ws_shape or (1,), dtype=torch.float32, device=dev)
+            live = len({e for e, n in zip(te.tolist(), tr.tolist()) if n})
+
+            def launch(lib):
+                rc = lib.mx_grouped_matmul_launch(xs.data_ptr(), w.data_ptr(), s.data_ptr(), te.data_ptr(),
+                                                  tr.data_ptr(), out.data_ptr(), ws.data_ptr(), xs.shape[0], N, K,
+                                                  E, tm, cuda_lib.ELEM_CODES["int8"], plan.ext, plan.nb, plan.splits,
+                                                  int(plan.walk), 0, torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"launch failed: cudaError {rc}")
+
+            full = timer(lambda: launch(cuda_lib.lib("mx_grouped_matmul")))
+            stream = timer(lambda: launch(variant))
+            bytes_ms = chip_smoke._b12_bound(T, K, N, live, "int8", k)[0]
+            print(f"B12 {label} T={T} ({live} live experts, nb {plan.nb}, {plan.splits} splits, walk {plan.walk}): "
+                  f"the kernel {full:.4f} ms, its data path alone {stream:.4f} ms ({stream / full:.0%}), "
+                  f"bound {bytes_ms:.4f} ms", flush=True)
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=sorted(KERNELS), default="b8")
     ap.add_argument("--datapath-only", action="store_true",
                     help="time K3's, B7's and B9's mainloop with consumers that only wait and release "
                          "(K3_DATAPATH_ONLY, B9_DATAPATH_ONLY)")
+    ap.add_argument("--datapath-only-b12", action="store_true",
+                    help="the same for B12 (B12_DATAPATH_ONLY); the arguments are token counts")
     ap.add_argument("ms", type=int, nargs="*", default=None)
     args = ap.parse_args()
-    if args.datapath_only:
+    if args.datapath_only_b12:
+        datapath_only_b12(args.ms or [1, 32, 512, 2048])
+    elif args.datapath_only:
         datapath_only(args.ms or [32, 2048])
     else:
         main(args.kernel, args.ms or [2048])
