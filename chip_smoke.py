@@ -31,8 +31,10 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    w1 and w2 calls, dead and padding rows 0, giving B6's bytes for every live
    tile of code experts; the router kernel
    bit for bit; B13 over bf16, fp8, both fp6, int8 and fp4
-   latent caches at the Moonlight path's decode, admission and prefill
-   shapes and bench.py's MLA decode shape abs <= 2e-2, and over the int8
+   latent caches at the Moonlight paths' decode, admission and prefill
+   shapes, bench.py's MLA decode shape and visible prefixes at and around
+   its KV chunks' boundaries abs <= 2e-2 and each row's relative L2 error
+   <= 1.2e-2, and over the int8
    cache against B13 bf16 over the dequantized latent; B14 over the int8
    d-major latent abs <= 2e-2 and SQNR > 30 dB against exact attention; the
    per-row quantize kernel bit for bit over all 2^16 bf16 patterns as rows
@@ -76,8 +78,9 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    grouped model against the per-expert one (B6), bit for bit.  Then
    2-layer models at Moonlight-16B-A3B width (layer 0 dense, layer 1 MoE,
    router rows 0 and 1 tied, random correction biases) over the int8 seq
-   latent (B13, with nine planted faults: B13 on the next position's scale,
-   B13 taking V from the rope key, B7 with its nibbles swapped, B7 reading
+   latent (B13, with ten planted faults: B13 on the next position's scale,
+   B13 taking V from the rope key, B13's combine dropping the last live
+   chunk of a tile, B7 with its nibbles swapped, B7 reading
    block 2j's scale for block 2j + 1, K2 writing B7's odd plane first, the
    correction bias in the weights, routed_scaling_factor dropped, the shared
    experts dropped, a routing flip above 5e-2), the fp4 seq latent, the bf16
@@ -1047,6 +1050,13 @@ def _to_dmajor(args):
     if rest[-1] == "float4_e2m1":
         kd, vd = fp4_pairs_to_halves(kd), fp4_pairs_to_halves(vd)
     return (q, *(t.transpose(2, 3).contiguous() for t in (kd, ks, vd, vs)), *rest)
+
+
+def worst_row_rel(x, ref) -> float:
+    """The largest relative L2 error of a row (the last dimension) of x
+    against ref; a row of ref that is all 0 must be matched exactly."""
+    num = (x.double() - ref.double()).norm(dim=-1)
+    return torch.where(num == 0, 0.0, num / ref.double().norm(dim=-1)).max().item()
 
 
 def sqnr_db(x, exact) -> float:
@@ -3039,14 +3049,21 @@ MOONLIGHT_16B = dict(vocab_size=163840, hidden_size=2048, intermediate_size=1126
                      tie_word_embeddings=False)
 MLA_FORMATS = ("bfloat16", "float8_e4m3", "float6_e3m2", "float6_e2m3", "int8", "float4_e2m1")
 MLA_RAGGED = [1 + round(i * 1023 / 31) for i in range(32)]  # kv_len 1 .. 1024 over 32 rows
+MLA_GK_KV = [65 + round(i * 127 / 31) for i in range(32)]  # kv_len 65 .. 192: generate's decode steps
 # (label, b, n, L, sq, kv_len of each row): B13's calls on the Moonlight main path (decode over the
-# engine's 1024-position cache at b=1 and 32, an admission of 512, generate's prefill of 32 x 64 over
-# its 256-position cache) and bench.py:434's decode shape.
+# engine's 1024-position cache at b=1 and 32, generate's decode at b=32 over its 256-position cache
+# (prompt 64 + 128 tokens; one step's kv_len is one row here), an admission of 512, generate's
+# prefill of 32 x 64) and bench.py:434's decode shape.
 MLA_CASES = [("decode b=1 L=1024 kv=700", 1, 16, 1024, 1, [700]),
              ("decode b=32 L=1024 ragged", 32, 16, 1024, 1, MLA_RAGGED),
+             ("decode b=32 L=256 kv=65-192", 32, 16, 256, 1, MLA_GK_KV),
              ("admission b=1 sq=512 L=1024", 1, 16, 1024, 512, [512]),
              ("prefill b=32 sq=64 L=256", 32, 16, 256, 64, [64] * 32),
              ("bench b=8 n=32 L=8192", 8, 32, 8192, 1, [8192] * 8)]
+# B13's KV split: the visible prefix at and around the chunk boundaries of L = 1024 (S = 128, from
+# cuda_mla.mla_chunk), at decode and in a prefill of 64 over a 256-position cache (S = 64).
+MLA_SPLIT_CASES = [("decode b=4 L=1024 kv=S-1,S,S+1,2S+1", 4, 16, 1024, 1, [127, 128, 129, 257]),
+                   ("prefill b=4 sq=64 L=256 kv=S-1,S,S+1,2S+1", 4, 16, 256, 64, [63, 64, 65, 129])]
 MLA_INT8DOT_CASES = [c for c in MLA_CASES if c[4] == 1]
 
 
@@ -3137,10 +3154,20 @@ def _mla_library(c):
     raise AssertionError("no SDPA backend takes the MLA shape")
 
 
+# B13 against its plain version: the worst row's relative L2 error, beside abs <= 2e-2.  Readings
+# (NVIDIA H100 80GB HBM3, 700 W, every MLA_CASES and MLA_SPLIT_CASES shape in six formats): sound
+# abs <= 7.8e-3 (one bf16 ulp) and row rel <= 3.6e-3; a combine that drops the last live chunk of
+# one position (kv = S + 1, 2S + 1, 3S + 1), one batch row alone: abs >= 1.2e-2 but row rel >=
+# 4.7e-2, >= 1.3e-1 over each case.
+B13_ROW_REL = 1.2e-2
+
+
 def check_mla_kernel(dev, timer, gen):
-    """B13 against its plain version (abs <= 2e-2) in all six cache formats at
-    every MLA_CASES shape; B13 over the int8 cache against B13 bf16 over the
-    dequantized latent (the same decoded values: abs <= 2e-2, and printed
+    """B13 against its plain version (abs <= 2e-2, and the worst row's
+    relative L2 error <= B13_ROW_REL) in all six cache formats at
+    every MLA_CASES and MLA_SPLIT_CASES shape; B13 over the int8 cache
+    against B13 bf16 over the dequantized latent (the same decoded values:
+    abs <= 2e-2, and printed
     whether bit for bit); timed over the int8 cache (the main path's) at
     every shape beside its plain version, SDPA and the bound, and over the
     other formats at decode b=32.  Returns (entry, rows)."""
@@ -3148,16 +3175,17 @@ def check_mla_kernel(dev, timer, gen):
     from torchmx_tpu_torch.ops import cuda_mla
 
     worst, rows = 0.0, []
-    for label, b, n, L, sq, kv in MLA_CASES:
+    for label, b, n, L, sq, kv in MLA_CASES + MLA_SPLIT_CASES:
         for elem in MLA_FORMATS:
             c = _mla_case(dev, gen, b, n, L, sq, kv, elem)
             args = _mla_args(c)
             out = cuda_mla.mx_mla_attention(*args)
-            err = (out.float() - cuda_mla.mx_mla_attention_plain(*args).float()).abs().max().item()
+            ref = cuda_mla.mx_mla_attention_plain(*args)
+            err, rel = (out.float() - ref.float()).abs().max().item(), worst_row_rel(out, ref)
             worst = max(worst, err)
-            log(f"B13 mx_mla_attention {label} {elem}: max abs err {err:.3e}")
-            if not err <= 2e-2:
-                raise AssertionError(f"B13 {label} {elem}: abs err {err}")
+            log(f"B13 mx_mla_attention {label} {elem}: max abs err {err:.3e}, worst row rel L2 {rel:.3e}")
+            if not (err <= 2e-2 and rel <= B13_ROW_REL):
+                raise AssertionError(f"B13 {label} {elem}: abs err {err}, worst row rel L2 {rel}")
             if elem == "int8":
                 lat, rot = c["cache"].read()
                 dense = dict(c, cache=MLACache(lat.contiguous(), rot.contiguous()), elem="bfloat16")
@@ -3612,9 +3640,10 @@ def moonlight_launches_per_step(cfg, int8dot: bool = False) -> dict:
 
 
 DEEPSEEK_FAULTS = ("B13 reads the next position's scale", "B13 takes V from the rope key",
-                   "B7 with its nibbles swapped", "B7 reads block 2j's scale for block 2j + 1",
-                   "K2 writes B7's odd plane first", "the correction bias added to the weights, not the choice",
-                   "routed_scaling_factor dropped", "the shared experts dropped",
+                   "B13's combine drops the last live chunk", "B7 with its nibbles swapped",
+                   "B7 reads block 2j's scale for block 2j + 1", "K2 writes B7's odd plane first",
+                   "the correction bias added to the weights, not the choice", "routed_scaling_factor dropped",
+                   "the shared experts dropped",
                    "an expert choice flipped at a gap above 5e-2")
 DEEPSEEK_FAULTS_DMAJOR = ("mx_quantize_rows writes the latent one position late",)
 # The DeepSeek model checks: name -> (cache format or None for the bf16 MLACache, layout, int8-dot flag, faults).
@@ -3640,13 +3669,16 @@ def deepseek_fault(name):
         mod, attr = cuda_mla, "mx_mla_attention"
         orig = cuda_mla.mx_mla_attention
 
-        def faulty(ql, qr, ld, ls, rd, rs, q_off, kv_len, sm, elem, n, v_from_rot=False):
+        def faulty(ql, qr, ld, ls, rd, rs, q_off, kv_len, sm, elem, n, v_from_rot=False, drop_last_chunk=False):
             if on_cuda(ql):
                 if "scale" in name:
                     ls, rs = ls.roll(-1, dims=1).contiguous(), rs.roll(-1, dims=1).contiguous()
-                else:
+                elif "rope" in name:
                     v_from_rot = True
-            return orig(ql, qr, ld, ls, rd, rs, q_off, kv_len, sm, elem, n, v_from_rot)
+                else:
+                    drop_last_chunk = True
+            return orig(ql, qr, ld, ls, rd, rs, q_off, kv_len, sm, elem, n, v_from_rot=v_from_rot,
+                        drop_last_chunk=drop_last_chunk)
     elif name.startswith("mx_quantize_rows"):
         mod, attr = deepseek, "mx_quantize_rows"
         orig = deepseek.mx_quantize_rows
@@ -3720,7 +3752,7 @@ def model_check_deepseek(dev, card, checks=tuple(DEEPSEEK_CHECKS), n_tokens: int
     width (layer 0 dense, layer 1 MoE with grouped experts; router rows 0 and
     1 tied), b=2, a 64-token prompt and ``n_tokens`` greedy tokens, with the
     routing tape (``NoauxRouteTape``): over the int8 seq latent (B13, with
-    the nine planted faults of DEEPSEEK_FAULTS, each of which must fail a
+    the ten planted faults of DEEPSEEK_FAULTS, each of which must fail a
     gate), the fp4 seq latent (B13-fp4), the bf16 ``MLACache`` (B13-bf16) and
     the int8 d-major latent with the all-int8 flag (B14 at decode, JAX's
     eager route at prefill, the per-row quantize kernel at every latent write

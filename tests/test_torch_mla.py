@@ -4,14 +4,17 @@ CPU, its Pallas kernels in interpret mode): the fp4 layout rule (ROADMAP
 C.4), the latent caches' bytes in every format and layout, the plain
 versions of B13 (``mx_mla_attention``), B14 (``mx_mla_attention_int8dot``)
 and B7 (``mx_matmul_fp4_pair``) against the Pallas kernels they replace,
-the MLA dispatch's routes, and the row invariance of the plain reductions
-(ROADMAP C.1).  On a machine with a card, the three kernels against their
+the MLA dispatch's routes, the row invariance of the plain reductions
+(ROADMAP C.1), and how B13's launches cover a call under its workspace cap.  On a machine with a card, the three kernels against their
 plain versions.
 
 Tolerances: cache buffers, layouts and q codes bit-equal; plain B13 against
 the JAX kernel atol = rtol = 2e-2 (the JAX kernel takes one tile of 256
-positions, the port tiles of 32: p rounds to bf16 against other running
-maxima), the JAX tests' own tolerance; plain B14 at the JAX kernel's tile
+positions, the port chunks of ``mla_chunk(L)`` combined in chunk order and
+tiles of 32 inside each: p rounds to bf16 against other running maxima),
+the JAX tests' own tolerance, and the same against float64 exact attention
+with the visible prefix at and around the chunk boundaries; plain B13's
+rows bit-equal alone, in company and inside a prefill; plain B14 at the JAX kernel's tile
 abs <= 2e-2 and, at the CUDA kernel's tile, SQNR above 30 dB against exact
 attention; plain B7 rel <= 1e-2 (K3's).
 """
@@ -122,6 +125,40 @@ def test_plain_reductions_are_row_invariant(what):
         fn = lambda t: cuda_moe.mx_router_logits_plain(t, gw, f32=what.endswith("f32"))  # noqa: E731
     full = fn(x)
     assert [k for k in range(1, 65) if not torch.equal(fn(x[:k]), full[:k])] == []
+
+
+@pytest.mark.parametrize("elem", ["int8", "float4_e2m1", "bfloat16"])
+def test_plain_b13_is_row_invariant(elem):
+    """A query row's bytes from plain B13 are the same computed alone (b = 1,
+    sq = 1), as the last row of a prefill of 64 positions, and in a batch of
+    8 rows with other prefixes: the chunks and tiles sit at absolute
+    positions, the dots are summed exactly and a tile's sum by a pairwise
+    tree.  L = 1024: eight chunks of 128."""
+    L, r, dr, n, P, target = 1024, 512, 64, 4, 700, 3
+    rng = np.random.default_rng(21)
+    lat = t_bf16(rng.standard_normal((8, L, r)) * 0.3)
+    rot = t_bf16(rng.standard_normal((8, L, dr)) * 0.3)
+    if elem == "bfloat16":
+        cache = tds.MLACache(lat, rot)
+    else:
+        cache = tds.MXMLACache.create(8, L, r, dr, elem)
+        cache.write(lat, rot, 0)
+    bufs = cache.buffers if elem != "bfloat16" else (cache.latent, cache.latent, cache.k_rot, cache.k_rot)
+    ql = t_bf16(rng.standard_normal((8, 64 * n, r)) * 0.3)
+    qr = t_bf16(rng.standard_normal((8, 64 * n, dr)) * 0.3)
+    sm = (128 + dr) ** -0.5
+
+    def b13(rows, idx, q_off, kv_len):
+        return cuda_mla.mx_mla_attention_plain(ql[idx, -rows:], qr[idx, -rows:], *(t[idx] for t in bufs),
+                                               torch.tensor(q_off), torch.tensor(kv_len), sm, elem, n)
+
+    kv = [1024, 3, 130, P + 1, 257, 0, 900, 128]
+    batch = b13(n, slice(None), [k - 1 if k else 0 for k in kv], kv)
+    alone = b13(n, slice(target, target + 1), [P], [P + 1])
+    prefill = b13(64 * n, slice(target, target + 1), [P - 63], [P + 1])
+    assert torch.equal(alone[0], batch[target])
+    assert torch.equal(alone[0], prefill[0, -n:])
+    assert torch.equal(batch[5], torch.zeros_like(batch[5]))
 
 
 # -- the latent caches -------------------------------------------------------------------------
@@ -237,6 +274,25 @@ def test_mla_plain_matches_pallas_kernel(elem, case):
     np.testing.assert_allclose(to_np(got), np.asarray(jo, np.float32), atol=2e-2, rtol=2e-2)
 
 
+@pytest.mark.parametrize("b, rows, n, chunks", [(32, 16, 16, 8), (8, 8192, 16, 1), (32, 1024, 16, 4),
+                                                 (3, 65536, 32, 64), (1, 65536, 16, 16)])
+def test_b13_launch_groups_cover_the_call(b, rows, n, chunks):
+    """B13's launches for a call: each (batch row, query row) in exactly one
+    launch, each launch's combine workspace within ``B13_WORKSPACE_BYTES``,
+    a group of query rows inside one batch row and starting at a query
+    position; one launch wherever the call's workspace fits (a grid of one
+    chunk needs none)."""
+    row_floats = chunks * (512 + 2) if chunks > 1 else 0
+    groups = cuda_mla.b13_launch_groups(b, rows, n, row_floats)
+    seen = torch.zeros(b, rows, dtype=torch.int32)
+    for i0, i1, r0, r1 in groups:
+        assert (i1 - i0) * (r1 - r0) * row_floats * 4 <= cuda_mla.B13_WORKSPACE_BYTES
+        assert (r0, r1) == (0, rows) or (i1 == i0 + 1 and r0 % n == 0 and (r1 - r0) % n == 0)
+        seen[i0:i1, r0:r1] += 1
+    assert bool((seen == 1).all())
+    assert (len(groups) == 1) == (b * rows * row_floats * 4 <= cuda_mla.B13_WORKSPACE_BYTES)
+
+
 def _exact_mla(ql, qr, cache, q_off, kv_len, sm):
     lat, rot = (torch.from_numpy(np.asarray(t, np.float32)).double() for t in cache.read())
     s = (torch.from_numpy(ql).double() @ lat[:, None].transpose(-1, -2)
@@ -244,6 +300,33 @@ def _exact_mla(ql, qr, cache, q_off, kv_len, sm):
     j = torch.arange(lat.shape[1])
     visible = (j[None] < torch.from_numpy(np.minimum(kv_len, q_off + 1))[:, None])[:, None, None]
     return torch.softmax(s.masked_fill(~visible, float("-inf")), -1) @ lat[:, None]
+
+
+S_ATTN = cuda_mla.mla_chunk(L_ATTN)
+
+
+@pytest.mark.parametrize("sq", [1, 16], ids=["decode", "prefill"])
+@pytest.mark.parametrize("kv", [S_ATTN - 1, S_ATTN, S_ATTN + 1, 2 * S_ATTN + 1])
+def test_mla_plain_chunks_match_exact_attention(kv, sq):
+    """Plain B13 (through the dispatch) with the visible prefix at and
+    around its chunk boundaries (L = 256: four chunks of 64), beside a row
+    that sees 251 positions, against float64 attention over the dequantized
+    cache with the causal mask of every query position: atol = rtol = 2e-2."""
+    jc, tc = _filled("int8")
+    ql, qr = _queries(sq)
+    kv_len = np.array([kv, 251])
+    q_off = kv_len - sq
+    sm = (R + DR) ** -0.5
+    got = cuda_mla.mla_cached_attention(t_bf16(ql), t_bf16(qr), tc, torch.from_numpy(q_off),
+                                        torch.from_numpy(kv_len), sm)
+    lat, rot = (torch.from_numpy(np.asarray(t, np.float32)).double() for t in jc.read())
+    s = (torch.from_numpy(ql).double() @ lat[:, None].transpose(-1, -2)
+         + torch.from_numpy(qr).double() @ rot[:, None].transpose(-1, -2)) * sm
+    pos = torch.from_numpy(q_off)[:, None] + torch.arange(sq)  # (b, sq)
+    j = torch.arange(lat.shape[1])
+    visible = (j <= pos[..., None]) & (j < torch.from_numpy(kv_len)[:, None, None])
+    exact = torch.softmax(s.masked_fill(~visible[:, None], float("-inf")), -1) @ lat[:, None]
+    np.testing.assert_allclose(to_np(got), exact.numpy(), atol=2e-2, rtol=2e-2)
 
 
 def test_mla_int8dot_plain_matches_pallas_kernel():

@@ -1,8 +1,9 @@
-// Hopper building blocks of the wgmma matmul kernels: TMA copies completing
-// on mbarriers, the 128-byte swizzled shared-memory tiles TMA writes and
-// wgmma and ldmatrix read, wgmma's shared-memory matrix descriptor, and
-// wgmma.mma_async m64n{16,32,64,128}k16 bf16 -> f32 (and m64n64k32 on int8
-// codes) with A from registers and B K-major in shared memory.  sm_90a only.
+// Hopper building blocks of the wgmma kernels: TMA and 1-D bulk copies
+// completing on mbarriers, the 128-byte swizzled shared-memory tiles TMA
+// writes and wgmma and ldmatrix read, wgmma's shared-memory matrix
+// descriptor, and wgmma.mma_async m64n{16,32,64,128}k16 bf16 -> f32 (and
+// m64n64k32 on int8 codes) with A from registers and B K-major in shared
+// memory; for B13 also A from shared memory and B N-major.  sm_90a only.
 //
 // Tiles.  An operand tile is made of 1024-byte atoms of eight 128-byte rows
 // (row r of a K-major B tile holds 64 bf16 K values); the 16-byte chunk c
@@ -70,6 +71,20 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* tmap, uint
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
       ::"r"(dst), "l"(tmap), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// A 1-D bulk copy of `bytes` contiguous bytes (a multiple of 16; both
+// addresses 16-byte aligned) from global memory into shared memory,
+// completing on mbarrier bar: no tensor map.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+               : "memory");
+}
+
+// Named barrier `id` (1..15) among `count` threads (a multiple of 32).
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // Order this thread's generic-proxy accesses to shared memory before the
@@ -175,6 +190,49 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 32 f32) = A (64 x 16 bf16, K-major in shared memory) * B (16 x
+// 32 bf16, K-major in shared memory) + (scale_d ? d : 0); the fragment
+// layout of wgmma_m64n32k16_rs.
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " MX_WGMMA_D16 ", %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// wgmma_m64n128k16_rs with B transposed (N-major in shared memory: each of
+// B's 16 K rows holds its N values contiguous, in 128-byte swizzled atoms
+// of 8 K rows by 64 N values; the descriptor's leading byte offset steps
+// between 64-column atoms, its stride byte offset between 8-row atoms).
+__device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+                                                       int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 

@@ -103,10 +103,11 @@ SIGNATURES = {
         "mx_router_logits_launch": (_P, _P, _P, _L, _I, _I, _I, _P),
     },
     "mx_mla": {
-        # q_lat, q_rot, lat codes, lat scales, rot codes, rot scales, q_off, kv_len, out,
-        # b, rows, n, L, r, dr, sm_scale, elem_code (-1: bf16), v_from_rot, stream
+        # q_lat, q_rot, lat codes, lat scales, rot codes, rot scales, q_off, kv_len, out, workspace,
+        # tickets, b, rows, n, L, r, dr, chunk, the grid's chunks, sm_scale, elem_code (-1: bf16), fault (0),
+        # stream
         "mx_mla_attention_launch": (
-            _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P
         ),
     },
     "mx_mla_int8dot": {

@@ -7,10 +7,16 @@ dispatch the MLA layer calls (``torchmx_tpu/ops/pallas_mla.py``).
   seq-layout latent cache (bf16 ``MLACache``, or ``MXMLACache`` in fp8, fp6,
   int8 or halves-packed fp4), rows ``(query position, head)`` sharing the
   latent, per-row causal masking from ``q_off`` / ``kv_len``, prefill and
-  decode alike.  Kernel and plain version: online softmax over tiles of
-  ``MLA_TILE`` positions in fp32, ``p`` rounded to bf16 before ``p . lat``,
-  masked scores ``-1e30``, a row with no visible key outputs 0; they differ
-  in fp32 summation order only.
+  decode alike.  Kernel and plain version: the positions cut into chunks of
+  ``mla_chunk(L)`` (a function of the cache length alone) at fixed absolute
+  positions, within a chunk an online softmax over tiles of ``B13_TILE``
+  positions in fp32 (``p`` rounded to bf16 before ``p . lat``, masked
+  scores ``-1e30``), then the chunks combined in chunk order; a row with no
+  visible key outputs 0.  They differ in fp32 summation order and in the
+  exponential's last bits only (the kernel takes the fast ``__expf``).  The
+  kernel splits the chunks across the card and combines them in the same
+  launch, through a workspace and tickets kept per device
+  (``_b13_scratch``).
 * B14 ``mx_mla_attention_int8dot`` (``csrc/mx_mla_int8dot.cu``) replaces
   ``_mla_kernel_int8dot``: decode (one query position) over an int8 d-major
   latent cache under ``TORCHMX_ATTN_INT8_DOT=1``, q and p quantized to int8
@@ -47,9 +53,11 @@ from ..packing import fp4_halves_to_pairs
 from . import cuda_lib
 from .backend import on_cuda
 from .cuda_attention import NEG_INF, IntOrTensor, _per_row, _pow2_scale
+from .cuda_norm import pairwise_sum
 from .cuda_quantize import mx_quantize_rows, mx_quantize_rows_plain
 
-MLA_TILE = 32  # KV positions per online-softmax step of B13 and B14 (kT in csrc/mx_mla*.cu)
+MLA_TILE = 32  # KV positions per online-softmax step of B14 (kT in csrc/mx_mla_int8dot.cu)
+B13_TILE = 32  # B13's own: KV positions per online-softmax step (kT in csrc/mx_mla.cu)
 KERNEL_R, KERNEL_DR = 512, 64  # the latent rank and rope width the kernels take
 BLOCK = 32
 MAX_ROWS = 256  # per-q-tile row budget of the JAX plan
@@ -114,15 +122,35 @@ def dequantize_latent(data: torch.Tensor, scale: torch.Tensor, elem_name: str) -
     return dequantize_mx(data, scale, elem_name, BLOCK, torch.bfloat16, 2)
 
 
+def mla_chunk(L: int) -> int:
+    """B13's KV chunk for a cache of ``L`` positions: the positions a CTA of
+    the kernel walks, and the unit the plain version combines.  A function
+    of ``L`` alone, so that a row's arithmetic does not depend on the batch,
+    the query length or the visible prefix.  Each entry is the fastest chunk
+    at the decode that caches of its lengths serve (``tools/
+    b13_phase_profile.py`` on an H100): generate's decode at b=32 over 256
+    positions (64), the engine's over 1024 (128), b=32 over 2048 (256) and
+    bench.py's b=8 over 8192 (512)."""
+    if L > 512 * 64:  # at most 64 chunks (kMaxChunks in csrc/mx_mla.cu)
+        return -(-L // (64 * B13_TILE)) * B13_TILE
+    return 64 if L <= 256 else 128 if L <= 1024 else 256 if L <= 4096 else 512
+
+
 def mx_mla_attention_plain(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_scale, q_off, kv_len,
                            sm_scale: float, elem_name: str, n_heads: int,
                            compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of B13 over folded rows: ``q_lat (b, rows, r)`` and
     ``q_rot (b, rows, dr)`` bf16, rows ordered (query position, head) with
-    ``n_heads`` heads, against the dequantized cache, tile by tile
-    (``MLA_TILE`` positions).  ``compute_dtype=torch.float64`` computes the
-    same function with another rounding."""
-    f = compute_dtype
+    ``n_heads`` heads, against the dequantized cache.  The positions are cut
+    into chunks of ``mla_chunk(L)``; within a chunk an online softmax over
+    tiles of ``B13_TILE`` positions (running max ``m`` and sum ``l``, ``p``
+    rounded to bf16 before ``p . lat`` into ``acc``); then, in chunk order,
+    ``M = max m_s`` and ``out = (sum acc_s e^(m_s - M)) * (1 / sum l_s
+    e^(m_s - M))``.  Each dot is summed exactly (float64 over bf16 values)
+    and rounded once, and a tile's ``l`` by a pairwise tree, so a row's
+    bytes do not depend on the other rows.  ``compute_dtype=torch.float64``
+    computes the same function with another rounding."""
+    f, f64 = compute_dtype, torch.float64
     lat = dequantize_latent(lat_data, lat_scale, elem_name)
     rot = dequantize_latent(rot_data, rot_scale, elem_name)
     b, rows, r = q_lat.shape
@@ -132,70 +160,142 @@ def mx_mla_attention_plain(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_scal
     # Positions at or past kv_len enter as 0, as in the kernel: a stale NaN
     # scale there must not reach the dots.
     live = (torch.arange(L, device=dev) < kv_len[:, None])[:, :, None]
-    lat = torch.where(live, lat, 0).to(f)
-    rot = torch.where(live, rot, 0).to(f)
+    lat = torch.where(live, lat, 0).to(f64)
+    rot = torch.where(live, rot, 0).to(f64)
     q_pos = (q_off[:, None] + torch.arange(rows, device=dev)[None] // n_heads)[:, :, None]
-    ql, qr = q_lat.to(torch.bfloat16).to(f), q_rot.to(torch.bfloat16).to(f)
-    m = torch.full((b, rows, 1), NEG_INF, dtype=f, device=dev)
-    l = torch.zeros((b, rows, 1), dtype=f, device=dev)
-    acc = torch.zeros((b, rows, r), dtype=f, device=dev)
-    for t0 in range(0, min(L, int(kv_len.max())), MLA_TILE):
-        lt, rt = lat[:, t0:t0 + MLA_TILE], rot[:, t0:t0 + MLA_TILE]
-        kv_pos = torch.arange(t0, t0 + lt.shape[1], device=dev)
-        s = (ql @ lt.transpose(1, 2) + qr @ rt.transpose(1, 2)) * sm_scale
-        valid = (kv_pos <= q_pos) & (kv_pos < kv_len[:, None, None])
-        s = torch.where(valid, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.where(valid, torch.exp(s - m_new), 0.0)
-        l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + p.to(torch.bfloat16).to(f) @ lt
-        m = m_new
-    return (acc / torch.where(l == 0, 1.0, l)).to(torch.bfloat16)
+    ql, qr = q_lat.to(torch.bfloat16).to(f64), q_rot.to(torch.bfloat16).to(f64)
+    S, end = mla_chunk(L), min(L, int(kv_len.max()))
+    parts = []
+    for c0 in range(0, end, S):
+        m = torch.full((b, rows, 1), NEG_INF, dtype=f, device=dev)
+        l = torch.zeros((b, rows, 1), dtype=f, device=dev)
+        acc = torch.zeros((b, rows, r), dtype=f, device=dev)
+        for t0 in range(c0, min(c0 + S, end), B13_TILE):
+            lt, rt = lat[:, t0:t0 + B13_TILE], rot[:, t0:t0 + B13_TILE]
+            kv_pos = torch.arange(t0, t0 + lt.shape[1], device=dev)
+            s = (ql @ lt.transpose(1, 2) + qr @ rt.transpose(1, 2)).to(f) * sm_scale
+            valid = (kv_pos <= q_pos) & (kv_pos < kv_len[:, None, None])
+            s = torch.where(valid, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(valid, torch.exp(s - m_new), 0.0)
+            l = l * alpha + pairwise_sum(p)[..., None]
+            acc = acc * alpha + (p.to(torch.bfloat16).to(f64) @ lt).to(f)
+            m = m_new
+        parts.append((m, l, acc))
+    if not parts:  # no row sees a key
+        return torch.zeros((b, rows, r), dtype=torch.bfloat16, device=dev)
+    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l_all = torch.zeros_like(parts[0][1])
+    o_all = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        w = torch.exp(m - m_all)
+        l_all = l_all + l * w
+        o_all = o_all + acc * w
+    return (o_all * (1 / torch.where(l_all == 0, 1.0, l_all))).to(torch.bfloat16)
 
 
 def _codes_dtype(elem_name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "int8": torch.int8}.get(elem_name, torch.uint8)
 
 
+#: B13's combine workspace and tickets on each device, grown on demand and
+#: never shrunk: the kernel leaves the tickets at zero, so no call
+#: allocates or clears anything once they are large enough.
+_B13_SCRATCH: dict = {}
+#: The most B13's workspace holds on a device.  A call whose tiles could
+#: need more (an admission of some thousand positions over a long cache,
+#: with ``kv_len`` a tensor) is launched once per group of rows that fits.
+B13_WORKSPACE_BYTES = 256 << 20
+
+
+def _b13_scratch(dev: torch.device, ws_floats: int, n_tickets: int):
+    ws, tickets = _B13_SCRATCH.get(dev, (None, None))
+    if ws is None or ws.numel() < ws_floats:
+        ws = torch.empty(ws_floats, dtype=torch.float32, device=dev)
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=dev)
+    _B13_SCRATCH[dev] = (ws, tickets)
+    return ws, tickets
+
+
+def b13_launch_groups(b: int, rows: int, n_heads: int, row_floats: int) -> list:
+    """B13's launches for a call: ``(first batch row, end, first query row,
+    end)`` each.  ``row_floats`` is the workspace a (batch row, query row)
+    may need (0 where the grid has one chunk: no tile then writes a
+    partial).  One launch where the call's workspace fits
+    ``B13_WORKSPACE_BYTES``; else groups of batch rows that fit, or, where
+    one batch row does not, groups of its query rows (a multiple of
+    ``n_heads``, so that each group starts at a query position).  A row's
+    bytes do not depend on the other rows of its launch."""
+    cap = B13_WORKSPACE_BYTES // 4
+    if b * rows * row_floats <= cap:
+        return [(0, b, 0, rows)]
+    def even(total: int, most: int) -> int:  # the size of ceil(total / most) groups of about equal size
+        return -(-total // -(-total // most))
+
+    if rows * row_floats <= cap:
+        gb = even(b, cap // (rows * row_floats))
+        return [(i, min(b, i + gb), 0, rows) for i in range(0, b, gb)]
+    gr = n_heads * even(rows // n_heads, max(1, cap // row_floats // n_heads))
+    return [(i, i + 1, r0, min(rows, r0 + gr)) for i in range(b) for r0 in range(0, rows, gr)]
+
+
 def mx_mla_attention(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_scale, q_off, kv_len,
-                     sm_scale: float, elem_name: str, n_heads: int, v_from_rot: bool = False) -> torch.Tensor:
+                     sm_scale: float, elem_name: str, n_heads: int, v_from_rot: bool = False,
+                     drop_last_chunk: bool = False) -> torch.Tensor:
     """B13: ``(b, rows, r)`` bf16 from folded queries over the seq-layout
     latent cache (see ``mx_mla_attention_plain``).  CUDA tensors launch the
-    kernel (r = 512, dr = 64, L % 32 == 0; other shapes raise).  The scales
-    of a bf16 cache are ignored (pass any uint8 tensor).  ``v_from_rot``
-    makes the kernel read V from the rope key instead of the latent: a
-    planted fault for the model check, never set by the package."""
+    kernel (r = 512, dr = 64, L % 32 == 0, 16-byte aligned cache buffers;
+    other shapes raise), one launch a call where the combine's workspace
+    fits ``B13_WORKSPACE_BYTES`` (``b13_launch_groups``).  The scales of a bf16 cache are
+    ignored (pass any uint8 tensor).  Planted faults for the model check,
+    never set by the package: ``v_from_rot`` makes the kernel read V from the
+    rope key instead of the latent, ``drop_last_chunk`` makes its combine
+    leave out the last live chunk of a tile."""
     if not on_cuda(q_lat, q_rot, lat_data, rot_data):
         return mx_mla_attention_plain(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_scale, q_off, kv_len,
                                       sm_scale, elem_name, n_heads)
     b, rows, r = q_lat.shape
     dr, L = q_rot.shape[2], lat_data.shape[1]
     pack = 2 if elem_name == "float4_e2m1" else 1
-    if (elem_name not in MLA_FORMATS or r != KERNEL_R or dr != KERNEL_DR or L % MLA_TILE or rows % n_heads
+    if (elem_name not in MLA_FORMATS or r != KERNEL_R or dr != KERNEL_DR or L % B13_TILE or rows % n_heads
             or lat_data.shape != (b, L, r // pack) or rot_data.shape != (b, L, dr // pack)):
-        raise ValueError(f"the MLA kernel takes r={KERNEL_R}, dr={KERNEL_DR}, L % {MLA_TILE} == 0 and a "
+        raise ValueError(f"the MLA kernel takes r={KERNEL_R}, dr={KERNEL_DR}, L % {B13_TILE} == 0 and a "
                          f"{MLA_FORMATS} cache, got {elem_name} q_lat{tuple(q_lat.shape)} q_rot{tuple(q_rot.shape)} "
                          f"latent{tuple(lat_data.shape)} rope{tuple(rot_data.shape)}")
     cd = _codes_dtype(elem_name)
     bufs = (lat_data, rot_data) if elem_name == "bfloat16" else (lat_data, lat_scale, rot_data, rot_scale)
     for t in bufs:
-        if not t.is_contiguous() or t.dtype not in (cd, torch.uint8):
-            raise ValueError(f"latent cache buffers must be contiguous {cd} codes and uint8 scales")
+        if not t.is_contiguous() or t.dtype not in (cd, torch.uint8) or t.data_ptr() % 16:
+            raise ValueError(f"latent cache buffers must be contiguous, 16-byte aligned {cd} codes and uint8 scales")
     if elem_name != "bfloat16" and (lat_scale.shape != (b, L, r // BLOCK) or rot_scale.shape != (b, L, dr // BLOCK)):
         raise ValueError(f"latent scales must be ({b}, {L}, {r // BLOCK}) and ({b}, {L}, {dr // BLOCK})")
     if elem_name == "bfloat16":
         lat_scale = rot_scale = lat_data  # unread
     ql = q_lat.to(torch.bfloat16).contiguous()
     qr = q_rot.to(torch.bfloat16).contiguous()
+    S = mla_chunk(L)
+    # Where kv_len is a number, no chunk past it is launched (a CTA there
+    # would only exit); a tensor is never read on the host.
+    chunks = -(-L // S) if isinstance(kv_len, torch.Tensor) else max(1, -(-min(int(kv_len), L) // S))
     q_off = _per_row(q_off, b, ql.device)
     kv_len = _per_row(kv_len, b, ql.device)
     out = torch.empty_like(ql)
+    row_floats = chunks * (r + 2) if chunks > 1 else 0
+    groups = b13_launch_groups(b, rows, n_heads, row_floats)
+    ws, tickets = _b13_scratch(ql.device, max((i1 - i0) * (r1 - r0) for i0, i1, r0, r1 in groups) * row_floats,
+                               max((i1 - i0) * -(-(r1 - r0) // 64) for i0, i1, r0, r1 in groups))
     elem = -1 if elem_name == "bfloat16" else cuda_lib.ELEM_CODES[elem_name]
-    cuda_lib.launch("mx_mla", "mx_mla_attention_launch", ql.data_ptr(), qr.data_ptr(), lat_data.data_ptr(),
-                    lat_scale.data_ptr(), rot_data.data_ptr(), rot_scale.data_ptr(), q_off.data_ptr(),
-                    kv_len.data_ptr(), out.data_ptr(), b, rows, n_heads, L, r, dr, float(sm_scale), elem,
-                    int(v_from_rot))
+    cache = [(t.data_ptr(), t.stride(0) * t.element_size()) for t in (lat_data, lat_scale, rot_data, rot_scale)]
+    for i0, i1, r0, r1 in groups:
+        row0 = i0 * rows + r0
+        qo = q_off if r0 == 0 else q_off + r0 // n_heads  # a group of rows lies in one batch row
+        cuda_lib.launch("mx_mla", "mx_mla_attention_launch", ql.data_ptr() + 2 * r * row0,
+                        qr.data_ptr() + 2 * dr * row0, *(p + i0 * step for p, step in cache),
+                        qo.data_ptr() + 4 * i0, kv_len.data_ptr() + 4 * i0, out.data_ptr() + 2 * r * row0,
+                        ws.data_ptr(), tickets.data_ptr(), i1 - i0, r1 - r0, n_heads, L, r, dr, S, chunks,
+                        float(sm_scale), elem, int(v_from_rot) | 2 * int(drop_last_chunk))
     return out
 
 
