@@ -11,8 +11,11 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    main-path shape; K3 over fp4 halves rel <= 1e-2 and on every (code,
    scale) pair bit for bit; K4 over fp8 and int8 caches, K5 over
    int8 caches, K6 over d-major fp8, int8, fp4 and fp6 caches and K7 over
-   int8 d-major caches abs <= 2e-2, each at every main-path shape; K6 against
-   K4 on the same cache content; K7's SQNR against exact attention above
+   int8 d-major caches abs <= 2e-2, each at every main-path shape (K6 also
+   at its KV chunks' boundaries, each row's relative L2 error <= 1.2e-2,
+   which a combine that drops the last live chunk fails); K6 against K4 on
+   the same cache content, bit for bit on every row whose visible prefix
+   lies in one chunk; K7's SQNR against exact attention above
    30 dB; this slice's B6 over four code formats and three act_fq values, B8
    over both fp6 formats and K3 over fp8 halves rel <= 1e-2 (K3-fp8 also on
    every (code, scale) pair bit for bit), B9 over int8 and int8-domain fp4 /
@@ -124,13 +127,13 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    with MXFP6 e3m2 weights (B8 throughout), MXFP8 weights (K3 over fp8
    halves) and MXFP8 weights under ``TORCHMX_FP8_DOT=1`` (B9-fp8 at decode,
    B6 at prefill);
-8. Mixtral-8x7B (32 layers, 8 experts, top-2) with MXFP4
+8. Mixtral-8x7B (8 of its 32 layers, 8 experts, top-2) with MXFP4
    grouped experts (stacked int8-domain codes, B12), MXFP4 attention (K3),
    MXFP8 activations and the int8 seq cache, built layer by layer from a
    seed: ``generate`` at batch 1 and 32 (prompt 64 + 128 new) and the
    48-request engine stream with every check of phase 5; every decode step
-   must launch B12 96 times;
-9. the DeepSeek-V3 path: Moonlight-16B-A3B (27 layers, 64 routed experts,
+   must launch B12 three times a layer;
+9. the DeepSeek-V3 path: Moonlight-16B-A3B (8 of its 27 layers, 64 routed experts,
    top-6, 2 shared experts, DeepSeek-V3 MLA) with MXFP4 weights (grouped
    experts on int8-domain codes, B12; the shared experts' down_proj, K 2816,
    in the pair layout, B7 after its own K2), MXFP8 activations, the f32
@@ -148,8 +151,9 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
 Every kernel must have launched on each main path that runs it.  The line
 before last is a JSON object describing every kernel; the last is
 ``{"ok": true, "device": {...}}``.  The Llama models of phases 4-7 run 8
-of Llama-3-8B's 32 layers (``--layers N`` sets another depth); Mixtral keeps
-its 32 layers, Moonlight its 27.
+of Llama-3-8B's 32 layers (``--layers N`` sets another depth), Mixtral 8 of
+its 32 and Moonlight 8 of its 27 (``MIXTRAL_LAYERS``, ``MOONLIGHT_LAYERS``;
+``tools/paths_ab.py`` measures the paths at full depth).
 """
 
 from __future__ import annotations
@@ -173,10 +177,13 @@ BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, data sheet
 LLAMA3_8B = dict(vocab_size=128256, hidden_size=4096, intermediate_size=14336,
                  num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
                  rope_theta=500000.0)
-# Depth of the Llama-3-8B-width models of phases 4-7 by default: cut from 32
-# so that the whole script, with the Mixtral and Moonlight phases at their
-# full depth, ends well inside its time limit (PERF.md).
+# Depth of the models of phases 4-9 by default: Llama-3-8B-width models cut
+# from 32 layers, Mixtral-8x7B from 32, Moonlight-16B-A3B from 27 (its first
+# layer dense, the rest MoE), so that the whole script ends well inside its
+# time limit on a slow host (PERF.md).
 LLAMA_LAYERS = 8
+MIXTRAL_LAYERS = 8
+MOONLIGHT_LAYERS = 8
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1076,13 +1083,80 @@ def _exact_attention(args):
     return torch.softmax(s.masked_fill(~mask, float("-inf")), -1) @ v.double().repeat_interleave(G, 1)
 
 
+# K6 against its plain version: the worst row's relative L2 error, beside abs <= 2e-2 (set from
+# tools/gate_readings.py --kernel k6 on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md row 10).
+K6_ROW_REL = 1.2e-2
+
+
+def k6_edge_cases():
+    """K6's KV split at and around the chunk boundaries of L = 1024 (S =
+    k6_chunk(1024)), at decode and in a prefill of 64 (a cache of 256
+    positions is one chunk)."""
+    from torchmx_tpu_torch.ops.cuda_attention import k6_chunk
+
+    S = k6_chunk(1024)
+    edges = [S - 1, S, S + 1, 2 * S + 1]
+    return [("decode b=4 L=1024 kv=S-1,S,S+1,2S+1", 4, 1024, 1, edges, True),
+            ("prefill b=4 sq=64 L=1024 kv=S-1,S,S+1,2S+1", 4, 1024, 64, edges, False)]
+
+
+def k6_one_chunk_rows(args):
+    """(b, hq, sq) bool: the rows whose visible prefix lies in one chunk of
+    k6_chunk(L), where K6 must give K4's bytes."""
+    from torchmx_tpu_torch.ops.cuda_attention import k6_chunk
+
+    q, q_off, kv_len = args[0], args[5], args[6]
+    pos = q_off[:, None] + torch.arange(q.shape[2], device=q.device)[None]
+    visible = torch.minimum(kv_len[:, None], pos + 1)
+    return (visible <= k6_chunk(args[1].shape[3]))[:, None, :].expand(q.shape[:3])
+
+
+def check_k6_against_k4(out, k4, args, label):
+    """K6's invariant against K4 on the same cache content: bit for bit on
+    every row whose visible prefix lies in one chunk, elsewhere abs <= 2e-2
+    and the worst row's relative L2 error <= K6_ROW_REL.  Returns (rows
+    checked bit for bit, abs, row rel)."""
+    one = k6_one_chunk_rows(args)
+    err, rel = (out.float() - k4.float()).abs().max().item(), worst_row_rel(out, k4)
+    if not torch.equal(out[one], k4[one]):
+        raise AssertionError(f"K6 {label}: a row whose prefix lies in one chunk differs from K4")
+    if not (err <= 2e-2 and rel <= K6_ROW_REL):
+        raise AssertionError(f"K6 {label}: against K4 abs {err}, worst row rel L2 {rel}")
+    return int(one.sum()), err, rel
+
+
+def check_k6_dropped_chunk(dev, gen, elem="int8"):
+    """The planted combine fault (the last live chunk of a tile dropped) at
+    kv_len = S + 1 and 2S + 1 over L = 1024, one batch row alone, at decode
+    and in a prefill of 64: the sound kernel passes the row gate, the fault
+    fails it.  Returns the readings."""
+    from torchmx_tpu_torch.ops import cuda_attention as ca
+
+    S, out = ca.k6_chunk(1024), []
+    for sq in (1, 64):
+        for kv in (S + 1, 2 * S + 1):
+            args = _to_dmajor(_attn_case(dev, gen, 1, 32, 8, 128, 1024, sq, [kv], elem))
+            ref = ca.mx_cached_attention_dmajor_plain(*args)
+            sound = worst_row_rel(ca.mx_cached_attention_dmajor(*args), ref)
+            fault = worst_row_rel(ca.mx_cached_attention_dmajor(*args, drop_last_chunk=True), ref)
+            log(f"K6 dropped-chunk fault sq={sq} kv={kv}: worst row rel L2 sound {sound:.3e}, fault {fault:.3e}")
+            if not sound <= K6_ROW_REL < fault:
+                raise AssertionError(f"K6 sq={sq} kv={kv}: the row gate must pass the kernel ({sound}) and fail "
+                                     f"the dropped chunk ({fault})")
+            out.append(dict(sq=sq, kv_len=kv, sound_row_rel=sound, fault_row_rel=fault))
+    return out
+
+
 def check_dmajor_attention_kernels(dev, timer, gen):
     """K6 over d-major fp8, int8 and fp4 caches at the main path's shapes (and
-    fp6 at two of them), against its plain version (abs <= 2e-2) and, printed,
-    against K4 over the seq cache of the same content; K7 at the engine's
-    decode shapes against its plain version at K7's tile (abs <= 2e-2) and
-    against exact float64 attention (SQNR > 30 dB), with K6's and K5's SQNR on
-    the same inputs beside it.  Returns (K6's entry, K7's entry, timing rows)."""
+    fp6 at two of them) and at its chunk edges, in all five formats, against
+    its plain version (abs <= 2e-2 and the worst row's relative L2 error <=
+    K6_ROW_REL) and, where K4 takes the format, against K4 over the seq cache
+    of the same content under K6's invariant (check_k6_against_k4); the
+    dropped-chunk fault caught by the row gate; K7 at the engine's decode
+    shapes against its plain version at K7's tile (abs <= 2e-2) and against
+    exact float64 attention (SQNR > 30 dB), with K6's and K5's SQNR on the
+    same inputs beside it.  Returns (K6's entry, K7's entry, timing rows)."""
     import torch.nn.functional as F
 
     from torchmx_tpu_torch.ops import cuda_attention as ca
@@ -1095,27 +1169,35 @@ def check_dmajor_attention_kernels(dev, timer, gen):
                 ("prefill b=32 L=256 sq=64", 32, 256, 64, [64] * 32, False),
                 ("whole b=1 L=1024 sq=384", 1, 1024, 384, [384], False),
                 ("chunk b=1 L=1024 sq=128 q_off=256", 1, 1024, 128, [384], False)]
-    rows, worst6, worst7 = [], 0.0, 0.0
+    edges = k6_edge_cases()
+    rows, worst6, worst6_rel, worst7 = [], 0.0, 0.0, 0.0
+    vs_k4 = dict(bit_equal_rows=0, abs=0.0, row_rel=0.0)
     for elem in ("float8_e4m3", "int8", "float4_e2m1", "float6_e3m2", "float6_e2m3"):
         fp6 = elem.startswith("float6")
-        for label, b, L, sq, kv, fresh in (k6_cases[:1] + k6_cases[3:4] if fp6 else k6_cases):
+        for label, b, L, sq, kv, fresh in (k6_cases[:1] + k6_cases[3:4] if fp6 else k6_cases) + edges:
             seq = _attn_case(dev, gen, b, 32, 8, 128, L, sq, kv, elem, never_written=fresh)
             args = _to_dmajor(seq)
             out = ca.mx_cached_attention_dmajor(*args)
             torch.cuda.synchronize()
-            err = (out.float() - ca.mx_cached_attention_dmajor_plain(*args).float()).abs().max().item()
-            worst6 = max(worst6, err)
-            vs_k4 = None
+            ref = ca.mx_cached_attention_dmajor_plain(*args)
+            err, rel = (out.float() - ref.float()).abs().max().item(), worst_row_rel(out, ref)
+            worst6, worst6_rel = max(worst6, err), max(worst6_rel, rel)
+            k4 = None
             if elem in ca.K4_FORMATS:
-                vs_k4 = (out.float() - ca.mx_cached_attention(*seq).float()).abs().max().item()
-            log(f"K6 mx_cached_attention_dmajor {elem} {label}: max abs err {err:.3e} vs plain, "
-                f"{'no K4 for this format' if vs_k4 is None else f'{vs_k4:.3e} vs K4 over the seq cache'}")
-            if not err <= 2e-2 or not torch.isfinite(out.float()).all():
-                raise AssertionError(f"K6 {elem} {label}: abs err {err}")
+                n_bit, k4_err, k4_rel = check_k6_against_k4(out, ca.mx_cached_attention(*seq), args, f"{elem} {label}")
+                k4 = dict(bit_equal_rows=n_bit, abs=k4_err, row_rel=k4_rel)
+                vs_k4 = dict(bit_equal_rows=vs_k4["bit_equal_rows"] + n_bit, abs=max(vs_k4["abs"], k4_err),
+                             row_rel=max(vs_k4["row_rel"], k4_rel))
+            log(f"K6 mx_cached_attention_dmajor {elem} {label}: max abs err {err:.3e}, worst row rel L2 {rel:.3e} "
+                f"vs plain; " + ("no K4 for this format" if k4 is None else
+                                 f"vs K4 over the seq cache {k4['bit_equal_rows']} one-chunk rows bit for bit, "
+                                 f"abs {k4['abs']:.3e}, row rel {k4['row_rel']:.3e}"))
+            if not (err <= 2e-2 and rel <= K6_ROW_REL) or not torch.isfinite(out.float()).all():
+                raise AssertionError(f"K6 {elem} {label}: abs err {err}, worst row rel L2 {rel}")
             empty = [i for i, n in enumerate(kv) if n == 0]
             if empty and out[empty].float().abs().max().item() != 0.0:
                 raise AssertionError(f"K6 {elem} {label}: a row with no visible key must output 0")
-            if fp6:
+            if fp6 or (label, b, L, sq, kv, fresh) in edges:
                 continue
             k, v, mask = _sdpa_inputs(seq)
             nbytes, ops = _attn_work(seq)
@@ -1125,8 +1207,8 @@ def check_dmajor_attention_kernels(dev, timer, gen):
                        plain_ms=timer(lambda: ca.mx_cached_attention_dmajor_plain(*args), reps=5),
                        library_ms=timer(lambda: F.scaled_dot_product_attention(
                            args[0], k, v, attn_mask=mask, scale=args[7], enable_gqa=True)),
-                       bound_ms=t_b, bound_by=by, max_abs_err=err, max_abs_vs_k4=vs_k4)
-            if vs_k4 is not None:
+                       bound_ms=t_b, bound_by=by, max_abs_err=err, worst_row_rel=rel, vs_k4=k4)
+            if k4 is not None:
                 row["k4_seq_ms"] = timer(lambda: ca.mx_cached_attention(*seq))
             log("K6 timing", json.dumps(row))
             rows.append(row)
@@ -1137,6 +1219,7 @@ def check_dmajor_attention_kernels(dev, timer, gen):
                                             torch.tensor([64, 1], dtype=torch.int32, device=dev), *blank[7:])
         if out.float().abs().max().item() != 0.0:
             raise AssertionError(f"K6 {elem}: a never-written cache must give 0")
+    dropped = check_k6_dropped_chunk(dev, gen)
     k7_cases = [("decode b=32 L=1024 kv_len 0..1024 ragged", 32, 1024, ragged),
                 ("decode b=1 L=1024 kv_len=700", 1, 1024, [700]),
                 ("decode b=4 L=8192 kv_len=8192", 4, 8192, [8192] * 4)]
@@ -1189,6 +1272,7 @@ def check_dmajor_attention_kernels(dev, timer, gen):
               source="torchmx_tpu_torch/csrc/mx_attention_dmajor.cu",
               replaces="torchmx_tpu/ops/pallas_attention.py:490",
               shape="decode b=32 hq=32 hkv=8 d=128 L=256 kv_len=192 fp4 d-major cache", max_abs_err=worst6,
+              worst_row_rel=worst6_rel, row_rel_gate=K6_ROW_REL, vs_k4=vs_k4, dropped_chunk=dropped,
               **{key: pick6[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     k7 = dict(name="mx_cached_attention_int8dot", route="cuda",
               source="torchmx_tpu_torch/csrc/mx_attention_int8dot.cu",
@@ -3913,10 +3997,10 @@ def main() -> int:
     format_paths, format_per_step, format_results = run_formats(dev, card, args.layers)
     paths.update(format_paths)
     log(f"phase 7 (the weight formats) done at {time.perf_counter() - t_start:.0f} s")
-    mixtral_paths, mixtral_per_step, mixtral_results = run_mixtral(dev, card, MIXTRAL_8X7B["num_hidden_layers"])
+    mixtral_paths, mixtral_per_step, mixtral_results = run_mixtral(dev, card, MIXTRAL_LAYERS)
     paths.update(mixtral_paths)
     log(f"phase 8 (Mixtral-8x7B) done at {time.perf_counter() - t_start:.0f} s")
-    moonlight_paths, moonlight_per_step, moonlight_results = run_moonlight(dev, card, MOONLIGHT_16B["num_hidden_layers"])
+    moonlight_paths, moonlight_per_step, moonlight_results = run_moonlight(dev, card, MOONLIGHT_LAYERS)
     paths.update(moonlight_paths)
     log(f"phase 9 (Moonlight-16B-A3B) done at {time.perf_counter() - t_start:.0f} s")
     plain_results = compare_with_plain_path(dev, card)

@@ -311,3 +311,53 @@ def test_dmajor_wrappers_reject_what_the_kernels_do_not_take(monkeypatch):
         ca.mx_cached_attention_dmajor(q, *(t.transpose(2, 3) for t in
                                            MXLayerKVCache.create(1, 2, d, L, "int8", device="cpu").buffers),
                                       0, 1, 1.0, "int8")
+
+
+# -- (g) K6's KV split: the chunk table and the launches ----------------------------------------
+
+
+@pytest.mark.parametrize("L, S", [(64, 256), (128, 256), (256, 256), (512, 128), (1024, 128), (2048, 256),
+                                  (4096, 256), (8192, 512), (32768, 512), (65536, 1024)])
+def test_k6_chunk_table(L, S):
+    """K6's chunk for each cache length: the table's entries, a multiple of
+    the kernel's tile, at most K6_MAX_CHUNKS chunks a cache."""
+    assert ca.k6_chunk(L) == S
+    assert S % ca.K6_TILE == 0 and -(-L // S) <= ca.K6_MAX_CHUNKS
+
+
+def test_k6_chunk_is_a_function_of_L_alone(monkeypatch):
+    """The chunk the wrapper launches with depends on the cache length alone,
+    not on the batch, the query length or kv_len; the grid takes every chunk
+    of L for a tensor kv_len and only those below a numeric one."""
+    launches = []
+    monkeypatch.setattr(ca, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(ca.cuda_lib, "launch", lambda src, fn, *a, **kw: launches.append(a))
+    for L in (256, 1024):
+        S = ca.k6_chunk(L)
+        for b, sq, kv in ((1, 1, 700), (4, 64, torch.tensor([65, 300, 900, 1000])), (32, 1, L), (2, 5, 1)):
+            cache = MXLayerKVCache.create(b, 2, L, 128, "int8", device="cpu", layout="dmajor")
+            q = torch.zeros(b, 4, sq, 128, dtype=torch.bfloat16)
+            launches.clear()
+            ca.mx_cached_attention_dmajor(q, *cache.buffers, 0, kv, 1.0, "int8")
+            (a,) = launches
+            want = -(-L // S) if isinstance(kv, torch.Tensor) else max(1, -(-min(kv, L) // S))
+            assert (a[15], a[17], a[18]) == (L, S, want)
+
+
+@pytest.mark.parametrize("b, hq, sq, chunks", [(32, 32, 1, 8), (8, 32, 1024, 1), (32, 32, 64, 4),
+                                                (3, 32, 8192, 64), (1, 64, 65536, 16)])
+def test_k6_launch_groups_cover_the_call(b, hq, sq, chunks):
+    """K6's launches for a call: each (batch row, row) in exactly one launch,
+    each launch's combine workspace within ``K6_WORKSPACE_BYTES``, a group of
+    rows inside one batch row and made of whole query positions; one launch
+    wherever the call's workspace fits (a grid of one chunk needs none)."""
+    row_floats = chunks * (128 + 2) if chunks > 1 else 0
+    rows = sq * hq
+    groups = ca.k6_launch_groups(b, hq, sq, row_floats)
+    seen = torch.zeros(b, rows, dtype=torch.int32)
+    for i0, i1, r0, r1 in groups:
+        assert (i1 - i0) * (r1 - r0) * row_floats * 4 <= ca.K6_WORKSPACE_BYTES
+        assert (r0, r1) == (0, rows) or (i1 == i0 + 1 and r0 % hq == 0 and (r1 - r0) % hq == 0)
+        seen[i0:i1, r0:r1] += 1
+    assert bool((seen == 1).all())
+    assert (len(groups) == 1) == (b * rows * row_floats * 4 <= ca.K6_WORKSPACE_BYTES)

@@ -380,25 +380,6 @@ def _dmajor_cache(device, seed, b, hkv, L, d, elem):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("elem", ["float8_e4m3", "int8", "float4_e2m1", "float6_e3m2", "float6_e2m3"])
-@pytest.mark.parametrize("sq", [1, 64, 128])
-def test_cuda_dmajor_attention_kernel_matches_plain(cuda_device, elem, sq):
-    b, hq, hkv, d, L = 3, 8, 2, 128, 256
-    cache, g = _dmajor_cache(cuda_device, 4, b, hkv, L, d, elem)
-    q = torch.randn(b, hq, sq, d, generator=g).to(torch.bfloat16).to(cuda_device)
-    q_off = torch.tensor([0, 128, 0], dtype=torch.int32, device=cuda_device)
-    kv_len = torch.tensor([sq, 128 + sq, 0], dtype=torch.int32, device=cuda_device)
-    args = (q, *cache.buffers, q_off, kv_len, d ** -0.5, elem)
-    out = cuda_attention.mx_cached_attention_dmajor(*args)
-    ref = cuda_attention.mx_cached_attention_dmajor_plain(*args)
-    assert out[2].abs().max().item() == 0  # no visible key
-    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
-    if elem in cuda_attention.K4_FORMATS:  # the seq kernel on the same content: the same bits
-        seq = [t.transpose(2, 3).contiguous() for t in cache.buffers]
-        assert torch.equal(out, cuda_attention.mx_cached_attention(q, *seq, q_off, kv_len, d ** -0.5, elem))
-
-
-@pytest.mark.gpu
 @pytest.mark.parametrize("hq,hkv,L", [(32, 8, 1024), (4, 2, 256), (8, 1, 8192), (2, 2, 128)])
 def test_cuda_int8dot_kernel_matches_plain(cuda_device, hq, hkv, L):
     b, d = 5, 128

@@ -18,7 +18,12 @@ masked scores are ``-1e30``; softmax in fp32 with ``p`` rounded to bf16 before
 the P.V product; a row with no visible key outputs 0.  Both versions are the
 online (flash) form over tiles of 64 positions; they differ only in fp32
 summation order.  K6 reads the d-major cache (fp8, fp6, int8, and fp4 in the
-d-halves packing); on the same cache content it computes what K4 computes.
+d-halves packing).  Its kernel splits the positions into chunks of
+``k6_chunk(L)`` at fixed absolute positions, runs K4's online softmax inside
+each chunk and combines the chunks in chunk order in the same launch
+(``ops/split_kv``), so on the same cache content it equals the K4 kernel bit
+for bit for every row whose visible prefix lies in one chunk, and elsewhere
+differs in fp32 summation order only.
 
 K5 computes the same attention for ``sq == 1`` over an int8 cache with the
 block scales factored out of the dots (``mx_cached_attention_chunkdot_plain``
@@ -36,7 +41,7 @@ import torch
 from .. import env_variables as env
 from ..mx_array import dequantize_mx, quantize_mx
 from ..packing import fp4_halves_to_pairs
-from . import cuda_lib
+from . import cuda_lib, split_kv
 from .backend import on_cuda
 
 NEG_INF = -1e30
@@ -281,13 +286,52 @@ def mx_cached_attention_dmajor_plain(
     return _online_attention(q, k, v, q_off, kv_len, sm_scale, compute_dtype)
 
 
+K6_TILE = 64  # KV positions per online-softmax step of K6 (kL in csrc/mx_attention_dmajor.cu)
+K6_ROW_TILE = 64  # query rows per CTA of K6 (kRows)
+K6_MAX_CHUNKS = 64  # chunks of a cache at most (kMaxChunks)
+#: The most K6's combine workspace holds on a device (``ops/split_kv``, the
+#: buffers K6 and B13 share); a call that could need more (with ``kv_len`` a
+#: tensor: b x hq x sq x chunks x 130 floats) runs one launch per group of
+#: rows that fits (``k6_launch_groups``), the same bytes.
+K6_WORKSPACE_BYTES = 256 << 20
+
+
+def k6_chunk(L: int) -> int:
+    """K6's KV chunk for a cache of ``L`` positions: the positions a CTA of
+    the kernel walks.  A function of ``L`` alone, so that a row's arithmetic
+    does not depend on the batch, the query length or the visible prefix.
+    The two timed entries are the fastest chunk at the decode that caches of
+    their lengths serve (``tools/phase_profile.py --kernel k6 --chunks-only``
+    on an H100): one chunk at L <= 256 (generate's decode at b=32 over 256
+    positions), 128 to 1024 (the engine's decode over 1024); the longer
+    caches' entries are B13's, untimed for K6."""
+    if L > 512 * K6_MAX_CHUNKS:
+        return -(-L // (K6_MAX_CHUNKS * K6_TILE)) * K6_TILE
+    return 256 if L <= 256 else 128 if L <= 1024 else 256 if L <= 4096 else 512
+
+
+def k6_launch_groups(b: int, hq: int, sq: int, row_floats: int) -> list:
+    """K6's launches for a call (``split_kv.launch_groups`` under
+    ``K6_WORKSPACE_BYTES``): ``(first batch row, end, first row, end)`` each,
+    over the ``sq * hq`` rows of a batch row, a group of rows a multiple of
+    ``hq`` (whole query positions); ``row_floats`` is the workspace a row
+    may need."""
+    return split_kv.launch_groups(b, sq * hq, hq, row_floats, K6_WORKSPACE_BYTES)
+
+
 def mx_cached_attention_dmajor(
-    q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float, elem_dtype_name: str
+    q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float, elem_dtype_name: str,
+    drop_last_chunk: bool = False,
 ) -> torch.Tensor:
     """K6: ``q (b, hq, sq, d)`` bf16 over the d-major MX cache ``(b, hkv, dp,
     L)`` codes (``dp = d``, or ``d/2`` for fp4 in the d-halves packing; int8
     for the int8 format, else uint8) + ``(b, hkv, d/32, L)`` scales.  CUDA
-    tensors launch the kernel (d = 128, L % 64 == 0; other shapes raise)."""
+    tensors launch the kernel (d = 128, L % 64 == 0, 16-byte aligned cache
+    buffers; other shapes and buffers raise), one launch a call where the combine's
+    workspace fits ``K6_WORKSPACE_BYTES``.  Where ``kv_len`` is a number only
+    the chunks below it are launched.  ``drop_last_chunk`` is a planted fault
+    for the checks, never set by the package: the combine leaves out the last
+    live chunk of a tile."""
     if not on_cuda(q, k_data, k_scale, v_data, v_scale):
         return mx_cached_attention_dmajor_plain(
             q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale, elem_dtype_name
@@ -301,16 +345,34 @@ def mx_cached_attention_dmajor(
             f"L % 64 == 0, got {elem_dtype_name} q{tuple(q.shape)} cache{tuple(k_data.shape)}"
         )
     _check_cache_tensors(k_data, k_scale, v_data, v_scale, K6_FORMATS[elem_dtype_name])
+    if k_scale.shape != (b, hkv, d // BLOCK, L) or v_scale.shape != k_scale.shape or v_data.shape != k_data.shape:
+        raise ValueError(f"d-major scales must be ({b}, {hkv}, {d // BLOCK}, {L}) beside codes {tuple(k_data.shape)}")
     q = q.to(torch.bfloat16).contiguous()
+    S = k6_chunk(L)
+    # Where kv_len is a number, no chunk past it is launched (a CTA there
+    # would only exit); a tensor is never read on the host.
+    chunks = -(-L // S) if isinstance(kv_len, torch.Tensor) else max(1, -(-min(int(kv_len), L) // S))
     q_off = _per_row(q_off, b, q.device)
     kv_len = _per_row(kv_len, b, q.device)
     out = torch.empty_like(q)
-    cuda_lib.launch(
-        "mx_attention_dmajor", "mx_cached_attention_dmajor_launch",
-        q.data_ptr(), k_data.data_ptr(), k_scale.data_ptr(), v_data.data_ptr(),
-        v_scale.data_ptr(), q_off.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-        b, hq, hkv, sq, L, d, float(sm_scale), cuda_lib.ELEM_CODES[elem_dtype_name],
-    )
+    G, rows = hq // hkv, sq * hq
+    row_floats = chunks * (d + 2) if chunks > 1 else 0
+    groups = k6_launch_groups(b, hq, sq, row_floats)
+    # Enough for the largest launch: each fits K6_WORKSPACE_BYTES.
+    ws, tickets = split_kv.scratch(q.device, min(b * rows * row_floats, K6_WORKSPACE_BYTES // 4),
+                                   b * hkv * -(-(sq * G) // K6_ROW_TILE))
+    cache = (k_data, k_scale, v_data, v_scale)
+    for i0, i1, r0, r1 in groups:
+        s0, s1 = r0 // hq, r1 // hq
+        qo = q_off if s0 == 0 else q_off + s0  # a group of rows lies in one batch row
+        first = 2 * (i0 * hq * sq + s0) * d  # bytes to the group's first query row
+        cuda_lib.launch(
+            "mx_attention_dmajor", "mx_cached_attention_dmajor_launch",
+            q.data_ptr() + first, *(t[i0].data_ptr() if i0 else t.data_ptr() for t in cache),
+            qo.data_ptr() + 4 * i0, kv_len.data_ptr() + 4 * i0, out.data_ptr() + first, ws.data_ptr(),
+            tickets.data_ptr(), i1 - i0, hq, hkv, s1 - s0, sq, L, d, S, chunks, float(sm_scale),
+            cuda_lib.ELEM_CODES[elem_dtype_name], int(drop_last_chunk),
+        )
     return out
 
 

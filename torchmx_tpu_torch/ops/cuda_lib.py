@@ -136,9 +136,10 @@ SIGNATURES = {
         ),
     },
     "mx_attention_dmajor": {
-        # as mx_cached_attention_launch, over the d-major cache
+        # q, kd, ks, vd, vs, q_off, kv_len, out, workspace, tickets, b, hq, hkv, sq, sq_stride (q's
+        # positions), L, d, chunk, the grid's chunks, sm_scale, elem_code, fault (0), stream
         "mx_cached_attention_dmajor_launch": (
-            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P
         ),
     },
     "mx_attention_int8dot": {

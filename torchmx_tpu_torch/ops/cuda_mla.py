@@ -16,7 +16,7 @@ dispatch the MLA layer calls (``torchmx_tpu/ops/pallas_mla.py``).
   exponential's last bits only (the kernel takes the fast ``__expf``).  The
   kernel splits the chunks across the card and combines them in the same
   launch, through a workspace and tickets kept per device
-  (``_b13_scratch``).
+  (``ops/split_kv``, shared with K6).
 * B14 ``mx_mla_attention_int8dot`` (``csrc/mx_mla_int8dot.cu``) replaces
   ``_mla_kernel_int8dot``: decode (one query position) over an int8 d-major
   latent cache under ``TORCHMX_ATTN_INT8_DOT=1``, q and p quantized to int8
@@ -50,7 +50,7 @@ import torch
 from .. import env_variables as env
 from ..mx_array import dequantize_mx
 from ..packing import fp4_halves_to_pairs
-from . import cuda_lib
+from . import cuda_lib, split_kv
 from .backend import on_cuda
 from .cuda_attention import NEG_INF, IntOrTensor, _per_row, _pow2_scale
 from .cuda_norm import pairwise_sum
@@ -127,8 +127,8 @@ def mla_chunk(L: int) -> int:
     the kernel walks, and the unit the plain version combines.  A function
     of ``L`` alone, so that a row's arithmetic does not depend on the batch,
     the query length or the visible prefix.  Each entry is the fastest chunk
-    at the decode that caches of its lengths serve (``tools/
-    b13_phase_profile.py`` on an H100): generate's decode at b=32 over 256
+    at the decode that caches of its lengths serve (``tools/phase_profile.py
+    --kernel b13`` on an H100): generate's decode at b=32 over 256
     positions (64), the engine's over 1024 (128), b=32 over 2048 (256) and
     bench.py's b=8 over 8192 (512)."""
     if L > 512 * 64:  # at most 64 chunks (kMaxChunks in csrc/mx_mla.cu)
@@ -199,46 +199,19 @@ def _codes_dtype(elem_name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "int8": torch.int8}.get(elem_name, torch.uint8)
 
 
-#: B13's combine workspace and tickets on each device, grown on demand and
-#: never shrunk: the kernel leaves the tickets at zero, so no call
-#: allocates or clears anything once they are large enough.
-_B13_SCRATCH: dict = {}
-#: The most B13's workspace holds on a device.  A call whose tiles could
-#: need more (an admission of some thousand positions over a long cache,
-#: with ``kv_len`` a tensor) is launched once per group of rows that fits.
+#: The most B13's combine workspace holds on a device (``ops/split_kv``, the
+#: buffers B13 and K6 share).  A call whose tiles could need more (an
+#: admission of some thousand positions over a long cache, with ``kv_len`` a
+#: tensor) is launched once per group of rows that fits.
 B13_WORKSPACE_BYTES = 256 << 20
 
 
-def _b13_scratch(dev: torch.device, ws_floats: int, n_tickets: int):
-    ws, tickets = _B13_SCRATCH.get(dev, (None, None))
-    if ws is None or ws.numel() < ws_floats:
-        ws = torch.empty(ws_floats, dtype=torch.float32, device=dev)
-    if tickets is None or tickets.numel() < n_tickets:
-        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=dev)
-    _B13_SCRATCH[dev] = (ws, tickets)
-    return ws, tickets
-
-
 def b13_launch_groups(b: int, rows: int, n_heads: int, row_floats: int) -> list:
-    """B13's launches for a call: ``(first batch row, end, first query row,
-    end)`` each.  ``row_floats`` is the workspace a (batch row, query row)
-    may need (0 where the grid has one chunk: no tile then writes a
-    partial).  One launch where the call's workspace fits
-    ``B13_WORKSPACE_BYTES``; else groups of batch rows that fit, or, where
-    one batch row does not, groups of its query rows (a multiple of
-    ``n_heads``, so that each group starts at a query position).  A row's
-    bytes do not depend on the other rows of its launch."""
-    cap = B13_WORKSPACE_BYTES // 4
-    if b * rows * row_floats <= cap:
-        return [(0, b, 0, rows)]
-    def even(total: int, most: int) -> int:  # the size of ceil(total / most) groups of about equal size
-        return -(-total // -(-total // most))
-
-    if rows * row_floats <= cap:
-        gb = even(b, cap // (rows * row_floats))
-        return [(i, min(b, i + gb), 0, rows) for i in range(0, b, gb)]
-    gr = n_heads * even(rows // n_heads, max(1, cap // row_floats // n_heads))
-    return [(i, i + 1, r0, min(rows, r0 + gr)) for i in range(b) for r0 in range(0, rows, gr)]
+    """B13's launches for a call (``split_kv.launch_groups`` under
+    ``B13_WORKSPACE_BYTES``): ``(first batch row, end, first query row,
+    end)`` each; ``row_floats`` is the workspace a (batch row, query row)
+    may need, a group of query rows a multiple of ``n_heads``."""
+    return split_kv.launch_groups(b, rows, n_heads, row_floats, B13_WORKSPACE_BYTES)
 
 
 def mx_mla_attention(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_scale, q_off, kv_len,
@@ -284,7 +257,7 @@ def mx_mla_attention(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_scale, q_o
     out = torch.empty_like(ql)
     row_floats = chunks * (r + 2) if chunks > 1 else 0
     groups = b13_launch_groups(b, rows, n_heads, row_floats)
-    ws, tickets = _b13_scratch(ql.device, max((i1 - i0) * (r1 - r0) for i0, i1, r0, r1 in groups) * row_floats,
+    ws, tickets = split_kv.scratch(ql.device, max((i1 - i0) * (r1 - r0) for i0, i1, r0, r1 in groups) * row_floats,
                                max((i1 - i0) * -(-(r1 - r0) // 64) for i0, i1, r0, r1 in groups))
     elem = -1 if elem_name == "bfloat16" else cuda_lib.ELEM_CODES[elem_name]
     cache = [(t.data_ptr(), t.stride(0) * t.element_size()) for t in (lat_data, lat_scale, rot_data, rot_scale)]

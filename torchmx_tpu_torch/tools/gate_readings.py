@@ -1,0 +1,109 @@
+"""Where a split-KV kernel's kernel-vs-plain gate sits: the sound kernel and
+the planted combine fault (``drop_last_chunk``: the last live chunk of a tile
+left out) against the plain version.  Each reading is the max abs error and
+the worst row's relative L2 error (``chip_smoke.worst_row_rel``), over the
+case and, for the fault, over each batch row alone.
+
+* ``--kernel b13``: B13 at every ``chip_smoke.MLA_CASES`` and
+  ``MLA_SPLIT_CASES`` shape in all six latent formats, and at two probes
+  whose last live chunk holds one position (kv_len = S + 1, 2S + 1, 3S + 1
+  at L = 1024, decode and a prefill of 64);
+* ``--kernel k6``: K6 at the six shapes of ``chip_smoke.
+  check_dmajor_attention_kernels`` and at ``chip_smoke.k6_edge_cases`` in
+  all five cache formats, and at the probes kv_len = S + 1 and 2S + 1 at L =
+  1024, one batch row alone, decode and a prefill of 64.
+
+Run from the repository root with one card:
+
+    python3 torchmx_tpu_torch/tools/gate_readings.py --kernel b13|k6
+
+Writes ``chiprun_out/<kernel>_gate_readings.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+
+def readings_b13(cs, dev, gen):
+    from torchmx_tpu_torch.ops import cuda_mla
+
+    S = cuda_mla.mla_chunk(1024)
+    probes = [("fault probe decode L=1024 kv=3S+1,S+1,2S+1", 3, 16, 1024, 1, [3 * S + 1, S + 1, 2 * S + 1]),
+              ("fault probe prefill sq=64 L=1024 kv=S+1,2S+1", 2, 16, 1024, 64, [S + 1, 2 * S + 1])]
+    for label, b, n, L, sq, kv in cs.MLA_CASES + cs.MLA_SPLIT_CASES + probes:
+        for elem in cs.MLA_FORMATS:
+            c = cs._mla_case(dev, gen, b, n, L, sq, kv, elem)
+            args = cs._mla_args(c)
+            yield label, elem, b, cuda_mla.mx_mla_attention, args, cuda_mla.mx_mla_attention_plain(*args)
+            del c, args
+
+
+K6_FORMATS = ("float8_e4m3", "int8", "float4_e2m1", "float6_e3m2", "float6_e2m3")
+RAGGED = [0] + [1 + (1023 * i) // 30 for i in range(31)]
+K6_CASES = [("decode b=32 L=1024 kv_len 0..1024 ragged", 32, 1024, 1, RAGGED, True),
+            ("decode b=1 L=1024 kv_len=700", 1, 1024, 1, [700], True),
+            ("decode b=32 L=256 kv_len=192", 32, 256, 1, [192] * 32, False),
+            ("prefill b=32 L=256 sq=64", 32, 256, 64, [64] * 32, False),
+            ("whole b=1 L=1024 sq=384", 1, 1024, 384, [384], False),
+            ("chunk b=1 L=1024 sq=128 q_off=256", 1, 1024, 128, [384], False)]
+
+
+def readings_k6(cs, dev, gen):
+    from torchmx_tpu_torch.ops import cuda_attention as ca
+
+    S = ca.k6_chunk(1024)
+    probes = [(f"fault probe sq={sq} L=1024 kv={kv}", 1, 1024, sq, [kv], False)
+              for sq in (1, 64) for kv in (S + 1, 2 * S + 1)]
+    for label, b, L, sq, kv, fresh in K6_CASES + cs.k6_edge_cases() + probes:
+        for elem in K6_FORMATS:
+            args = cs._to_dmajor(cs._attn_case(dev, gen, b, 32, 8, 128, L, sq, kv, elem, never_written=fresh))
+            yield label, elem, b, ca.mx_cached_attention_dmajor, args, ca.mx_cached_attention_dmajor_plain(*args)
+            del args
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=("b13", "k6"), required=True)
+    args = ap.parse_args()
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    if not torch.cuda.is_available():
+        print("gate_readings: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(1234)
+    card = cs.card_line()
+    print(card, flush=True)
+    out = dict(card=card, readings=[])
+    cases = readings_b13 if args.kernel == "b13" else readings_k6
+    for label, elem, b, kernel, call_args, ref in cases(cs, dev, gen):
+        got = kernel(*call_args)
+        drop = kernel(*call_args, drop_last_chunk=True)
+        r = dict(case=label, elem=elem, abs=(got.float() - ref.float()).abs().max().item(),
+                 rel=cs.worst_row_rel(got, ref), fault_abs=(drop.float() - ref.float()).abs().max().item(),
+                 fault_rel=cs.worst_row_rel(drop, ref))
+        if b > 1:
+            r["fault_abs_rows"] = [(drop[i].float() - ref[i].float()).abs().max().item() for i in range(b)]
+            r["fault_rel_rows"] = [cs.worst_row_rel(drop[i], ref[i]) for i in range(b)]
+        print(json.dumps(r), flush=True)
+        out["readings"].append(r)
+    sound = out["readings"]
+    probes = [r for r in sound if r["case"].startswith("fault probe")]
+    print(f"sound: abs <= {max(r['abs'] for r in sound):.3e}, row rel <= {max(r['rel'] for r in sound):.3e}; "
+          f"the fault at the probes: row rel >= {min(min(r.get('fault_rel_rows', [r['fault_rel']])) for r in probes):.3e} "
+          f"[{card}]", flush=True)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", f"{args.kernel}_gate_readings.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

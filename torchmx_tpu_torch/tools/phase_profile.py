@@ -1,0 +1,319 @@
+"""Where a split-KV attention kernel's time goes: its source rebuilt with
+parts cut out, and run at other KV chunk sizes, timed at its served shapes.
+The cut builds give wrong results; they only time what is left.
+
+Run from the repository root with one card:
+
+    python3 torchmx_tpu_torch/tools/phase_profile.py --kernel b13|k6 [--root DIR] [--label NAME] [--chunks-only]
+
+``--root`` imports ``chip_smoke`` and ``torchmx_tpu_torch`` from another
+checkout and cuts that checkout's source (for instance a parent commit
+unpacked by ``git archive`` into a git-ignored directory): K6 before the KV
+split (``csrc/mx_attention_dmajor.cu`` without a producer warp) has cuts of
+its own.  Each patched copy is written under the package's git-ignored
+``_build/``; the source itself is not touched.
+
+Builds of B13 (``csrc/mx_mla.cu``), timed at ``chip_smoke.MLA_CASES`` and
+at b=32 decodes over 2048 and 4096 positions, int8 seq latent:
+
+* ``no_scores``: without the 36 score wgmmas of a tile;
+* ``no_decode``: every position of a tile decoded as 0 (no code is read);
+* ``data_path``: neither the dots nor the decode (copies, barriers, the
+  softmax's instructions, the epilogue and the combine);
+* ``stream``: ``data_path`` without the softmax (the copies and barriers);
+* ``no_copies``: ``data_path`` with the producer arriving on each stage
+  without copying (the consumers' side alone);
+* ``no_tiles``: no tile at all (the CTA's launch, Q load, epilogue and
+  combine).
+
+Builds of K6 with the KV split, timed at F's decode (fp4, b=32 over 256
+positions, kv_len 192, as a tensor and as numbers), the engine's decode
+(b=32 over 1024, kv_len 0 .. 1024 ragged, fp8 and int8), one row at kv_len
+700, D's admission and chunk (int8, sq 384 and 128), the prefill of 32 x 64
+(fp4) and the engine's whole admissions as it calls K6 (int8, numbers, sq 64
+to 512, and 256 after a cached prefix of 128):
+
+* ``no_dots``: no warp runs the two dots or the softmax;
+* ``no_decode``: the landed tiles are not decoded (the consumers still wait
+  for them and release them);
+* ``data_path``: neither (copies, barriers, the epilogue and the combine);
+* ``no_copies``: ``data_path`` with the ring's fills arriving without
+  copying;
+* ``no_tiles``: no tile at all (the CTA's launch, Q load, epilogue and
+  combine);
+* ``no_combine``: a tile with two live chunks or more writes its partials
+  and stops (no ticket, no combine).
+
+Builds of K6 before the split (one CTA a 64-row tile and KV head walking
+its prefix, loads and decode in every thread): ``no_dots``, ``no_decode``
+(neither the tile's loads nor its decode), ``neither``.
+
+``S=...``: the shipped kernel at another chunk size (``mla_chunk`` or
+``k6_chunk`` patched) where it gives at most 64 chunks, and for B13 at
+generate's decode steps as it calls B13 (b=32 over 256 positions, q_off and
+kv_len numbers, kv_len 65 .. 192 at a stride of 16: ``gk_decode``, the mean
+a call and each step).  ``--chunks-only`` times the chunk sizes alone.
+
+Times: ``chip_smoke.Timer`` (median of 20, L2 flushed, the device asleep
+while the host enqueues).  Writes ``chiprun_out/phase_profile_<kernel>_<label>.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+
+def _guard(s: str, start: str, end: str, flag: str, other: str = "") -> str:
+    """#ifndef flag around s[start .. end] (both included); ``other`` in its #else."""
+    if start not in s:
+        raise RuntimeError(f"the kernel source changed: {start!r} not found")
+    a = s.index(start)
+    b = s.index(end, a) + len(end)
+    return s[:a] + f"#ifndef {flag}\n" + s[a:b] + ("#else\n" + other if other else "") + "\n#endif\n" + s[b:]
+
+
+def _replace(s: str, old: str, new: str) -> str:
+    if old not in s:
+        raise RuntimeError(f"the kernel source changed: {old!r} not found")
+    return s.replace(old, new)
+
+
+# -- B13 --------------------------------------------------------------------------------------------
+
+B13_CUTS = {"no_scores": ["NO_SCORES"], "no_decode": ["NO_DECODE"],
+            "data_path": ["NO_SCORES", "NO_PV", "NO_DECODE"],
+            "stream": ["NO_SCORES", "NO_PV", "NO_DECODE", "NO_SOFTMAX"],
+            "no_copies": ["NO_SCORES", "NO_PV", "NO_DECODE", "NO_COPY"], "no_tiles": ["NO_TILES"]}
+
+
+def b13_patched(src: str) -> str:
+    """B13 with #ifndef guards around the score wgmmas (NO_SCORES), the P.lat
+    wgmmas (NO_PV), the decode of a live position (NO_DECODE), the softmax
+    (NO_SOFTMAX), the copies (NO_COPY) and the tile count (NO_TILES)."""
+    s = _guard(src, "    mx::wgmma_fence();\n#pragma unroll\n    for (int p = 0; p < kPanels; ++p)", "p | kk);\n",
+               "NO_SCORES")
+    s = _guard(s, "    mx::wgmma_fence();\n#pragma unroll\n    for (int kk = 0; kk < 2; ++kk)",
+               "v_rot ? 0 : kTPanel, 1024), 1);\n      }\n", "NO_PV")
+    s = _replace(s, "    if (pos0 + p < kv_len) {", "#ifdef NO_DECODE\n    if (false) {\n#else\n"
+                 "    if (pos0 + p < kv_len) {\n#endif")
+    s = _replace(s, "    float alpha[2];\n#pragma unroll\n    for (int h = 0; h < 2; ++h) {",
+                 "    float alpha[2] = {1.f, 1.f};\n#ifndef NO_SOFTMAX\n"
+                 "#pragma unroll\n    for (int h = 0; h < 2; ++h) {")
+    s = _replace(s, "      m_run[h] = m_new;\n    }\n", "      m_run[h] = m_new;\n    }\n#endif\n")
+    s = _guard(s, "      mx::mbar_expect_tx(full, G::stage);", "kSP * G::rot_sc, full);\n      }\n", "NO_COPY",
+               "      mx::mbar_arrive(full);")
+    return _replace(s, "  const int nt = t_end > c0 ? (t_end - c0 + kT - 1) / kT : 0;",
+                    "#ifdef NO_TILES\n  const int nt = 0;\n#else\n"
+                    "  const int nt = t_end > c0 ? (t_end - c0 + kT - 1) / kT : 0;\n#endif")
+
+
+# -- K6 ---------------------------------------------------------------------------------------------
+
+K6_CUTS = {"no_dots": ["NO_DOTS"], "no_decode": ["NO_DECODE"], "data_path": ["NO_DOTS", "NO_DECODE"],
+           "no_copies": ["NO_DOTS", "NO_DECODE", "NO_COPY"], "no_tiles": ["NO_TILES"], "no_combine": ["NO_COMBINE"]}
+K6_OLD_CUTS = {"no_dots": ["NO_DOTS"], "no_decode": ["NO_DECODE"], "neither": ["NO_DOTS", "NO_DECODE"]}
+K6_OLD_MARK = "No split over the KV length yet"  # the header of K6 before the KV split
+
+
+def k6_patched(src: str) -> str:
+    """K6 with guards around a warp's dots and softmax (NO_DOTS), the decode
+    of a landed tile (NO_DECODE), the producer's copies (NO_COPY), the tile
+    count (NO_TILES) and the ticket and combine (NO_COMBINE)."""
+    s = _replace(src, "      if (kt0 <= warp_qhi) {",
+                 "#ifdef NO_DOTS\n      if (false) {\n#else\n      if (kt0 <= warp_qhi) {\n#endif")
+    s = _replace(s, "    } else if (live_warp && kt0 <= warp_qhi) {",
+                 "#ifdef NO_DOTS\n    } else if (false) {\n#else\n    } else if (live_warp && kt0 <= warp_qhi) {\n#endif")
+    s = _guard(s, "#pragma unroll 2\n  for (int i = tid; i < 2 * kItems; i += kThreads) {",
+               "      decode_segment<E>(&T[crow][seg * kSeg], cw, sw, live, false);\n    }\n  }\n", "NO_DECODE")
+    s = _guard(s, "    mx::mbar_expect_tx(full, Geom::stage);",
+               "    mx::tma_load_2d(st + Geom::o_vs, &tvs, full, pos, srow0);\n", "NO_COPY",
+               "    mx::mbar_arrive(full);")
+    s = _replace(s, "  const int nt = t_end > c0 ? (t_end - c0 + kL - 1) / kL : 0;",
+                 "#ifdef NO_TILES\n  const int nt = 0;\n#else\n"
+                 "  const int nt = t_end > c0 ? (t_end - c0 + kL - 1) / kL : 0;\n#endif")
+    return _replace(s, "  __threadfence();\n  mx::named_barrier(1, kThreads);\n  int* last",
+                    "#ifdef NO_COMBINE\n  return;\n#endif\n  __threadfence();\n  mx::named_barrier(1, kThreads);\n"
+                    "  int* last")
+
+
+def k6_old_patched(src: str) -> str:
+    """K6 before the split with guards around the dots and softmax (NO_DOTS)
+    and the tile loads and decode (NO_DECODE)."""
+    s = _guard(src, "    for (int idx = tid; idx < kCodeRows * (kL / kSeg); idx += 128) {",
+               "decode_segment<E>(Vt, vd_h, vs_h, crow, L, kt0 + seg * kSeg, seg * kSeg, kv_len);\n    }\n",
+               "NO_DECODE")
+    return _guard(s, "    // S = Q K^T for this warp's 16 rows x 64 positions.",
+                  "        mx::mma_bf16_16816(o[j], pa, b);\n      }\n    }\n", "NO_DOTS")
+
+
+# -- the runs ---------------------------------------------------------------------------------------
+
+
+def build_cuts(cuda_lib, src_name: str, source: str, cuts: dict) -> dict:
+    """Each cut of ``source`` built at once (one nvcc each), bound as ``src_name``."""
+    cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src_path = cuda_lib.BUILD_DIR / f"phase_profile_{src_name}_{os.getpid()}.cu"
+    src_path.write_text(source)
+    procs = {}
+    for name, flags in cuts.items():
+        out = cuda_lib.BUILD_DIR / f"lib{src_name}-{name}-{os.getpid()}.so"
+        cmd = [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, *(f"-D{f}" for f in flags), "-I", str(cuda_lib.CSRC_DIR),
+               "-o", str(out), str(src_path)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), out)
+    libs = {}
+    for name, (proc, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"build {name} failed:\n{log.decode(errors='replace')}")
+        libs[name] = cuda_lib._bind(ctypes.CDLL(str(out)), src_name)
+    return libs
+
+
+def time_cuts(cuda_lib, src_name: str, libs: dict, timer, fn) -> dict:
+    """fn() timed with the shipped library and with each cut's."""
+    row = dict(shipped=timer(fn))
+    shipped = cuda_lib.lib(src_name)
+    try:
+        for name, lib in libs.items():
+            cuda_lib._libs[src_name] = lib
+            row[name] = timer(fn)
+    finally:
+        cuda_lib._libs[src_name] = shipped
+    return row
+
+
+def at_chunks(module, attr: str, row: dict, L: int, fn, chunks=(32, 64, 128, 256, 512, 1024), step: int = 32):
+    """fn() timed at every chunk size (a multiple of ``step``) that gives at most 64 chunks."""
+    chunk_of = getattr(module, attr)
+    try:
+        for S in chunks:
+            if S % step == 0 and S <= L and -(-L // S) <= 64:
+                setattr(module, attr, lambda L_, S=S: S)
+                row[f"S={S}"] = fn()
+    finally:
+        setattr(module, attr, chunk_of)
+
+
+GK_KV = (65, 81, 97, 113, 129, 145, 161, 177, 192)  # generate's decode: prompt 64 + 128 tokens, L = 256
+
+
+def profile_b13(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show) -> dict:
+    from torchmx_tpu_torch.ops import cuda_mla
+
+    source = (cuda_lib.CSRC_DIR / "mx_mla.cu").read_text()
+    libs = {} if chunks_only else build_cuts(cuda_lib, "mx_mla", b13_patched(source), B13_CUTS)
+    cases = {}
+    wide = [(f"decode b=32 L={L} ragged", 32, 16, L, 1, [1 + round(i * (L - 1) / 31) for i in range(32)])
+            for L in (2048, 4096)]
+    for label, b, n, L, sq, kv in cs.MLA_CASES + wide:
+        c = cs._mla_case(dev, gen, b, n, L, sq, kv, "int8")
+        args = cs._mla_args(c)
+        fn = lambda: cuda_mla.mx_mla_attention(*args)  # noqa: E731
+        row = time_cuts(cuda_lib, "mx_mla", libs, timer, fn)
+        row["shipped_chunk"] = cuda_mla.mla_chunk(L)
+        at_chunks(cuda_mla, "mla_chunk", row, L, lambda: timer(fn))
+        cases[label] = row
+        show(label, row)
+        del c, args
+    c = cs._mla_case(dev, gen, 32, 16, 256, 1, [256] * 32, "int8")
+    args = cs._mla_args(c)
+
+    def gk_steps():  # {kv_len: ms} of generate's calls, q_off and kv_len numbers
+        return {kv: timer(lambda kv=kv: cuda_mla.mx_mla_attention(*args[:6], kv - 1, kv, *args[8:])) for kv in GK_KV}
+
+    row = dict(shipped_chunk=cuda_mla.mla_chunk(256), shipped=gk_steps())
+    at_chunks(cuda_mla, "mla_chunk", row, 256, gk_steps)
+    for k, v in list(row.items()):
+        if isinstance(v, dict):
+            row[f"{k} mean"] = sum(v.values()) / len(v)
+    cases["gk_decode b=32 L=256 kv=65-192 (numbers)"] = row
+    show("gk_decode b=32 L=256", {k: v for k, v in row.items() if not isinstance(v, dict)})
+    return cases
+
+
+RAGGED = [0] + [1 + (1023 * i) // 30 for i in range(31)]  # chip_smoke's engine decode: kv_len 0 .. 1024
+# (label, b, L, sq, kv_len of each row, never written past the prefix, format, kv_len as numbers)
+K6_CASES = [("F decode b=32 L=256 kv=192", 32, 256, 1, [192] * 32, False, "float4_e2m1", False),
+            ("F decode b=32 L=256 kv=192 (numbers)", 32, 256, 1, [192] * 32, False, "float4_e2m1", True),
+            ("decode b=32 L=1024 ragged", 32, 1024, 1, RAGGED, True, "float8_e4m3", False),
+            ("decode b=32 L=1024 ragged", 32, 1024, 1, RAGGED, True, "int8", False),
+            ("decode b=1 L=1024 kv=700", 1, 1024, 1, [700], True, "float8_e4m3", False),
+            ("whole b=1 L=1024 sq=384", 1, 1024, 384, [384], False, "int8", False),
+            ("chunk b=1 L=1024 sq=128 q_off=256", 1, 1024, 128, [384], False, "int8", False),
+            ("prefill b=32 L=256 sq=64", 32, 256, 64, [64] * 32, False, "float4_e2m1", False),
+            # the engine's whole admissions over its 1024-position slot, as it calls K6 (numbers)
+            ("admission b=1 L=1024 sq=64", 1, 1024, 64, [64], False, "int8", True),
+            ("admission b=1 L=1024 sq=128", 1, 1024, 128, [128], False, "int8", True),
+            ("admission b=1 L=1024 sq=256", 1, 1024, 256, [256], False, "int8", True),
+            ("admission b=1 L=1024 sq=512", 1, 1024, 512, [512], False, "int8", True),
+            ("admission b=1 L=1024 sq=256 after a prefix of 128", 1, 1024, 256, [384], False, "int8", True)]
+
+
+def profile_k6(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show) -> dict:
+    from torchmx_tpu_torch.ops import cuda_attention as ca
+
+    source = (cuda_lib.CSRC_DIR / "mx_attention_dmajor.cu").read_text()
+    old = K6_OLD_MARK in source
+    libs = {}
+    if not chunks_only:
+        libs = build_cuts(cuda_lib, "mx_attention_dmajor", k6_old_patched(source) if old else k6_patched(source),
+                          K6_OLD_CUTS if old else K6_CUTS)
+    cases = {}
+    for label, b, L, sq, kv, fresh, elem, numbers in K6_CASES:
+        args = cs._to_dmajor(cs._attn_case(dev, gen, b, 32, 8, 128, L, sq, kv, elem, never_written=fresh))
+        if numbers:
+            args = (*args[:5], kv[0] - sq, kv[0], *args[7:])
+        fn = lambda: ca.mx_cached_attention_dmajor(*args)  # noqa: E731
+        row = time_cuts(cuda_lib, "mx_attention_dmajor", libs, timer, fn)
+        if hasattr(ca, "k6_chunk"):
+            row["shipped_chunk"] = ca.k6_chunk(L)
+            at_chunks(ca, "k6_chunk", row, L, lambda: timer(fn), step=64)
+        cases[f"{label} {elem}"] = row
+        show(f"{label} {elem}", row)
+        del args
+    return cases
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=("b13", "k6"), required=True)
+    ap.add_argument("--root", default=".", help="checkout to import chip_smoke and the package from")
+    ap.add_argument("--label", default="change")
+    ap.add_argument("--chunks-only", action="store_true", help="time the chunk sizes alone (no cut builds)")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("phase_profile: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from torchmx_tpu_torch.ops import cuda_lib
+
+    if not cs.__file__.startswith(root):
+        raise RuntimeError(f"chip_smoke came from {cs.__file__}, not from {root}")
+    cuda_lib.build_all()
+    dev, card = torch.device("cuda"), cs.card_line()
+    timer, gen = cs.Timer(dev), torch.Generator(dev).manual_seed(1)
+
+    def show(label, row):
+        print(f"[{args.label}] {args.kernel} {label}: " + json.dumps(
+            {k: round(v, 4) if isinstance(v, float) else v for k, v in row.items()}) + f" ms [{card}]", flush=True)
+
+    profile = profile_b13 if args.kernel == "b13" else profile_k6
+    res = dict(card=card, label=args.label, root=root,
+               cases=profile(cs, cuda_lib, dev, timer, gen, args.chunks_only, show))
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", f"phase_profile_{args.kernel}_{args.label}.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
