@@ -12,11 +12,13 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    scale) pair bit for bit; K4 over fp8 and int8 caches, K5 over
    int8 caches, K6 over d-major fp8, int8, fp4 and fp6 caches and K7 over
    int8 d-major caches abs <= 2e-2, each at every main-path shape (K6 also
-   at its KV chunks' boundaries, each row's relative L2 error <= 1.2e-2,
-   which a combine that drops the last live chunk fails); K6 against K4 on
-   the same cache content, bit for bit on every row whose visible prefix
-   lies in one chunk; K7's SQNR against exact attention above
-   30 dB; this slice's B6 over four code formats and three act_fq values, B8
+   at its KV chunks' boundaries, K7 at its tiles' boundaries and at every
+   GQA group, each row's relative L2 error <= 1.2e-2, which a combine that
+   drops the last live chunk or tile fails); K6 against K4 on the same
+   cache content, bit for bit on every row whose visible prefix lies in one
+   chunk; K7's SQNR against exact attention above 30 dB (or, where its
+   plain version, JAX's arithmetic, stays below, within 0.1 dB of it), its
+   q codes (from its prologue) K1's bit for bit; this slice's B6 over four code formats and three act_fq values, B8
    over both fp6 formats and K3 over fp8 halves rel <= 1e-2 (K3-fp8 also on
    every (code, scale) pair bit for bit), B9 over int8 and int8-domain fp4 /
    e2m3 weights within one bf16 step and over e4m3 weights rel <= 1e-2 (at
@@ -116,8 +118,8 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    share and peak memory;
 6. the d-major paths (``TORCHMX_KV_LAYOUT=dmajor``): the same engine stream
    and checks over the int8 d-major cache with ``TORCHMX_ATTN_INT8_DOT=1``
-   (K6 serves admissions, K7 every decode step, with one more K1 launch per
-   layer for q), and ``generate`` at batch 32 over an fp4 d-major cache (K6
+   (K6 serves admissions, K7, which quantizes q itself, every decode step),
+   and ``generate`` at batch 32 over an fp4 d-major cache (K6
    at prefill and decode);
 7. this slice's formats, each on a Llama-3-8B of its own: the engine stream
    and all its checks with MXINT8 weights and activations (W8A8) over the
@@ -1147,6 +1149,83 @@ def check_k6_dropped_chunk(dev, gen, elem="int8"):
     return out
 
 
+# K7 against its plain version: the worst row's relative L2 error, beside abs <= 2e-2 (set from
+# tools/gate_readings.py --kernel k7 on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md row 11).
+K7_ROW_REL = 1.2e-2
+RAGGED = [0] + [1 + (1023 * i) // 30 for i in range(31)]  # the engine's decode: kv_len 0 .. 1024
+# K7's decode cases: label, b, L, kv_len of each row (q at kv_len - 1; the cache never written past it).
+K7_CASES = [("decode b=32 L=1024 kv_len 0..1024 ragged", 32, 1024, RAGGED),
+            ("decode b=1 L=1024 kv_len=700", 1, 1024, [700]),
+            ("decode b=4 L=8192 kv_len=8192", 4, 8192, [8192] * 4)]
+
+
+def k7_edge_cases():
+    """K7's tiles (lt = JAX's ``_pick_lt(L)``) at and around their edges,
+    over L = 1024 (lt 512) and 8192 (lt 2048)."""
+    from torchmx_tpu_torch.ops.cuda_attention import _pick_lt
+
+    out = []
+    for L in (1024, 8192):
+        lt = _pick_lt(L)
+        edges = [e for e in (lt - 1, lt, lt + 1, 2 * lt - 1, 2 * lt + 1, L) if e <= L]
+        out.append((f"decode b={len(edges)} L={L} lt={lt} kv={','.join(map(str, edges))}", len(edges), L, edges))
+    return out
+
+
+def check_k7_dropped_tile(dev, gen):
+    """The planted combine fault (the last live tile of a row dropped) at
+    kv_len = lt + 1 and 2 lt + 1 over L = 1024 and 8192, one batch row
+    alone: the sound kernel passes the row gate, the fault fails it.
+    Returns the readings."""
+    from torchmx_tpu_torch.ops import cuda_attention as ca
+
+    out = []
+    for L in (1024, 8192):
+        lt = ca._pick_lt(L)
+        for kv in (lt + 1, 2 * lt + 1):
+            args = _to_dmajor(_attn_case(dev, gen, 1, 32, 8, 128, L, 1, [kv], "int8", never_written=True))[:8]
+            ref = ca.mx_cached_attention_int8dot_plain(*args)
+            sound = worst_row_rel(ca.mx_cached_attention_int8dot(*args), ref)
+            fault = worst_row_rel(ca.mx_cached_attention_int8dot(*args, drop_last_tile=True), ref)
+            log(f"K7 dropped-tile fault L={L} kv={kv}: worst row rel L2 sound {sound:.3e}, fault {fault:.3e}")
+            if not sound <= K7_ROW_REL < fault:
+                raise AssertionError(f"K7 L={L} kv={kv}: the row gate must pass the kernel ({sound}) and fail "
+                                     f"the dropped tile ({fault})")
+            out.append(dict(L=L, kv_len=kv, sound_row_rel=sound, fault_row_rel=fault))
+    return out
+
+
+def check_k7_q_codes(dev, gen):
+    """K7's prologue quantizes q with K1's arithmetic: its codes and scales
+    (through ``q_out``) equal ``quantize_q_int8``'s (K1 on the card) bit for
+    bit, in every GQA group, over q holding zeros, subnormals and large
+    values; the planted q-scale fault fails the row gate."""
+    from torchmx_tpu_torch.ops import cuda_attention as ca
+
+    for G in ca.KERNEL_GROUPS:
+        args = _to_dmajor(_attn_case(dev, gen, 3, 2 * G, 2, 128, 1024, 1, [700, 1, 1024], "int8",
+                                     never_written=True))[:8]
+        q = args[0]
+        q.view(-1)[::7] = 0
+        q.view(-1)[1::11] *= 2.0 ** -120
+        q.view(-1)[2::13] *= 2.0 ** 100
+        want = ca.quantize_q_int8(q, 2)
+        got = tuple(torch.empty_like(t) for t in want)
+        ca.mx_cached_attention_int8dot(*args, q_out=got)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"K7 G={G}: the prologue's q codes or scales differ from K1's")
+    args = _to_dmajor(_attn_case(dev, gen, 4, 32, 8, 128, 1024, 1, [1, 300, 700, 1024], "int8",
+                                 never_written=True))[:8]
+    ref = ca.mx_cached_attention_int8dot_plain(*args)
+    bad = ca.mx_cached_attention_int8dot(*args, q_scale_from_next_chunk=True)
+    err, rel = (bad.float() - ref.float()).abs().max().item(), worst_row_rel(bad, ref)
+    log(f"K7 prologue: q codes and scales equal K1's at G = {ca.KERNEL_GROUPS}; the q-scale fault reads abs "
+        f"{err:.3e}, worst row rel L2 {rel:.3e}")
+    if err <= 2e-2 and rel <= K7_ROW_REL:
+        raise AssertionError("K7: the q-scale fault passes the gate")
+    return dict(q_codes_equal_k1=True, q_scale_fault_abs=err, q_scale_fault_row_rel=rel)
+
+
 def check_dmajor_attention_kernels(dev, timer, gen):
     """K6 over d-major fp8, int8 and fp4 caches at the main path's shapes (and
     fp6 at two of them) and at its chunk edges, in all five formats, against
@@ -1154,14 +1233,18 @@ def check_dmajor_attention_kernels(dev, timer, gen):
     K6_ROW_REL) and, where K4 takes the format, against K4 over the seq cache
     of the same content under K6's invariant (check_k6_against_k4); the
     dropped-chunk fault caught by the row gate; K7 at the engine's decode
-    shapes against its plain version at K7's tile (abs <= 2e-2) and against
-    exact float64 attention (SQNR > 30 dB), with K6's and K5's SQNR on the
-    same inputs beside it.  Returns (K6's entry, K7's entry, timing rows)."""
+    shapes and at its tiles' edges against its plain version (abs <= 2e-2
+    and the worst row's relative L2 error <= K7_ROW_REL), with the
+    dropped-tile fault caught by the row gate, and against exact float64
+    attention (SQNR > 30 dB, or within 0.1 dB of its plain version's where
+    that stays below), with K6's and K5's SQNR on the same inputs beside it;
+    K7's q codes against K1's.  Returns (K6's entry, K7's entry,
+    timing rows)."""
     import torch.nn.functional as F
 
     from torchmx_tpu_torch.ops import cuda_attention as ca
 
-    ragged = [0] + [1 + (1023 * i) // 30 for i in range(31)]
+    ragged = RAGGED
     # label, b, L, sq, kv_len, never written past the prefix
     k6_cases = [("decode b=32 L=1024 kv_len 0..1024 ragged", 32, 1024, 1, ragged, True),
                 ("decode b=1 L=1024 kv_len=700", 1, 1024, 1, [700], True),
@@ -1220,52 +1303,54 @@ def check_dmajor_attention_kernels(dev, timer, gen):
         if out.float().abs().max().item() != 0.0:
             raise AssertionError(f"K6 {elem}: a never-written cache must give 0")
     dropped = check_k6_dropped_chunk(dev, gen)
-    k7_cases = [("decode b=32 L=1024 kv_len 0..1024 ragged", 32, 1024, ragged),
-                ("decode b=1 L=1024 kv_len=700", 1, 1024, [700]),
-                ("decode b=4 L=8192 kv_len=8192", 4, 8192, [8192] * 4)]
-    for label, b, L, kv in k7_cases:
+    worst7_rel = 0.0
+    for label, b, L, kv in K7_CASES + k7_edge_cases():
         seq = _attn_case(dev, gen, b, 32, 8, 128, L, 1, kv, "int8", never_written=True)
         args = _to_dmajor(seq)
         a7 = args[:8]
         out = ca.mx_cached_attention_int8dot(*a7)
         torch.cuda.synchronize()
         ref = ca.mx_cached_attention_int8dot_plain(*a7)
-        err = (out.float() - ref.float()).abs().max().item()
-        worst7 = max(worst7, err)
+        err, rel = (out.float() - ref.float()).abs().max().item(), worst_row_rel(out, ref)
+        worst7, worst7_rel = max(worst7, err), max(worst7_rel, rel)
         exact = _exact_attention(seq)
         sqnr = dict(k7=sqnr_db(out, exact), k7_plain=sqnr_db(ref, exact),
                     k6=sqnr_db(ca.mx_cached_attention_dmajor(*args), exact),
                     k5=sqnr_db(ca.mx_cached_attention_chunkdot(*seq[:8]), exact))
-        log(f"K7 mx_cached_attention_int8dot {label}: max abs err {err:.3e} vs plain at tile {ca.INT8DOT_TILE}; "
-            f"SQNR against exact attention (dB): {json.dumps(sqnr)}")
-        if not err <= 2e-2 or not torch.isfinite(out.float()).all():
-            raise AssertionError(f"K7 {label}: abs err {err}")
-        if not sqnr["k7"] > 30:
-            raise AssertionError(f"K7 {label}: SQNR {sqnr['k7']:.1f} dB against exact attention")
+        log(f"K7 mx_cached_attention_int8dot {label}: max abs err {err:.3e}, worst row rel L2 {rel:.3e} vs plain "
+            f"at JAX's tile {ca._pick_lt(L)}; SQNR against exact attention (dB): {json.dumps(sqnr)}")
+        if not (err <= 2e-2 and rel <= K7_ROW_REL) or not torch.isfinite(out.float()).all():
+            raise AssertionError(f"K7 {label}: abs err {err}, worst row rel L2 {rel}")
+        # Above 30 dB (the JAX package's own bound for this path, tests/test_pallas_attention.py:243, at L =
+        # 256); where JAX's arithmetic itself stays below it (the plain version, JAX's bit for bit on the CPU:
+        # 28.8 dB at L = 8192, p requantized over tiles of 2048), within 0.1 dB of the plain version's.
+        if not (sqnr["k7"] > 30 or sqnr["k7_plain"] <= 30 and sqnr["k7"] >= sqnr["k7_plain"] - 0.1):
+            raise AssertionError(f"K7 {label}: SQNR {sqnr['k7']:.1f} dB against exact attention (plain "
+                                 f"{sqnr['k7_plain']:.1f} dB)")
         empty = [i for i, n in enumerate(kv) if n == 0]
         if empty and out[empty].float().abs().max().item() != 0.0:
             raise AssertionError(f"K7 {label}: a row with no visible key must output 0")
         if not torch.equal(out, ca.mx_cached_attention_int8dot(*a7)):
             raise AssertionError(f"K7 {label}: two launches on the same inputs differ")
         del exact
+        if (label, b, L, kv) not in K7_CASES:
+            continue
         k, v, mask = _sdpa_inputs(seq)
         nbytes, ops = _attn_work(seq)
         t_b, by = bound(nbytes, ops)
-        qs, qd = ca.quantize_q_int8(args[0], 8)
         row = dict(case=f"int8 {label}", kernel="mx_cached_attention_int8dot",
-                   ms=timer(lambda: ca.mx_cached_attention_int8dot(*a7)),
-                   q_quantize_ms=timer(lambda: ca.quantize_q_int8(args[0], 8)),
-                   # K1 on q: bf16 in, int8 codes and E8M0 scales out
-                   q_quantize_bound_ms=bound(3 * args[0].numel() + args[0].numel() / 32)[0],
+                   ms=timer(lambda: ca.mx_cached_attention_int8dot(*a7)),  # q's quantization inside
                    k6_ms=timer(lambda: ca.mx_cached_attention_dmajor(*args)),
                    k5_seq_ms=timer(lambda: ca.mx_cached_attention_chunkdot(*seq[:8])),
                    plain_ms=timer(lambda: ca.mx_cached_attention_int8dot_plain(*a7), reps=5),
                    library_ms=timer(lambda: F.scaled_dot_product_attention(
                        args[0], k, v, attn_mask=mask, scale=args[7], enable_gqa=True)),
-                   bound_ms=t_b, bound_by=by, max_abs_err=err, sqnr_db=sqnr)
+                   bound_ms=t_b, bound_by=by, max_abs_err=err, worst_row_rel=rel, sqnr_db=sqnr)
         log("K7 timing", json.dumps(row))
         rows.append(row)
         del k, v, mask
+    dropped7 = check_k7_dropped_tile(dev, gen)
+    prologue = check_k7_q_codes(dev, gen)
     pick6 = next(r for r in rows if r["case"] == "float4_e2m1 decode b=32 L=256 kv_len=192")
     pick7 = next(r for r in rows if r["case"].startswith("int8 decode b=32") and r["kernel"].endswith("int8dot"))
     k6 = dict(name="mx_cached_attention_dmajor", route="cuda",
@@ -1277,8 +1362,9 @@ def check_dmajor_attention_kernels(dev, timer, gen):
     k7 = dict(name="mx_cached_attention_int8dot", route="cuda",
               source="torchmx_tpu_torch/csrc/mx_attention_int8dot.cu",
               replaces="torchmx_tpu/ops/pallas_attention.py:638",
-              shape="decode b=32 hq=32 hkv=8 d=128 L=1024 kv_len 0..1024 ragged int8 d-major cache (q quantized by K1 "
-                    "inside the timed call)", max_abs_err=worst7,
+              shape="decode b=32 hq=32 hkv=8 d=128 L=1024 kv_len 0..1024 ragged int8 d-major cache (q quantized in "
+                    "the kernel's prologue)", max_abs_err=worst7, worst_row_rel=worst7_rel, row_rel_gate=K7_ROW_REL,
+              dropped_tile=dropped7, prologue=prologue,
               **{key: pick7[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     return k6, k7, rows
 
@@ -1607,13 +1693,12 @@ def planted_fault(name):
             if on_cuda(x):
                 w = w.roll(-64, dims=0) if stale_stage else ((w & 0xF) << 4) | (w >> 4)
             return orig(x, w, sw, act_fq)
-    elif name.startswith("K7 q scale"):
-        mod, attr = ca, "quantize_q_int8"
-        orig = ca.quantize_q_int8
+    elif name.startswith("K7 q scale"):  # K7 quantizes q in its prologue: the fault is a launch argument
+        mod, attr = ca, "mx_cached_attention_int8dot"
+        orig = ca.mx_cached_attention_int8dot
 
-        def faulty(q, hkv):
-            qs, qd = orig(q, hkv)
-            return (qs.roll(-1, dims=-1) if on_cuda(q) else qs), qd
+        def faulty(q, *a, **kw):
+            return orig(q, *a, q_scale_from_next_chunk=on_cuda(q), **kw)
     elif name.startswith(("K5", "K7")):
         k7 = name.startswith("K7")
         mod, attr = ca, "mx_cached_attention_int8dot" if k7 else "mx_cached_attention_chunkdot"
@@ -2034,7 +2119,7 @@ KERNEL_OF_DEVICE_NAME = (  # substring of the CUDA function name -> kernel
     ("rmsnorm_kernel", "mx_rmsnorm"),
     ("chunkdot_kernel", "mx_cached_attention_chunkdot"),
     ("int8dot_kernel", "mx_cached_attention_int8dot"),
-    ("merge_splits_kernel", "split-KV merge of K5 or K7"),
+    ("merge_splits_kernel", "split-KV merge of K5"),
     ("attention_dmajor_kernel", "mx_cached_attention_dmajor"),
     ("matmul_fp4_halves_kernel", "mx_matmul_fp4_halves"),
     ("reduce_splits_kernel", "mx_matmul_fp4_halves"),
@@ -2382,9 +2467,9 @@ def run_engine(model, dev, card, cache="int8", weights="fp4") -> dict:
     in company, admitted whole, in chunks or over the cached prefix; that
     EOS, a stop sequence and a full cache each end a request with the right
     reason; and that every decode step launched K3, K2, K1 and its decode
-    attention kernel (K5 in the seq layout; K7, with one more K1 per layer for
-    q, in the d-major layout with the all-int8 flag) as often as the model's
-    depth says, and no other kernel."""
+    attention kernel (K5 in the seq layout; K7, which quantizes q in its
+    prologue, in the d-major layout with the all-int8 flag) as often as the
+    model's depth says, and no other kernel."""
     from torchmx_tpu_torch.models.serve import DecodeEngine
     from torchmx_tpu_torch.ops import cuda_lib
 
@@ -2455,7 +2540,7 @@ def run_engine(model, dev, card, cache="int8", weights="fp4") -> dict:
     elif weights == "mixtral":
         want.update(mixtral_launches_per_step(layers), mx_quantize=2 * layers)
     else:
-        want.update(halves_launches_per_step(layers), mx_quantize=(3 if k7 else 2) * layers)
+        want.update(halves_launches_per_step(layers), mx_quantize=2 * layers)  # K7 quantizes q itself
     for st in run["steps"]:
         if st["rows"] and st["launches"] != want:
             raise AssertionError(f"engine: a decode step launched {st['launches']}, expected {want}")

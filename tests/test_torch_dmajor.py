@@ -5,11 +5,11 @@ interpret mode, small shapes; inputs from a numpy seed, fed to both sides).
 Tolerances: cache buffers bit-equal; plain K6 (``mx_cached_attention_dmajor``)
 against the JAX d-major kernel abs <= 2e-2 (the JAX kernel takes one tile of
 256 positions at L = 256, the port tiles of 64: p rounds to bf16 against other
-running maxima); plain K7 (``mx_cached_attention_int8dot``) at the JAX
-kernel's own tile abs <= 2e-2 (it is the same arithmetic; only fp32 summation
-order may differ), its q codes and scales bit-equal, and at the CUDA kernel's
-tile an SQNR above 30 dB against exact attention, the JAX package's own bound
-for this path.
+running maxima); plain K7 (``mx_cached_attention_int8dot``), which takes JAX's
+tile (``_pick_lt(L)``) by default, equal to the JAX kernel bit for bit (the
+same arithmetic in the same order), through the dispatch too, its q codes and
+scales bit-equal, and an SQNR above 30 dB against exact attention, the JAX
+package's own bound for this path.
 """
 
 import types
@@ -28,6 +28,7 @@ from torchmx_tpu_torch import env_variables as env
 from torchmx_tpu_torch.convert import cache_from_buffers
 from torchmx_tpu_torch.models.llama import MXLayerKVCache
 from torchmx_tpu_torch.ops import cuda_attention as ca
+from torchmx_tpu_torch.ops import cuda_mla
 
 torch.set_num_threads(1)
 
@@ -173,36 +174,56 @@ def test_dmajor_attention_plain_equals_the_seq_version(elem):
 # -- (c) plain K7 against the JAX all-int8 kernel --------------------------------------
 
 
-def test_int8dot_attention_plain_matches_pallas_kernel(flags):
-    """At the JAX kernel's own tile (512 at L = 1024: two tiles, so the
-    per-tile requantization of p is exercised) and at per-row positions, one
-    row seeing less than the written prefix."""
+def _int8dot_against_jax(flags, seed, b, hq, hkv, L, q_off, kv_len):
+    """Plain K7 at its default tile and the dispatch against JAX's
+    ``cached_attention_any`` on the int8-dot path, bit for bit; returns the
+    port's output, its inputs and the cache."""
     flags("1")
-    b, hq, hkv, d, L = 3, 8, 2, 128, 1024
-    jc, tc = filled_caches(31, b, hkv, L, d, "int8")
-    q = bf16(np.random.default_rng(32).standard_normal((b, hq, 1, d)) * 0.5)
-    q_off, kv_len = np.array([0, 900, 1023], np.int32), np.array([1, 700, 1024], np.int32)
+    d = 128
+    jc, tc = filled_caches(seed, b, hkv, L, d, "int8")
+    q = bf16(np.random.default_rng(seed + 1).standard_normal((b, hq, 1, d)) * 0.5)
+    q_off, kv_len = np.array(q_off, np.int32), np.array(kv_len, np.int32)
     assert jpa.use_int8dot(jc, 1, d) and ca.use_int8dot(tc, 1, d)
     ref = jpa.cached_attention_any(jnp.asarray(q, jnp.bfloat16), jc, jnp.asarray(q_off), jnp.asarray(kv_len), d ** -0.5)
     args = (to_torch(q), *tc.buffers, torch.from_numpy(q_off), torch.from_numpy(kv_len), d ** -0.5)
-    got = ca.mx_cached_attention_int8dot_plain(*args, tile=jpa._pick_lt(L))
+    got = ca.mx_cached_attention_int8dot_plain(*args)
     assert got.shape == (b, hq, 1, d) and got.dtype == torch.bfloat16
-    err = np.abs(got.float().numpy() - np.asarray(ref, np.float32)).max()
-    assert err <= 2e-2, err
-    # q's codes and scales are the JAX wrapper's, bit for bit.
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(ref, np.float32))
+    via = ca.cached_attention_any(to_torch(q), tc, torch.from_numpy(q_off), torch.from_numpy(kv_len), d ** -0.5)
+    assert torch.equal(via, got)
+    return got, q, q_off, kv_len, tc
+
+
+def test_int8dot_attention_plain_matches_pallas_kernel(flags):
+    """At JAX's own tile (512 at L = 1024: two tiles, so the per-tile
+    requantization of p is exercised) and at per-row positions, one row
+    seeing less than the written prefix: bit for bit, through the dispatch
+    too; q's codes and scales are the JAX wrapper's; accurate enough."""
+    b, hq, hkv, d, L = 3, 8, 2, 128, 1024
+    via, q, q_off, kv_len, tc = _int8dot_against_jax(flags, 31, b, hq, hkv, L, [0, 900, 1023], [1, 700, 1024])
     js, jd = jquantize_mx(jnp.asarray(q, jnp.bfloat16).reshape(b, hkv, hq // hkv, d), "int8", 32)
     ts, td = ca.quantize_q_int8(to_torch(q), hkv)
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
-    # At the CUDA kernel's tile: through the dispatch, and accurate enough.
-    via = ca.cached_attention_any(to_torch(q), tc, torch.from_numpy(q_off), torch.from_numpy(kv_len), d ** -0.5)
-    assert torch.equal(via, ca.mx_cached_attention_int8dot_plain(*args, tile=ca.INT8DOT_TILE))
     k, v = (t.double().repeat_interleave(hq // hkv, 1) for t in tc.dequantize())
     s = (torch.from_numpy(q).double() @ k.transpose(-1, -2)) * d ** -0.5
     visible = torch.arange(L)[None] < torch.from_numpy(np.minimum(kv_len, q_off + 1))[:, None]
     exact = torch.softmax(s.masked_fill(~visible[:, None, None], float("-inf")), -1) @ v
     sqnr = 10 * torch.log10(exact.square().sum() / (via.double() - exact).square().sum())
     assert sqnr > 30, float(sqnr)
+
+
+def test_int8dot_attention_plain_matches_pallas_kernel_at_one_tile(flags):
+    """L = 256 (one JAX tile of 256 positions), 2 x 8 heads over 2 KV heads."""
+    _int8dot_against_jax(flags, 33, 2, 8, 2, 256, [100, 255], [101, 200])
+
+
+@pytest.mark.parametrize("L", [128, 256, 384, 512, 1024, 2048, 4096, 8192, 16384])
+def test_pick_lt_is_jax_s(L):
+    """The port's one copy of JAX's KV tile (K7's requantization unit, B14's
+    and the MLA plan's tile) is JAX's function."""
+    assert ca._pick_lt(L) == jpa._pick_lt(L)
+    assert cuda_mla._pick_lt is ca._pick_lt
 
 
 # -- (d) the dispatch rule ---------------------------------------------------------------

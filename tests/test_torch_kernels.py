@@ -364,32 +364,3 @@ def test_cuda_chunkdot_kernel_matches_plain(cuda_device, hq, hkv, L):
     assert out[0].abs().max().item() == 0
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
     assert torch.equal(out, cuda_attention.mx_cached_attention_chunkdot(*args))  # deterministic
-
-
-def _dmajor_cache(device, seed, b, hkv, L, d, elem):
-    """Random K/V written into a d-major cache through the port's own write
-    path (K1, the fp4 d-halves packing, the store along the last axis)."""
-    from torchmx_tpu_torch.models.llama import MXLayerKVCache
-
-    g = torch.Generator().manual_seed(seed)
-    k = torch.randn(b, hkv, L, d, generator=g).to(torch.bfloat16).to(device)
-    v = torch.randn(b, hkv, L, d, generator=g).to(torch.bfloat16).to(device)
-    cache = MXLayerKVCache.create(b, hkv, L, d, elem, device=device, layout="dmajor")
-    cache.write(k, v, 0)
-    return cache, g
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("hq,hkv,L", [(32, 8, 1024), (4, 2, 256), (8, 1, 8192), (2, 2, 128)])
-def test_cuda_int8dot_kernel_matches_plain(cuda_device, hq, hkv, L):
-    b, d = 5, 128
-    cache, g = _dmajor_cache(cuda_device, 5, b, hkv, L, d, "int8")
-    q = torch.randn(b, hq, 1, d, generator=g).to(torch.bfloat16).to(cuda_device)
-    q_off = torch.tensor([0, 0, L // 2, L - 1, L], dtype=torch.int32, device=cuda_device)
-    kv_len = torch.tensor([0, 1, L // 3, L, L + 1], dtype=torch.int32, device=cuda_device)
-    args = (q, *cache.buffers, q_off, kv_len, d ** -0.5)
-    out = cuda_attention.mx_cached_attention_int8dot(*args)
-    ref = cuda_attention.mx_cached_attention_int8dot_plain(*args)
-    assert out[0].abs().max().item() == 0
-    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
-    assert torch.equal(out, cuda_attention.mx_cached_attention_int8dot(*args))  # deterministic

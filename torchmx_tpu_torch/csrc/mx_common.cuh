@@ -293,7 +293,7 @@ __device__ __forceinline__ void halve(T* v, bool up, int mask) {
   }
 }
 
-// Split-KV decode attention (K5, K7): every warp of a CTA leaves its running
+// Split-KV decode attention (K5): every warp of a CTA leaves its running
 // (output[D], max, sum) of each of the G query rows in part[warp][row]; the
 // CTA merges them in warp order.  With ws_cta == nullptr the result is
 // normalised and written to out_rows (G rows of D bf16); else the CTA's

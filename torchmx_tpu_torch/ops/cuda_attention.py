@@ -28,13 +28,16 @@ differs in fp32 summation order only.
 K5 computes the same attention for ``sq == 1`` over an int8 cache with the
 block scales factored out of the dots (``mx_cached_attention_chunkdot_plain``
 states the formula and its rounding points).  K7 goes further: q and p are
-quantized to int8 too and both dots are exact integer sums
-(``mx_cached_attention_int8dot_plain``).
+quantized to int8 too and both dots are exact integer sums, p requantized
+once per KV tile of JAX's ``_pick_lt(L)`` positions
+(``mx_cached_attention_int8dot_plain``); its kernel takes a tile a CTA,
+quantizes q in its prologue and combines a row's tiles in the same launch
+(``ops/split_kv``).
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -48,10 +51,17 @@ NEG_INF = -1e30
 KV_TILE = 64  # KV positions per online-softmax step (kL in csrc/mx_attention.cu)
 CHUNKDOT_TILE = 32  # the same for K5 (kTile in csrc/mx_attention_chunkdot.cu)
 CHUNKDOT_WARPS = 8  # warps per CTA of K5 (kWarps)
-INT8DOT_TILE = 128  # KV positions per requantization of p in K7 (kTile in csrc/mx_attention_int8dot.cu)
-INT8DOT_WARPS = 8  # warps per CTA of K7 (kWarps)
 BLOCK = 32
 IntOrTensor = Union[int, torch.Tensor]
+
+
+def _pick_lt(L: int) -> Optional[int]:
+    """JAX's KV tile for a cache of ``L`` positions
+    (``torchmx_tpu/ops/pallas_attention.py:863-872``, also used by
+    ``pallas_mla.py``): None where no tile divides L.  K7 requantizes p once
+    per such tile; B14 and the MLA plan read it too (``ops/cuda_mla``)."""
+    cap = 2048 if L >= 8192 else (1024 if L >= 2048 else 512)
+    return next((c for c in (cap, 1024, 512, 256, 128) if c <= cap and L % c == 0), None)
 
 
 def _per_row(v: IntOrTensor, b: int, device) -> torch.Tensor:
@@ -227,11 +237,11 @@ def mx_cached_attention_chunkdot_plain(
 
 
 def _kv_splits(b: int, hkv: int, L: int, positions_per_cta: int, device: torch.device) -> int:
-    """CTAs per (batch row, KV head) pair of a decode kernel that splits the
-    KV length (K5, K7): one when the pairs alone fill the SMs, else enough to
-    put two CTAs on each SM, at most one per ``positions_per_cta`` of the
-    cache (one tile for each of a CTA's warps).  It depends on shapes only,
-    never on the positions (they stay on the device)."""
+    """CTAs per (batch row, KV head) pair of K5, which splits the KV length:
+    one when the pairs alone fill the SMs, else enough to put two CTAs on
+    each SM, at most one per ``positions_per_cta`` of the cache (one tile for
+    each of a CTA's warps).  It depends on shapes only, never on the
+    positions (they stay on the device)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     if b * hkv >= sms:
         return 1
@@ -386,18 +396,19 @@ def _int8dot_check(q, k_data, v_data) -> None:
 
 def quantize_q_int8(q: torch.Tensor, hkv: int):
     """K7's query: ``q (b, hq, 1, d)`` MXINT8-quantized per 32-block of
-    head_dim (K1 on the card), as ``(scales (b, hkv, g, d/32) uint8, codes
-    (b, hkv, g, d) int8)``."""
+    head_dim, as ``(scales (b, hkv, g, d/32) uint8, codes (b, hkv, g, d)
+    int8)``: the plain version's (K1 on a CUDA tensor); the kernel quantizes
+    q in its prologue with K1's arithmetic, the same bits."""
     b, hq, _, d = q.shape
     return quantize_mx(q.to(torch.bfloat16).reshape(b, hkv, hq // hkv, d).contiguous(), "int8", BLOCK)
 
 
 def mx_cached_attention_int8dot_plain(
-    q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float, tile: int = INT8DOT_TILE
+    q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float, tile: Optional[int] = None
 ) -> torch.Tensor:
-    """Plain version of K7, KV tile by KV tile (``tile`` positions; the
-    result depends on it), for the ``g = hq / hkv`` query rows r of each KV
-    head, the ``d/32`` chunks c and position j:
+    """Plain version of K7, KV tile by KV tile (``tile`` positions, by default
+    JAX's ``_pick_lt(L)``; the result depends on it), for the ``g = hq / hkv``
+    query rows r of each KV head, the ``d/32`` chunks c and position j:
 
     * q is MXINT8-quantized per chunk (``quantize_q_int8``);
     * ``dots[c, r, j] = q_c[r] . k_c[j]``, an exact integer sum of int8
@@ -413,12 +424,17 @@ def mx_cached_attention_int8dot_plain(
     * a hidden position contributes nothing, whatever its stale scale holds;
       a row with no visible key outputs 0.
 
-    The kernel takes its tiles (of ``INT8DOT_TILE``) in another order, so it
-    differs in fp32 summation order and in rounding ties of ``pq``.  The
-    integer dots run in float64, where they are exact."""
+    At JAX's tile this is the JAX kernel's arithmetic, bit for bit on the
+    CPU.  The kernel takes each tile's softmax against the tile's own
+    maximum and combines the tiles at the end, so it differs in fp32
+    rounding and in rare rounding ties of ``pq``.  The integer dots run in
+    float64, where they are exact."""
     _int8dot_check(q, k_data, v_data)
     b, hq, _, d = q.shape
     hkv, L = k_data.shape[1], k_data.shape[3]
+    tile = tile or _pick_lt(L)
+    if tile is None:
+        raise ValueError(f"int8-dot attention takes a cache length one of JAX's tiles divides (L % 128 == 0), got {L}")
     G, nc, dev, f64 = hq // hkv, d // BLOCK, q.device, torch.float64
     qs, qd = quantize_q_int8(q, hkv)
     qc = qd.reshape(b, hkv, G, nc, BLOCK).to(f64)
@@ -455,36 +471,58 @@ def mx_cached_attention_int8dot_plain(
 
 
 def mx_cached_attention_int8dot(
-    q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float
+    q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float, drop_last_tile: bool = False,
+    q_scale_from_next_chunk: bool = False, q_out: Optional[tuple] = None,
 ) -> torch.Tensor:
     """K7: ``q (b, hq, 1, d)`` bf16 over the d-major int8 MX cache, both dots
-    in int8.  CUDA tensors quantize q with K1 and launch the kernel (d = 128,
-    hq / hkv in 1, 2, 4, 8, L a multiple of ``INT8DOT_TILE``; other shapes
-    raise)."""
+    in int8.  CUDA tensors launch the kernel, which quantizes q itself (d =
+    128, hq / hkv in 1, 2, 4, 8, L % 128 == 0, 16-byte aligned cache buffers;
+    other shapes raise), one launch a call, the tiles of JAX's ``_pick_lt(L)``
+    split across the card and combined in the same launch; where ``kv_len`` is
+    a number only the tiles below it are launched.  ``q_out``, a pair of
+    tensors shaped as ``quantize_q_int8``'s result, receives the codes and
+    scales the kernel computed for q (on the CPU, the plain quantizer's).
+    ``drop_last_tile`` (the combine leaves out the last live tile of a row)
+    and ``q_scale_from_next_chunk`` (q's scale of chunk c taken from chunk c
+    + 1) are planted faults for the checks, never set by the package."""
     if not on_cuda(q, k_data, k_scale, v_data, v_scale):
+        if q_out is not None:
+            for dst, src in zip(q_out, quantize_q_int8(q, k_data.shape[1])):
+                dst.copy_(src)
         return mx_cached_attention_int8dot_plain(
             q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale
         )
     _int8dot_check(q, k_data, v_data)
     b, hq, _, d = q.shape
     hkv, L = k_data.shape[1], k_data.shape[3]
-    if d != 128 or hq // hkv not in (1, 2, 4, 8) or L % INT8DOT_TILE:
+    lt = _pick_lt(L)
+    if d != 128 or hq // hkv not in KERNEL_GROUPS or lt is None:
         raise ValueError(
-            f"the int8-dot attention kernel takes d=128, hq/hkv in (1, 2, 4, 8) and L % {INT8DOT_TILE} == 0, "
+            f"the int8-dot attention kernel takes d=128, hq/hkv in (1, 2, 4, 8) and L % 128 == 0, "
             f"got q{tuple(q.shape)} cache{tuple(k_data.shape)}"
         )
     _check_cache_tensors(k_data, k_scale, v_data, v_scale, torch.int8)
-    qs, qd = quantize_q_int8(q, hkv)
+    if k_scale.shape != (b, hkv, d // BLOCK, L) or v_scale.shape != k_scale.shape or v_data.shape != k_data.shape:
+        raise ValueError(f"d-major scales must be ({b}, {hkv}, {d // BLOCK}, {L}) beside codes {tuple(k_data.shape)}")
+    q = q.to(torch.bfloat16).contiguous()
+    # Where kv_len is a number, no tile past it is launched; a tensor is never read on the host.
+    tiles = L // lt if isinstance(kv_len, torch.Tensor) else max(1, -(-min(int(kv_len), L) // lt))
     q_off = _per_row(q_off, b, q.device)
     kv_len = _per_row(kv_len, b, q.device)
-    out = torch.empty((b, hq, 1, d), dtype=torch.bfloat16, device=q.device)
-    splits = _kv_splits(b, hkv, L, INT8DOT_TILE * INT8DOT_WARPS, q.device)
-    ws = torch.empty((b * hq * splits * (d + 2)) if splits > 1 else 1, dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    ws, tickets = split_kv.scratch(q.device, b * hq * tiles * (d + 2) if tiles > 1 else 0, b * hkv)
+    qs_ptr = qd_ptr = None
+    if q_out is not None:
+        qs_out, qd_out = q_out
+        if (qs_out.shape != (b, hkv, hq // hkv, d // BLOCK) or qs_out.dtype != torch.uint8 or qd_out.dtype != torch.int8
+                or qd_out.shape != (b, hkv, hq // hkv, d) or not (qs_out.is_contiguous() and qd_out.is_contiguous())):
+            raise ValueError("q_out must be contiguous (scales uint8, codes int8) shaped as quantize_q_int8's result")
+        qs_ptr, qd_ptr = qs_out.data_ptr(), qd_out.data_ptr()
     cuda_lib.launch(
         "mx_attention_int8dot", "mx_cached_attention_int8dot_launch",
-        qd.data_ptr(), qs.data_ptr(), k_data.data_ptr(), k_scale.data_ptr(), v_data.data_ptr(),
-        v_scale.data_ptr(), q_off.data_ptr(), kv_len.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        b, hq, hkv, L, d, float(sm_scale), splits,
+        q.data_ptr(), k_data.data_ptr(), k_scale.data_ptr(), v_data.data_ptr(), v_scale.data_ptr(),
+        q_off.data_ptr(), kv_len.data_ptr(), out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), qd_ptr, qs_ptr,
+        b, hq, hkv, L, d, lt, tiles, float(sm_scale), int(drop_last_tile) | 2 * int(q_scale_from_next_chunk),
     )
     return out
 

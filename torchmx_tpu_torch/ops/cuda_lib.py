@@ -143,10 +143,10 @@ SIGNATURES = {
         ),
     },
     "mx_attention_int8dot": {
-        # q codes, q scales, kd, ks, vd, vs, q_off, kv_len, out, workspace, b, hq,
-        # hkv, L, d, sm_scale, splits, stream
+        # q, kd, ks, vd, vs, q_off, kv_len, out, workspace, tickets, q codes and q scales (null, or
+        # outputs), b, hq, hkv, L, d, tile, the grid's tiles, sm_scale, fault (0), stream
         "mx_cached_attention_int8dot_launch": (
-            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P
         ),
     },
 }

@@ -52,7 +52,7 @@ from ..mx_array import dequantize_mx
 from ..packing import fp4_halves_to_pairs
 from . import cuda_lib, split_kv
 from .backend import on_cuda
-from .cuda_attention import NEG_INF, IntOrTensor, _per_row, _pow2_scale
+from .cuda_attention import NEG_INF, IntOrTensor, _per_row, _pick_lt, _pow2_scale
 from .cuda_norm import pairwise_sum
 from .cuda_quantize import mx_quantize_rows, mx_quantize_rows_plain
 
@@ -68,12 +68,7 @@ MLA_FORMATS = ("bfloat16", "float8_e4m3", "float6_e3m2", "float6_e2m3", "int8", 
 ROUTES: "collections.Counter[str]" = collections.Counter()
 
 
-# -- the tiling oracle (torchmx_tpu/ops/pallas_attention.py:863-883, pallas_mla.py:234-257) -----------
-
-
-def _pick_lt(L: int) -> Optional[int]:
-    cap = 2048 if L >= 8192 else (1024 if L >= 2048 else 512)
-    return next((c for c in (cap, 1024, 512, 256, 128) if c <= cap and L % c == 0), None)
+# -- the tiling oracle (torchmx_tpu/ops/pallas_mla.py:234-257; _pick_lt in ops/cuda_attention) --------
 
 
 def _pick_sqt(sq: int, g: int) -> Optional[int]:

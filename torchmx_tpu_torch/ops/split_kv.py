@@ -1,10 +1,12 @@
 """The combine buffers of the kernels that split the KV length across the
 card and combine the chunks in the same launch: B13 (``ops/cuda_mla.
-mx_mla_attention``) and K6 (``ops/cuda_attention.mx_cached_attention_dmajor``).
+mx_mla_attention``), K6 (``ops/cuda_attention.mx_cached_attention_dmajor``)
+and K7 (``ops/cuda_attention.mx_cached_attention_int8dot``, whose chunks
+are JAX's KV tiles).
 
 Each live chunk of a query tile with two or more writes its rows' fp32
 partials to a workspace; the tile's last CTA, known by an atomic ticket that
-it resets, combines them.  Both kernels share one workspace and one ticket
+it resets, combines them.  The kernels share one workspace and one ticket
 array per device (launches on one stream do not overlap), grown on demand
 and never shrunk: the kernels leave the tickets at zero, so no call
 allocates or clears anything once they are large enough, and a fixed-shape

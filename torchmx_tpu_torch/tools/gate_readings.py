@@ -1,6 +1,6 @@
 """Where a split-KV kernel's kernel-vs-plain gate sits: the sound kernel and
-the planted combine fault (``drop_last_chunk``: the last live chunk of a tile
-left out) against the plain version.  Each reading is the max abs error and
+the planted combine fault (``drop_last_chunk``, K7's ``drop_last_tile``: the
+last live chunk or tile of a row left out) against the plain version.  Each reading is the max abs error and
 the worst row's relative L2 error (``chip_smoke.worst_row_rel``), over the
 case and, for the fault, over each batch row alone.
 
@@ -11,11 +11,15 @@ case and, for the fault, over each batch row alone.
 * ``--kernel k6``: K6 at the six shapes of ``chip_smoke.
   check_dmajor_attention_kernels`` and at ``chip_smoke.k6_edge_cases`` in
   all five cache formats, and at the probes kv_len = S + 1 and 2S + 1 at L =
-  1024, one batch row alone, decode and a prefill of 64.
+  1024, one batch row alone, decode and a prefill of 64;
+* ``--kernel k7``: K7 at the three decode shapes of ``chip_smoke.
+  check_dmajor_attention_kernels`` and at ``chip_smoke.k7_edge_cases``, and
+  at the probes kv_len = lt + 1 and 2 lt + 1 (lt = JAX's tile) at L = 1024
+  and 8192, one batch row alone.
 
 Run from the repository root with one card:
 
-    python3 torchmx_tpu_torch/tools/gate_readings.py --kernel b13|k6
+    python3 torchmx_tpu_torch/tools/gate_readings.py --kernel b13|k6|k7
 
 Writes ``chiprun_out/<kernel>_gate_readings.json``.
 """
@@ -65,9 +69,23 @@ def readings_k6(cs, dev, gen):
             del args
 
 
+def readings_k7(cs, dev, gen):
+    from torchmx_tpu_torch.ops import cuda_attention as ca
+
+    probes = [(f"fault probe L={L} kv={kv}", 1, L, [kv]) for L in (1024, 8192)
+              for kv in (ca._pick_lt(L) + 1, 2 * ca._pick_lt(L) + 1)]
+    for label, b, L, kv in cs.K7_CASES + cs.k7_edge_cases() + probes:
+        args = cs._to_dmajor(cs._attn_case(dev, gen, b, 32, 8, 128, L, 1, kv, "int8", never_written=True))[:8]
+        yield label, "int8", b, ca.mx_cached_attention_int8dot, args, ca.mx_cached_attention_int8dot_plain(*args)
+        del args
+
+
+FAULT = dict(b13="drop_last_chunk", k6="drop_last_chunk", k7="drop_last_tile")  # the combine fault's switch
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("b13", "k6"), required=True)
+    ap.add_argument("--kernel", choices=tuple(FAULT), required=True)
     args = ap.parse_args()
     sys.path.insert(0, os.getcwd())
     import torch
@@ -82,10 +100,10 @@ def main() -> int:
     card = cs.card_line()
     print(card, flush=True)
     out = dict(card=card, readings=[])
-    cases = readings_b13 if args.kernel == "b13" else readings_k6
+    cases = dict(b13=readings_b13, k6=readings_k6, k7=readings_k7)[args.kernel]
     for label, elem, b, kernel, call_args, ref in cases(cs, dev, gen):
         got = kernel(*call_args)
-        drop = kernel(*call_args, drop_last_chunk=True)
+        drop = kernel(*call_args, **{FAULT[args.kernel]: True})
         r = dict(case=label, elem=elem, abs=(got.float() - ref.float()).abs().max().item(),
                  rel=cs.worst_row_rel(got, ref), fault_abs=(drop.float() - ref.float()).abs().max().item(),
                  fault_rel=cs.worst_row_rel(drop, ref))

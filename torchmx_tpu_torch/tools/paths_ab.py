@@ -35,7 +35,8 @@ Llama-3-8B width):
 * ``host``: the wrapper's host us a call, 200 calls queued without a
   synchronisation (host clock): K6 at F's decode shape (b=32, L=256, kv_len
   192, numbers as ``generate`` passes them), B13 at EK's (b=32, L=1024,
-  kv_len 1 .. 1024).
+  kv_len 1 .. 1024), K7 at D's (b=32, L=1024, kv_len 0 .. 1024 as a tensor,
+  as the engine passes it; q's quantization inside the call).
 
 Each path reports tok/s, the kernel's device ms a decode step, the device's
 busy ms a step and idle share (the torch.profiler window of 8 decode steps
@@ -141,6 +142,13 @@ def main() -> int:
             a = cs._to_dmajor(cs._attn_case(dev, torch.Generator(dev).manual_seed(3), 32, 32, 8, 128, 256, 1,
                                             [192] * 32, "float4_e2m1"))
             call, shape = (lambda: ca.mx_cached_attention_dmajor(*a[:5], 191, 192, *a[7:])), "decode b=32 L=256 fp4"
+        elif "mx_cached_attention_int8dot" in names:
+            from torchmx_tpu_torch.ops import cuda_attention as ca
+
+            ragged = [0] + [1 + (1023 * i) // 30 for i in range(31)]
+            a = cs._to_dmajor(cs._attn_case(dev, torch.Generator(dev).manual_seed(3), 32, 32, 8, 128, 1024, 1,
+                                            ragged, "int8", never_written=True))[:8]
+            call, shape = (lambda: ca.mx_cached_attention_int8dot(*a)), "decode b=32 L=1024 int8 ragged"
         elif "mx_mla_attention" in names:
             from torchmx_tpu_torch.ops import cuda_mla
 

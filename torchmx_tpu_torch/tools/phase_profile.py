@@ -4,7 +4,7 @@ The cut builds give wrong results; they only time what is left.
 
 Run from the repository root with one card:
 
-    python3 torchmx_tpu_torch/tools/phase_profile.py --kernel b13|k6 [--root DIR] [--label NAME] [--chunks-only]
+    python3 torchmx_tpu_torch/tools/phase_profile.py --kernel b13|k6|k7 [--root DIR] [--label NAME] [--chunks-only]
 
 ``--root`` imports ``chip_smoke`` and ``torchmx_tpu_torch`` from another
 checkout and cuts that checkout's source (for instance a parent commit
@@ -47,6 +47,32 @@ to 512, and 256 after a cached prefix of 128):
 Builds of K6 before the split (one CTA a 64-row tile and KV head walking
 its prefix, loads and decode in every thread): ``no_dots``, ``no_decode``
 (neither the tile's loads nor its decode), ``neither``.
+
+Builds of K7 (``csrc/mx_attention_int8dot.cu``), timed at ``chip_smoke``'s
+three phase-2 cases (D's decode, b=32 over 1024 positions with kv_len 0 ..
+1024 ragged; one row at kv_len 700; b=4 over 8192) and at D's shape with a
+numeric kv_len, each beside SDPA over the dequantized cache, the plain
+version and the byte bound:
+
+* ``no_scores``: no transpose or dp4a of the scores (the K boxes still land
+  and are released);
+* ``no_pv``: no P.V mma (its fragments still loaded);
+* ``no_softmax``: neither the softmax nor the requantization of p;
+* ``data_path``: none of the three (copies, barriers, q's quantization, the
+  epilogue and the combine);
+* ``no_copies``: ``data_path`` with the ring's fills arriving without
+  copying;
+* ``no_tiles``: no box at all (the CTA's launch, q's quantization, the
+  epilogue and the combine);
+* ``no_combine``: a row with two live tiles or more writes its partials and
+  stops;
+* ``stages=4``, ``stages=8``: the shipped kernel with that ring depth at
+  every tile (``ring_stages`` picks 8 at tiles of 1024 positions and more).
+
+Builds of K7 before the redesign (a warp a tile of 128 positions, loads in
+every lane, a second launch merging the splits): ``no_dots`` (no dp4a, no
+P.V shuffle reductions), ``no_loads`` (the cache words replaced by
+constants), ``neither``.
 
 ``S=...``: the shipped kernel at another chunk size (``mla_chunk`` or
 ``k6_chunk`` patched) where it gives at most 64 chunks, and for B13 at
@@ -149,6 +175,68 @@ def k6_old_patched(src: str) -> str:
                "NO_DECODE")
     return _guard(s, "    // S = Q K^T for this warp's 16 rows x 64 positions.",
                   "        mx::mma_bf16_16816(o[j], pa, b);\n      }\n    }\n", "NO_DOTS")
+
+
+# -- K7 ---------------------------------------------------------------------------------------------
+
+K7_CUTS = {"no_scores": ["NO_SCORES"], "no_pv": ["NO_PV"], "no_softmax": ["NO_SOFTMAX"],
+           "data_path": ["NO_SCORES", "NO_PV", "NO_SOFTMAX"], "no_copies": ["NO_SCORES", "NO_PV", "NO_SOFTMAX", "NO_COPY"],
+           "no_tiles": ["NO_TILES"], "no_combine": ["NO_COMBINE"],
+           "stages=4": ["K7_STAGES=4"], "stages=8": ["K7_STAGES=8"]}
+K7_OLD_CUTS = {"no_dots": ["NO_DOTS"], "no_loads": ["NO_LOADS"], "neither": ["NO_DOTS", "NO_LOADS"]}
+K7_OLD_MARK = "merge_splits_kernel"  # K7 before the redesign: a second launch merged the splits
+
+
+def k7_patched(src: str) -> str:
+    """K7 with guards around the scores' transposes and dp4a (NO_SCORES),
+    the P.V mma (NO_PV: the loaded fragments still feed the accumulator),
+    the softmax and requantization (NO_SOFTMAX), the producer's copies
+    (NO_COPY: the barriers arrive without bytes), the tile's boxes
+    (NO_TILES) and the ticket and combine (NO_COMBINE); ``-DK7_STAGES=n``
+    sets the ring's slots at every tile (default ``ring_stages``)."""
+    s = _replace(src, "  return lt >= 1024 && Smem(G, lt, 8).total + 1024 <= kSmemMax ? 8 : 4;",
+                 "#ifdef K7_STAGES\n  return K7_STAGES;\n#endif\n"
+                 "  return lt >= 1024 && Smem(G, lt, 8).total + 1024 <= kSmemMax ? 8 : 4;")
+    s = _replace(s, "    for (int c = 0; c < kNc; ++c) {\n      int dot[4][G];",
+                 "#ifdef NO_SCORES\n    for (int c = 0; c < 0; ++c) {\n#else\n    for (int c = 0; c < kNc; ++c) {\n#endif\n"
+                 "      int dot[4][G];")
+    s = _guard(s, "      mma_s8_acc(acc, a, bq);\n", "      mma_s8_acc(acc, a, bq);\n", "NO_PV",
+               "      acc[0] ^= (int)(a[0] ^ a[1] ^ a[2] ^ a[3] ^ bq[0] ^ bq[1]);")
+    s = _guard(s, "  // 3. Softmax and requantization over the tile",
+               "      for (int c = 0; c < kNc; ++c) stat[2 * G + c * G + r] = mxc[c];\n    }\n  }\n", "NO_SOFTMAX")
+    s = _guard(s, "        mx::mbar_expect_tx(full + 8 * slot, kSlot);",
+               "t0 + box * kBox, crow);\n", "NO_COPY", "        mx::mbar_arrive(full + 8 * slot);")
+    s = _guard(s, "          mx::mbar_expect_tx(scales, 2 * n_box * kNc * kBox);",
+               "          }\n", "NO_COPY", "          mx::mbar_arrive(scales);")
+    s = _replace(s, "  const int n_box = (nvis + kBox - 1) / kBox;",
+                 "#ifdef NO_TILES\n  const int n_box = 0;\n#else\n  const int n_box = (nvis + kBox - 1) / kBox;\n#endif")
+    return _replace(s, "  __threadfence();\n  mx::named_barrier(1, kConsumers);\n  int* last",
+                    "#ifdef NO_COMBINE\n  return;\n#endif\n  __threadfence();\n  mx::named_barrier(1, kConsumers);\n"
+                    "  int* last")
+
+
+def k7_old_patched(src: str) -> str:
+    """K7 before the redesign (one warp a 128-position tile, synchronous
+    4-byte loads, the P.V sums reduced by shuffles, a second launch to merge
+    the splits) with its dp4a and P.V reductions cut (NO_DOTS: the loaded
+    words still feed the results) and its cache loads replaced by constants
+    (NO_LOADS)."""
+    s = _replace(src, "          for (int j = 0; j < 4; ++j) dot[j][r] = __dp4a((int)kw[gq][j], qv, dot[j][r]);",
+                 "#ifdef NO_DOTS\n          for (int j = 0; j < 4; ++j) dot[j][r] ^= (int)kw[gq][j] ^ qv;\n#else\n"
+                 "          for (int j = 0; j < 4; ++j) dot[j][r] = __dp4a((int)kw[gq][j], qv, dot[j][r]);\n#endif")
+    s = _replace(s, "        for (int i = 0; i < 32; ++i) part_sum[i] = __dp4a(vw[i], (int)pq, 0);\n"
+                    "        const int pv = warp_sum_32(part_sum, lane);",
+                 "#ifdef NO_DOTS\n        int pv = (int)pq;\n        for (int i = 0; i < 32; ++i) pv ^= vw[i];\n#else\n"
+                 "        for (int i = 0; i < 32; ++i) part_sum[i] = __dp4a(vw[i], (int)pq, 0);\n"
+                 "        const int pv = warp_sum_32(part_sum, lane);\n#endif")
+    for old, const in (("live ? *reinterpret_cast<const uint32_t*>(kd_h + (long long)(c * 32 + i) * L + p0) : 0u",
+                        "(uint32_t)(p0 * 33 + i)"),
+                       ("live ? *reinterpret_cast<const uint32_t*>(ks_h + (long long)c * L + p0) : 0u", "0x7B7B7B7Bu"),
+                       ("live ? *reinterpret_cast<const uint32_t*>(vs_h + (long long)c * L + p0) : 0u", "0x7B7B7B7Bu"),
+                       ("live ? *reinterpret_cast<const int*>(vd_h + (long long)(c * 32 + i) * L + p0) : 0",
+                        "(int)(p0 * 31 + i)")):
+        s = _replace(s, old, f"\n#ifdef NO_LOADS\n{const}\n#else\n{old}\n#endif\n")
+    return s
 
 
 # -- the runs ---------------------------------------------------------------------------------------
@@ -254,6 +342,44 @@ K6_CASES = [("F decode b=32 L=256 kv=192", 32, 256, 1, [192] * 32, False, "float
             ("admission b=1 L=1024 sq=256 after a prefix of 128", 1, 1024, 256, [384], False, "int8", True)]
 
 
+K7_CASES = [("decode b=32 L=1024 ragged", 32, 1024, RAGGED, False),  # D's decode shape
+            ("decode b=1 L=1024 kv=700", 1, 1024, [700], False),
+            ("decode b=4 L=8192 kv=8192", 4, 8192, [8192] * 4, False),
+            ("decode b=32 L=1024 ragged (numbers: kv 1024)", 32, 1024, [1024] * 32, True)]
+
+
+def profile_k7(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show) -> dict:
+    """K7 at ``chip_smoke``'s three phase-2 cases (and D's shape with a
+    numeric kv_len): the shipped kernel with its q quantization, SDPA over the
+    dequantized cache, the plain version, the byte bound, and each cut."""
+    import torch.nn.functional as F
+
+    from torchmx_tpu_torch.ops import cuda_attention as ca
+
+    source = (cuda_lib.CSRC_DIR / "mx_attention_int8dot.cu").read_text()
+    old = K7_OLD_MARK in source
+    libs = {} if chunks_only else build_cuts(cuda_lib, "mx_attention_int8dot",
+                                             k7_old_patched(source) if old else k7_patched(source),
+                                             K7_OLD_CUTS if old else K7_CUTS)
+    cases = {}
+    for label, b, L, kv, numbers in K7_CASES:
+        seq = cs._attn_case(dev, gen, b, 32, 8, 128, L, 1, kv, "int8", never_written=True)
+        args = cs._to_dmajor(seq)[:8]
+        if numbers:
+            args = (*args[:5], kv[0] - 1, kv[0], args[7])
+        fn = lambda: ca.mx_cached_attention_int8dot(*args)  # noqa: E731
+        row = time_cuts(cuda_lib, "mx_attention_int8dot", libs, timer, fn)
+        k, v, mask = cs._sdpa_inputs(seq)
+        row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
+            seq[0], k, v, attn_mask=mask, scale=seq[7], enable_gqa=True))
+        row["plain_ms"] = timer(lambda: ca.mx_cached_attention_int8dot_plain(*args), reps=5)
+        row["bound_ms"], row["bound_by"] = cs.bound(*cs._attn_work(seq))
+        cases[label] = row
+        show(label, row)
+        del seq, args, k, v, mask
+    return cases
+
+
 def profile_k6(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show) -> dict:
     from torchmx_tpu_torch.ops import cuda_attention as ca
 
@@ -281,7 +407,7 @@ def profile_k6(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("b13", "k6"), required=True)
+    ap.add_argument("--kernel", choices=("b13", "k6", "k7"), required=True)
     ap.add_argument("--root", default=".", help="checkout to import chip_smoke and the package from")
     ap.add_argument("--label", default="change")
     ap.add_argument("--chunks-only", action="store_true", help="time the chunk sizes alone (no cut builds)")
@@ -306,7 +432,7 @@ def main() -> int:
         print(f"[{args.label}] {args.kernel} {label}: " + json.dumps(
             {k: round(v, 4) if isinstance(v, float) else v for k, v in row.items()}) + f" ms [{card}]", flush=True)
 
-    profile = profile_b13 if args.kernel == "b13" else profile_k6
+    profile = dict(b13=profile_b13, k6=profile_k6, k7=profile_k7)[args.kernel]
     res = dict(card=card, label=args.label, root=root,
                cases=profile(cs, cuda_lib, dev, timer, gen, args.chunks_only, show))
     os.makedirs("chiprun_out", exist_ok=True)
