@@ -5,8 +5,9 @@ C.4), the latent caches' bytes in every format and layout, the plain
 versions of B13 (``mx_mla_attention``), B14 (``mx_mla_attention_int8dot``)
 and B7 (``mx_matmul_fp4_pair``) against the Pallas kernels they replace,
 the MLA dispatch's routes, the row invariance of the plain reductions
-(ROADMAP C.1), and how B13's launches cover a call under its workspace cap.  On a machine with a card, the three kernels against their
-plain versions.
+(ROADMAP C.1), how B13's launches cover a call under its workspace cap, and
+B14's tiling.  The kernels against their plain versions on a card:
+``tests/test_torch_gpu_mla.py`` (JAX-free).
 
 Tolerances: cache buffers, layouts and q codes bit-equal; plain B13 against
 the JAX kernel atol = rtol = 2e-2 (the JAX kernel takes one tile of 256
@@ -14,9 +15,10 @@ positions, the port chunks of ``mla_chunk(L)`` combined in chunk order and
 tiles of 32 inside each: p rounds to bf16 against other running maxima),
 the JAX tests' own tolerance, and the same against float64 exact attention
 with the visible prefix at and around the chunk boundaries; plain B13's
-rows bit-equal alone, in company and inside a prefill; plain B14 at the JAX kernel's tile
-abs <= 2e-2 and, at the CUDA kernel's tile, SQNR above 30 dB against exact
-attention; plain B7 rel <= 1e-2 (K3's).
+rows bit-equal alone, in company and inside a prefill; plain B14 (JAX's
+tile, its default) equal to the JAX kernel bit for bit, at and around the
+tile edges, and SQNR above 30 dB against exact attention; plain B7 rel <=
+1e-2 (K3's).
 """
 
 import contextlib
@@ -331,10 +333,10 @@ def test_mla_plain_chunks_match_exact_attention(kv, sq):
 
 def test_mla_int8dot_plain_matches_pallas_kernel():
     """Plain B14 at the JAX kernel's own tile (512 at L = 1024: two tiles,
-    so the per-tile requantization of p is exercised), per-row positions with
-    one row seeing less than its written prefix, against JAX's
-    ``_mla_int8dot_attention``; at the CUDA kernel's tile of 32, SQNR above
-    30 dB against exact attention."""
+    so the per-tile requantization of p is exercised; the plain version's
+    default), per-row positions with one row seeing less than its written
+    prefix, against JAX's ``_mla_int8dot_attention``; through the dispatch
+    the same bytes, SQNR above 30 dB against exact attention."""
     L, r, dr = 1024, 512, 64
     jc, tc = _filled("int8", "dmajor", L, r, dr, seed=13)
     ql, qr = _queries(1, r, dr, seed=14)
@@ -350,6 +352,7 @@ def test_mla_int8dot_plain_matches_pallas_kernel():
     err = np.abs(to_np(at_jax_tile) - np.asarray(jo, np.float32)).max()
     assert err <= 2e-2, err
     assert torch.equal(via, cuda_mla.mx_mla_attention_int8dot_plain(*args))
+    assert torch.equal(via, at_jax_tile)
     exact = _exact_mla(ql, qr, jc, q_off, kv_len, sm)
     sqnr = 10 * torch.log10(exact.square().sum() / (via.double() - exact).square().sum())
     assert sqnr > 30, float(sqnr)
@@ -358,6 +361,53 @@ def test_mla_int8dot_plain_matches_pallas_kernel():
     td, tsc = cuda_mla.quantize_q_rows(t_bf16(ql), t_bf16(qr), sm)[:2]
     np.testing.assert_array_equal(tsc.numpy(), (np.asarray(js, np.int32)[..., 0] << 23).view(np.float32) * np.float32(sm))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+@pytest.mark.parametrize("L", [256, 1024, 8192])
+def test_mla_int8dot_plain_equals_jax_at_tile_edges(L):
+    """Plain B14 through the port's dispatch (p requantized once per JAX
+    tile, ``_pick_lt(L)``: 256, 512, 2048) against JAX's
+    ``mla_cached_attention`` under ``TORCHMX_ATTN_INT8_DOT=1`` (the Pallas
+    kernel in interpret mode), bit for bit on the bf16 output, with the
+    visible prefix at and around JAX's tile edges (kv_len lt - 1, lt, lt + 1
+    or, where lt = L, lt / 2 + 1) and a row that sees less than its written
+    prefix (q_off + 1 < kv_len = L); SQNR above 30 dB against exact
+    attention."""
+    r, dr, b = 512, 64, 4
+    lt = jmla._pick_lt(L)
+    assert lt == cuda_mla.b14_split(L)[0]
+    kv_len = np.array([lt - 1, lt, lt + 1 if lt < L else lt // 2 + 1, L], np.int32)
+    q_off = kv_len - 1
+    q_off[-1] = (5 * L) // 8
+    rng = np.random.default_rng(L)
+    lat, rot = bf16(rng.standard_normal((b, L, r)) * 0.3), bf16(rng.standard_normal((b, L, dr)) * 0.3)
+    jc = jds.MXMLACache.create(b, L, r, dr, "int8", 32, layout="dmajor").write(j_bf16(lat), j_bf16(rot), 0)
+    tc = _port_cache(jc)
+    ql = bf16(rng.standard_normal((b, N_HEADS, 1, r)) * 0.3)
+    qr = bf16(rng.standard_normal((b, N_HEADS, 1, dr)) * 0.3)
+    sm = (128 + dr) ** -0.5
+    with jax_env(TORCHMX_ATTN_INT8_DOT="1"):
+        jo = jmla.mla_cached_attention(j_bf16(ql), j_bf16(qr), jc, jnp.asarray(q_off), jnp.asarray(kv_len), sm)
+        got = cuda_mla.mla_cached_attention(t_bf16(ql), t_bf16(qr), tc, torch.from_numpy(q_off),
+                                            torch.from_numpy(kv_len), sm)
+    assert torch.equal(got, t_bf16(np.asarray(jo, np.float32)))
+    exact = _exact_mla(ql, qr, jc, q_off, kv_len, sm)
+    sqnr = 10 * torch.log10(exact.square().sum() / (got.double() - exact).square().sum())
+    assert sqnr > 30, float(sqnr)
+
+
+@pytest.mark.parametrize("L", [128, 256, 384, 1024, 2048, 8192, 32768])
+def test_b14_split_is_a_function_of_L(L):
+    """B14's tiling: JAX's tile, shares of 128 or 256 positions dividing it,
+    at most 8 CTAs a cluster; at the chip check's decode shapes
+    (``chip_smoke.MLA_INT8DOT_CASES``: b, n, L) the grid has more CTAs than
+    the ``ceil(n / 16) b`` of the kernel before the cluster."""
+    lt, P = cuda_mla.b14_split(L)
+    assert lt == jmla._pick_lt(L) and lt % P == 0 and 1 <= lt // P <= 8 and P in (128, 256)
+    for b, n, L_case in ((1, 16, 1024), (32, 16, 1024), (32, 16, 256), (8, 32, 8192)):
+        lt_c, P_c = cuda_mla.b14_split(L_case)
+        ctas = (L_case // lt_c) * (lt_c // P_c) * -(-n // (16 if n <= 16 else 32)) * b
+        assert ctas > -(-n // 16) * b
 
 
 def test_mla_int8dot_plain_skips_hidden_positions():
@@ -414,57 +464,3 @@ def test_fp4_pair_plain_matches_pallas_kernel(act_fq):
     assert float(np.abs(to_np(got) - ref).max() / np.abs(ref).max()) <= 1e-2
     np.testing.assert_array_equal(to_np(kf.dequantize_fp4_pair(tw.data, tw.scale_e8m0)),
                                   np.asarray(jw.to_dtype(jnp.bfloat16), np.float32))
-
-
-# -- the CUDA kernels (need a card) ---------------------------------------------------------------
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("elem", MLA_ELEMS)
-def test_cuda_mla_kernel_matches_plain(cuda_device, elem):
-    _, tc = _filled(elem, r=512, dr=64)
-    tc = tds.MLACache(*(t.to(cuda_device) for t in tc.buffers)) if elem == "bfloat16" else \
-        tds.MXMLACache(*(t.to(cuda_device) for t in tc.buffers), elem, 32, "seq")
-    ql, qr = (t_bf16(a).to(cuda_device) for a in _queries(3, 512, 64))
-    q_off, kv_len = torch.tensor([0, 200], device=cuda_device), torch.tensor([3, 203], device=cuda_device)
-    before = cuda_lib.LAUNCHES["mx_mla_attention"]
-    got = cuda_mla.mla_cached_attention(ql, qr, tc, q_off, kv_len, 0.07)
-    assert cuda_lib.LAUNCHES["mx_mla_attention"] == before + 1
-    from torchmx_tpu_torch.ops.backend import plain_path
-
-    with plain_path():
-        ref = cuda_mla.mla_cached_attention(ql, qr, tc, q_off, kv_len, 0.07)
-    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
-
-
-@pytest.mark.gpu
-def test_cuda_mla_int8dot_kernel_matches_plain(cuda_device):
-    _, tc = _filled("int8", "dmajor", 256, 512, 64)
-    bufs = [t.to(cuda_device) for t in tc.buffers]
-    ql, qr = (t_bf16(a).to(cuda_device) for a in _queries(1, 512, 64))
-    args = (ql, qr, *bufs, torch.tensor([100, 255], device=cuda_device), torch.tensor([101, 256], device=cuda_device),
-            0.07)
-    got = cuda_mla.mx_mla_attention_int8dot(*args)
-    assert (got.float() - cuda_mla.mx_mla_attention_int8dot_plain(*args).float()).abs().max().item() <= 2e-2
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("K", [2816, 160, 896])
-@pytest.mark.parametrize("act_fq", [None, "float8_e4m3", "int8"])
-def test_cuda_fp4_pair_kernel_matches_plain_and_is_row_invariant(cuda_device, act_fq, K):
-    g = torch.Generator().manual_seed(8)
-    w = MXTensor.to_mx((torch.randn(256, K, generator=g) * 0.05).to(torch.bfloat16).to(cuda_device),
-                       "float4_e2m1").T
-    x = torch.randn(130, K, generator=g).to(torch.bfloat16).to(cuda_device)
-    full = kf.mx_matmul_fp4_pair(x, w.data, w.scale_e8m0, act_fq)
-    ref = kf.mx_matmul_fp4_pair_plain(x, w.data, w.scale_e8m0, act_fq)
-    assert ((full.float() - ref.float()).abs().max() / ref.float().abs().max()).item() <= 1e-2
-    for k in (1, 17, 64, 65):
-        assert torch.equal(kf.mx_matmul_fp4_pair(x[:k].contiguous(), w.data, w.scale_e8m0, act_fq), full[:k])

@@ -71,9 +71,6 @@
 //     rows' last position (exact zeros).  The K tile's B fragments come
 //     through ldmatrix.trans from the [d][position] tile, the V tile's are
 //     read as K4 reads its transposed V tile.
-#include <mutex>
-#include <unordered_map>
-
 #include "mx_common.cuh"
 #include "mx_wgmma.cuh"
 #include "mx_wgmma_decode.cuh"
@@ -583,40 +580,6 @@ attention_dmajor_kernel(const __grid_constant__ CUtensorMap tkd, const __grid_co
   if (tid == 0) *ticket = 0;
 }
 
-// The tensor maps of the cache buffers, encoded once for each (pointer, rows,
-// L, box rows) and kept: a call does no encode on the host.  A pointer that
-// a later buffer of the same shape reuses gives the same map.  (The box is
-// part of the key: a code buffer may reuse a scale buffer's address with the
-// same number of rows.)
-struct MapKey {
-  uintptr_t p;
-  uint64_t rows, L;
-  uint32_t box_rows;
-  bool operator==(const MapKey& o) const { return p == o.p && rows == o.rows && L == o.L && box_rows == o.box_rows; }
-};
-struct MapKeyHash {
-  size_t operator()(const MapKey& k) const {
-    return std::hash<uintptr_t>()(k.p) ^ (k.rows * 0x9E3779B97F4A7C15ull) ^ (k.L << 8) ^ k.box_rows;
-  }
-};
-
-bool cached_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t L, uint32_t box_rows) {
-  static std::mutex mu;
-  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> maps;
-  const MapKey key{(uintptr_t)base, rows, L, box_rows};
-  std::lock_guard<std::mutex> lock(mu);
-  auto it = maps.find(key);
-  if (it == maps.end()) {
-    CUtensorMap m;
-    if (!mx::tensor_map(&m, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, L, rows, L, kL, box_rows, CU_TENSOR_MAP_SWIZZLE_NONE))
-      return false;
-    if (maps.size() >= 4096) maps.clear();
-    it = maps.emplace(key, m).first;
-  }
-  *map = it->second;
-  return true;
-}
-
 template <int E>
 cudaError_t run(const void* q, const void* kd, const void* ks, const void* vd, const void* vs, const void* q_off,
                 const void* kv_len, void* out, void* ws, void* tickets, int b, int hq, int hkv, int sq, int sq_stride,
@@ -624,8 +587,11 @@ cudaError_t run(const void* q, const void* kd, const void* ks, const void* vd, c
   using Geom = Geo<E>;
   const uint64_t heads = (uint64_t)b * hkv;
   CUtensorMap tkd, tks, tvd, tvs;
-  if (!cached_map(&tkd, kd, heads * Geom::rows, L, Geom::rows) || !cached_map(&tvd, vd, heads * Geom::rows, L, Geom::rows) ||
-      !cached_map(&tks, ks, heads * (kD / 32), L, kD / 32) || !cached_map(&tvs, vs, heads * (kD / 32), L, kD / 32))
+  const auto none = CU_TENSOR_MAP_SWIZZLE_NONE;
+  if (!mx::cached_dmajor_map(&tkd, kd, heads * Geom::rows, L, kL, Geom::rows, none) ||
+      !mx::cached_dmajor_map(&tvd, vd, heads * Geom::rows, L, kL, Geom::rows, none) ||
+      !mx::cached_dmajor_map(&tks, ks, heads * (kD / 32), L, kL, kD / 32, none) ||
+      !mx::cached_dmajor_map(&tvs, vs, heads * (kD / 32), L, kL, kD / 32, none))
     return cudaErrorInvalidValue;
   const int rows = sq * (hq / hkv);
   auto kernel = rows <= 16 ? attention_dmajor_kernel<E, true> : attention_dmajor_kernel<E, false>;

@@ -72,9 +72,6 @@
 //     tile.
 //  7. q is quantized in the prologue (a warp a 32-block of a row); no
 //     separate K1 launch.
-#include <mutex>
-#include <unordered_map>
-
 #include "mx_common.cuh"
 #include "mx_wgmma.cuh"
 
@@ -462,40 +459,6 @@ attention_int8dot_kernel(const __grid_constant__ CUtensorMap tkd, const __grid_c
   if (tid == 0) tickets[kvh] = 0;
 }
 
-// The tensor maps of the cache buffers, encoded once for each (pointer, rows,
-// L, box rows) and kept: a call does no encode on the host.  (The box is part
-// of the key: a code buffer may reuse a scale buffer's address.)
-struct MapKey {
-  uintptr_t p;
-  uint64_t rows, L;
-  uint32_t box_rows;
-  bool operator==(const MapKey& o) const { return p == o.p && rows == o.rows && L == o.L && box_rows == o.box_rows; }
-};
-struct MapKeyHash {
-  size_t operator()(const MapKey& k) const {
-    return std::hash<uintptr_t>()(k.p) ^ (k.rows * 0x9E3779B97F4A7C15ull) ^ (k.L << 8) ^ k.box_rows;
-  }
-};
-
-// Codes: boxes of 128 positions x 128 rows, 128-byte swizzled; scales: 128 x 4, plain.
-bool cached_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t L, uint32_t box_rows) {
-  static std::mutex mu;
-  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> maps;
-  const MapKey key{(uintptr_t)base, rows, L, box_rows};
-  std::lock_guard<std::mutex> lock(mu);
-  auto it = maps.find(key);
-  if (it == maps.end()) {
-    CUtensorMap m;
-    if (!mx::tensor_map(&m, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, L, rows, L, kBox, box_rows,
-                        box_rows == kD ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE))
-      return false;
-    if (maps.size() >= 4096) maps.clear();
-    it = maps.emplace(key, m).first;
-  }
-  *map = it->second;
-  return true;
-}
-
 // The ring's slots for G query rows and tiles of lt positions: 8 for tiles
 // of 1024 positions and more where they fit (few CTAs, each streaming a long
 // tile: more bytes in flight), else 4 (two CTAs an SM at lt <= 512).
@@ -509,8 +472,12 @@ cudaError_t run(const void* q, const void* kd, const void* ks, const void* vd, c
                 int L, int lt, int tiles, float sm_scale, int fault, cudaStream_t stream) {
   const uint64_t heads = (uint64_t)b * hkv;
   CUtensorMap tkd, tks, tvd, tvs;
-  if (!cached_map(&tkd, kd, heads * kD, L, kD) || !cached_map(&tvd, vd, heads * kD, L, kD) ||
-      !cached_map(&tks, ks, heads * kNc, L, kNc) || !cached_map(&tvs, vs, heads * kNc, L, kNc))
+  // Codes: boxes of 128 positions x 128 rows, 128-byte swizzled; scales: 128 x 4, plain.
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B, none = CU_TENSOR_MAP_SWIZZLE_NONE;
+  if (!mx::cached_dmajor_map(&tkd, kd, heads * kD, L, kBox, kD, sw) ||
+      !mx::cached_dmajor_map(&tvd, vd, heads * kD, L, kBox, kD, sw) ||
+      !mx::cached_dmajor_map(&tks, ks, heads * kNc, L, kBox, kNc, none) ||
+      !mx::cached_dmajor_map(&tvs, vs, heads * kNc, L, kBox, kNc, none))
     return cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {

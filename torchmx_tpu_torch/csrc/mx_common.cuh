@@ -116,6 +116,45 @@ __device__ __forceinline__ int cast_int8(int bits, int se) {
   return (int)rintf(v);
 }
 
+// One E8M0 exponent a row (mx_quantize_rows in csrc/mx_quantize.cu, and B14's
+// query in csrc/mx_mla_int8dot.cu): the row's w bf16 values (w % 32 == 0, w
+// <= 32 * kMaxRowLanes) quantized by one warp, bit for bit quantize_mx_plain(x,
+// elem, w).  Lane l keeps elements l, l + 32, ... in registers; the row's
+// exponent max is one warp reduction; each element is cast as K1 casts it.
+// Hands (element index, code) to `store` and returns the row's exponent.
+// quantize_row_bits takes the lane's elements already loaded (bits[i] =
+// element 32 i + lane).
+constexpr int kMaxRowLanes = 32;  // w / 32 elements a lane, w <= 1024
+
+template <int E>
+__device__ __forceinline__ int cast_code(int bits, int se) {
+  if (E == kInt8) return cast_int8(bits, se);
+  return cast_hw_exact<E>(bits, se);
+}
+
+template <int E, typename Store>
+__device__ __forceinline__ int quantize_row_bits(const int (&bits)[kMaxRowLanes], int w, int lane, Store store) {
+  int emax = 0;
+#pragma unroll
+  for (int i = 0; i < kMaxRowLanes; ++i)
+    if (i * 32 < w) emax = max(emax, (bits[i] >> 7) & 0xFF);
+  emax = (int)__reduce_max_sync(0xffffffffu, (unsigned)emax);
+  int se = block_scale(emax, Elem<E>::max_pow2);
+#pragma unroll
+  for (int i = 0; i < kMaxRowLanes; ++i)
+    if (i * 32 < w) store(i * 32 + lane, cast_code<E>(bits[i], se));
+  return se;
+}
+
+template <int E, typename Store>
+__device__ __forceinline__ int quantize_row(const uint16_t* __restrict__ x, int w, int lane, Store store) {
+  int bits[kMaxRowLanes];
+#pragma unroll
+  for (int i = 0; i < kMaxRowLanes; ++i)
+    if (i * 32 < w) bits[i] = x[i * 32 + lane];
+  return quantize_row_bits<E>(bits, w, lane, store);
+}
+
 // Fake-quantize one bf16 value against its block's shared exponent: clamp to
 // max * 2^(se-127), then round to the MX grid's quantum 2^qe with the fp32
 // magic-number add (|x| + M) - M, M = 1.5 * 2^(23+qe).  Subnormal operands

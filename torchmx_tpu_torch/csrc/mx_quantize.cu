@@ -160,35 +160,6 @@ cudaError_t launch_fq(const void* x, void* out, long long nblocks, cudaStream_t 
 //   d-major (the latent cache write): row (b, t) of b x s new positions goes
 //     to column clamp(pos[b], 0, L - s) + t of codes (b, w, L) and scales
 //     (b, 1, L), as _write_rows clamps (models/deepseek.py).
-constexpr int kMaxRowLanes = 32;  // w / 32 elements a lane, w <= 1024
-
-template <int E>
-__device__ __forceinline__ int cast_code(int bits, int se) {
-  if (E == mx::kInt8) return mx::cast_int8(bits, se);
-  return mx::cast_hw_exact<E>(bits, se);
-}
-
-// Quantize the w values at x, one warp; hands (element index, code) to
-// `store` and returns the row's shared exponent.
-template <int E, typename Store>
-__device__ __forceinline__ int quantize_row(const uint16_t* __restrict__ x, int w, int lane, Store store) {
-  int bits[kMaxRowLanes];
-  int emax = 0;
-#pragma unroll
-  for (int i = 0; i < kMaxRowLanes; ++i) {
-    if (i * 32 < w) {
-      bits[i] = x[i * 32 + lane];
-      emax = max(emax, (bits[i] >> 7) & 0xFF);
-    }
-  }
-  emax = (int)__reduce_max_sync(0xffffffffu, (unsigned)emax);
-  int se = mx::block_scale(emax, mx::Elem<E>::max_pow2);
-#pragma unroll
-  for (int i = 0; i < kMaxRowLanes; ++i)
-    if (i * 32 < w) store(i * 32 + lane, cast_code<E>(bits[i], se));
-  return se;
-}
-
 struct RowPair {
   const uint16_t* x;  // (rows, w) bf16 bits
   uint8_t* codes;     // row-major (rows, w) or d-major (b, w, L)
@@ -202,11 +173,11 @@ __device__ __forceinline__ void quantize_row_to(const RowPair& p, long long row,
   const uint16_t* x = p.x + row * p.w;
   if (kDmajor) {
     uint8_t* base = p.codes + bi * p.w * L + col;
-    int se = quantize_row<E>(x, p.w, lane, [&](int e, int c) { base[(long long)e * L] = (uint8_t)c; });
+    int se = mx::quantize_row<E>(x, p.w, lane, [&](int e, int c) { base[(long long)e * L] = (uint8_t)c; });
     if (lane == 0) ((uint8_t*)p.scale)[bi * L + col] = (uint8_t)se;
   } else {
     uint8_t* base = p.codes + row * p.w;
-    int se = quantize_row<E>(x, p.w, lane, [&](int e, int c) { base[e] = (uint8_t)c; });
+    int se = mx::quantize_row<E>(x, p.w, lane, [&](int e, int c) { base[e] = (uint8_t)c; });
     if (lane == 0) ((float*)p.scale)[row] = __fmul_rn(mx::pow2_scale(se), sm_scale);
   }
 }
@@ -306,7 +277,7 @@ extern "C" int mx_fake_quantize_planes_launch(const void* x, void* out, long lon
 extern "C" int mx_quantize_rows_launch(const void* x1, const void* x2, void* codes1, void* scale1, void* codes2,
                                        void* scale2, const void* pos, long long rows, int s, int L, int w1, int w2,
                                        int elem, float sm_scale, int dmajor, void* stream) {
-  if (w1 % 32 || w2 % 32 || w1 <= 0 || w2 <= 0 || w1 > 32 * kMaxRowLanes || w2 > 32 * kMaxRowLanes)
+  if (w1 % 32 || w2 % 32 || w1 <= 0 || w2 <= 0 || w1 > 32 * mx::kMaxRowLanes || w2 > 32 * mx::kMaxRowLanes)
     return (int)cudaErrorInvalidValue;
   if (dmajor && (s <= 0 || s > L || rows % s)) return (int)cudaErrorInvalidValue;
   if (rows == 0) return 0;

@@ -18,6 +18,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <unordered_map>
+
 namespace mx {
 
 // Byte offset of 16-byte chunk c (0..7) of row r in a swizzled run of
@@ -329,6 +332,48 @@ inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* b
   return encode(map, type, depth > 1 ? 3 : 2, const_cast<void*>(base), dims, strides, box, elem_strides,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+
+// A 2-D uint8 tensor map over rows of L bytes (a d-major cache buffer: code
+// or scale rows, the positions innermost), boxes of box_inner positions x
+// box_rows rows, encoded once for each (pointer, rows, L, box, swizzle) and
+// kept, so that a call does no encode on the host.  A pointer that a later
+// buffer of the same shape reuses gives the same map; the box is part of the
+// key (a code buffer may reuse a scale buffer's address with the same number
+// of rows).  K6, K7 and B14 read their caches through it.
+struct DmajorMapKey {
+  uintptr_t p;
+  uint64_t rows, L;
+  uint32_t box_inner, box_rows;
+  int swizzle;
+  bool operator==(const DmajorMapKey& o) const {
+    return p == o.p && rows == o.rows && L == o.L && box_inner == o.box_inner && box_rows == o.box_rows &&
+           swizzle == o.swizzle;
+  }
+};
+struct DmajorMapKeyHash {
+  size_t operator()(const DmajorMapKey& k) const {
+    return std::hash<uintptr_t>()(k.p) ^ (k.rows * 0x9E3779B97F4A7C15ull) ^ (k.L << 8) ^ k.box_rows ^
+           ((size_t)k.box_inner << 20) ^ ((size_t)k.swizzle << 40);
+  }
+};
+
+inline bool cached_dmajor_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t L, uint32_t box_inner,
+                              uint32_t box_rows, CUtensorMapSwizzle swizzle) {
+  static std::mutex mu;
+  static std::unordered_map<DmajorMapKey, CUtensorMap, DmajorMapKeyHash> maps;
+  const DmajorMapKey key{(uintptr_t)base, rows, L, box_inner, box_rows, (int)swizzle};
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = maps.find(key);
+  if (it == maps.end()) {
+    CUtensorMap m;
+    if (!tensor_map(&m, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, L, rows, L, box_inner, box_rows, swizzle)) return false;
+    if (maps.size() >= 4096) maps.clear();
+    it = maps.emplace(key, m).first;
+  }
+  *map = it->second;
+  return true;
 }
 
 }  // namespace mx

@@ -111,10 +111,13 @@ SIGNATURES = {
         ),
     },
     "mx_mla_int8dot": {
-        # q_lat codes, q_lat scales, q_rot codes, q_rot scales, lat codes, lat scales,
-        # rot codes, rot scales, q_off, kv_len, out, b, n, L, r, dr, stream
+        # q_lat, q_rot (bf16), lat codes, lat scales, rot codes, rot scales, q_off, kv_len (null: the two
+        # numbers that follow), q_off number, kv_len number, out, workspace, tickets, q_lat codes, q_lat
+        # scales, q_rot codes, q_rot scales (null, or outputs), b, n, L, r, dr, tile, positions a CTA, the
+        # grid's tiles, sm_scale, fault (0), stream
         "mx_mla_attention_int8dot_launch": (
-            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P
+            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+            _I, _P
         ),
     },
     "mx_rmsnorm": {

@@ -20,8 +20,10 @@ dispatch the MLA layer calls (``torchmx_tpu/ops/pallas_mla.py``).
 * B14 ``mx_mla_attention_int8dot`` (``csrc/mx_mla_int8dot.cu``) replaces
   ``_mla_kernel_int8dot``: decode (one query position) over an int8 d-major
   latent cache under ``TORCHMX_ATTN_INT8_DOT=1``, q and p quantized to int8
-  and both dots exact (``mx_mla_attention_int8dot_plain`` states the
-  formula).
+  and both dots exact, p requantized once per KV tile of JAX's
+  ``_pick_lt(L)`` (``mx_mla_attention_int8dot_plain`` states the formula).
+  The kernel quantizes q in its prologue, takes a tile a thread-block
+  cluster (``b14_split``) and combines the tiles in the same launch.
 
 ``mla_cached_attention`` routes as the JAX function does: B14 where
 ``use_mla_int8dot`` says so, B13 where ``plan_mla_attention`` gives a plan,
@@ -33,10 +35,11 @@ It is the reference design, not a fallback: a kernel that fails raises.
 
 The int8 quantization of B14's query (one scale per row) uses a block of
 the row's width, which K1's blocks of 32 do not take (nor does JAX's Pallas
-quantizer: JAX runs it as jnp ops).  ``quantize_q_rows`` quantizes q_lat and
-q_rot in one launch of the per-row kernel (``ops/cuda_quantize.
-mx_quantize_rows``) on the card, by its plain version on the CPU, bit for
-bit; the d-major latent write goes through the same kernel
+quantizer: JAX runs it as jnp ops).  B14's kernel quantizes q in its
+prologue with the per-row kernel's device functions; ``quantize_q_rows``
+gives the same codes and scales by one launch of that kernel (``ops/
+cuda_quantize.mx_quantize_rows``) on the card, by its plain version on the
+CPU, bit for bit.  The d-major latent write goes through the per-row kernel
 (``models/deepseek.MXMLACache.write``).
 """
 
@@ -56,8 +59,7 @@ from .cuda_attention import NEG_INF, IntOrTensor, _per_row, _pick_lt, _pow2_scal
 from .cuda_norm import pairwise_sum
 from .cuda_quantize import mx_quantize_rows, mx_quantize_rows_plain
 
-MLA_TILE = 32  # KV positions per online-softmax step of B14 (kT in csrc/mx_mla_int8dot.cu)
-B13_TILE = 32  # B13's own: KV positions per online-softmax step (kT in csrc/mx_mla.cu)
+B13_TILE = 32  # KV positions per online-softmax step of B13 (kT in csrc/mx_mla.cu)
 KERNEL_R, KERNEL_DR = 512, 64  # the latent rank and rope width the kernels take
 BLOCK = 32
 MAX_ROWS = 256  # per-q-tile row budget of the JAX plan
@@ -289,13 +291,26 @@ def _int8dot_check(q_lat, q_rot, lat_data, rot_data) -> None:
                          f"q_lat{tuple(q_lat.shape)} latent{tuple(lat_data.shape)} {lat_data.dtype}")
 
 
+def b14_split(L: int) -> tuple:
+    """B14's tiling of a cache of ``L`` positions: ``(lt, P)``, JAX's KV
+    tile ``_pick_lt(L)`` (p is requantized once per tile) and the positions
+    a CTA of the tile's cluster holds, 128 at tiles of up to 512 and 256
+    above (``lt / P`` CTAs a tile: 2 at L = 256, 4 at 1024, 8 at 8192).
+    Functions of ``L`` alone, so that a row's arithmetic does not depend on
+    the batch or its visible prefix; ``(None, None)`` where no JAX tile
+    divides ``L``."""
+    lt = _pick_lt(L)
+    return (None, None) if lt is None else (lt, 128 if lt <= 512 else 256)
+
+
 def mx_mla_attention_int8dot_plain(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_scale, q_off, kv_len,
-                                   sm_scale: float, tile: int = MLA_TILE) -> torch.Tensor:
-    """Plain version of B14, tile by tile (``tile`` positions; the result
-    depends on it): ``q_lat (b, n, 1, r)`` / ``q_rot (b, n, 1, dr)`` bf16 over
-    the d-major int8 latent ``(b, r, L)`` / ``(b, dr, L)`` with per-position
-    scales ``(b, 1, L)``.  With ql, qr the int8 rows and qlsc, qrsc their f32
-    scales times sm_scale (``quantize_q_rows`` by the plain quantizer), pk(e) the float whose bits
+                                   sm_scale: float, tile: Optional[int] = None) -> torch.Tensor:
+    """Plain version of B14, KV tile by KV tile (``tile`` positions, by
+    default JAX's ``_pick_lt(L)``; the result depends on it): ``q_lat (b, n,
+    1, r)`` / ``q_rot (b, n, 1, dr)`` bf16 over the d-major int8 latent ``(b,
+    r, L)`` / ``(b, dr, L)`` with per-position scales ``(b, 1, L)``.  With
+    ql, qr the int8 rows and qlsc, qrsc their f32 scales times sm_scale
+    (``quantize_q_rows`` by the plain quantizer), pk(e) the float whose bits
     are e << 23:
 
     * ``s = (dot(ql, lat_j) * qlsc) * pk(el_j) + (dot(qr, rot_j) * qrsc) *
@@ -307,11 +322,18 @@ def mx_mla_attention_int8dot_plain(q_lat, q_rot, lat_data, lat_scale, rot_data, 
       (127 / mx))``, ``acc = acc * alpha + (pq . lat^T) * (mx * (1/127))``;
     * ``out = acc / l`` (l = 1 where 0).
 
-    The kernel differs in fp32 summation order only (and so in ties of
-    pq).  The integer dots run in float64, where they are exact."""
+    At JAX's tile this is the JAX kernel's arithmetic, bit for bit on the
+    CPU (but for hidden positions, which JAX multiplies by their scale).
+    The kernel takes each tile's softmax against the tile's own maximum and
+    combines the tiles at the end, so it differs in fp32 rounding and in
+    rare ties of pq.  The integer dots run in float64, where they are
+    exact."""
     _int8dot_check(q_lat, q_rot, lat_data, rot_data)
     b, n, _, r = q_lat.shape
     L, dev, f64 = lat_data.shape[2], q_lat.device, torch.float64
+    tile = tile or _pick_lt(L)
+    if tile is None:
+        raise ValueError(f"int8-dot MLA takes a cache length one of JAX's tiles divides (L % 128 == 0), got {L}")
     qld, qlsc, qrd, qrsc = quantize_q_rows(q_lat, q_rot, sm_scale, plain=True)
     qld, qrd = qld.to(f64), qrd.to(f64)
     q_off = _per_row(q_off, b, dev)
@@ -346,44 +368,69 @@ def mx_mla_attention_int8dot_plain(q_lat, q_rot, lat_data, lat_scale, rot_data, 
     return out[:, :, None, :].to(torch.bfloat16)
 
 
-def mx_mla_attention_int8dot_codes(qld, qlsc, qrd, qrsc, lat_data, lat_scale, rot_data, rot_scale, q_off, kv_len,
-                                   ) -> torch.Tensor:
-    """B14's launch on queries already quantized by ``quantize_q_rows``:
-    codes ``(b, n, r)`` / ``(b, n, dr)`` int8 and f32 row scales ``(b, n)``
-    with sm_scale folded in; CUDA tensors only (r = 512, dr = 64, L % 32 ==
-    0; other shapes raise).  Returns ``(b, n, 1, r)`` bf16."""
-    b, n, r = qld.shape
-    dr, L = qrd.shape[2], lat_data.shape[2]
-    if (r != KERNEL_R or dr != KERNEL_DR or L % MLA_TILE or lat_data.shape != (b, r, L)
-            or rot_data.shape != (b, dr, L) or lat_data.dtype != torch.int8 or rot_data.dtype != torch.int8):
-        raise ValueError(f"the int8-dot MLA kernel takes r={KERNEL_R}, dr={KERNEL_DR}, L % {MLA_TILE} == 0 and an "
-                         f"int8 d-major latent, got q codes {tuple(qld.shape)} / {tuple(qrd.shape)} latent "
-                         f"{tuple(lat_data.shape)} {lat_data.dtype}")
-    if lat_scale.shape != (b, 1, L) or rot_scale.shape != (b, 1, L) or lat_scale.dtype != torch.uint8:
-        raise ValueError(f"per-position scales must be ({b}, 1, {L}) uint8")
-    tensors = (qld, qlsc, qrd, qrsc, lat_data, lat_scale, rot_data, rot_scale)
-    if not all(t.is_contiguous() for t in tensors) or qlsc.dtype != torch.float32 or qrsc.dtype != torch.float32:
-        raise ValueError("B14's operands must be contiguous, the row scales f32")
-    q_off = _per_row(q_off, b, qld.device)
-    kv_len = _per_row(kv_len, b, qld.device)
-    out = torch.empty((b, n, 1, r), dtype=torch.bfloat16, device=qld.device)
-    cuda_lib.launch("mx_mla_int8dot", "mx_mla_attention_int8dot_launch", *(t.data_ptr() for t in tensors),
-                    q_off.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b, n, L, r, dr)
-    return out
-
-
 def mx_mla_attention_int8dot(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_scale, q_off, kv_len,
-                             sm_scale: float) -> torch.Tensor:
+                             sm_scale: float, drop_last_tile: bool = False,
+                             q_out: Optional[tuple] = None) -> torch.Tensor:
     """B14: ``(b, n, 1, r)`` bf16 (see ``mx_mla_attention_int8dot_plain``).
-    CUDA tensors quantize q_lat and q_rot by one launch of the per-row
-    kernel (``quantize_q_rows``) and launch B14
-    (``mx_mla_attention_int8dot_codes``)."""
+    CUDA tensors launch the kernel, which quantizes q itself (r = 512, dr =
+    64, a cache length one of JAX's tiles divides, 16-byte aligned cache
+    buffers; other shapes raise), one launch a call: a tile of JAX's
+    ``_pick_lt(L)`` a cluster of ``lt / P`` CTAs (``b14_split``), the tiles
+    combined in the same launch; where ``kv_len`` is a number only the tiles
+    below it are launched, and where ``q_off`` is one too both go to the
+    kernel as numbers.  ``q_out``, four tensors shaped as
+    ``quantize_q_rows``' result, receives the codes and scales the kernel
+    computed for q (on the CPU, the plain quantizer's).  ``drop_last_tile``
+    (the combine leaves out the last live tile of a row) is a planted fault
+    for the checks, never set by the package."""
     if not on_cuda(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_scale):
+        if q_out is not None:
+            for dst, src in zip(q_out, quantize_q_rows(q_lat, q_rot, sm_scale, plain=True)):
+                dst.copy_(src)
         return mx_mla_attention_int8dot_plain(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_scale, q_off,
                                               kv_len, sm_scale)
     _int8dot_check(q_lat, q_rot, lat_data, rot_data)
-    return mx_mla_attention_int8dot_codes(*quantize_q_rows(q_lat, q_rot, sm_scale), lat_data, lat_scale,
-                                          rot_data, rot_scale, q_off, kv_len)
+    b, n, _, r = q_lat.shape
+    dr, L = q_rot.shape[3], lat_data.shape[2]
+    lt, P = b14_split(L)
+    if r != KERNEL_R or dr != KERNEL_DR or lt is None or lat_data.shape != (b, r, L) or rot_data.shape != (b, dr, L):
+        raise ValueError(f"the int8-dot MLA kernel takes r={KERNEL_R}, dr={KERNEL_DR} and L % 128 == 0, got "
+                         f"q_lat{tuple(q_lat.shape)} q_rot{tuple(q_rot.shape)} latent{tuple(lat_data.shape)} "
+                         f"rope{tuple(rot_data.shape)}")
+    if lat_scale.shape != (b, 1, L) or rot_scale.shape != (b, 1, L) or lat_scale.dtype != torch.uint8 \
+            or rot_scale.dtype != torch.uint8:
+        raise ValueError(f"per-position scales must be ({b}, 1, {L}) uint8")
+    for t in (lat_data, lat_scale, rot_data, rot_scale):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("latent cache buffers must be contiguous and 16-byte aligned")
+    ql = q_lat.to(torch.bfloat16).reshape(b, n, r).contiguous()
+    qr = q_rot.to(torch.bfloat16).reshape(b, n, dr).contiguous()
+    # Where kv_len is a number, no tile past it is launched; a tensor is never read on the host.  Where
+    # both are numbers they go to the kernel as they are (no fill launches).
+    tiles = L // lt if isinstance(kv_len, torch.Tensor) else max(1, -(-min(int(kv_len), L) // lt))
+    numbers = not isinstance(q_off, torch.Tensor) and not isinstance(kv_len, torch.Tensor)
+    if numbers:
+        pos = (None, None, int(q_off), int(kv_len))
+    else:
+        q_off, kv_len = _per_row(q_off, b, ql.device), _per_row(kv_len, b, ql.device)
+        pos = (q_off.data_ptr(), kv_len.data_ptr(), 0, 0)
+    out = torch.empty((b, n, 1, r), dtype=torch.bfloat16, device=ql.device)
+    nr = 16 if n <= 16 else 32  # heads a cluster takes (NR in csrc/mx_mla_int8dot.cu)
+    units = b * -(-n // nr)
+    ws, tickets = split_kv.scratch(ql.device, units * tiles * nr * (r + 4 * (lt // P)) if tiles > 1 else 0,
+                                   units * (lt // P))
+    q_ptrs = (None,) * 4
+    if q_out is not None:
+        want = ((b, n, r), (b, n), (b, n, dr), (b, n))
+        if any(t.shape != w or t.dtype != d or not t.is_contiguous() or t.device != ql.device
+               for t, w, d in zip(q_out, want, (torch.int8, torch.float32) * 2)):
+            raise ValueError("q_out must be contiguous tensors shaped as quantize_q_rows' result")
+        q_ptrs = tuple(t.data_ptr() for t in q_out)
+    cuda_lib.launch("mx_mla_int8dot", "mx_mla_attention_int8dot_launch", ql.data_ptr(), qr.data_ptr(),
+                    lat_data.data_ptr(), lat_scale.data_ptr(), rot_data.data_ptr(), rot_scale.data_ptr(),
+                    *pos, out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), *q_ptrs,
+                    b, n, L, r, dr, lt, P, tiles, float(sm_scale), int(drop_last_tile))
+    return out
 
 
 # -- the dispatch (torchmx_tpu/models/deepseek.py:498-533, ops/pallas_mla.py:260-341) -------------------

@@ -1,6 +1,7 @@
 """Where a split-KV kernel's kernel-vs-plain gate sits: the sound kernel and
-the planted combine fault (``drop_last_chunk``, K7's ``drop_last_tile``: the
-last live chunk or tile of a row left out) against the plain version.  Each reading is the max abs error and
+the planted combine fault (``drop_last_chunk``, K7's and B14's
+``drop_last_tile``: the last live chunk or tile of a row left out) against
+the plain version.  Each reading is the max abs error and
 the worst row's relative L2 error (``chip_smoke.worst_row_rel``), over the
 case and, for the fault, over each batch row alone.
 
@@ -15,11 +16,14 @@ case and, for the fault, over each batch row alone.
 * ``--kernel k7``: K7 at the three decode shapes of ``chip_smoke.
   check_dmajor_attention_kernels`` and at ``chip_smoke.k7_edge_cases``, and
   at the probes kv_len = lt + 1 and 2 lt + 1 (lt = JAX's tile) at L = 1024
-  and 8192, one batch row alone.
+  and 8192, one batch row alone;
+* ``--kernel b14``: B14 at ``chip_smoke.MLA_INT8DOT_CASES`` and at
+  ``chip_smoke.b14_edge_cases``, and at the probes kv_len = lt + 1 and 2 lt +
+  1 (lt = JAX's tile) at L = 1024 and 8192, one batch row alone.
 
 Run from the repository root with one card:
 
-    python3 torchmx_tpu_torch/tools/gate_readings.py --kernel b13|k6|k7
+    python3 torchmx_tpu_torch/tools/gate_readings.py --kernel b13|k6|k7|b14
 
 Writes ``chiprun_out/<kernel>_gate_readings.json``.
 """
@@ -80,7 +84,20 @@ def readings_k7(cs, dev, gen):
         del args
 
 
-FAULT = dict(b13="drop_last_chunk", k6="drop_last_chunk", k7="drop_last_tile")  # the combine fault's switch
+def readings_b14(cs, dev, gen):
+    from torchmx_tpu_torch.ops import cuda_mla
+
+    probes = [(f"fault probe L={L} kv={kv}", 1, 16, L, 1, [kv]) for L in (1024, 8192)
+              for kv in (cuda_mla.b14_split(L)[0] + 1, 2 * cuda_mla.b14_split(L)[0] + 1)]
+    for label, b, n, L, sq, kv in cs.MLA_INT8DOT_CASES + cs.b14_edge_cases() + probes:
+        c = cs._mla_case(dev, gen, b, n, L, sq, kv, "int8", layout="dmajor")
+        args = (c["q_lat"], c["q_rot"], *c["cache"].buffers, c["q_off"], c["kv_len"], c["sm"])
+        yield label, "int8", b, cuda_mla.mx_mla_attention_int8dot, args, cuda_mla.mx_mla_attention_int8dot_plain(*args)
+        del c, args
+
+
+# the combine fault's switch
+FAULT = dict(b13="drop_last_chunk", k6="drop_last_chunk", k7="drop_last_tile", b14="drop_last_tile")
 
 
 def main() -> int:
@@ -100,7 +117,7 @@ def main() -> int:
     card = cs.card_line()
     print(card, flush=True)
     out = dict(card=card, readings=[])
-    cases = dict(b13=readings_b13, k6=readings_k6, k7=readings_k7)[args.kernel]
+    cases = dict(b13=readings_b13, k6=readings_k6, k7=readings_k7, b14=readings_b14)[args.kernel]
     for label, elem, b, kernel, call_args, ref in cases(cs, dev, gen):
         got = kernel(*call_args)
         drop = kernel(*call_args, **{FAULT[args.kernel]: True})

@@ -36,7 +36,9 @@ Llama-3-8B width):
   synchronisation (host clock): K6 at F's decode shape (b=32, L=256, kv_len
   192, numbers as ``generate`` passes them), B13 at EK's (b=32, L=1024,
   kv_len 1 .. 1024), K7 at D's (b=32, L=1024, kv_len 0 .. 1024 as a tensor,
-  as the engine passes it; q's quantization inside the call).
+  as the engine passes it; q's quantization inside the call), B14 at GKD's
+  (b=32, L=256, kv_len 192, numbers as ``generate`` passes them; q's
+  quantization inside the call, a launch of its own in the parent).
 
 Each path reports tok/s, the kernel's device ms a decode step, the device's
 busy ms a step and idle share (the torch.profiler window of 8 decode steps
@@ -149,6 +151,14 @@ def main() -> int:
             a = cs._to_dmajor(cs._attn_case(dev, torch.Generator(dev).manual_seed(3), 32, 32, 8, 128, 1024, 1,
                                             ragged, "int8", never_written=True))[:8]
             call, shape = (lambda: ca.mx_cached_attention_int8dot(*a)), "decode b=32 L=1024 int8 ragged"
+        elif "mx_mla_attention_int8dot" in names:
+            from torchmx_tpu_torch.ops import cuda_mla
+
+            c = cs._mla_case(dev, torch.Generator(dev).manual_seed(3), 32, 16, 256, 1, [192] * 32, "int8",
+                             layout="dmajor")
+            a = (c["q_lat"], c["q_rot"], *c["cache"].buffers)
+            call = lambda: cuda_mla.mx_mla_attention_int8dot(*a, 191, 192, c["sm"])  # noqa: E731
+            shape = "GKD decode b=32 L=256 kv_len 192 (numbers)"
         elif "mx_mla_attention" in names:
             from torchmx_tpu_torch.ops import cuda_mla
 

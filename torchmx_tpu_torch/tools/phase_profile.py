@@ -4,7 +4,7 @@ The cut builds give wrong results; they only time what is left.
 
 Run from the repository root with one card:
 
-    python3 torchmx_tpu_torch/tools/phase_profile.py --kernel b13|k6|k7 [--root DIR] [--label NAME] [--chunks-only]
+    python3 torchmx_tpu_torch/tools/phase_profile.py --kernel b13|k6|k7|b14 [--root DIR] [--label NAME] [--chunks-only]
 
 ``--root`` imports ``chip_smoke`` and ``torchmx_tpu_torch`` from another
 checkout and cuts that checkout's source (for instance a parent commit
@@ -73,6 +73,32 @@ Builds of K7 before the redesign (a warp a tile of 128 positions, loads in
 every lane, a second launch merging the splits): ``no_dots`` (no dp4a, no
 P.V shuffle reductions), ``no_loads`` (the cache words replaced by
 constants), ``neither``.
+
+Builds of B14 (``csrc/mx_mla_int8dot.cu``), timed at ``chip_smoke.
+MLA_INT8DOT_CASES`` (q quantized inside the call) and at GKD's decode steps
+as it calls B14 (b=32 over 256 positions, q_off and kv_len numbers, kv_len
+65 .. 192 at a stride of 16: ``gkd_decode``), each beside SDPA over the
+dequantized latent, the plain version and the byte bound:
+
+* ``no_scores``: no score k-block (no word loads, transposes or mma);
+* ``no_pv``: no P.V mma (its fragments still loaded);
+* ``no_softmax``: no pass of the softmax and requantization (the cluster's
+  three barriers and its exchanges stay);
+* ``data_path``: none of the three;
+* ``no_copies``: ``data_path`` with the load groups' barriers arriving
+  without copying;
+* ``no_tiles``: no position visible to any CTA (launch, q's quantization,
+  the cluster's barriers and exchanges, the epilogue and combine);
+* ``no_combine``: a row with two live tiles or more writes its records and
+  stops;
+* ``P=128``, ``P=256``: the shipped kernel with that share a CTA at every
+  tile where it gives at most 8 CTAs a cluster (``cuda_mla.b14_split``
+  patched; P = 256 at L = 256 is one CTA a tile).
+
+Builds of B14 before the redesign (a CTA of 16 heads walking its row's
+prefix 32 positions at a time, synchronous loads, q quantized by a launch
+of its own): ``no_dots`` (no mma), ``no_loads`` (the cache words replaced
+by constants), ``neither``.
 
 ``S=...``: the shipped kernel at another chunk size (``mla_chunk`` or
 ``k6_chunk`` patched) where it gives at most 64 chunks, and for B13 at
@@ -239,6 +265,76 @@ def k7_old_patched(src: str) -> str:
     return s
 
 
+# -- B14 --------------------------------------------------------------------------------------------
+
+B14_CUTS = {"no_scores": ["NO_SCORES"], "no_pv": ["NO_PV"], "no_softmax": ["NO_SOFTMAX"],
+            "data_path": ["NO_SCORES", "NO_PV", "NO_SOFTMAX"],
+            "no_copies": ["NO_SCORES", "NO_PV", "NO_SOFTMAX", "NO_COPY"],
+            "no_tiles": ["NO_TILES"], "no_combine": ["NO_COMBINE"], "no_cluster": ["NO_CLUSTER"],
+            "no_q": ["NO_Q"], "skeleton": ["NO_TILES", "NO_COMBINE", "NO_CLUSTER", "NO_Q"], "empty": ["EMPTY"]}
+B14_OLD_CUTS = {"no_dots": ["NO_DOTS"], "no_loads": ["NO_LOADS"], "neither": ["NO_DOTS", "NO_LOADS"]}
+B14_OLD_MARK = "LatD"  # B14 before the redesign: the tile kept twice, as read (LatD) and transposed
+
+
+def b14_patched(src: str) -> str:
+    """B14 with guards around the score k-blocks (NO_SCORES), the P.V mma
+    (NO_PV: the loaded fragments still feed the accumulator), the softmax
+    and requantization passes (NO_SOFTMAX: the cluster barriers stay), the
+    copies (NO_COPY: the barriers arrive without bytes), the visible
+    positions (NO_TILES), the ticket and combine (NO_COMBINE), the cluster
+    (NO_CLUSTER: its barriers become the CTA's, every exchange reads the
+    CTA's own shared memory), q's quantization (NO_Q), and all but the
+    launch (EMPTY: every CTA returns at once)."""
+    s = _replace(src, "      for (int kb = 0; kb < kR / 32; ++kb) score_block",
+                 "      for (int kb = 0; kb < SCORE_KB(kR / 32); ++kb) score_block")
+    s = _replace(s, "      for (int kb = 0; kb < kDr / 32; ++kb)\n",
+                 "      for (int kb = 0; kb < SCORE_KB(kDr / 32); ++kb)\n")
+    s = _replace(s, "        for (int nt = 0; nt < kNt; ++nt) mma_s8_acc(acc[mt][nt], a, b[nt]);",
+                 "#ifdef NO_PV\n        for (int nt = 0; nt < kNt; ++nt)\n"
+                 "          acc[mt][nt][0] ^= (int)(a[0] ^ a[1] ^ a[2] ^ a[3] ^ b[nt][0] ^ b[nt][1]);\n#else\n"
+                 "        for (int nt = 0; nt < kNt; ++nt) mma_s8_acc(acc[mt][nt], a, b[nt]);\n#endif")
+    s = s.replace("j < nvis; j += TPR)", "j < SOFTMAX_N(nvis); j += TPR)")
+    s = _replace(s, "j < n_grp * kBox; j += 4 * TPR)", "j < SOFTMAX_N(n_grp * kBox); j += 4 * TPR)")
+    s = _guard(s, "      mx::mbar_expect_tx(bar, kGroupBytes);", "rs + (long long)ib * L + pos, kBox, bar);\n",
+               "NO_COPY", "      mx::mbar_arrive(bar);")
+    s = _replace(s, "  const int nvis = min(max(kv_end - c0, 0), P);",
+                 "#ifdef NO_TILES\n  const int nvis = 0;\n#else\n"
+                 "  const int nvis = min(max(kv_end - c0, 0), P);\n#endif")
+    s = _replace(s, "  __threadfence();\n  __syncthreads();\n  int* last",
+                 "#ifdef NO_COMBINE\n  cluster_wait();\n  return;\n#endif\n  __threadfence();\n  __syncthreads();\n"
+                 "  int* last")
+    s = _replace(s, "__device__ __forceinline__ void cluster_arrive() {",
+                 "#ifdef NO_CLUSTER\n__device__ __forceinline__ void cluster_arrive() {}\n"
+                 "__device__ __forceinline__ void cluster_wait() { __syncthreads(); }\n"
+                 "__device__ __forceinline__ void cluster_sync() { __syncthreads(); }\n"
+                 "__device__ __forceinline__ uint32_t cluster_addr(uint32_t local, int) { return local; }\n#else\n"
+                 "__device__ __forceinline__ void cluster_arrive() {")
+    s = _replace(s, "__device__ __forceinline__ float ld_cluster_f32(",
+                 "#endif\n__device__ __forceinline__ float ld_cluster_f32(")
+    s = _replace(s, "  for (int i = 0; i < kQRows; ++i) {\n    const int r = warp + kWarps * i, head = hg * NR + r;",
+                 "  for (int i = 0; i < (Q_ON ? kQRows : 0); ++i) {\n"
+                 "    const int r = warp + kWarps * i, head = hg * NR + r;")
+    s = _replace(s, "  if (tile >= n_live) return;", "  if (tile >= n_live || EMPTY_ON) return;")
+    head = ("#ifdef NO_Q\n#define Q_ON 0\n#else\n#define Q_ON 1\n#endif\n"
+            "#ifdef EMPTY\n#define EMPTY_ON 1\n#else\n#define EMPTY_ON 0\n#endif\n"
+            "#ifdef NO_SCORES\n#define SCORE_KB(n) 0\n#else\n#define SCORE_KB(n) (n)\n#endif\n"
+            "#ifdef NO_SOFTMAX\n#define SOFTMAX_N(n) 0\n#else\n#define SOFTMAX_N(n) (n)\n#endif\n")
+    return head + s
+
+
+def b14_old_patched(src: str) -> str:
+    """B14 before the redesign with its three mma cut (NO_DOTS: the loaded
+    fragments still feed the results) and its cache word loads replaced by
+    constants (NO_LOADS)."""
+    s = src
+    for call, frag in (("mx::mma_s8_16832(c, qa[kk], b);", "qa[kk][0]"), ("mx::mma_s8_16832(c, qra, b);", "qra[0]"),
+                       ("mx::mma_s8_16832(c, pa, b);", "pa[0]")):
+        s = _replace(s, call, f"\n#ifdef NO_DOTS\nc[0] = c[1] = c[2] = c[3] = (int)({frag} ^ b[0] ^ b[1]);\n#else\n"
+                              f"{call}\n#endif\n")
+    old = "uint32_t v = *reinterpret_cast<const uint32_t*>(src + (long long)i * L);"
+    return _replace(s, old, f"\n#ifdef NO_LOADS\nuint32_t v = (uint32_t)(c * 33 + i);\n#else\n{old}\n#endif\n")
+
+
 # -- the runs ---------------------------------------------------------------------------------------
 
 
@@ -380,6 +476,74 @@ def profile_k7(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show) -> dict:
     return cases
 
 
+def profile_b14(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show) -> dict:
+    """B14 at ``chip_smoke.MLA_INT8DOT_CASES`` and at GKD's decode steps: the
+    shipped kernel (q quantized inside the call), SDPA over the dequantized
+    latent, the plain version, the byte bound, each cut and, for the
+    redesigned kernel, each share a CTA (``--chunks-only``: the shares alone)."""
+    from torchmx_tpu_torch.ops import cuda_mla
+
+    source = (cuda_lib.CSRC_DIR / "mx_mla_int8dot.cu").read_text()
+    old = B14_OLD_MARK in source
+    libs = {} if chunks_only else build_cuts(cuda_lib, "mx_mla_int8dot",
+                                             b14_old_patched(source) if old else b14_patched(source),
+                                             B14_OLD_CUTS if old else B14_CUTS)
+    split = getattr(cuda_mla, "b14_split", None)
+
+    def at_shares(row, L, fn):  # fn() timed at each share a CTA that gives at most 8 CTAs a tile
+        if split is None:
+            return
+        lt, shipped = split(L)
+        row["shipped_P"] = shipped
+        try:
+            for P in (128, 256):
+                if lt % P == 0 and lt // P <= 8:
+                    cuda_mla.b14_split = lambda L_, P=P: (cuda_mla._pick_lt(L_), P)
+                    row[f"P={P}"] = fn()
+        finally:
+            cuda_mla.b14_split = split
+
+    def args_of(c):
+        return (c["q_lat"], c["q_rot"], *c["cache"].buffers, c["q_off"], c["kv_len"], c["sm"])
+
+    cases = {}
+    for label, b, n, L, sq, kv in cs.MLA_INT8DOT_CASES:
+        c = cs._mla_case(dev, gen, b, n, L, sq, kv, "int8", layout="dmajor")
+        args = args_of(c)
+        fn = lambda: cuda_mla.mx_mla_attention_int8dot(*args)  # noqa: E731
+        row = time_cuts(cuda_lib, "mx_mla_int8dot", libs, timer, fn)
+        at_shares(row, L, lambda: timer(fn))
+        lib_fn, row["library_backend"] = cs._mla_library(c)
+        row["library_ms"] = timer(lib_fn, reps=5)
+        row["plain_ms"] = timer(lambda: cuda_mla.mx_mla_attention_int8dot_plain(*args), reps=3)
+        row["bound_ms"], row["bound_by"] = cs.bound(*cs._mla_work(c), cs.INT8_OPS)
+        cases[label] = row
+        show(label, row)
+        del c, args
+    c = cs._mla_case(dev, gen, 32, 16, 256, 1, [256] * 32, "int8", layout="dmajor")
+    args = args_of(c)
+
+    def gkd_steps():  # {kv_len: ms} of generate's calls, q_off and kv_len numbers
+        return {kv: timer(lambda kv=kv: cuda_mla.mx_mla_attention_int8dot(*args[:6], kv - 1, kv, args[8]))
+                for kv in GK_KV}
+
+    row = dict(shipped=gkd_steps())
+    shipped = cuda_lib.lib("mx_mla_int8dot")
+    try:
+        for name, lib in libs.items():
+            cuda_lib._libs["mx_mla_int8dot"] = lib
+            row[name] = gkd_steps()
+    finally:
+        cuda_lib._libs["mx_mla_int8dot"] = shipped
+    at_shares(row, 256, gkd_steps)
+    for k, v in list(row.items()):
+        if isinstance(v, dict):
+            row[f"{k} mean"] = sum(v.values()) / len(v)
+    cases["gkd_decode b=32 L=256 kv=65-192 (numbers)"] = row
+    show("gkd_decode b=32 L=256", {k: v for k, v in row.items() if not isinstance(v, dict)})
+    return cases
+
+
 def profile_k6(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show) -> dict:
     from torchmx_tpu_torch.ops import cuda_attention as ca
 
@@ -407,7 +571,7 @@ def profile_k6(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("b13", "k6", "k7"), required=True)
+    ap.add_argument("--kernel", choices=("b13", "k6", "k7", "b14"), required=True)
     ap.add_argument("--root", default=".", help="checkout to import chip_smoke and the package from")
     ap.add_argument("--label", default="change")
     ap.add_argument("--chunks-only", action="store_true", help="time the chunk sizes alone (no cut builds)")
@@ -432,7 +596,7 @@ def main() -> int:
         print(f"[{args.label}] {args.kernel} {label}: " + json.dumps(
             {k: round(v, 4) if isinstance(v, float) else v for k, v in row.items()}) + f" ms [{card}]", flush=True)
 
-    profile = dict(b13=profile_b13, k6=profile_k6, k7=profile_k7)[args.kernel]
+    profile = dict(b13=profile_b13, k6=profile_k6, k7=profile_k7, b14=profile_b14)[args.kernel]
     res = dict(card=card, label=args.label, root=root,
                cases=profile(cs, cuda_lib, dev, timer, gen, args.chunks_only, show))
     os.makedirs("chiprun_out", exist_ok=True)
