@@ -12,9 +12,11 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    scale) pair bit for bit; K4 over fp8 and int8 caches, K5 over
    int8 caches, K6 over d-major fp8, int8, fp4 and fp6 caches and K7 over
    int8 d-major caches abs <= 2e-2, each at every main-path shape (K6 also
-   at its KV chunks' boundaries, K7 at its tiles' boundaries and at every
-   GQA group, each row's relative L2 error <= 1.2e-2, which a combine that
-   drops the last live chunk or tile fails); K6 against K4 on the same
+   at its KV chunks' boundaries, K5 and K7 at JAX's tiles' boundaries and K7
+   at every GQA group, each row's relative L2 error under a gate, which a
+   combine that drops the last live chunk or tile fails, and for K5 the
+   whole output's too, which p rounded against its tile's own maximum
+   fails); K6 against K4 on the same
    cache content, bit for bit on every row whose visible prefix lies in one
    chunk; K7's SQNR against exact attention above 30 dB (or, where its
    plain version, JAX's arithmetic, stays below, within 0.1 dB of it), its
@@ -974,17 +976,76 @@ def check_attention_kernel(dev, timer, gen):
                 bound_by=pick["bound_by"], library_ms=pick["library_ms"]), rows
 
 
+# K5 against its plain version, beside abs <= 2e-2: the worst row's relative L2 error, which a
+# dropped tile fails, and the whole output's (8 rows or more), which p rounded against its
+# tile's own maximum fails: a rounding-level fault, near a sound row's bf16 rounding but in
+# every row.  From tools/gate_readings.py --kernel k5 --seeds 5 on an NVIDIA H100 80GB HBM3 at
+# 700 W: sound row <= 1.94e-3 and whole <= 1.39e-4; dropped tile row >= 3.18e-2; own maximum
+# whole >= 1.50e-3 (PERF.md row 5).
+K5_ROW_REL = 8e-3
+K5_L2_REL = 5e-4
+
+
+def k5_readings(out, ref) -> tuple:
+    """(max abs error, worst row's relative L2 error, whole output's relative
+    L2 error) of K5's output against its plain version's, and whether they
+    pass K5's gate."""
+    err, rel, l2 = (out.float() - ref.float()).abs().max().item(), worst_row_rel(out, ref), _rel(out, ref)
+    return err, rel, l2, err <= 2e-2 and rel <= K5_ROW_REL and l2 <= K5_L2_REL
+
+
+def k5_fault_probes():
+    """(L, kv_len, fault) of one batch row alone where K5's planted faults
+    must fail the gate: the dropped last tile holding one position
+    (kv_len = lt + 1, 2 lt + 1), and p rounded against its tile's own
+    maximum over two and more whole tiles (kv_len = 2 lt, L), at L = 1024
+    (lt 512), 1152 (lt 128, shares of four tiles: both faults inside a share
+    too) and 8192 (lt 2048)."""
+    from torchmx_tpu_torch.ops.cuda_attention import k5_tile
+
+    out = []
+    for L in (1024, 1152, 8192):
+        lt = k5_tile(L)
+        out += [(L, kv, "drop_last_tile") for kv in (lt + 1, 2 * lt + 1)]
+        out += [(L, kv, "p_from_own_tile_max") for kv in sorted({2 * lt, L})]
+    return out
+
+
+def check_k5_faults(dev, gen):
+    """K5's planted faults at ``k5_fault_probes``: the sound kernel passes
+    the gate (``k5_readings``), each fault fails it.  Returns the readings."""
+    from torchmx_tpu_torch.ops import cuda_attention as ca
+
+    out = []
+    for L, kv, fault in k5_fault_probes():
+        args = _attn_case(dev, gen, 1, 32, 8, 128, L, 1, [kv], "int8", never_written=True)[:8]
+        ref = ca.mx_cached_attention_chunkdot_plain(*args)
+        _, sound, sound_l2, ok = k5_readings(ca.mx_cached_attention_chunkdot(*args), ref)
+        bad = ca.mx_cached_attention_chunkdot(*args, **{fault: True})
+        fault_abs, fault_rel, fault_l2, caught = k5_readings(bad, ref)
+        log(f"K5 fault {fault} L={L} kv={kv}: row / whole rel L2 sound {sound:.3e} / {sound_l2:.3e}, fault "
+            f"{fault_rel:.3e} / {fault_l2:.3e} (abs {fault_abs:.3e})")
+        if not ok or caught:
+            raise AssertionError(f"K5 {fault} L={L} kv={kv}: the gate must pass the kernel ({sound}, {sound_l2}) and "
+                                 f"fail the fault (abs {fault_abs}, row rel {fault_rel}, whole {fault_l2})")
+        out.append(dict(L=L, kv_len=kv, fault=fault, sound_row_rel=sound, sound_l2=sound_l2, fault_abs=fault_abs,
+                        fault_row_rel=fault_rel, fault_l2=fault_l2))
+    return out
+
+
 def check_int8_attention_kernels(dev, timer, gen):
-    """K4 over an int8 cache at the engine's prefill and chunk shapes, and K5
-    at its decode shapes, each against its plain version (abs <= 2e-2); K5
-    against K4-int8 on the same inputs is printed (the same function up to
-    summation order).  Returns (K5's entry, the timing rows, K4-int8's worst
-    error)."""
+    """K4 over an int8 cache at the engine's prefill and chunk shapes against
+    its plain version (abs <= 2e-2); K5 at its decode shapes (K7's) and at
+    JAX's tiles' edges against its plain version (abs <= 2e-2 and the worst
+    row's and the whole output's relative L2 errors <= K5_ROW_REL and
+    K5_L2_REL), its planted faults caught by the gate; K5 against K4-int8 on the same inputs is printed (the same
+    function up to where p is rounded).  Returns (K5's entry, the timing
+    rows, K4-int8's worst error)."""
     import torch.nn.functional as F
 
     from torchmx_tpu_torch.ops import cuda_attention as ca
 
-    rows, worst4, worst5 = [], 0.0, 0.0
+    rows, worst4, worst5, worst5_rel, worst5_l2 = [], 0.0, 0.0, 0.0, 0.0
     # K4-int8: a whole 384-token admission, a 128-token chunk at offset 256, a
     # 64-token remainder after a 128-token prefix (all b=1 over the slot's
     # 1024 positions), and a batch-32 prefill of 64.
@@ -1011,26 +1072,29 @@ def check_int8_attention_kernels(dev, timer, gen):
         rows.append(row)
     # K5: the engine's decode step (b=32 over 1024 positions, every row at its
     # own length, one row with no visible key, the positions past each prefix
-    # never written), one row alone, and a long cache.
-    ragged = [0] + [1 + (1023 * i) // 30 for i in range(31)]
-    k5_cases = [("decode b=32 L=1024 kv_len 0..1024 ragged", 32, 1024, ragged),
-                ("decode b=1 L=1024 kv_len=700", 1, 1024, [700]),
-                ("decode b=4 L=8192 kv_len=8192", 4, 8192, [8192] * 4)]
-    for label, b, L, kv in k5_cases:
+    # never written), one row alone, a long cache (K7's cases), the decode
+    # over 1152 positions (9 tiles of 128: a CTA walks four), and JAX's tiles'
+    # and K5's shares' edges.
+    for label, b, L, kv in K5_CASES + k5_edge_cases():
         args = _attn_case(dev, gen, b, 32, 8, 128, L, 1, kv, "int8", never_written=True)
         a5 = args[:8]
         out = ca.mx_cached_attention_chunkdot(*a5)
         torch.cuda.synchronize()
         ref = ca.mx_cached_attention_chunkdot_plain(*a5)
-        err = (out.float() - ref.float()).abs().max().item()
+        err, rel, l2, ok = k5_readings(out, ref)
         vs_k4 = (out.float() - ca.mx_cached_attention(*args).float()).abs().max().item()
-        worst5 = max(worst5, err)
+        worst5, worst5_rel, worst5_l2 = max(worst5, err), max(worst5_rel, rel), max(worst5_l2, l2)
         empty = [i for i, n in enumerate(kv) if n == 0]
-        log(f"K5 mx_cached_attention_chunkdot {label}: max abs err {err:.3e} vs plain, {vs_k4:.3e} vs K4-int8")
-        if not err <= 2e-2 or not torch.isfinite(out.float()).all():
-            raise AssertionError(f"K5 {label}: abs err {err}")
+        log(f"K5 mx_cached_attention_chunkdot {label}: max abs err {err:.3e}, row / whole rel L2 {rel:.3e} / "
+            f"{l2:.3e} vs plain at JAX's tile {ca.k5_tile(L)}, {vs_k4:.3e} vs K4-int8")
+        if not ok or not torch.isfinite(out.float()).all():
+            raise AssertionError(f"K5 {label}: abs err {err}, row / whole rel L2 {rel} / {l2}")
         if empty and out[empty].float().abs().max().item() != 0.0:
             raise AssertionError(f"K5 {label}: a row with no visible key must output 0")
+        if not torch.equal(out, ca.mx_cached_attention_chunkdot(*a5)):
+            raise AssertionError(f"K5 {label}: two launches on the same inputs differ")
+        if (label, b, L, kv) not in K5_CASES:
+            continue
         k, v, mask = _sdpa_inputs(args)
         nbytes, ops = _attn_work(args)
         t_b, by = bound(nbytes, ops)
@@ -1040,16 +1104,19 @@ def check_int8_attention_kernels(dev, timer, gen):
                    plain_ms=timer(lambda: ca.mx_cached_attention_chunkdot_plain(*a5), reps=5),
                    library_ms=timer(lambda: F.scaled_dot_product_attention(
                        args[0], k, v, attn_mask=mask, scale=args[7], enable_gqa=True)),
-                   bound_ms=t_b, bound_by=by, max_abs_err=err, max_abs_vs_k4_int8=vs_k4)
+                   bound_ms=t_b, bound_by=by, max_abs_err=err, worst_row_rel=rel, rel_l2=l2, max_abs_vs_k4_int8=vs_k4)
         log("K5 timing", json.dumps(row))
         rows.append(row)
         del k, v, mask
+    faults = check_k5_faults(dev, gen)
     pick = next(r for r in rows if r["case"].startswith("decode b=32"))
     k5 = dict(name="mx_cached_attention_chunkdot", route="cuda",
               source="torchmx_tpu_torch/csrc/mx_attention_chunkdot.cu",
               replaces="torchmx_tpu/ops/pallas_attention.py:307",
               shape="decode b=32 hq=32 hkv=8 d=128 L=1024 kv_len 0..1024 ragged int8 cache",
-              max_abs_err=worst5, ms=pick["ms"], plain_ms=pick["plain_ms"], bound_ms=pick["bound_ms"],
+              max_abs_err=worst5, worst_row_rel=worst5_rel, row_rel_gate=K5_ROW_REL, rel_l2=worst5_l2,
+              rel_l2_gate=K5_L2_REL, faults=faults,
+              ms=pick["ms"], plain_ms=pick["plain_ms"], bound_ms=pick["bound_ms"],
               bound_by=pick["bound_by"], library_ms=pick["library_ms"])
     return k5, rows, worst4
 
@@ -1163,9 +1230,23 @@ K7_CASES = [("decode b=32 L=1024 kv_len 0..1024 ragged", 32, 1024, RAGGED),
             ("decode b=4 L=8192 kv_len=8192", 4, 8192, [8192] * 4)]
 
 
+# K5's timed cases: K7's and the decode over a cache of 1152 positions (a
+# slot the engine rounds up to 128 positions; JAX's tile 128, nine of them).
+K5_CASES = K7_CASES + [("decode b=32 L=1152 kv_len 0..1152 ragged", 32, 1152,
+                        [0] + [1 + (1151 * i) // 30 for i in range(31)])]
+
+
+def k5_edge_cases():
+    """K7's tile edges (K5 takes JAX's tiles too) and, at L = 1152 (nine
+    tiles of 128, shares of four), the tiles' and the shares' edges."""
+    edges = [127, 128, 129, 255, 256, 257, 511, 512, 513, 1023, 1024, 1025, 1151, 1152]
+    return k7_edge_cases() + [(f"decode b={len(edges)} L=1152 lt=128 kv={','.join(map(str, edges))}",
+                               len(edges), 1152, edges)]
+
+
 def k7_edge_cases():
-    """K7's tiles (lt = JAX's ``_pick_lt(L)``) at and around their edges,
-    over L = 1024 (lt 512) and 8192 (lt 2048)."""
+    """K7's and K5's tiles (lt = JAX's ``_pick_lt(L)``) at and around their
+    edges, over L = 1024 (lt 512) and 8192 (lt 2048)."""
     from torchmx_tpu_torch.ops.cuda_attention import _pick_lt
 
     out = []
@@ -1488,8 +1569,8 @@ def check_row_invariance(dev) -> dict:
 def attention_accuracy(dev, gen) -> dict:
     """L2 rel error of every int8 decode-attention version against exact
     attention (float64, p not rounded) on the same cache: the kernels, their
-    plain versions, K5's plain version over one whole-prefix tile, and the
-    bf16 rounding of the exact result alone.  They should err alike: the
+    plain versions, K5's plain version in float64, and the bf16 rounding of
+    the exact result alone.  They should err alike: the
     versions differ in where p is rounded, not in accuracy."""
     from torchmx_tpu_torch.ops import cuda_attention as ca
 
@@ -1503,7 +1584,7 @@ def attention_accuracy(dev, gen) -> dict:
                k4_int8=rel(ca.mx_cached_attention(*args)), k4_int8_plain=rel(ca.mx_cached_attention_plain(*args)),
                bf16_of_exact=rel(exact.to(torch.bfloat16)))
     with f64_plain_attention():
-        out["k5_plain_float64_one_tile"] = rel(ca.mx_cached_attention_chunkdot_plain(*a5))
+        out["k5_plain_float64"] = rel(ca.mx_cached_attention_chunkdot_plain(*a5))
     log(f"int8 decode attention against exact attention, b=2 kv_len 70 and 80 (L2 rel): {json.dumps(out)}")
     if max(out.values()) > 2 * out["bf16_of_exact"]:
         raise AssertionError("an attention version errs more than twice the bf16 rounding of the exact result")
@@ -1565,30 +1646,25 @@ CACHES = {"float8_e4m3": ("float8_e4m3", "seq", False), "int8": ("int8", "seq", 
 def f64_plain_attention():
     """The plain attention versions computed with another rounding, to measure
     how far the model alone carries such a difference: K4, K5 and K6 in
-    float64; K5 over one tile spanning the whole prefix (as the TPU kernel
-    takes it), so that p is rounded to bf16 against the global maximum and not
-    a running one (the CUDA K5 differs from its plain version in just that
-    way: its warps take the tiles in another order); K7 and B14 over tiles
-    of 32 positions, so that p is requantized in other groups; B13's plain
-    version in float64."""
+    float64 (K5 at JAX's tile: p rounded against the same running maxima,
+    each in float64); K7 and B14 over tiles of 32 positions, so that p is
+    requantized in other groups; B13's plain version in float64."""
     import functools
 
     from torchmx_tpu_torch.ops import cuda_attention as ca
     from torchmx_tpu_torch.ops import cuda_mla
 
     names = ("mx_cached_attention_plain", "mx_cached_attention_chunkdot_plain", "mx_cached_attention_dmajor_plain")
-    plain, tile = {n: getattr(ca, n) for n in names + ("mx_cached_attention_int8dot_plain",)}, ca.CHUNKDOT_TILE
+    plain = {n: getattr(ca, n) for n in names + ("mx_cached_attention_int8dot_plain",)}
     mla = {n: getattr(cuda_mla, n) for n in ("mx_mla_attention_plain", "mx_mla_attention_int8dot_plain")}
     for n in names:
         setattr(ca, n, functools.partial(plain[n], compute_dtype=torch.float64))
     ca.mx_cached_attention_int8dot_plain = functools.partial(plain["mx_cached_attention_int8dot_plain"], tile=32)
-    ca.CHUNKDOT_TILE = 1 << 20
     cuda_mla.mx_mla_attention_plain = functools.partial(mla["mx_mla_attention_plain"], compute_dtype=torch.float64)
     cuda_mla.mx_mla_attention_int8dot_plain = functools.partial(mla["mx_mla_attention_int8dot_plain"], tile=32)
     try:
         yield
     finally:
-        ca.CHUNKDOT_TILE = tile
         for n, fn in plain.items():
             setattr(ca, n, fn)
         for n, fn in mla.items():
@@ -1839,11 +1915,14 @@ def model_readings(model, prompt, n, kv, floor: bool, tie_gap: float) -> dict:
 # 8.08e-2; lm_head, sound 2e-6, faults >= 3.02e-2; end-to-end logits, which
 # carry the fp8 amplification of every rounding difference through both
 # layers, sound 4.38e-2 and 6.56e-2, faults >= 9.44e-2.
-# int8 cache: K5's warps take the KV tiles in another order than its
-# plain version, so p is rounded to bf16 against other running maxima: a
-# difference in every term, not in rare ties.  Layer update, sound 4.76e-2
-# (kernels) and 4.67e-2 (plain path with float64 attention over one tile),
-# K5 faults >= 3.57e-1; logits, sound 7.60e-2 and 7.67e-2, faults >= 1.91e-1.
+# int8 cache: K5 rounds p against its plain version's running maxima at
+# JAX's tile, so the kernels read layer 7.52e-5 and logits 0; the plain path
+# with float64 attention (K5 at JAX's tile too) against itself 1.60e-2
+# (layer) and 4.28e-2 (logits), the fp8 activations carrying each rounding
+# flip; the K5 faults >= 2.91e-1 (layer) and 3.01e-1 (logits), the K4 fault
+# 2.02e-2 (layer) and 1.91e-1 (logits).  The gates sit between the float64
+# readings, which are sound too, and the faults (the K4 fault caught by the
+# logits).
 # int8 d-major cache with the all-int8 flag: K7's integer dots are exact and
 # K6 takes its plain version's tiles in its order, so the kernels read 6.3e-5
 # (layer) and 2.63e-2 (logits); the plain path with float64 K6 and K7 over
@@ -1852,12 +1931,12 @@ def model_readings(model, prompt, n, kv, floor: bool, tie_gap: float) -> dict:
 # tie_gap: a step counts as decisive when the plain path's top-2 logit gap
 # exceeds it; the int8 path flips a gap of 0.125 with sound kernels.
 GATES = {"float8_e4m3": {"layer": 5e-2, "lm_head": 2e-2, "logits": 8e-2, "tie_gap": 0.1},
-         "int8": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3},
+         "int8": {"layer": 6e-2, "lm_head": 2e-2, "logits": 9e-2, "tie_gap": 0.3},
          "int8 d-major int8dot": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3},
          # The weight formats keep their cache's gates.  On an H100 80GB HBM3
-         # (700 W), layer / logits: W8A8 sound 2.06e-2 / 3.02e-2 (B9's and B6's
-         # int8 dots are exact), plain with float64 attention 2.01e-2 / 3.04e-2,
-         # faults >= 1.16 / 1.06; MXFP6 2.17e-2 / 5.27e-2, 2.17e-2 / 4.82e-2,
+         # (700 W), layer / logits: W8A8 sound 1.62e-2 / 2.27e-2 (B9's and B6's
+         # int8 dots are exact), plain with float64 attention (K5 at JAX's
+         # tile) 9.84e-3 / 1.76e-2, faults >= 1.16 / 1.06; MXFP6 2.17e-2 / 5.27e-2, 2.17e-2 / 4.82e-2,
          # fault 1.65 / 1.48; MXFP8 1.29e-2 / 4.99e-2, 2.32e-2 / 6.10e-2, fault
          # 1.73 / 1.52.
          "W8A8 int8 cache": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3},
@@ -2123,7 +2202,6 @@ KERNEL_OF_DEVICE_NAME = (  # substring of the CUDA function name -> kernel
     ("rmsnorm_kernel", "mx_rmsnorm"),
     ("chunkdot_kernel", "mx_cached_attention_chunkdot"),
     ("int8dot_kernel", "mx_cached_attention_int8dot"),
-    ("merge_splits_kernel", "split-KV merge of K5"),
     ("attention_dmajor_kernel", "mx_cached_attention_dmajor"),
     ("matmul_fp4_halves_kernel", "mx_matmul_fp4_halves"),
     ("reduce_splits_kernel", "mx_matmul_fp4_halves"),

@@ -588,10 +588,10 @@ cudaError_t run(const void* q, const void* kd, const void* ks, const void* vd, c
   const uint64_t heads = (uint64_t)b * hkv;
   CUtensorMap tkd, tks, tvd, tvs;
   const auto none = CU_TENSOR_MAP_SWIZZLE_NONE;
-  if (!mx::cached_dmajor_map(&tkd, kd, heads * Geom::rows, L, kL, Geom::rows, none) ||
-      !mx::cached_dmajor_map(&tvd, vd, heads * Geom::rows, L, kL, Geom::rows, none) ||
-      !mx::cached_dmajor_map(&tks, ks, heads * (kD / 32), L, kL, kD / 32, none) ||
-      !mx::cached_dmajor_map(&tvs, vs, heads * (kD / 32), L, kL, kD / 32, none))
+  if (!mx::cached_byte_map(&tkd, kd, heads * Geom::rows, L, kL, Geom::rows, none) ||
+      !mx::cached_byte_map(&tvd, vd, heads * Geom::rows, L, kL, Geom::rows, none) ||
+      !mx::cached_byte_map(&tks, ks, heads * (kD / 32), L, kL, kD / 32, none) ||
+      !mx::cached_byte_map(&tvs, vs, heads * (kD / 32), L, kL, kD / 32, none))
     return cudaErrorInvalidValue;
   const int rows = sq * (hq / hkv);
   auto kernel = rows <= 16 ? attention_dmajor_kernel<E, true> : attention_dmajor_kernel<E, false>;

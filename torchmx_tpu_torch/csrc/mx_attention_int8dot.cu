@@ -474,10 +474,10 @@ cudaError_t run(const void* q, const void* kd, const void* ks, const void* vd, c
   CUtensorMap tkd, tks, tvd, tvs;
   // Codes: boxes of 128 positions x 128 rows, 128-byte swizzled; scales: 128 x 4, plain.
   const auto sw = CU_TENSOR_MAP_SWIZZLE_128B, none = CU_TENSOR_MAP_SWIZZLE_NONE;
-  if (!mx::cached_dmajor_map(&tkd, kd, heads * kD, L, kBox, kD, sw) ||
-      !mx::cached_dmajor_map(&tvd, vd, heads * kD, L, kBox, kD, sw) ||
-      !mx::cached_dmajor_map(&tks, ks, heads * kNc, L, kBox, kNc, none) ||
-      !mx::cached_dmajor_map(&tvs, vs, heads * kNc, L, kBox, kNc, none))
+  if (!mx::cached_byte_map(&tkd, kd, heads * kD, L, kBox, kD, sw) ||
+      !mx::cached_byte_map(&tvd, vd, heads * kD, L, kBox, kD, sw) ||
+      !mx::cached_byte_map(&tks, ks, heads * kNc, L, kBox, kNc, none) ||
+      !mx::cached_byte_map(&tvs, vs, heads * kNc, L, kBox, kNc, none))
     return cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {

@@ -3,7 +3,7 @@
 // code -> bf16 decoders (each mirrors a plain PyTorch version in
 // torchmx_tpu_torch/, named in its comment, bit for bit); then what the
 // attention kernels share: the mma and ldmatrix wrappers, the 4x4 byte
-// transpose, warp reductions, and the fixed-order merge of split-KV partials.
+// transpose and warp reductions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -316,78 +316,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// One step of the joint reduction of N values over a pair of lanes: the lane
-// with `up` keeps the upper half of the values and hands over the lower half,
-// its partner the other way round.  Afterwards v[0 .. N/2) hold the kept
-// values, each summed over the pair.
-template <int N, typename T>
-__device__ __forceinline__ void halve(T* v, bool up, int mask) {
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) {
-    const T keep = up ? v[i + N / 2] : v[i];
-    const T send = up ? v[i] : v[i + N / 2];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
-  }
-}
-
-// Split-KV decode attention (K5): every warp of a CTA leaves its running
-// (output[D], max, sum) of each of the G query rows in part[warp][row]; the
-// CTA merges them in warp order.  With ws_cta == nullptr the result is
-// normalised and written to out_rows (G rows of D bf16); else the CTA's
-// partial goes to ws_cta (G x (D + 2) floats) for merge_splits_kernel.  No
-// atomics: the result is deterministic.  Call after __syncthreads().
-template <int G, int W, int D>
-__device__ __forceinline__ void merge_warps(const float (&part)[W][G][D + 2], uint16_t* out_rows,
-                                            float* ws_cta) {
-  const int e = threadIdx.x % D;
-  for (int r = threadIdx.x / D; r < G; r += W * 32 / D) {
-    float m = -1e30f;
-#pragma unroll
-    for (int w = 0; w < W; ++w) m = fmaxf(m, part[w][r][D]);
-    float l = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      const float f = expf(part[w][r][D] - m);
-      l += part[w][r][D + 1] * f;
-      a += part[w][r][e] * f;
-    }
-    if (ws_cta == nullptr) {
-      const float inv = 1.f / (l == 0.f ? 1.f : l);
-      out_rows[r * D + e] = __bfloat16_as_ushort(__float2bfloat16_rn(a * inv));
-    } else {
-      float* dst = ws_cta + r * (D + 2);
-      dst[e] = a;
-      if (e == 0) {
-        dst[D] = m;
-        dst[D + 1] = l;
-      }
-    }
-  }
-}
-
-// Merge the partials of a (batch row, KV head) pair's CTAs in CTA order.
-// Grid (hkv, b), D threads; ws holds splits x G x (D + 2) floats per pair.
-template <int D>
-__global__ void __launch_bounds__(D)
-merge_splits_kernel(const float* __restrict__ ws, uint16_t* __restrict__ out, int G, int splits) {
-  const long long kv_head = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-  const int e = threadIdx.x;
-  for (int r = 0; r < G; ++r) {
-    const float* src = ws + (kv_head * splits * G + r) * (D + 2);
-    const long long stride = (long long)G * (D + 2);
-    float m = -1e30f;
-    for (int sp = 0; sp < splits; ++sp) m = fmaxf(m, src[sp * stride + D]);
-    float l = 0.f, a = 0.f;
-    for (int sp = 0; sp < splits; ++sp) {
-      const float f = expf(src[sp * stride + D] - m);
-      l += src[sp * stride + D + 1] * f;
-      a += src[sp * stride + e] * f;
-    }
-    const float inv = 1.f / (l == 0.f ? 1.f : l);
-    out[(kv_head * G + r) * D + e] = __bfloat16_as_ushort(__float2bfloat16_rn(a * inv));
-  }
 }
 
 }  // namespace mx

@@ -128,27 +128,7 @@ __device__ __forceinline__ void mma_s8_acc(int* c, const uint32_t* a, const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// The cluster: a barrier split into its arrive and wait (release / acquire:
-// shared-memory writes before the arrive are seen by reads after the wait,
-// in every CTA), and loads from another CTA's shared memory.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void cluster_sync() {
-  cluster_arrive();
-  cluster_wait();
-}
-__device__ __forceinline__ uint32_t cluster_addr(uint32_t local, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(local), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
-  float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
-  return v;
-}
+// Four int32 from another CTA's shared memory (an address from mx::cluster_addr).
 __device__ __forceinline__ int4 ld_cluster_v4(uint32_t addr) {
   int4 v;
   asm volatile("ld.shared::cluster.v4.s32 {%0,%1,%2,%3}, [%4];\n"
@@ -376,11 +356,11 @@ mla_int8dot_kernel(const __grid_constant__ CUtensorMap tlat, const __grid_consta
     m = row_reduce<TPR, false>(m);
     if (k == 0) stat[row_r] = m;
   }
-  cluster_sync();  // 1: the shares' maxima
+  mx::cluster_sync();  // 1: the shares' maxima
   float M = kNegInf;
 #pragma unroll
   for (int c = 0; c < kMaxCluster; ++c)
-    if (c < C) M = fmaxf(M, ld_cluster_f32(cluster_addr(sbase + Lay::stat + 4 * row_r, c)));
+    if (c < C) M = fmaxf(M, mx::ld_cluster_f32(mx::cluster_addr(sbase + Lay::stat + 4 * row_r, c)));
   {
     const uint8_t* scl = smem + Lay::scl;
     float l = 0.f, mxv = 0.f;
@@ -398,14 +378,14 @@ mla_int8dot_kernel(const __grid_constant__ CUtensorMap tlat, const __grid_consta
       stat[2 * NR + row_r] = mxv;
     }
   }
-  cluster_sync();  // 2: l_c and mx_c
+  mx::cluster_sync();  // 2: l_c and mx_c
   {
     float l = 0.f, mxv = 0.f;
 #pragma unroll
     for (int c = 0; c < kMaxCluster; ++c) {  // in rank order
       if (c < C) {
-        l = __fadd_rn(l, ld_cluster_f32(cluster_addr(sbase + Lay::stat + 4 * (NR + row_r), c)));
-        mxv = fmaxf(mxv, ld_cluster_f32(cluster_addr(sbase + Lay::stat + 4 * (2 * NR + row_r), c)));
+        l = __fadd_rn(l, mx::ld_cluster_f32(mx::cluster_addr(sbase + Lay::stat + 4 * (NR + row_r), c)));
+        mxv = fmaxf(mxv, mx::ld_cluster_f32(mx::cluster_addr(sbase + Lay::stat + 4 * (2 * NR + row_r), c)));
       }
     }
     mxv = mxv == 0.f ? 1.f : mxv;
@@ -469,7 +449,7 @@ mla_int8dot_kernel(const __grid_constant__ CUtensorMap tlat, const __grid_consta
         *reinterpret_cast<int2*>(pv + d * Lay::kPvRow + 8 * nt + 2 * t) =
             make_int2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
       }
-  cluster_sync();  // 3: the partials
+  mx::cluster_sync();  // 3: the partials
 
   // 5. CTA `rank` sums its slice of dims over the cluster (exact integers),
   // a thread four heads of a dim at a time; acc_t = sum * (mx_t / 127): the
@@ -485,7 +465,7 @@ mla_int8dot_kernel(const __grid_constant__ CUtensorMap tlat, const __grid_consta
     const uint32_t local = sbase + Lay::lat + 4 * ((d_lo + d) * Lay::kPvRow + 4 * q4);
     int4 v[kMaxCluster];
 #pragma unroll
-    for (int c = 0; c < kMaxCluster; ++c) v[c] = c < C ? ld_cluster_v4(cluster_addr(local, c)) : make_int4(0, 0, 0, 0);
+    for (int c = 0; c < kMaxCluster; ++c) v[c] = c < C ? ld_cluster_v4(mx::cluster_addr(local, c)) : make_int4(0, 0, 0, 0);
     int4 s4 = v[0];
 #pragma unroll
     for (int c = 1; c < kMaxCluster; ++c) {
@@ -508,9 +488,9 @@ mla_int8dot_kernel(const __grid_constant__ CUtensorMap tlat, const __grid_consta
       }
     }
   }
-  cluster_arrive();  // 4: done reading the cluster's shared memory (waited for before exit)
+  mx::cluster_arrive();  // 4: done reading the cluster's shared memory (waited for before exit)
   if (n_live == 1) {
-    cluster_wait();
+    mx::cluster_wait();
     return;
   }
   if (tid < NR) {
@@ -571,7 +551,7 @@ mla_int8dot_kernel(const __grid_constant__ CUtensorMap tlat, const __grid_consta
     }
     if (tid == 0) *ticket = 0;
   }
-  cluster_wait();
+  mx::cluster_wait();
 }
 
 template <int NR, int P>
@@ -581,8 +561,8 @@ cudaError_t run(const void* ql, const void* qr, const void* ld, const void* ls, 
                 int fault, cudaStream_t stream) {
   CUtensorMap tlat, trot;
   const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;  // boxes of 128 positions x 256 / 64 rows
-  if (!mx::cached_dmajor_map(&tlat, ld, (uint64_t)b * kR, L, kBox, 256, sw) ||
-      !mx::cached_dmajor_map(&trot, rd, (uint64_t)b * kDr, L, kBox, kDr, sw))
+  if (!mx::cached_byte_map(&tlat, ld, (uint64_t)b * kR, L, kBox, 256, sw) ||
+      !mx::cached_byte_map(&trot, rd, (uint64_t)b * kDr, L, kBox, kDr, sw))
     return cudaErrorInvalidValue;
   constexpr int smem = Smem<NR, P>::total + 1024;
   static_assert(smem <= kSmemMax, "shared memory");

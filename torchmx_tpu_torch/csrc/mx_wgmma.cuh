@@ -3,7 +3,8 @@
 // writes and wgmma and ldmatrix read, wgmma's shared-memory matrix
 // descriptor, and wgmma.mma_async m64n{16,32,64,128}k16 bf16 -> f32 (and
 // m64n64k32 on int8 codes) with A from registers and B K-major in shared
-// memory; for B13 also A from shared memory and B N-major.  sm_90a only.
+// memory; for B13 also A from shared memory and B N-major; the cluster
+// barrier and loads from a neighbour's shared memory.  sm_90a only.
 //
 // Tiles.  An operand tile is made of 1024-byte atoms of eight 128-byte rows
 // (row r of a K-major B tile holds 64 bf16 K values); the 16-byte chunk c
@@ -305,6 +306,30 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
+// A thread-block cluster: a barrier split into its arrive and wait (release
+// / acquire: shared-memory writes before the arrive are seen by reads after
+// the wait, in every CTA; every thread of the cluster takes part), and loads
+// from another CTA's shared memory.  B14 and K5 exchange their tiles'
+// statistics so.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t local, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(local), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
 // Host side: cuTensorMapEncodeTiled, looked up through the runtime's entry
 // points (no link against libcuda).
 inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
@@ -336,34 +361,35 @@ inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* b
 
 
 // A 2-D uint8 tensor map over rows of L bytes (a d-major cache buffer: code
-// or scale rows, the positions innermost), boxes of box_inner positions x
-// box_rows rows, encoded once for each (pointer, rows, L, box, swizzle) and
-// kept, so that a call does no encode on the host.  A pointer that a later
-// buffer of the same shape reuses gives the same map; the box is part of the
-// key (a code buffer may reuse a scale buffer's address with the same number
-// of rows).  K6, K7 and B14 read their caches through it.
-struct DmajorMapKey {
+// or scale rows, the positions innermost; or a seq-layout code buffer: a
+// position's d codes a row), boxes of box_inner bytes x box_rows rows,
+// encoded once for each (pointer, rows, L, box, swizzle) and kept, so that a
+// call does no encode on the host.  A pointer that a later buffer of the
+// same shape reuses gives the same map; the box is part of the key (a code
+// buffer may reuse a scale buffer's address with the same number of rows).
+// K5, K6, K7 and B14 read their caches through it.
+struct ByteMapKey {
   uintptr_t p;
   uint64_t rows, L;
   uint32_t box_inner, box_rows;
   int swizzle;
-  bool operator==(const DmajorMapKey& o) const {
+  bool operator==(const ByteMapKey& o) const {
     return p == o.p && rows == o.rows && L == o.L && box_inner == o.box_inner && box_rows == o.box_rows &&
            swizzle == o.swizzle;
   }
 };
-struct DmajorMapKeyHash {
-  size_t operator()(const DmajorMapKey& k) const {
+struct ByteMapKeyHash {
+  size_t operator()(const ByteMapKey& k) const {
     return std::hash<uintptr_t>()(k.p) ^ (k.rows * 0x9E3779B97F4A7C15ull) ^ (k.L << 8) ^ k.box_rows ^
            ((size_t)k.box_inner << 20) ^ ((size_t)k.swizzle << 40);
   }
 };
 
-inline bool cached_dmajor_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t L, uint32_t box_inner,
+inline bool cached_byte_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t L, uint32_t box_inner,
                               uint32_t box_rows, CUtensorMapSwizzle swizzle) {
   static std::mutex mu;
-  static std::unordered_map<DmajorMapKey, CUtensorMap, DmajorMapKeyHash> maps;
-  const DmajorMapKey key{(uintptr_t)base, rows, L, box_inner, box_rows, (int)swizzle};
+  static std::unordered_map<ByteMapKey, CUtensorMap, ByteMapKeyHash> maps;
+  const ByteMapKey key{(uintptr_t)base, rows, L, box_inner, box_rows, (int)swizzle};
   std::lock_guard<std::mutex> lock(mu);
   auto it = maps.find(key);
   if (it == maps.end()) {

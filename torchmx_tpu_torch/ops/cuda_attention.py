@@ -26,8 +26,11 @@ for bit for every row whose visible prefix lies in one chunk, and elsewhere
 differs in fp32 summation order only.
 
 K5 computes the same attention for ``sq == 1`` over an int8 cache with the
-block scales factored out of the dots (``mx_cached_attention_chunkdot_plain``
-states the formula and its rounding points).  K7 goes further: q and p are
+block scales factored out of the dots, p rounded to bf16 against JAX's running
+maximum at JAX's tile (``mx_cached_attention_chunkdot_plain`` states the
+formula and its rounding points); its kernel takes a share of a JAX tile a
+CTA of a thread-block cluster, which exchanges the shares' maxima and
+combines the shares in the same launch.  K7 goes further: q and p are
 quantized to int8 too and both dots are exact integer sums, p requantized
 once per KV tile of JAX's ``_pick_lt(L)`` positions
 (``mx_cached_attention_int8dot_plain``); its kernel takes a tile a CTA,
@@ -49,8 +52,6 @@ from .backend import on_cuda
 
 NEG_INF = -1e30
 KV_TILE = 64  # KV positions per online-softmax step (kL in csrc/mx_attention.cu)
-CHUNKDOT_TILE = 32  # the same for K5 (kTile in csrc/mx_attention_chunkdot.cu)
-CHUNKDOT_WARPS = 8  # warps per CTA of K5 (kWarps)
 BLOCK = 32
 IntOrTensor = Union[int, torch.Tensor]
 
@@ -58,10 +59,42 @@ IntOrTensor = Union[int, torch.Tensor]
 def _pick_lt(L: int) -> Optional[int]:
     """JAX's KV tile for a cache of ``L`` positions
     (``torchmx_tpu/ops/pallas_attention.py:863-872``, also used by
-    ``pallas_mla.py``): None where no tile divides L.  K7 requantizes p once
-    per such tile; B14 and the MLA plan read it too (``ops/cuda_mla``)."""
+    ``pallas_mla.py``): None where no tile divides L.  K5 rounds p against
+    the running maximum through each such tile and K7 requantizes p once per
+    tile; B14 and the MLA plan read it too (``ops/cuda_mla``)."""
     cap = 2048 if L >= 8192 else (1024 if L >= 2048 else 512)
     return next((c for c in (cap, 1024, 512, 256, 128) if c <= cap and L % c == 0), None)
+
+
+K5_MAX_SHARES = 8  # CTAs of K5's cluster at most (kMaxCluster in csrc/mx_attention_chunkdot.cu)
+K5_MAX_SHARE = 4096  # positions a CTA of K5 takes at most (kMaxShare): its scores fit shared memory
+
+
+def k5_tile(L: int) -> int:
+    """K5's KV tile for a cache of ``L`` positions: JAX's ``_pick_lt(L)``, or
+    the whole cache where no JAX tile divides L.  The dispatch sends K5 only
+    lengths with a JAX tile (``use_chunkdot``); the engine rounds its slots up
+    to 128 positions, so no served path meets the other case."""
+    return _pick_lt(L) or L
+
+
+def k5_share(L: int) -> int:
+    """Positions a CTA of K5's kernel takes, a function of L alone, so that a
+    row's arithmetic does not depend on the batch or the visible prefix.
+    Where the cache holds more than ``K5_MAX_SHARES`` tiles (L = 1152 has 9
+    of 128), whole consecutive tiles, the CTA walking their running maxima
+    in order: at least 512 positions (the ragged decode over 1152 positions
+    0.0394 ms a call at 512 against 0.0495 at 256 on an H100) and at most
+    ``K5_MAX_SHARES`` shares.  Else a divisor of the tile: the tile itself where the cache is at most
+    1024 positions (512 at L = 1024: the engine's decode), else the smallest
+    share the cluster allows (1024 at L = 8192: more CTAs an SM, which the
+    kernel's latency-bound loops need; ``tools/phase_profile.py --kernel
+    k5``)."""
+    lt = k5_tile(L)
+    nt = L // lt
+    if nt > K5_MAX_SHARES:
+        return max(-(-nt // K5_MAX_SHARES), -(-512 // lt)) * lt
+    return lt if L <= 1024 else lt // (K5_MAX_SHARES // nt)
 
 
 def _per_row(v: IntOrTensor, b: int, device) -> torch.Tensor:
@@ -180,27 +213,40 @@ def _pow2_scale(se: torch.Tensor) -> torch.Tensor:
 
 def mx_cached_attention_chunkdot_plain(
     q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float,
-    compute_dtype: torch.dtype = torch.float32,
+    compute_dtype: torch.dtype = torch.float32, tile: Optional[int] = None,
 ) -> torch.Tensor:
-    """Plain version of K5, tile by tile (``CHUNKDOT_TILE`` positions), for
-    the ``g = hq / hkv`` query rows of each KV head and the ``d/32`` chunks c:
+    """Plain version of K5, KV tile by KV tile (``tile`` positions, by default
+    ``k5_tile(L)``: JAX's ``_pick_lt(L)``; the result depends on it), for the
+    ``g = hq / hkv`` query rows r of each KV head, the ``d/32`` chunks c and
+    position j:
 
-    * ``s[r, j] = sm_scale * sum_c 2^(se_k[j,c]-127) * (q_c[r] . k_c[j])`` with
-      ``k`` the bare int8 code and each chunk's partial sum in fp32;
-    * position j is visible when ``j <= q_off`` and ``j < kv_len``; masked
-      scores are ``-1e30``; online softmax in fp32;
-    * ``out_c[r] = sum_j bf16(p[r, j] * 2^(se_v[j,c]-127)) . v_c[j]``: the V
-      scale folds into p, and the product is rounded to bf16 before the dot;
-    * a row with no visible key outputs 0.
+    * ``s[r, j] = sm_scale * sum_c (q_c[r] . k_c[j]) * 2^(ek[j,c]-127)`` with
+      ``k`` the bare int8 code, each chunk's partial sum in fp32 and the
+      chunks added in chunk order;
+    * j is visible when ``j <= q_off`` and ``j < kv_len``; masked scores are
+      ``-1e30``;
+    * JAX's online softmax over the tiles t in order: ``m_t = max(m_{t-1},
+      max_j s)`` (``m_{-1} = -1e30``), ``p = exp(s - m_t)``, ``l_t = l_{t-1}
+      e^(m_{t-1} - m_t) + sum_j p``;
+    * ``acc_t[r, c] = acc_{t-1} e^(m_{t-1} - m_t) + sum_j bf16(p[r, j] *
+      2^(ev[j,c]-127)) . v_c[j]``: the V scale folds into p, and the product
+      is rounded to bf16 against the running maximum ``m_t`` before the dot;
+      ``out = acc / l``;
+    * a hidden position contributes nothing, whatever its stale scale holds;
+      a row with no visible key outputs 0.
 
-    Only fp32 summation orders (and the running maxima p is rounded against)
-    differ from the kernel.  ``compute_dtype=torch.float64`` computes the same
-    function with another rounding, to measure sensitivity to it."""
+    At JAX's tile this is the JAX kernel's arithmetic, bit for bit on the CPU
+    at L = 256 and 2048 (elsewhere within fp32 summation order).  The kernel
+    rounds every p against the same ``m_t`` and combines the tiles at the
+    end, so it differs in fp32 rounding only.  ``compute_dtype=torch.float64``
+    computes the same function with another rounding, to measure
+    sensitivity to it."""
     b, hq, sq, d = q.shape
     hkv, L = k_data.shape[1], k_data.shape[2]
     if sq != 1 or d % BLOCK or hq % hkv or k_data.dtype != torch.int8 or v_data.dtype != torch.int8:
         raise ValueError(f"chunk-dot attention takes sq == 1 over an int8 cache, got q{tuple(q.shape)} "
                          f"codes {k_data.dtype}")
+    tile = tile or k5_tile(L)
     G, nc, f, dev = hq // hkv, d // BLOCK, compute_dtype, q.device
     qc = q.to(torch.bfloat16).to(f).reshape(b, hkv, G, nc, BLOCK)
     q_off = _per_row(q_off, b, dev)
@@ -210,14 +256,14 @@ def mx_cached_attention_chunkdot_plain(
     l = torch.zeros((b, hkv, G, 1), dtype=f, device=dev)
     acc = torch.zeros((b, hkv, G, nc, BLOCK), dtype=f, device=dev)
 
-    def tile(data, scale, t0):
-        codes = data[:, :, t0:t0 + CHUNKDOT_TILE].to(f)  # bare: int8 -> float is exact
-        sc = _pow2_scale(scale[:, :, t0:t0 + CHUNKDOT_TILE]).to(f)
+    def codes_and_scales(data, scale, t0):
+        codes = data[:, :, t0:t0 + tile].to(f)  # bare: int8 -> float is exact
+        sc = _pow2_scale(scale[:, :, t0:t0 + tile]).to(f)
         # (b, hkv, T, nc, 32) codes and (b, hkv, 1, nc, T) scales
         return codes.reshape(b, hkv, -1, nc, BLOCK), sc.transpose(-1, -2)[:, :, None]
 
-    for t0 in range(0, int(visible.max()), CHUNKDOT_TILE):
-        kc, ksc = tile(k_data, k_scale, t0)
+    for t0 in range(0, int(visible.max()), tile):
+        kc, ksc = codes_and_scales(k_data, k_scale, t0)
         T = kc.shape[2]
         valid = (torch.arange(t0, t0 + T, device=dev) < visible[:, None])[:, None, None, :]
         dots = torch.einsum("bhgcd,bhjcd->bhgcj", qc, kc)  # chunk partial sums
@@ -227,7 +273,7 @@ def mx_cached_attention_chunkdot_plain(
         alpha = torch.exp(m - m_new)
         p = torch.where(valid, torch.exp(s - m_new), 0.0)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
-        vc, vsc = tile(v_data, v_scale, t0)
+        vc, vsc = codes_and_scales(v_data, v_scale, t0)
         # A hidden position contributes nothing, whatever its stale scale holds.
         p3 = torch.where(valid[:, :, :, None], (p[:, :, :, None] * vsc).to(torch.bfloat16).to(f), 0.0)
         acc = acc * alpha[..., None] + torch.einsum("bhgcj,bhjcd->bhgcd", p3, vc)
@@ -236,47 +282,59 @@ def mx_cached_attention_chunkdot_plain(
     return out.reshape(b, hq, 1, d).to(torch.bfloat16)
 
 
-def _kv_splits(b: int, hkv: int, L: int, positions_per_cta: int, device: torch.device) -> int:
-    """CTAs per (batch row, KV head) pair of K5, which splits the KV length:
-    one when the pairs alone fill the SMs, else enough to put two CTAs on
-    each SM, at most one per ``positions_per_cta`` of the cache (one tile for
-    each of a CTA's warps).  It depends on shapes only, never on the
-    positions (they stay on the device)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    if b * hkv >= sms:
-        return 1
-    return max(1, min(-(-2 * sms // (b * hkv)), L // positions_per_cta))
+def row_args(q_off: IntOrTensor, kv_len: IntOrTensor, b: int, device):
+    """``q_off`` and ``kv_len`` as K5 and B14 take them: ``(tensors to keep
+    alive, (q_off pointer, kv_len pointer, q_off number, kv_len number))``.
+    Two numbers go as they are, with null pointers (no fill launch); else
+    both go as (b,) int32 on the device."""
+    if not isinstance(q_off, torch.Tensor) and not isinstance(kv_len, torch.Tensor):
+        return (), (None, None, int(q_off), int(kv_len))
+    q_off, kv_len = _per_row(q_off, b, device), _per_row(kv_len, b, device)
+    return (q_off, kv_len), (q_off.data_ptr(), kv_len.data_ptr(), 0, 0)
 
 
 def mx_cached_attention_chunkdot(
-    q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float
+    q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float,
+    p_from_own_tile_max: bool = False, drop_last_tile: bool = False,
 ) -> torch.Tensor:
-    """K5: ``q (b, hq, 1, d)`` bf16 over the seq-layout int8 MX cache.  CUDA
-    tensors launch the kernel (d = 128, hq / hkv in 1, 2, 4, 8; other shapes
-    raise)."""
+    """K5: ``q (b, hq, 1, d)`` bf16 over the seq-layout int8 MX cache
+    ``(b, hkv, L, d)`` codes + ``(b, hkv, L, d/32)`` scales.  CUDA tensors
+    launch the kernel (d = 128, hq / hkv in 1, 2, 4, 8, L % 4 == 0, shares of
+    ``k5_share(L) <= K5_MAX_SHARE`` positions, 16-byte aligned buffers; other
+    shapes raise), one launch a call: a thread-block cluster a (batch row, KV
+    head), a CTA a share (a part of a tile, or whole consecutive tiles), the
+    shares' maxima shared across the cluster and the shares combined in the
+    same launch.  ``q_off`` and ``kv_len`` are read on the device; where
+    ``kv_len`` is a number only the shares below it are launched.
+    ``p_from_own_tile_max`` (p rounded against its tile's own maximum, not
+    the running one) and ``drop_last_tile`` (a row's last live tile left
+    out) are planted faults for the checks, never set by the package."""
     if not on_cuda(q, k_data, k_scale, v_data, v_scale):
         return mx_cached_attention_chunkdot_plain(
             q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale
         )
     b, hq, sq, d = q.shape
     _, hkv, L, dp = k_data.shape
-    if sq != 1 or d != 128 or dp != d or hq % hkv or hq // hkv not in (1, 2, 4, 8):
+    lt, P = k5_tile(L), k5_share(L)
+    if (sq != 1 or d != 128 or dp != d or hq % hkv or hq // hkv not in KERNEL_GROUPS or L % 4
+            or P > K5_MAX_SHARE):
         raise ValueError(
-            f"the chunk-dot attention kernel takes sq=1, d=128 and hq/hkv in (1, 2, 4, 8), "
-            f"got q{tuple(q.shape)} cache{tuple(k_data.shape)}"
+            f"the chunk-dot attention kernel takes sq=1, d=128, hq/hkv in (1, 2, 4, 8) and shares of "
+            f"k5_share(L) <= {K5_MAX_SHARE} positions, got q{tuple(q.shape)} cache{tuple(k_data.shape)}"
         )
     _check_cache_tensors(k_data, k_scale, v_data, v_scale, torch.int8)
+    if k_scale.shape != (b, hkv, L, d // BLOCK) or v_scale.shape != k_scale.shape or v_data.shape != k_data.shape:
+        raise ValueError(f"seq scales must be ({b}, {hkv}, {L}, {d // BLOCK}) beside codes {tuple(k_data.shape)}")
     q = q.to(torch.bfloat16).contiguous()
-    q_off = _per_row(q_off, b, q.device)
-    kv_len = _per_row(kv_len, b, q.device)
+    # Where kv_len is a number, no share past it is launched; a tensor is never read on the host.
+    ctas = -(-L // P) if isinstance(kv_len, torch.Tensor) else max(1, -(-min(max(int(kv_len), 0), L) // P))
+    _keep, pos = row_args(q_off, kv_len, b, q.device)
     out = torch.empty_like(q)
-    splits = _kv_splits(b, hkv, L, CHUNKDOT_TILE * CHUNKDOT_WARPS, q.device)
-    ws = torch.empty((b * hq * splits * (d + 2)) if splits > 1 else 1, dtype=torch.float32, device=q.device)
     cuda_lib.launch(
         "mx_attention_chunkdot", "mx_cached_attention_chunkdot_launch",
-        q.data_ptr(), k_data.data_ptr(), k_scale.data_ptr(), v_data.data_ptr(),
-        v_scale.data_ptr(), q_off.data_ptr(), kv_len.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        b, hq, hkv, L, d, float(sm_scale), splits,
+        q.data_ptr(), k_data.data_ptr(), k_scale.data_ptr(), v_data.data_ptr(), v_scale.data_ptr(),
+        *pos, out.data_ptr(), b, hq, hkv, L, d, lt, P, ctas, float(sm_scale),
+        int(p_from_own_tile_max) | 2 * int(drop_last_tile),
     )
     return out
 
@@ -530,12 +588,17 @@ def mx_cached_attention_int8dot(
 KERNEL_GROUPS = (1, 2, 4, 8)  # query heads per KV head that K5 and K7 take
 
 
-def use_chunkdot(elem_dtype_name: str, sq: int, d: int, group: int = 1) -> bool:
+def use_chunkdot(elem_dtype_name: str, sq: int, d: int, group: int, L: int) -> bool:
     """True when K5 serves the call in the seq layout: int8 cache, one query
-    position, and the shapes K5 takes, head_dim 128 and 1, 2, 4 or 8 query
-    heads per KV head (``use_chunkdot`` of the reference also takes any d %
-    128 == 0 and any group; those tiers are not ported)."""
-    return elem_dtype_name == "int8" and sq == 1 and d == 128 and group in KERNEL_GROUPS
+    position, and the shapes K5 takes, head_dim 128, 1, 2, 4 or 8 query heads
+    per KV head and a cache of ``L`` positions that JAX's tile divides
+    (``_pick_lt``: where none does, JAX's plan serves no kernel, and K4 serves
+    the call) with shares of at most ``K5_MAX_SHARE`` positions: every such
+    L up to 32768, the longest context of the port's models.  The
+    reference's ``use_chunkdot`` also takes any d % 128 == 0, any group and
+    longer caches; those tiers are not ported."""
+    return (elem_dtype_name == "int8" and sq == 1 and d == 128 and group in KERNEL_GROUPS
+            and _pick_lt(L) is not None and k5_share(L) <= K5_MAX_SHARE)
 
 
 def use_int8dot(cache, sq: int, d: int, group: int = 1) -> bool:
@@ -563,6 +626,6 @@ def cached_attention_any(q, cache, q_off: IntOrTensor, kv_len: IntOrTensor, sm_s
         if use_int8dot(cache, q.shape[2], q.shape[3], group):
             return mx_cached_attention_int8dot(q, *tensors, q_off, kv_len, sm_scale)
         return mx_cached_attention_dmajor(q, *tensors, q_off, kv_len, sm_scale, cache.elem_dtype_name)
-    if use_chunkdot(cache.elem_dtype_name, q.shape[2], q.shape[3], group):
+    if use_chunkdot(cache.elem_dtype_name, q.shape[2], q.shape[3], group, cache.k_data.shape[2]):
         return mx_cached_attention_chunkdot(q, *tensors, q_off, kv_len, sm_scale)
     return mx_cached_attention(q, *tensors, q_off, kv_len, sm_scale, cache.elem_dtype_name)

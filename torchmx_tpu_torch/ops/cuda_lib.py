@@ -132,10 +132,10 @@ SIGNATURES = {
         ),
     },
     "mx_attention_chunkdot": {
-        # q, kd, ks, vd, vs, q_off, kv_len, out, workspace, b, hq, hkv, L, d,
-        # sm_scale, splits, stream
+        # q, kd, ks, vd, vs, q_off, kv_len (null: the two numbers that follow), q_off number, kv_len
+        # number, out, b, hq, hkv, L, d, tile, positions a CTA, the grid's CTAs, sm_scale, fault (0), stream
         "mx_cached_attention_chunkdot_launch": (
-            _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P
         ),
     },
     "mx_attention_dmajor": {

@@ -55,7 +55,7 @@ from ..mx_array import dequantize_mx
 from ..packing import fp4_halves_to_pairs
 from . import cuda_lib, split_kv
 from .backend import on_cuda
-from .cuda_attention import NEG_INF, IntOrTensor, _per_row, _pick_lt, _pow2_scale
+from .cuda_attention import NEG_INF, IntOrTensor, _per_row, _pick_lt, _pow2_scale, row_args
 from .cuda_norm import pairwise_sum
 from .cuda_quantize import mx_quantize_rows, mx_quantize_rows_plain
 
@@ -408,12 +408,7 @@ def mx_mla_attention_int8dot(q_lat, q_rot, lat_data, lat_scale, rot_data, rot_sc
     # Where kv_len is a number, no tile past it is launched; a tensor is never read on the host.  Where
     # both are numbers they go to the kernel as they are (no fill launches).
     tiles = L // lt if isinstance(kv_len, torch.Tensor) else max(1, -(-min(int(kv_len), L) // lt))
-    numbers = not isinstance(q_off, torch.Tensor) and not isinstance(kv_len, torch.Tensor)
-    if numbers:
-        pos = (None, None, int(q_off), int(kv_len))
-    else:
-        q_off, kv_len = _per_row(q_off, b, ql.device), _per_row(kv_len, b, ql.device)
-        pos = (q_off.data_ptr(), kv_len.data_ptr(), 0, 0)
+    _keep, pos = row_args(q_off, kv_len, b, ql.device)
     out = torch.empty((b, n, 1, r), dtype=torch.bfloat16, device=ql.device)
     nr = 16 if n <= 16 else 32  # heads a cluster takes (NR in csrc/mx_mla_int8dot.cu)
     units = b * -(-n // nr)

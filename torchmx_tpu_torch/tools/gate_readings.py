@@ -1,9 +1,11 @@
 """Where a split-KV kernel's kernel-vs-plain gate sits: the sound kernel and
-the planted combine fault (``drop_last_chunk``, K7's and B14's
-``drop_last_tile``: the last live chunk or tile of a row left out) against
-the plain version.  Each reading is the max abs error and
-the worst row's relative L2 error (``chip_smoke.worst_row_rel``), over the
-case and, for the fault, over each batch row alone.
+the planted combine fault (``drop_last_chunk``, K5's, K7's and B14's
+``drop_last_tile``: the last live chunk or tile of a row left out; for K5
+also ``p_from_own_tile_max``: p rounded against its tile's own maximum, not
+the running one) against the plain version.  Each reading is the max abs error, the
+worst row's relative L2 error (``chip_smoke.worst_row_rel``) and the whole
+output's relative L2 error, over the case and, for the fault, over each
+batch row alone.
 
 * ``--kernel b13``: B13 at every ``chip_smoke.MLA_CASES`` and
   ``MLA_SPLIT_CASES`` shape in all six latent formats, and at two probes
@@ -19,11 +21,19 @@ case and, for the fault, over each batch row alone.
   and 8192, one batch row alone;
 * ``--kernel b14``: B14 at ``chip_smoke.MLA_INT8DOT_CASES`` and at
   ``chip_smoke.b14_edge_cases``, and at the probes kv_len = lt + 1 and 2 lt +
-  1 (lt = JAX's tile) at L = 1024 and 8192, one batch row alone.
+  1 (lt = JAX's tile) at L = 1024 and 8192, one batch row alone;
+* ``--kernel k5``: K5 at its four decode shapes (``chip_smoke.K5_CASES``)
+  and at ``chip_smoke.k5_edge_cases`` (JAX's tiles and K5's shares) in every
+  GQA group (hq = 32, 16, 8 over 8 KV heads; 8 over 1), and at
+  ``chip_smoke.k5_fault_probes``, one batch row alone (the fault a probe is
+  for in its label).
 
-Run from the repository root with one card:
+``--seeds n`` draws every input n times (random K, V and q from a normal
+distribution, as the checks draw them) and prints the spread of the sound
+and the fault readings over the draws.  Run from the repository root with
+one card:
 
-    python3 torchmx_tpu_torch/tools/gate_readings.py --kernel b13|k6|k7|b14
+    python3 torchmx_tpu_torch/tools/gate_readings.py --kernel b13|k6|k7|b14|k5 [--seeds n]
 
 Writes ``chiprun_out/<kernel>_gate_readings.json``.
 """
@@ -96,13 +106,32 @@ def readings_b14(cs, dev, gen):
         del c, args
 
 
-# the combine fault's switch
-FAULT = dict(b13="drop_last_chunk", k6="drop_last_chunk", k7="drop_last_tile", b14="drop_last_tile")
+def readings_k5(cs, dev, gen):
+    from torchmx_tpu_torch.ops import cuda_attention as ca
+
+    groups = [(32, 8), (16, 8), (8, 8), (8, 1)]
+    for label, b, L, kv in cs.K5_CASES + cs.k5_edge_cases():
+        for hq, hkv in groups:
+            args = cs._attn_case(dev, gen, b, hq, hkv, 128, L, 1, kv, "int8", never_written=True)[:8]
+            yield f"{label} hq={hq} hkv={hkv}", "int8", b, ca.mx_cached_attention_chunkdot, args, \
+                ca.mx_cached_attention_chunkdot_plain(*args)
+            del args
+    for L, kv, fault in cs.k5_fault_probes():
+        args = cs._attn_case(dev, gen, 1, 32, 8, 128, L, 1, [kv], "int8", never_written=True)[:8]
+        yield f"fault probe L={L} kv={kv} ({fault})", "int8", 1, ca.mx_cached_attention_chunkdot, args, \
+            ca.mx_cached_attention_chunkdot_plain(*args)
+        del args
+
+
+# the planted faults' switches, the combine fault first
+FAULT = dict(b13=("drop_last_chunk",), k6=("drop_last_chunk",), k7=("drop_last_tile",), b14=("drop_last_tile",),
+             k5=("drop_last_tile", "p_from_own_tile_max"))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=tuple(FAULT), required=True)
+    ap.add_argument("--seeds", type=int, default=1, help="draws of every input (seeds 1234, 1235, ...)")
     args = ap.parse_args()
     sys.path.insert(0, os.getcwd())
     import torch
@@ -113,27 +142,50 @@ def main() -> int:
     import chip_smoke as cs
 
     dev = torch.device("cuda")
-    gen = torch.Generator(dev).manual_seed(1234)
     card = cs.card_line()
     print(card, flush=True)
     out = dict(card=card, readings=[])
-    cases = dict(b13=readings_b13, k6=readings_k6, k7=readings_k7, b14=readings_b14)[args.kernel]
-    for label, elem, b, kernel, call_args, ref in cases(cs, dev, gen):
+    cases = dict(b13=readings_b13, k6=readings_k6, k7=readings_k7, b14=readings_b14, k5=readings_k5)[args.kernel]
+    draws = ((seed, label, *rest) for seed in range(1234, 1234 + args.seeds)
+             for label, *rest in cases(cs, dev, torch.Generator(dev).manual_seed(seed)))
+    for seed, label, elem, b, kernel, call_args, ref in draws:
         got = kernel(*call_args)
-        drop = kernel(*call_args, **{FAULT[args.kernel]: True})
-        r = dict(case=label, elem=elem, abs=(got.float() - ref.float()).abs().max().item(),
-                 rel=cs.worst_row_rel(got, ref), fault_abs=(drop.float() - ref.float()).abs().max().item(),
-                 fault_rel=cs.worst_row_rel(drop, ref))
-        if b > 1:
-            r["fault_abs_rows"] = [(drop[i].float() - ref[i].float()).abs().max().item() for i in range(b)]
-            r["fault_rel_rows"] = [cs.worst_row_rel(drop[i], ref[i]) for i in range(b)]
+        r = dict(case=label, seed=seed, elem=elem, abs=(got.float() - ref.float()).abs().max().item(),
+                 rel=cs.worst_row_rel(got, ref), l2=cs._rel(got, ref))
+        for i, fault in enumerate(FAULT[args.kernel]):
+            bad = kernel(*call_args, **{fault: True})
+            key = "fault" if i == 0 else fault  # fault_abs / fault_rel: the combine fault's
+            r[f"{key}_abs"] = (bad.float() - ref.float()).abs().max().item()
+            r[f"{key}_rel"] = cs.worst_row_rel(bad, ref)
+            r[f"{key}_l2"] = cs._rel(bad, ref)
+            if b > 1:
+                r[f"{key}_abs_rows"] = [(bad[i].float() - ref[i].float()).abs().max().item() for i in range(b)]
+                r[f"{key}_rel_rows"] = [cs.worst_row_rel(bad[i], ref[i]) for i in range(b)]
         print(json.dumps(r), flush=True)
         out["readings"].append(r)
     sound = out["readings"]
     probes = [r for r in sound if r["case"].startswith("fault probe")]
+
+    def probe_key(r):  # the fault the probe is for (the combine fault unless its label names one)
+        return next((f for f in FAULT[args.kernel][1:] if f in r["case"]), "fault")
+
+    def probe_rel(r):
+        return min(r.get(f"{probe_key(r)}_rel_rows", [r[f"{probe_key(r)}_rel"]]))
+
     print(f"sound: abs <= {max(r['abs'] for r in sound):.3e}, row rel <= {max(r['rel'] for r in sound):.3e}; "
-          f"the fault at the probes: row rel >= {min(min(r.get('fault_rel_rows', [r['fault_rel']])) for r in probes):.3e} "
-          f"[{card}]", flush=True)
+          f"the fault at the probes: row rel >= {min(probe_rel(r) for r in probes):.3e} [{card}]", flush=True)
+    if args.seeds > 1:  # the spread over the draws: each draw's worst sound and least fault readings
+        spread = {}
+        for r in sound:
+            d = spread.setdefault(r["seed"], dict(sound_rel=0.0, sound_l2=0.0))
+            d["sound_rel"], d["sound_l2"] = max(d["sound_rel"], r["rel"]), max(d["sound_l2"], r["l2"])
+            if r in probes:
+                k = probe_key(r)
+                d[f"{k}_rel"] = min(d.get(f"{k}_rel", float("inf")), probe_rel(r))
+                d[f"{k}_l2"] = min(d.get(f"{k}_l2", float("inf")), r[f"{k}_l2"])
+        out["spread"] = spread
+        print(f"per draw (seed: worst sound row rel, least reading of each fault at its probes): "
+              f"{json.dumps(spread)}", flush=True)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", f"{args.kernel}_gate_readings.json"), "w") as f:
         json.dump(out, f, indent=1)

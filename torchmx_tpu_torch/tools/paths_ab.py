@@ -14,10 +14,12 @@ the same phases on one card in one call; run them in turns (parent, change,
 change, parent).  ``--layers`` cuts every model's depth (default: Llama-3-8B
 32, Mixtral-8x7B 32, Moonlight-16B-A3B 27).
 
-Paths (``chip_smoke``'s models, seeded random weights; g, f, d, w and pd at
-Llama-3-8B width):
+Paths (``chip_smoke``'s models, seeded random weights; g, f, d, e, w and pd
+at Llama-3-8B width):
 
 * ``g``: ``generate`` b=32, MXFP4 weights, the fp8 seq cache (K3, K4);
+* ``e``: the engine stream, MXFP4 weights over the int8 seq cache (K5 at
+  every decode step, K4 at admissions), with every check of ``run_engine``;
 * ``f``: ``generate`` b=32 over the fp4 d-major cache (K6 at prefill and at
   every decode step);
 * ``d``: the engine stream over the int8 d-major cache with
@@ -33,7 +35,8 @@ Llama-3-8B width):
 * ``gkd``: Moonlight ``generate`` b=32 over the int8 d-major latent with
   ``TORCHMX_ATTN_INT8_DOT=1`` (B14);
 * ``host``: the wrapper's host us a call, 200 calls queued without a
-  synchronisation (host clock): K6 at F's decode shape (b=32, L=256, kv_len
+  synchronisation (host clock): K5 at E's decode shape (b=32, L=1024,
+  kv_len 0 .. 1024 as a tensor, as the engine passes it), K6 at F's decode shape (b=32, L=256, kv_len
   192, numbers as ``generate`` passes them), B13 at EK's (b=32, L=1024,
   kv_len 1 .. 1024), K7 at D's (b=32, L=1024, kv_len 0 .. 1024 as a tensor,
   as the engine passes it; q's quantization inside the call), B14 at GKD's
@@ -56,7 +59,7 @@ import os
 import sys
 import time
 
-LLAMA_PATHS, MOONLIGHT_PATHS = ("g", "f", "d", "w", "pd"), ("gk", "ek", "gkd")
+LLAMA_PATHS, MOONLIGHT_PATHS = ("g", "f", "d", "e", "w", "pd"), ("gk", "ek", "gkd")
 
 
 def main() -> int:
@@ -144,6 +147,13 @@ def main() -> int:
             a = cs._to_dmajor(cs._attn_case(dev, torch.Generator(dev).manual_seed(3), 32, 32, 8, 128, 256, 1,
                                             [192] * 32, "float4_e2m1"))
             call, shape = (lambda: ca.mx_cached_attention_dmajor(*a[:5], 191, 192, *a[7:])), "decode b=32 L=256 fp4"
+        elif "mx_cached_attention_chunkdot" in names:
+            from torchmx_tpu_torch.ops import cuda_attention as ca
+
+            ragged = [0] + [1 + (1023 * i) // 30 for i in range(31)]
+            a = cs._attn_case(dev, torch.Generator(dev).manual_seed(3), 32, 32, 8, 128, 1024, 1, ragged, "int8",
+                              never_written=True)[:8]
+            call, shape = (lambda: ca.mx_cached_attention_chunkdot(*a)), "decode b=32 L=1024 int8 seq ragged"
         elif "mx_cached_attention_int8dot" in names:
             from torchmx_tpu_torch.ops import cuda_attention as ca
 
@@ -180,7 +190,7 @@ def main() -> int:
 
     if any(p in paths for p in LLAMA_PATHS):
         layers = args.layers or cs.LLAMA3_8B["num_hidden_layers"]
-        if any(p in paths for p in ("g", "f", "d")):
+        if any(p in paths for p in ("g", "f", "d", "e")):
             model = cs.build_model(dev, card, layers)
             if "g" in paths:
                 slice_path("g", model, "float8_e4m3", "fp4", layers, cs.halves_launches_per_step(layers))
@@ -191,6 +201,8 @@ def main() -> int:
                 with cs.kv_env(*cs.CACHES["int8 d-major int8dot"][1:]):
                     engine_path("d", model, "int8 d-major int8dot", "fp4", layers)
                     admissions("d", model, "int8 d-major int8dot")
+            if "e" in paths:
+                engine_path("e", model, "int8", "fp4", layers)
             del model
             torch.cuda.empty_cache()
         if "w" in paths:

@@ -4,7 +4,7 @@ The cut builds give wrong results; they only time what is left.
 
 Run from the repository root with one card:
 
-    python3 torchmx_tpu_torch/tools/phase_profile.py --kernel b13|k6|k7|b14 [--root DIR] [--label NAME] [--chunks-only]
+    python3 torchmx_tpu_torch/tools/phase_profile.py --kernel b13|k6|k7|b14|k5 [--root DIR] [--label NAME] [--chunks-only]
 
 ``--root`` imports ``chip_smoke`` and ``torchmx_tpu_torch`` from another
 checkout and cuts that checkout's source (for instance a parent commit
@@ -99,6 +99,36 @@ Builds of B14 before the redesign (a CTA of 16 heads walking its row's
 prefix 32 positions at a time, synchronous loads, q quantized by a launch
 of its own): ``no_dots`` (no mma), ``no_loads`` (the cache words replaced
 by constants), ``neither``.
+
+Builds of K5 (``csrc/mx_attention_chunkdot.cu``), timed at ``chip_smoke``'s
+three phase-2 cases (the engine's decode, b=32 over 1024 positions with
+kv_len 0 .. 1024 ragged; one row at kv_len 700; b=4 over 8192), at the
+engine's shape with a numeric kv_len and at the ragged decode over 1152
+positions (nine of JAX's tiles: shares of four), each beside SDPA over the
+dequantized cache, the plain version and the byte bound:
+
+* ``no_scores``: no conversion or mma of the scores (the K boxes still land
+  and are released);
+* ``no_pv``: no P.V mma (its fragments still loaded and converted);
+* ``no_softmax``: no pass of p and l (the cluster's barriers and its
+  exchanges stay);
+* ``data_path``: none of the three;
+* ``no_copies``: ``data_path`` with the ring's fills and the scale rows
+  arriving without copying;
+* ``skeleton``: ``no_copies`` without the P.V loop's fragments and the
+  scores' epilogue (the ring's waits and releases alone);
+* ``no_tiles``: no box at all (the launch, q's registers, the cluster's
+  barriers and exchanges, the combine);
+* ``stages=3`` .. ``stages=8``: the shipped kernel with that ring depth
+  (the kernel's ``kStages`` is 2); ``min_ctas=2``, ``min_ctas=3``: its registers
+  bounded for that many CTAs an SM (the kernel's bound is four);
+* ``P=...``: the shipped kernel with that share a CTA (``k5_share``
+  patched) wherever it divides JAX's tile or is whole tiles and gives at
+  most 8 CTAs a cluster, and with each ring depth.  ``--chunks-only`` times the shares
+  alone.
+
+K5 before the redesign (warps walking tiles of 32 positions round-robin,
+synchronous loads, a second launch merging the splits) is timed as it ships.
 
 ``S=...``: the shipped kernel at another chunk size (``mla_chunk`` or
 ``k6_chunk`` patched) where it gives at most 64 chunks, and for B13 at
@@ -263,6 +293,47 @@ def k7_old_patched(src: str) -> str:
                         "(int)(p0 * 31 + i)")):
         s = _replace(s, old, f"\n#ifdef NO_LOADS\n{const}\n#else\n{old}\n#endif\n")
     return s
+
+
+# -- K5 ---------------------------------------------------------------------------------------------
+
+K5_CUTS = {"no_scores": ["NO_SCORES"], "no_pv": ["NO_PV"], "no_softmax": ["NO_SOFTMAX"],
+           "data_path": ["NO_SCORES", "NO_PV", "NO_SOFTMAX"], "no_copies": ["NO_SCORES", "NO_PV", "NO_SOFTMAX", "NO_COPY"],
+           "skeleton": ["NO_SCORES", "NO_PV", "NO_SOFTMAX", "NO_COPY", "NO_PV_LOOP", "NO_EPILOGUE"],
+           "no_tiles": ["NO_TILES"], "stages=3": ["K5_STAGES=3"],
+           "stages=4": ["K5_STAGES=4"], "stages=8": ["K5_STAGES=8"], "min_ctas=2": ["K5_MIN_CTAS=2"],
+           "min_ctas=3": ["K5_MIN_CTAS=3"]}
+K5_OLD_MARK = "merge_splits_kernel"  # K5 before the redesign: a second launch merged the splits
+
+
+def k5_patched(src: str) -> str:
+    """K5 with guards around the scores' conversions and mma (NO_SCORES), the
+    P.V mma (NO_PV: the converted fragments still feed the accumulator), the
+    pass of p and l (NO_SOFTMAX), the producer's copies (NO_COPY: the
+    barriers arrive without bytes) and the share's boxes (NO_TILES);
+    ``-DK5_STAGES=n`` sets the ring's slots at every share."""
+    s = _replace(src, "__launch_bounds__(kThreads, 4)",
+                 "\n#ifdef K5_MIN_CTAS\n__launch_bounds__(kThreads, K5_MIN_CTAS)\n#else\n__launch_bounds__(kThreads, 4)\n#endif\n")
+    s = _replace(s, "constexpr int kStages = 2;",
+                 "#ifdef K5_STAGES\nconstexpr int kStages = K5_STAGES;\n#else\nconstexpr int kStages = 2;\n#endif")
+    s = _replace(s, "      for (int c = 0; c < kNc; ++c) {\n        const int u = 2 * c + (t >> 1), o = 8 * (t & 1);",
+                 "#ifdef NO_SCORES\n      for (int c = 0; c < 0; ++c) {\n#else\n      for (int c = 0; c < kNc; ++c) {\n#endif\n"
+                 "        const int u = 2 * c + (t >> 1), o = 8 * (t & 1);")
+    s = _guard(s, "    mma_bf16(acc[0], a, b0);\n", "    mma_bf16(acc[3], a, b3);\n", "NO_PV",
+               "    acc[0][0] += __uint_as_float((a[0] ^ a[2] ^ b0[0] ^ b0[1] ^ b1[0] ^ b1[1] ^ b2[0] ^ b2[1] ^ b3[0] ^ b3[1])"
+               " & 0x3FFFFFFFu);")
+    s = _guard(s, "  // 3. p and l:", "    if (k == 0) lsh[r] = l;\n  }\n", "NO_SOFTMAX")
+    s = _replace(s, "  auto pv_block = [&](uint32_t vt, int pos0, int blk, auto check) {\n",
+                 "  auto pv_block = [&](uint32_t vt, int pos0, int blk, auto check) {\n#ifdef NO_PV_LOOP\n    return;\n#endif\n")
+    s = _replace(s, "      for (int e = 0; e < 4; ++e) {\n        const int pos = p0 + g + 8 * (e >> 1), r = 2 * t + (e & 1);",
+                 "#ifdef NO_EPILOGUE\n      for (int e = 0; e < 0; ++e) {\n#else\n      for (int e = 0; e < 4; ++e) {\n#endif\n"
+                 "        const int pos = p0 + g + 8 * (e >> 1), r = 2 * t + (e & 1);")
+    s = _guard(s, "        mx::mbar_expect_tx(full + 8 * slot, kSlot);", "(int)(row0 + (f % n_box) * kBox));\n", "NO_COPY",
+               "        mx::mbar_arrive(full + 8 * slot);")
+    s = _guard(s, "      mx::mbar_expect_tx(scales, 2 * sbytes);", "mx::bulk_load(sbase + lay.vs, vs + 4 * row0, sbytes, scales);\n",
+               "NO_COPY", "      mx::mbar_arrive(scales);")
+    return _replace(s, "  const int n_box = (nvis + kBox - 1) / kBox;",
+                    "#ifdef NO_TILES\n  const int n_box = 0;\n#else\n  const int n_box = (nvis + kBox - 1) / kBox;\n#endif")
 
 
 # -- B14 --------------------------------------------------------------------------------------------
@@ -476,6 +547,66 @@ def profile_k7(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show) -> dict:
     return cases
 
 
+# K5's: K7's and the decode over 1152 positions (nine tiles of 128: a CTA takes four).
+K5_CASES = K7_CASES + [("decode b=32 L=1152 ragged", 32, 1152, [0] + [1 + (1151 * i) // 30 for i in range(31)], False)]
+
+
+def profile_k5(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show) -> dict:
+    """K5 at ``chip_smoke``'s three phase-2 cases, the engine's shape with a
+    numeric kv_len and the decode over 1152 positions: the shipped kernel, SDPA over the dequantized
+    cache, the plain version, the byte bound, each cut and each share a CTA
+    (before the redesign: the shipped kernel alone)."""
+    import torch.nn.functional as F
+
+    from torchmx_tpu_torch.ops import cuda_attention as ca
+
+    source = (cuda_lib.CSRC_DIR / "mx_attention_chunkdot.cu").read_text()
+    old = K5_OLD_MARK in source
+    libs = {} if chunks_only or old else build_cuts(cuda_lib, "mx_attention_chunkdot", k5_patched(source), K5_CUTS)
+    share = getattr(ca, "k5_share", None)
+
+    def at_shares(row, L, fn):  # fn() timed at each share that divides JAX's tile, at most 8 CTAs a cluster
+        if share is None:
+            return
+        row["shipped_P"] = share(L)
+        shipped = cuda_lib.lib("mx_attention_chunkdot")
+        try:
+            lt, most = ca.k5_tile(L), getattr(ca, "K5_MAX_SHARE", None)  # None: no share of several tiles
+            for P in (128, 256, 512, 1024, 2048, 4096):
+                if (lt % P == 0 or (most and P % lt == 0 and P <= most)) and -(-L // P) <= ca.K5_MAX_SHARES:
+                    ca.k5_share = lambda L_, P=P: P
+                    row[f"P={P}"] = fn()
+                    for name in ("stages=3", "stages=4", "min_ctas=2", "min_ctas=3"):  # each ring depth, CTAs an SM
+                        if name in libs:
+                            cuda_lib._libs["mx_attention_chunkdot"] = libs[name]
+                            row[f"P={P} {name}"] = fn()
+                            cuda_lib._libs["mx_attention_chunkdot"] = shipped
+        finally:
+            ca.k5_share = share
+            cuda_lib._libs["mx_attention_chunkdot"] = shipped
+
+    cases = {}
+    for label, b, L, kv, numbers in K5_CASES:
+        if L // ca.k5_tile(L) > ca.K5_MAX_SHARES and not hasattr(ca, "K5_MAX_SHARE"):
+            continue  # a K5 before shares of several tiles: K4 serves such a cache
+        seq = cs._attn_case(dev, gen, b, 32, 8, 128, L, 1, kv, "int8", never_written=True)
+        args = seq[:8]
+        if numbers:
+            args = (*args[:5], kv[0] - 1, kv[0], args[7])
+        fn = lambda: ca.mx_cached_attention_chunkdot(*args)  # noqa: E731
+        row = time_cuts(cuda_lib, "mx_attention_chunkdot", libs, timer, fn)
+        at_shares(row, L, lambda: timer(fn))
+        k, v, mask = cs._sdpa_inputs(seq)
+        row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
+            seq[0], k, v, attn_mask=mask, scale=seq[7], enable_gqa=True))
+        row["plain_ms"] = timer(lambda: ca.mx_cached_attention_chunkdot_plain(*args), reps=5)
+        row["bound_ms"], row["bound_by"] = cs.bound(*cs._attn_work(seq))
+        cases[label] = row
+        show(label, row)
+        del seq, args, k, v, mask
+    return cases
+
+
 def profile_b14(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show) -> dict:
     """B14 at ``chip_smoke.MLA_INT8DOT_CASES`` and at GKD's decode steps: the
     shipped kernel (q quantized inside the call), SDPA over the dequantized
@@ -571,7 +702,7 @@ def profile_k6(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("b13", "k6", "k7", "b14"), required=True)
+    ap.add_argument("--kernel", choices=("b13", "k6", "k7", "b14", "k5"), required=True)
     ap.add_argument("--root", default=".", help="checkout to import chip_smoke and the package from")
     ap.add_argument("--label", default="change")
     ap.add_argument("--chunks-only", action="store_true", help="time the chunk sizes alone (no cut builds)")
@@ -596,7 +727,7 @@ def main() -> int:
         print(f"[{args.label}] {args.kernel} {label}: " + json.dumps(
             {k: round(v, 4) if isinstance(v, float) else v for k, v in row.items()}) + f" ms [{card}]", flush=True)
 
-    profile = dict(b13=profile_b13, k6=profile_k6, k7=profile_k7, b14=profile_b14)[args.kernel]
+    profile = dict(b13=profile_b13, k6=profile_k6, k7=profile_k7, b14=profile_b14, k5=profile_k5)[args.kernel]
     res = dict(card=card, label=args.label, root=root,
                cases=profile(cs, cuda_lib, dev, timer, gen, args.chunks_only, show))
     os.makedirs("chiprun_out", exist_ok=True)
