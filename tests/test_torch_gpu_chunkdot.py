@@ -102,7 +102,7 @@ def test_cuda_chunkdot_kernel_matches_plain(cuda_device, hq, hkv, L):
 
 
 def _edges(L):
-    lt, P = ca.k5_tile(L), ca.k5_share(L)
+    lt, P = ca.attention_tile(L), ca.k5_share(L)
     return sorted({kv for kv in (0, 1, lt - 1, lt, lt + 1, 2 * lt - 1, 2 * lt + 1, P - 1, P, P + 1, 2 * P + 1, L)
                    if 0 <= kv <= L})
 
@@ -128,7 +128,7 @@ def test_k5_matches_plain_at_tile_edges(cuda_device, G, L):
 def test_k5_stale_scale_past_the_prefix_changes_nothing(cuda_device, L):
     """Codes and scales past a row's prefix (255 scales: +inf, a stale slot)
     are never multiplied: the row's bytes stay those of a fresh cache."""
-    kv = [1, 100, ca.k5_tile(L) + 3]
+    kv = [1, 100, ca.attention_tile(L) + 3]
     args = _args(cuda_device, 17, len(kv), 8, 2, L, kv)
     clean = _launch(args)
     stale = [t.clone() for t in args[1:5]]
@@ -143,7 +143,7 @@ def test_k5_stale_scale_past_the_prefix_changes_nothing(cuda_device, L):
 def test_k5_row_alone_equals_row_in_a_batch(cuda_device, L):
     """A row's bytes depend on its own q_off, kv_len and L only: alone, in a
     batch of 32 and with a numeric kv_len (the grid cut to its tiles)."""
-    lt = ca.k5_tile(L)
+    lt = ca.attention_tile(L)
     kv = [1 + (i * (L - 1)) // 31 for i in range(32)]
     kv[5] = lt + 1
     args = _args(cuda_device, 12, 32, 32, 8, L, kv)
@@ -170,7 +170,7 @@ def test_k5_gate_catches_dropped_tile(cuda_device, L, kv):
     """The planted fault (the last live tile left out) at a last tile of one
     position, one batch row alone (at L = 1152 the tile lies in a share of
     four): the kernel passes the gate, the fault fails the row gate."""
-    lt = ca.k5_tile(L)
+    lt = ca.attention_tile(L)
     n = {"lt+1": lt + 1, "2lt+1": 2 * lt + 1}[kv]
     args = _args(cuda_device, 15, 1, 32, 8, L, [n])
     ref = ca.mx_cached_attention_chunkdot_plain(*args)
@@ -186,7 +186,7 @@ def test_k5_gate_catches_p_against_its_own_tile_max(cuda_device, L, kv):
     own maximum, not JAX's running one: the same function in exact
     arithmetic, other bf16 roundings) over two and more whole tiles, one
     batch row alone: the kernel passes the gate, the fault fails it."""
-    lt = ca.k5_tile(L)
+    lt = ca.attention_tile(L)
     n = {"2lt": 2 * lt, "L": L}[kv]
     args = _args(cuda_device, 16, 1, 32, 8, L, [n])
     ref = ca.mx_cached_attention_chunkdot_plain(*args)

@@ -15,7 +15,7 @@
 // with the codes bare in the dots (int8 -> bf16 is exact), each chunk's
 // partial sum in fp32 and K's scale applied to it once.  JAX walks KV tiles
 // of lt = _pick_lt(L) positions (256 at L = 256, 512 at 1024, 2048 at 8192;
-// ops/cuda_attention.k5_tile) in order, so tile t's p is rounded against the
+// ops/cuda_attention.attention_tile) in order, so tile t's p is rounded against the
 // running maximum through tile t:
 //   m_t = max(m_{t-1}, max_j s), m_{-1} = -1e30;  p = exp(s - m_t), l_t = sum_j p
 //   acc_t[r, c*32 + e] = sum_j bf16(p[r,j] * 2^(ev[j,c]-127)) * v[j, c*32 + e]

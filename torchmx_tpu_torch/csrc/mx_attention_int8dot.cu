@@ -41,7 +41,7 @@
 //     so the warps split the work in any way and add integers in any order.
 //  2. The combine runs in the same launch: each live tile of a row with two
 //     or more writes (acc_t, m_t, l_t) in fp32 to a workspace (ops/split_kv,
-//     shared with K6 and B13), and the last CTA of the (batch row, KV head)
+//     shared with B13 and B14), and the last CTA of the (batch row, KV head)
 //     (an atomic ticket, which it resets) combines them in tile order.  A row
 //     with one live tile writes acc_t / l_t.  So a row's bytes depend on its
 //     own q_off, kv_len and L only.

@@ -72,7 +72,7 @@
 //     dims k 512 / C .. (k + 1) 512 / C - 1.
 //  6. The combine runs in the same launch: a row with one live tile writes
 //     acc_t / l_t; else each CTA writes its slice of (acc_t, m_t, l_t) to a
-//     workspace (ops/split_kv, shared with B13, K6 and K7) and the last CTA of
+//     workspace (ops/split_kv, shared with B13 and K7) and the last CTA of
 //     the (batch row, head group, slice) (an atomic ticket, which it resets)
 //     combines the tiles in tile order.  So a row's bytes depend on its own
 //     q_off, kv_len and L only.

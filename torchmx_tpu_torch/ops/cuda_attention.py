@@ -11,19 +11,20 @@ in this port):
   when ``TORCHMX_ATTN_INT8_DOT`` is ``"1"``, K6 ``mx_cached_attention_dmajor``
   (``csrc/mx_attention_dmajor.cu``) otherwise.
 
-Semantics of K4 and K6, kernel and plain version alike: scores
-``s = (q . k) * sm_scale`` in fp32 over the dequantized cache; query row ``i``
-of batch row ``b`` sees key positions ``<= q_off[b] + i`` and ``< kv_len[b]``;
-masked scores are ``-1e30``; softmax in fp32 with ``p`` rounded to bf16 before
-the P.V product; a row with no visible key outputs 0.  Both versions are the
-online (flash) form over tiles of 64 positions; they differ only in fp32
-summation order.  K6 reads the d-major cache (fp8, fp6, int8, and fp4 in the
-d-halves packing).  Its kernel splits the positions into chunks of
-``k6_chunk(L)`` at fixed absolute positions, runs K4's online softmax inside
-each chunk and combines the chunks in chunk order in the same launch
-(``ops/split_kv``), so on the same cache content it equals the K4 kernel bit
-for bit for every row whose visible prefix lies in one chunk, and elsewhere
-differs in fp32 summation order only.
+Semantics of K4 and K6, kernel and plain version alike, JAX's
+``_attn_kernel``'s: scores ``s = (q . k) * sm_scale`` in fp32 over the
+dequantized cache; query row ``i`` of batch row ``b`` sees key positions
+``<= q_off[b] + i`` and ``< kv_len[b]``; masked scores are ``-1e30``; the
+online softmax over JAX's KV tiles (``attention_tile(L)``: ``_pick_lt(L)``,
+or the whole cache where none divides L), ``p`` rounded to bf16 against the
+running maximum through each whole tile before the P.V product; a row with no
+visible key outputs 0.  K6 reads the d-major cache (fp8, fp6, int8, and fp4
+in the d-halves packing).  Both kernels are one cluster kernel
+(``csrc/mx_attention_tile.cuh``) in the two layouts: a CTA a share of
+``attention_share(L)`` positions, the shares' maxima exchanged across the
+cluster before p is rounded, the shares combined in the same launch; it
+differs from the plain version in fp32 summation order only, and K6 equals
+K4 bit for bit on the same cache content.
 
 K5 computes the same attention for ``sq == 1`` over an int8 cache with the
 block scales factored out of the dots, p rounded to bf16 against JAX's running
@@ -51,7 +52,6 @@ from . import cuda_lib, split_kv
 from .backend import on_cuda
 
 NEG_INF = -1e30
-KV_TILE = 64  # KV positions per online-softmax step (kL in csrc/mx_attention.cu)
 BLOCK = 32
 IntOrTensor = Union[int, torch.Tensor]
 
@@ -70,11 +70,12 @@ K5_MAX_SHARES = 8  # CTAs of K5's cluster at most (kMaxCluster in csrc/mx_attent
 K5_MAX_SHARE = 4096  # positions a CTA of K5 takes at most (kMaxShare): its scores fit shared memory
 
 
-def k5_tile(L: int) -> int:
-    """K5's KV tile for a cache of ``L`` positions: JAX's ``_pick_lt(L)``, or
-    the whole cache where no JAX tile divides L.  The dispatch sends K5 only
-    lengths with a JAX tile (``use_chunkdot``); the engine rounds its slots up
-    to 128 positions, so no served path meets the other case."""
+def attention_tile(L: int) -> int:
+    """The KV tile of K4, K5 and K6 for a cache of ``L`` positions: JAX's
+    ``_pick_lt(L)``, or the whole cache where no JAX tile divides L.  The
+    dispatch sends K5 only lengths with a JAX tile (``use_chunkdot``);
+    ``generate`` and the engine round their caches up to 128 positions, so no
+    served path meets the other case, which JAX's plan serves by no kernel."""
     return _pick_lt(L) or L
 
 
@@ -90,7 +91,7 @@ def k5_share(L: int) -> int:
     share the cluster allows (1024 at L = 8192: more CTAs an SM, which the
     kernel's latency-bound loops need; ``tools/phase_profile.py --kernel
     k5``)."""
-    lt = k5_tile(L)
+    lt = attention_tile(L)
     nt = L // lt
     if nt > K5_MAX_SHARES:
         return max(-(-nt // K5_MAX_SHARES), -(-512 // lt)) * lt
@@ -124,12 +125,16 @@ def dequantize_cache(data, scale, elem_dtype_name: str, layout: str = "seq") -> 
     return dequantize_mx(data, scale, elem_dtype_name, 32, torch.bfloat16, 3)
 
 
-def _online_attention(q, k, v, q_off, kv_len, sm_scale: float, compute_dtype: torch.dtype) -> torch.Tensor:
+def _online_attention(q, k, v, q_off, kv_len, sm_scale: float, compute_dtype: torch.dtype,
+                      tile: Optional[int] = None) -> torch.Tensor:
     """The online softmax of K4 and K6 over a dequantized cache ``k, v (b, hkv,
-    L, d)`` bf16, tile by tile (``KV_TILE`` positions), with ``p`` rounded to
-    bf16 against the running max as the kernels do."""
+    L, d)`` bf16, JAX's ``_attn_kernel`` form: KV tile by KV tile (``tile``
+    positions, by default ``attention_tile(L)``: JAX's ``_pick_lt(L)``; the
+    result depends on it), ``p`` rounded to bf16 against the running maximum
+    through each tile."""
     b, hq, sq, d = q.shape
     hkv, L = k.shape[1], k.shape[2]
+    tile = tile or attention_tile(L)
     G = hq // hkv
     f = compute_dtype
     q_off = _per_row(q_off, b, q.device)
@@ -144,65 +149,139 @@ def _online_attention(q, k, v, q_off, kv_len, sm_scale: float, compute_dtype: to
     m = torch.full((b, hq, sq, 1), NEG_INF, dtype=f, device=q.device)
     l = torch.zeros((b, hq, sq, 1), dtype=f, device=q.device)
     acc = torch.zeros((b, hq, sq, d), dtype=f, device=q.device)
-    for t0 in range(0, min(L, int(kv_len.max())), KV_TILE):
-        kv_pos = torch.arange(t0, min(t0 + KV_TILE, L), device=q.device)
-        s = (qf @ k[:, :, t0:t0 + KV_TILE].transpose(-1, -2)) * sm_scale
+    for t0 in range(0, min(L, int(kv_len.max())), tile):
+        kv_pos = torch.arange(t0, min(t0 + tile, L), device=q.device)
+        s = (qf @ k[:, :, t0:t0 + tile].transpose(-1, -2)) * sm_scale
         valid = (kv_pos <= q_pos) & (kv_pos < kv_len[:, None, None, None])
         s = torch.where(valid, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.where(valid, torch.exp(s - m_new), 0.0)  # 0 too where a row sees no key at all
         l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + p.to(torch.bfloat16).to(f) @ v[:, :, t0:t0 + KV_TILE]
+        acc = acc * alpha + p.to(torch.bfloat16).to(f) @ v[:, :, t0:t0 + tile]
         m = m_new
     return (acc / torch.where(l == 0, 1.0, l)).to(torch.bfloat16)
 
 
 def mx_cached_attention_plain(
     q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float, elem_dtype_name: str,
-    compute_dtype: torch.dtype = torch.float32,
+    compute_dtype: torch.dtype = torch.float32, tile: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain version of K4: the online softmax over the dequantized seq-layout
-    cache (``_online_attention``); only fp32 summation orders differ from the
-    kernel.  ``compute_dtype=torch.float64`` computes the same function with
-    another rounding, to measure sensitivity to it."""
+    cache at JAX's tile (``_online_attention``; ``tile`` picks another).  It
+    equals JAX's ``cached_attention_any`` bit for bit on the CPU at L = 256
+    and 1024 but for fp32 summation order in rare elements (at most 0.1 % of
+    them, each by less than one bf16 step of its row's largest); the kernel
+    differs from it in fp32 summation order only.
+    ``compute_dtype=torch.float64`` computes the same function with another
+    rounding, to measure sensitivity to it."""
     if elem_dtype_name == "float4_e2m1":
         raise NotImplementedError("fp4 KV caches are ported in the d-major layout only")
     k = dequantize_cache(k_data, k_scale, elem_dtype_name)
     v = dequantize_cache(v_data, v_scale, elem_dtype_name)
-    return _online_attention(q, k, v, q_off, kv_len, sm_scale, compute_dtype)
+    return _online_attention(q, k, v, q_off, kv_len, sm_scale, compute_dtype, tile)
+
+
+ATTN_MAX_SHARES = 8  # CTAs of K4's and K6's cluster at most (kMaxCluster in csrc/mx_attention_tile.cuh)
+ATTN_MAX_SHARE = 8192  # positions a CTA takes at most (kMaxShare): its per-sub-tile statistics fit shared memory
+ATTN_CHUNK = 2048  # positions whose scores a 16-row tile holds at once (kMaxChunk); a longer share recomputes them
+ATTN_WIDE_SHARE = 256  # the most for a 64-row tile, which holds all its scores (kWideShare)
+
+
+def attention_share(L: int) -> int:
+    """Positions a CTA of K4's and K6's cluster kernel takes, a function of L
+    alone, so that a row's arithmetic depends on neither the batch, the query
+    length nor the layout: the smallest power of two from 256 that cuts the
+    cache into at most ``ATTN_MAX_SHARES`` shares (256 to L = 2048, 1024 at
+    8192); a divisor of JAX's tile, or whole tiles where the cache holds
+    more than 8 of them (L = 1152: shares of two tiles of 128).  256, not
+    128: on an H100 the engine's ragged decode over 1024 positions took
+    0.052 ms at 256 against 0.072 at 128, generate's decode over 256 0.020
+    against 0.032 (``tools/phase_profile.py --kernel k4``).  Where no JAX tile
+    divides L, the smallest multiple of 64 dividing L into at most 8 shares
+    of the whole-cache tile."""
+    if _pick_lt(L) is None:
+        return next(P for P in range(64, L + 1, 64) if L % P == 0 and L // P <= ATTN_MAX_SHARES)
+    P = 256
+    while -(-L // P) > ATTN_MAX_SHARES:
+        P *= 2
+    return P
+
+
+def attention_plan(L: int, rows: int) -> tuple:
+    """``(tile, share, wide)`` of the cluster kernel for a cache of ``L``
+    positions and ``rows`` query rows a KV head (sq * hq / hkv): 64-row
+    tiles (``wide``) where a 64-row share's scores fit shared memory (L <=
+    2048) and the rows fill more than 16, else 16-row tiles.  Raises where
+    the kernel takes no such cache: L % 64 != 0, or a share past
+    ``ATTN_MAX_SHARE`` positions (L > 65536, twice the longest context of
+    the port's models).  A share past ``ATTN_CHUNK`` positions (L > 16384)
+    is taken in chunks whose scores the kernel recomputes."""
+    if L <= 0 or L % 64:
+        raise ValueError(f"the attention kernels take caches of L % 64 == 0 positions, got L={L}")
+    P = attention_share(L)
+    if P > ATTN_MAX_SHARE:
+        raise ValueError(f"the attention kernels take shares of at most {ATTN_MAX_SHARE} positions: L <= "
+                         f"{ATTN_MAX_SHARE * ATTN_MAX_SHARES}, got L={L}")
+    return attention_tile(L), P, rows > 16 and P <= ATTN_WIDE_SHARE
+
+
+def _tile_attention(layout: str, q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float,
+                    elem_dtype_name: str, fault: int) -> torch.Tensor:
+    """One launch of the cluster kernel of K4 (``layout="seq"``) or K6
+    (``"dmajor"``) on CUDA tensors, after the shape checks."""
+    b, hq, sq, d = q.shape
+    if layout == "seq":
+        _, hkv, L, dp = k_data.shape
+        formats, want_dp, scales = K4_FORMATS, d, (b, hkv, L, d // BLOCK)
+    else:
+        _, hkv, dp, L = k_data.shape
+        formats, want_dp, scales = K6_FORMATS, d // 2 if elem_dtype_name == "float4_e2m1" else d, (b, hkv, d // BLOCK, L)
+    if elem_dtype_name not in formats or d != 128 or dp != want_dp or hq % hkv:
+        raise ValueError(f"the {layout} attention kernel takes a {'/'.join(formats)} cache with d=128, got "
+                         f"{elem_dtype_name} q{tuple(q.shape)} cache{tuple(k_data.shape)}")
+    lt, P, wide = attention_plan(L, sq * (hq // hkv))
+    _check_cache_tensors(k_data, k_scale, v_data, v_scale, formats[elem_dtype_name])
+    if k_scale.shape != scales or v_scale.shape != scales or v_data.shape != k_data.shape:
+        raise ValueError(f"{layout} scales must be {scales} beside codes {tuple(k_data.shape)}")
+    q = q.to(torch.bfloat16).contiguous()
+    # Where kv_len is a number, no share past it is launched; a tensor is never read on the host.
+    ctas = -(-L // P) if isinstance(kv_len, torch.Tensor) else max(1, -(-min(max(int(kv_len), 0), L) // P))
+    _keep, pos = row_args(q_off, kv_len, b, q.device)
+    out = torch.empty_like(q)
+    src, fn = (("mx_attention", "mx_cached_attention_launch") if layout == "seq" else
+               ("mx_attention_dmajor", "mx_cached_attention_dmajor_launch"))
+    cuda_lib.launch(
+        src, fn, q.data_ptr(), k_data.data_ptr(), k_scale.data_ptr(), v_data.data_ptr(), v_scale.data_ptr(),
+        *pos, out.data_ptr(), b, hq, hkv, sq, L, d, lt, P, ctas, int(wide), float(sm_scale),
+        cuda_lib.ELEM_CODES[elem_dtype_name], fault,
+    )
+    return out
 
 
 def mx_cached_attention(
-    q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float, elem_dtype_name: str
+    q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float, elem_dtype_name: str,
+    p_from_sub_tile_max: bool = False, drop_last_share: bool = False,
 ) -> torch.Tensor:
     """K4: ``q (b, hq, sq, d)`` bf16 over the seq-layout MX cache
     ``(b, hkv, L, d)`` codes (uint8, one code a byte; int8 for the int8
-    format) + ``(b, hkv, L, d/32)`` scales.  CUDA tensors launch the kernel
-    (fp8, fp6 or int8 cache, d = 128, L % 64 == 0; other shapes raise)."""
+    format) + ``(b, hkv, L, d/32)`` scales.  CUDA tensors launch the cluster
+    kernel (fp8, fp6 or int8 cache, d = 128, 16-byte aligned buffers, L and
+    the share as ``attention_plan`` takes them: a multiple of 64, at most
+    65536; other shapes raise), one launch a call.  Where no JAX tile divides
+    L the kernel takes the whole cache as its tile, as the plain version
+    does.  ``q_off`` and ``kv_len`` are read on the device; where ``kv_len``
+    is a number only the shares below it are launched.
+    ``p_from_sub_tile_max`` (p rounded against the running maximum through
+    its 64 positions, not through JAX's tile) and ``drop_last_share`` (the
+    combine leaves out the last live share) are planted faults for the
+    checks, never set by the package."""
     if not on_cuda(q, k_data, k_scale, v_data, v_scale):
         return mx_cached_attention_plain(
             q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale, elem_dtype_name
         )
-    b, hq, sq, d = q.shape
-    _, hkv, L, dp = k_data.shape
-    if elem_dtype_name not in K4_FORMATS or d != 128 or dp != d or L % 64 or hq % hkv:
-        raise ValueError(
-            f"the attention kernel takes an fp8, fp6 or int8 cache with d=128 and L % 64 == 0, "
-            f"got {elem_dtype_name} q{tuple(q.shape)} cache{tuple(k_data.shape)}"
-        )
-    _check_cache_tensors(k_data, k_scale, v_data, v_scale, K4_FORMATS[elem_dtype_name])
-    q = q.to(torch.bfloat16).contiguous()
-    q_off = _per_row(q_off, b, q.device)
-    kv_len = _per_row(kv_len, b, q.device)
-    out = torch.empty_like(q)
-    cuda_lib.launch(
-        "mx_attention", "mx_cached_attention_launch",
-        q.data_ptr(), k_data.data_ptr(), k_scale.data_ptr(), v_data.data_ptr(),
-        v_scale.data_ptr(), q_off.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-        b, hq, hkv, sq, L, d, float(sm_scale), cuda_lib.ELEM_CODES[elem_dtype_name],
-    )
-    return out
+    return _tile_attention("seq", q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale, elem_dtype_name,
+                           int(p_from_sub_tile_max) | 2 * int(drop_last_share))
 
 
 def _pow2_scale(se: torch.Tensor) -> torch.Tensor:
@@ -216,7 +295,7 @@ def mx_cached_attention_chunkdot_plain(
     compute_dtype: torch.dtype = torch.float32, tile: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain version of K5, KV tile by KV tile (``tile`` positions, by default
-    ``k5_tile(L)``: JAX's ``_pick_lt(L)``; the result depends on it), for the
+    ``attention_tile(L)``: JAX's ``_pick_lt(L)``; the result depends on it), for the
     ``g = hq / hkv`` query rows r of each KV head, the ``d/32`` chunks c and
     position j:
 
@@ -246,7 +325,7 @@ def mx_cached_attention_chunkdot_plain(
     if sq != 1 or d % BLOCK or hq % hkv or k_data.dtype != torch.int8 or v_data.dtype != torch.int8:
         raise ValueError(f"chunk-dot attention takes sq == 1 over an int8 cache, got q{tuple(q.shape)} "
                          f"codes {k_data.dtype}")
-    tile = tile or k5_tile(L)
+    tile = tile or attention_tile(L)
     G, nc, f, dev = hq // hkv, d // BLOCK, compute_dtype, q.device
     qc = q.to(torch.bfloat16).to(f).reshape(b, hkv, G, nc, BLOCK)
     q_off = _per_row(q_off, b, dev)
@@ -315,7 +394,7 @@ def mx_cached_attention_chunkdot(
         )
     b, hq, sq, d = q.shape
     _, hkv, L, dp = k_data.shape
-    lt, P = k5_tile(L), k5_share(L)
+    lt, P = attention_tile(L), k5_share(L)
     if (sq != 1 or d != 128 or dp != d or hq % hkv or hq // hkv not in KERNEL_GROUPS or L % 4
             or P > K5_MAX_SHARE):
         raise ValueError(
@@ -345,103 +424,32 @@ K6_FORMATS = {"float8_e4m3": torch.uint8, "int8": torch.int8, "float4_e2m1": tor
 
 def mx_cached_attention_dmajor_plain(
     q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float, elem_dtype_name: str,
-    compute_dtype: torch.dtype = torch.float32,
+    compute_dtype: torch.dtype = torch.float32, tile: Optional[int] = None,
 ) -> torch.Tensor:
-    """Plain version of K6: the online softmax of K4 (``_online_attention``)
-    over the dequantized d-major cache."""
+    """Plain version of K6: K4's (``_online_attention`` at JAX's tile) over
+    the dequantized d-major cache."""
     k = dequantize_cache(k_data, k_scale, elem_dtype_name, "dmajor")
     v = dequantize_cache(v_data, v_scale, elem_dtype_name, "dmajor")
-    return _online_attention(q, k, v, q_off, kv_len, sm_scale, compute_dtype)
-
-
-K6_TILE = 64  # KV positions per online-softmax step of K6 (kL in csrc/mx_attention_dmajor.cu)
-K6_ROW_TILE = 64  # query rows per CTA of K6 (kRows)
-K6_MAX_CHUNKS = 64  # chunks of a cache at most (kMaxChunks)
-#: The most K6's combine workspace holds on a device (``ops/split_kv``, the
-#: buffers K6 and B13 share); a call that could need more (with ``kv_len`` a
-#: tensor: b x hq x sq x chunks x 130 floats) runs one launch per group of
-#: rows that fits (``k6_launch_groups``), the same bytes.
-K6_WORKSPACE_BYTES = 256 << 20
-
-
-def k6_chunk(L: int) -> int:
-    """K6's KV chunk for a cache of ``L`` positions: the positions a CTA of
-    the kernel walks.  A function of ``L`` alone, so that a row's arithmetic
-    does not depend on the batch, the query length or the visible prefix.
-    The two timed entries are the fastest chunk at the decode that caches of
-    their lengths serve (``tools/phase_profile.py --kernel k6 --chunks-only``
-    on an H100): one chunk at L <= 256 (generate's decode at b=32 over 256
-    positions), 128 to 1024 (the engine's decode over 1024); the longer
-    caches' entries are B13's, untimed for K6."""
-    if L > 512 * K6_MAX_CHUNKS:
-        return -(-L // (K6_MAX_CHUNKS * K6_TILE)) * K6_TILE
-    return 256 if L <= 256 else 128 if L <= 1024 else 256 if L <= 4096 else 512
-
-
-def k6_launch_groups(b: int, hq: int, sq: int, row_floats: int) -> list:
-    """K6's launches for a call (``split_kv.launch_groups`` under
-    ``K6_WORKSPACE_BYTES``): ``(first batch row, end, first row, end)`` each,
-    over the ``sq * hq`` rows of a batch row, a group of rows a multiple of
-    ``hq`` (whole query positions); ``row_floats`` is the workspace a row
-    may need."""
-    return split_kv.launch_groups(b, sq * hq, hq, row_floats, K6_WORKSPACE_BYTES)
+    return _online_attention(q, k, v, q_off, kv_len, sm_scale, compute_dtype, tile)
 
 
 def mx_cached_attention_dmajor(
     q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float, elem_dtype_name: str,
-    drop_last_chunk: bool = False,
+    p_from_sub_tile_max: bool = False, drop_last_share: bool = False,
 ) -> torch.Tensor:
     """K6: ``q (b, hq, sq, d)`` bf16 over the d-major MX cache ``(b, hkv, dp,
     L)`` codes (``dp = d``, or ``d/2`` for fp4 in the d-halves packing; int8
     for the int8 format, else uint8) + ``(b, hkv, d/32, L)`` scales.  CUDA
-    tensors launch the kernel (d = 128, L % 64 == 0, 16-byte aligned cache
-    buffers; other shapes and buffers raise), one launch a call where the combine's
-    workspace fits ``K6_WORKSPACE_BYTES``.  Where ``kv_len`` is a number only
-    the chunks below it are launched.  ``drop_last_chunk`` is a planted fault
-    for the checks, never set by the package: the combine leaves out the last
-    live chunk of a tile."""
+    tensors launch K4's cluster kernel in the d-major layout (d = 128,
+    16-byte aligned cache buffers, L as ``attention_plan`` takes it; other
+    shapes and buffers raise), one launch a call; on the same cache content
+    it equals K4 bit for bit.  The planted faults are K4's."""
     if not on_cuda(q, k_data, k_scale, v_data, v_scale):
         return mx_cached_attention_dmajor_plain(
             q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale, elem_dtype_name
         )
-    b, hq, sq, d = q.shape
-    _, hkv, dp, L = k_data.shape
-    want_dp = d // 2 if elem_dtype_name == "float4_e2m1" else d
-    if elem_dtype_name not in K6_FORMATS or d != 128 or dp != want_dp or L % 64 or hq % hkv:
-        raise ValueError(
-            f"the d-major attention kernel takes an fp8, fp6, fp4 or int8 cache with d=128 and "
-            f"L % 64 == 0, got {elem_dtype_name} q{tuple(q.shape)} cache{tuple(k_data.shape)}"
-        )
-    _check_cache_tensors(k_data, k_scale, v_data, v_scale, K6_FORMATS[elem_dtype_name])
-    if k_scale.shape != (b, hkv, d // BLOCK, L) or v_scale.shape != k_scale.shape or v_data.shape != k_data.shape:
-        raise ValueError(f"d-major scales must be ({b}, {hkv}, {d // BLOCK}, {L}) beside codes {tuple(k_data.shape)}")
-    q = q.to(torch.bfloat16).contiguous()
-    S = k6_chunk(L)
-    # Where kv_len is a number, no chunk past it is launched (a CTA there
-    # would only exit); a tensor is never read on the host.
-    chunks = -(-L // S) if isinstance(kv_len, torch.Tensor) else max(1, -(-min(int(kv_len), L) // S))
-    q_off = _per_row(q_off, b, q.device)
-    kv_len = _per_row(kv_len, b, q.device)
-    out = torch.empty_like(q)
-    G, rows = hq // hkv, sq * hq
-    row_floats = chunks * (d + 2) if chunks > 1 else 0
-    groups = k6_launch_groups(b, hq, sq, row_floats)
-    # Enough for the largest launch: each fits K6_WORKSPACE_BYTES.
-    ws, tickets = split_kv.scratch(q.device, min(b * rows * row_floats, K6_WORKSPACE_BYTES // 4),
-                                   b * hkv * -(-(sq * G) // K6_ROW_TILE))
-    cache = (k_data, k_scale, v_data, v_scale)
-    for i0, i1, r0, r1 in groups:
-        s0, s1 = r0 // hq, r1 // hq
-        qo = q_off if s0 == 0 else q_off + s0  # a group of rows lies in one batch row
-        first = 2 * (i0 * hq * sq + s0) * d  # bytes to the group's first query row
-        cuda_lib.launch(
-            "mx_attention_dmajor", "mx_cached_attention_dmajor_launch",
-            q.data_ptr() + first, *(t[i0].data_ptr() if i0 else t.data_ptr() for t in cache),
-            qo.data_ptr() + 4 * i0, kv_len.data_ptr() + 4 * i0, out.data_ptr() + first, ws.data_ptr(),
-            tickets.data_ptr(), i1 - i0, hq, hkv, s1 - s0, sq, L, d, S, chunks, float(sm_scale),
-            cuda_lib.ELEM_CODES[elem_dtype_name], int(drop_last_chunk),
-        )
-    return out
+    return _tile_attention("dmajor", q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale, elem_dtype_name,
+                           int(p_from_sub_tile_max) | 2 * int(drop_last_share))
 
 
 def _int8dot_check(q, k_data, v_data) -> None:

@@ -125,10 +125,11 @@ SIGNATURES = {
         "mx_rmsnorm_launch": (_P, _P, _P, _L, _I, _F, _P),
     },
     "mx_attention": {
-        # q, kd, ks, vd, vs, q_off, kv_len, out, b, hq, hkv, sq, L, d,
-        # sm_scale, elem_code, stream
+        # q, kd, ks, vd, vs, q_off, kv_len (null: the two numbers that follow), q_off number, kv_len
+        # number, out, b, hq, hkv, sq, L, d, tile, positions a CTA, the grid's CTAs, wide (64-row tiles),
+        # sm_scale, elem_code, fault (0), stream
         "mx_cached_attention_launch": (
-            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P
         ),
     },
     "mx_attention_chunkdot": {
@@ -139,10 +140,9 @@ SIGNATURES = {
         ),
     },
     "mx_attention_dmajor": {
-        # q, kd, ks, vd, vs, q_off, kv_len, out, workspace, tickets, b, hq, hkv, sq, sq_stride (q's
-        # positions), L, d, chunk, the grid's chunks, sm_scale, elem_code, fault (0), stream
+        # the arguments of mx_cached_attention_launch, over the d-major cache
         "mx_cached_attention_dmajor_launch": (
-            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P
         ),
     },
     "mx_attention_int8dot": {

@@ -16,7 +16,7 @@ dispatch the MLA layer calls (``torchmx_tpu/ops/pallas_mla.py``).
   exponential's last bits only (the kernel takes the fast ``__expf``).  The
   kernel splits the chunks across the card and combines them in the same
   launch, through a workspace and tickets kept per device
-  (``ops/split_kv``, shared with K6).
+  (``ops/split_kv``, shared with K7 and B14).
 * B14 ``mx_mla_attention_int8dot`` (``csrc/mx_mla_int8dot.cu``) replaces
   ``_mla_kernel_int8dot``: decode (one query position) over an int8 d-major
   latent cache under ``TORCHMX_ATTN_INT8_DOT=1``, q and p quantized to int8
@@ -197,7 +197,7 @@ def _codes_dtype(elem_name: str) -> torch.dtype:
 
 
 #: The most B13's combine workspace holds on a device (``ops/split_kv``, the
-#: buffers B13 and K6 share).  A call whose tiles could need more (an
+#: buffers B13, K7 and B14 share).  A call whose tiles could need more (an
 #: admission of some thousand positions over a long cache, with ``kv_len`` a
 #: tensor) is launched once per group of rows that fits.
 B13_WORKSPACE_BYTES = 256 << 20

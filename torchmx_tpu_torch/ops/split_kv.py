@@ -1,8 +1,8 @@
 """The combine buffers of the kernels that split the KV length across the
 card and combine the chunks in the same launch: B13 (``ops/cuda_mla.
-mx_mla_attention``), K6 (``ops/cuda_attention.mx_cached_attention_dmajor``)
-and K7 (``ops/cuda_attention.mx_cached_attention_int8dot``, whose chunks
-are JAX's KV tiles).
+mx_mla_attention``), K7 (``ops/cuda_attention.mx_cached_attention_int8dot``,
+whose chunks are JAX's KV tiles) and B14 (``ops/cuda_mla.
+mx_mla_attention_int8dot``).
 
 Each live chunk of a query tile with two or more writes its rows' fp32
 partials to a workspace; the tile's last CTA, known by an atomic ticket that

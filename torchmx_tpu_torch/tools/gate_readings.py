@@ -1,8 +1,11 @@
 """Where a split-KV kernel's kernel-vs-plain gate sits: the sound kernel and
-the planted combine fault (``drop_last_chunk``, K5's, K7's and B14's
-``drop_last_tile``: the last live chunk or tile of a row left out; for K5
-also ``p_from_own_tile_max``: p rounded against its tile's own maximum, not
-the running one) against the plain version.  Each reading is the max abs error, the
+the planted combine fault (B13's ``drop_last_chunk``, K4's and K6's
+``drop_last_share``, K5's, K7's and B14's ``drop_last_tile``: the last live
+chunk, share or tile of a row left out; for K5 also ``p_from_own_tile_max``:
+p rounded against its tile's own maximum, not the running one; for K4 and
+K6 also ``p_from_sub_tile_max``: p rounded against the running maximum
+through its 64 positions, not through JAX's tile) against the plain
+version.  Each reading is the max abs error, the
 worst row's relative L2 error (``chip_smoke.worst_row_rel``) and the whole
 output's relative L2 error, over the case and, for the fault, over each
 batch row alone.
@@ -11,10 +14,14 @@ batch row alone.
   ``MLA_SPLIT_CASES`` shape in all six latent formats, and at two probes
   whose last live chunk holds one position (kv_len = S + 1, 2S + 1, 3S + 1
   at L = 1024, decode and a prefill of 64);
+* ``--kernel k4``: K4 at the timed shapes of ``chip_smoke.
+  check_attention_kernel`` (fp8) and of ``check_int8_attention_kernels``
+  (int8 prefill and chunks) and at ``chip_smoke.k6_edge_cases`` in the four
+  seq formats, and at ``chip_smoke.k46_fault_probes``, one batch row alone
+  (the fault a probe is for in its label);
 * ``--kernel k6``: K6 at the six shapes of ``chip_smoke.
   check_dmajor_attention_kernels`` and at ``chip_smoke.k6_edge_cases`` in
-  all five cache formats, and at the probes kv_len = S + 1 and 2S + 1 at L =
-  1024, one batch row alone, decode and a prefill of 64;
+  all five cache formats, and at ``chip_smoke.k46_fault_probes``;
 * ``--kernel k7``: K7 at the three decode shapes of ``chip_smoke.
   check_dmajor_attention_kernels`` and at ``chip_smoke.k7_edge_cases``, and
   at the probes kv_len = lt + 1 and 2 lt + 1 (lt = JAX's tile) at L = 1024
@@ -33,7 +40,7 @@ distribution, as the checks draw them) and prints the spread of the sound
 and the fault readings over the draws.  Run from the repository root with
 one card:
 
-    python3 torchmx_tpu_torch/tools/gate_readings.py --kernel b13|k6|k7|b14|k5 [--seeds n]
+    python3 torchmx_tpu_torch/tools/gate_readings.py --kernel b13|k4|k6|k7|b14|k5 [--seeds n]
 
 Writes ``chiprun_out/<kernel>_gate_readings.json``.
 """
@@ -70,17 +77,47 @@ K6_CASES = [("decode b=32 L=1024 kv_len 0..1024 ragged", 32, 1024, 1, RAGGED, Tr
             ("chunk b=1 L=1024 sq=128 q_off=256", 1, 1024, 128, [384], False)]
 
 
+K4_CASES = [("decode b=32 L=256 kv=192", 32, 256, 1, [192] * 32, False),
+            ("prefill b=32 L=256 sq=64", 32, 256, 64, [64] * 32, False),
+            ("ragged b=4 L=1024 sq=64", 4, 1024, 64, [1024, 777, 300, 70], False),
+            ("whole b=1 L=1024 sq=384", 1, 1024, 384, [384], False),
+            ("chunk b=1 L=1024 sq=128 q_off=256", 1, 1024, 128, [384], False),
+            ("remainder b=1 L=1024 sq=64 q_off=128", 1, 1024, 64, [192], False)]
+
+
+def _k46_probes(cs, dev, gen, layout):
+    from torchmx_tpu_torch.ops import cuda_attention as ca
+
+    fn, plain = ((ca.mx_cached_attention, ca.mx_cached_attention_plain) if layout == "seq" else
+                 (ca.mx_cached_attention_dmajor, ca.mx_cached_attention_dmajor_plain))
+    for L, sq, kv, fault in cs.k46_fault_probes():
+        args = cs._attn_case(dev, gen, 1, 32, 8, 128, L, sq, [kv], "int8", never_written=True)
+        args = args if layout == "seq" else cs._to_dmajor(args)
+        yield f"fault probe L={L} sq={sq} kv={kv} ({fault})", "int8", 1, fn, args, plain(*args)
+        del args
+
+
+def readings_k4(cs, dev, gen):
+    from torchmx_tpu_torch.ops import cuda_attention as ca
+
+    timed = K4_CASES + [(label, b, L, 1, kv, True) for label, b, L, kv in cs.K7_CASES]
+    for label, b, L, sq, kv, fresh in timed + cs.k6_edge_cases():
+        for elem in ca.K4_FORMATS:
+            args = cs._attn_case(dev, gen, b, 32, 8, 128, L, sq, kv, elem, never_written=fresh)
+            yield label, elem, b, ca.mx_cached_attention, args, ca.mx_cached_attention_plain(*args)
+            del args
+    yield from _k46_probes(cs, dev, gen, "seq")
+
+
 def readings_k6(cs, dev, gen):
     from torchmx_tpu_torch.ops import cuda_attention as ca
 
-    S = ca.k6_chunk(1024)
-    probes = [(f"fault probe sq={sq} L=1024 kv={kv}", 1, 1024, sq, [kv], False)
-              for sq in (1, 64) for kv in (S + 1, 2 * S + 1)]
-    for label, b, L, sq, kv, fresh in K6_CASES + cs.k6_edge_cases() + probes:
+    for label, b, L, sq, kv, fresh in K6_CASES + cs.k6_edge_cases():
         for elem in K6_FORMATS:
             args = cs._to_dmajor(cs._attn_case(dev, gen, b, 32, 8, 128, L, sq, kv, elem, never_written=fresh))
             yield label, elem, b, ca.mx_cached_attention_dmajor, args, ca.mx_cached_attention_dmajor_plain(*args)
             del args
+    yield from _k46_probes(cs, dev, gen, "dmajor")
 
 
 def readings_k7(cs, dev, gen):
@@ -124,7 +161,8 @@ def readings_k5(cs, dev, gen):
 
 
 # the planted faults' switches, the combine fault first
-FAULT = dict(b13=("drop_last_chunk",), k6=("drop_last_chunk",), k7=("drop_last_tile",), b14=("drop_last_tile",),
+FAULT = dict(b13=("drop_last_chunk",), k4=("drop_last_share", "p_from_sub_tile_max"),
+             k6=("drop_last_share", "p_from_sub_tile_max"), k7=("drop_last_tile",), b14=("drop_last_tile",),
              k5=("drop_last_tile", "p_from_own_tile_max"))
 
 
@@ -145,7 +183,8 @@ def main() -> int:
     card = cs.card_line()
     print(card, flush=True)
     out = dict(card=card, readings=[])
-    cases = dict(b13=readings_b13, k6=readings_k6, k7=readings_k7, b14=readings_b14, k5=readings_k5)[args.kernel]
+    cases = dict(b13=readings_b13, k4=readings_k4, k6=readings_k6, k7=readings_k7, b14=readings_b14,
+                 k5=readings_k5)[args.kernel]
     draws = ((seed, label, *rest) for seed in range(1234, 1234 + args.seeds)
              for label, *rest in cases(cs, dev, torch.Generator(dev).manual_seed(seed)))
     for seed, label, elem, b, kernel, call_args, ref in draws:

@@ -20,12 +20,16 @@ at Llama-3-8B width):
 * ``g``: ``generate`` b=32, MXFP4 weights, the fp8 seq cache (K3, K4);
 * ``e``: the engine stream, MXFP4 weights over the int8 seq cache (K5 at
   every decode step, K4 at admissions), with every check of ``run_engine``;
+  besides, a torch.profiler window over the admission of 32 requests (K4's
+  device ms an admission), and the same admissions' wall time on the host
+  clock without the profiler;
 * ``f``: ``generate`` b=32 over the fp4 d-major cache (K6 at prefill and at
   every decode step);
 * ``d``: the engine stream over the int8 d-major cache with
   ``TORCHMX_ATTN_INT8_DOT=1`` (K7 at every decode step, K6 at admissions),
   with every check of ``run_engine``; besides, a torch.profiler window over
-  the admission of 32 requests (the kernel's device ms an admission);
+  the admission of 32 requests (the kernel's device ms an admission) and
+  their wall time on the host clock without the profiler;
 * ``w``: the W8A8 engine stream over the int8 seq cache (B9);
 * ``pd``: ``generate`` b=32, MXFP8 weights under ``TORCHMX_FP8_DOT=1``, the
   fp8 cache (B9-fp8);
@@ -43,8 +47,10 @@ at Llama-3-8B width):
   (b=32, L=256, kv_len 192, numbers as ``generate`` passes them; q's
   quantization inside the call, a launch of its own in the parent).
 
-Each path reports tok/s, the kernel's device ms a decode step, the device's
-busy ms a step and idle share (the torch.profiler window of 8 decode steps
+Each path reports tok/s, the kernel's device ms a decode step, its launches'
+durations in that window (mean, median, p10, p90, max, and the mean of
+those that start after the device idled more than 10 us against those
+that start at once; us), the device's busy ms a step and idle share (the torch.profiler window of 8 decode steps
 that ``run_slice`` and ``run_engine`` take), the launches of a decode step,
 the peak device memory (``max_memory_allocated`` over the run, the weights
 included) and the bytes the split-KV kernels' combine buffers hold after it.
@@ -98,6 +104,32 @@ def main() -> int:
                        for t in pair)
         return split_kv.held_bytes()
 
+    launch_us: dict = {}  # the named kernels' launches in the last profile window
+
+    def spy(prof, by_kernel=cs.device_time_by_kernel):
+        """chip_smoke.device_time_by_kernel, and the named kernels' launch
+        durations, each with the device's idle gap before it (us)."""
+        evs = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        durs, gaps, end = [], [], float("-inf")
+        for t0, t1, n in evs:
+            if next((k for sub, k in cs.KERNEL_OF_DEVICE_NAME if sub in n), "pytorch") in names:
+                durs.append(t1 - t0)
+                gaps.append(t0 - end)
+            end = max(end, t1)
+        launch_us.clear()
+        if durs:
+            order = sorted(durs)
+            after = [d for d, g in zip(durs, gaps) if g > 10]
+            busy = [d for d, g in zip(durs, gaps) if g <= 10]
+            launch_us.update(n=len(durs), mean=sum(durs) / len(durs), median=order[len(order) // 2],
+                             p10=order[len(order) // 10], p90=order[9 * len(order) // 10], max=order[-1],
+                             after_idle_n=len(after), after_idle_mean=sum(after) / len(after) if after else None,
+                             back_to_back_mean=sum(busy) / len(busy) if busy else None)
+        return by_kernel(prof)
+
+    cs.device_time_by_kernel = spy
+
     def record(name, r, dev_ms, layers):
         timed = isinstance(dev_ms, dict)
         kernel_ms = sum(dev_ms.get(k, 0.0) for k in names) if timed else None
@@ -105,10 +137,12 @@ def main() -> int:
                          busy_ms_per_step=dev_ms.get("busy") if timed else None,
                          device_idle_share=r.get("device_idle_share"), peak_gib=r["peak_gib"],
                          scratch_bytes=scratch_bytes(), launches_per_decode_step=r["launches_per_decode_step"],
-                         device_ms_per_step=dev_ms)
+                         device_ms_per_step=dev_ms, kernel_launch_us=dict(launch_us))
         print(f"[{args.label}] {name} at {layers} layers: {r['tokens_per_s']:.1f} tok/s, {args.kernel} {kernel_ms} "
               f"device ms a step, busy {out[name]['busy_ms_per_step']}, idle {r.get('device_idle_share')}, peak "
-              f"{r['peak_gib']:.3f} GiB, combine buffers {out[name]['scratch_bytes']} bytes [{card}]", flush=True)
+              f"{r['peak_gib']:.3f} GiB, combine buffers {out[name]['scratch_bytes']} bytes; a launch (us): "
+              f"{json.dumps({k: round(v, 2) if isinstance(v, float) else v for k, v in launch_us.items()})} "
+              f"[{card}]", flush=True)
 
     def slice_path(name, model, cache, weights, layers, want=None):
         _, res = cs.run_slice(model, dev, card, cache, batches=(32,), weights=weights, want=want)
@@ -125,6 +159,14 @@ def main() -> int:
         prefix, requests = cs.make_requests(model.config.vocab_size, seed=7)
         eng = DecodeEngine(model, cs.ENGINE_BATCH, cs.ENGINE_LEN, kv_cache_config=kv)
         eng.cache_prefix(prefix)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()  # host clock, no profiler: the admissions' wall time
+        for r in requests[:cs.ENGINE_BATCH]:
+            eng.add(r["prompt"])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        eng = DecodeEngine(model, cs.ENGINE_BATCH, cs.ENGINE_LEN, kv_cache_config=kv)
+        eng.cache_prefix(prefix)
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
@@ -133,12 +175,12 @@ def main() -> int:
             torch.cuda.synchronize()
         dev_ms = cs.device_time_by_kernel(prof)
         kernel_ms = sum(dev_ms.get(k, 0.0) for k in names)
-        out[name + "_admissions"] = dict(admissions=cs.ENGINE_BATCH, kernel_device_ms=kernel_ms,
+        out[name + "_admissions"] = dict(admissions=cs.ENGINE_BATCH, wall_s=wall_s, kernel_device_ms=kernel_ms,
                                          kernel_device_ms_per_admission=kernel_ms / cs.ENGINE_BATCH,
                                          prompt_tokens=sum(len(r["prompt"]) for r in requests[:cs.ENGINE_BATCH]),
                                          device_ms=dev_ms)
-        print(f"[{args.label}] {name}: {args.kernel} {kernel_ms:.3f} device ms over {cs.ENGINE_BATCH} admissions "
-              f"[{card}]", flush=True)
+        print(f"[{args.label}] {name}: {args.kernel} {kernel_ms:.3f} device ms over {cs.ENGINE_BATCH} admissions, "
+              f"{wall_s:.3f} s on the host clock, device busy {dev_ms.get('busy', 0.0):.2f} ms [{card}]", flush=True)
 
     if "host" in paths:  # the wrapper's host time a call at its decode shape, 200 calls queued unsynchronised
         if "mx_cached_attention_dmajor" in names:
@@ -203,6 +245,7 @@ def main() -> int:
                     admissions("d", model, "int8 d-major int8dot")
             if "e" in paths:
                 engine_path("e", model, "int8", "fp4", layers)
+                admissions("e", model, "int8")
             del model
             torch.cuda.empty_cache()
         if "w" in paths:

@@ -4,13 +4,12 @@ The cut builds give wrong results; they only time what is left.
 
 Run from the repository root with one card:
 
-    python3 torchmx_tpu_torch/tools/phase_profile.py --kernel b13|k6|k7|b14|k5 [--root DIR] [--label NAME] [--chunks-only]
+    python3 torchmx_tpu_torch/tools/phase_profile.py --kernel b13|k4|k6|k7|b14|k5 [--root DIR] [--label NAME] [--chunks-only] [--cases TEXT]
 
 ``--root`` imports ``chip_smoke`` and ``torchmx_tpu_torch`` from another
 checkout and cuts that checkout's source (for instance a parent commit
-unpacked by ``git archive`` into a git-ignored directory): K6 before the KV
-split (``csrc/mx_attention_dmajor.cu`` without a producer warp) has cuts of
-its own.  Each patched copy is written under the package's git-ignored
+unpacked by ``git archive`` into a git-ignored directory): K6 before the
+cluster kernel (chunks of ``k6_chunk(L)``) has cuts of its own.  Each patched copy is written under the package's git-ignored
 ``_build/``; the source itself is not touched.
 
 Builds of B13 (``csrc/mx_mla.cu``), timed at ``chip_smoke.MLA_CASES`` and
@@ -26,7 +25,37 @@ at b=32 decodes over 2048 and 4096 positions, int8 seq latent:
 * ``no_tiles``: no tile at all (the CTA's launch, Q load, epilogue and
   combine).
 
-Builds of K6 with the KV split, timed at F's decode (fp4, b=32 over 256
+Builds of K4's and K6's cluster kernel (``csrc/mx_attention_tile.cuh``, the
+layout's source built with a patched copy of it), timed for K4 at G's decode
+(fp8 and fp6, b=32 over 256 positions, kv_len 192, the numbers generate
+passes), the engine's decode (b=32 over 1024, kv_len 0 .. 1024 ragged, fp8
+and int8), one row at kv_len 700, b=4 over 8192 and 32768 (shares of 4096
+in two chunks), and the int8 prefill and
+chunk shapes of ``chip_smoke.check_int8_attention_kernels``; for K6 at
+``K6_CASES``; each beside SDPA over the dequantized cache:
+
+* ``no_dots``: no q.K^T or P.V mma (their fragments still loaded);
+* ``no_decode``: the landed fills are not decoded;
+* ``data_path``: neither;
+* ``no_tiles``: no fill at all (the launch, the exchange and the combine);
+* ``P=...``: the shipped kernel with another share (``attention_share``
+  patched) wherever it divides JAX's tile or is whole tiles, gives at most 8
+  CTAs a cluster and its scores fit.  ``--chunks-only`` times the shares
+  alone.
+
+Besides, K4 at G's and K6 at F's decode steps as ``generate`` calls them
+(b=32 over 256 positions, fp8 seq / fp4 d-major, q_off and kv_len numbers,
+kv_len 65 .. 192 at a stride of 16; ``generate_steps``), the mean a call
+over the steps, each step timed flushed (``chip_smoke.Timer``), warm
+(``warm_time``: 50 calls queued back to back, the cache in L2 from one to
+the next) and cold (``cold_time``: as a host-bound step launches it, the
+device idle and L2 holding other data, the kernel's own time from the
+profiler); shipped, each cut and each share (or, for the chunked K6, chunk).
+``--cases TEXT`` times only the cases whose label holds TEXT.
+
+K4 before the cluster kernel (one CTA a 64-row tile, tiles of 64
+positions, no split) is timed as it ships.  Builds of K6 with the KV split
+(chunks and a ticket combine), timed at F's decode (fp4, b=32 over 256
 positions, kv_len 192, as a tensor and as numbers), the engine's decode
 (b=32 over 1024, kv_len 0 .. 1024 ragged, fp8 and int8), one row at kv_len
 700, D's admission and chunk (int8, sq 384 and 128), the prefill of 32 x 64
@@ -43,10 +72,6 @@ to 512, and 256 after a cached prefix of 128):
   combine);
 * ``no_combine``: a tile with two live chunks or more writes its partials
   and stops (no ticket, no combine).
-
-Builds of K6 before the split (one CTA a 64-row tile and KV head walking
-its prefix, loads and decode in every thread): ``no_dots``, ``no_decode``
-(neither the tile's loads nor its decode), ``neither``.
 
 Builds of K7 (``csrc/mx_attention_int8dot.cu``), timed at ``chip_smoke``'s
 three phase-2 cases (D's decode, b=32 over 1024 positions with kv_len 0 ..
@@ -198,8 +223,6 @@ def b13_patched(src: str) -> str:
 
 K6_CUTS = {"no_dots": ["NO_DOTS"], "no_decode": ["NO_DECODE"], "data_path": ["NO_DOTS", "NO_DECODE"],
            "no_copies": ["NO_DOTS", "NO_DECODE", "NO_COPY"], "no_tiles": ["NO_TILES"], "no_combine": ["NO_COMBINE"]}
-K6_OLD_CUTS = {"no_dots": ["NO_DOTS"], "no_decode": ["NO_DECODE"], "neither": ["NO_DOTS", "NO_DECODE"]}
-K6_OLD_MARK = "No split over the KV length yet"  # the header of K6 before the KV split
 
 
 def k6_patched(src: str) -> str:
@@ -221,16 +244,6 @@ def k6_patched(src: str) -> str:
     return _replace(s, "  __threadfence();\n  mx::named_barrier(1, kThreads);\n  int* last",
                     "#ifdef NO_COMBINE\n  return;\n#endif\n  __threadfence();\n  mx::named_barrier(1, kThreads);\n"
                     "  int* last")
-
-
-def k6_old_patched(src: str) -> str:
-    """K6 before the split with guards around the dots and softmax (NO_DOTS)
-    and the tile loads and decode (NO_DECODE)."""
-    s = _guard(src, "    for (int idx = tid; idx < kCodeRows * (kL / kSeg); idx += 128) {",
-               "decode_segment<E>(Vt, vd_h, vs_h, crow, L, kt0 + seg * kSeg, seg * kSeg, kv_len);\n    }\n",
-               "NO_DECODE")
-    return _guard(s, "    // S = Q K^T for this warp's 16 rows x 64 positions.",
-                  "        mx::mma_bf16_16816(o[j], pa, b);\n      }\n    }\n", "NO_DOTS")
 
 
 # -- K7 ---------------------------------------------------------------------------------------------
@@ -406,6 +419,184 @@ def b14_old_patched(src: str) -> str:
     return _replace(s, old, f"\n#ifdef NO_LOADS\nuint32_t v = (uint32_t)(c * 33 + i);\n#else\n{old}\n#endif\n")
 
 
+# -- K4 and K6: the cluster kernel -----------------------------------------------------------------
+
+TILE_HEADER = "mx_attention_tile.cuh"
+TILE_CUTS = {"no_dots": ["NO_DOTS"], "no_decode": ["NO_DECODE"], "data_path": ["NO_DOTS", "NO_DECODE"],
+             "no_tiles": ["NO_TILES"]}
+
+
+def tile_source(csrc, src_name: str) -> str:
+    """The layout's source with a patched copy of the cluster kernel in place
+    of its include: #ifdef guards around the two dots' mma (NO_DOTS), the
+    decode of a fill (NO_DECODE) and the share's fills (NO_TILES)."""
+    h = (csrc / TILE_HEADER).read_text()
+    for mma in ("mma_bf16_16816(s, a, b);", "mma_bf16_16816(acc[jn], a, b);"):
+        h = _replace(h, mma, f"\n#ifndef NO_DOTS\n{mma}\n#endif\n")
+    h = _replace(h, "  if constexpr (Lay == kSeq) {  // st: [position][d] codes",
+                 "#ifdef NO_DECODE\n  return;\n#endif\n  if constexpr (Lay == kSeq) {  // st: [position][d] codes")
+    h = _replace(h, "  const int nt = (nvis + kSub - 1) / kSub;",
+                 "#ifdef NO_TILES\n  const int nt = 0;\n#else\n  const int nt = (nvis + kSub - 1) / kSub;\n#endif")
+    return _replace((csrc / f"{src_name}.cu").read_text(), f'#include "{TILE_HEADER}"', h)
+
+
+def at_shares(ca, row: dict, L: int, fn):
+    """fn() timed at every share the cluster kernel takes for L (a multiple
+    of 64 dividing JAX's tile or whole tiles, at most 8 a cache and
+    ``ATTN_MAX_SHARE`` positions; past ``ATTN_WIDE_SHARE`` in 16-row tiles)."""
+    share_of, lt = ca.attention_share, ca.attention_tile(L)
+    try:
+        for P in (64, 128, 256, 512, 1024, 2048, 4096, 8192):
+            if (lt % P == 0 or P % lt == 0) and -(-L // P) <= ca.ATTN_MAX_SHARES and P <= ca.ATTN_MAX_SHARE:
+                ca.attention_share = lambda L_, P=P: P
+                row[f"P={P}"] = fn()
+    finally:
+        ca.attention_share = share_of
+
+
+K4_CASES = [("G decode b=32 L=256 kv=192 (numbers)", 32, 256, 1, [192] * 32, False, "float8_e4m3", True),
+            ("G decode b=32 L=256 kv=192 (numbers)", 32, 256, 1, [192] * 32, False, "float6_e3m2", True),
+            ("decode b=32 L=256 kv=192", 32, 256, 1, [192] * 32, False, "float8_e4m3", False),
+            ("decode b=32 L=1024 ragged", 32, 1024, 1, [0] + [1 + (1023 * i) // 30 for i in range(31)], True,
+             "float8_e4m3", False),
+            ("decode b=32 L=1024 ragged", 32, 1024, 1, [0] + [1 + (1023 * i) // 30 for i in range(31)], True,
+             "int8", False),
+            ("decode b=1 L=1024 kv=700", 1, 1024, 1, [700], True, "float8_e4m3", False),
+            ("decode b=4 L=8192 kv=8192", 4, 8192, 1, [8192] * 4, True, "float8_e4m3", False),
+            ("decode b=4 L=32768 kv=32768", 4, 32768, 1, [32768] * 4, True, "float8_e4m3", False),
+            ("whole b=1 L=1024 sq=384", 1, 1024, 384, [384], False, "int8", False),
+            ("chunk b=1 L=1024 sq=128 q_off=256", 1, 1024, 128, [384], False, "int8", False),
+            ("remainder b=1 L=1024 sq=64 q_off=128", 1, 1024, 64, [192], False, "int8", False),
+            ("prefill b=32 L=256 sq=64", 32, 256, 64, [64] * 32, False, "int8", False)]
+
+
+def warm_time(fn, reps: int = 50) -> float:
+    """Mean device ms of one of ``reps`` calls queued back to back while the
+    device sleeps (about 10 ms, so the host has enqueued them all before it
+    wakes): no flush between them."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+_OTHER: list = []  # a buffer larger than L2, read before each cold call
+
+
+def cold_time(fn, reps: int = 20) -> float:
+    """Mean device ms of fn's attention kernel launched as a host-bound
+    decode step launches it: L2 refilled with other data (96 MiB read) and
+    the device idle for about 0.2 ms before each call; from the profiler's
+    kernel records (the kernel alone, not its launch)."""
+    import time
+
+    import torch
+
+    if not _OTHER:
+        _OTHER.append(torch.ones(24 * 2**20, dtype=torch.float32, device="cuda"))
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            _OTHER[0].sum()
+            torch.cuda.synchronize()
+            time.sleep(2e-4)
+            fn()
+        torch.cuda.synchronize()
+    d = [e.time_range.end - e.time_range.start for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA and "attention" in e.name]
+    return sum(d) / len(d) / 1e3
+
+
+def generate_steps(cs, ca, cuda_lib, dev, gen, timer, layout: str, src_name: str, libs: dict, tile: bool) -> dict:
+    """K4 (fp8 seq: G) or K6 (fp4 d-major: F) at generate's decode steps
+    (``GK_KV``, numbers), the mean ms a call flushed and warm: shipped, each
+    cut, each share (the cluster kernel) or chunk (K6 before it)."""
+    elem = "float8_e4m3" if layout == "seq" else "float4_e2m1"
+    seq = cs._attn_case(dev, gen, 32, 32, 8, 128, 256, 1, [256] * 32, elem)
+    args = seq if layout == "seq" else cs._to_dmajor(seq)
+    kernel = ca.mx_cached_attention if layout == "seq" else ca.mx_cached_attention_dmajor
+
+    def steps():
+        calls = [lambda kv=kv: kernel(*args[:5], kv - 1, kv, *args[7:]) for kv in GK_KV]
+        return dict(flushed=sum(timer(c) for c in calls) / len(calls),
+                    warm=sum(warm_time(c) for c in calls) / len(calls),
+                    cold=sum(cold_time(c) for c in calls) / len(calls))
+
+    row = dict(shipped=steps())
+    shipped = cuda_lib.lib(src_name)
+    try:
+        for name, lib in libs.items():
+            cuda_lib._libs[src_name] = lib
+            row[name] = steps()
+    finally:
+        cuda_lib._libs[src_name] = shipped
+    if tile:
+        row["shipped_share"] = ca.attention_share(256)
+        at_shares(ca, row, 256, steps)
+    elif hasattr(ca, "k6_chunk") and layout == "dmajor":
+        row["shipped_chunk"] = ca.k6_chunk(256)
+        at_chunks(ca, "k6_chunk", row, 256, steps, step=64)
+    return row
+
+
+def profile_tile(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show, layout: str, only: str = "") -> dict:
+    """K4 (``layout="seq"``) or K6 as the checkout ships it, beside SDPA; with
+    the cluster kernel also its cut builds and its shares."""
+    import torch.nn.functional as F
+
+    from torchmx_tpu_torch.ops import cuda_attention as ca
+
+    src_name = "mx_attention" if layout == "seq" else "mx_attention_dmajor"
+    source = (cuda_lib.CSRC_DIR / f"{src_name}.cu").read_text()
+    tile = TILE_HEADER in source
+    libs = {}
+    if not chunks_only:
+        if tile:
+            libs = build_cuts(cuda_lib, src_name, tile_source(cuda_lib.CSRC_DIR, src_name), TILE_CUTS)
+        elif layout == "dmajor":  # K6 with chunks and a ticket combine
+            libs = build_cuts(cuda_lib, src_name, k6_patched(source), K6_CUTS)
+    kernel = ca.mx_cached_attention if layout == "seq" else ca.mx_cached_attention_dmajor
+    cases = {}
+    for label, b, L, sq, kv, fresh, elem, numbers in K4_CASES if layout == "seq" else K6_CASES:
+        if only not in label:
+            continue
+        seq = cs._attn_case(dev, gen, b, 32, 8, 128, L, sq, kv, elem, never_written=fresh)
+        args = seq if layout == "seq" else cs._to_dmajor(seq)
+        if numbers:
+            args = (*args[:5], kv[0] - sq, kv[0], *args[7:])
+        fn = lambda: kernel(*args)  # noqa: E731
+        row = time_cuts(cuda_lib, src_name, libs, timer, fn)
+        k, v, mask = cs._sdpa_inputs(seq)
+        row["sdpa"] = timer(lambda: F.scaled_dot_product_attention(seq[0], k, v, attn_mask=mask, scale=seq[7],
+                                                                   enable_gqa=True))
+        del k, v, mask
+        if tile:
+            row["shipped_share"] = ca.attention_share(L)
+            at_shares(ca, row, L, lambda: timer(fn))
+        elif hasattr(ca, "k6_chunk") and layout == "dmajor":
+            row["shipped_chunk"] = ca.k6_chunk(L)
+            at_chunks(ca, "k6_chunk", row, L, lambda: timer(fn), step=64)
+        cases[f"{label} {elem}"] = row
+        show(f"{label} {elem}", row)
+        del args, seq
+    label = "G decode steps" if layout == "seq" else "F decode steps"
+    if only in label:
+        cases[label] = generate_steps(cs, ca, cuda_lib, dev, gen, timer, layout, src_name, libs, tile)
+        show(label, cases[label])
+    return cases
+
+
 # -- the runs ---------------------------------------------------------------------------------------
 
 
@@ -571,7 +762,7 @@ def profile_k5(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show) -> dict:
         row["shipped_P"] = share(L)
         shipped = cuda_lib.lib("mx_attention_chunkdot")
         try:
-            lt, most = ca.k5_tile(L), getattr(ca, "K5_MAX_SHARE", None)  # None: no share of several tiles
+            lt, most = ca.attention_tile(L), getattr(ca, "K5_MAX_SHARE", None)  # None: no share of several tiles
             for P in (128, 256, 512, 1024, 2048, 4096):
                 if (lt % P == 0 or (most and P % lt == 0 and P <= most)) and -(-L // P) <= ca.K5_MAX_SHARES:
                     ca.k5_share = lambda L_, P=P: P
@@ -587,7 +778,7 @@ def profile_k5(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show) -> dict:
 
     cases = {}
     for label, b, L, kv, numbers in K5_CASES:
-        if L // ca.k5_tile(L) > ca.K5_MAX_SHARES and not hasattr(ca, "K5_MAX_SHARE"):
+        if L // ca.attention_tile(L) > ca.K5_MAX_SHARES and not hasattr(ca, "K5_MAX_SHARE"):
             continue  # a K5 before shares of several tiles: K4 serves such a cache
         seq = cs._attn_case(dev, gen, b, 32, 8, 128, L, 1, kv, "int8", never_written=True)
         args = seq[:8]
@@ -675,37 +866,21 @@ def profile_b14(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show) -> dict:
     return cases
 
 
-def profile_k6(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show) -> dict:
-    from torchmx_tpu_torch.ops import cuda_attention as ca
+def profile_k4(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show, only: str = "") -> dict:
+    return profile_tile(cs, cuda_lib, dev, timer, gen, chunks_only, show, "seq", only)
 
-    source = (cuda_lib.CSRC_DIR / "mx_attention_dmajor.cu").read_text()
-    old = K6_OLD_MARK in source
-    libs = {}
-    if not chunks_only:
-        libs = build_cuts(cuda_lib, "mx_attention_dmajor", k6_old_patched(source) if old else k6_patched(source),
-                          K6_OLD_CUTS if old else K6_CUTS)
-    cases = {}
-    for label, b, L, sq, kv, fresh, elem, numbers in K6_CASES:
-        args = cs._to_dmajor(cs._attn_case(dev, gen, b, 32, 8, 128, L, sq, kv, elem, never_written=fresh))
-        if numbers:
-            args = (*args[:5], kv[0] - sq, kv[0], *args[7:])
-        fn = lambda: ca.mx_cached_attention_dmajor(*args)  # noqa: E731
-        row = time_cuts(cuda_lib, "mx_attention_dmajor", libs, timer, fn)
-        if hasattr(ca, "k6_chunk"):
-            row["shipped_chunk"] = ca.k6_chunk(L)
-            at_chunks(ca, "k6_chunk", row, L, lambda: timer(fn), step=64)
-        cases[f"{label} {elem}"] = row
-        show(f"{label} {elem}", row)
-        del args
-    return cases
+
+def profile_k6(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show, only: str = "") -> dict:
+    return profile_tile(cs, cuda_lib, dev, timer, gen, chunks_only, show, "dmajor", only)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("b13", "k6", "k7", "b14", "k5"), required=True)
+    ap.add_argument("--kernel", choices=("b13", "k4", "k6", "k7", "b14", "k5"), required=True)
     ap.add_argument("--root", default=".", help="checkout to import chip_smoke and the package from")
     ap.add_argument("--label", default="change")
     ap.add_argument("--chunks-only", action="store_true", help="time the chunk sizes alone (no cut builds)")
+    ap.add_argument("--cases", default="", help="k4 / k6: time only the cases whose label holds this text")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -727,9 +902,11 @@ def main() -> int:
         print(f"[{args.label}] {args.kernel} {label}: " + json.dumps(
             {k: round(v, 4) if isinstance(v, float) else v for k, v in row.items()}) + f" ms [{card}]", flush=True)
 
-    profile = dict(b13=profile_b13, k6=profile_k6, k7=profile_k7, b14=profile_b14, k5=profile_k5)[args.kernel]
+    profile = dict(b13=profile_b13, k4=profile_k4, k6=profile_k6, k7=profile_k7, b14=profile_b14,
+                   k5=profile_k5)[args.kernel]
+    extra = dict(only=args.cases) if args.kernel in ("k4", "k6") else {}
     res = dict(card=card, label=args.label, root=root,
-               cases=profile(cs, cuda_lib, dev, timer, gen, args.chunks_only, show))
+               cases=profile(cs, cuda_lib, dev, timer, gen, args.chunks_only, show, **extra))
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", f"phase_profile_{args.kernel}_{args.label}.json"), "w") as f:
         json.dump(res, f, indent=1)
