@@ -114,9 +114,10 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    for bit alone and among 31 others, admitted whole, in chunks of 128 or
    over the cached prefix; EOS, a stop sequence and a full cache must each
    end a request with the right reason; every decode step must launch K3,
-   K2 (once for q/k/v, once for gate/up, once each for o_proj, down_proj and
-   lm_head), K1, K5 and the RMSNorm kernel as often as the depth says and K4
-   never.  On a 4-layer
+   K2 (once each for o_proj, down_proj and lm_head: the norms before q/k/v
+   and gate/up apply their shared K2 in the RMSNorm kernel's launch), K1
+   (once a layer: K and V into the cache), K5 and the RMSNorm kernel as often
+   as the depth says and K4 never.  On a 4-layer
    model the engine's streams must equal the plain path's at every decisive
    step.  Reports tok/s over the stream, the gap between ``step()``
    returns, admission latency, device time per step by kernel, the idle
@@ -332,25 +333,38 @@ def check_quantize_kernels(dev, timer, gen):
         if err != 0.0:
             raise AssertionError(f"K2 {shape}: differs from plain")
     # Timing at main-path shapes: K1 on the batch-32 prefill K write
-    # (32, 8, 64, 128); K2 on the batch-32 prefill activation (2048, 4096).
+    # (32, 8, 64, 128) and the decode step's int8 write and B9 x; K2 on the
+    # batch-32 prefill activation (2048, 4096) and the b=32 decode one.  An
+    # empty kernel (torch.cuda._sleep(0)) under the same timer gives the
+    # launch floor the decode shapes sit on.
+    floor = timer(lambda: torch.cuda._sleep(0))
+
+    def timed(label, fn, plain, bytes_):
+        row = dict(shape=label, ms=timer(fn), plain_ms=timer(plain, reps=5), bound_ms=bound(bytes_)[0],
+                   bound_by="bytes", library_ms=None, empty_kernel_ms=floor)
+        log("K1/K2 timing", json.dumps(row))
+        return row
+
     k = torch.randn(32, 8, 64, 128, generator=gen, device=dev).to(torch.bfloat16)
-    a = torch.randn(2048, 4096, generator=gen, device=dev).to(torch.bfloat16)
-    out = []
-    # The engine's decode step writes one int8 position per slot.
     k1 = torch.randn(32, 8, 1, 128, generator=gen, device=dev).to(torch.bfloat16)
-    n1 = k1.numel()
-    int8_write = dict(shape="int8 (32, 8, 1, 128)", ms=timer(lambda: cq.mx_quantize(k1, "int8")),
-                      plain_ms=timer(lambda: cq.mx_quantize_plain(k1, "int8"), reps=5),
-                      bound_ms=bound(2 * n1 + n1 + n1 / 32)[0], bound_by="bytes", library_ms=None)
-    log("K1 timing", json.dumps(int8_write))
-    n = k.numel()
+    a = torch.randn(2048, 4096, generator=gen, device=dev).to(torch.bfloat16)
+    a32 = torch.randn(32, 4096, generator=gen, device=dev).to(torch.bfloat16)
+    n, n1, na = k.numel(), k1.numel(), a32.numel()
+    out = []
+    int8_write = timed("int8 (32, 8, 1, 128)", lambda: cq.mx_quantize(k1, "int8"),
+                       lambda: cq.mx_quantize_plain(k1, "int8"), 2 * n1 + n1 + n1 / 32)
+    dot_decode = timed("int8 dot order (32, 4096)", lambda: cq.mx_quantize_dot(a32, "int8"),
+                       lambda: cq.mx_quantize_dot_plain(a32, "int8"), 2 * na + na + 4 * na / 32)
+    k2_decode = timed("fp8 (32, 4096)", lambda: cq.mx_fake_quantize_kernel(a32, "float8_e4m3"),
+                      lambda: cq.mx_fake_quantize_plain(a32, "float8_e4m3"), 4 * na)
     t_b, by = bound(2 * n + n + n / 32)
     out.append(dict(name="mx_quantize", route="cuda", source="torchmx_tpu_torch/csrc/mx_quantize.cu",
                     replaces="torchmx_tpu/ops/pallas_quantize.py:137",
                     shape="fp8 (32, 8, 64, 128)", max_abs_err=worst1,
                     ms=timer(lambda: cq.mx_quantize(k, "float8_e4m3")),
                     plain_ms=timer(lambda: cq.mx_quantize_plain(k, "float8_e4m3"), reps=5),
-                    bound_ms=t_b, bound_by=by, library_ms=None, int8_decode_write=int8_write))
+                    bound_ms=t_b, bound_by=by, library_ms=None, int8_decode_write=int8_write,
+                    dot_order_decode=dot_decode, empty_kernel_ms=floor))
     n = a.numel()
     t_b, by = bound(4 * n)
     out.append(dict(name="mx_fake_quantize", route="cuda", source="torchmx_tpu_torch/csrc/mx_quantize.cu",
@@ -358,7 +372,7 @@ def check_quantize_kernels(dev, timer, gen):
                     shape="fp8 (2048, 4096)", max_abs_err=worst2,
                     ms=timer(lambda: cq.mx_fake_quantize_kernel(a, "float8_e4m3")),
                     plain_ms=timer(lambda: cq.mx_fake_quantize_plain(a, "float8_e4m3"), reps=5),
-                    bound_ms=t_b, bound_by=by, library_ms=None))
+                    bound_ms=t_b, bound_by=by, library_ms=None, decode=k2_decode, empty_kernel_ms=floor))
     return out
 
 
@@ -854,8 +868,22 @@ def check_rmsnorm_kernel(dev, timer, gen):
 
     from torchmx_tpu_torch.ops import cuda_norm
 
+    from torchmx_tpu_torch.ops import cuda_quantize as cq
+
     w = (1 + 0.1 * torch.randn(4096, generator=gen, device=dev)).to(torch.bfloat16)
     worst, worst_abs, rows = 0.0, 0.0, []
+    # The norm fused with K2: K2 of the kernel's own output, bit for bit, for
+    # every activation format, at the main path's shapes and over every bf16
+    # pattern as 16 rows of 4096 (infinities and NaNs among them).
+    for label, x in [(f"{shape}", torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16) * 4)
+                     for shape in RMSNORM_SHAPES] + [("all bf16 patterns (16, 4096)", all_bf16_blocks(dev).reshape(16, 4096))]:
+        for act in ("float8_e4m3", "int8", "float6_e3m2", "float6_e2m3", "float4_e2m1"):
+            fused, want = cuda_norm.rms_norm(x, w, 1e-5, act), cq.mx_fake_quantize_kernel(cuda_norm.rms_norm(x, w, 1e-5), act)
+            nan = torch.isnan(fused.float()) & torch.isnan(want.float())
+            bad = int(((fused.view(torch.int16) != want.view(torch.int16)) & ~nan).sum())
+            if bad:
+                raise AssertionError(f"mx_rmsnorm fused with K2 {act} {label}: {bad} values differ from K2 of the norm")
+        log(f"mx_rmsnorm fused with K2 {label}: K2 of the norm's output bit for bit in all five formats")
     for shape in RMSNORM_SHAPES:
         x = torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
         out, ref = cuda_norm.rms_norm(x, w, 1e-5), cuda_norm.rms_norm_plain(x, w, 1e-5)
@@ -871,7 +899,10 @@ def check_rmsnorm_kernel(dev, timer, gen):
         row = dict(shape=shape, ms=timer(lambda: cuda_norm.rms_norm(x, w, 1e-5)),
                    plain_ms=timer(lambda: cuda_norm.rms_norm_plain(x, w, 1e-5), reps=5),
                    library_ms=timer(lambda: F.rms_norm(x, (4096,), w, 1e-5)), bound_ms=t_b, bound_by=by,
-                   values_differing=differ, bf16_steps=steps)
+                   values_differing=differ, bf16_steps=steps,
+                   fused_fp8_ms=timer(lambda: cuda_norm.rms_norm(x, w, 1e-5, "float8_e4m3")),
+                   norm_then_k2_ms=timer(lambda: cq.mx_fake_quantize_kernel(cuda_norm.rms_norm(x, w, 1e-5),
+                                                                            "float8_e4m3")))
         log("mx_rmsnorm timing", json.dumps(row))
         rows.append(row)
     pick = rows[1]
@@ -1514,34 +1545,43 @@ def check_dmajor_attention_kernels(dev, timer, gen):
     return k6, k7, rows
 
 
+CACHE_WRITES = (("int8", "seq"), ("int8", "dmajor"), ("float4_e2m1", "dmajor"), ("float8_e4m3", "seq"))
+
+
 def check_cache_write(dev, timer, gen) -> dict:
     """``MXLayerKVCache.write`` on the card against the plain path's, bit for
-    bit, in both layouts (a prompt at an int position, then the engine's
-    decode write: 32 rows, one token each at its own position, one of them
-    clamped at the end), for int8 and for fp4 in its d-halves packing; and
-    what the decode write costs in each layout: device ms of its kernels
-    (K1 twice, the index arithmetic, four indexed stores; in the d-major
-    layout a token's codes land ``max_len`` bytes apart) and host us per call."""
+    bit, in both layouts (a prompt of every bf16 pattern at an int position,
+    then the engine's decode write: 32 rows, one token each at its own
+    position, one of them clamped at the end), for int8, for fp4 in its
+    d-halves packing and for fp8 in the seq layout: one K1 launch a write,
+    K and V together, straight into the four buffers; and what the decode
+    write costs: device ms and host us per call."""
     from torchmx_tpu_torch.models.llama import MXLayerKVCache
+    from torchmx_tpu_torch.ops import cuda_lib
     from torchmx_tpu_torch.ops.backend import plain_path
 
     b, kv, L, d = 32, 8, 1024, 128
-    k0, v0 = (torch.randn(b, kv, 64, d, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    every = all_bf16_blocks(dev).reshape(1, kv, 64, d)  # the 2^16 patterns as one batch row (kv, s, d)
+    k0 = torch.cat([every.roll(i, dims=-1) for i in range(b)])  # each row all of them, in its own order
+    v0 = k0.roll(1, dims=-1)
     k1, v1 = (torch.randn(b, kv, 1, d, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
     pos = torch.randint(64, L, (b,), generator=gen, device=dev).int()
     pos[0] = L  # a draining slot: its start is clamped to L - 1
     out = {}
-    for elem, layout in (("int8", "seq"), ("int8", "dmajor"), ("float4_e2m1", "dmajor")):
+    for elem, layout in CACHE_WRITES:
         got = MXLayerKVCache.create(b, kv, L, d, elem, device=dev, layout=layout)
         ref = MXLayerKVCache.create(b, kv, L, d, elem, device=dev, layout=layout)
         for k, v, at in ((k0, v0, 0), (k1, v1, pos)):
+            before, total = cuda_lib.LAUNCHES["mx_quantize"], sum(cuda_lib.LAUNCHES.values())
             got.write(k, v, at)
+            if cuda_lib.LAUNCHES["mx_quantize"] != before + 1 or sum(cuda_lib.LAUNCHES.values()) != total + 1:
+                raise AssertionError(f"cache write, {elem} {layout}: not one K1 launch")
             with plain_path():
                 ref.write(k, v, at)
         torch.cuda.synchronize()
         if not all(torch.equal(x, y) for x, y in zip(got.buffers, ref.buffers)):
             raise AssertionError(f"cache write, {elem} {layout}: the buffers differ from the plain path's")
-        if not all(torch.equal(x, y) for x, y in zip(got.dequantize(), ref.dequantize())):
+        if any(max_abs_diff(x, y) for x, y in zip(got.dequantize(), ref.dequantize())):  # NaN blocks equal
             raise AssertionError(f"cache write, {elem} {layout}: dequantize() differs")
         n = 200
         torch.cuda.synchronize()
@@ -1552,7 +1592,7 @@ def check_cache_write(dev, timer, gen) -> dict:
         torch.cuda.synchronize()
         out[f"{elem} {layout}"] = dict(device_ms=timer(lambda: got.write(k1, v1, pos)), host_us_per_call=host_us)
     log(f"cache write (b=32, one token per row at per-row positions, L=1024): equal to the plain path's in both "
-        f"layouts, int8 and fp4; cost per call {json.dumps(out)}")
+        f"layouts, int8, fp4 and fp8, one K1 launch a write; cost per call {json.dumps(out)}")
     return out
 
 
@@ -1743,6 +1783,14 @@ PLANTED_FAULTS_INT8 = ("K5 kv_len one short", "K5 V scale of chunk c taken from 
 # decode step, K6 at prefill.
 PLANTED_FAULTS_DMAJOR = ("K7 kv_len one short", "K7 V scale of chunk c taken from chunk c+1",
                          "K7 q scale of chunk c taken from chunk c+1", "K6 kv_len one short")
+# The same for the fp4 d-major cache (F's), K6 at prefill and every decode
+# step: the cluster kernel's two planted faults and a short kv_len.
+PLANTED_FAULTS_FP4_DMAJOR = ("K6 combine drops the last live share", "K6 p rounded against the sub-tile maximum",
+                             "K6 kv_len one short")
+# The prompt length of the model check for each cache: F's is long enough
+# that its decode steps see two shares of K6's cluster (L = 384: shares of
+# 256), so that the dropped share shows.
+CHECK_PROMPT = {"float4_e2m1 d-major": 320}
 
 
 # The same for this slice's weight formats, one or two per new kernel.
@@ -1758,7 +1806,6 @@ PLANTED_FAULTS_FORMATS = {
 
 @contextlib.contextmanager
 def planted_fault(name):
-    from torchmx_tpu_torch.layers import mx_llama_attention
     from torchmx_tpu_torch.ops import cuda_attention as ca
     from torchmx_tpu_torch.ops import cuda_matmul as cm
     from torchmx_tpu_torch.ops import cuda_matmul_formats as kf
@@ -1769,8 +1816,8 @@ def planted_fault(name):
         orig = kf.mx_matmul_int8dot
         fp8_only = name.startswith("B9-fp8")  # the fault of the e4m3 variant alone
 
-        def faulty(x, w, sw, fp8=False):
-            return orig(x, w, sw.roll(-1, dims=0) if on_cuda(x) and (fp8 or not fp8_only) else sw, fp8)
+        def faulty(x, w, sw, fp8=False, xq=None):
+            return orig(x, w, sw.roll(-1, dims=0) if on_cuda(x) and (fp8 or not fp8_only) else sw, fp8, xq)
     elif name.startswith("K1 writes B9's x"):
         from torchmx_tpu_torch.ops import cuda_quantize as cq
 
@@ -1807,13 +1854,14 @@ def planted_fault(name):
                     q = planes.shape[0] // 3
                     planes = torch.cat([planes[:q], planes[2 * q:], planes[q:2 * q]])
             return orig(x, planes, sw, elem, act_fq)
-    elif name.startswith("K2 shared"):
-        mod, attr = mx_llama_attention, "shared_activation_fq"
-        orig = mx_llama_attention.shared_activation_fq
+    elif name.startswith("K2 shared"):  # the norm that applies it (RMSNorm's launch) leaves it out
+        from torchmx_tpu_torch.models import llama
 
-        def faulty(x, *linears):  # the layers' projections get x unquantized
-            x_fq = orig(x, *linears)
-            return x.to(torch.bfloat16).contiguous() if x_fq is not None and on_cuda(x) else x_fq
+        mod, attr = llama, "rms_norm"
+        orig = llama.rms_norm
+
+        def faulty(x, w, eps, act=None):  # the layers' projections get the normed x unquantized
+            return orig(x, w, eps, None if on_cuda(x) else act)
     elif name.startswith("K3-fp8"):
         mod, attr = cm, "mx_matmul_fp8_halves"
         orig = cm.mx_matmul_fp8_halves
@@ -1850,6 +1898,13 @@ def planted_fault(name):
                 else:  # the chunks are the last axis in the seq layout, axis 2 in the d-major
                     vs = vs.roll(-1, dims=2 if k7 else -1)
             return orig(q, kd, ks, vd, vs, q_off, kv_len, sm_scale)
+    elif name.startswith("K6 ") and "kv_len" not in name:  # the cluster kernel's own planted faults
+        mod, attr = ca, "mx_cached_attention_dmajor"
+        orig = ca.mx_cached_attention_dmajor
+        kw_fault = "drop_last_share" if "drops" in name else "p_from_sub_tile_max"
+
+        def faulty(q, *a, **kw):
+            return orig(q, *a, **{**kw, kw_fault: on_cuda(q)})
     elif name.startswith(("K4", "K6")):
         mod, attr = ca, "mx_cached_attention" if name.startswith("K4") else "mx_cached_attention_dmajor"
         orig = getattr(mod, attr)
@@ -1936,7 +1991,7 @@ def model_readings(model, prompt, n, kv, floor: bool, tie_gap: float) -> dict:
     from torchmx_tpu_torch.ops.backend import plain_path
 
     tokens = generate(model, prompt, n, kv_cache_config=kv)
-    caches = model.init_cache(prompt.shape[0], 128, kv)
+    caches = model.init_cache(prompt.shape[0], (prompt.shape[1] + n + 127) // 128 * 128, kv)  # generate's length
     r = dict(logits=0.0, layer=0.0, lm_head=0.0, floor_logits=None, floor_layer=None,
              near_ties=0, decisive_flips=0, max_flipped_gap=0.0,
              generate_mismatch=0, finite=True)
@@ -1998,6 +2053,16 @@ def model_readings(model, prompt, n, kv, floor: bool, tie_gap: float) -> dict:
 GATES = {"float8_e4m3": {"layer": 5e-2, "lm_head": 2e-2, "logits": 8e-2, "tie_gap": 0.1},
          "int8": {"layer": 6e-2, "lm_head": 2e-2, "logits": 9e-2, "tie_gap": 0.3},
          "int8 d-major int8dot": {"layer": 6e-2, "lm_head": 2e-2, "logits": 9e-2, "tie_gap": 0.3},
+         # fp4 d-major cache (F's): K6 at prefill and every decode step, after
+         # a prompt of 320 tokens (two shares of 256 at L = 384).  On an H100
+         # 80GB HBM3 (700 W), layer / logits: sound 2.46e-3 / 4.08e-2, the
+         # plain path with float64 attention 1.58e-2 / 5.26e-2; faults: K6's
+         # combine dropping the last live share 6.85e-1 / 7.04e-1, kv_len one
+         # short 1.35e-1 / 1.58e-1, p rounded against the 64-position sub-tile
+         # maximum 4.52e-2 / 7.83e-2, which passed the fp8 cache's layer gate
+         # of 5e-2: the layer gate sits at 3e-2, between the float64 reading
+         # and that fault; the logits gate stays the fp8 cache's.
+         "float4_e2m1 d-major": {"layer": 3e-2, "lm_head": 2e-2, "logits": 8e-2, "tie_gap": 0.1},
          # The weight formats keep their cache's gates.  On an H100 80GB HBM3
          # (700 W), layer / logits: W8A8 sound 1.62e-2 / 2.27e-2 (B9's and B6's
          # int8 dots are exact), plain with float64 attention (K5 at JAX's
@@ -2083,24 +2148,26 @@ def apply_gates(all_readings: dict, gates_of: dict, card) -> None:
     log(f"model check passed: gates {json.dumps({c: gates_of[c] for c in all_readings})} [{card}]")
 
 
-def model_check(dev, card, caches=("float8_e4m3", "int8", "int8 d-major int8dot")) -> dict:
+def model_check(dev, card, caches=("float8_e4m3", "int8", "int8 d-major int8dot", "float4_e2m1 d-major")) -> dict:
     """Kernel path vs plain path on the same card, 2 layers at 8B width, b=2,
     16 greedy tokens, with the fp8 cache (K4 throughout), the int8 cache (K4
-    at prefill, K5 at every decode step) and the int8 d-major cache with the
-    all-int8 flag (K6 at prefill, K7 at every decode step); then again with
-    each planted fault, which must fail a gate.  Every reading is printed
-    before any gate is applied."""
+    at prefill, K5 at every decode step), the int8 d-major cache with the
+    all-int8 flag (K6 at prefill, K7 at every decode step) and the fp4
+    d-major cache (K6 throughout, after a prompt of 320 tokens); then again
+    with each planted fault, which must fail a gate.  Every reading is
+    printed before any gate is applied."""
     from torchmx_tpu_torch.models.llama import LlamaConfig
     from torchmx_tpu_torch.quant_api import build_quantized_llama
 
     qa, qm, _ = quant_configs()
     cfg = LlamaConfig(**{**LLAMA3_8B, "num_hidden_layers": 2})
     model = build_quantized_llama(cfg, qa, qm, dev, torch.Generator(dev).manual_seed(1))
-    prompt = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator(dev).manual_seed(2), device=dev)
     all_readings = {}
     faults_of = {"float8_e4m3": PLANTED_FAULTS, "int8": PLANTED_FAULTS_INT8,
-                 "int8 d-major int8dot": PLANTED_FAULTS_DMAJOR}
+                 "int8 d-major int8dot": PLANTED_FAULTS_DMAJOR, "float4_e2m1 d-major": PLANTED_FAULTS_FP4_DMAJOR}
     for cache in caches:
+        prompt = torch.randint(0, cfg.vocab_size, (2, CHECK_PROMPT.get(cache, 64)),
+                               generator=torch.Generator(dev).manual_seed(2), device=dev)
         elem, layout, int8dot = CACHES[cache]
         kv, tie_gap = quant_configs(elem)[2], GATES[cache]["tie_gap"]
         with kv_env(layout, int8dot):
@@ -2176,19 +2243,30 @@ def build_model(dev, card, layers: int, seed: int = 0, weights="float4_e2m1", ac
 
 
 def halves_launches_per_step(layers: int, kernel: str = "mx_matmul_fp4_halves") -> dict:
-    """K3's and K2's launches in one decode step of a Llama with fp4 (or fp8)
-    halves weights: K3 at each layer's 7 linears and lm_head; K2 once for
-    q/k/v, once for gate/up, once each for o_proj and down_proj, and once for
-    lm_head (the wrappers take K2 first; the layers share it)."""
-    return {kernel: 7 * layers + 1, "mx_fake_quantize": 4 * layers + 1}
+    """K3's, K2's and K1's launches in one decode step of a Llama with fp4
+    (or fp8) halves weights: K3 at each layer's 7 linears and lm_head; K2
+    once each for o_proj and down_proj, and once for lm_head (the wrappers
+    take K2 first; q/k/v and gate/up share theirs, which the RMSNorm kernel
+    before them applies in its own launch); K1 once a layer, K and V written
+    into the cache in one launch."""
+    return {kernel: 7 * layers + 1, "mx_fake_quantize": 2 * layers + 1, "mx_quantize": layers}
+
+
+def w8a8_k1_per_step(layers: int) -> int:
+    """K1's launches in a decode step where B9 takes every linear: one for
+    q/k/v, one for gate/up, one each for o_proj and down_proj (dot order),
+    one for the cache write, a layer; one for lm_head."""
+    return 5 * layers + 1
 
 
 def mixtral_launches_per_step(layers: int) -> dict:
     """Mixtral's decode step: K3 at q/k/v/o and lm_head, B12 at w1, w3 and
-    w2, K2 once for q/k/v, once for o_proj, on x_sorted and on the SwiGLU
-    output, and once for lm_head; the router kernel once a layer."""
+    w2, K2 once for o_proj, on x_sorted and on the SwiGLU output, and once
+    for lm_head (q/k/v's in the input norm's launch; the post-attention norm
+    also feeds the router, so it stays apart); the router kernel and K1 (the
+    cache write) once a layer."""
     return dict(mx_matmul_fp4_halves=4 * layers + 1, mx_grouped_matmul=3 * layers,
-                mx_fake_quantize=4 * layers + 1, mx_router_logits=layers)
+                mx_fake_quantize=3 * layers + 1, mx_router_logits=layers, mx_quantize=layers)
 
 
 def run_slice(model, dev, card, cache="float8_e4m3", batches=(1, 32), weights="fp4", want=None):
@@ -2272,6 +2350,7 @@ KERNEL_OF_DEVICE_NAME = (  # substring of the CUDA function name -> kernel
     ("matmul_fp4_halves_kernel", "mx_matmul_fp4_halves"),
     ("reduce_splits_kernel", "mx_matmul_fp4_halves"),
     ("quantize_rows_kernel", "mx_quantize_rows"),
+    ("cache_write_kernel", "mx_quantize"),
     ("fake_quantize_planes_kernel", "K2 planes of B7"),
     ("fake_quantize_kernel", "mx_fake_quantize"),
     ("quantize_kernel", "mx_quantize"),
@@ -2682,12 +2761,12 @@ def run_engine(model, dev, card, cache="int8", weights="fp4") -> dict:
             "mx_cached_attention_int8dot" if k7 else "mx_cached_attention_chunkdot": layers}
     if weights == "moonlight":
         want = moonlight_launches_per_step(model.config)
-    elif weights == "w8a8":  # B9 takes every linear; K1 quantizes its x and writes K and V
-        want.update(mx_matmul_int8dot=linears, mx_quantize=linears + 2 * layers)
+    elif weights == "w8a8":  # B9 takes every linear; K1 quantizes its x (once for q/k/v, once for gate/up)
+        want.update(mx_matmul_int8dot=linears, mx_quantize=w8a8_k1_per_step(layers))
     elif weights == "mixtral":
-        want.update(mixtral_launches_per_step(layers), mx_quantize=2 * layers)
+        want.update(mixtral_launches_per_step(layers))
     else:
-        want.update(halves_launches_per_step(layers), mx_quantize=2 * layers)  # K7 quantizes q itself
+        want.update(halves_launches_per_step(layers))  # K7 quantizes q itself
     for st in run["steps"]:
         if st["rows"] and st["launches"] != want:
             raise AssertionError(f"engine: a decode step launched {st['launches']}, expected {want}")
@@ -2762,18 +2841,18 @@ def run_formats(dev, card, layers: int):
         weights, acts, cache, knobs = FORMATS[name]
         with env_knobs(**knobs):
             model = build_model(dev, card, layers, weights=weights, acts=acts)
-            want = halves_launches_per_step(layers, "mx_matmul_fp8_halves") if path == "generate_fp8" else None
+            want = {"generate_fp8": halves_launches_per_step(layers, "mx_matmul_fp8_halves"),
+                    "generate_fp8dot": {"mx_matmul_fp8dot": 7 * layers + 1, "mx_quantize": w8a8_k1_per_step(layers)},
+                    "generate_fp6": {"mx_matmul_fp6q": 7 * layers + 1, "mx_fake_quantize": 2 * layers + 1,
+                                     "mx_quantize": layers}}[path]
             paths[path], res = run_slice(model, dev, card, cache, batches=(32,), weights=name, want=want)
         del model
         results[path] = res[32]
         per_step[f"{path}_b32"] = res[32]["launches_per_decode_step"]
-    # P6's decode step: B8 at each of a layer's 7 linears and at lm_head; K2
-    # once for each x they read (q/k/v share one, gate/up one; o_proj,
-    # down_proj and lm_head one each).
-    step, want, want_k2 = per_step["generate_fp6_b32"], 7 * layers + 1, 4 * layers + 1
-    if step.get("mx_matmul_fp6q") != want or step.get("mx_fake_quantize") != want_k2:
-        raise AssertionError(f"generate_fp6: {want} launches of B8 and {want_k2} of K2 expected per decode step, "
-                             f"got {step}")
+    # Each decode step of P6 launched B8 at each of a layer's 7 linears and at
+    # lm_head, K2 for o_proj, down_proj and lm_head (q/k/v's and gate/up's in
+    # their norms' launches), K1 once a layer; of PD, B9-fp8 at every linear
+    # and K1 five times a layer and once for lm_head (run_slice checked both).
     return paths, per_step, results
 
 
@@ -3247,7 +3326,7 @@ def moe_readings(model, prompt, n, kv, floor: bool, tie_gap: float, tape_cls=Rou
     from torchmx_tpu_torch.ops.backend import plain_path
 
     tokens = generate(model, prompt, n, kv_cache_config=kv)
-    caches = model.init_cache(prompt.shape[0], 128, kv)
+    caches = model.init_cache(prompt.shape[0], (prompt.shape[1] + n + 127) // 128 * 128, kv)  # generate's length
     r = dict(logits=0.0, layer=0.0, lm_head=0.0, floor_logits=None, floor_layer=None, near_ties=0,
              decisive_flips=0, max_flipped_gap=0.0, generate_mismatch=0, finite=True)
     step_in, pos = prompt, 0
@@ -4003,7 +4082,9 @@ def moonlight_launches_per_step(cfg, int8dot: bool = False) -> dict:
     the router, B12 x 3, K2 on x_sorted and on the SwiGLU output, the shared
     experts' gate / up and down (K3 or B7); lm_head; the final norm; K2
     before each K3 (one for the first query projection and kv_a_proj, one
-    for a gate / up pair) and before each B7 (its plane mode, never shared);
+    for the shared experts' gate / up pair; a dense layer's gate / up take
+    theirs in the post-attention norm's launch) and before each B7 (its
+    plane mode, never shared);
     B13 and K1 (the latent write)
     per layer, or with the int8-dot flag B14 (which quantizes its query
     itself) and the per-row quantize kernel (the d-major latent write)."""
@@ -4028,7 +4109,7 @@ def moonlight_launches_per_step(cfg, int8dot: bool = False) -> dict:
         linear(cfg.q_lora_rank, layers)
         c["mx_rmsnorm"] += layers
     linear(n_heads * cfg.v_head_dim, layers)  # o_proj
-    linear(h, 2 * dense, k2=dense)  # gate / up share one K2
+    linear(h, 2 * dense, k2=0)  # gate / up share one K2, in the post-attention norm's launch
     linear(cfg.intermediate_size, dense)
     shared = cfg.moe_intermediate_size * cfg.n_shared_experts
     linear(h, 2 * moe, k2=moe)

@@ -374,7 +374,7 @@ def test_dmajor_wrappers_reject_what_the_kernels_do_not_take(monkeypatch):
 
 @pytest.mark.parametrize("L, P", [(64, 64), (128, 256), (192, 64), (256, 256), (576, 192), (1024, 256),
                                   (1152, 256), (2048, 256), (4096, 512), (8192, 1024), (16384, 2048), (16512, 4096),
-                                  (32768, 4096)])
+                                  (32768, 4096), (131072, 16384), (262144, 32768)])
 def test_attention_share_table(L, P):
     """The share a CTA of K4's and K6's kernel takes for each cache length:
     a multiple of 64 that divides JAX's tile or is whole tiles of it, at
@@ -388,17 +388,19 @@ def test_attention_share_table(L, P):
                                            (1024, 17, (512, 256, True)), (2048, 256, (1024, 256, True)),
                                            (4096, 256, (1024, 512, False)), (8192, 32, (2048, 1024, False)),
                                            (16384, 4, (2048, 2048, False)), (32768, 4, (2048, 4096, False)),
-                                           (65536, 64, (2048, 8192, False))])
+                                           (65536, 64, (2048, 8192, False)), (131072, 4, (2048, 16384, False)),
+                                           (262144, 64, (2048, 32768, False))])
 def test_attention_plan(L, rows, plan):
     """Tile, share and row layout: 64-row tiles where the rows fill more than
     16 and a 64-row share's scores fit shared memory (L <= 2048)."""
     assert ca.attention_plan(L, rows) == plan
 
 
-@pytest.mark.parametrize("L", [131072, 100, 0])
+@pytest.mark.parametrize("L", [4194368, 100, 0])
 def test_attention_plan_refuses(L):
-    """A cache whose share would pass ATTN_MAX_SHARE (L > 65536), or that is
-    not a multiple of 64 positions, is refused with a ValueError."""
+    """A cache whose share would pass ATTN_MAX_SHARE (L > 4194304, the first
+    such multiple of 64 here), or that is not a multiple of 64 positions, is
+    refused with a ValueError."""
     with pytest.raises(ValueError):
         ca.attention_plan(L, 4)
 

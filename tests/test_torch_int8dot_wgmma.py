@@ -333,6 +333,7 @@ def test_served_call_is_two_host_calls(monkeypatch, fmt, N, K):
     monkeypatch.setattr(kf, "on_cuda", lambda *t: True)
     monkeypatch.setattr(cq, "on_cuda", lambda *t: True)
     monkeypatch.setattr(kf, "sm_count", lambda device: SMS)
+    monkeypatch.setattr(cq, "_sms", lambda device: SMS)  # K1 sizes its grid from the SM count too
     w = torch.empty((K, N), dtype=torch.uint8 if fp8 else torch.int8)
     s = torch.empty((K // 32, N), dtype=torch.uint8)
     for M in (1, 32, 65, 256):

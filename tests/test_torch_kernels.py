@@ -385,20 +385,6 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("ename", ELEMS)
-def test_cuda_quantize_kernels_bit_exact(cuda_device, ename):
-    allbits = torch.arange(65536, dtype=torch.int32)
-    x = torch.where(allbits >= 32768, allbits - 65536, allbits).to(torch.int16)
-    x = x.view(torch.bfloat16).reshape(-1, 32).to(cuda_device)
-    s, c = cuda_quantize.mx_quantize(x, ename)
-    sp, cp = cuda_quantize.mx_quantize_plain(x, ename)
-    assert torch.equal(s, sp) and torch.equal(c.view(torch.uint8), cp.view(torch.uint8))
-    fq = cuda_quantize.mx_fake_quantize_kernel(x, ename)
-    fp = cuda_quantize.mx_fake_quantize_plain(x, ename)
-    np.testing.assert_array_equal(bits(fq.cpu()), bits(fp.cpu()))
-
-
-@pytest.mark.gpu
 @pytest.mark.parametrize("M", [1, 32, 256])
 def test_cuda_matmul_kernel_matches_plain(cuda_device, M):
     g = torch.Generator().manual_seed(0)

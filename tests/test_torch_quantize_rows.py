@@ -130,33 +130,3 @@ def test_mla_inputs_share_one_activation_quantize(q_lora_rank, M):
     assert shared == [(2, M, 512)]
     ref = tds.MLAAttention._project_inputs(layer, x)
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
-
-
-# -- the CUDA kernel (needs a card) ---------------------------------------------------------------
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("elem", cq.ROW_FORMATS)
-def test_cuda_quantize_rows_matches_plain(cuda_device, elem):
-    """The kernel in both output modes against its plain version, bit for
-    bit, one launch a pair; per-row starts 1020 and 5 over L = 1024 at s = 8
-    (the first clamps)."""
-    x1, x2 = (t_of(bf16_bits(s, (4, 8, w))).to(cuda_device) for s, w in ((7, R), (8, DR)))
-    before = cuda_lib.LAUNCHES["mx_quantize_rows"]
-    got = cq.mx_quantize_rows(x1, x2, elem, 0.07)
-    assert cuda_lib.LAUNCHES["mx_quantize_rows"] == before + 1
-    for g, r in zip(got, cq.mx_quantize_rows_plain(x1, x2, elem, 0.07)):
-        assert torch.equal(g, r)
-    cache = tds.MXMLACache.create(4, 1024, R, DR, elem, layout="dmajor", device=cuda_device)
-    twin = cache.clone()
-    pos = torch.tensor([1020, 5, 0, 300], device=cuda_device)
-    cq.mx_quantize_rows(x1, x2, elem, out=cache.buffers, pos=pos)
-    cq.mx_quantize_rows_plain(x1, x2, elem, out=twin.buffers, pos=pos)
-    assert all(torch.equal(a, b) for a, b in zip(cache.buffers, twin.buffers))

@@ -37,7 +37,10 @@
 //     first chunk of 2048 positions' scores from the maxima's pass and,
 //     after the exchange, takes p and P.V chunk by chunk, each later chunk's
 //     scores recomputed from K's fills by the same mma chain (the same bits;
-//     K's bytes of those chunks read twice).
+//     K's bytes of those chunks read twice).  A row keeps one maximum per
+//     JAX tile of its share and, for the chunk in hand, one reference
+//     maximum and factor per 64-position sub-tile, so the share grows to
+//     kMaxShare = 2^19 positions (L <= 2^22) with the cluster at 8 CTAs.
 //     A CTA whose share starts past the tile's visible prefix leaves at
 //     once (a cluster barrier waits only for threads that have not exited;
 //     staying held the CTA's SM slot through the live CTAs' work, and the
@@ -108,7 +111,7 @@ template <bool kWide> __host__ __device__ constexpr int stages() { return kWide 
 template <bool kWide> __host__ __device__ constexpr int parts() { return kWide ? 2 : 8; }
 constexpr int kMaxCluster = 8;    // shares of a cache at most (CTAs a cluster)
 constexpr int kMaxChunk = 2048;   // positions whose scores a 16-row tile holds in shared memory at once
-constexpr int kMaxShare = 8192;   // positions of a share at most (its per-sub-tile statistics fit)
+constexpr int kMaxShare = 1 << 19;  // positions of a share at most (its tiles' maxima fit shared memory)
 constexpr int kWideShare = 256;   // positions of a share at most for 64-row tiles (their scores all held)
 constexpr int kLdR = kD + 8;      // floats of a row of the published acc
 constexpr int kSmemMax = 232448;  // dynamic shared memory a CTA may take on an H100
@@ -134,22 +137,26 @@ template <int Lay, int E> struct Fmt {
 // positions holding kt tiles whose scores are held Pc at a time, a ring of
 // n_stages slots: the ring, the decoded tile, the scores (then p, then the
 // published acc), the 16-position sums of p, the per-row statistics and the
-// barriers.
+// barriers.  A row keeps one maximum per JAX tile of the share and, for the
+// chunk of Pc positions in hand, one reference maximum and factor per
+// sub-tile: nothing grows with the share but the tiles' maxima (4 bytes a
+// row and tile), so a share of kMaxShare positions fits.
 struct Smem {
   int tile, s, g, pub, msh, lsh, mref, alf, pm, pmax, wgt, div, bar, total;
   __host__ __device__ Smem(int stage, int n_stages, int tile_bytes, int R, int parts, int P, int Pc, int kt) {
-    const int n_sub = P / kSub;
+    const int nsc = Pc / kSub;
     tile = n_stages * stage;  // the ring's slots from 0
     s = tile + tile_bytes;
     g = s + 4 * R * (Pc + 8 > kLdR ? Pc + 8 : kLdR);
     pub = g + 4 * R * (Pc / 16);   // [R][kt] the share's tiles' maxima (read by the cluster)
-    msh = pub + 4 * R * kt;        // [R] the maximum acc and l are taken against (read by the cluster)
+    msh = pub + 4 * R * kt;        // [R] the running maximum; at the end the one acc and l are taken
+                                   // against (read by the cluster)
     lsh = msh + 4 * R;             // [R] l (read by the cluster)
-    mref = lsh + 4 * R;            // [R][n_sub] the maximum each sub-tile's p is taken against
-    alf = mref + 4 * R * n_sub;    // [R][n_sub] e^(mref[j-1] - mref[j])
-    pm = alf + 4 * R * n_sub;      // [2][parts][R] the warps' maxima of the last two sub-tiles
-    pmax = pm + 8 * parts * R;     // [R][n_sub] the rows' sub-tile maxima
-    wgt = pmax + 4 * R * n_sub;    // [kMaxCluster][R] the combine's weights
+    mref = lsh + 4 * R;            // [R][nsc] the maximum each sub-tile of the chunk takes its p against
+    alf = mref + 4 * R * nsc;      // [R][nsc] e^(mref[j-1] - mref[j])
+    pm = alf + 4 * R * nsc;        // [2][parts][R] the warps' maxima of the last two sub-tiles
+    pmax = pm + 8 * parts * R;     // [R][nsc] the rows' maxima of the chunk's sub-tiles (the planted fault's)
+    wgt = pmax + 4 * R * nsc;      // [kMaxCluster][R] the combine's weights
     div = wgt + 4 * kMaxCluster * R;  // [R] the combine's divisor
     bar = (div + 4 * R + 7) & ~7;  // full[n_stages]
     total = bar + 8 * n_stages;
@@ -435,6 +442,26 @@ __device__ __forceinline__ void sub_tile_scores(const uint32_t (*qa)[4], const u
   }
 }
 
+// Row r's mref and alf for the sub-tiles c0 .. c0 + cnt - 1 of its share (a
+// chunk), the running maximum carried from chunk to chunk in msh[r]: m steps
+// up to its JAX tile's maximum (pub) where a sub-tile starts a tile, or, under
+// the planted fault, to each sub-tile's own maximum (pmax, the chunk's).
+__device__ __forceinline__ void chunk_refs(float* mref, float* alf, float* msh, const float* pmax, const float* pub,
+                                           int r, int c0, int cnt, int nsc, int kt, int lt, bool sub_max) {
+  float m = msh[r], prev = m;
+  for (int jl = 0; jl < cnt; ++jl) {
+    const int j = c0 + jl;
+    if (sub_max)
+      m = fmaxf(m, pmax[r * nsc + jl]);
+    else if (j * kSub % lt == 0 || j == 0)
+      m = fmaxf(m, pub[r * kt + j * kSub / lt % kt]);
+    mref[r * nsc + jl] = m;
+    alf[r * nsc + jl] = j == 0 ? 1.f : expf(prev - m);
+    prev = m;
+  }
+  msh[r] = m;
+}
+
 // One CTA of the cluster kernel.  Grid (C shares, row tiles, b hkv), cluster
 // (C, 1, 1), kThreads threads.  q / out (b, hq, sq, d); codes and scales
 // through kd .. vs (seq) or the tensor maps (d-major); q_off / kv_len: (b,)
@@ -466,7 +493,7 @@ __device__ __forceinline__ void tile_attention(const CUtensorMap* tkd, const CUt
   const bool alone = live == 1;
   constexpr int kStages = stages<kWide>();
   const int Pc = kChunked ? kMaxChunk : P, nsc = Pc / kSub;  // positions (sub-tiles) whose scores S holds at once
-  const int n_sub = P / kSub, kt = P > lt ? P / lt : 1, ldS = Pc + 8;
+  const int kt = P > lt ? P / lt : 1, ldS = Pc + 8;
   const int t0 = rank * P;
   const int nvis = min(max(kv_end - t0, 0), P);  // visible positions of the share
   const int nt = (nvis + kSub - 1) / kSub;       // its sub-tiles, of K and then of V
@@ -521,7 +548,10 @@ __device__ __forceinline__ void tile_attention(const CUtensorMap* tkd, const CUt
 
   // 1. Scores into S [row][position] (the first chunk's; a longer share's
   // other chunks are recomputed in step 3); each row's maximum over each
-  // sub-tile into pmax, the warps' parts through a ring of two in pm.
+  // sub-tile (the warps' parts through a ring of two in pm) into the maximum
+  // of its JAX tile, pub, and for the first chunk into pmax.
+  if (tid < rows_here)
+    for (int ti = 0; ti < kt; ++ti) pub[tid * kt + ti] = kNegInf;
   {
     uint32_t qa[kD / 16][4];
 #pragma unroll
@@ -543,29 +573,25 @@ __device__ __forceinline__ void tile_attention(const CUtensorMap* tkd, const CUt
         float x = pm[(j & 1) * kParts * R + tid];
 #pragma unroll
         for (int w = 1; w < kParts; ++w) x = fmaxf(x, pm[((j & 1) * kParts + w) * R + tid]);
-        pmax[tid * n_sub + j] = x;
+        if (j < nsc) pmax[tid * nsc + j] = x;
+        float& mt = pub[tid * kt + (kt > 1 ? j * kSub / lt : 0)];
+        mt = fmaxf(mt, x);
       }
     }
   }
 
-  // 2. The share's tiles' maxima, published (thread r for row r, from its
-  // own pmax row); one cluster barrier; then for each sub-tile j the maximum
-  // its p is taken against (mref: m_t of its JAX tile, the maxima of the
-  // tile's other shares and of every earlier tile read from their CTAs'
-  // shared memory; the planted fault: the running maximum through the
-  // sub-tile) and alf, acc's and l's factor from j - 1.
-  if (tid < rows_here) {
-    for (int ti = 0; ti < kt; ++ti) {
-      float m = kNegInf;
-      for (int j = ti * lt / kSub; j < min(nt, kt > 1 ? (ti + 1) * lt / kSub : nt); ++j)
-        m = fmaxf(m, pmax[tid * n_sub + j]);
-      pub[tid * kt + ti] = m;
-    }
-  }
+  // 2. The share's tiles' maxima are published in pub; one cluster barrier;
+  // then the running maximum before the share (base: the maxima of the
+  // tile's other shares and of every earlier tile, read from their CTAs'
+  // shared memory) and, a chunk at a time (chunk_refs), for each sub-tile j
+  // the maximum its p is taken against (mref: m_t of its JAX tile; the
+  // planted fault: the running maximum through the sub-tile) and alf, acc's
+  // and l's factor from j - 1.  The running maximum is carried in msh.
   if (!alone) cluster_sync();  // 1: the shares' maxima
+  const bool sub_max = fault & kFaultSubTileMax;
+#define MX_TILE_CHUNK_REFS(r, c0, cnt) chunk_refs(mref, alf, msh, pmax, pub, r, c0, cnt, nsc, kt, lt, sub_max)
   if (tid < rows_here) {
     const int r = tid;
-    const bool sub_max = fault & kFaultSubTileMax;
     const int my_tile = t0 / lt;
     float base = kNegInf;
     for (int u = 0; u < live; ++u) {  // the shares past the prefix are left out
@@ -574,22 +600,14 @@ __device__ __forceinline__ void tile_attention(const CUtensorMap* tkd, const CUt
       for (int ti = 0; ti < n; ++ti)
         base = fmaxf(base, ld_cluster_f32(cluster_addr(sbase + lay.pub + 4 * (r * kt + ti), u)));
     }
-    float m = base, prev = base;
-    for (int j = 0; j < nt; ++j) {
-      if (sub_max)
-        m = fmaxf(m, pmax[r * n_sub + j]);
-      else if (j * kSub % lt == 0 || j == 0)
-        m = fmaxf(m, pub[r * kt + j * kSub / lt % kt]);
-      mref[r * n_sub + j] = m;
-      alf[r * n_sub + j] = j == 0 ? 1.f : expf(prev - m);
-      prev = m;
-    }
-    msh[r] = nt > 0 ? m : kNegInf;
+    msh[r] = nt > 0 ? base : kNegInf;
+    MX_TILE_CHUNK_REFS(r, 0, n0);
   }
   named_barrier(1, kThreads);
 
   // 3-4, chunk by chunk (one chunk unless the share is longer than
-  // kMaxChunk): a chunk past the first gets its scores again from K's fills;
+  // kMaxChunk): a chunk past the first gets its scores again from K's fills
+  // (and, under the planted fault, its sub-tiles' maxima), then its mref and alf;
   // p = exp(s - mref) in place (0 where masked), each 16 positions' sum as
   // one tree; then l, the groups in order, against msh; then P.V: A = bf16(p)
   // of the warp's 16 rows from S, B the decoded V tile, acc rescaled by alf
@@ -614,12 +632,29 @@ __device__ __forceinline__ void tile_attention(const CUtensorMap* tkd, const CUt
         float mloc[2];
         sub_tile_scores<Lay, kWide, false>(nullptr, q, qidx, row_base + wrow + g, rows_total, T, S, ldS, wrow + g,
                                            jl * kSub, pos0, true, qpos, kv_len, sm_scale, hf, lane, mloc);
-        named_barrier(1, kThreads);  // the tile read
+        if (sub_max) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            mloc[h] = fmaxf(mloc[h], __shfl_xor_sync(0xffffffffu, mloc[h], 1));
+            mloc[h] = fmaxf(mloc[h], __shfl_xor_sync(0xffffffffu, mloc[h], 2));
+            if (t == 0) pm[((jl & 1) * kParts + hf) * R + wrow + g + 8 * h] = mloc[h];
+          }
+        }
+        named_barrier(1, kThreads);  // the tile read (and the warps' maxima written)
+        if (sub_max && tid < rows_here) {
+          float x = pm[(jl & 1) * kParts * R + tid];
+          for (int w = 1; w < kParts; ++w) x = fmaxf(x, pm[((jl & 1) * kParts + w) * R + tid]);
+          pmax[tid * nsc + jl] = x;
+        }
+      }
+      if (c0 > 0) {
+        if (tid < rows_here) MX_TILE_CHUNK_REFS(tid, c0, cnt);
+        named_barrier(1, kThreads);  // the chunk's mref and alf
       }
     }
     for (int i = tid; i < rows_here * cnt * 4; i += kThreads) {
       const int r = i / (cnt * 4), grp = i % (cnt * 4);
-      const float m = mref[r * n_sub + c0 + grp / 4];
+      const float m = mref[r * nsc + grp / 4];
       float4* row = reinterpret_cast<float4*>(S + r * ldS + grp * 16);
       float part[4];
 #pragma unroll
@@ -637,7 +672,7 @@ __device__ __forceinline__ void tile_attention(const CUtensorMap* tkd, const CUt
       float l = c0 == 0 ? 0.f : lsh[tid];
       for (int jl = 0; jl < cnt; ++jl) {
         const float* gs = gsum + tid * (Pc / 16) + 4 * jl;
-        l = __fadd_rn(__fmul_rn(l, alf[tid * n_sub + c0 + jl]), (gs[0] + gs[1]) + (gs[2] + gs[3]));
+        l = __fadd_rn(__fmul_rn(l, alf[tid * nsc + jl]), (gs[0] + gs[1]) + (gs[2] + gs[3]));
       }
       lsh[tid] = l;
     }
@@ -646,7 +681,7 @@ __device__ __forceinline__ void tile_attention(const CUtensorMap* tkd, const CUt
       take_fill<Lay, E, kStages>(full, smem, T, next, t0 + j * kSub, kv_len, tid);  // (at jl = 0 also: p and l done)
       if (tid == 0 && next + kStages < n_fills) MX_TILE_ISSUE(next + kStages);
       if (rescale && j > 0) {
-        const float a0 = alf[(wrow + g) * n_sub + j], a1 = alf[(wrow + g + 8) * n_sub + j];
+        const float a0 = alf[(wrow + g) * nsc + jl], a1 = alf[(wrow + g + 8) * nsc + jl];
 #pragma unroll
         for (int jn = 0; jn < kNJ; ++jn) {
           acc[jn][0] = __fmul_rn(acc[jn][0], a0);
@@ -675,6 +710,7 @@ __device__ __forceinline__ void tile_attention(const CUtensorMap* tkd, const CUt
   }
   if (nt == 0 && tid < rows_here) lsh[tid] = 0.f;
 #undef MX_TILE_ISSUE
+#undef MX_TILE_CHUNK_REFS
 
   // 5. Alone: out = acc / l from the registers.  Else acc published (over
   // S: p is spent), then the combine in rank order: the rows' weights
@@ -822,7 +858,7 @@ cudaError_t launch(const CUtensorMap (&maps)[4], const void* q, const void* kd, 
 // % 64 == 0; q and out (b, hq, sq, d); q_off / kv_len (b,) int32, or null and
 // the numbers for every row; lt (the tile) with L % lt == 0; P (the share) a
 // multiple of 64 with lt % P == 0 or P % lt == 0, ceil(L / P) <= 8, at most
-// 8192 (256 where wide); ctas: ceil(L / P) or, where the caller knows every
+// kMaxShare (256 where wide); ctas: ceil(L / P) or, where the caller knows every
 // kv_len, ceil(min(max kv_len, L) / P) (at least 1); wide: 64-row tiles (sq
 // hq / hkv > 16 only).  fault: 0 (bit 1: p rounded against the 64-position
 // running maximum; bit 2: the combine leaves out the last live share).

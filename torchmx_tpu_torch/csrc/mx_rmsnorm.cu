@@ -6,25 +6,36 @@
 // another order at 3-15 rows than at other row counts, so a row's bytes
 // depended on how many rows shared the call, and the engine's whole =
 // chunked = prefixed identity did not hold for admissions of 3-15 tokens.
-// Here one warp takes one row: lane l sums the squares of elements l*8 +
-// 256*i + j (i, j in order), then a fixed xor butterfly; the sum is the same
-// whatever the other rows are.  Memory-bound (2 bytes in and out per
-// element): 16-byte loads and stores.
+// Here one CTA takes one row, T = min(D/8, 512) threads: thread t sums the
+// squares of elements 8 t + 8 T i + j (i, j in order), a fixed xor
+// butterfly sums a warp, and every thread adds the warps' sums in warp
+// order; the sum is the same whatever the other rows are.  Memory-bound (2
+// bytes in and out per element): 16-byte loads and stores, and at decode's
+// few rows the row's work spread over its CTA (one warp a row left a
+// 4096-wide row 16 dependent passes, and a fused K2 doubled the time).
+//
+// With an activation format (E >= 0) the kernel also applies K2's
+// fake-quantize (csrc/mx_quantize.cu) to the row it has rounded to bf16:
+// a thread's 8 consecutive elements and its three neighbours' make one
+// 32-element MX block, whose exponent maximum is two xor shuffles, and each
+// element takes mx::fq_magic in registers.  The result is K2 of this
+// kernel's output, bit for bit, with one launch and without writing the
+// normed row and reading it back (the layers whose linears share one K2).
 #include "mx_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;  // rows per block
+constexpr int kMaxThreads = 512;  // threads a row (a CTA): D/8 up to this, then each thread takes more vectors
 
-__global__ void __launch_bounds__(kWarps * 32)
-rmsnorm_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w, uint16_t* __restrict__ out,
-               long long rows, int D, float eps) {
-  const int lane = threadIdx.x % 32;
-  const long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
-  if (row >= rows) return;
-  const uint16_t* xr = x + row * D;
+template <int E>
+__global__ void __launch_bounds__(kMaxThreads)
+rmsnorm_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w, uint16_t* __restrict__ out, int D,
+               float eps) {
+  __shared__ float warp_sums[kMaxThreads / 32];
+  const int step = blockDim.x * 8;  // a multiple of 256, as D is: a warp's 32 lanes are live together
+  const uint16_t* xr = x + (long long)blockIdx.x * D;
   float s = 0.f;
-  for (int c = lane * 8; c < D; c += 256) {
+  for (int c = threadIdx.x * 8; c < D; c += step) {
     uint4 v = *reinterpret_cast<const uint4*>(xr + c);
     const uint16_t* h = reinterpret_cast<const uint16_t*>(&v);
 #pragma unroll
@@ -34,9 +45,13 @@ rmsnorm_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w, u
     }
   }
   s = mx::warp_sum(s);
+  if (threadIdx.x % 32 == 0) warp_sums[threadIdx.x / 32] = s;
+  __syncthreads();
+  s = 0.f;
+  for (int i = 0; i < (int)blockDim.x / 32; ++i) s = __fadd_rn(s, warp_sums[i]);
   const float r = rsqrtf(__fadd_rn(__fdiv_rn(s, (float)D), eps));
-  uint16_t* orow = out + row * D;
-  for (int c = lane * 8; c < D; c += 256) {
+  uint16_t* orow = out + (long long)blockIdx.x * D;
+  for (int c = threadIdx.x * 8; c < D; c += step) {
     uint4 v = *reinterpret_cast<const uint4*>(xr + c);
     uint4 wv = *reinterpret_cast<const uint4*>(w + c);
     const uint16_t* h = reinterpret_cast<const uint16_t*>(&v);
@@ -49,18 +64,44 @@ rmsnorm_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ w, u
       f = __fmul_rn(f, __uint_as_float((uint32_t)wh[j] << 16));
       oh[j] = __bfloat16_as_ushort(__float2bfloat16_rn(f));
     }
+    if constexpr (E >= 0) {  // the threads 4k .. 4k + 3 hold one MX block (c .. c + 31)
+      int emax = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) emax = max(emax, (oh[j] >> 7) & 0xFF);
+      emax = max(emax, __shfl_xor_sync(0xffffffffu, emax, 1));
+      emax = max(emax, __shfl_xor_sync(0xffffffffu, emax, 2));
+      const int se = mx::block_scale(emax, mx::Elem<E>::max_pow2);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) oh[j] = mx::fq_magic<E>(oh[j], se);
+    }
     *reinterpret_cast<uint4*>(orow + c) = o;
   }
 }
 
+template <int E>
+cudaError_t launch(const void* x, const void* w, void* out, long long rows, int D, float eps, cudaStream_t stream) {
+  const int threads = D / 8 < kMaxThreads ? D / 8 : kMaxThreads;
+  rmsnorm_kernel<E><<<(unsigned)rows, threads, 0, stream>>>((const uint16_t*)x, (const uint16_t*)w, (uint16_t*)out,
+                                                            D, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// x, out: rows x D bf16 (D % 256 == 0); w: D bf16.
-extern "C" int mx_rmsnorm_launch(const void* x, const void* w, void* out, long long rows, int D, float eps,
+// x, out: rows x D bf16 (D % 256 == 0); w: D bf16; elem: -1 (the norm alone)
+// or the activation format of the fused fake-quantize (an mx::ElemCode).
+extern "C" int mx_rmsnorm_launch(const void* x, const void* w, void* out, long long rows, int D, float eps, int elem,
                                  void* stream) {
   if (rows == 0) return 0;
-  if (D % 256) return (int)cudaErrorInvalidValue;
-  rmsnorm_kernel<<<(unsigned)((rows + kWarps - 1) / kWarps), kWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const uint16_t*)x, (const uint16_t*)w, (uint16_t*)out, rows, D, eps);
-  return (int)cudaGetLastError();
+  if (D % 256 || rows >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (elem) {
+    case -1: return (int)launch<-1>(x, w, out, rows, D, eps, s);
+    case mx::kFp8E4M3: return (int)launch<mx::kFp8E4M3>(x, w, out, rows, D, eps, s);
+    case mx::kFp4E2M1: return (int)launch<mx::kFp4E2M1>(x, w, out, rows, D, eps, s);
+    case mx::kFp6E3M2: return (int)launch<mx::kFp6E3M2>(x, w, out, rows, D, eps, s);
+    case mx::kFp6E2M3: return (int)launch<mx::kFp6E2M3>(x, w, out, rows, D, eps, s);
+    case mx::kInt8: return (int)launch<mx::kInt8>(x, w, out, rows, D, eps, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

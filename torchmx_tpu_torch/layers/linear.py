@@ -13,8 +13,9 @@ from torch import nn
 from .. import env_variables as env
 from ..config import QLinearConfig
 from ..mx_array import MXTensor
+from ..ops import cuda_matmul_formats as kf
 from ..ops.cuda_matmul_formats import act_fq_first
-from ..ops.matmul import mx_dynamic_matmul, mx_matmul
+from ..ops.matmul import int8dot_format, mx_dynamic_matmul, mx_matmul
 from ..ops.quantize import mx_fake_quantize
 
 
@@ -119,6 +120,13 @@ class MXInferenceLinear(nn.Module):
         activation grid (bit-identical to ``forward`` on the raw one)."""
         return self._add_bias(mx_matmul(x_fq, self.weight))
 
+    def apply_int8dot(self, xq: tuple) -> torch.Tensor:
+        """Forward on x as :func:`shared_int8dot_x` quantized it for B9
+        (bit-identical to ``forward`` on the raw x)."""
+        x2, px_t, xd, fp8, lead = xq
+        out = kf.mx_matmul_int8dot(x2, self.weight.data, self.weight.scale_e8m0, fp8, (px_t, xd))
+        return self._add_bias(out.reshape(*lead, out.shape[-1]))
+
     def extra_repr(self) -> str:
         return f"in={self.in_features}, out={self.out_features}, qconfig={self.qconfig}"
 
@@ -132,21 +140,54 @@ def fq_layout(w: MXTensor) -> str:
     return "pair" if w.elem_dtype.name == "float4_e2m1" else "1byte"
 
 
-def shared_activation_fq(x: torch.Tensor, *linears) -> Optional[torch.Tensor]:
-    """Fake-quantize ``x`` once for several MX linears that read it under the
-    same activation config, where a linear's matmul would take x quantized
-    by K2 first (``act_fq_first``: at prefill sizes, and at every size for
-    fp6-quarters and fp4 / fp8 halves weights); None where sharing does not
-    apply (each linear then quantizes its own).  Linears of fp4 pair weights
-    are kept out: B7's own K2 writes x in the plane order its kernel reads,
-    which a shared row-major x would have to be copied into again."""
-    if not all(isinstance(lin, MXInferenceLinear) for lin in linears):
+def _shared_act_config(linears):
+    """The activation config of MX linears that all take the same one, else None."""
+    if not linears or not all(isinstance(lin, MXInferenceLinear) for lin in linears):
         return None
     cfg = linears[0].qconfig.activations_config
-    if any(lin.qconfig.activations_config != cfg for lin in linears[1:]):
+    return None if any(lin.qconfig.activations_config != cfg for lin in linears[1:]) else cfg
+
+
+def shared_fq_config(rows: int, *linears):
+    """The activation config by which :func:`shared_activation_fq` would
+    fake-quantize an x of ``rows`` rows once for ``linears``, where a
+    linear's matmul would take x quantized by K2 first (``act_fq_first``: at
+    prefill sizes, and at every size for fp6-quarters and fp4 / fp8 halves
+    weights); None where sharing does not apply (each linear then quantizes
+    its own).  Linears of fp4 pair weights are kept out: B7's own K2 writes
+    x in the plane order its kernel reads, which a shared row-major x would
+    have to be copied into again."""
+    cfg = _shared_act_config(linears)
+    if cfg is None:
         return None
-    rows = x.numel() // x.shape[-1]
     layouts = [fq_layout(lin.weight) for lin in linears]
     if "pair" in layouts or not any(act_fq_first(layout, rows) for layout in layouts):
         return None
+    return cfg
+
+
+def shared_activation_fq(x: torch.Tensor, *linears) -> Optional[torch.Tensor]:
+    """``x`` fake-quantized once for several MX linears that read it under
+    the same activation config, where :func:`shared_fq_config` says so; else
+    None."""
+    cfg = shared_fq_config(x.numel() // x.shape[-1], *linears)
+    if cfg is None:
+        return None
     return mx_fake_quantize(x.to(torch.bfloat16).contiguous(), cfg.elem_dtype, cfg.block_size)
+
+
+def shared_int8dot_x(x: torch.Tensor, *linears) -> Optional[tuple]:
+    """x quantized once by K1's dot-order mode for several MX linears that
+    all run B9 on it (``int8dot_format`` of the same variant, the same
+    activation config): ``(x as 2-D rows, px_t, xd, fp8, x's leading dims)`` for
+    :meth:`MXInferenceLinear.apply_int8dot`, or None."""
+    cfg = _shared_act_config(linears)
+    if cfg is None or cfg.block_size != 32:
+        return None
+    rows = x.numel() // x.shape[-1]
+    variants = {int8dot_format(rows, lin.weight, cfg.elem_dtype_name) for lin in linears}
+    if len(variants) != 1 or None in variants:
+        return None
+    fp8 = variants.pop()
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.bfloat16).contiguous()
+    return (x2, *kf.mx_quantize_dot(x2, "float8_e4m3" if fp8 else "int8"), fp8, tuple(x.shape[:-1]))

@@ -22,11 +22,10 @@ from torch import nn
 
 from .. import env_variables as env
 from ..layers.linear import Linear
-from ..mx_array import quantize_mx
-from ..packing import fp4_pairs_to_halves
 from ..ops.backend import DeviceLike, resolve_device
 from ..ops.cuda_attention import cached_attention_any, dequantize_cache
 from ..ops.cuda_norm import rms_norm
+from ..ops.cuda_quantize import mx_cache_write
 
 CachePosition = Union[int, torch.Tensor]
 
@@ -146,42 +145,21 @@ class MXLayerKVCache:
         return self.k_data.shape[3 if self.layout == "dmajor" else 2]
 
     def write(self, k_new: torch.Tensor, v_new: torch.Tensor, pos: CachePosition) -> None:
-        """Quantize ``(b, kv, s, d)`` K/V (K1 on the card) and store them at
-        sequence positions ``[pos, pos + s)``: ``pos`` is an int, or a ``(b,)``
-        int tensor on the cache's device with one start per row.
+        """Quantize ``(b, kv, s, d)`` K/V and store them at sequence positions
+        ``[pos, pos + s)``: ``pos`` is an int, or a ``(b,)`` int tensor on the
+        cache's device with one start per row.  On the card one K1 launch
+        writes both into the four buffers (``ops/cuda_quantize.mx_cache_write``).
 
         A per-row start that would run past the buffer is clamped to
         ``max_len - s``, as XLA clamps ``dynamic_update_slice`` in the
         reference (the engine's draining slots write at ``pos == max_len``);
-        an index past the end would be a device-side assert on the card.
-        The rows go in with one indexed store per buffer, the indices built
-        on the device.  In the d-major layout the sequence is the last axis,
-        so a token's codes land ``max_len`` bytes apart."""
-        b, _, s, _ = k_new.shape
-        per_row, dmajor = isinstance(pos, torch.Tensor), self.layout == "dmajor"
-        if per_row:
-            if pos.shape != (b,) or pos.device != self.k_data.device:
-                raise ValueError(f"per-row positions must be a ({b},) tensor on {self.k_data.device}, "
-                                 f"got {tuple(pos.shape)} on {pos.device}")
-            if s > self.max_len:
-                raise ValueError(f"cache of length {self.max_len} cannot take {s} positions")
-            dev = pos.device
-            rows = torch.arange(b, device=dev)[:, None]
-            cols = pos.long().clamp(0, self.max_len - s)[:, None] + torch.arange(s, device=dev)
-        elif pos + s > self.max_len:
-            raise ValueError(f"cache of length {self.max_len} cannot take positions up to {pos + s}")
-        for new, data, scale in ((k_new, self.k_data, self.k_scale), (v_new, self.v_data, self.v_scale)):
-            sc, codes = quantize_mx(new.to(torch.bfloat16).contiguous(), self.elem_dtype_name, self.block_size)
-            if self.elem_dtype_name == "float4_e2m1":
-                codes = fp4_pairs_to_halves(codes)
-            if dmajor:  # views with the sequence on dim 2: the stores below write through them
-                data, scale = data.transpose(2, 3), scale.transpose(2, 3)
-            if per_row:  # data[rows, :, cols] is (b, s, kv, x)
-                data[rows, :, cols] = codes.transpose(1, 2)
-                scale[rows, :, cols] = sc.transpose(1, 2)
-            else:
-                data[:, :, pos:pos + s] = codes
-                scale[:, :, pos:pos + s] = sc
+        an index past the end would be a device-side assert on the card.  In
+        the d-major layout the sequence is the last axis, so a token's codes
+        land ``max_len`` bytes apart."""
+        if self.block_size != 32:
+            raise ValueError(f"the MX KV cache takes block size 32, got {self.block_size}")
+        mx_cache_write(k_new.to(torch.bfloat16), v_new.to(torch.bfloat16), self.buffers, self.elem_dtype_name,
+                       self.layout, pos)
 
     def dequantize(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full dequantized (k, v) buffers ``(b, kv, L, d)`` in either layout
@@ -199,10 +177,12 @@ class RMSNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim, dtype=torch.bfloat16, device=device), requires_grad=False)
         self.eps = eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, act: Optional[str] = None) -> torch.Tensor:
         """The row-wise kernel on the card (a row's bytes do not depend on
-        the other rows), the plain version on the CPU (``ops/cuda_norm``)."""
-        return rms_norm(x, self.weight, self.eps)
+        the other rows), the plain version on the CPU (``ops/cuda_norm``);
+        with ``act`` (an activation format), fake-quantized to it in the same
+        launch."""
+        return rms_norm(x, self.weight, self.eps, act)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -241,12 +221,15 @@ class LlamaAttention(nn.Module):
         self.v_proj = Linear(h, self.num_key_value_heads * d, **kw)
         self.o_proj = Linear(self.num_heads * d, h, **kw)
 
-    def _project_qkv(self, x):
+    def _project_qkv(self, x, x_fq=None):
         return self.q_proj(x), self.k_proj(x), self.v_proj(x)
 
-    def forward(self, hidden, *, cos, sin, cache: MXLayerKVCache, cache_position: CachePosition):
-        b, s, _ = hidden.shape
-        q, k, v = self._project_qkv(hidden)
+    def forward(self, hidden=None, *, cos, sin, cache: MXLayerKVCache, cache_position: CachePosition, x_fq=None):
+        """``x_fq``: the input already fake-quantized to q/k/v's shared
+        activation grid (an MX module's ``shared_act``), given in place of
+        ``hidden``."""
+        b, s, _ = (hidden if x_fq is None else x_fq).shape
+        q, k, v = self._project_qkv(hidden, x_fq)
         q = q.view(b, s, self.num_heads, self.head_dim).transpose(1, 2)
         k = k.view(b, s, self.num_key_value_heads, self.head_dim).transpose(1, 2)
         v = v.view(b, s, self.num_key_value_heads, self.head_dim).transpose(1, 2)
@@ -269,9 +252,22 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(config.hidden_size, config.rms_norm_eps, device)
 
     def forward(self, x, *, cos, sin, cache, cache_position):
-        x = x + self.self_attn(self.input_layernorm(x), cos=cos, sin=sin, cache=cache,
-                               cache_position=cache_position)
-        return x + self.mlp(self.post_attention_layernorm(x))
+        x = x + _normed_into(self.input_layernorm, self.self_attn, x, cos=cos, sin=sin, cache=cache,
+                             cache_position=cache_position)
+        return x + _normed_into(self.post_attention_layernorm, self.mlp, x)
+
+
+def _normed_into(norm: RMSNorm, module: nn.Module, x: torch.Tensor, **kw) -> torch.Tensor:
+    """``module(norm(x))``.  Where the module's linears share one activation
+    fake-quantize at x's rows (an MX module's ``shared_act``), the norm
+    applies it in the same launch and the module takes the result as
+    ``x_fq``: the same bits, without the norm's output written and read
+    back."""
+    shared_act = getattr(module, "shared_act", None)
+    act = shared_act(x.numel() // x.shape[-1]) if shared_act is not None else None
+    if act is None:
+        return module(norm(x), **kw)
+    return module(x_fq=norm(x, act), **kw)
 
 
 class LlamaModel(nn.Module):

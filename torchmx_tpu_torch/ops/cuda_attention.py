@@ -183,7 +183,7 @@ def mx_cached_attention_plain(
 
 
 ATTN_MAX_SHARES = 8  # CTAs of K4's and K6's cluster at most (kMaxCluster in csrc/mx_attention_tile.cuh)
-ATTN_MAX_SHARE = 8192  # positions a CTA takes at most (kMaxShare): its per-sub-tile statistics fit shared memory
+ATTN_MAX_SHARE = 1 << 19  # positions a CTA takes at most (kMaxShare): its tiles' maxima fit shared memory
 ATTN_CHUNK = 2048  # positions whose scores a 16-row tile holds at once (kMaxChunk); a longer share recomputes them
 ATTN_WIDE_SHARE = 256  # the most for a 64-row tile, which holds all its scores (kWideShare)
 
@@ -214,15 +214,16 @@ def attention_plan(L: int, rows: int) -> tuple:
     tiles (``wide``) where a 64-row share's scores fit shared memory (L <=
     2048) and the rows fill more than 16, else 16-row tiles.  Raises where
     the kernel takes no such cache: L % 64 != 0, or a share past
-    ``ATTN_MAX_SHARE`` positions (L > 65536, twice the longest context of
-    the port's models).  A share past ``ATTN_CHUNK`` positions (L > 16384)
-    is taken in chunks whose scores the kernel recomputes."""
+    ``ATTN_MAX_SHARE`` positions (L > 4194304 = 2^22, 128 times the longest
+    context of the port's models; a row keeps one maximum per JAX tile of its
+    share in shared memory).  A share past ``ATTN_CHUNK`` positions (L >
+    16384) is taken in chunks whose scores the kernel recomputes."""
     if L <= 0 or L % 64:
         raise ValueError(f"the attention kernels take caches of L % 64 == 0 positions, got L={L}")
     P = attention_share(L)
     if P > ATTN_MAX_SHARE:
-        raise ValueError(f"the attention kernels take shares of at most {ATTN_MAX_SHARE} positions: L <= "
-                         f"{ATTN_MAX_SHARE * ATTN_MAX_SHARES}, got L={L}")
+        raise ValueError(f"the attention kernels take shares of at most {ATTN_MAX_SHARE} positions, so caches of "
+                         f"L <= {ATTN_MAX_SHARE * ATTN_MAX_SHARES} positions, got L={L}")
     return attention_tile(L), P, rows > 16 and P <= ATTN_WIDE_SHARE
 
 
@@ -268,7 +269,7 @@ def mx_cached_attention(
     format) + ``(b, hkv, L, d/32)`` scales.  CUDA tensors launch the cluster
     kernel (fp8, fp6 or int8 cache, d = 128, 16-byte aligned buffers, L and
     the share as ``attention_plan`` takes them: a multiple of 64, at most
-    65536; other shapes raise), one launch a call.  Where no JAX tile divides
+    2^22; other shapes raise), one launch a call.  Where no JAX tile divides
     L the kernel takes the whole cache as its tile, as the plain version
     does.  ``q_off`` and ``kv_len`` are read on the device; where ``kv_len``
     is a number only the shares below it are launched.

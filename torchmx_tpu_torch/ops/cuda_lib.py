@@ -49,14 +49,18 @@ _lock = threading.Lock()
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "mx_quantize": {
-        # x, scale, codes, rows, K, elem_code, stream
-        "mx_quantize_launch": (_P, _P, _P, _L, _I, _I, _P),
-        # x, pxT (f32 scale factors), codes, rows, K, Mp (pxT's width), elem_code, stream: B9's dot order
-        "mx_quantize_dot_launch": (_P, _P, _P, _L, _I, _I, _I, _P),
-        # x, out, rows, K, elem_code, stream
-        "mx_fake_quantize_launch": (_P, _P, _L, _I, _I, _P),
-        # x, out, rows, K, Kp (the planes' width), elem_code (-1: copy), stream
-        "mx_fake_quantize_planes_launch": (_P, _P, _L, _I, _I, _I, _P),
+        # x, scale, codes, rows, K, elem_code, the card's SM count, stream
+        "mx_quantize_launch": (_P, _P, _P, _L, _I, _I, _I, _P),
+        # x, pxT (f32 scale factors), codes, rows, K, Mp (pxT's width), elem_code, SMs, stream: B9's dot order
+        "mx_quantize_dot_launch": (_P, _P, _P, _L, _I, _I, _I, _I, _P),
+        # x, out, rows, K, elem_code, SMs, stream
+        "mx_fake_quantize_launch": (_P, _P, _L, _I, _I, _I, _P),
+        # x, out, rows, K, Kp (the planes' width), elem_code (-1: copy), SMs, stream
+        "mx_fake_quantize_planes_launch": (_P, _P, _L, _I, _I, _I, _I, _P),
+        # k, its strides of (b, hkv, s), v, its strides, the cache's k codes, k scales, v codes, v scales,
+        # pos (null: the number that follows), pos number, b, hkv, s, d, L, elem_code, dmajor, SMs, stream
+        "mx_cache_write_launch": (_P, _L, _L, _L, _P, _L, _L, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _P),
         # x1, x2, codes1, scale1, codes2, scale2, pos, rows, s, L, w1, w2, elem_code, sm_scale,
         # dmajor, stream
         "mx_quantize_rows_launch": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _I, _P),
@@ -121,8 +125,8 @@ SIGNATURES = {
         ),
     },
     "mx_rmsnorm": {
-        # x, weight, out, rows, D, eps, stream
-        "mx_rmsnorm_launch": (_P, _P, _P, _L, _I, _F, _P),
+        # x, weight, out, rows, D, eps, elem_code of the fused fake-quantize (-1: none), stream
+        "mx_rmsnorm_launch": (_P, _P, _P, _L, _I, _F, _I, _P),
     },
     "mx_attention": {
         # q, kd, ks, vd, vs, q_off, kv_len (null: the two numbers that follow), q_off number, kv_len

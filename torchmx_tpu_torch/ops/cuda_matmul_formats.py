@@ -30,7 +30,9 @@ layouts, and their plain PyTorch versions:
   codes permuted inside each block as the kernel's W fragments come out,
   scales transposed as f32 factors), and the kernel runs B6's TMA + wgmma
   mainloop with one k32 wgmma on the raw codes per block and 64 rows; its
-  launch plan is :func:`plan_int8dot`, with B6's splits.
+  launch plan is :func:`plan_int8dot`, with B6's splits.  Linears that read
+  the same x (q/k/v, gate/up) share one K1 (``mx_quantize_dot``'s output,
+  passed to each B9 call as ``xq``; ``layers/linear.shared_int8dot_x``).
 
 Weight decode (B6, B8) is ``decode_codes_to_bf16(dot_operand=True)`` of the
 reference, and ``decode_int8_to_bf16`` for int8: signed zeros and the fp8
@@ -59,7 +61,8 @@ from . import cuda_lib
 from .backend import on_cuda
 from .cuda_matmul import (SMEM_LIMIT, WgmmaPlan, check_matmul_operands, decode_code_dot, decode_fp4_to_bf16, fq_matmul,
                           k_splits, plan_halves, sm_count)
-from .cuda_quantize import PLANE_FORMATS, mx_fake_quantize_planes, mx_quantize, mx_quantize_dot, pair_width
+from .cuda_quantize import (PLANE_FORMATS, from_dot_order, mx_fake_quantize_planes, mx_quantize, mx_quantize_dot,
+                            pair_width)
 from .quantize import mx_fake_quantize
 
 CODE_FORMATS_1BYTE = ("float8_e4m3", "float6_e3m2", "float6_e2m3", "int8")
@@ -418,20 +421,27 @@ def _check_int8dot(M: int, K: int, w_codes, w_scale, fp8: bool) -> None:
         raise ValueError("B9 reads the weight and its scales by TMA: their storage must be 16-byte aligned")
 
 
-def mx_matmul_int8dot(x: torch.Tensor, w_codes, w_scale, fp8: bool = False) -> torch.Tensor:
+def mx_matmul_int8dot(x: torch.Tensor, w_codes, w_scale, fp8: bool = False, xq=None) -> torch.Tensor:
     """B9 on a bf16 x: K1 quantizes x to MXINT8 (MXFP8 with ``fp8``) codes
     and scales, as ``int8dot_any`` / ``fp8dot_any`` do, then the int8-dot
-    kernel.  CUDA tensors run K1's dot-order mode and the kernel, two host
-    calls (the weight is checked first: nothing launches for a call that
-    raises); CPU tensors the plain versions of both."""
+    kernel.  ``xq``: x as ``mx_quantize_dot`` already wrote it, shared
+    by the linears that read the same x (x is then read for its shape only).
+    CUDA tensors run K1's dot-order mode (unless ``xq``) and the kernel (the
+    weight is checked first: nothing launches for a call that raises); CPU
+    tensors the plain versions of both, ``xq``'s codes put back in natural
+    order and its exponents read from the factors' bits."""
     fmt = "float8_e4m3" if fp8 else "int8"
     if not on_cuda(x, w_codes, w_scale):
-        sx, xc = mx_quantize(x.contiguous(), fmt)
+        if xq is None:
+            sx, xc = mx_quantize(x.contiguous(), fmt)
+        else:
+            px_t, xd = xq
+            sx, xc = (px_t[:, :xd.shape[0]].t().contiguous().view(torch.int32) >> 23).to(torch.uint8), from_dot_order(xd)
         return mx_matmul_int8dot_plain(xc, sx, w_codes, w_scale, fp8)
     if x.dim() != 2 or x.dtype != torch.bfloat16:
         raise ValueError(f"B9 takes a 2-D bf16 x, got {x.dtype} {tuple(x.shape)}")
     M, K = x.shape
     _check_int8dot(M, K, w_codes, w_scale, fp8)
-    px_t, xd = mx_quantize_dot(x.contiguous(), fmt)  # K1's own output: what the kernel takes
+    px_t, xd = mx_quantize_dot(x.contiguous(), fmt) if xq is None else xq  # K1's own output: what the kernel takes
     plan = plan_int8dot(M, w_codes.shape[1], K, sm_count(x.device))
     return b9_kernel(xd, px_t, w_codes, w_scale, fp8, plan, reduce=True)[0]

@@ -5,7 +5,10 @@ K1 and K2 replace ``torchmx_tpu/ops/pallas_quantize.py``'s ``_quantize_kernel``
 (bf16 -> E8M0 scale + hw-exact RNE codes) and ``_fake_quantize_kernel`` /
 ``_fake_quantize_lane_kernel`` (quantize-dequantize in one pass with the fp32
 magic-number RNE).  Both kernels are bit-exact to their plain versions over
-every bf16 bit pattern (checked on the card by ``chip_smoke.py``).
+every bf16 bit pattern (checked on the card by ``chip_smoke.py``).  One body
+serves every mode: a thread takes 8 consecutive elements in one 16-byte
+load, four lanes make a block, each thread stores its 8 results as one
+vector, and the grid is sized from the card's SM count.
 
 Fake-quantize contract: ``mx_fake_quantize(x) == dequantize_mx(quantize_mx(x))``
 bit for bit, including the flush of results below the fp32 normal range to a
@@ -24,6 +27,13 @@ columns, as ``_pallas_matmul_fp4`` splits x before its kernel; with an
 activation format each 32-element block of the row is fake-quantized at its
 joint scale over both planes (``_fq_xT_pair``), without one it is a copy.
 
+K1 also writes a layer's new K and V straight into ``MXLayerKVCache``'s four
+buffers (``mx_cache_write``): both in one launch, in the seq or the d-major
+layout, at an int position or per-row positions clamped as XLA clamps
+``dynamic_update_slice``, fp4 in its d-halves packing.  Its plain version
+``mx_cache_write_plain`` quantizes each by ``mx_quantize_plain`` and stores
+the rows by indexed stores.
+
 ``mx_quantize_rows`` quantizes with one exponent per row (block = the row's
 width), which K1's blocks of 32 do not take: MLA's d-major latent write and
 B14's query (``ops/cuda_mla``, ``models/deepseek``).  JAX runs it as jnp ops
@@ -33,12 +43,14 @@ B14's query (``ops/cuda_mla``, ``models/deepseek``).  JAX runs it as jnp ops
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import functools
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
 from .. import dtypes
 from ..mx_array import quantize_mx_plain
+from ..packing import fp4_pairs_to_halves
 from ..mx_quantization import (
     F32_MIN_NORMAL,
     bf16_bits,
@@ -53,13 +65,28 @@ from .cuda_attention import _pow2_scale
 BLOCK = 32
 
 
+def _sms(device: torch.device) -> int:
+    """The card's SM count: the kernels size their grids from it."""
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    """Whether every tensor's storage starts on 16 bytes (the kernels' vector loads and stores)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _check_kernel_input(x: torch.Tensor, block_size: int) -> torch.Tensor:
     if block_size != BLOCK:
         raise ValueError(f"the CUDA kernels take block_size {BLOCK}, got {block_size}")
     if x.dtype != torch.bfloat16 or x.shape[-1] % BLOCK:
         raise ValueError(f"need bf16 with a last dim multiple of {BLOCK}, got {x.dtype} {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError("the quantize kernels need a contiguous input")
+    if not x.is_contiguous() or not _aligned(x):
+        raise ValueError("the quantize kernels need a contiguous input starting on 16 bytes")
     return x
 
 
@@ -87,7 +114,7 @@ def mx_quantize(
     cuda_lib.launch(
         "mx_quantize", "mx_quantize_launch",
         x.data_ptr(), scale.data_ptr(), codes.data_ptr(),
-        x.numel() // K, K, cuda_lib.ELEM_CODES[elem_dtype_name],
+        x.numel() // K, K, cuda_lib.ELEM_CODES[elem_dtype_name], _sms(x.device),
     )
     return scale, codes
 
@@ -146,7 +173,7 @@ def mx_quantize_dot(x: torch.Tensor, elem_dtype_name: str) -> Tuple[torch.Tensor
     px_t = torch.empty((K // BLOCK, dot_scale_width(M)), dtype=torch.float32, device=x.device)
     codes = torch.empty((M, K), dtype=torch.int8 if elem_dtype_name == "int8" else torch.uint8, device=x.device)
     cuda_lib.launch("mx_quantize", "mx_quantize_dot_launch", x.data_ptr(), px_t.data_ptr(), codes.data_ptr(),
-                    M, K, px_t.shape[1], cuda_lib.ELEM_CODES[elem_dtype_name], name="mx_quantize")
+                    M, K, px_t.shape[1], cuda_lib.ELEM_CODES[elem_dtype_name], _sms(x.device), name="mx_quantize")
     return px_t, codes
 
 
@@ -198,7 +225,7 @@ def mx_fake_quantize_kernel(
     K = x.shape[-1]
     cuda_lib.launch(
         "mx_quantize", "mx_fake_quantize_launch",
-        x.data_ptr(), out.data_ptr(), x.numel() // K, K, cuda_lib.ELEM_CODES[elem_dtype_name],
+        x.data_ptr(), out.data_ptr(), x.numel() // K, K, cuda_lib.ELEM_CODES[elem_dtype_name], _sms(x.device),
     )
     return out
 
@@ -235,15 +262,103 @@ def mx_fake_quantize_planes(x: torch.Tensor, elem_dtype_name: Optional[str] = No
         raise ValueError(f"the plane mode takes {PLANE_FORMATS}, got {elem_dtype_name!r}")
     if not on_cuda(x):
         return mx_fake_quantize_planes_plain(x, elem_dtype_name)
-    if x.dim() != 2 or x.dtype != torch.bfloat16 or not x.is_contiguous() or x.shape[1] % BLOCK:
+    if x.dim() != 2 or x.dtype != torch.bfloat16 or not x.is_contiguous() or x.shape[1] % BLOCK or not _aligned(x):
         raise ValueError(f"the plane mode needs a contiguous 2-D bf16 x with K % {BLOCK} == 0, got "
                          f"{x.dtype} {tuple(x.shape)}")
     M, K = x.shape
     out = torch.empty((M, pair_width(K)), dtype=torch.bfloat16, device=x.device)
     elem = -1 if elem_dtype_name is None else cuda_lib.ELEM_CODES[elem_dtype_name]
     cuda_lib.launch("mx_quantize", "mx_fake_quantize_planes_launch", x.data_ptr(), out.data_ptr(), M, K,
-                    out.shape[1], elem, name="mx_pair_planes" if elem_dtype_name is None else "mx_fake_quantize")
+                    out.shape[1], elem, _sms(x.device),
+                    name="mx_pair_planes" if elem_dtype_name is None else "mx_fake_quantize")
     return out
+
+
+CachePosition = Union[int, torch.Tensor]
+CACHE_FP4_HEAD_DIMS = (32, 64, 128, 256)  # fp4 d-halves partners within one warp of the cache write
+
+
+def _check_cache_write(k_new, v_new, buffers, elem_dtype_name, layout, pos) -> int:
+    """The cache's length after checking the write: ``(b, kv, s, d)`` K and V,
+    buffers ``(k codes, k scales, v codes, v scales)`` of the layout, a
+    start that fits (an int) or a ``(b,)`` tensor on the cache's device."""
+    b, kv, s, d = k_new.shape
+    dmajor = layout == "dmajor"
+    L = buffers[0].shape[3 if dmajor else 2]
+    dp = d // 2 if elem_dtype_name == "float4_e2m1" else d
+    data, scale = ((b, kv, dp, L), (b, kv, d // BLOCK, L)) if dmajor else ((b, kv, L, dp), (b, kv, L, d // BLOCK))
+    if v_new.shape != k_new.shape or any(t.shape != want for t, want in zip(buffers, (data, scale, data, scale))):
+        raise ValueError(f"a {layout} cache write takes K and V {tuple(k_new.shape)} into buffers {data} / {scale}, "
+                         f"got V {tuple(v_new.shape)} and {[tuple(t.shape) for t in buffers]}")
+    if isinstance(pos, torch.Tensor):
+        if pos.shape != (b,) or pos.device != buffers[0].device:
+            raise ValueError(f"per-row positions must be a ({b},) tensor on {buffers[0].device}, "
+                             f"got {tuple(pos.shape)} on {pos.device}")
+        if s > L:
+            raise ValueError(f"cache of length {L} cannot take {s} positions")
+    elif pos < 0 or pos + s > L:
+        raise ValueError(f"cache of length {L} cannot take positions {pos} .. {pos + s}")
+    return L
+
+
+def mx_cache_write_plain(k_new: torch.Tensor, v_new: torch.Tensor, buffers: Sequence[torch.Tensor],
+                         elem_dtype_name: str, layout: str, pos: CachePosition) -> None:
+    """Plain version of K1's cache write: ``k_new`` and ``v_new`` ``(b, kv,
+    s, d)`` quantized along d by :func:`mx_quantize_plain` (fp4 then re-packed
+    as d-halves), stored in ``buffers`` (``MXLayerKVCache``'s k codes, k
+    scales, v codes, v scales, in the ``"seq"`` or ``"dmajor"`` layout) at
+    positions ``[pos, pos + s)``, in place.  ``pos`` is an int, or a ``(b,)``
+    tensor with one start a row, clamped to ``[0, L - s]`` as XLA clamps
+    ``dynamic_update_slice``.  The rows go in with one indexed store per
+    buffer, the indices built on the device."""
+    L = _check_cache_write(k_new, v_new, buffers, elem_dtype_name, layout, pos)
+    b, _, s, _ = k_new.shape
+    per_row = isinstance(pos, torch.Tensor)
+    if per_row:
+        dev = pos.device
+        rows = torch.arange(b, device=dev)[:, None]
+        cols = pos.long().clamp(0, L - s)[:, None] + torch.arange(s, device=dev)
+    for new, data, scale in ((k_new, *buffers[:2]), (v_new, *buffers[2:])):
+        sc, codes = mx_quantize_plain(new.to(torch.bfloat16).contiguous(), elem_dtype_name)
+        if elem_dtype_name == "float4_e2m1":
+            codes = fp4_pairs_to_halves(codes)
+        if layout == "dmajor":  # views with the sequence on dim 2: the stores below write through them
+            data, scale = data.transpose(2, 3), scale.transpose(2, 3)
+        if per_row:  # data[rows, :, cols] is (b, s, kv, x)
+            data[rows, :, cols] = codes.transpose(1, 2)
+            scale[rows, :, cols] = sc.transpose(1, 2)
+        else:
+            data[:, :, pos:pos + s] = codes
+            scale[:, :, pos:pos + s] = sc
+
+
+def mx_cache_write(k_new: torch.Tensor, v_new: torch.Tensor, buffers: Sequence[torch.Tensor], elem_dtype_name: str,
+                   layout: str, pos: CachePosition) -> None:
+    """K1's cache write (see :func:`mx_cache_write_plain`).  CUDA tensors
+    launch the kernel once for K and V, counted as ``mx_quantize``: bf16 K
+    and V whose last dim is contiguous (any strides of the others that are
+    multiples of 8 elements), contiguous buffers; fp4 at head_dim 32, 64,
+    128 or 256.  Other inputs raise."""
+    if not on_cuda(k_new, v_new, *buffers, pos if isinstance(pos, torch.Tensor) else None):
+        return mx_cache_write_plain(k_new, v_new, buffers, elem_dtype_name, layout, pos)
+    L = _check_cache_write(k_new, v_new, buffers, elem_dtype_name, layout, pos)
+    b, kv, s, d = k_new.shape
+    k_new, v_new = (t if t.stride(-1) == 1 and all(st % 8 == 0 for st in t.stride()[:3]) and _aligned(t)
+                    else t.contiguous() for t in (k_new, v_new))
+    fp4 = elem_dtype_name == "float4_e2m1"
+    if (k_new.dtype != torch.bfloat16 or v_new.dtype != torch.bfloat16 or d % BLOCK
+            or (fp4 and d not in CACHE_FP4_HEAD_DIMS) or not all(t.is_contiguous() for t in buffers)):
+        raise ValueError(f"the cache write kernel takes bf16 K/V with d % {BLOCK} == 0 (fp4: d in "
+                         f"{CACHE_FP4_HEAD_DIMS}) and contiguous buffers, got {k_new.dtype} {tuple(k_new.shape)}")
+    per_row = isinstance(pos, torch.Tensor)
+    p = pos.to(torch.int32).contiguous() if per_row else None
+    cuda_lib.launch(
+        "mx_quantize", "mx_cache_write_launch",
+        k_new.data_ptr(), *k_new.stride()[:3], v_new.data_ptr(), *v_new.stride()[:3],
+        *(t.data_ptr() for t in buffers), None if p is None else p.data_ptr(), 0 if per_row else int(pos),
+        b, kv, s, d, L, cuda_lib.ELEM_CODES[elem_dtype_name], int(layout == "dmajor"), _sms(k_new.device),
+        name="mx_quantize",
+    )
 
 
 ROW_FORMATS = ("float8_e4m3", "float6_e3m2", "float6_e2m3", "int8")  # the d-major caches' formats

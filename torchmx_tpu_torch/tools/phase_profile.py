@@ -4,7 +4,12 @@ The cut builds give wrong results; they only time what is left.
 
 Run from the repository root with one card:
 
-    python3 torchmx_tpu_torch/tools/phase_profile.py --kernel b13|k4|k6|k7|b14|k5 [--root DIR] [--label NAME] [--chunks-only] [--cases TEXT]
+    python3 torchmx_tpu_torch/tools/phase_profile.py --kernel b13|k4|k6|k7|b14|k5|k1|k2 [--root DIR] [--label NAME] [--chunks-only] [--cases TEXT]
+
+K1 and K2 (``--kernel k1|k2``, ``profile_quantize``) are timed as they ship
+(no cut builds) at the table's and the decode step's shapes, beside an
+empty kernel's launch floor, K1 also as the KV cache write and K2 also
+after and fused into the RMSNorm kernel.
 
 ``--root`` imports ``chip_smoke`` and ``torchmx_tpu_torch`` from another
 checkout and cuts that checkout's source (for instance a parent commit
@@ -874,9 +879,87 @@ def profile_k6(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show, only: str
     return profile_tile(cs, cuda_lib, dev, timer, gen, chunks_only, show, "dmajor", only)
 
 
+def profile_quantize(cs, cuda_lib, dev, timer, gen, chunks_only: bool, show, kernel: str = "k1") -> dict:
+    """K1 (``kernel="k1"``) or K2 (``"k2"``) at the table's and the decode
+    step's shapes: flushed (``chip_smoke.Timer``), warm (``warm_time``), the
+    plain version and the byte bound beside an empty kernel
+    (``torch.cuda._sleep(0)``) under the same timers, the launch floor.  K1
+    also as the cache write (b=32, one token a row at per-row positions, L =
+    1024; device ms and host us a call, as ``chip_smoke.check_cache_write``);
+    K2 also after the RMSNorm kernel, and fused into it where the checkout
+    has the fused mode."""
+    import inspect
+    import time
+
+    import torch
+
+    from torchmx_tpu_torch.models.llama import MXLayerKVCache
+    from torchmx_tpu_torch.ops import cuda_norm
+    from torchmx_tpu_torch.ops import cuda_quantize as cq
+
+    def bf16(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    rows = {"empty kernel": dict(ms=timer(lambda: torch.cuda._sleep(0)), warm_ms=warm_time(lambda: torch.cuda._sleep(0)))}
+    show("empty kernel", rows["empty kernel"])
+
+    def case(label, fn, plain, bytes_):
+        row = dict(ms=timer(fn), warm_ms=warm_time(fn), plain_ms=timer(plain, reps=5),
+                   bound_ms=bytes_ / cs.HBM_BYTES_PER_S * 1e3)
+        rows[label] = row
+        show(label, row)
+
+    if kernel == "k1":
+        for elem, shape in (("float8_e4m3", (32, 8, 64, 128)), ("int8", (32, 8, 1, 128)), ("int8", (1, 8, 1, 128)),
+                            ("float4_e2m1", (4096, 4096))):
+            x = bf16(*shape)
+            n = x.numel()
+            case(f"{elem} {shape}", lambda: cq.mx_quantize(x, elem), lambda: cq.mx_quantize_plain(x, elem),
+                 2 * n + (n / 2 if elem == "float4_e2m1" else n) + n / 32)
+        for M in (1, 32, 256):
+            x = bf16(M, 4096)
+            n = x.numel()
+            case(f"int8 dot order ({M}, 4096)", lambda: cq.mx_quantize_dot(x, "int8"),
+                 lambda: cq.mx_quantize_dot_plain(x, "int8"), 2 * n + n + 4 * n / 32)
+        b, kv, L, d = 32, 8, 1024, 128
+        k1, v1 = bf16(b, kv, 1, d), bf16(b, kv, 1, d)
+        pos = torch.randint(64, L, (b,), generator=gen, device=dev).int()
+        for elem, layout in (("int8", "seq"), ("int8", "dmajor"), ("float4_e2m1", "dmajor"), ("float8_e4m3", "seq")):
+            cache = MXLayerKVCache.create(b, kv, L, d, elem, device=dev, layout=layout)
+            cache.write(k1, v1, pos)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                cache.write(k1, v1, pos)
+            host_us = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+            n = k1.numel()
+            row = dict(ms=timer(lambda: cache.write(k1, v1, pos)), warm_ms=warm_time(lambda: cache.write(k1, v1, pos)),
+                       host_us=host_us, bound_ms=2 * (2 * n + n + n / 32) / cs.HBM_BYTES_PER_S * 1e3)
+            rows[f"cache write {elem} {layout}"] = row
+            show(f"cache write {elem} {layout}", row)
+    else:
+        w = (1 + 0.1 * torch.randn(4096, generator=gen, device=dev)).to(torch.bfloat16)
+        fused = "act" in inspect.signature(cuda_norm.rms_norm).parameters
+        for M in (2048, 256, 32, 1):
+            x = bf16(M, 4096)
+            n = x.numel()
+            case(f"fp8 ({M}, 4096)", lambda: cq.mx_fake_quantize_kernel(x, "float8_e4m3"),
+                 lambda: cq.mx_fake_quantize_plain(x, "float8_e4m3"), 4 * n)
+            two = (lambda: cq.mx_fake_quantize_kernel(cuda_norm.rms_norm(x, w, 1e-5), "float8_e4m3"))
+            row = dict(norm_then_k2_ms=timer(two), norm_then_k2_warm_ms=warm_time(two),
+                       norm_ms=timer(lambda: cuda_norm.rms_norm(x, w, 1e-5)))
+            if fused:
+                one = (lambda: cuda_norm.rms_norm(x, w, 1e-5, "float8_e4m3"))
+                row.update(fused_ms=timer(one), fused_warm_ms=warm_time(one))
+            rows[f"RMSNorm and K2 fp8 ({M}, 4096)"] = row
+            show(f"RMSNorm and K2 fp8 ({M}, 4096)", row)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("b13", "k4", "k6", "k7", "b14", "k5"), required=True)
+    ap.add_argument("--kernel", choices=("b13", "k4", "k6", "k7", "b14", "k5", "k1", "k2"), required=True)
     ap.add_argument("--root", default=".", help="checkout to import chip_smoke and the package from")
     ap.add_argument("--label", default="change")
     ap.add_argument("--chunks-only", action="store_true", help="time the chunk sizes alone (no cut builds)")
@@ -903,8 +986,10 @@ def main() -> int:
             {k: round(v, 4) if isinstance(v, float) else v for k, v in row.items()}) + f" ms [{card}]", flush=True)
 
     profile = dict(b13=profile_b13, k4=profile_k4, k6=profile_k6, k7=profile_k7, b14=profile_b14,
-                   k5=profile_k5)[args.kernel]
+                   k5=profile_k5, k1=profile_quantize, k2=profile_quantize)[args.kernel]
     extra = dict(only=args.cases) if args.kernel in ("k4", "k6") else {}
+    if args.kernel in ("k1", "k2"):
+        extra = dict(kernel=args.kernel)
     res = dict(card=card, label=args.label, root=root,
                cases=profile(cs, cuda_lib, dev, timer, gen, args.chunks_only, show, **extra))
     os.makedirs("chiprun_out", exist_ok=True)
