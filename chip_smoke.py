@@ -56,7 +56,15 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    act fq None, fp8 and int8, its pair decode on every (code, scale) pair bit
    for bit, and K2's plane mode bit for bit over all 2^16 bf16 patterns; the
    router's f32 mode bit for bit at E = 64 and 256; K4 over fp6 caches
-   abs <= 2e-2), then
+   abs <= 2e-2; K5 and K7 at the GQA groups they run padded (3, 5, 6, 7;
+   Qwen2-7B's 28 query heads over 4 KV heads at 7) at K7's decode cases
+   under their gates, each failing them with its query heads read at the
+   padded instance's stride, and timed at groups 7 and 8 over the same
+   bytes; K4 and K6 at a group of 7 at decode and a whole admission of 384;
+   every attention kernel at phase 10's ``generate`` shapes (a cache of
+   256: decode at b=32 and b=1, a prefill of 32 x 64), K6 giving K4's
+   bytes; the RMSNorm kernel at Qwen2's widths 896 and 3584 alone and fused,
+   row by row), then
    times kernel, plain version and, where one exists, the one PyTorch call
    computing the same function (CUDA events, median of 20, L2 flushed
    before each call); every matmul kernel and the RMSNorm kernel must give a
@@ -97,7 +105,16 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    ``MLACache`` and the int8 d-major latent with the all-int8 flag (B14 and
    the per-row quantize kernel, with a planted fault: the latent written one
    position late), the kernels under the plain path's expert choices
-   (``NoauxRouteTape``);
+   (``NoauxRouteTape``).  Last, 2-layer Qwen2 models with seeded nonzero
+   q/k/v biases after a prompt of 320: at Qwen2-7B width over the fp8 seq,
+   int8 seq (K5 at a group of 7) and int8 d-major all-int8 (K7) caches,
+   with the k bias dropped, K5's / K7's padded-stride reads and one
+   rounding fault a cache (K4's p against the sub-tile maximum, K5's
+   against its tile's own maximum, K7's p codes rounded down) as planted
+   faults, and at Qwen2-0.5B width over the int8 cache (head_dim 64: JAX's
+   eager route on both paths, counted, no attention kernel; its float64
+   floor the eager route in float64), each under gates set from its own
+   readings;
 4. the ``generate`` path: Llama-3-8B's width (8 of its 32 layers by default)
    with MXFP4 weights, MXFP8
    activations and an fp8 KV cache, built layer by layer from a seed,
@@ -153,7 +170,15 @@ Phases, each on ``cuda``; any failure raises and the script exits non-zero:
    kernel at every latent write, the plain quantizer raising if it meets a
    CUDA tensor);
    every decode step must launch each kernel as often as the model's
-   structure says.  Last, the engine against the plain path
+   structure says;
+10. Qwen2-7B (8 of its 28 layers, ``QWEN2_LAYERS``, seeded q/k/v biases):
+   ``generate`` at batch 1 and 32 over the fp8 cache, the 48-request engine
+   stream over the int8 cache with every check of phase 5 (K5 at every decode
+   step, K4 never), ``generate`` at batch 32 over the int8 d-major cache with
+   the all-int8 flag (K7 at every decode step); then Qwen2-0.5B at all 24
+   layers through ``generate`` at batch 1 and 32 over the int8 cache: B7 at
+   every linear, no attention kernel, the eager attention route counted
+   layers x 128 times a run and never on any other path.  Last, the engine against the plain path
    on a 4-layer Llama, a 2-layer Mixtral and a 4-layer Moonlight, the plain
    runs replaying the kernel runs' expert choices.
 
@@ -1747,27 +1772,30 @@ def f64_plain_attention():
     """The plain attention versions computed with another rounding, to measure
     how far the model alone carries such a difference: K4, K5 and K6 in
     float64 at JAX's tile (p rounded against the same running maxima, each
-    in float64); B13's plain version in float64.  K7 and B14 keep their
-    plain versions: their dots are exact integer sums, and p requantized in
-    other groups than JAX's tile is a fault their kernels had, not another
-    rounding of correct code."""
+    in float64); B13's plain version in float64; JAX's eager route (head_dim
+    64) in float64 with no bf16 rounding between its steps.  K7 and B14 keep
+    their plain versions: their dots are exact integer sums, and p
+    requantized in other groups than JAX's tile is a fault their kernels
+    had, not another rounding of correct code."""
     import functools
 
+    from torchmx_tpu_torch.models import llama
     from torchmx_tpu_torch.ops import cuda_attention as ca
     from torchmx_tpu_torch.ops import cuda_mla
 
     names = ("mx_cached_attention_plain", "mx_cached_attention_chunkdot_plain", "mx_cached_attention_dmajor_plain")
     plain = {n: getattr(ca, n) for n in names}
-    mla = cuda_mla.mx_mla_attention_plain
+    mla, eager = cuda_mla.mx_mla_attention_plain, llama.cached_attention_eager
     for n in names:
         setattr(ca, n, functools.partial(plain[n], compute_dtype=torch.float64))
     cuda_mla.mx_mla_attention_plain = functools.partial(mla, compute_dtype=torch.float64)
+    llama.cached_attention_eager = functools.partial(eager, compute_dtype=torch.float64)
     try:
         yield
     finally:
         for n, fn in plain.items():
             setattr(ca, n, fn)
-        cuda_mla.mx_mla_attention_plain = mla
+        cuda_mla.mx_mla_attention_plain, llama.cached_attention_eager = mla, eager
 
 
 # Wrong kernels the model check must catch, each emulated at its wrapper on
@@ -2108,6 +2136,23 @@ GATES = {"float8_e4m3": {"layer": 5e-2, "lm_head": 2e-2, "logits": 8e-2, "tie_ga
                                      "route_tie_gap": 5e-2},
          "Moonlight int8 d-major int8dot": {"layer": 1.3e-1, "lm_head": 2e-2, "logits": 1.2e-1, "tie_gap": 0.3,
                                             "route_tie_gap": 5e-2}}
+# Qwen2 (2 layers, seeded q/k/v biases, the k bias the largest, a prompt of QWEN2_CHECK_PROMPT): gates
+# set from its own readings (NVIDIA H100 80GB HBM3, 700 W; layer / logits), each near the geometric mean
+# of the larger of the sound and float64 readings and the smallest fault's.  Qwen2-7B fp8: sound
+# 9.93e-3 / 3.78e-2, the plain path with float64 attention 1.80e-2 / 3.74e-2; K4's p against the
+# sub-tile maximum 3.41e-2 / 5.95e-2, the k bias dropped 6.15e-1 / 4.33e-1.  int8: sound 2.39e-3 /
+# 3.63e-2, float64 1.48e-2 / 3.65e-2; K5's p against its tile's own maximum 3.90e-2 / 6.11e-2, the
+# padded-stride read 7.84e-1 / 5.92e-1, the k bias dropped 6.15e-1 / 4.32e-1.  int8 d-major all-int8:
+# sound 2.39e-3 / 3.63e-2, float64 (K6; K7 as it is) 3.50e-3 / 3.65e-2; K7's p codes rounded down
+# 1.00e-1 / 1.05e-1, the padded-stride read 7.89e-1 / 5.97e-1.  Qwen2-0.5B (the eager route on both
+# paths): sound 6.95e-7 / 0, the eager route in float64 5.27e-2 / 5.46e-2, the k bias dropped 5.72e-1 /
+# 4.28e-1; its layer gate stays the int8 cache's, 14 % above that floor, its logits gate 1.5x above
+# it (no rounding-sized fault of its kernels is planted here: B7's, K1's and the norm's are phase 2's
+# and phase 7's).
+GATES.update({"Qwen2-7B fp8 cache": {"layer": 2.5e-2, "lm_head": 2e-2, "logits": 4.7e-2, "tie_gap": 0.1},
+              "Qwen2-7B int8 cache": {"layer": 2.4e-2, "lm_head": 2e-2, "logits": 4.7e-2, "tie_gap": 0.3},
+              "Qwen2-7B int8 d-major int8dot": {"layer": 1.9e-2, "lm_head": 2e-2, "logits": 6.2e-2, "tie_gap": 0.3},
+              "Qwen2-0.5B int8 cache": {"layer": 6e-2, "lm_head": 2e-2, "logits": 8e-2, "tie_gap": 0.3}})
 
 
 def gate_failures(r: dict, gates: dict) -> list:
@@ -4328,6 +4373,437 @@ def run_moonlight(dev, card, layers: int) -> tuple:
     return paths, per_step, results
 
 
+# -- this slice: Qwen2 (q/k/v biases, GQA groups of 7, head_dim 64) -------------------------------
+
+# Qwen/Qwen2-7B config.json (the fields the port reads; use_sliding_window false), cut to
+# QWEN2_LAYERS of its 28 layers in phase 10; Qwen/Qwen2-0.5B config.json at all 24 layers.
+QWEN2_7B = dict(vocab_size=152064, hidden_size=3584, intermediate_size=18944, num_hidden_layers=28,
+                num_attention_heads=28, num_key_value_heads=4, rope_theta=1000000.0, rms_norm_eps=1e-6,
+                max_position_embeddings=131072)
+QWEN2_05B = dict(vocab_size=151936, hidden_size=896, intermediate_size=4864, num_hidden_layers=24,
+                 num_attention_heads=14, num_key_value_heads=2, rope_theta=1000000.0, rms_norm_eps=1e-6,
+                 max_position_embeddings=131072, tie_word_embeddings=True)
+QWEN2_LAYERS = 8
+# Standard deviations of the seeded q/k/v biases: the k bias larger, as in the published
+# checkpoints (Qwen2's k_proj biases reach tens where q's and v's stay near 1).
+QWEN2_BIAS_STD = {"q_proj": 0.3, "k_proj": 2.0, "v_proj": 0.3}
+QWEN2_GROUPS = (3, 5, 6, 7)  # the groups K5 and K7 run in the kernel built for 4 or 8 rows
+QWEN2_WIDTHS = (896, 3584)  # Qwen2-0.5B's and Qwen2-7B's norm widths
+QWEN2_ADMISSION = ("whole b=1 L=1024 sq=384", 1, 1024, 384, [384])  # an engine admission at a group of 7
+# Phase 10's generate calls (prompt 64, 128 new tokens: a cache of 256 positions, one tile of 256, one
+# K4 / K6 share, one K7 tile): label, b, L, sq, kv_len of each row.  The b=32 decode holds every step's
+# kv_len (65 .. 192) in its rows.
+QWEN2_GENERATE_CASES = [("decode b=32 L=256 kv_len 65..192", 32, 256, 1, MLA_GK_KV),
+                        ("decode b=1 L=256 kv_len 192", 1, 256, 1, [192]),
+                        ("prefill b=32 L=256 sq=64", 32, 256, 64, [64] * 32)]
+
+
+def build_qwen2(dev, card, cfg: dict, layers: int, seed: int = 0, weights="float4_e2m1", acts="float8_e4m3"):
+    """A Qwen2 at full width, ``layers`` deep: seeded random bf16 weights and
+    q/k/v biases (``QWEN2_BIAS_STD``) made on the card and quantized layer by
+    layer."""
+    from torchmx_tpu_torch.models.qwen2 import Qwen2Config, Qwen2ForCausalLM
+    from torchmx_tpu_torch.ops import cuda_lib
+    from torchmx_tpu_torch.quant_api import build_quantized
+
+    qa, qm, _ = quant_configs(weights=weights, acts=acts)
+    config = Qwen2Config(**{**cfg, "num_hidden_layers": layers})
+    gen = torch.Generator(dev).manual_seed(seed + 1000)
+
+    def biases(layer):
+        with torch.no_grad():
+            for name, std in QWEN2_BIAS_STD.items():
+                bias = getattr(layer.self_attn, name).bias
+                bias.copy_(torch.randn(bias.shape, generator=gen, device=dev) * std)
+
+    cuda_lib.reset_launch_counts()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_quantized(Qwen2ForCausalLM, config, qa, qm, dev, torch.Generator(dev).manual_seed(seed), biases)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    name = "Qwen2-0.5B" if cfg is QWEN2_05B else "Qwen2-7B"
+    layouts = sorted({(m.weight.elem_dtype.name, m.weight.fp4_pack) for m in model.modules() if hasattr(m, "qconfig")
+                      and hasattr(m, "weight")})
+    log(f"model: built and quantized {name} ({layers} of {cfg['num_hidden_layers']} layers), {weights} weights / "
+        f"{acts} activations (layouts {layouts}), q/k/v biases of std {json.dumps(QWEN2_BIAS_STD)}, in "
+        f"{seconds:.1f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card [{card}]")
+    model.build_seconds = seconds
+    return model
+
+
+def _qwen2_timed(row: dict, fn, plain, args, seq, timer) -> dict:
+    """``row`` with the kernel's, its plain version's and SDPA's times on
+    ``args`` (K4's arguments ``seq`` for SDPA) and the bound."""
+    import torch.nn.functional as F
+
+    k, v, mask = _sdpa_inputs(seq)
+    t_b, by = bound(*_attn_work(seq))
+    row.update(ms=timer(lambda: fn(*args)), plain_ms=timer(lambda: plain(*args), reps=5),
+               library_ms=timer(lambda: F.scaled_dot_product_attention(
+                   seq[0], k, v, attn_mask=mask, scale=seq[7], enable_gqa=True)),
+               bound_ms=t_b, bound_by=by)
+    return row
+
+
+def _qwen2_k57(name, seq, G, label, timer, fault: bool, timed: bool) -> dict:
+    """K5 (over ``seq``, an int8 seq cache) or K7 (the same cache d-major)
+    against its plain version under its gates (K5: abs, worst row and whole
+    output; K7: abs and worst row), finite, 0 for a row that sees no key,
+    the same bytes on a second launch; with ``fault``, its query heads read
+    at the padded instance's stride must fail the gate."""
+    from torchmx_tpu_torch.ops import cuda_attention as ca
+
+    k5 = name.endswith("chunkdot")
+    fn, plain = getattr(ca, name), getattr(ca, name + "_plain")
+    args = seq[:8] if k5 else _to_dmajor(seq)[:8]
+    empty = [i for i, n in enumerate(seq[6].tolist()) if n == 0]
+    got = fn(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    err, rel, l2, ok = k5_readings(got, ref)
+    if not k5:
+        ok = err <= 2e-2 and rel <= K7_ROW_REL
+    hq, hkv = seq[0].shape[1], seq[1].shape[1]
+    row = dict(G=G, case=label, hq=hq, hkv=hkv, max_abs_err=err, worst_row_rel=rel, rel_l2=l2)
+    if fault:
+        bad = fn(*args, pad_stride=True)
+        row.update(zip(("fault_abs", "fault_row_rel", "fault_l2", "fault_passes"), k5_readings(bad, ref)))
+        if not k5:
+            row["fault_passes"] = row["fault_abs"] <= 2e-2 and row["fault_row_rel"] <= K7_ROW_REL
+    log(f"{name} G={G} {label}: abs {err:.3e}, row / whole rel L2 {rel:.3e} / {l2:.3e}"
+        + (f"; query heads at the padded stride: abs {row['fault_abs']:.3e}, row / whole "
+           f"{row['fault_row_rel']:.3e} / {row['fault_l2']:.3e}" if fault else ""))
+    if not ok or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name} G={G} {label}: abs {err}, row / whole rel L2 {rel} / {l2}")
+    if empty and got[empty].float().abs().max().item() != 0.0:
+        raise AssertionError(f"{name} G={G} {label}: a row with no visible key must output 0")
+    if not torch.equal(got, fn(*args)):
+        raise AssertionError(f"{name} G={G} {label}: two launches on the same inputs differ")
+    if row.get("fault_passes"):
+        raise AssertionError(f"{name} G={G}: the query heads read at the padded stride pass the gate")
+    if timed:
+        _qwen2_timed(row, fn, plain, args, seq, timer)
+        log(f"{name} G={G} timing", json.dumps(row))
+    return row
+
+
+def _qwen2_k46(seq, label, timer, out: dict) -> None:
+    """K4 over ``seq`` and K6 over the same cache d-major at a group of 7,
+    each against its plain version under its gates, K6 giving K4's bytes,
+    timed; the rows go to ``out``."""
+    from torchmx_tpu_torch.ops import cuda_attention as ca
+
+    dm = _to_dmajor(seq)
+    got4 = ca.mx_cached_attention(*seq)
+    got6 = ca.mx_cached_attention_dmajor(*dm)
+    torch.cuda.synchronize()
+    for name, got, args, layout in (("mx_cached_attention", got4, seq, "seq"),
+                                    ("mx_cached_attention_dmajor", got6, dm, "dmajor")):
+        fn, plain = getattr(ca, name), getattr(ca, name + "_plain")
+        err, rel, l2, ok = k46_readings(got, plain(*args), layout)
+        log(f"{name} G=7 {label} ({seq[8]}): abs {err:.3e}, row / whole rel L2 {rel:.3e} / {l2:.3e}")
+        if not ok or not torch.isfinite(got.float()).all():
+            raise AssertionError(f"{name} G=7 {label} ({seq[8]}): abs {err}, row / whole rel L2 {rel} / {l2}")
+        row = _qwen2_timed(dict(G=7, case=f"{label} {seq[8]}", hq=28, hkv=4, max_abs_err=err, worst_row_rel=rel,
+                                rel_l2=l2), fn, plain, args, seq, timer)
+        log(f"{name} G=7 timing", json.dumps(row))
+        out[name].append(row)
+    check_k6_against_k4(got6, got4, f"G=7 {label} ({seq[8]})")
+
+
+def check_qwen2_attention(dev, timer, gen) -> dict:
+    """K5 and K7 at the GQA groups that run padded (3, 5, 6, 7: hq = 4 G over
+    4 KV heads, 28 over 4 is Qwen2-7B's decode) over K7's decode cases
+    (``K7_CASES``: b=32 L=1024 ragged, b=1 kv 700, b=4 L=8192) against their
+    plain versions (``_qwen2_k57``); each kernel's planted fault (its query
+    heads read at the padded instance's stride) must fail its gate at every
+    padded group.  At a group of 7 and of 8 (hq 32 over the same 4 KV heads:
+    the same cache bytes) each case is timed with the plain version and SDPA
+    beside it.  K4 and K6 at a group of 7 at the same decode cases and a
+    whole admission of 384 tokens (``_qwen2_k46``).  Then every attention
+    kernel at phase 10's ``generate`` shapes (``QWEN2_GENERATE_CASES``): K4
+    and K6 over the fp8 cache, K6 (and K4) over the int8 cache at the
+    prefill, K5 and K7 over the int8 caches at the decode steps, all timed.
+    Returns {kernel: readings}."""
+    out = {"mx_cached_attention_chunkdot": [], "mx_cached_attention_int8dot": [], "mx_cached_attention": [],
+           "mx_cached_attention_dmajor": []}
+    for G in QWEN2_GROUPS + (8,):
+        for label, b, L, kv in K7_CASES:
+            seq = _attn_case(dev, gen, b, 4 * G, 4, 128, L, 1, kv, "int8", never_written=True)
+            for name in ("mx_cached_attention_chunkdot", "mx_cached_attention_int8dot"):
+                out[name].append(_qwen2_k57(name, seq, G, label, timer, fault=G in QWEN2_GROUPS and
+                                            label.startswith("decode b=32"), timed=G in (7, 8)))
+    # K4 and K6 at a group of 7: the decode cases over an fp8 cache (generate's) and a whole admission
+    # over an int8 cache (the engine's).
+    for label, b, L, sq, kv in [(lab, b, L, 1, kv) for lab, b, L, kv in K7_CASES] + [QWEN2_ADMISSION]:
+        _qwen2_k46(_attn_case(dev, gen, b, 28, 4, 128, L, sq, kv, "float8_e4m3" if sq == 1 else "int8",
+                              never_written=sq == 1), label, timer, out)
+    for label, b, L, sq, kv in QWEN2_GENERATE_CASES:
+        for elem in ("float8_e4m3", "int8"):
+            seq = _attn_case(dev, gen, b, 28, 4, 128, L, sq, kv, elem, never_written=True)
+            if elem == "float8_e4m3" or sq > 1:
+                _qwen2_k46(seq, label, timer, out)
+            else:
+                for name in ("mx_cached_attention_chunkdot", "mx_cached_attention_int8dot"):
+                    out[name].append(_qwen2_k57(name, seq, 7, label, timer, fault=False, timed=True))
+    return out
+
+
+def check_qwen2_norm(dev, timer, gen) -> list:
+    """The RMSNorm kernel at Qwen2-0.5B's and Qwen2-7B's widths (896: 112
+    threads of 8 elements, three and a half warps; 3584) at decode b=1, b=32
+    and a b=32 prefill of 64: fused with K2 it is K2 of its own output bit for
+    bit in all five formats (and over every bf16 pattern, as rows of the
+    width); alone within one bf16 step of the plain version; every row the
+    same bytes alone as among 37 rows.  Timed beside
+    ``torch.nn.functional.rms_norm``.  Returns the rows."""
+    import torch.nn.functional as F
+
+    from torchmx_tpu_torch.ops import cuda_norm
+    from torchmx_tpu_torch.ops import cuda_quantize as cq
+
+    rows = []
+    for W in QWEN2_WIDTHS:
+        w = (1 + 0.1 * torch.randn(W, generator=gen, device=dev)).to(torch.bfloat16)
+        patterns = all_bf16_blocks(dev).reshape(-1)
+        patterns = patterns[:patterns.numel() // W * W].reshape(-1, W)
+        for label, x in [(f"({r}, {W})", torch.randn(r, W, generator=gen, device=dev).to(torch.bfloat16) * 4)
+                         for r in (1, 32, 2048)] + [(f"all bf16 patterns {tuple(patterns.shape)}", patterns)]:
+            for act in ("float8_e4m3", "int8", "float6_e3m2", "float6_e2m3", "float4_e2m1"):
+                fused, want = cuda_norm.rms_norm(x, w, 1e-6, act), cq.mx_fake_quantize_kernel(
+                    cuda_norm.rms_norm(x, w, 1e-6), act)
+                nan = torch.isnan(fused.float()) & torch.isnan(want.float())
+                bad = int(((fused.view(torch.int16) != want.view(torch.int16)) & ~nan).sum())
+                if bad:
+                    raise AssertionError(f"mx_rmsnorm fused with K2 {act} {label}: {bad} values differ")
+        x = torch.randn(37, W, generator=gen, device=dev).to(torch.bfloat16) * 3
+        whole = cuda_norm.rms_norm(x, w, 1e-6)
+        for i in range(37):
+            if not torch.equal(cuda_norm.rms_norm(x[i:i + 1], w, 1e-6), whole[i:i + 1]):
+                raise AssertionError(f"mx_rmsnorm width {W}: row {i} alone differs from the row among 37")
+        for r in (1, 32, 2048):
+            x = torch.randn(r, W, generator=gen, device=dev).to(torch.bfloat16)
+            got, ref = cuda_norm.rms_norm(x, w, 1e-6), cuda_norm.rms_norm_plain(x, w, 1e-6)
+            steps = bf16_steps(got, ref)
+            if steps > 1.0:
+                raise AssertionError(f"mx_rmsnorm ({r}, {W}): {steps} bf16 steps from the plain version")
+            n = x.numel()
+            t_b, by = bound(2 * n + 2 * n + 2 * W, 3 * n)
+            row = dict(shape=(r, W), bf16_steps=steps, values_differing=int((got != ref).sum()),
+                       ms=timer(lambda: cuda_norm.rms_norm(x, w, 1e-6)),
+                       fused_fp8_ms=timer(lambda: cuda_norm.rms_norm(x, w, 1e-6, "float8_e4m3")),
+                       plain_ms=timer(lambda: cuda_norm.rms_norm_plain(x, w, 1e-6), reps=5),
+                       library_ms=timer(lambda: F.rms_norm(x, (W,), w, 1e-6)), bound_ms=t_b, bound_by=by)
+            log("mx_rmsnorm Qwen2 width timing", json.dumps(row))
+            rows.append(row)
+        log(f"mx_rmsnorm width {W}: fused = K2 of the norm bit for bit in five formats, every row the same "
+            f"alone as among 37, within one bf16 step of the plain version")
+    return rows
+
+
+# Phase 3's Qwen2 checks: name -> (config, cache, planted faults).  The faults: the k bias dropped
+# on the kernel path (it moves every K block's shared exponent before the cache write); K5 or K7
+# reading its query heads at the stride of the 8-row instance a group of 7 runs in; and one fault of
+# rounding's size a cache: K4 rounding p against the 64-position sub-tile maximum, K5 against its
+# tile's own maximum, K7 rounding p's int8 codes down.
+QWEN2_CHECKS = {"Qwen2-7B fp8 cache": (QWEN2_7B, "float8_e4m3", ("k bias dropped", "K4 p against the sub-tile maximum")),
+                "Qwen2-7B int8 cache": (QWEN2_7B, "int8", ("k bias dropped", "K5 query heads at the padded stride",
+                                                           "K5 p against its tile's own maximum")),
+                "Qwen2-7B int8 d-major int8dot": (QWEN2_7B, "int8 d-major int8dot",
+                                                  ("k bias dropped", "K7 query heads at the padded stride",
+                                                   "K7 p codes rounded down")),
+                "Qwen2-0.5B int8 cache": (QWEN2_05B, "int8", ("k bias dropped",))}
+# The prompt of the Qwen2 checks: its 16 decode steps run over a cache of 384 positions, three of
+# JAX's tiles of 128 (the rounding faults act across tiles and sub-tiles).
+QWEN2_CHECK_PROMPT = 320
+# Each attention fault of QWEN2_CHECKS: the wrapper and the planted-fault keyword it sets.
+QWEN2_ATTENTION_FAULTS = {
+    "K4 p against the sub-tile maximum": ("mx_cached_attention", "p_from_sub_tile_max"),
+    "K5 query heads at the padded stride": ("mx_cached_attention_chunkdot", "pad_stride"),
+    "K5 p against its tile's own maximum": ("mx_cached_attention_chunkdot", "p_from_own_tile_max"),
+    "K7 query heads at the padded stride": ("mx_cached_attention_int8dot", "pad_stride"),
+    "K7 p codes rounded down": ("mx_cached_attention_int8dot", "p_codes_down")}
+
+
+@contextlib.contextmanager
+def qwen2_fault(model, name):
+    """A planted fault of QWEN2_CHECKS on the kernel path only (under
+    plain_path() nothing changes)."""
+    from torchmx_tpu_torch.ops import cuda_attention as ca
+    from torchmx_tpu_torch.ops.backend import on_cuda
+
+    if name == "k bias dropped":
+        lins = [layer.self_attn.k_proj for layer in model.model.layers]
+        for lin in lins:
+            orig = lin._add_bias
+            lin._add_bias = lambda out, _orig=orig: out if on_cuda(out) else _orig(out)
+        try:
+            yield
+        finally:
+            for lin in lins:
+                del lin._add_bias
+        return
+    attr, kw = QWEN2_ATTENTION_FAULTS[name]
+    orig = getattr(ca, attr)
+    setattr(ca, attr, lambda q, *a, **k: orig(q, *a, **k, **{kw: on_cuda(q)}))
+    try:
+        yield
+    finally:
+        setattr(ca, attr, orig)
+
+
+def model_check_qwen2(dev, card) -> dict:
+    """Kernel path against plain path on 2-layer Qwen2 models with seeded
+    nonzero q/k/v biases, b=2, a prompt of ``QWEN2_CHECK_PROMPT``, 16 greedy
+    tokens (``model_readings``): at
+    Qwen2-7B's width (a GQA group of 7) over the fp8 seq cache (K4), the int8
+    seq cache (K5 at every decode step) and the int8 d-major cache with the
+    all-int8 flag (K7), and at Qwen2-0.5B's width (head_dim 64: JAX's eager
+    route on both paths, counted, no attention kernel) over the int8 cache;
+    each planted fault of QWEN2_CHECKS must fail a gate."""
+    from torchmx_tpu_torch.ops import cuda_lib, fallbacks
+
+    all_readings, models = {}, {}
+    for name, (cfg, cache, faults) in QWEN2_CHECKS.items():
+        if id(cfg) not in models:
+            models.clear()
+            torch.cuda.empty_cache()
+            models[id(cfg)] = build_qwen2(dev, card, cfg, 2, seed=1)
+        model = models[id(cfg)]
+        prompt = torch.randint(0, cfg["vocab_size"], (2, QWEN2_CHECK_PROMPT),
+                               generator=torch.Generator(dev).manual_seed(2), device=dev)
+        elem, layout, int8dot = CACHES[cache]
+        kv, tie_gap = quant_configs(elem)[2], GATES[name]["tie_gap"]
+        fallbacks.reset_fallback_counts()
+        cuda_lib.reset_launch_counts()
+        with kv_env(layout, int8dot):
+            readings = {"sound": model_readings(model, prompt, 16, kv, True, tie_gap)}
+            eager = sum(fallbacks.fallback_counts().values())
+            launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+            attention = {k: v for k, v in launches.items() if "attention" in k}
+            for fault in faults:
+                with qwen2_fault(model, fault):
+                    readings[fault] = model_readings(model, prompt, 16, kv, False, tie_gap)
+        readings["sound"].update(eager_route_calls=eager, launches=launches)
+        if (cfg is QWEN2_05B) != (eager > 0) or (cfg is QWEN2_05B and (attention or not launches.get(
+                "mx_matmul_fp4_pair"))):
+            raise AssertionError(f"model check {name}: {eager} eager attention calls, launches {launches}: "
+                                 f"head_dim 64 takes the eager route on both paths (B7 its linears), 128 never")
+        for fault, r in readings.items():
+            log(f"model check {name} [{fault}]: 2 layers, b=2, 16 greedy tokens: {json.dumps(r)} [{card}]")
+        all_readings[name] = readings
+    models.clear()
+    fallbacks.reset_fallback_counts()
+    apply_gates(all_readings, GATES, card)
+    return all_readings
+
+
+def qwen2_launches_per_step(layers: int, int8dot: bool = False) -> dict:
+    """Qwen2-7B's decode step: Llama's (``halves_launches_per_step``: its
+    linears take K3's halves layout) with the decode attention kernel once a
+    layer where the path has one (K7 with the all-int8 flag); the biases are
+    plain adds."""
+    want = halves_launches_per_step(layers)
+    if int8dot:
+        want["mx_cached_attention_int8dot"] = layers
+    return want
+
+
+def qwen05_launches_per_step(layers: int) -> dict:
+    """Qwen2-0.5B's decode step: every linear K % 512 != 0, so B7 with its own
+    K2 plane pass at each of a layer's 7 linears (no shared K2); K1 writes the
+    cache once a layer; the RMSNorm kernel twice a layer and once at the end;
+    no attention kernel (JAX's eager route) and no lm_head kernel (the tied
+    embedding product)."""
+    return {"mx_matmul_fp4_pair": 7 * layers, "mx_fake_quantize": 7 * layers, "mx_quantize": layers,
+            "mx_rmsnorm": 2 * layers + 1}
+
+
+def run_qwen2(dev, card, layers: int) -> tuple:
+    """Phase 10.  Qwen2-7B at full width, ``layers`` deep: ``generate`` at b=1
+    and b=32 over the fp8 seq cache (K4 at a group of 7), the 48-request
+    engine stream over the int8 seq cache with every check of phase 5 (K5 at
+    every decode step, K4 never), ``generate`` at b=32 over the int8 d-major
+    cache with the all-int8 flag (K7 at every decode step).  Then Qwen2-0.5B
+    at all 24 layers: ``generate`` at b=1 and b=32 over the int8 seq cache,
+    B7 at every linear, no attention kernel, and JAX's eager route counted
+    once a layer for the prefill and each of the 127 decode steps.  Returns
+    (launches by path, launches per decode step by path, results)."""
+    from torchmx_tpu_torch.ops import fallbacks
+
+    paths, per_step, results = {}, {}, {}
+    model = build_qwen2(dev, card, QWEN2_7B, layers)
+    results["build_seconds_7b"] = model.build_seconds
+    paths["generate_qwen2"], res = run_slice(model, dev, card, "float8_e4m3", weights="Qwen2-7B fp4",
+                                             want=qwen2_launches_per_step(layers))
+    for b, r in res.items():
+        per_step[f"qwen2_b{b}"] = r["launches_per_decode_step"]
+        results[f"generate_b{b}"] = r
+    results["engine"] = run_engine(model, dev, card, "int8")
+    paths["engine_qwen2"] = results["engine"]["launches"]
+    per_step["engine_qwen2"] = results["engine"]["launches_per_decode_step"]
+    with kv_env(*CACHES["int8 d-major int8dot"][1:]):
+        paths["generate_qwen2_int8dot"], res = run_slice(model, dev, card, "int8 d-major int8dot", batches=(32,),
+                                                         weights="Qwen2-7B fp4",
+                                                         want=qwen2_launches_per_step(layers, int8dot=True))
+    results["generate_int8dot_b32"] = res[32]
+    per_step["qwen2_int8dot_b32"] = res[32]["launches_per_decode_step"]
+    del model
+    torch.cuda.empty_cache()
+    if fallbacks.fallback_counts():
+        raise AssertionError(f"the eager attention route ran off the head_dim-64 path: {fallbacks.fallback_counts()}")
+    layers05 = QWEN2_05B["num_hidden_layers"]
+    model = build_qwen2(dev, card, QWEN2_05B, layers05, weights="float4_e2m1")
+    results["build_seconds_05b"] = model.build_seconds
+    counted = {}
+    with eager_route_calls_counted(counted, layers05):
+        paths["generate_qwen05"], res = run_slice(model, dev, card, "int8", weights="Qwen2-0.5B fp4",
+                                                  want=qwen05_launches_per_step(layers05))
+    for b, r in res.items():
+        per_step[f"qwen05_b{b}"] = r["launches_per_decode_step"]
+        results[f"qwen05_generate_b{b}"] = r
+        if any("attention" in k for k in r["launches"]):
+            raise AssertionError(f"Qwen2-0.5B b={b}: an attention kernel launched: {r['launches']}")
+    results["qwen05_eager_route_calls"] = counted
+    del model
+    torch.cuda.empty_cache()
+    fallbacks.reset_fallback_counts()
+    return paths, per_step, results
+
+
+@contextlib.contextmanager
+def eager_route_calls_counted(counted: dict, layers: int):
+    """Around ``run_slice`` on Qwen2-0.5B: the eager attention route's count
+    is set to 0 before each timed ``generate`` and must read ``layers`` x
+    128 (a prefill and 127 decode steps) just after; ``counted`` receives
+    the readings by batch."""
+    from torchmx_tpu_torch.models import generate as gen_mod
+    from torchmx_tpu_torch.ops import fallbacks
+
+    orig = gen_mod.generate
+
+    def counting(model, prompt, n, **kw):
+        fallbacks.reset_fallback_counts()
+        out = orig(model, prompt, n, **kw)
+        calls = sum(v for k, v in fallbacks.fallback_counts().items() if k.startswith("cached_attention: "))
+        if kw.get("return_logits"):  # the timed run (the warm-up asks for no logits)
+            counted[f"b{prompt.shape[0]}"] = calls
+            if calls != layers * n or set(fallbacks.fallback_counts()) - {
+                    k for k in fallbacks.fallback_counts() if k.startswith("cached_attention: ")}:
+                raise AssertionError(f"Qwen2-0.5B generate b={prompt.shape[0]}: the eager route counted "
+                                     f"{fallbacks.fallback_counts()}, expected {layers} x {n} calls")
+            log(f"Qwen2-0.5B generate b={prompt.shape[0]}: the eager attention route counted {calls} calls = "
+                f"{layers} layers x {n} (prefill + {n - 1} decode steps): {json.dumps(fallbacks.fallback_counts())}")
+        return out
+
+    gen_mod.generate = counting
+    try:
+        yield
+    finally:
+        gen_mod.generate = orig
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=LLAMA_LAYERS,
@@ -4360,6 +4836,11 @@ def main() -> int:
     k5, int8_rows, k4_int8_err = check_int8_attention_kernels(dev, timer, gen)
     k4["max_abs_err"] = max(k4["max_abs_err"], k4_int8_err)
     k6, k7, dmajor_rows = check_dmajor_attention_kernels(dev, timer, gen)
+    qwen2_rows = check_qwen2_attention(dev, timer, gen)
+    for entry in (k4, k5, k6, k7):  # the Qwen2-7B decode (b=32 ragged) at a group of 7, and of 8 over the same bytes
+        entry["qwen2"] = [r for r in qwen2_rows[entry["name"]] if r["G"] in (7, 8) and "ms" in r
+                          and r["case"].startswith(("decode b=32", "whole"))]
+    qwen2_rows["mx_rmsnorm"] = check_qwen2_norm(dev, timer, gen)
     k4_fp6_err, k4_fp6_rows = check_k4_fp6(dev, timer, gen)
     k4["max_abs_err"] = max(k4["max_abs_err"], k4_fp6_err)
     b13, b13_rows = check_mla_kernel(dev, timer, gen)
@@ -4379,6 +4860,7 @@ def main() -> int:
     check_readings.update(model_check_formats(dev, card))
     check_readings.update(model_check_mixtral(dev, card))
     check_readings.update(model_check_deepseek(dev, card))
+    check_readings.update(model_check_qwen2(dev, card))
     log(f"phase 3 (model checks) done at {time.perf_counter() - t_start:.0f} s")
     model = build_model(dev, card, args.layers)
     # Each main path is driven with the counts set to 0 just before it and
@@ -4406,6 +4888,9 @@ def main() -> int:
     moonlight_paths, moonlight_per_step, moonlight_results = run_moonlight(dev, card, MOONLIGHT_LAYERS)
     paths.update(moonlight_paths)
     log(f"phase 9 (Moonlight-16B-A3B) done at {time.perf_counter() - t_start:.0f} s")
+    qwen2_paths, qwen2_per_step, qwen2_results = run_qwen2(dev, card, QWEN2_LAYERS)
+    paths.update(qwen2_paths)
+    log(f"phase 10 (Qwen2-7B, Qwen2-0.5B) done at {time.perf_counter() - t_start:.0f} s")
     plain_results = compare_with_plain_path(dev, card)
     plain_results_mixtral = compare_with_plain_path(dev, card, "mixtral")
     plain_results_deepseek = compare_with_plain_path(dev, card, "deepseek")
@@ -4417,6 +4902,10 @@ def main() -> int:
     per_step.update(format_per_step)
     per_step.update(mixtral_per_step)
     per_step.update(moonlight_per_step)
+    per_step.update(qwen2_per_step)
+    from torchmx_tpu_torch.ops import fallbacks
+    if fallbacks.fallback_counts():
+        raise AssertionError(f"the eager attention route ran off the head_dim-64 path: {fallbacks.fallback_counts()}")
     seq = {"mx_quantize", "mx_fake_quantize", "mx_matmul_fp4_halves", "mx_cached_attention", "mx_rmsnorm"}
     dmajor = (seq - {"mx_cached_attention"}) | {"mx_cached_attention_dmajor"}
     fmt = seq - {"mx_matmul_fp4_halves"}
@@ -4433,6 +4922,9 @@ def main() -> int:
     on_path.update(generate_moonlight=moonlight, engine_moonlight=moonlight,
                    generate_moonlight_int8dot=(moonlight - {"mx_mla_attention", "mx_quantize"})
                    | {"mx_mla_attention_int8dot", "mx_quantize_rows"})
+    on_path.update(generate_qwen2=seq, engine_qwen2=seq | {"mx_cached_attention_chunkdot"},
+                   generate_qwen2_int8dot=dmajor | {"mx_cached_attention_int8dot"},
+                   generate_qwen05={"mx_matmul_fp4_pair", "mx_fake_quantize", "mx_quantize", "mx_rmsnorm"})
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0) for path, counts in paths.items()}
         k["launches"] = sum(k["launches_by_path"].values())
@@ -4451,7 +4943,7 @@ def main() -> int:
                        grouped_matmul=b12_rows, router=router_rows, mixtral=mixtral_results,
                        engine_vs_plain_mixtral=plain_results_mixtral, attention_k4_fp6=k4_fp6_rows,
                        mla=b13_rows, mla_int8dot=b14_rows, quantize_rows=rows_q_rows, matmul_fp4_pair=b7_rows,
-                       router_f32=router_f32_rows,
+                       router_f32=router_f32_rows, qwen2_kernels=qwen2_rows, qwen2=qwen2_results,
                        moonlight=moonlight_results, engine_vs_plain_deepseek=plain_results_deepseek,
                        seconds=time.perf_counter() - t_start), f, indent=1)
     log("kernels: " + ", ".join(f"{k['name']} ok ({k['launches']} launches)" for k in kernels) + f" [{card}]")

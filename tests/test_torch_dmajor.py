@@ -270,12 +270,12 @@ def test_pick_lt_is_jax_s(L):
 @pytest.mark.parametrize("sq", [1, 2, 64])
 @pytest.mark.parametrize("elem", ["int8", "float8_e4m3", "float4_e2m1"])
 def test_int8dot_rule_matches_jax(flags, elem, sq, d, layout, flag):
-    """JAX's rule, cut to the shapes K7 takes (head_dim 128, 1, 2, 4 or 8
-    query heads per KV head)."""
+    """JAX's rule, cut to the shapes K7 takes (head_dim 128, 1 to 8 query
+    heads per KV head; groups above 8 are a JAX tier not ported)."""
     flags(flag)
     cache = types.SimpleNamespace(elem_dtype_name=elem, layout=layout)
-    for group in (1, 2, 4, 8, 7):
-        want = jpa.use_int8dot(cache, sq, d) and d == 128 and group != 7
+    for group in (1, 2, 3, 4, 5, 6, 7, 8, 16):
+        want = jpa.use_int8dot(cache, sq, d) and d == 128 and group <= 8
         assert ca.use_int8dot(cache, sq, d, group) == want
 
 

@@ -6,7 +6,8 @@ JAX, so on a machine without JAX run this file without it:
 
     python -m pytest tests/test_torch_gpu_chunkdot.py -m gpu -q --noconftest
 
-Shapes: d = 128, GQA groups of 1, 2, 4 and 8, caches of 64 to 8192
+Shapes: d = 128, GQA groups of 1 to 8 (3, 5, 6 and 7 in the kernel built
+for 4 or 8 rows; 28 query heads over 4 KV heads is Qwen2-7B's), caches of 64 to 8192
 positions (JAX's tile ``_pick_lt(L)``: 128 to 2048; the whole cache where
 none divides L; at L = 1152 and 2304 nine tiles, so that a CTA takes
 several), visible prefixes at and around the tile and share edges and a
@@ -19,7 +20,8 @@ running maximum and differs in fp32 summation order only; a row with no
 visible key exactly 0; a stale 255 scale past the prefix changes nothing; a
 row's bytes the same alone and in a batch of 32, from one call to the next
 and with a numeric kv_len (the grid cut to its tiles) as with a tensor; one
-launch a call.
+launch a call; the query heads read at the padded instance's stride (a
+planted fault) fail the gate at every padded group.
 """
 
 import pytest
@@ -108,7 +110,7 @@ def _edges(L):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("L", [256, 1024, 1152, 2304, 8192])
 def test_k5_matches_plain_at_tile_edges(cuda_device, G, L):
     """Every GQA group the kernel takes, visible prefixes at and around the
@@ -192,3 +194,19 @@ def test_k5_gate_catches_p_against_its_own_tile_max(cuda_device, L, kv):
     ref = ca.mx_cached_attention_chunkdot_plain(*args)
     assert _passes(_launch(args), ref)
     assert not _passes(_launch(args, p_from_own_tile_max=True), ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [3, 5, 6, 7])
+@pytest.mark.parametrize("L", [1024, 8192])
+def test_k5_padded_group_and_its_stride_fault(cuda_device, G, L):
+    """A group of 3, 5, 6 or 7 (4 KV heads, Qwen2-7B's at 7) over a ragged
+    batch: the kernel passes the gate, one launch; its query heads read at
+    the stride of the instance it runs in (a planted fault) fail it."""
+    kv = [0] + [1 + (i * (L - 1)) // 6 for i in range(7)]
+    args = _args(cuda_device, 18, len(kv), 4 * G, 4, L, kv)
+    ref = ca.mx_cached_attention_chunkdot_plain(*args)
+    out = _launch(args)
+    assert _passes(out, ref), (_err(out, ref), _row_rel(out, ref))
+    assert out[0].abs().max().item() == 0
+    assert not _passes(_launch(args, pad_stride=True), ref)

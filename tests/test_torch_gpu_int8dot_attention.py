@@ -6,7 +6,8 @@ JAX, so on a machine without JAX run this file without it:
 
     python -m pytest tests/test_torch_gpu_int8dot_attention.py -m gpu -q --noconftest
 
-Shapes: d = 128, GQA groups of 1, 2, 4 and 8, caches of 128 to 8192
+Shapes: d = 128, GQA groups of 1 to 8 (3, 5, 6 and 7 in the kernel built
+for 4 or 8 rows; 28 query heads over 4 KV heads is Qwen2-7B's), caches of 128 to 8192
 positions (JAX's tile ``_pick_lt(L)``: 128 to 2048), visible prefixes at and
 around the tile edges and a batch row that sees no key.  Tolerances: abs <=
 2e-2 of the plain version (fp32 sums in another order, rare ties of the
@@ -16,7 +17,9 @@ of one position fails); a row with no visible key exactly 0; a row's bytes
 the same alone and in a batch of 32, from one call to the next (the combine's
 tickets reset) and with a numeric kv_len (the grid cut to its tiles) as with
 a tensor; q's codes and scales, quantized in the kernel's prologue, equal to
-K1's bit for bit.
+K1's bit for bit; the query heads read at the padded instance's stride (a
+planted fault) fail the gate at every padded group, and so do p's codes
+rounded down (a planted fault) at a group of 7.
 """
 
 import pytest
@@ -97,7 +100,7 @@ def _edges(L):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("L", [256, 1024, 8192])
 def test_k7_matches_plain_at_tile_edges(cuda_device, G, L):
     """Every GQA group the kernel takes, visible prefixes at and around the
@@ -138,7 +141,7 @@ def test_k7_repeat_calls_give_the_same_bytes(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("G", [1, 4, 7, 8])
 def test_k7_prologue_quantizes_q_as_k1(cuda_device, G):
     """The codes and scales of q that the kernel computes in its prologue are
     K1's (``quantize_q_int8`` on the card), bit for bit; q_out is null on
@@ -179,4 +182,34 @@ def test_k7_gate_catches_q_scale_of_the_next_chunk(cuda_device):
     args = _args(cuda_device, 16, 4, 32, 8, 1024, [1, 300, 700, 1024])
     ref = ca.mx_cached_attention_int8dot_plain(*args)
     bad = _launch(args, q_scale_from_next_chunk=True)
+    assert _err(bad, ref) > 2e-2 or _row_rel(bad, ref) > ROW_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G", [3, 5, 6, 7])
+@pytest.mark.parametrize("L", [1024, 8192])
+def test_k7_padded_group_and_its_stride_fault(cuda_device, G, L):
+    """A group of 3, 5, 6 or 7 (4 KV heads, Qwen2-7B's at 7) over a ragged
+    batch: the kernel passes the gate, one launch (the workspace sized by the
+    true hq); its query heads read at the stride of the instance it runs in
+    (a planted fault) fail it."""
+    kv = [0] + [1 + (i * (L - 1)) // 6 for i in range(7)]
+    args = _args(cuda_device, 18, len(kv), 4 * G, 4, L, kv)
+    ref = ca.mx_cached_attention_int8dot_plain(*args)
+    out = _launch(args)
+    assert _err(out, ref) <= 2e-2 and _row_rel(out, ref) <= ROW_REL, (_err(out, ref), _row_rel(out, ref))
+    assert out[0].abs().max().item() == 0
+    bad = _launch(args, pad_stride=True)
+    assert _err(bad, ref) > 2e-2 or _row_rel(bad, ref) > ROW_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1024, 8192])
+def test_k7_gate_catches_p_codes_rounded_down(cuda_device, L):
+    """The planted rounding fault (p's int8 codes rounded down, not to
+    nearest) at a group of 7 over a ragged batch fails the gate."""
+    kv = [1 + (i * (L - 1)) // 7 for i in range(8)]
+    args = _args(cuda_device, 19, len(kv), 28, 4, L, kv)
+    ref = ca.mx_cached_attention_int8dot_plain(*args)
+    bad = _launch(args, p_codes_down=True)
     assert _err(bad, ref) > 2e-2 or _row_rel(bad, ref) > ROW_REL

@@ -160,12 +160,14 @@ def test_cache_write_matches_plain(cuda_device, elem, layout):
 @pytest.mark.gpu
 @pytest.mark.parametrize("act", [None, "float8_e4m3", "int8", "float6_e3m2", "float4_e2m1"])
 @pytest.mark.parametrize("rows", [1, 32, 2048])
-@pytest.mark.parametrize("width", [256, 4096, 7168])
+@pytest.mark.parametrize("width", [256, 896, 3584, 4096, 7168])
 def test_fused_norm_is_k2_of_the_norm(cuda_device, act, rows, width):
     """The RMSNorm kernel with an activation format equals K2 of its own
     output bit for bit (one launch, counted as ``mx_rmsnorm``); its plain
     version is K2's plain version of the plain norm.  Widths: one warp a
-    row (256), one vector a thread (4096), two for some threads (7168)."""
+    row (256), three and a half warps (896, Qwen2-0.5B's: the CTA's last
+    half warp idle), 14 warps (3584, Qwen2-7B's), one vector a thread
+    (4096), two for some threads (7168)."""
     g = torch.Generator().manual_seed(rows)
     x = (torch.randn(rows, width, generator=g) * 3).to(torch.bfloat16).to(cuda_device)
     w = (1 + 0.1 * torch.randn(width, generator=g)).to(torch.bfloat16).to(cuda_device)
@@ -182,7 +184,7 @@ def test_fused_norm_is_k2_of_the_norm(cuda_device, act, rows, width):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("width", [256, 4096, 7168])
+@pytest.mark.parametrize("width", [256, 896, 3584, 4096, 7168])
 def test_norm_rows_alone_and_near_plain(cuda_device, width):
     """Each row of the RMSNorm kernel's output has the same bits alone as
     among 37 rows, and lies within one bf16 step of the plain version's

@@ -344,10 +344,10 @@ def test_mx_cached_attention_plain_int8_matches_pallas_kernel(pallas_env, L, sq,
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_chunkdot_dispatch_rule_matches_jax(elem, sq, d):
     """The port's rule is JAX's, cut to the shapes K5 takes: head_dim 128 and
-    1, 2, 4 or 8 query heads per KV head (d = 256 and a group of 7 are JAX
-    tiers not ported: there the predicate says no, and K4 serves)."""
-    for group in (1, 2, 4, 8, 7):
-        want = jpa.use_chunkdot(elem, sq, d) and d == 128 and group != 7
+    1 to 8 query heads per KV head (d = 256 and groups above 8 are JAX tiers
+    not ported: there the predicate says no, and K4 serves)."""
+    for group in (1, 2, 3, 4, 5, 6, 7, 8, 16):
+        want = jpa.use_chunkdot(elem, sq, d) and d == 128 and group <= 8
         assert cuda_attention.use_chunkdot(elem, sq, d, group, 256) == want
 
 

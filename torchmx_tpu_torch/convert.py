@@ -4,10 +4,12 @@
 ``{dotted path: numpy array}`` dict (paths as ``nnx`` flattens the model
 state, e.g. ``model.layers.0.self_attn.q_proj.weight``; bf16 arrays as
 ``ml_dtypes.bfloat16``) and returns this package's bf16 causal LM of the
-config's family (Llama, Mistral, Mixtral or DeepSeek-V3) computing the same
-function.  A Mixtral's stacked expert weights ``mlp.w1`` / ``w3`` ``(E, H,
-I)`` and ``mlp.w2`` ``(E, I, H)`` and its router ``mlp.gate.weight`` ``(E,
-H)`` keep their names and layouts, and so do DeepSeek-V3's MLA projections
+config's family (Llama, Qwen2, Mistral, Mixtral or DeepSeek-V3) computing
+the same function; Qwen2's q/k/v biases come across, and a bias the port's
+model does not have (an ``o_proj.bias`` of a Qwen2) is an error.  A
+Mixtral's stacked expert weights ``mlp.w1`` / ``w3`` ``(E, H, I)`` and
+``mlp.w2`` ``(E, I, H)`` and its router ``mlp.gate.weight`` ``(E, H)`` keep
+their names and layouts, and so do DeepSeek-V3's MLA projections
 and latent norms, its router's ``mlp.gate.e_score_correction_bias`` (f32)
 and its ``mlp.shared_experts``.  Quantize the model afterwards with
 ``quant_api.quantize_llm_``, from the same bf16 weights.
@@ -40,6 +42,7 @@ from .models.deepseek import DeepseekV3Config, DeepseekV3ForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM, MXLayerKVCache
 from .models.mistral import MistralConfig, MistralForCausalLM
 from .models.mixtral import MixtralConfig, MixtralForCausalLM
+from .models.qwen2 import Qwen2Config, Qwen2ForCausalLM
 from .mx_array import MXTensor
 from .ops.backend import DeviceLike, resolve_device
 
@@ -57,6 +60,8 @@ def causal_lm_class(config: LlamaConfig):
         return DeepseekV3ForCausalLM
     if isinstance(config, MixtralConfig):
         return MixtralForCausalLM
+    if isinstance(config, Qwen2Config):
+        return Qwen2ForCausalLM
     return MistralForCausalLM if isinstance(config, MistralConfig) else LlamaForCausalLM
 
 
@@ -71,6 +76,9 @@ def from_flat_params(
     missing = set(targets) - set(params)
     if missing:
         raise KeyError(f"parameters missing from the JAX state: {sorted(missing)}")
+    extra = sorted(n for n in params if n.endswith(".bias") and n not in targets)
+    if extra:
+        raise KeyError(f"biases the port's {type(model).__name__} does not have: {extra}")
     with torch.no_grad():
         for name, dst in targets.items():
             src = _to_torch(params[name])

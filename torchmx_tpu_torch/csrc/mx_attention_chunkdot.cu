@@ -7,7 +7,8 @@
 //
 // Inputs: q (b, hq, 1, d) bf16; K/V codes (b, hkv, L, d) int8 and scales
 // (b, hkv, L, d/32) uint8; q_off, kv_len (b,) int32 or one number each.
-// Output (b, hq, 1, d) bf16.  For the G = hq / hkv query rows r of a KV head,
+// Output (b, hq, 1, d) bf16.  For the G = hq / hkv query rows r of a KV head
+// (query heads ih G .. ih G + G - 1 of KV head ih),
 // the d/32 chunks c and position j, a scale being the float whose bits are
 // e << 23 (0 gives +0.0, 255 +inf):
 //   s[r,j]   = sm_scale * sum_c (q_c[r] . k_c[j]) * 2^(ek[j,c]-127)
@@ -78,6 +79,15 @@
 //     positions x 8 d from ldmatrix.x4.trans, four products a 16 positions
 //     (d = 32c + 2n, + 1, + 16, + 17), fp32 sums over the tile; the two
 //     warps of a chunk are added in that order.
+//  7. Any GQA group G from 1 to 8: the row reductions split the 8 consumer
+//     warps among GP rows, GP = G at 1, 2, 4 and 8, else the next of those
+//     (4 for 3, 8 for 5, 6 and 7).  The GP - G dead rows are zero in q, never
+//     enter a maximum, a sum or the cluster's exchange (their positions loop
+//     is empty), and are never written; the shared memory and the exchange
+//     are laid out for the G live rows.  The query heads are read and written
+//     at stride G (the planted fault kFaultPadStride reads them at stride
+//     GP).  The kernel is built for GP = 1, 2, 4 and 8 rows and takes the
+//     live G at run time, as K7 does (csrc/mx_attention_int8dot.cu).
 #include <type_traits>
 
 #include "mx_common.cuh"
@@ -104,6 +114,7 @@ constexpr int kSmemMax = 232448;           // dynamic shared memory a CTA may ta
 constexpr float kNegInf = -1e30f;
 constexpr int kFaultOwnMax = 1;    // planted fault: p rounded against its tile's own maximum
 constexpr int kFaultDropLast = 2;  // planted fault: a row's last live tile left out
+constexpr int kFaultPadStride = 4;  // planted fault: query heads read at the padded instance's stride GP
 
 // Byte offsets of the dynamic shared memory for G query rows, shares of P
 // positions padded to whole boxes (lp) holding kt tiles (1 where a share is
@@ -158,12 +169,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ float byte_scale(uint32_t w, int k) { return mx::pow2_scale((w >> (8 * k)) & 0xFF); }
 
-// The sum of v over the kConsumers / G threads of a query row (a warp, or
+// The sum of v over the kConsumers / GP threads of a query row (a warp, or
 // several through shared memory red[kWarps]); every consumer thread calls it.
-template <int G>
+template <int GP>
 __device__ __forceinline__ float row_sum(float v, float* red, int warp, int lane) {
   v = mx::warp_sum(v);
-  constexpr int kRowWarps = kWarps / G;
+  constexpr int kRowWarps = kWarps / GP;
   if constexpr (kRowWarps > 1) {
     if (lane == 0) red[warp] = v;
     mx::named_barrier(1, kConsumers);
@@ -180,12 +191,14 @@ __device__ __forceinline__ float row_sum(float v, float* red, int warp, int lane
 // compute, warp 8 issues the copies.  q_off / kv_len: (b,) or null and the
 // numbers q_off_n / kv_len_n for every row.  lt: the tile, P: the share (lt
 // % P == 0, or P % lt == 0: P / lt tiles), lp: P padded to whole boxes.
-template <int G>
+// G: the group (live rows, G <= GP).
+template <int GP>
 __global__ void __launch_bounds__(kThreads, 4)  // four CTAs an SM: the loops are bound by latency
 chunkdot_kernel(const __grid_constant__ CUtensorMap tkd, const __grid_constant__ CUtensorMap tvd,
                 const uint16_t* __restrict__ q, const uint8_t* __restrict__ ks, const uint8_t* __restrict__ vs,
                 const int* __restrict__ q_off_p, const int* __restrict__ kv_len_p, int q_off_n, int kv_len_n,
-                uint16_t* __restrict__ out, int hkv, int L, int lt, int P, int lp, float sm_scale, int fault) {
+                uint16_t* __restrict__ out, int G, int hkv, int L, int lt, int P, int lp, float sm_scale,
+                int fault) {
   const int rank = blockIdx.x, C = gridDim.x, ih = blockIdx.y, ib = blockIdx.z;
   const int kvh = ib * hkv + ih, hq = hkv * G;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = lane / 4, t = lane % 4;
@@ -193,12 +206,14 @@ chunkdot_kernel(const __grid_constant__ CUtensorMap tkd, const __grid_constant__
 
   // q as the scores' B fragments, fetched while the row's positions are
   // read: lane (g, t) holds row g's elements 32c + 8t .. 8t + 7, in k order
-  // {0, 2}, {1, 3} of each k16 step (rows past G zero).
+  // {0, 2}, {1, 3} of each k16 step (rows past G zero).  The planted fault
+  // reads head ih GP + g (within the batch row).
+  const int qhead = (fault & kFaultPadStride) ? (ih * GP + g) % hq : ih * G + g;
   uint32_t qb[kNc][2][2];
 #pragma unroll
   for (int c = 0; c < kNc; ++c) {
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (warp < kWarps && g < G) v = *reinterpret_cast<const uint4*>(q + ((long long)ib * hq + ih * G + g) * kD + 32 * c + 8 * t);
+    if (warp < kWarps && g < G) v = *reinterpret_cast<const uint4*>(q + ((long long)ib * hq + qhead) * kD + 32 * c + 8 * t);
     qb[c][0][0] = __byte_perm(v.x, v.y, 0x5410);
     qb[c][0][1] = __byte_perm(v.x, v.y, 0x7632);
     qb[c][1][0] = __byte_perm(v.z, v.w, 0x5410);
@@ -380,17 +395,19 @@ chunkdot_kernel(const __grid_constant__ CUtensorMap tkd, const __grid_constant__
   }
   mx::named_barrier(1, kConsumers);
 
-  // 3. p and l: the kConsumers / G threads of row r take its positions
-  // four at a time (in one tile).  The planted fault leaves out a row's last
-  // live tile: p is 0 from its first position on.
+  // 3. p and l: the kConsumers / GP threads of row r take its positions
+  // four at a time (in one tile); a dead row (r >= G) takes none.  The
+  // planted fault leaves out a row's last live tile: p is 0 from its first
+  // position on.
   {
-    constexpr int kRowThreads = kConsumers / G;
+    constexpr int kRowThreads = kConsumers / GP;
     const int r = tid / kRowThreads, k = tid % kRowThreads;
+    const int row_end = r < G ? n_box * kBox : 0;
     const int e = (fault & kFaultDropLast) && n_live > 1 ? min(nvis, max((n_live - 1) * lt - t0, 0)) : nvis;
     float m = msh[r], w = 1.f;
     float* row = sb + r * ldS;
     float l = 0.f;
-    for (int j = 4 * k; j < n_box * kBox; j += 4 * kRowThreads) {
+    for (int j = 4 * k; j < row_end; j += 4 * kRowThreads) {
       if (kt > 1) {
         const int i = j / lt;
         m = mt[i * G + r];
@@ -402,8 +419,8 @@ chunkdot_kernel(const __grid_constant__ CUtensorMap tkd, const __grid_constant__
       l += ((pv[0] + pv[1]) + (pv[2] + pv[3])) * w;
       *reinterpret_cast<float4*>(row + j) = make_float4(pv[0], pv[1], pv[2], pv[3]);
     }
-    l = row_sum<G>(l, red, warp, lane);
-    if (k == 0) lsh[r] = l;
+    l = row_sum<GP>(l, red, warp, lane);
+    if (k == 0 && r < G) lsh[r] = l;
   }
   mx::named_barrier(1, kConsumers);
 
@@ -529,10 +546,10 @@ chunkdot_kernel(const __grid_constant__ CUtensorMap tkd, const __grid_constant__
 }
 
 
-template <int G>
+template <int GP>
 cudaError_t run(const void* q, const void* kd, const void* ks, const void* vd, const void* vs, const void* q_off,
-                const void* kv_len, int q_off_n, int kv_len_n, void* out, int b, int hkv, int L, int lt, int P,
-                int ctas, float sm_scale, int fault, cudaStream_t stream) {
+                const void* kv_len, int q_off_n, int kv_len_n, void* out, int b, int G, int hkv, int L, int lt,
+                int P, int ctas, float sm_scale, int fault, cudaStream_t stream) {
   const uint64_t rows = (uint64_t)b * hkv * L;
   CUtensorMap tkd, tvd;
   // Boxes of 128 positions x 128 code bytes, 128-byte swizzled; rows past
@@ -543,7 +560,7 @@ cudaError_t run(const void* q, const void* kd, const void* ks, const void* vd, c
     return cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(chunkdot_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    cudaError_t err = cudaFuncSetAttribute(chunkdot_kernel<GP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
@@ -562,9 +579,9 @@ cudaError_t run(const void* q, const void* kd, const void* ks, const void* vd, c
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, chunkdot_kernel<G>, tkd, tvd, (const uint16_t*)q, (const uint8_t*)ks,
+  cudaError_t err = cudaLaunchKernelEx(&cfg, chunkdot_kernel<GP>, tkd, tvd, (const uint16_t*)q, (const uint8_t*)ks,
                                        (const uint8_t*)vs, (const int*)q_off, (const int*)kv_len, q_off_n, kv_len_n,
-                                       (uint16_t*)out, hkv, L, lt, P, lp, sm_scale, fault);
+                                       (uint16_t*)out, G, hkv, L, lt, P, lp, sm_scale, fault);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -573,12 +590,12 @@ cudaError_t run(const void* q, const void* kd, const void* ks, const void* vd, c
 // q (b, hq, 1, d) bf16; codes (b, hkv, L, d) int8, scales (b, hkv, L, d/32),
 // every cache pointer 16-byte aligned, L % 4 == 0, b hkv L < 2^31; q_off,
 // kv_len: (b,) int32, or null and the number q_off_n / kv_len_n for every
-// row; hq / hkv in 1, 2, 4, 8; lt (the tile) with L % lt == 0, P (the
+// row; hq / hkv from 1 to 8; lt (the tile) with L % lt == 0, P (the
 // share) at most 4096 with lt % P == 0 or P % lt == 0 and ceil(L / P) <= 8.
 // ctas: the grid's shares, ceil(L / P) or, where the caller knows every
 // kv_len, ceil(min(max kv_len, L) / P) (at least 1).  fault: 0 (bit 1: p
 // rounded against its tile's own maximum; bit 2: a row's last live tile left
-// out).
+// out; bit 4: query heads read at the padded instance's stride).
 extern "C" int mx_cached_attention_chunkdot_launch(const void* q, const void* kd, const void* ks, const void* vd,
                                                    const void* vs, const void* q_off, const void* kv_len,
                                                    int q_off_n, int kv_len_n, void* out, int b, int hq, int hkv,
@@ -587,16 +604,17 @@ extern "C" int mx_cached_attention_chunkdot_launch(const void* q, const void* kd
   if (d != kD || hkv <= 0 || hq % hkv || L <= 0 || L % 4 || lt <= 0 || L % lt || P <= 0 || P % 4 ||
       (lt % P && (P % lt || lt % kBox)) || P > kMaxShare || (L + P - 1) / P > kMaxCluster || ctas < 1 ||
       ctas > (L + P - 1) / P || hkv > 65535 || b > 65535 ||
-      (long long)b * hkv * L >= (1ll << 31) || fault < 0 || fault > 3 || (q_off == nullptr) != (kv_len == nullptr))
+      (long long)b * hkv * L >= (1ll << 31) || fault < 0 || fault > 7 || (q_off == nullptr) != (kv_len == nullptr))
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)kd | (uintptr_t)ks | (uintptr_t)vd | (uintptr_t)vs | (uintptr_t)q) % 16) return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (hq / hkv) {
-    case 1: return run<1>(q, kd, ks, vd, vs, q_off, kv_len, q_off_n, kv_len_n, out, b, hkv, L, lt, P, ctas, sm_scale, fault, s);
-    case 2: return run<2>(q, kd, ks, vd, vs, q_off, kv_len, q_off_n, kv_len_n, out, b, hkv, L, lt, P, ctas, sm_scale, fault, s);
-    case 4: return run<4>(q, kd, ks, vd, vs, q_off, kv_len, q_off_n, kv_len_n, out, b, hkv, L, lt, P, ctas, sm_scale, fault, s);
-    case 8: return run<8>(q, kd, ks, vd, vs, q_off, kv_len, q_off_n, kv_len_n, out, b, hkv, L, lt, P, ctas, sm_scale, fault, s);
+  const int G = hq / hkv;  // run in the instance of GP = 1, 2, 4 or 8 rows that holds it
+  switch (G <= 2 ? G : G <= 4 ? 4 : G <= 8 ? 8 : 0) {
+    case 1: return run<1>(q, kd, ks, vd, vs, q_off, kv_len, q_off_n, kv_len_n, out, b, G, hkv, L, lt, P, ctas, sm_scale, fault, s);
+    case 2: return run<2>(q, kd, ks, vd, vs, q_off, kv_len, q_off_n, kv_len_n, out, b, G, hkv, L, lt, P, ctas, sm_scale, fault, s);
+    case 4: return run<4>(q, kd, ks, vd, vs, q_off, kv_len, q_off_n, kv_len_n, out, b, G, hkv, L, lt, P, ctas, sm_scale, fault, s);
+    case 8: return run<8>(q, kd, ks, vd, vs, q_off, kv_len, q_off_n, kv_len_n, out, b, G, hkv, L, lt, P, ctas, sm_scale, fault, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -72,6 +72,14 @@
 //     tile.
 //  7. q is quantized in the prologue (a warp a 32-block of a row); no
 //     separate K1 launch.
+//  8. Any GQA group from 1 to 8: the kernel is built for GP = 1, 2, 4 and 8
+//     rows (the row reductions split the 8 consumer warps among GP rows), and
+//     a group G of 3, 5, 6 or 7 runs in the next of them.  Only the G live
+//     rows' blocks of q are read and quantized; the GP - G dead rows take no
+//     dot, no position in the softmax and no column of pq (B is zero there),
+//     and are never written; shared memory and the workspace are laid out
+//     for the G live rows.  The query heads are read and written at stride G
+//     (the planted fault kFaultPadStride reads them at stride GP).
 #include "mx_common.cuh"
 #include "mx_wgmma.cuh"
 
@@ -91,6 +99,8 @@ static_assert(kMaxStages <= kWarps, "a scoring warp owns a ring slot");
 constexpr float kNegInf = -1e30f;
 constexpr int kFaultDropLast = 1;  // planted fault: the combine drops the last live tile
 constexpr int kFaultQScale = 2;    // planted fault: q's scale of chunk c taken from chunk c + 1
+constexpr int kFaultPadStride = 4;  // planted fault: query heads read at the padded instance's stride GP
+constexpr int kFaultPDown = 8;      // planted fault: p's int8 codes rounded down, not to nearest
 
 // Byte offsets of the dynamic shared memory for G query rows, tiles of lt
 // positions and a ring of `stages` slots (from a 1024-byte aligned base: the
@@ -129,13 +139,13 @@ __device__ __forceinline__ void mbar_arrive_n(uint32_t bar, int n) {
 
 __device__ __forceinline__ float byte_scale(uint32_t w, int k) { return mx::pow2_scale((w >> (8 * k)) & 0xFF); }
 
-// The sum (kSum) or maximum of v over the kConsumers / G threads of a query
+// The sum (kSum) or maximum of v over the kConsumers / GP threads of a query
 // row (a warp, or several through shared memory red[kWarps]); every consumer
 // thread calls it.
-template <int G, bool kSum>
+template <int GP, bool kSum>
 __device__ __forceinline__ float row_reduce(float v, float* red, int warp, int lane) {
   v = kSum ? mx::warp_sum(v) : mx::warp_max(v);
-  constexpr int kRowWarps = kWarps / G;
+  constexpr int kRowWarps = kWarps / GP;
   if constexpr (kRowWarps > 1) {
     if (lane == 0) red[warp] = v;
     mx::named_barrier(1, kConsumers);
@@ -149,29 +159,32 @@ __device__ __forceinline__ float row_reduce(float v, float* red, int warp, int l
 }
 
 // Grid (tiles, hkv, b); kThreads threads: warps 0 .. 7 compute, warp 8
-// issues the copies.  ws: (b hkv, tiles, G, d + 2) floats (acc_t, m_t,
-// l_t); tickets: b hkv ints, zero between launches.  q_codes / q_scales:
-// null, or where tile 0's CTAs write q's codes (b, hkv, G, d) and scales
-// (b, hkv, G, d/32).  stages: the ring's slots (ring_stages).
-template <int G>
-__global__ void __launch_bounds__(kThreads, G <= 4 ? 2 : 1)
+// issues the copies.  G: the group (live rows, G <= GP).  ws: (b hkv, tiles,
+// G, d + 2) floats (acc_t, m_t, l_t); tickets: b hkv ints, zero between
+// launches.  q_codes / q_scales: null, or where tile 0's CTAs write q's codes
+// (b, hkv, G, d) and scales (b, hkv, G, d/32).  stages: the ring's slots
+// (ring_stages).
+template <int GP>
+__global__ void __launch_bounds__(kThreads, GP <= 4 ? 2 : 1)
 attention_int8dot_kernel(const __grid_constant__ CUtensorMap tkd, const __grid_constant__ CUtensorMap tks,
                          const __grid_constant__ CUtensorMap tvd, const __grid_constant__ CUtensorMap tvs,
                          const uint16_t* __restrict__ q, const int* __restrict__ q_off_p,
                          const int* __restrict__ kv_len_p, uint16_t* __restrict__ out, float* __restrict__ ws,
                          int* __restrict__ tickets, int8_t* __restrict__ q_codes, uint8_t* __restrict__ q_scales,
-                         int hkv, int L, int lt, int stages, float sm_scale, int fault) {
+                         int G, int hkv, int L, int lt, int stages, float sm_scale, int fault) {
   const int tile = blockIdx.x, ih = blockIdx.y, ib = blockIdx.z, n_tiles = gridDim.x;
   const int kvh = ib * hkv + ih, hq = hkv * G;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   // q's elements and the tensor maps are fetched while the row's positions
-  // are read: a warp a 32-block of q, a lane an element.
-  constexpr int kQBlocks = (G * kNc + kWarps - 1) / kWarps;
+  // are read: a warp a 32-block of q, a lane an element (the live rows'
+  // blocks only; the planted fault reads head ih GP + r within the batch row).
+  constexpr int kQBlocks = (GP * kNc + kWarps - 1) / kWarps;
+  const int head0 = (fault & kFaultPadStride) ? ih * GP : ih * G;
   int qbits[kQBlocks];
 #pragma unroll
   for (int i = 0; i < kQBlocks; ++i) {
     const int blk = warp + i * kWarps;
-    qbits[i] = warp < kWarps && blk < G * kNc ? q[((long long)ib * hq + ih * G + blk / kNc) * kD + (blk % kNc) * 32 + lane] : 0;
+    qbits[i] = warp < kWarps && blk < G * kNc ? q[((long long)ib * hq + (head0 + blk / kNc) % hq) * kD + (blk % kNc) * 32 + lane] : 0;
   }
   if (tid == kConsumers)
     for (const CUtensorMap* m : {&tkd, &tvd, &tks, &tvs})
@@ -255,18 +268,18 @@ attention_int8dot_kernel(const __grid_constant__ CUtensorMap tkd, const __grid_c
     const int slot = f % stages;
     mx::mbar_wait(full + 8 * slot, (f / stages) & 1);
     const uint8_t* kt = smem + slot * kSlot;
-    float s[4][G];
+    float s[4][GP];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int r = 0; r < G; ++r) s[j][r] = 0.f;
+      for (int r = 0; r < GP; ++r) s[j][r] = 0.f;
 #pragma unroll
     for (int c = 0; c < kNc; ++c) {
-      int dot[4][G];
+      int dot[4][GP];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int r = 0; r < G; ++r) dot[j][r] = 0;
+        for (int r = 0; r < GP; ++r) dot[j][r] = 0;
 #pragma unroll
       for (int gq = 0; gq < 8; ++gq) {
         uint32_t w[4];
@@ -277,7 +290,8 @@ attention_int8dot_kernel(const __grid_constant__ CUtensorMap tkd, const __grid_c
         }
         mx::transpose_4x4_bytes(w);  // w[j]: position 4 lane + j, d = c*32 + gq*4 .. + 3
 #pragma unroll
-        for (int r = 0; r < G; ++r) {
+        for (int r = 0; r < GP; ++r) {
+          if (r >= G) break;  // a dead row takes no dot
           const int qv = qw[r * (kD / 4) + c * 8 + gq];
 #pragma unroll
           for (int j = 0; j < 4; ++j) dot[j][r] = __dp4a((int)w[j], qv, dot[j][r]);
@@ -285,7 +299,8 @@ attention_int8dot_kernel(const __grid_constant__ CUtensorMap tkd, const __grid_c
       }
       const uint32_t ksw = *reinterpret_cast<const uint32_t*>(smem + lay.ks + f * kNc * kBox + c * kBox + 4 * lane);
 #pragma unroll
-      for (int r = 0; r < G; ++r) {
+      for (int r = 0; r < GP; ++r) {
+        if (r >= G) break;
         const float qsc = mx::pow2_scale(qse[r * kNc + ((c + qshift) & (kNc - 1))]);
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[j][r] += (float)dot[j][r] * qsc * byte_scale(ksw, j);
@@ -293,7 +308,8 @@ attention_int8dot_kernel(const __grid_constant__ CUtensorMap tkd, const __grid_c
     }
     const int p0 = f * kBox + 4 * lane;  // the lane's first position in the tile
 #pragma unroll
-    for (int r = 0; r < G; ++r) {
+    for (int r = 0; r < GP; ++r) {
+      if (r >= G) break;
       float4 v;
       v.x = p0 < nvis ? s[0][r] * sm_scale : kNegInf;
       v.y = p0 + 1 < nvis ? s[1][r] * sm_scale : kNegInf;
@@ -307,19 +323,20 @@ attention_int8dot_kernel(const __grid_constant__ CUtensorMap tkd, const __grid_c
   mx::named_barrier(1, kConsumers);
 
   // 3. Softmax and requantization over the tile, every consumer thread: the
-  // kRowThreads threads of row r take its positions four at a time.  m_t;
-  // then p (replacing s), l_t and mx of the four chunks in one pass; then pq.
+  // kRowThreads threads of row r take its positions four at a time (a dead
+  // row, r >= G, none).  m_t; then p (replacing s), l_t and mx of the four
+  // chunks in one pass; then pq.
   {
-    constexpr int kRowThreads = kConsumers / G;
+    constexpr int kRowThreads = kConsumers / GP;
     const int r = tid / kRowThreads, k = tid % kRowThreads;
-    const int npos = n_box * kBox;
+    const int npos = r < G ? n_box * kBox : 0;
     float* row = sb + r * lt;
     float m = kNegInf;
     for (int j = 4 * k; j < npos; j += 4 * kRowThreads) {
       const float4 v = *reinterpret_cast<const float4*>(row + j);
       m = fmaxf(m, fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w)));
     }
-    m = row_reduce<G, false>(m, red, warp, lane);
+    m = row_reduce<GP, false>(m, red, warp, lane);
     float l = 0.f, mxc[kNc] = {0.f, 0.f, 0.f, 0.f};
     for (int j = 4 * k; j < npos; j += 4 * kRowThreads) {
       float4 v = *reinterpret_cast<const float4*>(row + j);
@@ -338,11 +355,13 @@ attention_int8dot_kernel(const __grid_constant__ CUtensorMap tkd, const __grid_c
       }
       *reinterpret_cast<float4*>(row + j) = make_float4(pv[0], pv[1], pv[2], pv[3]);
     }
-    l = row_reduce<G, true>(l, red, warp, lane);
+    l = row_reduce<GP, true>(l, red, warp, lane);
+    // p >= 0: less a hair under one half, rounding to nearest rounds down (the planted fault).
+    const float down = (fault & kFaultPDown) ? 0.49999997f : 0.f;
     float inv[kNc];
 #pragma unroll
     for (int c = 0; c < kNc; ++c) {
-      mxc[c] = row_reduce<G, false>(mxc[c], red, warp, lane);
+      mxc[c] = row_reduce<GP, false>(mxc[c], red, warp, lane);
       mxc[c] = mxc[c] == 0.f ? 1.f : mxc[c];
       inv[c] = 127.f / mxc[c];
     }
@@ -357,12 +376,12 @@ attention_int8dot_kernel(const __grid_constant__ CUtensorMap tkd, const __grid_c
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float p3 = j + e < nvis ? pv[e] * byte_scale(vw, e) : 0.f;
-          word |= (uint32_t)(__float2int_rn(p3 * inv[c]) & 0xFF) << (8 * e);
+          word |= (uint32_t)(__float2int_rn(p3 * inv[c] - down) & 0xFF) << (8 * e);
         }
         *reinterpret_cast<uint32_t*>(pqb + (c * G + r) * pq_row + j) = word;
       }
     }
-    if (k == 0) {
+    if (k == 0 && r < G) {
       stat[r] = m;
       stat[G + r] = l;
 #pragma unroll
@@ -466,10 +485,10 @@ int ring_stages(int G, int lt) {
   return lt >= 1024 && Smem(G, lt, 8).total + 1024 <= kSmemMax ? 8 : 4;
 }
 
-template <int G>
+template <int GP>
 cudaError_t run(const void* q, const void* kd, const void* ks, const void* vd, const void* vs, const void* q_off,
-                const void* kv_len, void* out, void* ws, void* tickets, void* q_codes, void* q_scales, int b, int hkv,
-                int L, int lt, int tiles, float sm_scale, int fault, cudaStream_t stream) {
+                const void* kv_len, void* out, void* ws, void* tickets, void* q_codes, void* q_scales, int b, int G,
+                int hkv, int L, int lt, int tiles, float sm_scale, int fault, cudaStream_t stream) {
   const uint64_t heads = (uint64_t)b * hkv;
   CUtensorMap tkd, tks, tvd, tvs;
   // Codes: boxes of 128 positions x 128 rows, 128-byte swizzled; scales: 128 x 4, plain.
@@ -481,7 +500,7 @@ cudaError_t run(const void* q, const void* kd, const void* ks, const void* vd, c
     return cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(attention_int8dot_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t err = cudaFuncSetAttribute(attention_int8dot_kernel<GP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            kSmemMax);
     if (err != cudaSuccess) return err;
     attr_set = true;
@@ -489,16 +508,16 @@ cudaError_t run(const void* q, const void* kd, const void* ks, const void* vd, c
   const int stages = ring_stages(G, lt);
   const int smem = Smem(G, lt, stages).total + 1024;
   if (smem > kSmemMax) return cudaErrorInvalidValue;
-  attention_int8dot_kernel<G><<<dim3(tiles, hkv, b), kThreads, smem, stream>>>(
+  attention_int8dot_kernel<GP><<<dim3(tiles, hkv, b), kThreads, smem, stream>>>(
       tkd, tks, tvd, tvs, (const uint16_t*)q, (const int*)q_off, (const int*)kv_len, (uint16_t*)out, (float*)ws,
-      (int*)tickets, (int8_t*)q_codes, (uint8_t*)q_scales, hkv, L, lt, stages, sm_scale, fault);
+      (int*)tickets, (int8_t*)q_codes, (uint8_t*)q_scales, G, hkv, L, lt, stages, sm_scale, fault);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q (b, hq, 1, d) bf16; codes (b, hkv, d, L) int8, scales (b, hkv, d/32, L),
-// every cache pointer 16-byte aligned; hq / hkv in 1, 2, 4, 8; lt (JAX's
+// every cache pointer 16-byte aligned; hq / hkv from 1 to 8; lt (JAX's
 // tile) 128, 256, 512, 1024 or 2048 and L % lt == 0.  tiles: the grid's
 // tiles, L / lt or, where the caller knows every kv_len, ceil(min(max kv_len,
 // L) / lt) (at least 1, at most 64).  ws: b * hkv * tiles * (hq / hkv) * (d +
@@ -506,25 +525,27 @@ cudaError_t run(const void* q, const void* kd, const void* ks, const void* vd, c
 // kernel leaves them zero).  q_codes, q_scales: null, or (b, hkv, hq / hkv,
 // d) int8 and (b, hkv, hq / hkv, d / 32) uint8 for q's codes and scales.
 // fault: 0 (bit 1: the combine drops the last live tile; bit 2: q's scale of
-// chunk c taken from chunk c + 1).
+// chunk c taken from chunk c + 1; bit 4: query heads read at the padded
+// instance's stride; bit 8: p's codes rounded down).
 extern "C" int mx_cached_attention_int8dot_launch(const void* q, const void* kd, const void* ks, const void* vd,
                                                   const void* vs, const void* q_off, const void* kv_len, void* out,
                                                   void* ws, void* tickets, void* q_codes, void* q_scales, int b,
                                                   int hq, int hkv, int L, int d, int lt, int tiles, float sm_scale,
                                                   int fault, void* stream) {
   if (d != kD || hkv <= 0 || hq % hkv || L <= 0 || (lt != 128 && lt != 256 && lt != 512 && lt != 1024 && lt != 2048) ||
-      L % lt || tiles < 1 || tiles > L / lt || tiles > kMaxTiles || hkv > 65535 || b > 65535 || fault < 0 || fault > 3 ||
+      L % lt || tiles < 1 || tiles > L / lt || tiles > kMaxTiles || hkv > 65535 || b > 65535 || fault < 0 || fault > 15 ||
       (q_codes == nullptr) != (q_scales == nullptr))
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)kd | (uintptr_t)ks | (uintptr_t)vd | (uintptr_t)vs) % 16) return (int)cudaErrorInvalidValue;
   if (b == 0) return 0;
   if (tiles > 1 && (ws == nullptr || tickets == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (hq / hkv) {
-    case 1: return run<1>(q, kd, ks, vd, vs, q_off, kv_len, out, ws, tickets, q_codes, q_scales, b, hkv, L, lt, tiles, sm_scale, fault, s);
-    case 2: return run<2>(q, kd, ks, vd, vs, q_off, kv_len, out, ws, tickets, q_codes, q_scales, b, hkv, L, lt, tiles, sm_scale, fault, s);
-    case 4: return run<4>(q, kd, ks, vd, vs, q_off, kv_len, out, ws, tickets, q_codes, q_scales, b, hkv, L, lt, tiles, sm_scale, fault, s);
-    case 8: return run<8>(q, kd, ks, vd, vs, q_off, kv_len, out, ws, tickets, q_codes, q_scales, b, hkv, L, lt, tiles, sm_scale, fault, s);
+  const int G = hq / hkv;  // run in the instance of GP = 1, 2, 4 or 8 rows that holds it
+  switch (G <= 2 ? G : G <= 4 ? 4 : G <= 8 ? 8 : 0) {
+    case 1: return run<1>(q, kd, ks, vd, vs, q_off, kv_len, out, ws, tickets, q_codes, q_scales, b, G, hkv, L, lt, tiles, sm_scale, fault, s);
+    case 2: return run<2>(q, kd, ks, vd, vs, q_off, kv_len, out, ws, tickets, q_codes, q_scales, b, G, hkv, L, lt, tiles, sm_scale, fault, s);
+    case 4: return run<4>(q, kd, ks, vd, vs, q_off, kv_len, out, ws, tickets, q_codes, q_scales, b, G, hkv, L, lt, tiles, sm_scale, fault, s);
+    case 8: return run<8>(q, kd, ks, vd, vs, q_off, kv_len, out, ws, tickets, q_codes, q_scales, b, G, hkv, L, lt, tiles, sm_scale, fault, s);
   }
   return (int)cudaErrorInvalidValue;
 }

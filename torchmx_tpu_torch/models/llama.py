@@ -3,7 +3,10 @@
 This port serves one path: generation over an MX KV cache, in the seq or the
 d-major layout.  Every attention call writes its K/V into the cache, then
 attends causally over the written prefix through ``cached_attention_any``
-(which names the kernel each layout, format and query length goes to).
+(which names the kernel each layout, format and query length goes to), or,
+where JAX's plan has no kernel for the head_dim, through JAX's eager route
+(``cached_attention_eager``), each such call counted by
+``ops/fallbacks.note_fallback`` under JAX's key.
 ``cache_position`` is an int (all rows at one position) or a ``(b,)`` int tensor on the model's
 device (continuous batching: every row at its own position); a tensor is
 never read back on the host.
@@ -23,9 +26,10 @@ from torch import nn
 from .. import env_variables as env
 from ..layers.linear import Linear
 from ..ops.backend import DeviceLike, resolve_device
-from ..ops.cuda_attention import cached_attention_any, dequantize_cache
+from ..ops.cuda_attention import cached_attention_any, cached_attention_eager, dequantize_cache
 from ..ops.cuda_norm import rms_norm
 from ..ops.cuda_quantize import mx_cache_write
+from ..ops.fallbacks import note_fallback
 
 CachePosition = Union[int, torch.Tensor]
 
@@ -46,6 +50,8 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rope_scaling: Optional[dict] = None
     attention_bias: bool = False
+    # Bias on q/k/v only (Qwen2); o_proj's bias follows attention_bias alone.
+    attention_qkv_bias: bool = False
     mlp_bias: bool = False
     tie_word_embeddings: bool = False
 
@@ -214,12 +220,13 @@ class LlamaAttention(nn.Module):
         self.num_key_value_heads = config.num_key_value_heads
         self.head_dim = config.head_dim
         self.sm_scale = 1.0 / math.sqrt(config.head_dim)
-        h, d, bias = config.hidden_size, config.head_dim, config.attention_bias
-        kw = dict(use_bias=bias, device=device, generator=generator)
-        self.q_proj = Linear(h, self.num_heads * d, **kw)
-        self.k_proj = Linear(h, self.num_key_value_heads * d, **kw)
-        self.v_proj = Linear(h, self.num_key_value_heads * d, **kw)
-        self.o_proj = Linear(self.num_heads * d, h, **kw)
+        h, d = config.hidden_size, config.head_dim
+        qkv_bias = config.attention_bias or config.attention_qkv_bias
+        kw = dict(device=device, generator=generator)
+        self.q_proj = Linear(h, self.num_heads * d, use_bias=qkv_bias, **kw)
+        self.k_proj = Linear(h, self.num_key_value_heads * d, use_bias=qkv_bias, **kw)
+        self.v_proj = Linear(h, self.num_key_value_heads * d, use_bias=qkv_bias, **kw)
+        self.o_proj = Linear(self.num_heads * d, h, use_bias=config.attention_bias, **kw)
 
     def _project_qkv(self, x, x_fq=None):
         return self.q_proj(x), self.k_proj(x), self.v_proj(x)
@@ -236,6 +243,10 @@ class LlamaAttention(nn.Module):
         q, k = apply_rotary_pos_emb(q, k, cos, sin)
         cache.write(k, v, cache_position)
         out = cached_attention_any(q, cache, cache_position, cache_position + s, self.sm_scale)
+        if out is None:  # no kernel in JAX's plan for this head_dim: JAX's eager route, counted as JAX counts it
+            note_fallback("cached_attention", f"q{tuple(q.shape)} cache{tuple(cache.k_data.shape)} "
+                                              f"{cache.elem_dtype_name}")
+            out = cached_attention_eager(q, cache, cache_position)
         return self.o_proj(out.transpose(1, 2).reshape(b, s, -1))
 
 

@@ -9,7 +9,17 @@ in this port):
 * d-major layout: K7 ``mx_cached_attention_int8dot``
   (``csrc/mx_attention_int8dot.cu``) for an int8 cache at one query position
   when ``TORCHMX_ATTN_INT8_DOT`` is ``"1"``, K6 ``mx_cached_attention_dmajor``
-  (``csrc/mx_attention_dmajor.cu``) otherwise.
+  (``csrc/mx_attention_dmajor.cu``) otherwise;
+* no kernel where JAX's plan has none for the head_dim (``d % 128 != 0``,
+  ``plan_cached_attention``): the dispatch returns None and the caller runs
+  JAX's eager route, ``cached_attention_eager``.
+
+Every query length at ``d % 128 == 0`` goes to K4 or K6, also where JAX's
+``_pick_sqt`` finds no query tile and JAX's ``generate`` takes its eager
+route (at a GQA group of 7, every sq > 36 that is not a multiple of 8): the
+port follows the kernel, so that a row's bytes do not depend on how its
+prompt was admitted (JAX's engine pads prompts to buckets and never meets
+those lengths).
 
 Semantics of K4 and K6, kernel and plain version alike, JAX's
 ``_attn_kernel``'s: scores ``s = (q . k) * sm_scale`` in fp32 over the
@@ -41,6 +51,7 @@ quantizes q in its prologue and combines a row's tiles in the same launch
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Union
 
 import torch
@@ -375,11 +386,11 @@ def row_args(q_off: IntOrTensor, kv_len: IntOrTensor, b: int, device):
 
 def mx_cached_attention_chunkdot(
     q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float,
-    p_from_own_tile_max: bool = False, drop_last_tile: bool = False,
+    p_from_own_tile_max: bool = False, drop_last_tile: bool = False, pad_stride: bool = False,
 ) -> torch.Tensor:
     """K5: ``q (b, hq, 1, d)`` bf16 over the seq-layout int8 MX cache
     ``(b, hkv, L, d)`` codes + ``(b, hkv, L, d/32)`` scales.  CUDA tensors
-    launch the kernel (d = 128, hq / hkv in 1, 2, 4, 8, L % 4 == 0, shares of
+    launch the kernel (d = 128, hq / hkv from 1 to 8, L % 4 == 0, shares of
     ``k5_share(L) <= K5_MAX_SHARE`` positions, 16-byte aligned buffers; other
     shapes raise), one launch a call: a thread-block cluster a (batch row, KV
     head), a CTA a share (a part of a tile, or whole consecutive tiles), the
@@ -387,8 +398,10 @@ def mx_cached_attention_chunkdot(
     same launch.  ``q_off`` and ``kv_len`` are read on the device; where
     ``kv_len`` is a number only the shares below it are launched.
     ``p_from_own_tile_max`` (p rounded against its tile's own maximum, not
-    the running one) and ``drop_last_tile`` (a row's last live tile left
-    out) are planted faults for the checks, never set by the package."""
+    the running one), ``drop_last_tile`` (a row's last live tile left out)
+    and ``pad_stride`` (a group of 3, 5, 6 or 7 runs in the kernel built for
+    4 or 8 rows: its query heads read at that stride) are planted faults for
+    the checks, never set by the package."""
     if not on_cuda(q, k_data, k_scale, v_data, v_scale):
         return mx_cached_attention_chunkdot_plain(
             q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale
@@ -399,7 +412,7 @@ def mx_cached_attention_chunkdot(
     if (sq != 1 or d != 128 or dp != d or hq % hkv or hq // hkv not in KERNEL_GROUPS or L % 4
             or P > K5_MAX_SHARE):
         raise ValueError(
-            f"the chunk-dot attention kernel takes sq=1, d=128, hq/hkv in (1, 2, 4, 8) and shares of "
+            f"the chunk-dot attention kernel takes sq=1, d=128, hq/hkv in {KERNEL_GROUPS} and shares of "
             f"k5_share(L) <= {K5_MAX_SHARE} positions, got q{tuple(q.shape)} cache{tuple(k_data.shape)}"
         )
     _check_cache_tensors(k_data, k_scale, v_data, v_scale, torch.int8)
@@ -414,7 +427,7 @@ def mx_cached_attention_chunkdot(
         "mx_attention_chunkdot", "mx_cached_attention_chunkdot_launch",
         q.data_ptr(), k_data.data_ptr(), k_scale.data_ptr(), v_data.data_ptr(), v_scale.data_ptr(),
         *pos, out.data_ptr(), b, hq, hkv, L, d, lt, P, ctas, float(sm_scale),
-        int(p_from_own_tile_max) | 2 * int(drop_last_tile),
+        int(p_from_own_tile_max) | 2 * int(drop_last_tile) | 4 * int(pad_stride),
     )
     return out
 
@@ -539,19 +552,22 @@ def mx_cached_attention_int8dot_plain(
 
 def mx_cached_attention_int8dot(
     q, k_data, k_scale, v_data, v_scale, q_off, kv_len, sm_scale: float, drop_last_tile: bool = False,
-    q_scale_from_next_chunk: bool = False, q_out: Optional[tuple] = None,
+    q_scale_from_next_chunk: bool = False, q_out: Optional[tuple] = None, pad_stride: bool = False,
+    p_codes_down: bool = False,
 ) -> torch.Tensor:
     """K7: ``q (b, hq, 1, d)`` bf16 over the d-major int8 MX cache, both dots
     in int8.  CUDA tensors launch the kernel, which quantizes q itself (d =
-    128, hq / hkv in 1, 2, 4, 8, L % 128 == 0, 16-byte aligned cache buffers;
+    128, hq / hkv from 1 to 8, L % 128 == 0, 16-byte aligned cache buffers;
     other shapes raise), one launch a call, the tiles of JAX's ``_pick_lt(L)``
     split across the card and combined in the same launch; where ``kv_len`` is
     a number only the tiles below it are launched.  ``q_out``, a pair of
     tensors shaped as ``quantize_q_int8``'s result, receives the codes and
     scales the kernel computed for q (on the CPU, the plain quantizer's).
-    ``drop_last_tile`` (the combine leaves out the last live tile of a row)
-    and ``q_scale_from_next_chunk`` (q's scale of chunk c taken from chunk c
-    + 1) are planted faults for the checks, never set by the package."""
+    ``drop_last_tile`` (the combine leaves out the last live tile of a row),
+    ``q_scale_from_next_chunk`` (q's scale of chunk c taken from chunk c
+    + 1), ``pad_stride`` (K5's) and ``p_codes_down`` (p's int8 codes rounded
+    down, not to nearest) are planted faults for the checks, never set by the
+    package."""
     if not on_cuda(q, k_data, k_scale, v_data, v_scale):
         if q_out is not None:
             for dst, src in zip(q_out, quantize_q_int8(q, k_data.shape[1])):
@@ -565,7 +581,7 @@ def mx_cached_attention_int8dot(
     lt = _pick_lt(L)
     if d != 128 or hq // hkv not in KERNEL_GROUPS or lt is None:
         raise ValueError(
-            f"the int8-dot attention kernel takes d=128, hq/hkv in (1, 2, 4, 8) and L % 128 == 0, "
+            f"the int8-dot attention kernel takes d=128, hq/hkv in {KERNEL_GROUPS} and L % 128 == 0, "
             f"got q{tuple(q.shape)} cache{tuple(k_data.shape)}"
         )
     _check_cache_tensors(k_data, k_scale, v_data, v_scale, torch.int8)
@@ -589,23 +605,26 @@ def mx_cached_attention_int8dot(
         "mx_attention_int8dot", "mx_cached_attention_int8dot_launch",
         q.data_ptr(), k_data.data_ptr(), k_scale.data_ptr(), v_data.data_ptr(), v_scale.data_ptr(),
         q_off.data_ptr(), kv_len.data_ptr(), out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), qd_ptr, qs_ptr,
-        b, hq, hkv, L, d, lt, tiles, float(sm_scale), int(drop_last_tile) | 2 * int(q_scale_from_next_chunk),
+        b, hq, hkv, L, d, lt, tiles, float(sm_scale),
+        int(drop_last_tile) | 2 * int(q_scale_from_next_chunk) | 4 * int(pad_stride) | 8 * int(p_codes_down),
     )
     return out
 
 
-KERNEL_GROUPS = (1, 2, 4, 8)  # query heads per KV head that K5 and K7 take
+# Query heads per KV head that K5 and K7 take: each kernel is built for 1, 2,
+# 4 and 8 rows, and a group of 3, 5, 6 or 7 runs in the next of them.
+KERNEL_GROUPS = tuple(range(1, 9))
 
 
 def use_chunkdot(elem_dtype_name: str, sq: int, d: int, group: int, L: int) -> bool:
     """True when K5 serves the call in the seq layout: int8 cache, one query
-    position, and the shapes K5 takes, head_dim 128, 1, 2, 4 or 8 query heads
-    per KV head and a cache of ``L`` positions that JAX's tile divides
+    position, and the shapes K5 takes, head_dim 128, 1 to 8 query heads per
+    KV head and a cache of ``L`` positions that JAX's tile divides
     (``_pick_lt``: where none does, JAX's plan serves no kernel, and K4 serves
     the call) with shares of at most ``K5_MAX_SHARE`` positions: every such
     L up to 32768, the longest context of the port's models.  The
-    reference's ``use_chunkdot`` also takes any d % 128 == 0, any group and
-    longer caches; those tiers are not ported."""
+    reference's ``use_chunkdot`` also takes any d % 128 == 0, groups above 8
+    and longer caches; those tiers are not ported (K4 serves them)."""
     return (elem_dtype_name == "int8" and sq == 1 and d == 128 and group in KERNEL_GROUPS
             and _pick_lt(L) is not None and k5_share(L) <= K5_MAX_SHARE)
 
@@ -618,17 +637,21 @@ def use_int8dot(cache, sq: int, d: int, group: int = 1) -> bool:
 
 
 def cached_attention_any(q, cache, q_off: IntOrTensor, kv_len: IntOrTensor, sm_scale: float,
-                         window=None, ring: bool = False, softcap=None):
+                         window=None, ring: bool = False, softcap=None) -> Optional[torch.Tensor]:
     """Causal attention of ``q (b, hq, sq, d)`` (RoPE applied) over an
     ``MXLayerKVCache`` holding the cache after the current tokens were
     written; ``q_off`` is the first query position and ``kv_len`` the
-    visible prefix, each an int or a (b,) tensor.  ``window``, ``ring`` and
-    ``softcap`` are the reference's arguments; no kernel of the port takes
-    them yet."""
+    visible prefix, each an int or a (b,) tensor.  None, on the CPU and on
+    the card alike, where JAX's plan has no kernel for the head_dim (``d %
+    128 != 0``): the caller then runs ``cached_attention_eager``.
+    ``window``, ``ring`` and ``softcap`` are the reference's arguments; no
+    kernel of the port takes them yet."""
     if window is not None or ring or softcap is not None:
         raise NotImplementedError("sliding windows, ring caches and soft caps are not ported yet")
     if cache.block_size != 32:
         raise ValueError("MX KV caches use block size 32")
+    if q.shape[3] % 128:
+        return None
     tensors = (cache.k_data, cache.k_scale, cache.v_data, cache.v_scale)
     group = q.shape[1] // cache.k_data.shape[1]
     if getattr(cache, "layout", "seq") == "dmajor":
@@ -638,3 +661,41 @@ def cached_attention_any(q, cache, q_off: IntOrTensor, kv_len: IntOrTensor, sm_s
     if use_chunkdot(cache.elem_dtype_name, q.shape[2], q.shape[3], group, cache.k_data.shape[2]):
         return mx_cached_attention_chunkdot(q, *tensors, q_off, kv_len, sm_scale)
     return mx_cached_attention(q, *tensors, q_off, kv_len, sm_scale, cache.elem_dtype_name)
+
+
+def cached_attention_eager(q, cache, q_off: IntOrTensor, compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """JAX's eager route over an ``MXLayerKVCache`` (``torchmx_tpu/models/
+    llama.py:745-782``), for the calls its plan serves by no kernel: the
+    written cache dequantized to bf16, its KV heads shared by their query
+    heads, bf16 scores from an fp32-accumulated product divided by
+    sqrt(head_dim) (rounded to bf16 again), the standard cache mask (query t
+    of row b sees positions ``<= q_off[b] + t``; float32's lowest finite value
+    added elsewhere), an fp32 softmax rounded to bf16, and the P.V product
+    accumulated in fp32, rounded to bf16.  PyTorch ops on the tensors'
+    device (JAX leaves this route to XLA).  K and V are dequantized in one
+    pass, and a KV head's query heads take one product each instead of a
+    repeated cache (JAX's ``repeat_kv``: the same sums).  Positions past a
+    row's last query are zeroed first: they are masked, and a stale scale
+    there must not reach the products.  ``compute_dtype=torch.float64``
+    computes the same function with no rounding between its steps (the
+    checks' other rounding of it)."""
+    b, hq, sq, d = q.shape
+    hkv, dev = cache.k_data.shape[1], q.device
+    G = hq // hkv
+    f32 = compute_dtype or torch.float32  # the sums' type
+    mid = compute_dtype or torch.bfloat16  # where JAX rounds to bf16
+    kv = dequantize_cache(torch.cat([cache.k_data, cache.v_data]), torch.cat([cache.k_scale, cache.v_scale]),
+                          cache.elem_dtype_name, cache.layout)  # (2b, hkv, L, d) bf16: K's rows, then V's
+    L = kv.shape[2]
+    q_pos = _per_row(q_off, b, dev)[:, None] + torch.arange(sq, device=dev)  # (b, sq)
+    j = torch.arange(L, device=dev)
+    live = (j[None] <= q_pos[:, -1:]).repeat(2, 1)[:, None, :, None]  # (2b, 1, L, 1)
+    kv = torch.where(live, kv, 0).to(f32)
+    k, v = kv[:b], kv[b:]
+    qg = q.to(torch.bfloat16).to(f32).reshape(b, hkv, G * sq, d)  # heads ih G .. ih G + G - 1 of KV head ih
+    s = (qg @ k.transpose(-1, -2)).to(mid)
+    s = (s.to(f32) / math.sqrt(d)).to(mid).reshape(b, hq, sq, L)
+    mask = torch.where(j[None, None] <= q_pos[:, :, None], 0.0, torch.finfo(torch.float32).min)[:, None]
+    p = torch.softmax(s.to(f32) + mask.to(f32), dim=-1).to(mid)
+    out = p.to(f32).reshape(b, hkv, G * sq, L) @ v
+    return out.to(torch.bfloat16).reshape(b, hq, sq, d)

@@ -53,12 +53,12 @@ def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor, eps: float, act: Optio
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, act: Optional[str] = None) -> torch.Tensor:
     """RMSNorm over the last dim, fake-quantized to ``act`` (an activation
     format, blocks of 32) where given: the kernel on CUDA tensors (bf16,
-    last dim a multiple of 256), the plain version on CPU tensors."""
+    last dim a multiple of 32), the plain version on CPU tensors."""
     if not on_cuda(x, weight):
         return rms_norm_plain(x, weight, eps, act)
     D = x.shape[-1]
-    if x.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16 or D % 256 or weight.shape != (D,):
-        raise ValueError(f"the RMSNorm kernel takes bf16 rows of a multiple of 256 and a ({D},) bf16 weight, "
+    if x.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16 or D % 32 or weight.shape != (D,):
+        raise ValueError(f"the RMSNorm kernel takes bf16 rows of a multiple of 32 and a ({D},) bf16 weight, "
                          f"got {x.dtype} {tuple(x.shape)} and {weight.dtype} {tuple(weight.shape)}")
     x = x.contiguous()
     out = torch.empty_like(x)

@@ -3,10 +3,10 @@
 hold in bf16 next to their quantized copy.
 
 The registries map a block's exact type to its MX version, as the JAX
-package's do, limited to the ported families (Llama, Mistral, Mixtral,
-DeepSeek-V3).  A ``MixtralSparseMoeBlock`` or ``DeepseekV3MoE`` becomes the
-per-expert MX block, or the stacked grouped one when its ``grouped`` flag is
-set."""
+package's do, limited to the ported families (Llama, Qwen2, Mistral,
+Mixtral, DeepSeek-V3).  A ``MixtralSparseMoeBlock`` or ``DeepseekV3MoE``
+becomes the per-expert MX block, or the stacked grouped one when its
+``grouped`` flag is set."""
 
 from __future__ import annotations
 
@@ -20,21 +20,25 @@ from .config import QAttentionConfig, QLinearConfig
 from .layers.linear import Linear, MXInferenceLinear
 from .layers.mx_llama_attention import MXInferenceLlamaAttention, MXInferenceLlamaMLP
 from .layers.mx_mistral_attention import MXInferenceMistralAttention, MXInferenceMistralMLP
+from .layers.mx_qwen2_attention import MXInferenceQwen2Attention, MXInferenceQwen2MLP
 from .layers.mx_deepseek_attention import MXInferenceDeepseekV3MoE, MXInferenceMLAAttention
 from .layers.mx_mixtral_moe import MXInferenceMixtralMoeBlock
 from .models.deepseek import DeepseekV3MoE, MLAAttention
 from .models.llama import LlamaAttention, LlamaConfig, LlamaForCausalLM, LlamaMLP
 from .models.mistral import MistralAttention, MistralMLP
 from .models.mixtral import MixtralSparseMoeBlock
+from .models.qwen2 import Qwen2Attention, Qwen2MLP
 from .ops.backend import DeviceLike, resolve_device
 
 ATTENTION_LAYERS: Dict[Type, Type] = {
+    Qwen2Attention: MXInferenceQwen2Attention,
     MLAAttention: MXInferenceMLAAttention,
     MistralAttention: MXInferenceMistralAttention,
     LlamaAttention: MXInferenceLlamaAttention,
 }
 
 MLP_LAYERS: Dict[Type, Type] = {
+    Qwen2MLP: MXInferenceQwen2MLP,
     DeepseekV3MoE: MXInferenceDeepseekV3MoE,
     MistralMLP: MXInferenceMistralMLP,
     MixtralSparseMoeBlock: MXInferenceMixtralMoeBlock,
@@ -79,9 +83,9 @@ def build_quantized(
     generator: Optional[torch.Generator] = None,
     prepare_layer: Optional[Callable[[nn.Module], None]] = None,
 ) -> LlamaForCausalLM:
-    """A seeded random (or zero) causal LM of ``model_cls`` (Llama, Mistral,
-    Mixtral, DeepSeek-V3), made and quantized one decoder layer at a time on ``device``:
-    the whole bf16 model is never held.  ``prepare_layer`` sees each bf16
+    """A seeded random (or zero) causal LM of ``model_cls`` (Llama, Qwen2,
+    Mistral, Mixtral, DeepSeek-V3), made and quantized one decoder layer at a
+    time on ``device``: the whole bf16 model is never held.  ``prepare_layer`` sees each bf16
     layer before it is quantized (e.g. to set ``mlp.grouped``)."""
     device = resolve_device(device)
     model = model_cls(dataclasses.replace(config, num_hidden_layers=0), device, generator)

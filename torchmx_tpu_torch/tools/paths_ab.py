@@ -12,7 +12,7 @@ instance a parent commit unpacked by ``git archive HEAD chip_smoke.py
 torchmx_tpu_torch | tar -x -C _chip_copies/parent``), so that two versions run
 the same phases on one card in one call; run them in turns (parent, change,
 change, parent).  ``--layers`` cuts every model's depth (default: Llama-3-8B
-32, Mixtral-8x7B 32, Moonlight-16B-A3B 27).
+32, Mixtral-8x7B 32, Moonlight-16B-A3B 27, Qwen2-7B 28).
 
 Paths (``chip_smoke``'s models, seeded random weights; g, f, d, e, w and pd
 at Llama-3-8B width):
@@ -38,6 +38,12 @@ at Llama-3-8B width):
   int8 seq latent (B13);
 * ``gkd``: Moonlight ``generate`` b=32 over the int8 d-major latent with
   ``TORCHMX_ATTN_INT8_DOT=1`` (B14);
+* ``q``: the Qwen2-7B engine stream (seeded q/k/v biases) over the int8 seq
+  cache (K5 at a GQA group of 7 at every decode step, K4 at admissions),
+  with every check of ``run_engine``;
+* ``qd``: Qwen2-7B ``generate`` b=32 over the int8 d-major cache with
+  ``TORCHMX_ATTN_INT8_DOT=1`` (K7 at a group of 7 at every decode step, K6
+  at prefill);
 * ``host``: the wrapper's host us a call, 200 calls queued without a
   synchronisation (host clock): K5 at E's decode shape (b=32, L=1024,
   kv_len 0 .. 1024 as a tensor, as the engine passes it), K6 at F's decode shape (b=32, L=256, kv_len
@@ -65,14 +71,14 @@ import os
 import sys
 import time
 
-LLAMA_PATHS, MOONLIGHT_PATHS = ("g", "f", "d", "e", "w", "pd"), ("gk", "ek", "gkd")
+LLAMA_PATHS, MOONLIGHT_PATHS, QWEN2_PATHS = ("g", "f", "d", "e", "w", "pd"), ("gk", "ek", "gkd"), ("q", "qd")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", required=True, help="the kernel's name(s) in the device-time breakdown, comma-separated")
     ap.add_argument("--paths", required=True, help="comma-separated: " + ",".join(
-        LLAMA_PATHS + ("gm",) + MOONLIGHT_PATHS + ("host",)))
+        LLAMA_PATHS + ("gm",) + MOONLIGHT_PATHS + QWEN2_PATHS + ("host",)))
     ap.add_argument("--root", default=".", help="checkout to import chip_smoke and the package from")
     ap.add_argument("--label", default="change")
     ap.add_argument("--layers", type=int, default=None, help="every model's depth (default: its own)")
@@ -277,6 +283,18 @@ def main() -> int:
         if "gkd" in paths:
             with cs.kv_env(*cs.CACHES["int8 d-major int8dot"][1:]):
                 slice_path("gkd", model, "int8 d-major int8dot", "Moonlight fp4 grouped", layers)
+        del model
+        torch.cuda.empty_cache()
+
+    if any(p in paths for p in QWEN2_PATHS):
+        layers = args.layers or cs.QWEN2_7B["num_hidden_layers"]
+        model = cs.build_qwen2(dev, card, cs.QWEN2_7B, layers)
+        if "q" in paths:
+            engine_path("q", model, "int8", "fp4", layers)
+        if "qd" in paths:
+            with cs.kv_env(*cs.CACHES["int8 d-major int8dot"][1:]):
+                slice_path("qd", model, "int8 d-major int8dot", "Qwen2-7B fp4", layers,
+                           cs.qwen2_launches_per_step(layers, int8dot=True))
         del model
         torch.cuda.empty_cache()
 
